@@ -1,34 +1,53 @@
 """Headline benchmark of the port: BLS solves/s on one GPU, with bench.py's
-quality gate.
+quality gates.
 
     python -m irm_motion_planning_tpu_torch.bench [--batch N] [--repeats R]
+    python -m irm_motion_planning_tpu_torch.bench --random-scenarios [--seed S]
 
-Protocol (the repository's bench.py default, replicated-scene BLS mode):
-the reference scene replicated over ``--batch`` lanes, the fused BLS solve
-with the linearized ladder at the fixed per-round schedule
-REFERENCE_INNER_SCHEDULE_BLS, ``max_obstacles=11``.  The first run (which
-builds the kernel) is excluded; each timed run ends with
-``torch.cuda.synchronize()``; the best of ``--repeats`` counts.  The gate is
-bench.py's: avg/max unpenalized obstacle cost of the solved scene within
-``--quality-tol`` of REFERENCE_FINAL_COST["bls"] and endpoint error below
-eps_position.  Prints one JSON line (bench.py's keys plus ``device`` and
-``power_limit``) and exits 1 when the gate fails.
+Protocol (the repository's bench.py, fleet engine, fused backend): BLS with
+the linearized ladder at the fixed per-round schedule
+REFERENCE_INNER_SCHEDULE_BLS, ``max_obstacles=11``, 1,048,576 lanes.  The
+first run (which builds the kernels) is excluded; each timed run ends with
+``torch.cuda.synchronize()``; the best of ``--repeats`` counts.
+
+* Replicated mode (the default): the reference scene on every lane, one
+  whole-solve kernel launch.  The gate: avg/max unpenalized obstacle cost
+  of the solved scene within ``--quality-tol`` of
+  REFERENCE_FINAL_COST["bls"] and endpoint error below eps_position.
+* ``--random-scenarios``: every lane its own random scene (a
+  ``torch.Generator`` seeded with ``--seed``), with lane compaction on by
+  default (one kernel launch per penalty round, lanes re-sorted after round
+  0).  The gate is bench.py's paired one: the first
+  ``--quality-check-lanes`` scenes are solved again by the plain ``xla``
+  engine; the measured run must have no phantom convergence (converged
+  but failing the exact constraint check; <= 2 lanes of boundary wobble),
+  a converged fraction within max(0.02, min(0.15 max(conv), 0.05)) of the
+  engine's and a mean unpenalized obstacle cost within 1% of it.
+
+Prints one JSON line (bench.py's keys of the mode plus ``device`` and
+``power_limit``) and exits 1 when the gate fails.  ``--device cpu`` runs the
+plain versions as a rehearsal at a small batch, under its own metric name.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
 from . import (
     PlannerConfig, REFERENCE_FINAL_COST, REFERENCE_INNER_SCHEDULE_BLS,
-    make_basis, reference_scenario, replicate_scenario, solution_quality,
+    Scenario, make_basis, reference_scenario, replicate_scenario,
+    solution_quality,
 )
+from .ops.costs import Penalty
+from .ops.scenario import random_scenarios as random_scenarios_fn
 from .solvers import fleet
 
 # The reference's published flagship: 3.12 ms per BLS solve on a CPU
@@ -56,24 +75,88 @@ def bench_config(max_obstacles: int = 11, block_b: int = 0) -> PlannerConfig:
     )
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int) -> dict:
+    """bench.py's paired quality gate of a random-scenes run: the first
+    ``n_check`` scenes solved again by the plain ``xla`` engine (without
+    compaction, a kernel-driver feature); phantom convergence on the exact
+    constraint check, converged fraction and mean UNPENALIZED obstacle cost
+    against the engine's.  (The penalized final cost carries each lane's
+    final lambda, x10 per escalation, so its mean measures rounds run, not
+    solution quality.)  Returns the JSON fields, ``ok`` and the engine's
+    seconds."""
+    dev = res.alpha.device
+    sub = Scenario(*(x[:n_check] for x in scns))
+    fsub = fleet.to_fleet(sub)
+    alpha_sub = fleet.alpha_to_fleet(res.alpha[:n_check])
+    conv = res.stats.converged[:n_check]
+    ok_exact = fleet.fleet_constraints(cfg, basis, fsub, alpha_sub)
+    phantom = float((conv & ~ok_exact).float().mean())
+    t0 = time.perf_counter()
+    ref = fleet.fleet_solve(cfg.replace(lane_compaction=False), basis, sub,
+                            backend="xla")
+    _sync(dev)
+    xla_s = time.perf_counter() - t0
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    pen0 = Penalty(zero, zero)
+    sub_cost = float(fleet.fleet_cost(cfg, basis, fsub, pen0, alpha_sub).mean())
+    ref_cost = float(fleet.fleet_cost(cfg, basis, fsub, pen0,
+                                      fleet.alpha_to_fleet(ref.alpha)).mean())
+    ref_conv = float(ref.stats.converged.float().mean())
+    sub_conv = float(conv.float().mean())
+    conv_band = max(0.02, min(0.15 * max(ref_conv, sub_conv), 0.05))
+    cost_band = 0.01 * max(abs(ref_cost), 1e-6)
+    ok = (phantom <= 2.0 / n_check
+          and abs(sub_conv - ref_conv) <= conv_band
+          and abs(sub_cost - ref_cost) <= cost_band)
+    return {
+        "fields": {
+            "paired_check_lanes": n_check,
+            "phantom_frac": round(phantom, 6),
+            "xla_converged_frac": round(ref_conv, 4),
+            "mean_obstacle_cost": round(sub_cost, 4),
+            "xla_mean_obstacle_cost": round(ref_cost, 4),
+        },
+        "ok": bool(ok),
+        "xla_s": xla_s,
+        "bands": {"converged": conv_band, "cost": cost_band,
+                  "phantom": 2.0 / n_check, "check_converged_frac": sub_conv,
+                  "check_obstacle_cost": sub_cost, "xla_obstacle_cost": ref_cost},
+    }
+
+
 def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
               max_obstacles: int = 11, quality_tol: float = 0.02,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", random_scenarios: bool = False,
+              seed: int = 0, quality_check_lanes: int = 32768,
+              lane_compaction: Optional[bool] = None) -> dict:
     """Run the protocol; returns the JSON fields plus ``timing`` (seconds
-    of the first run and of each timed run) and ``result`` (the solve)."""
+    of the first run, of each timed run and of the paired check's engine),
+    ``gate`` (the paired gate's bands, random mode) and ``result`` (the
+    solve)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark runs on a GPU")
-    cfg = bench_config(max_obstacles, block_b)
+    if lane_compaction is None:
+        lane_compaction = random_scenarios
+    cfg = bench_config(max_obstacles, block_b).replace(
+        lane_compaction=lane_compaction)
     basis = make_basis(cfg, device=dev)
-    scn0 = reference_scenario(cfg, device=dev)
-    scns = replicate_scenario(scn0, batch)
+    if random_scenarios:
+        scns = random_scenarios_fn(cfg, torch.Generator().manual_seed(seed),
+                                   batch, device=dev)
+    else:
+        scn0 = reference_scenario(cfg, device=dev)
+        scns = replicate_scenario(scn0, batch)
     run = fleet.make_fleet_solver(cfg, basis)
 
     def run_to_completion():
         out = run(scns)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(dev)
         return out
 
     t0 = time.perf_counter()
@@ -85,15 +168,40 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
         run_to_completion()
         times.append(time.perf_counter() - t0)
 
-    q = solution_quality(cfg, basis, scn0, warm.alpha[0])
-    avg_cost, max_cost = float(q["avg_cost"]), float(q["max_cost"])
-    endpoint_err = float(q["endpoint_err"])
-    ref_avg, ref_max = REFERENCE_FINAL_COST["bls"]
-    quality_ok = (
-        avg_cost <= ref_avg * (1.0 + quality_tol)
-        and max_cost <= ref_max * (1.0 + quality_tol)
-        and endpoint_err < cfg.eps_position
-    )
+    timing = {"first_s": first_s, "times_s": times, "batch": batch}
+    gate = None
+    if random_scenarios:
+        mean_cost = float(warm.stats.final_cost.mean())
+        conv_frac = float(warm.stats.converged.float().mean())
+        quality_ok = math.isfinite(mean_cost)
+        quality = {
+            "scenarios": "random",
+            "converged_frac": round(conv_frac, 4),
+            "mean_final_cost": round(mean_cost, 4),
+        }
+        n_check = min(batch, quality_check_lanes)
+        if n_check:
+            gate = paired_gate(cfg, basis, scns, warm, n_check)
+            quality_ok = quality_ok and gate["ok"]
+            quality.update(gate["fields"])
+            timing["xla_s"] = gate["xla_s"]
+    else:
+        q = solution_quality(cfg, basis, scn0, warm.alpha[0])
+        avg_cost, max_cost = float(q["avg_cost"]), float(q["max_cost"])
+        endpoint_err = float(q["endpoint_err"])
+        ref_avg, ref_max = REFERENCE_FINAL_COST["bls"]
+        quality_ok = (
+            avg_cost <= ref_avg * (1.0 + quality_tol)
+            and max_cost <= ref_max * (1.0 + quality_tol)
+            and endpoint_err < cfg.eps_position
+        )
+        quality = {
+            "avg_cost": round(avg_cost, 4),
+            "max_cost": round(max_cost, 4),
+            "ref_avg_cost": round(ref_avg, 4),
+            "ref_max_cost": round(ref_max, 4),
+            "endpoint_err": round(endpoint_err, 4),
+        }
     best = min(times)
     solves_per_sec = batch / best
     if dev.type == "cuda":
@@ -108,14 +216,11 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
         "unit": "solves/s",
         "vs_baseline": round(solves_per_sec * REF_SOLVE_SECONDS, 2),
         "quality_ok": bool(quality_ok),
-        "avg_cost": round(avg_cost, 4),
-        "max_cost": round(max_cost, 4),
-        "ref_avg_cost": round(ref_avg, 4),
-        "ref_max_cost": round(ref_max, 4),
-        "endpoint_err": round(endpoint_err, 4),
+        **quality,
         "device": name,
         "power_limit": power,
-        "timing": {"first_s": first_s, "times_s": times, "batch": batch},
+        "timing": timing,
+        "gate": gate,
         "result": warm,
     }
 
@@ -125,28 +230,57 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=1048576)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--block-b", type=int, default=0,
-                   help="lanes per CUDA block (0: the kernel's default)")
+                   help="lanes per CUDA block (0: the kernels' default, 128)")
     p.add_argument("--max-obstacles", type=int, default=11)
     p.add_argument("--quality-tol", type=float, default=0.02)
+    p.add_argument("--random-scenarios", action="store_true",
+                   help="every lane its own random scene (heterogeneous "
+                        "fleet), gated against the plain xla engine")
+    p.add_argument("--seed", type=int, default=0,
+                   help="random-scene seed (--random-scenarios only)")
+    p.add_argument("--quality-check-lanes", type=int, default=32768,
+                   help="random scenes: lanes the paired xla check solves "
+                        "again (0: finiteness-only gate)")
+    p.add_argument("--lane-compaction",
+                   type=lambda x: str(x).lower() == "true", default=None,
+                   help="per-round kernel launches with the lanes re-sorted "
+                        "after round 0 (per-lane results unchanged); "
+                        "default: on with --random-scenarios")
     p.add_argument("--device", default="cuda",
-                   help="cuda (the benchmark) or cpu (the plain version, "
+                   help="cuda (the benchmark) or cpu (the plain versions, "
                         "for rehearsal at a small batch)")
     args = p.parse_args(argv)
     out = run_bench(args.batch, args.repeats, args.block_b,
-                    args.max_obstacles, args.quality_tol, args.device)
+                    args.max_obstacles, args.quality_tol, args.device,
+                    args.random_scenarios, args.seed,
+                    args.quality_check_lanes, args.lane_compaction)
     timing = out.pop("timing")
     out.pop("result")
+    out.pop("gate")
     print(json.dumps(out))
     best = min(timing["times_s"])
+    if args.random_scenarios:
+        verdict = (f"random scenes: converged_frac={out['converged_frac']} "
+                   f"mean_final_cost={out['mean_final_cost']}")
+        if "paired_check_lanes" in out:
+            verdict += (
+                f" | paired xla check on {out['paired_check_lanes']} lanes "
+                f"({timing['xla_s']:.1f}s): conv vs {out['xla_converged_frac']}"
+                f", obstacle cost {out['mean_obstacle_cost']} vs "
+                f"{out['xla_mean_obstacle_cost']}, phantom_frac "
+                f"{out['phantom_frac']}")
+    else:
+        verdict = (
+            f"avg={out['avg_cost']} max={out['max_cost']} "
+            f"endpoint={out['endpoint_err']} (gate: within "
+            f"{args.quality_tol:.0%} of {out['ref_avg_cost']}/"
+            f"{out['ref_max_cost']}, endpoint < 0.01)")
     print(
         f"# batch={args.batch} best={best * 1e3:.1f}ms "
         f"first(build+run)={timing['first_s']:.1f}s "
         f"per-solve={1e6 * best / args.batch:.3f}us device={out['device']} "
         f"power_limit={out['power_limit']} "
-        f"quality[{'PASS' if out['quality_ok'] else 'FAIL'}]: "
-        f"avg={out['avg_cost']} max={out['max_cost']} "
-        f"endpoint={out['endpoint_err']} (gate: within {args.quality_tol:.0%} "
-        f"of {out['ref_avg_cost']}/{out['ref_max_cost']}, endpoint < 0.01)",
+        f"quality[{'PASS' if out['quality_ok'] else 'FAIL'}]: " + verdict,
         file=sys.stderr,
     )
     return 0 if out["quality_ok"] else 1

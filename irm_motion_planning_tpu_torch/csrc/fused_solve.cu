@@ -1,22 +1,32 @@
-// Fused whole-solve BLS kernel for NVIDIA Hopper (sm_90a).
+// Fused BLS kernels for NVIDIA Hopper (sm_90a): the whole solve (K1) and
+// one penalty round (K2).
 //
-// Replaces the TPU kernel irm_motion_planning_tpu/ops/pallas_step.py:
-// fused_solve / _make_solve_kernel(solver="bls", per_round=False) with
+// K1, fused_solve_kernel, replaces the TPU kernel
+// irm_motion_planning_tpu/ops/pallas_step.py: fused_solve /
+// _make_solve_kernel(solver="bls", per_round=False) with
 // ladder_eval="linearized", the FK carry and the exact end-of-round
-// constraint evaluation.  It computes what that kernel computes, lane by
-// lane; it is not a block-by-block copy of it.
+// constraint evaluation.  K2, fused_round_kernel, replaces
+// pallas_step.fused_round / _make_solve_kernel(per_round=True)
+// (round_kernel): one round, the inner budget n_r and a per-lane learning
+// rate as inputs, the penalty escalation left to the caller (the host
+// driver re-sorts lanes between rounds).  Both compute what the TPU kernels
+// compute, lane by lane; neither is a block-by-block copy.
 //
 // Design (first, simple version): ONE THREAD PER LANE.  Each thread runs its
-// lane's whole penalty-method solve: per round the fused cost/gradient
-// evaluation, the inner BLS loop (normalized direction, Armijo ladder on the
-// linearized trajectory, first pass wins, gradient pull-back), the exact
-// re-evaluation of (traj, vel), the hard-constraint check and the x10
-// penalty escalation.  A thread stops its ladder at its lane's first Armijo
-// pass, its inner loop once its lane is minimized, and its rounds once its
-// lane is fulfilled: per-lane results do not depend on how lanes are
-// grouped, so this equals the TPU kernel's whole-tile skips.
+// lane's penalty rounds through one device function, lane_round: the fused
+// cost/gradient evaluation, the inner BLS loop (normalized direction,
+// Armijo ladder on the linearized trajectory, first pass wins, gradient
+// pull-back), the exact re-evaluation of (traj, vel) and the hard-constraint
+// check.  K1 loops it over the schedule with the x10 penalty escalation in
+// between; K2 runs it once.  Sharing the op sequence is what makes the host
+// rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
+// does for the two TPU kernels.  A thread stops its ladder at its lane's
+// first Armijo pass, its inner loop once its lane is minimized, and its
+// rounds once its lane is fulfilled (in K2 a lane that comes in fulfilled
+// returns at once): per-lane results do not depend on how lanes are
+// grouped, so this equals the TPU kernels' whole-tile skips.
 //
-// What bounds it on this card:
+// What bounds K1 on this card:
 //  * the workspace traffic of the per-lane state planes.  alpha, grad,
 //    traj, vel and the direction planes live in device memory, lanes
 //    trailing ((J, T, B): neighbouring threads read neighbouring addresses).
@@ -35,6 +45,16 @@
 // accepted iterate is the rung's candidate, formed by the same expression)
 // instead of being stored per rung; a stopping step skips the pull-back
 // (its gradient is kept and the lane is frozen for the rest of the round).
+//
+// K2 has K1's bounds plus a round trip of the lane's state through device
+// memory at each round boundary: alpha in and out, 2 x J*T*4 = 1.2 KB per
+// lane per round at T=50, J=3, and the per-lane scalars; and it stages the
+// basis and obstacle terms in shared memory once per round instead of once
+// per solve.  Against a round's work (tens of BLS steps, each streaming the
+// state planes several times) that is a few percent of the traffic, so the
+// design keeps K1's layout and workspace and does nothing more about it:
+// alpha is updated in place in the output buffer, and the workspace planes
+// are re-derived from alpha at the round start as in K1.
 // wgmma, TMA and register tiling across lanes are for later versions.
 //
 // Built with -fmad=false: separate multiplies and adds round as they do in
@@ -441,25 +461,20 @@ __device__ bool constraints_ok(const FsParams& p, const Lane& L) {
   return pos_ok && vel_ok && box_ok && vmax <= p.max_jv;
 }
 
-__global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
-                                   const float* __restrict__ kvt,
-                                   const float* __restrict__ mix,
-                                   const float* __restrict__ lam_sg0,
-                                   const float* __restrict__ lam_jl0,
-                                   const float* __restrict__ start,
-                                   const float* __restrict__ goal,
-                                   const float* __restrict__ ox,
-                                   const float* __restrict__ oy,
-                                   const float* __restrict__ ow, float* alpha,
-                                   float* out_loss, float* out_ful,
-                                   float* out_outer, float* out_inner,
-                                   float* work) {
-  extern __shared__ float smem[];
+// Stage the basis pair, mix and this block's obstacle terms (ox, oy, q_o =
+// 0.5 + 0.5 |o|^2 and 0.8 w_o, (O, BT) each) in shared memory.  Every
+// thread of the block takes part; lanes past B stage zeros.
+__device__ void stage_block(const FsParams& p, const float* __restrict__ kv,
+                            const float* __restrict__ kvt,
+                            const float* __restrict__ mix,
+                            const float* __restrict__ ox,
+                            const float* __restrict__ oy,
+                            const float* __restrict__ ow, float* smem) {
   const int T = p.T, O = p.O, BT = blockDim.x, tid = threadIdx.x;
   float* s_kv = smem;
   float* s_kvt = s_kv + 2 * T * T;
   float* s_mix = s_kvt + 2 * T * T;
-  float* s_obs = s_mix + NJ * NJ;  // ox, oy, q, ow8: (O, BT) each
+  float* s_obs = s_mix + NJ * NJ;
   for (int i = tid; i < 2 * T * T; i += BT) {
     s_kv[i] = kv[i];
     s_kvt[i] = kvt[i];
@@ -478,17 +493,26 @@ __global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
     s_obs[(3 * O + o) * BT + tid] = 0.8f * w;
   }
   __syncthreads();
-  if (!live) return;
+}
 
+// This thread's view of lane b: the staged shared memory, the lane's
+// endpoints and penalties, alpha and the workspace planes.
+__device__ Lane bind_lane(const FsParams& p, float* smem, size_t b,
+                          const float* __restrict__ start,
+                          const float* __restrict__ goal, float lam_sg,
+                          float lam_jl, float* alpha, float* work) {
+  const int T = p.T, O = p.O, BT = blockDim.x, tid = threadIdx.x;
+  const size_t B = p.B;
+  float* s_obs = smem + 4 * T * T + NJ * NJ;
   Lane L;
   L.b = b;
   L.B = B;
   L.T = T;
   L.O = O;
   L.BT = BT;
-  L.kv = s_kv;
-  L.kvt = s_kvt;
-  L.mix = s_mix;
+  L.kv = smem;
+  L.kvt = smem + 2 * T * T;
+  L.mix = smem + 4 * T * T;
   L.ox = s_obs + (0 * O) * BT + tid;
   L.oy = s_obs + (1 * O) * BT + tid;
   L.q = s_obs + (2 * O) * BT + tid;
@@ -497,8 +521,8 @@ __global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
     L.start[j] = start[j * B + b];
     L.goal[j] = goal[j * B + b];
   }
-  L.lam_sg = lam_sg0[b];
-  L.lam_jl = lam_jl0[b];
+  L.lam_sg = lam_sg;
+  L.lam_jl = lam_jl;
   const size_t plane = (size_t)NJ * T * B;
   L.alpha = alpha;
   L.grad = work;
@@ -508,23 +532,51 @@ __global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
   L.dir_v = work + 4 * plane;
   L.gx = work + 5 * plane;
   L.gy = L.gx + (size_t)T * B;
+  return L;
+}
+
+// One penalty round of a live lane under its current penalties: round-start
+// exact evaluation, loss and gradient; up to n_r BLS steps from learning
+// rate lr0; the exact re-evaluation from the final alpha and the constraint
+// check.  Returns whether the constraints hold; the round's final loss goes
+// to ``loss`` and each accepted step adds one to ``inner``.
+__device__ bool lane_round(const FsParams& p, const Lane& L, int n_r,
+                           float lr0, float& loss, float& inner) {
+  forward_planes(p, L, L.alpha, 1.f, false);
+  loss = cost_grad_from_traj(p, L, true);
+  float lr = lr0;
+  for (int k = 0; k < n_r; ++k) {
+    if (bls_step(p, L, loss, lr)) break;
+    inner += 1.f;  // live before the step and after it
+  }
+  forward_planes(p, L, L.alpha, 1.f, false);
+  return constraints_ok(p, L);
+}
+
+__global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
+                                   const float* __restrict__ kvt,
+                                   const float* __restrict__ mix,
+                                   const float* __restrict__ lam_sg0,
+                                   const float* __restrict__ lam_jl0,
+                                   const float* __restrict__ start,
+                                   const float* __restrict__ goal,
+                                   const float* __restrict__ ox,
+                                   const float* __restrict__ oy,
+                                   const float* __restrict__ ow, float* alpha,
+                                   float* out_loss, float* out_ful,
+                                   float* out_outer, float* out_inner,
+                                   float* work) {
+  extern __shared__ float smem[];
+  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
+  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= (size_t)p.B) return;
+  Lane L = bind_lane(p, smem, b, start, goal, lam_sg0[b], lam_jl0[b], alpha,
+                     work);
 
   bool fulfilled = false;
   float outer = 0.f, inner = 0.f, floss = INFINITY;
   for (int r = 0; r < p.rounds && !fulfilled; ++r) {
-    // Round start: exact evaluation, loss and gradient under this round's
-    // penalties.
-    forward_planes(p, L, L.alpha, 1.f, false);
-    float loss = cost_grad_from_traj(p, L, true);
-    float lr = p.lr_start;
-    for (int k = 0; k < p.sched[r]; ++k) {
-      if (bls_step(p, L, loss, lr)) break;
-      inner += 1.f;  // live before the step and after it
-    }
-    // Exact re-evaluation from the final alpha for the constraint check.
-    forward_planes(p, L, L.alpha, 1.f, false);
-    fulfilled = constraints_ok(p, L);
-    floss = loss;
+    fulfilled = lane_round(p, L, p.sched[r], p.lr_start, floss, inner);
     if (!fulfilled) {
       outer += 1.f;
       L.lam_sg = L.lam_sg * p.inc;
@@ -537,6 +589,55 @@ __global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
   out_inner[b] = inner;
 }
 
+// One round for every lane; alpha is updated in place.  A lane that comes
+// in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
+// (the caller masks both with the round-start flag).
+__global__ void fused_round_kernel(FsParams p, int n_r,
+                                   const float* __restrict__ kv,
+                                   const float* __restrict__ kvt,
+                                   const float* __restrict__ mix,
+                                   const float* __restrict__ lam_sg,
+                                   const float* __restrict__ lam_jl,
+                                   const float* __restrict__ ful,
+                                   const float* __restrict__ lr0,
+                                   const float* __restrict__ start,
+                                   const float* __restrict__ goal,
+                                   const float* __restrict__ ox,
+                                   const float* __restrict__ oy,
+                                   const float* __restrict__ ow, float* alpha,
+                                   float* out_loss, float* out_ok,
+                                   float* out_inner, float* work) {
+  extern __shared__ float smem[];
+  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
+  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= (size_t)p.B) return;
+  if (ful[b] > 0.5f) {
+    out_loss[b] = 0.f;
+    out_ok[b] = 1.f;
+    out_inner[b] = 0.f;
+    return;
+  }
+  Lane L = bind_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b], alpha,
+                     work);
+  float loss, inner = 0.f;
+  const bool ok = lane_round(p, L, n_r, lr0[b], loss, inner);
+  out_loss[b] = loss;
+  out_ok[b] = ok ? 1.f : 0.f;
+  out_inner[b] = inner;
+}
+
+// Dynamic shared memory of both kernels: the basis pair, mix and four
+// obstacle planes of the block's lanes.
+static size_t smem_bytes(const FsParams& p, int block_b) {
+  return sizeof(float) *
+         ((size_t)4 * p.T * p.T + NJ * NJ + (size_t)4 * p.O * block_b);
+}
+
+static bool bad_launch(const FsParams& p, int block_b) {
+  return block_b <= 0 || block_b > 1024 || block_b % 32 != 0 || p.B <= 0 ||
+         p.rounds > MAX_ROUNDS;
+}
+
 extern "C" int fused_solve_launch(FsParams p, int block_b, const float* kv,
                                   const float* kvt, const float* mix,
                                   const float* lam_sg0, const float* lam_jl0,
@@ -546,11 +647,8 @@ extern "C" int fused_solve_launch(FsParams p, int block_b, const float* kv,
                                   float* out_loss, float* out_ful,
                                   float* out_outer, float* out_inner,
                                   float* work, void* stream) {
-  if (block_b <= 0 || block_b > 1024 || block_b % 32 != 0 || p.B <= 0 ||
-      p.rounds > MAX_ROUNDS)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)4 * p.T * p.T + NJ * NJ + (size_t)4 * p.O * block_b);
+  if (bad_launch(p, block_b)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(p, block_b);
   cudaError_t err = cudaFuncSetAttribute(
       fused_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -559,6 +657,29 @@ extern "C" int fused_solve_launch(FsParams p, int block_b, const float* kv,
   fused_solve_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow, alpha,
       out_loss, out_ful, out_outer, out_inner, work);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_round_launch(FsParams p, int block_b, int n_r,
+                                  const float* kv, const float* kvt,
+                                  const float* mix, const float* lam_sg,
+                                  const float* lam_jl, const float* ful,
+                                  const float* lr0, const float* start,
+                                  const float* goal, const float* ox,
+                                  const float* oy, const float* ow,
+                                  float* alpha, float* out_loss, float* out_ok,
+                                  float* out_inner, float* work,
+                                  void* stream) {
+  if (bad_launch(p, block_b) || n_r < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(p, block_b);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((p.B + block_b - 1) / block_b);
+  fused_round_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
+      p, n_r, kv, kvt, mix, lam_sg, lam_jl, ful, lr0, start, goal, ox, oy, ow,
+      alpha, out_loss, out_ok, out_inner, work);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of the port.
 
-``nvcc`` compiles ``csrc/fused_solve.cu`` at first use into a shared library
+``nvcc`` compiles ``csrc/fused_solve.cu`` (the whole-solve and the
+per-round kernels) at first use into a shared library
 with a plain C interface under ``build/`` at the repository root (named by
 the hash of the source, so an edited source is rebuilt), and ``ctypes``
 loads it.  Target: ``sm_90a`` (Hopper).  No ``--use_fast_math``, and no
@@ -82,8 +83,14 @@ def load_library() -> ctypes.CDLL:
             lib.fused_solve_launch.restype = ctypes.c_int
             from .fused_solve import _Params
 
+            # (params, lanes per block[, n_r]), then a c_void_p for every
+            # pointer and for the stream.
             lib.fused_solve_launch.argtypes = (
                 [_Params, ctypes.c_int] + [ctypes.c_void_p] * 17
+            )
+            lib.fused_round_launch.restype = ctypes.c_int
+            lib.fused_round_launch.argtypes = (
+                [_Params, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 18
             )
             lib.fused_solve_error_string.restype = ctypes.c_char_p
             lib.fused_solve_error_string.argtypes = [ctypes.c_int]

@@ -1,22 +1,24 @@
-"""The fused whole-solve BLS kernel and its plain PyTorch version
-(counterpart of ``pallas_step.fused_solve`` / ``_make_solve_kernel`` in
-irm_motion_planning_tpu/ops/pallas_step.py).
+"""The fused BLS kernels and their plain PyTorch versions (counterparts of
+``pallas_step.fused_solve`` and ``pallas_step.fused_round`` /
+``_make_solve_kernel`` in irm_motion_planning_tpu/ops/pallas_step.py).
 
-One call runs the whole penalty-method solve for every lane: per round a
-fused cost/gradient evaluation, the inner BLS loop to the round's budget
-(normalized direction, Armijo ladder on the linearized trajectory, FK carry
-of the accepted rung, gradient pull-back), an exact re-evaluation of the
-trajectory, the hard-constraint check and the x10 penalty escalation on
-lanes that still fail.
+A penalty round is: a fused cost/gradient evaluation, the inner BLS loop to
+the round's budget (normalized direction, Armijo ladder on the linearized
+trajectory, FK carry of the accepted rung, gradient pull-back), an exact
+re-evaluation of the trajectory and the hard-constraint check.
+``fused_solve`` runs every round of the whole penalty-method solve in one
+call, with the x10 penalty escalation on lanes that still fail;
+``fused_round`` runs one round and leaves the escalation to its caller
+(solvers/fleet.py, which re-sorts lanes between rounds).
 
 Layout: lanes trailing.  Per-joint planes are ``(J, T, B)``, per-lane
 scalars ``(B,)`` inside and ``(1, B)`` at the public functions, obstacles
 ``(O, B)``.
 
-``fused_solve`` takes the plain version for CPU tensors and launches the
-CUDA kernel (csrc/fused_solve.cu) for CUDA tensors; it never falls back.
-The plain version runs all lanes in lockstep with per-lane masks, so its
-per-lane results equal the kernel's per-lane early exits.
+The wrappers take the plain version for CPU tensors and launch the CUDA
+kernels (csrc/fused_solve.cu) for CUDA tensors; they never fall back.  The
+plain versions run all lanes in lockstep with per-lane masks, so their
+per-lane results equal the kernels' per-lane early exits.
 """
 
 from __future__ import annotations
@@ -40,6 +42,15 @@ class FusedSolve(NamedTuple):
     fulfilled: torch.Tensor    # (1, B) f32 0/1
     outer_iters: torch.Tensor  # (1, B) f32
     inner_iters: torch.Tensor  # (1, B) f32
+
+
+class FusedRound(NamedTuple):
+    alpha: torch.Tensor        # (J, T, B)
+    loss: torch.Tensor         # (1, B) end-of-round loss (0 on lanes that
+    #                            came in fulfilled: mask with fulfilled)
+    ok: torch.Tensor           # (1, B) f32 0/1 hard-constraint check (1 on
+    #                            lanes that came in fulfilled)
+    inner: torch.Tensor        # (1, B) f32 accepted steps this round
 
 
 class Consts(NamedTuple):
@@ -375,14 +386,15 @@ def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
 
 
 def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-              minimized, n_r, icnt):
-    """Round-start fused evaluation, up to ``n_r`` BLS steps, then the exact
-    re-evaluation of (traj, vel) from the final alpha.  Returns (alpha,
-    traj, vel, loss, icnt)."""
+              minimized, lr, n_r, icnt):
+    """Round-start fused evaluation, up to ``n_r`` BLS steps from the
+    per-lane learning rate ``lr`` (B,), then the exact re-evaluation of
+    (traj, vel) from the final alpha.  Shared by both plain versions, as
+    pallas_step's run_inner serves both TPU kernels.  Returns (alpha, traj,
+    vel, loss, icnt)."""
     loss, grad, traj, vel, px, py = cost_grad_eval(
         cfg, c, kv, kvt, mix, alpha, start, goal, obs, lam_sg, lam_jl
     )
-    lr = torch.full_like(loss, cfg.bls_lr_start)
     for _ in range(n_r):
         if not bool((~minimized).any()):
             break
@@ -411,12 +423,13 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
     fulfilled = torch.zeros(B, dtype=torch.bool, device=a0.device)
     outer, icnt = zeros.clone(), zeros.clone()
     floss = torch.full_like(zeros, float("inf"))
+    lr0 = torch.full_like(zeros, cfg.bls_lr_start)
     for n_r in inner_schedule(cfg):
         if bool(fulfilled.all()):
             break
         alpha, traj, vel, loss, icnt = run_inner(
             cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-            fulfilled, n_r, icnt,
+            fulfilled, lr0, n_r, icnt,
         )
         now = fulfilled | constraints_ok(cfg, traj, vel, start, goal)
         floss = torch.where(fulfilled, floss, loss)
@@ -426,6 +439,27 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
         fulfilled = now
     return FusedSolve(alpha, floss[None], fulfilled.to(torch.float32)[None],
                       outer[None], icnt[None])
+
+
+def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
+                          lam_jl, fulfilled, lr0, n_r: int, start, goal, ox,
+                          oy, ow) -> FusedRound:
+    """Plain PyTorch version of the fused-round kernel; same arguments and
+    outputs as :func:`fused_round`.  Lanes that come in fulfilled start
+    minimized (alpha passes through, no step counts) and report loss 0 and
+    ok 1, as the TPU kernel's skipped tiles do."""
+    c = consts(cfg)
+    B = alpha.shape[-1]
+    was = fulfilled.reshape(B) > 0.5
+    icnt = torch.zeros(B, dtype=torch.float32, device=alpha.device)
+    alpha, traj, vel, loss, icnt = run_inner(
+        cfg, c, kv, kvt, mix, start, goal, obs_ctx(ox, oy, ow), alpha,
+        lam_sg.reshape(B), lam_jl.reshape(B), was, lr0.reshape(B), int(n_r),
+        icnt,
+    )
+    ok = constraints_ok(cfg, traj, vel, start, goal) | was
+    return FusedRound(alpha, torch.where(was, 0.0, loss)[None],
+                      ok.to(torch.float32)[None], icnt[None])
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +556,34 @@ def check_supported(cfg: PlannerConfig) -> None:
         )
 
 
+def _check_args(name: str, cfg: PlannerConfig, named, lane_shape) -> str:
+    """Check the float32 arguments ``named`` ((label, tensor) pairs whose
+    shapes ``lane_shape(J, T, O, B)`` lists) share one device and match
+    ``cfg``; return the device type the call runs on."""
+    check_supported(cfg)
+    a = dict(named)
+    J, T, B = a["alpha"].shape
+    O = a["ox"].shape[0]
+    dev = a["alpha"].device
+    for (label, x), shape in zip(named, lane_shape(J, T, O, B)):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(
+                f"{name} expects {label} float32 {shape}, got {x.dtype} "
+                f"{tuple(x.shape)}"
+            )
+        if x.device != dev:
+            raise ValueError(f"{name} arguments must share one device")
+    if T != cfg.n_timesteps or J != cfg.n_joints:
+        raise ValueError(f"{name}: alpha shape does not match cfg")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    return dev.type
+
+
+_LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
+           "ox", "oy", "ow")
+
+
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
                 goal, ox, oy, ow) -> FusedSolve:
     """The whole BLS penalty-method solve for every lane.
@@ -531,68 +593,101 @@ def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
     :func:`fused_solve_reference`; CUDA tensors launch the kernel
     (``cfg.pallas_block_b`` lanes per block, or 128 when it is 0) and raise
     if it cannot be built or launched."""
-    check_supported(cfg)
     args = (kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow)
-    J, T, B = a0.shape
-    O = ox.shape[0]
-    shapes = ((2 * T, T), (T, 2 * T), (J, J), (J, T, B), (1, B), (1, B),
-              (J, B), (J, B), (O, B), (O, B), (O, B))
-    for x, shape in zip(args, shapes):
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(
-                f"fused_solve expects float32 {shape}, got {x.dtype} "
-                f"{tuple(x.shape)}"
-            )
-        if x.device != a0.device:
-            raise ValueError("fused_solve arguments must share one device")
-    if T != cfg.n_timesteps or J != cfg.n_joints:
-        raise ValueError("a0 shape does not match cfg")
-    if a0.device.type == "cpu":
+    where = _check_args("fused_solve", cfg, tuple(zip(_LABELS, args)),
+                        lambda J, T, O, B: (
+                            (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
+                            (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
+                            (O, B)))
+    if where == "cpu":
         return fused_solve_reference(cfg, *args)
-    if a0.device.type != "cuda":
-        raise ValueError(f"fused_solve runs on cpu or cuda, not {a0.device}")
-    return _launch(cfg, args)
+    kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
+        x.contiguous() for x in args
+    )
+    alpha = a0.clone()
+    outs = _launch("fused_solve", cfg, alpha, 4, [],
+                   [kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow])
+    fused_solve.launches += 1
+    return FusedSolve(alpha, *outs)
 
 
 fused_solve.launches = 0
 
 
-def _launch(cfg: PlannerConfig, args) -> FusedSolve:
+def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
+                fulfilled, lr0, n_r: int, start, goal, ox, oy, ow) -> FusedRound:
+    """ONE penalty round for every lane: round-start fused evaluation under
+    the lane's penalties, up to ``n_r`` BLS steps from the lane's learning
+    rate ``lr0``, the exact re-evaluation and the constraint check.  The
+    penalty escalation is the caller's.  Lanes with ``fulfilled`` set pass
+    through (alpha unchanged, no steps, loss 0, ok 1).
+
+    alpha (J, T, B), lam_sg/lam_jl/fulfilled/lr0 (1, B), n_r a Python int,
+    the rest as :func:`fused_solve`.  CPU tensors run
+    :func:`fused_round_reference`; CUDA tensors launch the kernel (the
+    budget is a plain kernel argument: every round shares one build) and
+    raise if it cannot be built or launched."""
+    n_r = int(n_r)
+    if n_r < 0:
+        raise ValueError(f"fused_round: n_r must be >= 0, got {n_r}")
+    args = (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal,
+            ox, oy, ow)
+    labels = _LABELS[:6] + ("fulfilled", "lr0") + _LABELS[6:]
+    where = _check_args("fused_round", cfg, tuple(zip(labels, args)),
+                        lambda J, T, O, B: (
+                            (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
+                            (1, B), (1, B), (1, B), (1, B), (J, B), (J, B),
+                            (O, B), (O, B), (O, B)))
+    if where == "cpu":
+        return fused_round_reference(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl,
+                                     fulfilled, lr0, n_r, start, goal, ox, oy,
+                                     ow)
+    (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal, ox, oy,
+     ow) = (x.contiguous() for x in args)
+    out_alpha = alpha.clone()
+    outs = _launch("fused_round", cfg, out_alpha, 3, [ctypes.c_int(n_r)],
+                   [kv, kvt, mix, lam_sg, lam_jl, fulfilled, lr0, start, goal,
+                    ox, oy, ow])
+    fused_round.launches += 1
+    return FusedRound(out_alpha, *outs)
+
+
+fused_round.launches = 0
+
+
+def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, scalars,
+            inputs) -> list:
+    """Launch ``<name>_launch`` of the kernel library on the current stream:
+    ``alpha`` (J, T, B) is updated in place, ``n_out`` (1, B) outputs are
+    returned.  Raises when the launch is refused."""
     from ._build import load_library
 
-    kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
-        x.contiguous() for x in args
-    )
-    J, T, B = a0.shape
-    O = ox.shape[0]
+    J, T, B = alpha.shape
+    O = inputs[-1].shape[0]
     if J != 3:
-        raise NotImplementedError("the CUDA kernel is built for J=3 joints")
+        raise NotImplementedError("the CUDA kernels are built for J=3 joints")
     bt = cfg.pallas_block_b or DEFAULT_BLOCK_B
     lib = load_library()
-    dev = a0.device
-    alpha = a0.clone()
+    dev = alpha.device
     outs = [torch.empty((1, B), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+            for _ in range(n_out)]
     # Workspace: grad, traj, vel and the two direction planes (J, T, B),
     # then the obstacle-gradient planes gx, gy (T, B).
     work = torch.empty((5 * J + 2, T, B), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
-        err = lib.fused_solve_launch(
-            kernel_params(cfg, O, B), ctypes.c_int(bt),
-            ptr(kv), ptr(kvt), ptr(mix), ptr(lam_sg0), ptr(lam_jl0),
-            ptr(start), ptr(goal), ptr(ox), ptr(oy), ptr(ow),
-            ptr(alpha), *(ptr(o) for o in outs), ptr(work),
-            ctypes.c_void_p(stream),
+        err = getattr(lib, f"{name}_launch")(
+            kernel_params(cfg, O, B), ctypes.c_int(bt), *scalars,
+            *(ptr(x) for x in inputs), ptr(alpha), *(ptr(o) for o in outs),
+            ptr(work), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
-            f"fused_solve kernel launch failed: CUDA error {err} "
+            f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.fused_solve_error_string(err).decode()})"
         )
-    fused_solve.launches += 1
-    return FusedSolve(alpha, *outs)
+    return outs
 
 
 # Agreement of the port with the JAX kernel (the CPU tests): a 1-ulp

@@ -1,10 +1,28 @@
-"""Solve results (counterpart of irm_motion_planning_tpu/solvers/common.py)."""
+"""Solve results and the penalty-method outer loop (counterpart of
+irm_motion_planning_tpu/solvers/common.py).
+
+The reference's dual structure (ref: optimizer_BLS.py:126-213):
+
+    outer penalty loop (<= max_outer_iteration):
+        inner descent loop minimizes the penalized cost until the per-step
+            loss reduction drops below tolerance
+        check the hard constraints; on violation multiply the penalty
+            weights by lambda_constraint_increase and repeat
+
+``run_dual_loop`` runs it once for every lane of a batch in lockstep, with
+per-lane freeze masks, in two modes: ``fixed_iters=True`` runs every round
+to its budget, ``fixed_iters=False`` exits once no lane is active.  Frozen
+lanes pass through unchanged, so lockstep results equal per-lane results.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..config import PlannerConfig
+from ..ops.costs import Penalty
 
 
 class SolveStats(NamedTuple):
@@ -19,3 +37,104 @@ class SolveStats(NamedTuple):
 class SolveResult(NamedTuple):
     alpha: torch.Tensor         # (B, T, J)
     stats: SolveStats
+
+
+def freeze_when(done: torch.Tensor, state, new_state):
+    """Keep the old state where ``done`` (lanes trailing), field by field
+    through nested NamedTuples: loop bodies become no-ops for finished
+    lanes, so lockstep batches keep per-lane semantics."""
+    if isinstance(state, tuple):
+        return type(state)(*(freeze_when(done, o, n)
+                             for o, n in zip(state, new_state)))
+    return torch.where(done, state, new_state)
+
+
+def inner_loop_bound(cfg: PlannerConfig, round_idx: Optional[int]) -> int:
+    """Inner-step budget of one penalty round: the schedule entry of the
+    round when ``cfg.inner_schedule`` is set and the round is known, else
+    ``max_inner_iteration``."""
+    if round_idx is None or cfg.inner_schedule is None:
+        return cfg.max_inner_iteration
+    sched = cfg.inner_schedule
+    return int(sched[min(max(round_idx, 0), len(sched) - 1)])
+
+
+class OuterState(NamedTuple):
+    fulfilled: torch.Tensor     # (B,) bool
+    outer_iter: torch.Tensor    # (B,) int32
+    alpha: torch.Tensor         # (T, J, B)
+    penalty: Penalty            # (B,) each
+    total_inner: torch.Tensor   # (B,) int32
+    final_loss: torch.Tensor    # (B,) f32
+
+
+# inner_fn_for_outer(outer_iter, round_idx) -> inner(alpha, penalty) ->
+# (alpha, inner_iters_used, final_loss)
+InnerFactory = Callable[[torch.Tensor, Optional[int]], Callable]
+
+
+def outer_step(cfg: PlannerConfig, state: OuterState,
+               inner_fn_for_outer: InnerFactory,
+               constraints_fn: Callable[[torch.Tensor], torch.Tensor],
+               round_idx: Optional[int] = None) -> OuterState:
+    """One penalty round for every lane, with fulfilled AND budget-exhausted
+    lanes frozen.  The exhaustion term is load-bearing: without it a
+    lockstep loop that runs while any lane is active gives a capped lane
+    rounds it never gets alone (it inflated the JAX engine's converged
+    fraction from 53% to 77% on 256 random scenes)."""
+    inc = float(cfg.lambda_constraint_increase)
+    alpha, iters, loss = inner_fn_for_outer(state.outer_iter, round_idx)(
+        state.alpha, state.penalty
+    )
+    fulfilled = constraints_fn(alpha)
+    pen = state.penalty
+    new = OuterState(
+        fulfilled=fulfilled,
+        outer_iter=torch.where(fulfilled, state.outer_iter,
+                               state.outer_iter + 1),
+        alpha=alpha,
+        penalty=Penalty(
+            torch.where(fulfilled, pen.lambda_sg, pen.lambda_sg * inc),
+            torch.where(fulfilled, pen.lambda_jl, pen.lambda_jl * inc),
+        ),
+        total_inner=state.total_inner + iters,
+        final_loss=loss,
+    )
+    done = state.fulfilled | (state.outer_iter >= cfg.max_outer_iteration)
+    return freeze_when(done, state, new)
+
+
+def run_dual_loop(cfg: PlannerConfig, alpha0: torch.Tensor,
+                  inner_fn_for_outer: InnerFactory,
+                  constraints_fn: Callable[[torch.Tensor], torch.Tensor],
+                  penalty0: Penalty) -> SolveResult:
+    """Penalty-method dual loop over lanes-trailing state (ref:
+    optimizer_BLS.py:183-211).  ``penalty0`` fields are (B,); the result's
+    alpha keeps alpha0's layout."""
+    lane = torch.zeros_like(penalty0.lambda_sg)
+    state = OuterState(
+        fulfilled=lane.to(torch.bool),
+        outer_iter=lane.to(torch.int32),
+        alpha=alpha0,
+        penalty=penalty0,
+        total_inner=lane.to(torch.int32),
+        final_loss=torch.full_like(lane, float("inf")),
+    )
+    if cfg.fixed_iters:
+        for r in range(cfg.max_outer_iteration):
+            state = outer_step(cfg, state, inner_fn_for_outer,
+                               constraints_fn, r)
+    else:
+        while bool(((state.outer_iter < cfg.max_outer_iteration)
+                    & ~state.fulfilled).any()):
+            state = outer_step(cfg, state, inner_fn_for_outer,
+                               constraints_fn)
+    return SolveResult(
+        alpha=state.alpha,
+        stats=SolveStats(
+            outer_iters=state.outer_iter,
+            inner_iters=state.total_inner,
+            converged=state.fulfilled,
+            final_cost=state.final_loss,
+        ),
+    )

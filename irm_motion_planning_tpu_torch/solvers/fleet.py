@@ -1,17 +1,29 @@
 """Fleet solver: many scenes at once, lanes trailing (counterpart of
 irm_motion_planning_tpu/solvers/fleet.py).
 
-Only the fused BLS path is ported: ``fleet_solve(backend="fused")`` lays
-the batch out lanes-trailing and runs the whole solve through
-ops/fused_solve.py (the CUDA kernel on a GPU, its plain version on the CPU).
-Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernel,
+Every tensor carries the scene lane as its LAST axis: alpha and trajectory
+(T, J, B), end-effector points (2, T, B), obstacles (O, 2, B), lane state
+(B,).  Line-search candidates add a rung axis before the lanes,
+(T, J, n+1, B).  Two engines:
+
+* ``backend="fused"``: the whole BLS solve in one kernel launch
+  (ops/fused_solve.py: the CUDA kernel on a GPU, its plain version on the
+  CPU); with ``cfg.lane_compaction`` one launch per penalty round instead,
+  with the lanes re-sorted after round 0 (:func:`_fused_rounds_solve`);
+* ``backend="xla"``: the plain PyTorch engine, the counterpart of the JAX
+  package's portable backend: :func:`run_dual_loop` around the rung-major
+  BLS ladder of :func:`make_bls_inner`.  It is the reference the bench's
+  paired quality gate holds the kernels to.
+
+Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import PlannerConfig
@@ -20,7 +32,9 @@ from ..models.rkhs import Basis
 from ..ops import fused_solve as fs
 from ..ops.costs import Penalty
 from ..ops.scenario import Scenario
-from .common import SolveResult, SolveStats
+from .common import (
+    SolveResult, SolveStats, freeze_when, inner_loop_bound, run_dual_loop,
+)
 
 
 def to_fleet(scns: Scenario) -> Scenario:
@@ -38,12 +52,18 @@ def alpha_from_fleet(alpha: torch.Tensor) -> torch.Tensor:
     return torch.movedim(alpha, -1, 0)
 
 
+# ---------------------------------------------------------------------------
+# Batch-trailing math.  Trailing lane axes ...L are (B,) or (n+1, B).
+# ---------------------------------------------------------------------------
+
+
 def fleet_evaluate(cfg: PlannerConfig, basis: Basis, alpha: torch.Tensor):
-    """alpha (T, J, B) -> (traj, vel), each (T, J, B), through one stacked
-    product and the mix over the joint axis."""
-    T, J, B = alpha.shape
-    both = (basis.kv @ alpha.reshape(T, J * B)).reshape(2, T, J, B)
-    both = torch.einsum("ktjb,ji->ktib", both, basis.mix)
+    """alpha (T, J, ...L) -> (traj, vel), each (T, J, ...L), through one
+    stacked product and the mix over the joint axis."""
+    T, J = alpha.shape[:2]
+    lanes = tuple(alpha.shape[2:])
+    both = (basis.kv @ alpha.reshape(T, -1)).reshape((2, T, J) + lanes)
+    both = torch.einsum("ktj...,ji->kti...", both, basis.mix)
     return both[0], both[1]
 
 
@@ -57,39 +77,175 @@ def fleet_init_alpha(cfg: PlannerConfig, basis: Basis,
 
 
 def _fk_ee(cfg: PlannerConfig, traj: torch.Tensor) -> torch.Tensor:
-    """traj (T, J, B) -> end effector (2, T, B)."""
+    """traj (T, J, ...L) -> end effector (2, T, ...L)."""
     c = torch.cumsum(traj, dim=1)
     ll = robot.link_lengths(cfg, traj.device)
-    return torch.stack((torch.einsum("tjb,j->tb", torch.cos(c), ll),
-                        torch.einsum("tjb,j->tb", torch.sin(c), ll)))
+    return torch.stack((torch.einsum("tj...,j->t...", torch.cos(c), ll),
+                        torch.einsum("tj...,j->t...", torch.sin(c), ll)))
 
 
-def fleet_cost(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-               penalty: Penalty, alpha: torch.Tensor) -> torch.Tensor:
-    """Total penalized cost per lane (B,) of alpha (T, J, B); scn lanes
-    trailing, penalty fields scalars or (B,)."""
-    traj, vel = fleet_evaluate(cfg, basis, alpha)
-    ee = _fk_ee(cfg, traj)                                     # (2, T, B)
-    diff = ee[:, :, None] - scn.obstacles.movedim(1, 0)[:, None]  # (2, T, O, B)
+def _fk_ee_and_jac(cfg: PlannerConfig, traj: torch.Tensor):
+    """traj (T, J, B) -> (end effector (2, T, B), Jacobian (2, T, J, B))."""
+    c = torch.cumsum(traj, dim=1)
+    ll = robot.link_lengths(cfg, traj.device)[None, :, None]
+    sin, cos = torch.sin(c), torch.cos(c)
+    ee = torch.stack(((cos * ll).sum(1), (sin * ll).sum(1)))
+    x = -ll * sin
+    y = ll * cos
+    rcx = x + x.sum(1, keepdim=True) - torch.cumsum(x, dim=1)
+    rcy = y + y.sum(1, keepdim=True) - torch.cumsum(y, dim=1)
+    return ee, torch.stack((rcx, rcy))
+
+
+def _obstacle_v(ee: torch.Tensor, obstacles: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    """ee (2, T, ...L), obstacles (O, 2, B), weight (O, B) -> cost_v
+    (T, ...L).  Rung axes sit before B, so B stays the minor axis."""
+    extra = ee.dim() - 3
+    O, B = weight.shape
+    obs = obstacles.movedim(1, 0).reshape((2, 1, O) + (1,) * extra + (B,))
+    w = weight.reshape((1, O) + (1,) * extra + (B,))
+    diff = ee[:, :, None] - obs                       # (2, T, O, ...L)
+    d2 = (diff * diff).sum(0)                         # (T, O, ...L)
+    return (0.8 / (0.5 + 0.5 * d2) * w).sum(1)
+
+
+def _obstacle_vg(ee: torch.Tensor, obstacles: torch.Tensor,
+                 weight: torch.Tensor):
+    """Value and gradient with respect to ee.  ee (2, T, B) -> ((T, B),
+    (2, T, B))."""
+    obs = obstacles.movedim(1, 0)[:, None]            # (2, 1, O, B)
+    diff = ee[:, :, None] - obs                       # (2, T, O, B)
     d2 = (diff * diff).sum(0)
-    cost_v = (0.8 / (0.5 + 0.5 * d2) * scn.obstacle_weight).sum(1)  # (T, B)
+    inv = 1.0 / (0.5 + 0.5 * d2)
+    cost_v = (0.8 * inv * weight[None]).sum(1)
+    cost_g = ((-0.8 * weight[None, None]) * diff * (inv * inv)[None]).sum(2)
+    return cost_v, cost_g
+
+
+def _blend(cfg: PlannerConfig, cost_v: torch.Tensor) -> torch.Tensor:
+    """cost_v (T, ...L) -> the max/mean blend (...L,) (ref:
+    trajectory.py:85-87)."""
     lam = cfg.lambda_max_cost
-    toc = lam * cost_v.max(0).values + (1.0 - lam) * cost_v.mean(0)
-    sgpc = 0.5 * (((traj[0] - scn.start) ** 2).sum(0)
-                  + ((traj[-1] - scn.goal) ** 2).sum(0))
-    sgvc = 0.5 * ((vel[0] ** 2).sum(0) + (vel[-1] ** 2).sum(0))
+    return lam * cost_v.amax(0) + (1.0 - lam) * cost_v.mean(0)
+
+
+def _blend_weights(cfg: PlannerConfig, cost_v: torch.Tensor) -> torch.Tensor:
+    """Gradient weights of the blend (T, B): lambda_max on the FIRST argmax
+    over T, plus the mean's share.  torch.argmax returns the first maximal
+    index, as jnp.argmax does."""
+    T = cost_v.shape[0]
+    lam = cfg.lambda_max_cost
+    rows = torch.arange(T, device=cost_v.device).reshape(
+        (T,) + (1,) * (cost_v.dim() - 1))
+    onehot = (rows == cost_v.argmax(0)[None]).to(cost_v.dtype)
+    return lam * onehot + (1.0 - lam) / T
+
+
+def _limit_masks(cfg: PlannerConfig, traj, vel):
+    pmask = (traj > cfg.joint_safety_limit * cfg.max_joint_position) | (
+        traj < cfg.joint_safety_limit * cfg.min_joint_position
+    )
+    vmask = vel.abs() > cfg.joint_safety_limit * cfg.max_joint_velocity
+    return pmask, vmask
+
+
+def _limit_terms(cfg: PlannerConfig, traj, vel):
+    """Joint position/velocity limit losses (...L,) (ref:
+    trajectory.py:215-268)."""
     mean = 0.5 * (cfg.max_joint_position + cfg.min_joint_position)
     std = 0.5 * (cfg.max_joint_position - mean)
     pl = 0.5 * ((traj - mean) / std) ** 2
     vl = 0.5 * (vel / cfg.max_joint_velocity) ** 2
     if cfg.constraint_violating_dependant_loss:
-        jsl = cfg.joint_safety_limit
-        pl = torch.where((traj > jsl * cfg.max_joint_position)
-                         | (traj < jsl * cfg.min_joint_position), pl, 0.0)
-        vl = torch.where(vel.abs() > jsl * cfg.max_joint_velocity, vl, 0.0)
+        pmask, vmask = _limit_masks(cfg, traj, vel)
+        pl = torch.where(pmask, pl, 0.0)
+        vl = torch.where(vmask, vl, 0.0)
     T = traj.shape[0]
-    jpc, jvc = pl.sum((0, 1)) / T, vl.sum((0, 1)) / T
+    return pl.sum((0, 1)) / T, vl.sum((0, 1)) / T
+
+
+def _limit_grads(cfg: PlannerConfig, traj, vel):
+    mean = 0.5 * (cfg.max_joint_position + cfg.min_joint_position)
+    std = 0.5 * (cfg.max_joint_position - mean)
+    pg = (traj - mean) / (std * std)
+    vg = vel / (cfg.max_joint_velocity ** 2)
+    if cfg.constraint_violating_dependant_loss:
+        pmask, vmask = _limit_masks(cfg, traj, vel)
+        pg = torch.where(pmask, pg, 0.0)
+        vg = torch.where(vmask, vg, 0.0)
+    T = traj.shape[0]
+    return pg / T, vg / T
+
+
+def _start_goal_terms(traj, vel, start, goal):
+    sgpc = 0.5 * (((traj[0] - start) ** 2).sum(0)
+                  + ((traj[-1] - goal) ** 2).sum(0))
+    sgvc = 0.5 * ((vel[0] ** 2).sum(0) + (vel[-1] ** 2).sum(0))
+    return sgpc, sgvc
+
+
+def fleet_cost_from_traj(cfg: PlannerConfig, scn: Scenario, penalty: Penalty,
+                         traj, vel) -> torch.Tensor:
+    """Total penalized cost per lane (...L,) of an evaluated trajectory
+    (T, J, ...L); penalty fields scalars or (B,), broadcast over rungs."""
+    toc = _blend(cfg, _obstacle_v(_fk_ee(cfg, traj), scn.obstacles,
+                                  scn.obstacle_weight))
+    extra = traj.dim() - 3
+    J, B = scn.start.shape
+    start = scn.start.reshape((J,) + (1,) * extra + (B,))
+    goal = scn.goal.reshape((J,) + (1,) * extra + (B,))
+    sgpc, sgvc = _start_goal_terms(traj, vel, start, goal)
+    jpc, jvc = _limit_terms(cfg, traj, vel)
     return toc + penalty.lambda_sg * (sgpc + sgvc) + penalty.lambda_jl * (jpc + jvc)
+
+
+def fleet_cost(cfg: PlannerConfig, basis: Basis, scn: Scenario,
+               penalty: Penalty, alpha: torch.Tensor) -> torch.Tensor:
+    """Total penalized cost per lane of alpha (T, J, ...L) -> (...L,)."""
+    traj, vel = fleet_evaluate(cfg, basis, alpha)
+    return fleet_cost_from_traj(cfg, scn, penalty, traj, vel)
+
+
+def fleet_cost_grad_eval(cfg: PlannerConfig, basis: Basis, scn: Scenario,
+                         penalty: Penalty, alpha: torch.Tensor):
+    """Per-lane cost, analytic alpha-gradient and the evaluated (traj, vel)
+    in one pass.  alpha (T, J, B) -> ((B,), (T, J, B), (T, J, B),
+    (T, J, B))."""
+    traj, vel = fleet_evaluate(cfg, basis, alpha)
+    ee, jac = _fk_ee_and_jac(cfg, traj)
+    cost_v, cost_g = _obstacle_vg(ee, scn.obstacles, scn.obstacle_weight)
+    toc = _blend(cfg, cost_v)
+    w = _blend_weights(cfg, cost_v)                          # (T, B)
+    toc_g = torch.einsum("itb,itjb->tjb", w[None] * cost_g, jac)
+
+    sgpc, sgvc = _start_goal_terms(traj, vel, scn.start, scn.goal)
+    jpc, jvc = _limit_terms(cfg, traj, vel)
+    cost = toc + penalty.lambda_sg * (sgpc + sgvc) + penalty.lambda_jl * (jpc + jvc)
+
+    sgp_g = torch.zeros_like(traj)
+    sgp_g[0] = traj[0] - scn.start
+    sgp_g[-1] = traj[-1] - scn.goal
+    sgv_g = torch.zeros_like(vel)
+    sgv_g[0] = vel[0]
+    sgv_g[-1] = vel[-1]
+    jp_g, jv_g = _limit_grads(cfg, traj, vel)
+
+    grad_pos = toc_g + penalty.lambda_sg * sgp_g + penalty.lambda_jl * jp_g
+    grad_vel = penalty.lambda_sg * sgv_g + penalty.lambda_jl * jv_g
+    stacked = torch.cat((grad_pos, grad_vel), dim=0)         # (2T, J, B)
+    T, J, B = alpha.shape
+    pulled = (basis.kv.T @ stacked.reshape(2 * T, J * B)).reshape(T, J, B)
+    grad = torch.einsum("tib,ji->tjb", pulled, basis.mix)
+    return cost, grad, traj, vel
+
+
+def fleet_cost_and_grad(cfg: PlannerConfig, basis: Basis, scn: Scenario,
+                        penalty: Penalty, alpha: torch.Tensor):
+    """Per-lane cost and analytic alpha-gradient.  alpha (T, J, B) ->
+    ((B,), (T, J, B))."""
+    cost, grad, _, _ = fleet_cost_grad_eval(cfg, basis, scn, penalty, alpha)
+    return cost, grad
 
 
 def fleet_constraints(cfg: PlannerConfig, basis: Basis, scn: Scenario,
@@ -108,6 +264,133 @@ def fleet_constraints(cfg: PlannerConfig, basis: Basis, scn: Scenario,
     )
     vbox_ok = vel.abs().amax(dim=(0, 1)) <= cfg.max_joint_velocity
     return pos_ok & vel_ok & box_ok & vbox_ok
+
+
+# ---------------------------------------------------------------------------
+# The plain engine: the rung-major BLS inner loop.
+# ---------------------------------------------------------------------------
+
+
+class BlsInner(NamedTuple):
+    minimized: torch.Tensor   # (B,) bool
+    inner_iter: torch.Tensor  # (B,) int32
+    alpha: torch.Tensor       # (T, J, B)
+    bls_lr: torch.Tensor      # (B,)
+    loss: torch.Tensor        # (B,)
+    grad: torch.Tensor        # (T, J, B)
+    traj: torch.Tensor        # (T, J, B), the evaluation at alpha
+    vel: torch.Tensor         # (T, J, B)
+
+
+def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
+    """The BLS inner minimizer of the plain engine, as
+    ``for_outer(outer_iter, round_idx) -> inner(alpha, penalty) -> (alpha,
+    inner_iters, loss)`` (the factory :func:`run_dual_loop` takes).
+
+    Each step evaluates all ``n = max_bls_iteration`` Armijo rungs at once,
+    rung-major ``(T, J, n+1, B)``, on the linearized trajectory (evaluation
+    is linear in alpha: a rung's trajectory is ``(1 - lambda_reg lr) traj -
+    lr eval(n_grad)``), and takes the first rung that passes.  Rung n is the
+    zero-lr candidate, alpha itself, evaluated through the SAME path as the
+    real rungs: its loss is the Armijo and stop baseline.  A baseline from
+    another fp path (the carried loss) differs by ~1e-4 relative on this
+    ill-conditioned parametrization, above the margin of small-lr rungs and
+    the 1e-3 stop threshold, and flips near-threshold decisions (in the JAX
+    package it took the converged fraction from the reference's 53% to
+    77% on 256 random scenes)."""
+    if cfg.ladder_eval != "linearized":
+        raise NotImplementedError(
+            "ladder_eval='exact' is not ported yet (ROADMAP queue 1 #10)"
+        )
+    n = cfg.max_bls_iteration
+    dev = basis.kv.device
+    # float32 powers of beta_minus, as jnp.power computes them (exact for
+    # the default 0.5).
+    rungs = torch.pow(torch.tensor(cfg.bls_beta_minus, dtype=torch.float32,
+                                   device=dev),
+                      torch.arange(n, dtype=torch.float32, device=dev))
+    lr_fail = float(np.float32(cfg.bls_beta_minus) ** np.float32(n))
+
+    def raw_step(s: BlsInner, penalty: Penalty) -> BlsInner:
+        gnorm = torch.sqrt((s.grad * s.grad).sum((0, 1)))          # (B,)
+        n_grad = s.grad / gnorm
+        # Reference quirk (optimizer_BLS.py:86): the sum over ALL (J, J)
+        # entries of grad^T n_grad = sum_t rowsum(grad)_t rowsum(n_grad)_t.
+        alpha_norm = (s.grad.sum(1) * n_grad.sum(1)).sum(0)
+        lrs = rungs[:, None] * s.bls_lr[None]                      # (n, B)
+        lrs_b = torch.cat([lrs, torch.zeros_like(lrs[:1])])        # (n+1, B)
+        a_fac = 1.0 - cfg.lambda_reg * lrs_b
+        gtraj, gvel = fleet_evaluate(cfg, basis, n_grad)
+        cand_traj = a_fac * s.traj[:, :, None] - lrs_b * gtraj[:, :, None]
+        cand_vel = a_fac * s.vel[:, :, None] - lrs_b * gvel[:, :, None]
+        cand_loss = fleet_cost_from_traj(cfg, scn, penalty, cand_traj,
+                                         cand_vel)                  # (n+1, B)
+        del cand_traj, cand_vel
+        base_loss = cand_loss[n]
+        required = base_loss[None] - cfg.bls_alpha * lrs * alpha_norm[None]
+        ok = cand_loss[:n] <= required
+        any_ok = ok.any(0)
+        j = ok.to(torch.uint8).argmax(0)[None]       # first passing rung
+        lr_sel = torch.gather(lrs, 0, j)[0]
+        lr_eff = torch.where(any_ok, lr_sel, 0.0)    # rejected: no step
+        new_alpha = (1.0 - cfg.lambda_reg * lr_eff) * s.alpha - lr_eff * n_grad
+        sel_loss = torch.gather(cand_loss[:n], 0, j)[0]
+        new_loss = torch.where(any_ok, sel_loss, base_loss)
+        new_lr = torch.where(any_ok, lr_sel * cfg.bls_beta_plus,
+                             s.bls_lr * lr_fail)
+        stop = base_loss - new_loss < cfg.loop_loss_reduction
+        next_loss, next_grad, next_traj, next_vel = fleet_cost_grad_eval(
+            cfg, basis, scn, penalty, new_alpha
+        )
+        return BlsInner(
+            minimized=stop,
+            inner_iter=torch.where(stop, s.inner_iter, s.inner_iter + 1),
+            alpha=new_alpha,
+            bls_lr=new_lr,
+            loss=torch.where(stop, new_loss, next_loss),
+            grad=torch.where(stop, s.grad, next_grad),
+            traj=next_traj,
+            vel=next_vel,
+        )
+
+    def for_outer(outer_iter, round_idx=None):
+        bound = inner_loop_bound(cfg, round_idx)
+
+        def inner(alpha, penalty: Penalty):
+            loss0, grad0, traj0, vel0 = fleet_cost_grad_eval(
+                cfg, basis, scn, penalty, alpha
+            )
+            B = loss0.shape[0]
+            s = BlsInner(
+                minimized=torch.zeros(B, dtype=torch.bool, device=dev),
+                inner_iter=torch.zeros(B, dtype=torch.int32, device=dev),
+                alpha=alpha,
+                bls_lr=torch.full((B,), cfg.bls_lr_start, dtype=torch.float32,
+                                  device=dev),
+                loss=loss0, grad=grad0, traj=traj0, vel=vel0,
+            )
+            # Freeze minimized AND budget-exhausted lanes (see
+            # common.outer_step).  Both modes stop once every lane is
+            # frozen: the remaining fixed-horizon steps would be identity
+            # pass-throughs.
+            steps = bound if cfg.fixed_iters else None
+            k = 0
+            while steps is None or k < steps:
+                done = s.minimized | (s.inner_iter >= cfg.max_inner_iteration)
+                if bool(done.all()):
+                    break
+                s = freeze_when(done, s, raw_step(s, penalty))
+                k += 1
+            return s.alpha, s.inner_iter, s.loss
+
+        return inner
+
+    return for_outer
+
+
+# ---------------------------------------------------------------------------
+# The kernel engines.
+# ---------------------------------------------------------------------------
 
 
 def fused_args(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
@@ -133,31 +416,9 @@ def fused_args(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     )
 
 
-def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
-                alpha0: Optional[torch.Tensor] = None, solver: str = "bls",
-                backend: str = "fused") -> SolveResult:
-    """Solve a batch of scenes (leading-batch Scenario) with the fused BLS
-    solve; ``alpha0`` is an optional (B, T, J) warm start.  The device of
-    the scenes decides where it runs.  Returns leading-batch results."""
-    if backend != "fused":
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: the 'xla'-equivalent "
-            "engine is ROADMAP queue 1 #6, the per-step 'pallas' backend #12"
-        )
-    if solver != "bls":
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP queue 1 #9)"
-        )
-    if cfg.bls_mode == "sequential":
-        raise ValueError(
-            "bls_mode='sequential' is not supported by the fleet engine; "
-            "use bls_mode='ladder' (same trial sequence)"
-        )
-    if cfg.lane_compaction:
-        raise NotImplementedError(
-            "lane_compaction is not ported yet (ROADMAP queue 1 #11)"
-        )
-    out = fs.fused_solve(*fused_args(cfg, basis, scenarios, alpha0))
+def kernel_result(out: fs.FusedSolve) -> SolveResult:
+    """SolveResult from the kernels' layout: alpha (J, T, B) and (1, B)
+    fields."""
     return SolveResult(
         alpha=alpha_from_fleet(out.alpha.movedim(0, 1)),
         stats=SolveStats(
@@ -167,6 +428,138 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
             final_cost=out.final_loss[0],
         ),
     )
+
+
+def compaction_order(ful: torch.Tensor, floss: torch.Tensor,
+                     last_steps: torch.Tensor) -> torch.Tensor:
+    """The lane order of the re-sort after round 0: ascending round-0
+    accepted steps, ties broken by the round-0 loss scaled into [0, 0.999]
+    (lexicographic on integer step counts), fulfilled lanes last.  ful and
+    floss (1, B), last_steps (B,).  The sort is stable, as jnp.argsort is
+    (torch's default is not), so equal keys keep JAX's order."""
+    lo = torch.where(torch.isfinite(floss[0]), floss[0], 0.0)
+    tie = (lo - lo.min()) / (lo.max() - lo.min() + 1e-9)
+    key = torch.where(ful[0] > 0.5, float("inf"),
+                      last_steps + torch.clip(tie, 0.0, 0.999))
+    return torch.argsort(key, stable=True)
+
+
+def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
+    """The BLS solve as one fused-round launch per penalty round
+    (ops.fused_solve.fused_round), with the penalty bookkeeping between
+    launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
+    before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).
+
+    Why: the kernel runs one thread per lane, so a warp runs until its
+    slowest lane freezes and a block holds its SM slot until its slowest
+    warp is done; on heterogeneous fleets scattered slow lanes keep every
+    block live.  Sorting by round 0's accepted-step count (fulfilled lanes
+    last) groups lanes that freeze together.  One sort only, after round 0,
+    as in the JAX package (round 0 has the largest budget and carries the
+    signal; re-sorting later bought it nothing).
+
+    Per-lane results are bitwise invariant under the permutation: every
+    operation along the lane axis is per lane.  The bookkeeping is op for
+    op the whole-solve kernel's epilogue, so without compaction the result
+    equals ops.fused_solve.fused_solve's bit for bit."""
+    kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow = kargs
+    B = alpha.shape[-1]
+    dev = alpha.device
+    inc = float(cfg.lambda_constraint_increase)
+    zeros = torch.zeros((1, B), dtype=torch.float32, device=dev)
+    ful, outer, total_inner = zeros, zeros, zeros
+    floss = torch.full((1, B), float("inf"), device=dev)
+    lr0 = torch.full((1, B), cfg.bls_lr_start, dtype=torch.float32, device=dev)
+    perm = torch.arange(B, device=dev)   # lane i holds original lane perm[i]
+    last_steps = zeros[0]
+    for r, n_r in enumerate(fs.inner_schedule(cfg)):
+        if cfg.lane_compaction and r == 1:
+            p = compaction_order(ful, floss, last_steps)
+            (alpha, lam_sg, lam_jl, ful, outer, total_inner, floss, start,
+             goal, ox, oy, ow, perm, last_steps) = (
+                x.index_select(-1, p) for x in (
+                    alpha, lam_sg, lam_jl, ful, outer, total_inner, floss,
+                    start, goal, ox, oy, ow, perm, last_steps,
+                )
+            )
+        out = fs.fused_round(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl, ful,
+                             lr0, n_r, start, goal, ox, oy, ow)
+        # Penalty bookkeeping: op for op the whole-solve kernel's.
+        was = ful
+        now = torch.maximum(was, out.ok)
+        floss = torch.where(was > 0.5, floss, out.loss)
+        outer = torch.where(now > 0.5, outer, outer + 1.0)
+        lam_sg = torch.where(now > 0.5, lam_sg, lam_sg * inc)
+        lam_jl = torch.where(now > 0.5, lam_jl, lam_jl * inc)
+        total_inner = total_inner + out.inner
+        last_steps = out.inner[0]
+        ful = now
+        alpha = out.alpha
+    inv = torch.argsort(perm)             # undo the composed permutation
+    return kernel_result(fs.FusedSolve(*(
+        x.index_select(-1, inv)
+        for x in (alpha, floss, ful, outer, total_inner))))
+
+
+# ---------------------------------------------------------------------------
+# Public API.
+# ---------------------------------------------------------------------------
+
+
+def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
+                alpha0: Optional[torch.Tensor] = None, solver: str = "bls",
+                backend: str = "fused") -> SolveResult:
+    """Solve a batch of scenes (leading-batch Scenario); ``alpha0`` is an
+    optional (B, T, J) warm start.  ``backend``: ``"fused"`` (the kernels;
+    one launch per round with ``cfg.lane_compaction``) or ``"xla"`` (the
+    plain engine).  The device of the scenes decides where it runs.
+    Returns leading-batch results."""
+    if solver == "bls" and cfg.bls_mode == "sequential":
+        raise ValueError(
+            "bls_mode='sequential' is not supported by the fleet engine; "
+            "use bls_mode='ladder' (same trial sequence)"
+        )
+    if cfg.lane_compaction and backend != "fused":
+        # Compaction re-sorts round-boundary state between kernel launches;
+        # the other engines have none.  Never ignore it silently.
+        raise ValueError(
+            f"lane_compaction=True requires backend='fused' (got "
+            f"{backend!r}); unset it or switch backends"
+        )
+    if backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' (the per-step kernels) is not ported yet "
+            "(ROADMAP queue 1 #12)"
+        )
+    if backend not in ("fused", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if solver != "bls":
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet (ROADMAP queue 1 #9)"
+        )
+    if backend == "xla":
+        if cfg.matmul_precision != "highest":
+            raise NotImplementedError(
+                "only matmul_precision='highest' (full fp32) is implemented"
+            )
+        fsc = to_fleet(scenarios)
+        a0 = (fleet_init_alpha(cfg, basis, fsc) if alpha0 is None
+              else alpha_to_fleet(alpha0))
+        B = a0.shape[-1]
+        penalty0 = Penalty(
+            torch.full((B,), cfg.lambda_sg_constraint, device=a0.device),
+            torch.full((B,), cfg.lambda_jl_constraint, device=a0.device),
+        )
+        res = run_dual_loop(
+            cfg, a0, make_bls_inner(cfg, basis, fsc),
+            constraints_fn=lambda a: fleet_constraints(cfg, basis, fsc, a),
+            penalty0=penalty0,
+        )
+        return SolveResult(alpha=alpha_from_fleet(res.alpha), stats=res.stats)
+    args = fused_args(cfg, basis, scenarios, alpha0)
+    if cfg.lane_compaction:
+        return _fused_rounds_solve(cfg, args[1:])
+    return kernel_result(fs.fused_solve(*args))
 
 
 def make_fleet_solver(cfg: PlannerConfig, basis: Basis, solver: str = "bls",

@@ -131,7 +131,7 @@ def test_bench_schedule_on_plain_path():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(backend="xla"), NotImplementedError),
+    (dict(backend="xla", solver="gd"), NotImplementedError),
     (dict(backend="pallas"), NotImplementedError),
     (dict(solver="gd"), NotImplementedError),
 ])
@@ -144,13 +144,17 @@ def test_fleet_solve_rejects_modes_not_ported(kw, exc):
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(bls_mode="sequential"), ValueError),
-    (dict(lane_compaction=True), NotImplementedError),
+    # Compaction re-sorts lanes between kernel launches; as in JAX, asking
+    # for it on the plain engine fails loudly.
+    (dict(lane_compaction=True, backend="xla"), ValueError),
 ])
 def test_fleet_solve_rejects_configs_not_ported(kw, exc):
+    kw = dict(kw)
+    backend = kw.pop("backend", "fused")
     cfg = mt.PlannerConfig(**SHORT, **kw)
     scns = mt.replicate_scenario(mt.reference_scenario(cfg), 2)
     with pytest.raises(exc):
-        tfleet.fleet_solve(cfg, mt.make_basis(cfg), scns)
+        tfleet.fleet_solve(cfg, mt.make_basis(cfg), scns, backend=backend)
 
 
 def _imports_jax(path):
@@ -176,5 +180,7 @@ def test_port_never_imports_jax():
     assert len(files) >= 10
     offenders = [f for f in files if _imports_jax(f)]
     assert not offenders, offenders
-    smoke = os.path.join(os.path.dirname(PKG), "chip_smoke.py")
-    assert not _imports_jax(smoke)
+    root = os.path.dirname(PKG)
+    for script in ("chip_smoke.py",
+                   os.path.join("tests", "test_torch_kernel_cuda.py")):
+        assert not _imports_jax(os.path.join(root, script)), script
