@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from irm_motion_planning_tpu_torch/csrc
-(K1, the whole BLS solve, and K2, one penalty round), holds each against
-its plain PyTorch version, and drives the port's two paths through them:
-the main path (irm_motion_planning_tpu_torch.bench's default protocol: the
-reference scene replicated over 1,048,576 lanes, one K1 launch) and the
-heterogeneous-fleet path (the bench's random-scenes mode: 1,048,576 random
-scenes, one K2 launch per penalty round with lane compaction, gated against
-the plain xla engine).  Phases:
+(K1, the whole BLS solve; K2, one penalty round; K3/K4, one BLS/GD inner
+step; K5, the fused cost/gradient evaluation; K6, the forward evaluation),
+holds each against its plain PyTorch version, and drives the port's paths
+through them: the main path (irm_motion_planning_tpu_torch.bench's default
+protocol: the reference scene replicated over 1,048,576 lanes, one K1
+launch), the heterogeneous-fleet path (the bench's random-scenes mode:
+1,048,576 random scenes, one K2 launch per penalty round with lane
+compaction, gated against the plain xla engine) and the per-step backend
+(``--backend pallas``, BLS and GD, K3-K6).  Phases:
 
 1. device: the card's name and power limit, the kernel build;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
@@ -40,7 +42,32 @@ the plain xla engine).  Phases:
    engine's time; the gate must pass) and off (per-lane results must equal
    the compacted run's bit for bit), K2's time per solve, and K1's
    whole-solve time on the same scenes (which must equal the rounds
-   driver's result bit for bit).
+   driver's result bit for bit);
+8. K5 and K6 against their plain versions: 1,024 random scenes (penalties
+   x1/x10/x100), then the first 1,000 of them at 64/128/256 lanes per
+   block, bit for bit the full batch's lanes; each timed at 1,048,576 lanes
+   on the main path's inputs, K6 beside one torch.einsum of the same
+   product, and held to the plain version there too;
+9. K3 and K4 against their plain versions, one step from K5's state on the
+   same 1,024 scenes, a quarter of the lanes frozen (bitwise unchanged),
+   four learning rates: agreement of the stop flags and lr, and on the
+   agreeing lanes every other field (alpha, loss, grad, traj, vel), the
+   ragged block-size check; each timed at 1,048,576 lanes from K5's state
+   on the main path's inputs and held to the plain version there too;
+10. the BLS per-step path (bench --backend pallas): the replicated scene at
+   1,048,576 lanes (solves/s, launch counts, every lane equal to lane 0,
+   the phase-4 gate and the strict verdict; K3, K5 and K6 time per solve),
+   then 1,048,576 random scenes with the paired xla gate on 32,768 lanes;
+11. the GD per-step path (bench --solver gd --backend pallas): the same,
+   gated against REFERENCE_FINAL_COST["gd"] with endpoint < 0.05 (bench's
+   strict 0.042 printed), and the paired gate against the GD xla engine.
+
+The kernels line gives for each kernel its launches on its path (K5, on
+both per-step paths: the BLS path's, and ``launches_by_path``), its
+largest error against the plain version, its time, the plain version's
+(timed without the work tally), its bound (ops/roofline.py, from this
+run's inputs and the plain versions' tallies of the data-dependent work,
+each from an untimed call) and, for K6, one PyTorch call's time.
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -59,6 +86,7 @@ SHORT_BATCH = 1024
 RAGGED_BATCH = 1000
 FULL_BATCH = 16384
 CHECK_LANES = 32768
+TIMED_LAUNCHES = 3
 T0 = time.perf_counter()
 
 
@@ -96,6 +124,8 @@ def main():
     from irm_motion_planning_tpu_torch import bench
     from irm_motion_planning_tpu_torch.ops import _build
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+    from irm_motion_planning_tpu_torch.ops import roofline
+    from irm_motion_planning_tpu_torch.ops import step_kernels as sk
     from irm_motion_planning_tpu_torch.ops.costs import Penalty
     from irm_motion_planning_tpu_torch.solvers import fleet
 
@@ -197,7 +227,7 @@ def main():
     # -- phase 4: the main path ----------------------------------------
     fs.fused_solve.launches = 0
     out = bench.run_bench(batch=MAIN_BATCH, repeats=2)
-    launches = fs.fused_solve.launches
+    launches_k1 = fs.fused_solve.launches
     res, timing = out["result"], out["timing"]
     best = min(timing["times_s"])
     ref_avg, ref_max = mt.REFERENCE_FINAL_COST["bls"]
@@ -208,12 +238,12 @@ def main():
         f"us/solve (best of {len(timing['times_s'])}: "
         f"{[round(t, 4) for t in timing['times_s']]} s), first run with "
         f"build {timing['first_s']:.2f}s, kernel build {build_s:.1f}s, "
-        f"launches {launches}; avg_cost {out['avg_cost']} max_cost "
+        f"launches {launches_k1}; avg_cost {out['avg_cost']} max_cost "
         f"{out['max_cost']} endpoint_err {out['endpoint_err']}; "
         f"{out['device']}, {out['power_limit']}")
     say(f"phase 4 strict bench.py verdict (endpoint < 0.01 and costs within "
         f"2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
-    if launches < 1:
+    if launches_k1 < 1:
         fail("phase 4: the main path did not launch the kernel")
     if not (finite and out["avg_cost"] <= ref_avg * 1.02
             and out["max_cost"] <= ref_max * 1.02
@@ -236,8 +266,15 @@ def main():
             and torch.equal(k.alpha[:, :, 0].T, alpha0)):
         fail("phase 4: the kernel's lanes differ from the main path's lane 0")
     kq = mt.solution_quality(cfg, basis, scn0, alpha0)
+    k1_rounds = float((k.outer_iters + k.fulfilled).sum())
+    k1_accepted = float(k.inner_iters.sum())
     del k
     p, main_plain_ms = timed(lambda: fs.fused_solve_reference(*args))
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    k1_bound = roofline.fused_rounds(
+        MAIN_BATCH, T, J, O,
+        kernel_counts(plain_tally(fs.fused_solve_reference, *args), k1_rounds,
+                      k1_accepted), 4)
     pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
     gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
             for key in ("avg_cost", "max_cost")]
@@ -290,10 +327,10 @@ def main():
     k1 = fs.fused_solve(*args)
     want = fleet.kernel_result(k1)
     rounds = len(fs.inner_schedule(cfg))
-    k2_ms = plain_ms = None
+    k2_ms = k2_plain_ms = None
     for compact in (False, True):
         before = fs.fused_round.launches
-        with RoundTimer(capture=not compact) as timer:
+        with KernelTimer(fs, "fused_round", capture=not compact) as timer:
             got = fleet._fused_rounds_solve(
                 cfg.replace(lane_compaction=compact), args[1:])
             torch.cuda.synchronize()
@@ -308,13 +345,19 @@ def main():
             fail(f"phase 6: {launched} K2 launches, not {rounds}")
         if not compact:
             k2_ms = timer.total_ms()
-            plain_ms, agreements = 0.0, []
+            k2_plain_ms, agreements = 0.0, []
+            k2_bound = roofline.Bound(0.0, 0.0)
             for rin, rout in zip(timer.inputs, timer.outputs):
                 rp, ms = timed(lambda: fs.fused_round_reference(*rin))
-                plain_ms += ms
+                k2_plain_ms += ms
+                k2_bound = k2_bound + roofline.fused_rounds(
+                    FULL_BATCH, T, J, O,
+                    kernel_counts(plain_tally(fs.fused_round_reference, *rin),
+                                  float((rin[7] < 0.5).sum()),
+                                  float(rout.inner.sum())), 3)
                 agreements.append(round_agreement(rp, rout, rin[7])[0])
             say(f"phase 6 K2 {k2_ms:.1f} ms over {rounds} launches, plain "
-                f"version {plain_ms:.1f} ms on the same inputs; per-round lane "
+                f"version {k2_plain_ms:.1f} ms on the same inputs; per-round lane "
                 f"agreement {[round(a, 4) for a in agreements]}")
             del timer.inputs[:], timer.outputs[:]
     del k1, want, got, args
@@ -323,7 +366,7 @@ def main():
     # -- phase 7: the heterogeneous path ------------------------------------
     fs.fused_round.launches = 0
     fs.fused_solve.launches = 0
-    with RoundTimer(capture=False) as timer:
+    with KernelTimer(fs, "fused_round") as timer:
         het = bench.run_bench(batch=MAIN_BATCH, repeats=2,
                               random_scenarios=True, seed=0,
                               quality_check_lanes=CHECK_LANES)
@@ -383,27 +426,265 @@ def main():
         fail("phase 7: non-finite output")
     if not gate_ok:
         fail("phase 7: the paired xla gate failed")
+    del res_on, k1, args, scns
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_solve",
-        "route": "cuda",
-        "source": "irm_motion_planning_tpu_torch/csrc/fused_solve.cu",
-        "replaces": "irm_motion_planning_tpu/ops/pallas_step.py:1606",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
-    }, {
-        "name": "fused_round",
-        "route": "cuda",
-        "source": "irm_motion_planning_tpu_torch/csrc/fused_solve.cu",
-        "replaces": "irm_motion_planning_tpu/ops/pallas_step.py:1674",
-        "launches": het_launches,
-        "max_abs_err": k2_abs_err,
-        "ms": k2_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
-    if not all(math.isfinite(x) for x in (main_ms, k2_ms, plain_ms)):
+    # -- phase 8: K5 and K6 against plain ------------------------------------
+    cfg = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
+                           fixed_iters=True, max_obstacles=11)
+    _, _, args = random_args(cfg, SHORT_BATCH, 0)
+    rargs = round_args(args, 4, seed=0)
+    _, kv, kvt, mix, a0, _, _, start, goal, ox, oy, ow = args
+    lsg, ljl, ful, lr0 = rargs[5:9]
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ek = sk.cost_grad_eval(cfg, *eargs)
+    fk = sk.forward_eval(cfg, kv, mix, a0)
+    torch.cuda.synchronize()
+    ep = sk.cost_grad_eval_reference(cfg, *eargs)
+    fp = sk.forward_eval_reference(cfg, kv, mix, a0)
+    k5_err = eval_errors(ek, ep)
+    k6_abs_err = planes_error(fk, fp)
+    say(f"phase 8 K5/K6 against plain ({SHORT_BATCH} random scenes, "
+        f"penalties x1/x10/x100): K5 loss {k5_err['loss']:.3g} relative, "
+        f"grad {k5_err['grad']:.3g} of the lane's scale, traj/vel "
+        f"{k5_err['planes']:.3g} abs (bounds {EVAL_BOUNDS}); K6 traj/vel "
+        f"{k6_abs_err:.3g} abs (bound {EVAL_BOUNDS['planes']})")
+    if not (eval_ok(k5_err) and k6_abs_err <= EVAL_BOUNDS["planes"]):
+        fail("phase 8: K5 or K6 disagrees with its plain version")
+    cut = [x[..., :RAGGED_BATCH] if x.shape[-1] == SHORT_BATCH else x
+           for x in eargs]
+    for bt in (64, 128, 256):
+        cb = cfg.replace(pallas_block_b=bt)
+        er = sk.cost_grad_eval(cb, *cut)
+        fr = sk.forward_eval(cb, kv, mix, cut[3])
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(er, ek))
+                and all(torch.equal(x, y[..., :RAGGED_BATCH])
+                        for x, y in zip(fr, fk))):
+            fail(f"phase 8: {RAGGED_BATCH} lanes at {bt} lanes per block "
+                 f"differ from the same lanes of the {SHORT_BATCH}-lane run")
+    say(f"phase 8 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
+        f"block): K5 and K6 bitwise equal to the full batch's lanes")
+
+    # The main path's inputs at full width: the replicated reference scene
+    # at the warm start, under the bench's config.
+    mcfg = bench.bench_config()
+    basis = mt.make_basis(mcfg, device=dev)
+    scn0 = mt.reference_scenario(mcfg, device=dev)
+    margs = fleet.fused_args(mcfg, basis,
+                             mt.replicate_scenario(scn0, MAIN_BATCH))[1:]
+    mkv, mkvt, mmix, ma0, mlsg, mljl = margs[:6]
+    mtail = margs[4:]
+    meargs = (mkv, mkvt, mmix, ma0, *mtail)
+    work = sk.workspace(J, T, MAIN_BATCH, dev, gd=True)
+    mev = sk.PallasEval(torch.empty_like(mlsg),
+                        *(torch.empty_like(ma0) for _ in range(3)))
+    k5_ms = best_ms(lambda: sk.cost_grad_eval(mcfg, *meargs, out=mev,
+                                              work=work))
+    k6_out = sk.PallasForward(torch.empty_like(ma0), torch.empty_like(ma0))
+    k6_ms = best_ms(lambda: sk.forward_eval(mcfg, mkv, mmix, ma0, out=k6_out))
+    k6_lib_ms = best_ms(lambda: torch.einsum("st,jtb,ji->isb", mkv, ma0, mmix))
+    # The plain versions on the same inputs: a first call to compare with
+    # the kernels' outputs (mev and k6_out hold the last timed launch's),
+    # then a timed one.
+    k5_full_err = eval_errors(mev, sk.cost_grad_eval_reference(mcfg, *meargs))
+    _, k5_plain_ms = timed(lambda: sk.cost_grad_eval_reference(mcfg, *meargs))
+    k6_full_err = planes_error(k6_out, sk.forward_eval_reference(mcfg, mkv,
+                                                                 mmix, ma0))
+    _, k6_plain_ms = timed(lambda: sk.forward_eval_reference(mcfg, mkv, mmix,
+                                                             ma0))
+    k5_bound = roofline.cost_grad_eval(MAIN_BATCH, T, J, O)
+    k6_bound = roofline.forward_eval(MAIN_BATCH, T, J)
+    say(f"phase 8 at {MAIN_BATCH} lanes (main path's inputs, best of "
+        f"{TIMED_LAUNCHES}): K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.1f} ms, "
+        f"bound {k5_bound.ms:.3f} ms by {k5_bound.by}); K6 {k6_ms:.3f} ms "
+        f"(plain {k6_plain_ms:.1f} ms, one torch.einsum {k6_lib_ms:.3f} ms, "
+        f"bound {k6_bound.ms:.3f} ms by {k6_bound.by})")
+    say(f"phase 8 at {MAIN_BATCH} lanes against plain: K5 loss "
+        f"{k5_full_err['loss']:.3g} relative, grad {k5_full_err['grad']:.3g} "
+        f"of the lane's scale, traj/vel {k5_full_err['planes']:.3g} abs; K6 "
+        f"traj/vel {k6_full_err:.3g} abs (bounds {EVAL_BOUNDS})")
+    if not (eval_ok(k5_full_err) and k6_full_err <= EVAL_BOUNDS["planes"]):
+        fail(f"phase 8: K5 or K6 disagrees with its plain version at "
+             f"{MAIN_BATCH} lanes")
+    k5_abs_err = max(k5_err["abs"], k5_full_err["abs"])
+    k6_abs_err = max(k6_abs_err, k6_full_err)
+
+    # -- phase 9: K3 and K4 against plain, one step --------------------------
+    gd_lrs = torch.tensor(cfg.gd_lr[:4])[
+        torch.randint(0, 4, (1, SHORT_BATCH),
+                      generator=torch.Generator().manual_seed(1))].to(dev)
+    step_abs_err = {}
+    for name, lr in (("bls", lr0), ("gd", gd_lrs)):
+        fn, ref = step_fns(sk, name)
+        sargs = (kv, kvt, mix, a0, ek.grad, ek.traj, ek.vel, ek.loss, lr, ful,
+                 lsg, ljl, start, goal, ox, oy, ow)
+        k = fn(cfg, *sargs)
+        torch.cuda.synchronize()
+        p = ref(cfg, *sargs)
+        frozen = ful[0] > 0.5
+        if not all(torch.equal(x[..., frozen], y[..., frozen])
+                   for x, y in zip(k, sargs[3:10])):
+            fail(f"phase 9: {name} step moved a frozen lane")
+        agree, err = step_errors(p, k)
+        say(f"phase 9 {name} one step ({SHORT_BATCH} random scenes, "
+            f"{int(frozen.sum())} frozen, {int((k.minimized - ful).sum())} "
+            f"stop): frozen lanes bitwise unchanged; "
+            f"{step_summary(agree, err)}")
+        if not step_ok(agree, err):
+            fail(f"phase 9: the {name} step disagrees with its plain version")
+        step_abs_err[name] = err["abs"]
+        cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x)
+               and x.shape[-1] == SHORT_BATCH else x for x in sargs]
+        for bt in (64, 128, 256):
+            kr = fn(cfg.replace(pallas_block_b=bt), *cut)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                       for x, y in zip(kr, k)):
+                fail(f"phase 9: {name}, {RAGGED_BATCH} lanes at {bt} lanes "
+                     f"per block differ from the full batch's")
+    say(f"phase 9 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
+        f"block): K3 and K4 bitwise equal to the full batch's lanes")
+    del ek, fk, ep, fp, args, rargs, eargs, cut
+
+    # Each step kernel at full width from K5's state (mev) on the main
+    # path's inputs (round 0, step 0: every lane live), against its plain
+    # version.
+    mlive = torch.zeros_like(mlsg)
+    step_time = {}
+    for name, lr in (("bls", torch.full_like(mlsg, mcfg.bls_lr_start)),
+                     ("gd", torch.full_like(mlsg, mcfg.gd_lr[0]))):
+        fn, ref = step_fns(sk, name)
+        state0 = (ma0, *mev[1:], mev.loss, lr, mlive)
+        state = sk.PallasStep(*(x.clone() for x in state0))
+
+        def launch():
+            for x, y in zip(state, state0):
+                x.copy_(y)
+            start_ev = torch.cuda.Event(enable_timing=True)
+            end_ev = torch.cuda.Event(enable_timing=True)
+            start_ev.record()
+            fn(mcfg, mkv, mkvt, mmix, *state, *mtail, out=state, work=work)
+            end_ev.record()
+            return start_ev, end_ev
+
+        evs = [launch() for _ in range(TIMED_LAUNCHES)]
+        torch.cuda.synchronize()
+        ms = min(a.elapsed_time(b) for a, b in evs)
+
+        # state holds one launch from state0.  The plain version on the
+        # same inputs: a first call with the work tally, for the comparison
+        # and the bound, then a timed one without it.
+        def plain(**kw):
+            return ref(mcfg, mkv, mkvt, mmix, *state0, *mtail, **kw)
+
+        tally = {}
+        agree, err = step_errors(plain(tally=tally), state)
+        _, step_plain_ms = timed(plain)
+        bound = (roofline.bls_inner_step if name == "bls"
+                 else roofline.gd_inner_step)(MAIN_BATCH, T, J, O, tally)
+        step_time[name] = (ms, step_plain_ms, bound)
+        say(f"phase 9 {name} step at {MAIN_BATCH} lanes (main path's inputs, "
+            f"round 0 step 0, best of {TIMED_LAUNCHES}): {ms:.3f} ms, plain "
+            f"{step_plain_ms:.1f} ms, bound {bound.ms:.3f} ms by {bound.by} "
+            f"({', '.join(f'{k} {float(v.sum()):.0f}' for k, v in tally.items())}); "
+            f"against plain: {step_summary(agree, err)}")
+        if not step_ok(agree, err):
+            fail(f"phase 9: the {name} step disagrees with its plain version "
+                 f"at {MAIN_BATCH} lanes")
+        step_abs_err[name] = max(step_abs_err[name], err["abs"])
+        del state, tally
+    del mev, k6_out, work, margs, meargs, mtail, ma0
+    torch.cuda.empty_cache()
+
+    # -- phases 10 and 11: the per-step paths --------------------------------
+    paths = {}
+    for phase, solver in ((10, "bls"), (11, "gd")):
+        step = "bls_inner_step" if solver == "bls" else "gd_inner_step"
+        names = [step, "cost_grad_eval"] + (["forward_eval"] if solver == "bls"
+                                            else [])
+        for n in names:
+            getattr(sk, n).launches = 0
+        with KernelTimer(sk, *names) as timer:
+            out = bench.run_bench(batch=MAIN_BATCH, repeats=2, solver=solver,
+                                  backend="pallas")
+        launches = {n: getattr(sk, n).launches for n in names}
+        res, timing = out["result"], out["timing"]
+        solves = 1 + len(timing["times_s"])
+        per_solve = {n: timer.total_ms(n) / solves for n in names}
+        best = min(timing["times_s"])
+        ref_avg, ref_max = mt.REFERENCE_FINAL_COST[solver]
+        strict = bench.endpoint_bound(bench.bench_config(), solver)
+        say(f"phase {phase} {solver} per-step path (reference scene x "
+            f"{MAIN_BATCH}): {MAIN_BATCH / best:.1f} solves/s, "
+            f"{1e6 * best / MAIN_BATCH:.4f} us/solve (best of "
+            f"{[round(t, 4) for t in timing['times_s']]} s; first run "
+            f"{timing['first_s']:.2f} s); launches over {solves} solves "
+            f"{launches}; kernel ms per solve "
+            f"{ {n: round(v, 1) for n, v in per_solve.items()} }; avg_cost "
+            f"{out['avg_cost']} max_cost {out['max_cost']} endpoint_err "
+            f"{out['endpoint_err']}; {out['device']}, {out['power_limit']}")
+        say(f"phase {phase} strict bench.py verdict (endpoint < {strict} and "
+            f"costs within 2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
+        if min(launches.values()) < 1:
+            fail(f"phase {phase}: the {solver} per-step path did not launch "
+                 f"every kernel: {launches}")
+        finite = bool(torch.isfinite(res.alpha).all()
+                      and torch.isfinite(res.stats.final_cost).all())
+        if not (finite and out["avg_cost"] <= ref_avg * 1.02
+                and out["max_cost"] <= ref_max * 1.02
+                and out["endpoint_err"] < 0.05):
+            fail(f"phase {phase}: {solver} per-step output outside the "
+                 f"quality bounds")
+        if not lanes_match_lane0((res.alpha, *res.stats), 0):
+            fail(f"phase {phase}: the {solver} per-step lanes differ from "
+                 f"lane 0")
+        del out, res
+        het = bench.run_bench(batch=MAIN_BATCH, repeats=1, solver=solver,
+                              backend="pallas", random_scenarios=True, seed=0,
+                              quality_check_lanes=CHECK_LANES)
+        b = het["gate"]["bands"]
+        say(f"phase {phase} {solver} per-step path on {MAIN_BATCH} random "
+            f"scenes: {MAIN_BATCH / min(het['timing']['times_s']):.1f} "
+            f"solves/s; converged {het['converged_frac']}; paired xla gate on "
+            f"{CHECK_LANES} lanes (xla engine {het['timing']['xla_s']:.2f} s): "
+            f"converged {b['check_converged_frac']:.4f} vs xla "
+            f"{het['xla_converged_frac']} (band {b['converged']:.4f}); "
+            f"obstacle cost {b['check_obstacle_cost']:.5f} vs "
+            f"{b['xla_obstacle_cost']:.5f} (band {b['cost']:.5f}); phantom "
+            f"{het['phantom_frac']} (bound {b['phantom']:.2e}): "
+            f"{'PASS' if het['quality_ok'] else 'FAIL'}")
+        if not het["quality_ok"]:
+            fail(f"phase {phase}: the {solver} per-step paired xla gate "
+                 f"failed")
+        del het
+        torch.cuda.empty_cache()
+        paths[solver] = (launches, per_solve)
+
+    kernels = [
+        kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
+                     max_abs_err, main_ms, main_plain_ms, k1_bound),
+        kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
+                     k2_abs_err, k2_ms, k2_plain_ms, k2_bound),
+        kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
+                     paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
+                     *step_time["bls"]),
+        kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
+                     paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
+                     *step_time["gd"]),
+        # K5 runs on both per-step paths: ``launches`` is the BLS path's
+        # count, the GD path's stands beside it.
+        kernel_entry("cost_grad_eval", "step_kernels.cu", 1821,
+                     paths["bls"][0]["cost_grad_eval"], k5_abs_err, k5_ms,
+                     k5_plain_ms, k5_bound, launches_by_path={
+                         s: paths[s][0]["cost_grad_eval"] for s in paths}),
+        kernel_entry("forward_eval", "step_kernels.cu", 1767,
+                     paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
+                     k6_plain_ms, k6_bound, library_ms=k6_lib_ms),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    if not all(math.isfinite(x) for e in kernels
+               for x in (e["ms"], e["plain_ms"], e["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -447,46 +728,176 @@ def round_agreement(ref, got, ful):
             float(diff[same].max()))
 
 
-class RoundTimer:
-    """Within the block, times every fused_round launch with CUDA events
-    (and, with ``capture``, keeps its inputs and outputs) by wrapping the
-    module function that the rounds driver looks up at each call.  The
-    wrapped function counts its launches on the module attribute, so the
-    wrapper carries the count in and hands it back on exit."""
+class KernelTimer:
+    """Within the block, times every launch of the named wrappers of
+    ``module`` with CUDA events (and, with ``capture``, keeps their inputs
+    and outputs) by wrapping the module functions that the drivers look up
+    at each call.  A wrapped function counts its launches on the module
+    attribute, so the wrapper carries each count in and hands it back on
+    exit."""
 
-    def __init__(self, capture: bool):
-        from irm_motion_planning_tpu_torch.ops import fused_solve as fs
-
-        self.fs, self.capture = fs, capture
-        self.events, self.inputs, self.outputs = [], [], []
+    def __init__(self, module, *names, capture: bool = False):
+        self.module, self.names, self.capture = module, names, capture
+        self.events = {n: [] for n in names}
+        self.inputs, self.outputs = [], []
 
     def __enter__(self):
-        self.orig = orig = self.fs.fused_round
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n, orig in self.orig.items():
+            setattr(self.module, n, self._wrap(n, orig))
+        return self
 
-        def wrapped(*a):
+    def _wrap(self, name, orig):
+        def wrapped(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig(*a)
+            out = orig(*a, **kw)
             end.record()
-            self.events.append((start, end))
+            self.events[name].append((start, end))
             if self.capture:
                 self.inputs.append(a)
                 self.outputs.append(out)
             return out
 
         wrapped.launches = orig.launches
-        self.fs.fused_round = wrapped
-        return self
+        return wrapped
 
     def __exit__(self, *exc):
-        self.orig.launches = self.fs.fused_round.launches
-        self.fs.fused_round = self.orig
+        for n, orig in self.orig.items():
+            orig.launches = getattr(self.module, n).launches
+            setattr(self.module, n, orig)
         return False
 
-    def total_ms(self):
+    def total_ms(self, name=None):
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events)
+        return sum(s.elapsed_time(e)
+                   for s, e in self.events[name or self.names[0]])
+
+
+# Kernel against plain on the card for the evaluations: both run the same
+# arithmetic (the plain basis products through cuBLAS in another summation
+# order), so the warm start's O(1e4) coefficients cancelling to O(1) bound
+# the planes' error; loss and gradient follow.  Measured at 1,000 random
+# lanes on an H100: loss 9.5e-7 absolute, grad/traj/vel bitwise equal.
+EVAL_BOUNDS = {"loss": 1e-5, "grad": 1e-4, "planes": 1e-3}
+
+
+def eval_errors(k, p):
+    """Errors of (loss, grad, traj, vel), a PallasEval's fields, against
+    the plain version's: the loss relative, the gradient relative to the
+    lane's scale, traj/vel absolute, and the largest absolute error of any
+    field."""
+    (kl, kg, kt, kv), (pl, pg, pt, pv) = k, p
+    scale = pg.abs().amax(dim=(0, 1))
+    return {
+        "loss": float(((kl - pl).abs() / pl.abs()).max()),
+        "grad": float(((kg - pg).abs().amax(dim=(0, 1)) / scale).max()),
+        "planes": planes_error((kt, kv), (pt, pv)),
+        "abs": max(float((x - y).abs().max()) for x, y in zip(k, p)),
+    }
+
+
+def eval_ok(err):
+    return all(err[key] <= bound for key, bound in EVAL_BOUNDS.items())
+
+
+def planes_error(k, p):
+    """The largest absolute error of the planes ``k`` against ``p``."""
+    return max(float((x - y).abs().max()) for x, y in zip(k, p))
+
+
+def plain_tally(ref, *args):
+    """The work tally (fused_solve.count_work) of the plain version ``ref``
+    on ``args``, from a call of its own, so that no timed call keeps it."""
+    tally = {}
+    ref(*args, tally=tally)
+    return tally
+
+
+def kernel_counts(tally, rounds, accepted):
+    """A whole-solve or round kernel's work counts for its bound: the rounds
+    its lanes ran and the steps it accepted (each pays a pull-back) from the
+    kernel's own outputs; the stop steps and the ladder rungs from the plain
+    version's tally on the same inputs."""
+    stops = float((tally["steps"] - tally["pullbacks"]).sum())
+    return {"rounds": rounds, "steps": accepted + stops,
+            "rungs": tally["rungs"], "pullbacks": accepted}
+
+
+def step_fns(sk, name):
+    """The wrapper and the plain version of the BLS or GD step."""
+    if name == "bls":
+        return sk.bls_inner_step, sk.bls_inner_step_reference
+    return sk.gd_inner_step, sk.gd_inner_step_reference
+
+
+def step_errors(ref, got):
+    """(fraction of lanes with equal stop flags and lr, errors of every
+    other field on those lanes) of two PallasStep results: alpha relative to
+    the lane's scale, the rest as :func:`eval_errors` has them, "abs" the
+    largest absolute error of any field.  The errors are None when no lane
+    agrees."""
+    same = ((ref.minimized == got.minimized) & (ref.new_lr == got.new_lr))[0]
+    if not bool(same.any()):
+        return 0.0, None
+
+    def on_same(s):
+        return (s.new_loss[:, same],
+                *(x[..., same] for x in (s.new_grad, s.new_traj, s.new_vel)))
+
+    err = eval_errors(on_same(got), on_same(ref))
+    diff = (ref.new_alpha - got.new_alpha).abs().amax(dim=(0, 1))[same]
+    scale = ref.new_alpha.abs().amax(dim=(0, 1))[same]
+    err["alpha"] = float((diff / scale).max())
+    err["abs"] = max(err["abs"], float(diff.max()))
+    return float(same.float().mean()), err
+
+
+def step_ok(agree, err):
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+
+    return (err is not None and agree >= fs.CARD_SHORT_AGREEMENT_MIN
+            and err["alpha"] <= fs.ALPHA_REL_MAX and eval_ok(err))
+
+
+def step_summary(agree, err):
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+
+    if err is None:
+        return "stop flag and lr agree on no lane"
+    return (f"stop flag and lr agree on {agree:.4f} of the lanes (bound >= "
+            f"{fs.CARD_SHORT_AGREEMENT_MIN}); on those lanes alpha "
+            f"{err['alpha']:.3g} of the lane's scale (bound <= "
+            f"{fs.ALPHA_REL_MAX}), loss {err['loss']:.3g} relative, grad "
+            f"{err['grad']:.3g} of the lane's scale, traj/vel "
+            f"{err['planes']:.3g} abs (bounds {EVAL_BOUNDS}), largest abs "
+            f"error {err['abs']:.3g}")
+
+
+def best_ms(fn, reps=TIMED_LAUNCHES):
+    """The least CUDA-event time of ``reps`` calls of fn, after a warm-up
+    call."""
+    fn()
+    return min(timed(fn)[1] for _ in range(reps))
+
+
+def kernel_entry(name, source, line, launches, max_abs_err, ms, plain_ms,
+                 bound, library_ms=None, **extra):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"irm_motion_planning_tpu_torch/csrc/{source}",
+        "replaces": f"irm_motion_planning_tpu/ops/pallas_step.py:{line}",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound.ms,
+        "bound_by": bound.by,
+        "library_ms": library_ms,
+        **extra,
+    }
 
 
 if __name__ == "__main__":

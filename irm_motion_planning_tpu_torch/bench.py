@@ -1,28 +1,33 @@
-"""Headline benchmark of the port: BLS solves/s on one GPU, with bench.py's
+"""Headline benchmark of the port: solves/s on one GPU, with bench.py's
 quality gates.
 
     python -m irm_motion_planning_tpu_torch.bench [--batch N] [--repeats R]
     python -m irm_motion_planning_tpu_torch.bench --random-scenarios [--seed S]
+    python -m irm_motion_planning_tpu_torch.bench --solver gd --backend pallas
 
-Protocol (the repository's bench.py, fleet engine, fused backend): BLS with
-the linearized ladder at the fixed per-round schedule
-REFERENCE_INNER_SCHEDULE_BLS, ``max_obstacles=11``, 1,048,576 lanes.  The
-first run (which builds the kernels) is excluded; each timed run ends with
+Protocol (the repository's bench.py, fleet engine): ``--solver`` BLS (the
+default, with the linearized ladder) or GD at its fixed per-round schedule
+(REFERENCE_INNER_SCHEDULE_BLS or _GD; GD's learning rates follow the
+``gd_lr`` schedule), ``max_obstacles=11``, 1,048,576 lanes, on
+``--backend`` fused (the whole-solve kernels, BLS only; the default),
+pallas (the per-step kernels) or xla (the plain engine).  The first run
+(which builds the kernels) is excluded; each timed run ends with
 ``torch.cuda.synchronize()``; the best of ``--repeats`` counts.
 
-* Replicated mode (the default): the reference scene on every lane, one
-  whole-solve kernel launch.  The gate: avg/max unpenalized obstacle cost
-  of the solved scene within ``--quality-tol`` of
-  REFERENCE_FINAL_COST["bls"] and endpoint error below eps_position.
+* Replicated mode (the default): the reference scene on every lane.  The
+  gate: avg/max unpenalized obstacle cost of the solved scene within
+  ``--quality-tol`` of REFERENCE_FINAL_COST[solver] and endpoint error
+  below eps_position (BLS) or the reference GD's own 0.042 (GD).
 * ``--random-scenarios``: every lane its own random scene (a
   ``torch.Generator`` seeded with ``--seed``), with lane compaction on by
-  default (one kernel launch per penalty round, lanes re-sorted after round
-  0).  The gate is bench.py's paired one: the first
+  default on the fused backend (one kernel launch per penalty round, lanes
+  re-sorted after round 0).  The gate is bench.py's paired one: the first
   ``--quality-check-lanes`` scenes are solved again by the plain ``xla``
-  engine; the measured run must have no phantom convergence (converged
-  but failing the exact constraint check; <= 2 lanes of boundary wobble),
-  a converged fraction within max(0.02, min(0.15 max(conv), 0.05)) of the
-  engine's and a mean unpenalized obstacle cost within 1% of it.
+  engine with the same solver (skipped when the measured backend is xla);
+  the measured run must have no phantom convergence (converged but failing
+  the exact constraint check; <= 2 lanes of boundary wobble), a converged
+  fraction within max(0.02, min(0.15 max(conv), 0.05)) of the engine's and
+  a mean unpenalized obstacle cost within 1% of it.
 
 Prints one JSON line (bench.py's keys of the mode plus ``device`` and
 ``power_limit``) and exits 1 when the gate fails.  ``--device cpu`` runs the
@@ -43,16 +48,22 @@ import torch
 
 from . import (
     PlannerConfig, REFERENCE_FINAL_COST, REFERENCE_INNER_SCHEDULE_BLS,
-    Scenario, make_basis, reference_scenario, replicate_scenario,
+    REFERENCE_INNER_SCHEDULE_GD, Scenario, make_basis, reference_scenario, replicate_scenario,
     solution_quality,
 )
 from .ops.costs import Penalty
 from .ops.scenario import random_scenarios as random_scenarios_fn
 from .solvers import fleet
 
-# The reference's published flagship: 3.12 ms per BLS solve on a CPU
-# (DevBlog blog-post.html:389).
-REF_SOLVE_SECONDS = 3.12e-3
+# The reference's published flagships: 3.12 ms per BLS solve and 7.26 ms
+# per GD solve on a CPU (DevBlog blog-post.html:389-390).
+REF_SOLVE_SECONDS = {"bls": 3.12e-3, "gd": 7.26e-3}
+SCHEDULES = {"bls": REFERENCE_INNER_SCHEDULE_BLS,
+             "gd": REFERENCE_INNER_SCHEDULE_GD}
+# Endpoint bound of the replicated-scene gate: BLS must meet eps_position;
+# GD must end no more violated than the reference's own GD (0.042,
+# bench.py).
+GD_ENDPOINT_BOUND = 0.042
 
 
 def gpu_name_and_power_limit():
@@ -66,8 +77,9 @@ def gpu_name_and_power_limit():
     return name, power
 
 
-def bench_config(max_obstacles: int = 11, block_b: int = 0) -> PlannerConfig:
-    sched = REFERENCE_INNER_SCHEDULE_BLS
+def bench_config(max_obstacles: int = 11, block_b: int = 0,
+                 solver: str = "bls") -> PlannerConfig:
+    sched = SCHEDULES[solver]
     return PlannerConfig(
         bls_mode="ladder", fixed_iters=True, inner_schedule=sched,
         max_inner_iteration=max(sched), max_obstacles=max_obstacles,
@@ -80,10 +92,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int) -> dict:
+def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int,
+                solver: str = "bls") -> dict:
     """bench.py's paired quality gate of a random-scenes run: the first
-    ``n_check`` scenes solved again by the plain ``xla`` engine (without
-    compaction, a kernel-driver feature); phantom convergence on the exact
+    ``n_check`` scenes solved again by the plain ``xla`` engine with the
+    same solver (without compaction, a kernel-driver feature); phantom convergence on the exact
     constraint check, converged fraction and mean UNPENALIZED obstacle cost
     against the engine's.  (The penalized final cost carries each lane's
     final lambda, x10 per escalation, so its mean measures rounds run, not
@@ -98,7 +111,7 @@ def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int) -> dict:
     phantom = float((conv & ~ok_exact).float().mean())
     t0 = time.perf_counter()
     ref = fleet.fleet_solve(cfg.replace(lane_compaction=False), basis, sub,
-                            backend="xla")
+                            solver=solver, backend="xla")
     _sync(dev)
     xla_s = time.perf_counter() - t0
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -133,7 +146,8 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
               max_obstacles: int = 11, quality_tol: float = 0.02,
               device: str = "cuda", random_scenarios: bool = False,
               seed: int = 0, quality_check_lanes: int = 32768,
-              lane_compaction: Optional[bool] = None) -> dict:
+              lane_compaction: Optional[bool] = None, solver: str = "bls",
+              backend: str = "fused") -> dict:
     """Run the protocol; returns the JSON fields plus ``timing`` (seconds
     of the first run, of each timed run and of the paired check's engine),
     ``gate`` (the paired gate's bands, random mode) and ``result`` (the
@@ -142,8 +156,8 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark runs on a GPU")
     if lane_compaction is None:
-        lane_compaction = random_scenarios
-    cfg = bench_config(max_obstacles, block_b).replace(
+        lane_compaction = random_scenarios and backend == "fused"
+    cfg = bench_config(max_obstacles, block_b, solver).replace(
         lane_compaction=lane_compaction)
     basis = make_basis(cfg, device=dev)
     if random_scenarios:
@@ -152,7 +166,7 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
     else:
         scn0 = reference_scenario(cfg, device=dev)
         scns = replicate_scenario(scn0, batch)
-    run = fleet.make_fleet_solver(cfg, basis)
+    run = fleet.make_fleet_solver(cfg, basis, solver=solver, backend=backend)
 
     def run_to_completion():
         out = run(scns)
@@ -180,8 +194,8 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
             "mean_final_cost": round(mean_cost, 4),
         }
         n_check = min(batch, quality_check_lanes)
-        if n_check:
-            gate = paired_gate(cfg, basis, scns, warm, n_check)
+        if n_check and backend != "xla":
+            gate = paired_gate(cfg, basis, scns, warm, n_check, solver)
             quality_ok = quality_ok and gate["ok"]
             quality.update(gate["fields"])
             timing["xla_s"] = gate["xla_s"]
@@ -189,11 +203,11 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
         q = solution_quality(cfg, basis, scn0, warm.alpha[0])
         avg_cost, max_cost = float(q["avg_cost"]), float(q["max_cost"])
         endpoint_err = float(q["endpoint_err"])
-        ref_avg, ref_max = REFERENCE_FINAL_COST["bls"]
+        ref_avg, ref_max = REFERENCE_FINAL_COST[solver]
         quality_ok = (
             avg_cost <= ref_avg * (1.0 + quality_tol)
             and max_cost <= ref_max * (1.0 + quality_tol)
-            and endpoint_err < cfg.eps_position
+            and endpoint_err < endpoint_bound(cfg, solver)
         )
         quality = {
             "avg_cost": round(avg_cost, 4),
@@ -210,11 +224,11 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
         name, power = "cpu", None
     return {
         # A CPU rehearsal never reports under the device metric's name.
-        "metric": ("bls_solves_per_sec_per_chip" if dev.type == "cuda"
-                   else "bls_solves_per_sec_cpu_rehearsal"),
+        "metric": (f"{solver}_solves_per_sec_per_chip" if dev.type == "cuda"
+                   else f"{solver}_solves_per_sec_cpu_rehearsal"),
         "value": round(solves_per_sec, 1),
         "unit": "solves/s",
-        "vs_baseline": round(solves_per_sec * REF_SOLVE_SECONDS, 2),
+        "vs_baseline": round(solves_per_sec * REF_SOLVE_SECONDS[solver], 2),
         "quality_ok": bool(quality_ok),
         **quality,
         "device": name,
@@ -225,10 +239,19 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
     }
 
 
+def endpoint_bound(cfg: PlannerConfig, solver: str) -> float:
+    return cfg.eps_position if solver == "bls" else GD_ENDPOINT_BOUND
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=1048576)
     p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--solver", choices=["bls", "gd"], default="bls")
+    p.add_argument("--backend", choices=["fused", "pallas", "xla"],
+                   default="fused",
+                   help="fused = the whole-solve kernels (BLS), pallas = the "
+                        "per-step kernels, xla = the plain engine")
     p.add_argument("--block-b", type=int, default=0,
                    help="lanes per CUDA block (0: the kernels' default, 128)")
     p.add_argument("--max-obstacles", type=int, default=11)
@@ -244,8 +267,9 @@ def main(argv=None) -> int:
     p.add_argument("--lane-compaction",
                    type=lambda x: str(x).lower() == "true", default=None,
                    help="per-round kernel launches with the lanes re-sorted "
-                        "after round 0 (per-lane results unchanged); "
-                        "default: on with --random-scenarios")
+                        "after round 0 (per-lane results unchanged; fused "
+                        "backend only); default: on with --random-scenarios "
+                        "on the fused backend")
     p.add_argument("--device", default="cuda",
                    help="cuda (the benchmark) or cpu (the plain versions, "
                         "for rehearsal at a small batch)")
@@ -253,7 +277,8 @@ def main(argv=None) -> int:
     out = run_bench(args.batch, args.repeats, args.block_b,
                     args.max_obstacles, args.quality_tol, args.device,
                     args.random_scenarios, args.seed,
-                    args.quality_check_lanes, args.lane_compaction)
+                    args.quality_check_lanes, args.lane_compaction,
+                    args.solver, args.backend)
     timing = out.pop("timing")
     out.pop("result")
     out.pop("gate")
@@ -274,7 +299,8 @@ def main(argv=None) -> int:
             f"avg={out['avg_cost']} max={out['max_cost']} "
             f"endpoint={out['endpoint_err']} (gate: within "
             f"{args.quality_tol:.0%} of {out['ref_avg_cost']}/"
-            f"{out['ref_max_cost']}, endpoint < 0.01)")
+            f"{out['ref_max_cost']}, endpoint < "
+            f"{endpoint_bound(bench_config(), args.solver)})")
     print(
         f"# batch={args.batch} best={best * 1e3:.1f}ms "
         f"first(build+run)={timing['first_s']:.1f}s "

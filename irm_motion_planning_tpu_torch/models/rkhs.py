@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import PlannerConfig
+from ..device import resolve
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 EXPORT_SCRIPT = "tools/export_torch_basis.py"
@@ -52,7 +53,9 @@ class Basis(NamedTuple):
 
 def basis_from_numpy(arrays, device=None) -> Basis:
     """Build a Basis from numpy arrays keyed by the Basis field names (for
-    example the JAX package's basis converted with ``np.asarray``)."""
+    example the JAX package's basis converted with ``np.asarray``), on
+    ``device``: the card by default (``device="cpu"`` for the CPU)."""
+    device = resolve(device)
     return Basis(*(
         torch.tensor(np.asarray(arrays[name], dtype=np.float32),
                      device=device)
@@ -67,10 +70,13 @@ def export_path(cfg: PlannerConfig) -> str:
 
 
 def make_basis(cfg: PlannerConfig, device=None) -> Basis:
-    """Load the committed basis export for ``cfg``.
+    """Load the committed basis export for ``cfg`` onto ``device``: the
+    card by default (``device="cpu"`` for the CPU; without a CUDA device
+    and without ``device`` it raises RuntimeError).
 
     Raises ValueError when no export matches the config's basis fields;
     run ``python tools/export_torch_basis.py`` to export one."""
+    device = resolve(device)
     path = export_path(cfg)
     want = {k: getattr(cfg, k) for k in BASIS_KEYS}
     if not os.path.exists(path):

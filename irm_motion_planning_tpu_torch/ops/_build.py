@@ -1,31 +1,38 @@
 """Build and load the CUDA kernels of the port.
 
-``nvcc`` compiles ``csrc/fused_solve.cu`` (the whole-solve and the
-per-round kernels) at first use into a shared library
-with a plain C interface under ``build/`` at the repository root (named by
-the hash of the source, so an edited source is rebuilt), and ``ctypes``
-loads it.  Target: ``sm_90a`` (Hopper).  No ``--use_fast_math``, and no
-contraction of separate multiplies and adds into FMAs (``-fmad=false``): the
-elementwise arithmetic rounds as the plain PyTorch version's does; the
-basis products use explicit ``fmaf``.
+``nvcc`` compiles every ``csrc/*.cu`` (``fused_solve.cu``: the whole-solve
+and the per-round kernels; ``step_kernels.cu``: the per-step kernels), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface under ``build/`` at the repository
+root.  The library is named by the hash of every source and header
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt; ``ctypes``
+loads it at first use.  Target: ``sm_90a`` (Hopper).  No
+``--use_fast_math``, and no contraction of separate multiplies and adds into
+FMAs (``-fmad=false``): the elementwise arithmetic rounds as the plain
+PyTorch version's does; the basis products use explicit ``fmaf``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_solve.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + [
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler",
+    "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -33,6 +40,10 @@ _lib = None
 # What the last build did: seconds, and nvcc's output (ptxas register and
 # shared-memory report); None while nothing was built in this process.
 build_info = None
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -46,9 +57,19 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"fused_solve_{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _check(proc, what: str) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n"
+                           f"{out}\n{err}")
+    return (out + err).strip()
 
 
 def build() -> str:
@@ -58,41 +79,70 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = [_check(proc, os.path.basename(src)) for src, proc in procs]
+        lib = os.path.join(tmp, "kernels.so")
+        link = subprocess.Popen([nvcc, *ARCH, "-shared", "-o", lib, *objs],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        logs.append(_check(link, "the link"))
+        os.replace(lib, out)
     build_info = {"seconds": time.perf_counter() - t0,
-                  "log": (proc.stdout + proc.stderr).strip()}
+                  "log": "\n".join(x for x in logs if x)}
     return out
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures."""
+    """The kernel library, built at first use, with its C signatures: the
+    parameter block and the lanes per block[, n_r], then a c_void_p for every
+    pointer and for the stream."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.fused_solve_launch.restype = ctypes.c_int
             from .fused_solve import _Params
 
-            # (params, lanes per block[, n_r]), then a c_void_p for every
-            # pointer and for the stream.
-            lib.fused_solve_launch.argtypes = (
-                [_Params, ctypes.c_int] + [ctypes.c_void_p] * 17
-            )
-            lib.fused_round_launch.restype = ctypes.c_int
-            lib.fused_round_launch.argtypes = (
-                [_Params, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 18
-            )
+            lib = ctypes.CDLL(build())
+            for name, n_int, n_ptr in (
+                ("fused_solve_launch", 0, 17),
+                ("fused_round_launch", 1, 18),
+                ("bls_step_launch", 0, 19),
+                ("gd_step_launch", 0, 19),
+                ("cost_grad_eval_launch", 0, 17),
+                ("forward_eval_launch", 0, 6),
+            ):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([_Params, ctypes.c_int] + [ctypes.c_int] * n_int
+                               + [ctypes.c_void_p] * n_ptr)
             lib.fused_solve_error_string.restype = ctypes.c_char_p
             lib.fused_solve_error_string.argtypes = [ctypes.c_int]
             _lib = lib
     return _lib
+
+
+def launch(name: str, params, block_b: int, args, device) -> None:
+    """Call ``<name>_launch`` of the library with the parameter block, the
+    lanes per block and ``args`` (ctypes ints as they are, tensors as their
+    data pointers) on the current stream of ``device``.  Raises when the
+    launch is refused."""
+    lib = load_library()
+    ptrs = [a if isinstance(a, ctypes.c_int) else ctypes.c_void_p(a.data_ptr())
+            for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, f"{name}_launch")(
+            params, ctypes.c_int(block_b), *ptrs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.fused_solve_error_string(err).decode()})"
+        )

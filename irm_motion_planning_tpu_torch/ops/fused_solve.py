@@ -282,17 +282,28 @@ def cost_grad_eval(cfg: PlannerConfig, c: Consts, kv, kvt, mix, alpha, start,
     return loss, grad, nt, nv, px, py
 
 
+def count_work(tally, key: str, lanes) -> None:
+    """Add the lanes of the (B,) bool mask ``lanes`` to ``tally[key]`` (a
+    per-lane float count) when a tally is kept.  The plain versions count
+    the work each lane's kernel thread does (round starts, steps, ladder
+    rungs, pull-backs), which the bounds in ops/roofline.py are made of."""
+    if tally is not None:
+        tally[key] = tally.get(key, 0.0) + lanes.to(torch.float32)
+
+
 def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
              lam_sg, lam_jl, alpha, grad, traj, vel, loss, bls_lr, minimized,
-             px=None, py=None):
+             px=None, py=None, tally=None):
     """One BLS inner step for every lane (pallas_step._bls_step, linearized
     ladder).  ``minimized`` (B,) bool freezes lanes.  With ``px``/``py``
     given, the accepted rung's FK planes are carried into the pull-back and
-    its loss is reused.  Returns (alpha, grad, traj, vel, loss, lr,
-    minimized[, px, py])."""
+    its loss is reused; without them the loss is recomputed at the accepted
+    iterate (the per-step kernel's mode).  ``tally``: see :func:`count_work`.
+    Returns (alpha, grad, traj, vel, loss, lr, minimized[, px, py])."""
     n = cfg.max_bls_iteration
     frozen = minimized
     carry_fk = px is not None
+    count_work(tally, "steps", ~frozen)
 
     g2 = (grad * grad).sum(dim=1).sum(dim=0)
     inv_norm = 1.0 / torch.sqrt(g2)
@@ -317,6 +328,7 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         if k > 0 and not bool((~found & ~frozen).any()):
             break
         lr_r = bls_lr * float(rung)
+        count_work(tally, "rungs", ~found & ~frozen)
         cand_t = traj - lr_r * dir_t
         cand_v = vel - lr_r * dir_v
         ee_x, ee_y, rpx, rpy = fk_ee(c, cand_t)
@@ -337,6 +349,7 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     new_lr = torch.where(found, lr_best * cfg.bls_beta_plus,
                          bls_lr * (cfg.bls_beta_minus ** n))
     stop = (loss - loss_best) < cfg.loop_loss_reduction
+    count_work(tally, "pullbacks", ~frozen & ~stop)
 
     a_fac = 1.0 - cfg.lambda_reg * lr_eff
     new_alpha = a_fac * alpha - lr_eff * n_grad
@@ -369,6 +382,36 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     return out
 
 
+def gd_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
+            lam_sg, lam_jl, alpha, grad, traj, vel, loss, lr, minimized,
+            tally=None):
+    """One GD inner step for every lane (pallas_step._gd_step): the trial
+    ``(1 - lambda_reg lr) alpha - lr grad``, the fused evaluation at it, and
+    the stop test, which REJECTS the trial (alpha, grad, traj, vel and loss
+    keep their incoming values).  ``lr`` (B,) passes through; ``minimized``
+    (B,) bool freezes lanes.  ``tally``: see :func:`count_work`.  Returns (alpha,
+    grad, traj, vel, loss, lr, minimized)."""
+    frozen = minimized
+    a_fac = 1.0 - cfg.lambda_reg * lr
+    trial = a_fac * alpha - lr * grad
+    nloss, ngrad, nt, nv, _, _ = cost_grad_eval(
+        cfg, c, kv, kvt, mix, trial, start, goal, obs, lam_sg, lam_jl
+    )
+    stop = (loss - nloss) < cfg.loop_loss_reduction
+    keep = frozen | stop
+    count_work(tally, "steps", ~frozen)
+    count_work(tally, "accepted", ~keep)
+    return (
+        torch.where(keep, alpha, trial),
+        torch.where(keep, grad, ngrad),
+        torch.where(keep, traj, nt),
+        torch.where(keep, vel, nv),
+        torch.where(keep, loss, nloss),
+        lr,
+        minimized | stop,
+    )
+
+
 def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
     """Per-lane hard-constraint check (B,) bool on evaluated planes."""
     T = traj.shape[1]
@@ -386,12 +429,13 @@ def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
 
 
 def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-              minimized, lr, n_r, icnt):
+              minimized, lr, n_r, icnt, tally=None):
     """Round-start fused evaluation, up to ``n_r`` BLS steps from the
     per-lane learning rate ``lr`` (B,), then the exact re-evaluation of
     (traj, vel) from the final alpha.  Shared by both plain versions, as
-    pallas_step's run_inner serves both TPU kernels.  Returns (alpha, traj,
-    vel, loss, icnt)."""
+    pallas_step's run_inner serves both TPU kernels.  ``tally``: see
+    :func:`count_work`.  Returns (alpha, traj, vel, loss, icnt)."""
+    count_work(tally, "rounds", ~minimized)
     loss, grad, traj, vel, px, py = cost_grad_eval(
         cfg, c, kv, kvt, mix, alpha, start, goal, obs, lam_sg, lam_jl
     )
@@ -401,6 +445,7 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
         (alpha, grad, traj, vel, loss, lr, new_min, px, py) = bls_step(
             cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
             alpha, grad, traj, vel, loss, lr, minimized, px=px, py=py,
+            tally=tally,
         )
         # A step counts when the lane was live before it and after it.
         icnt = icnt + (~minimized & ~new_min).to(torch.float32)
@@ -410,9 +455,10 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
 
 
 def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
-                          lam_jl0, start, goal, ox, oy, ow) -> FusedSolve:
+                          lam_jl0, start, goal, ox, oy, ow,
+                          tally=None) -> FusedSolve:
     """Plain PyTorch version of the fused solve kernel; same arguments and
-    outputs as :func:`fused_solve`."""
+    outputs as :func:`fused_solve`.  ``tally``: see :func:`count_work`."""
     c = consts(cfg)
     obs = obs_ctx(ox, oy, ow)
     inc = float(cfg.lambda_constraint_increase)
@@ -429,7 +475,7 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
             break
         alpha, traj, vel, loss, icnt = run_inner(
             cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-            fulfilled, lr0, n_r, icnt,
+            fulfilled, lr0, n_r, icnt, tally,
         )
         now = fulfilled | constraints_ok(cfg, traj, vel, start, goal)
         floss = torch.where(fulfilled, floss, loss)
@@ -443,11 +489,12 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
 
 def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
                           lam_jl, fulfilled, lr0, n_r: int, start, goal, ox,
-                          oy, ow) -> FusedRound:
+                          oy, ow, tally=None) -> FusedRound:
     """Plain PyTorch version of the fused-round kernel; same arguments and
     outputs as :func:`fused_round`.  Lanes that come in fulfilled start
     minimized (alpha passes through, no step counts) and report loss 0 and
-    ok 1, as the TPU kernel's skipped tiles do."""
+    ok 1, as the TPU kernel's skipped tiles do.  ``tally``: see
+    :func:`count_work`."""
     c = consts(cfg)
     B = alpha.shape[-1]
     was = fulfilled.reshape(B) > 0.5
@@ -455,7 +502,7 @@ def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
     alpha, traj, vel, loss, icnt = run_inner(
         cfg, c, kv, kvt, mix, start, goal, obs_ctx(ox, oy, ow), alpha,
         lam_sg.reshape(B), lam_jl.reshape(B), was, lr0.reshape(B), int(n_r),
-        icnt,
+        icnt, tally,
     )
     ok = constraints_ok(cfg, traj, vel, start, goal) | was
     return FusedRound(alpha, torch.where(was, 0.0, loss)[None],
@@ -494,9 +541,12 @@ class _Params(ctypes.Structure):
     ]
 
 
-def kernel_params(cfg: PlannerConfig, O: int, B: int) -> _Params:
+def kernel_params(cfg: PlannerConfig, O: int, B: int,
+                  schedule: bool = True) -> _Params:
+    """The kernels' parameter block; ``schedule=False`` leaves the round
+    schedule out (the per-step kernels run no rounds)."""
     c = consts(cfg)
-    sched = inner_schedule(cfg)
+    sched = inner_schedule(cfg) if schedule else []
     if len(sched) > MAX_ROUNDS:
         raise NotImplementedError(
             f"the CUDA kernel takes at most {MAX_ROUNDS} penalty rounds"
@@ -556,14 +606,16 @@ def check_supported(cfg: PlannerConfig) -> None:
         )
 
 
-def _check_args(name: str, cfg: PlannerConfig, named, lane_shape) -> str:
+def _check_args(name: str, cfg: PlannerConfig, named, lane_shape,
+                supported=check_supported) -> str:
     """Check the float32 arguments ``named`` ((label, tensor) pairs whose
     shapes ``lane_shape(J, T, O, B)`` lists) share one device and match
-    ``cfg``; return the device type the call runs on."""
-    check_supported(cfg)
+    ``cfg``, and that ``supported(cfg)`` accepts the config; return the
+    device type the call runs on."""
+    supported(cfg)
     a = dict(named)
     J, T, B = a["alpha"].shape
-    O = a["ox"].shape[0]
+    O = a["ox"].shape[0] if "ox" in a else 0
     dev = a["alpha"].device
     for (label, x), shape in zip(named, lane_shape(J, T, O, B)):
         if tuple(x.shape) != shape or x.dtype != torch.float32:
@@ -660,33 +712,21 @@ def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, scalars,
     """Launch ``<name>_launch`` of the kernel library on the current stream:
     ``alpha`` (J, T, B) is updated in place, ``n_out`` (1, B) outputs are
     returned.  Raises when the launch is refused."""
-    from ._build import load_library
+    from ._build import launch
 
     J, T, B = alpha.shape
     O = inputs[-1].shape[0]
     if J != 3:
         raise NotImplementedError("the CUDA kernels are built for J=3 joints")
-    bt = cfg.pallas_block_b or DEFAULT_BLOCK_B
-    lib = load_library()
     dev = alpha.device
     outs = [torch.empty((1, B), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
     # Workspace: grad, traj, vel and the two direction planes (J, T, B),
     # then the obstacle-gradient planes gx, gy (T, B).
     work = torch.empty((5 * J + 2, T, B), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"{name}_launch")(
-            kernel_params(cfg, O, B), ctypes.c_int(bt), *scalars,
-            *(ptr(x) for x in inputs), ptr(alpha), *(ptr(o) for o in outs),
-            ptr(work), ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {err} "
-            f"({lib.fused_solve_error_string(err).decode()})"
-        )
+    launch(name, kernel_params(cfg, O, B),
+           cfg.pallas_block_b or DEFAULT_BLOCK_B,
+           [*scalars, *inputs, alpha, *outs, work], dev)
     return outs
 
 

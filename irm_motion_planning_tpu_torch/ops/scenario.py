@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import PlannerConfig
+from ..device import resolve
 
 REFERENCE_START = (0.0, 0.0, 0.0)
 REFERENCE_GOAL = (1.2, 0.8, 0.3)
@@ -33,8 +34,9 @@ class Scenario(NamedTuple):
 
 def make_scenario(cfg: PlannerConfig, start, goal, obstacles,
                   obstacle_weight=None, device=None) -> Scenario:
-    """Build a Scenario, padding the obstacle set to ``cfg.max_obstacles``."""
-    f32 = dict(dtype=torch.float32, device=device)
+    """Build a Scenario, padding the obstacle set to ``cfg.max_obstacles``,
+    on ``device``: the card by default (``device="cpu"`` for the CPU)."""
+    f32 = dict(dtype=torch.float32, device=resolve(device))
     start = torch.as_tensor(start, **f32)
     goal = torch.as_tensor(goal, **f32)
     obstacles = torch.as_tensor(obstacles, **f32).reshape(-1, 2)
@@ -54,7 +56,8 @@ def make_scenario(cfg: PlannerConfig, start, goal, obstacles,
 
 
 def reference_scenario(cfg: PlannerConfig, device=None) -> Scenario:
-    """The reference's demo problem (ref: environment.py:12-29)."""
+    """The reference's demo problem (ref: environment.py:12-29), on
+    ``device`` (the card by default)."""
     return make_scenario(cfg, REFERENCE_START, REFERENCE_GOAL,
                          REFERENCE_OBSTACLES, device=device)
 
@@ -66,7 +69,9 @@ def random_scenarios(cfg: PlannerConfig, generator: torch.Generator,
     ``random_scenarios``: starts and goals uniform inside the joint box less
     a 10% margin, obstacles uniform in a square workspace, the first
     ``n_obstacles`` slots live.  The draws come from ``generator`` (on the
-    CPU) and differ from JAX's for the same seed."""
+    CPU) and differ from JAX's for the same seed; the scenes go to
+    ``device``, the card by default (``device="cpu"`` for the CPU)."""
+    device = resolve(device)
     if n_obstacles is None:
         n_obstacles = len(REFERENCE_OBSTACLES)
     if n_obstacles > cfg.max_obstacles:

@@ -49,6 +49,23 @@ def freeze_when(done: torch.Tensor, state, new_state):
     return torch.where(done, state, new_state)
 
 
+def run_inner_loop(cfg: PlannerConfig, state, bound: int, step: Callable):
+    """The plain engines' inner descent loop: ``state = step(state)`` for
+    every lane at once, ``bound`` times (``fixed_iters``) or without end,
+    with minimized AND budget-exhausted lanes frozen (see
+    :func:`outer_step`).  ``state`` has ``minimized`` and ``inner_iter``
+    fields.  Both modes stop once every lane is frozen: the remaining steps
+    would be identity pass-throughs."""
+    k = 0
+    while not cfg.fixed_iters or k < bound:
+        done = state.minimized | (state.inner_iter >= cfg.max_inner_iteration)
+        if bool(done.all()):
+            break
+        state = freeze_when(done, state, step(state))
+        k += 1
+    return state
+
+
 def inner_loop_bound(cfg: PlannerConfig, round_idx: Optional[int]) -> int:
     """Inner-step budget of one penalty round: the schedule entry of the
     round when ``cfg.inner_schedule`` is set and the round is known, else

@@ -4,16 +4,20 @@ irm_motion_planning_tpu/solvers/fleet.py).
 Every tensor carries the scene lane as its LAST axis: alpha and trajectory
 (T, J, B), end-effector points (2, T, B), obstacles (O, 2, B), lane state
 (B,).  Line-search candidates add a rung axis before the lanes,
-(T, J, n+1, B).  Two engines:
+(T, J, n+1, B).  Three engines:
 
 * ``backend="fused"``: the whole BLS solve in one kernel launch
   (ops/fused_solve.py: the CUDA kernel on a GPU, its plain version on the
   CPU); with ``cfg.lane_compaction`` one launch per penalty round instead,
   with the lanes re-sorted after round 0 (:func:`_fused_rounds_solve`);
+* ``backend="pallas"``: the per-step backend, BLS or GD: one kernel launch
+  per inner step and one fused evaluation per penalty round
+  (ops/step_kernels.py, driven by :func:`_pallas_solve`);
 * ``backend="xla"``: the plain PyTorch engine, the counterpart of the JAX
   package's portable backend: :func:`run_dual_loop` around the rung-major
-  BLS ladder of :func:`make_bls_inner`.  It is the reference the bench's
-  paired quality gate holds the kernels to.
+  BLS ladder of :func:`make_bls_inner` or the GD loop of
+  :func:`make_gd_inner`.  It is the reference the bench's paired quality
+  gate holds the kernels to.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
@@ -30,10 +34,11 @@ from ..config import PlannerConfig
 from ..models import robot
 from ..models.rkhs import Basis
 from ..ops import fused_solve as fs
+from ..ops import step_kernels as sk
 from ..ops.costs import Penalty
 from ..ops.scenario import Scenario
 from .common import (
-    SolveResult, SolveStats, freeze_when, inner_loop_bound, run_dual_loop,
+    SolveResult, SolveStats, inner_loop_bound, run_dual_loop, run_inner_loop,
 )
 
 
@@ -369,18 +374,58 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
                                   device=dev),
                 loss=loss0, grad=grad0, traj=traj0, vel=vel0,
             )
-            # Freeze minimized AND budget-exhausted lanes (see
-            # common.outer_step).  Both modes stop once every lane is
-            # frozen: the remaining fixed-horizon steps would be identity
-            # pass-throughs.
-            steps = bound if cfg.fixed_iters else None
-            k = 0
-            while steps is None or k < steps:
-                done = s.minimized | (s.inner_iter >= cfg.max_inner_iteration)
-                if bool(done.all()):
-                    break
-                s = freeze_when(done, s, raw_step(s, penalty))
-                k += 1
+            s = run_inner_loop(cfg, s, bound, lambda s: raw_step(s, penalty))
+            return s.alpha, s.inner_iter, s.loss
+
+        return inner
+
+    return for_outer
+
+
+class GdInner(NamedTuple):
+    minimized: torch.Tensor   # (B,) bool
+    inner_iter: torch.Tensor  # (B,) int32
+    alpha: torch.Tensor       # (T, J, B)
+    loss: torch.Tensor        # (B,)
+    grad: torch.Tensor        # (T, J, B)
+
+
+def make_gd_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
+    """The GD inner minimizer of the plain engine (ref: optimizer_GD.py:
+    184-194), in :func:`run_dual_loop`'s factory form.  The learning rate is
+    per lane, ``gd_lr[clip(outer_iter)]`` (lanes can sit at different
+    penalty rounds, ref: optimizer_GD.py:209); the stop test REJECTS the
+    step; minimized and budget-exhausted lanes freeze."""
+    dev = basis.kv.device
+    lr_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
+    last = len(cfg.gd_lr) - 1
+
+    def for_outer(outer_iter, round_idx=None):
+        lr = lr_schedule[torch.clip(outer_iter, 0, last).long()]     # (B,)
+        bound = inner_loop_bound(cfg, round_idx)
+
+        def raw_step(s: GdInner, penalty: Penalty) -> GdInner:
+            new_alpha = (1.0 - cfg.lambda_reg * lr) * s.alpha - lr * s.grad
+            new_loss, new_grad = fleet_cost_and_grad(cfg, basis, scn, penalty,
+                                                     new_alpha)
+            stop = s.loss - new_loss < cfg.loop_loss_reduction
+            return GdInner(
+                minimized=stop,
+                inner_iter=torch.where(stop, s.inner_iter, s.inner_iter + 1),
+                alpha=torch.where(stop, s.alpha, new_alpha),
+                loss=torch.where(stop, s.loss, new_loss),
+                grad=torch.where(stop, s.grad, new_grad),
+            )
+
+        def inner(alpha, penalty: Penalty):
+            loss0, grad0 = fleet_cost_and_grad(cfg, basis, scn, penalty, alpha)
+            B = loss0.shape[0]
+            s = GdInner(
+                minimized=torch.zeros(B, dtype=torch.bool, device=dev),
+                inner_iter=torch.zeros(B, dtype=torch.int32, device=dev),
+                alpha=alpha, loss=loss0, grad=grad0,
+            )
+            s = run_inner_loop(cfg, s, bound, lambda s: raw_step(s, penalty))
             return s.alpha, s.inner_iter, s.loss
 
         return inner
@@ -501,6 +546,93 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
         for x in (alpha, floss, ful, outer, total_inner))))
 
 
+def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
+                  alpha0: Optional[torch.Tensor], solver: str) -> SolveResult:
+    """The penalty-method dual loop over the per-step kernels (op for op
+    irm_motion_planning_tpu/solvers/fleet.py::_pallas_solve): per round, the
+    fused evaluation (K5) under the lane's penalties; the round's inner
+    steps, one launch each of K3 (BLS, learning rate from bls_lr_start) or
+    K4 (GD, the per-lane gd_lr[outer_iter]); for BLS with the linearized
+    ladder the exact re-evaluation of (traj, vel) (K6), since the ladder's
+    planes drift; the constraint check and the penalty escalation.  Lanes
+    fulfilled in an earlier round enter minimized, so they pass through.
+
+    The state lives in kernel layout (J, T, B) in buffers allocated once per
+    solve, with the workspace; the step kernels update it in place.  A step
+    counts where the lane was live before it and after it.  Frozen lanes
+    pass through unchanged, so the driver stops launching steps once no
+    lane of the round is live (one host check per step) and stops the rounds
+    once every lane is fulfilled: the launches a solve makes depend on its
+    lanes, up to ``sum(schedule)`` steps and one K5 (and K6) per round."""
+    (kv, kvt, mix, a0, lam_sg, lam_jl, start, goal, ox, oy,
+     ow) = fused_args(cfg, basis, scenarios, alpha0)[1:]
+    J, T, B = a0.shape
+    dev = a0.device
+    gd = solver == "gd"
+    step = "gd_inner_step" if gd else "bls_inner_step"
+    exact_cc = (not gd and cfg.ladder_eval == "linearized"
+                and cfg.exact_constraint_eval)
+    gd_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
+    inc = float(cfg.lambda_constraint_increase)
+    alpha = a0.clone()
+    work = sk.workspace(J, T, B, dev, gd)
+    ev = sk.PallasEval(torch.empty((1, B), dtype=torch.float32, device=dev),
+                       *(torch.empty_like(alpha) for _ in range(3)))
+    fulfilled = torch.zeros(B, dtype=torch.bool, device=dev)
+    outer_iter = torch.zeros(B, dtype=torch.int32, device=dev)
+    total_inner = torch.zeros(B, dtype=torch.int32, device=dev)
+    final_loss = torch.full((B,), float("inf"), device=dev)
+    lanes = (lam_sg, lam_jl, start, goal, ox, oy, ow)
+
+    def inner_round(round_idx):
+        """One penalty round; returns (traj, vel, iters, loss)."""
+        bound = inner_loop_bound(cfg, round_idx)
+        sk.cost_grad_eval(cfg, kv, kvt, mix, alpha, *lanes, out=ev, work=work)
+        if gd:
+            lr = gd_schedule[torch.clip(outer_iter, 0, len(cfg.gd_lr) - 1)
+                             .long()][None]
+        else:
+            lr = torch.full((1, B), cfg.bls_lr_start, dtype=torch.float32,
+                            device=dev)
+        state = sk.PallasStep(alpha, ev.grad, ev.traj, ev.vel, ev.loss, lr,
+                              fulfilled.to(torch.float32)[None])
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        for _ in range(bound if cfg.fixed_iters else cfg.max_inner_iteration):
+            live = state.minimized[0] < 0.5
+            if not bool(live.any()):
+                break
+            getattr(sk, step)(cfg, kv, kvt, mix, *state, *lanes, out=state,
+                              work=work)
+            iters += (live & (state.minimized[0] < 0.5)).to(torch.int32)
+        traj, vel = state.new_traj, state.new_vel
+        if exact_cc:
+            traj, vel = sk.forward_eval(cfg, kv, mix, alpha, out=(traj, vel))
+        return traj, vel, iters, state.new_loss[0]
+
+    r = 0
+    while (r < cfg.max_outer_iteration if cfg.fixed_iters else bool(
+            ((outer_iter < cfg.max_outer_iteration) & ~fulfilled).any())):
+        if bool(fulfilled.all()):
+            break
+        traj, vel, iters, loss = inner_round(r if cfg.fixed_iters else None)
+        ok = fs.constraints_ok(cfg, traj, vel, start, goal)
+        was = fulfilled
+        now = was | ok
+        outer_iter = torch.where(now, outer_iter, outer_iter + 1)
+        lam_sg = torch.where(now, lam_sg, lam_sg * inc)
+        lam_jl = torch.where(now, lam_jl, lam_jl * inc)
+        lanes = (lam_sg, lam_jl) + lanes[2:]
+        total_inner = total_inner + iters
+        final_loss = torch.where(was, final_loss, loss)
+        fulfilled = now
+        r += 1
+    return SolveResult(
+        alpha=alpha_from_fleet(alpha.movedim(0, 1)),
+        stats=SolveStats(outer_iters=outer_iter, inner_iters=total_inner,
+                         converged=fulfilled, final_cost=final_loss),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Public API.
 # ---------------------------------------------------------------------------
@@ -510,10 +642,13 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                 alpha0: Optional[torch.Tensor] = None, solver: str = "bls",
                 backend: str = "fused") -> SolveResult:
     """Solve a batch of scenes (leading-batch Scenario); ``alpha0`` is an
-    optional (B, T, J) warm start.  ``backend``: ``"fused"`` (the kernels;
-    one launch per round with ``cfg.lane_compaction``) or ``"xla"`` (the
-    plain engine).  The device of the scenes decides where it runs.
-    Returns leading-batch results."""
+    optional (B, T, J) warm start.  ``solver``: ``"bls"`` or ``"gd"``.
+    ``backend``: ``"fused"`` (the whole-solve kernels, BLS; one launch per
+    round with ``cfg.lane_compaction``), ``"pallas"`` (the per-step
+    kernels) or ``"xla"`` (the plain engine).  The device of the scenes
+    decides where it runs.  Returns leading-batch results."""
+    if solver not in ("bls", "gd"):
+        raise ValueError(f"unknown solver {solver!r}")
     if solver == "bls" and cfg.bls_mode == "sequential":
         raise ValueError(
             "bls_mode='sequential' is not supported by the fleet engine; "
@@ -526,17 +661,16 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
             f"lane_compaction=True requires backend='fused' (got "
             f"{backend!r}); unset it or switch backends"
         )
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the per-step kernels) is not ported yet "
-            "(ROADMAP queue 1 #12)"
-        )
-    if backend not in ("fused", "xla"):
+    if backend not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if solver != "bls":
+    if solver == "gd" and backend == "fused":
         raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP queue 1 #9)"
+            "the fused GD kernel is not ported yet (ROADMAP queue 1 #9); use "
+            "backend='pallas' or 'xla'"
         )
+    if backend == "pallas":
+        (sk.check_precision if solver == "gd" else fs.check_supported)(cfg)
+        return _pallas_solve(cfg, basis, scenarios, alpha0, solver)
     if backend == "xla":
         if cfg.matmul_precision != "highest":
             raise NotImplementedError(
@@ -550,8 +684,9 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
             torch.full((B,), cfg.lambda_sg_constraint, device=a0.device),
             torch.full((B,), cfg.lambda_jl_constraint, device=a0.device),
         )
+        make_inner = make_gd_inner if solver == "gd" else make_bls_inner
         res = run_dual_loop(
-            cfg, a0, make_bls_inner(cfg, basis, fsc),
+            cfg, a0, make_inner(cfg, basis, fsc),
             constraints_fn=lambda a: fleet_constraints(cfg, basis, fsc, a),
             penalty0=penalty0,
         )

@@ -45,7 +45,7 @@ def test_committed_export_is_bitwise_the_jax_basis():
     moves the warm start by O(1)."""
     cfg = mp.PlannerConfig()
     ref = mp.make_basis(cfg)
-    got = mt.make_basis(mt.PlannerConfig())
+    got = mt.make_basis(mt.PlannerConfig(), device="cpu")
     for name in ref._fields:
         np.testing.assert_array_equal(
             getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
@@ -55,7 +55,7 @@ def test_committed_export_is_bitwise_the_jax_basis():
 def test_basis_from_numpy_roundtrip():
     ref = mp.make_basis(mp.PlannerConfig())
     got = mt.basis_from_numpy({k: np.asarray(getattr(ref, k))
-                               for k in ref._fields})
+                               for k in ref._fields}, device="cpu")
     for name in ref._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)))
@@ -67,7 +67,7 @@ def test_basis_from_numpy_roundtrip():
 ])
 def test_make_basis_refuses_other_configs(kw):
     with pytest.raises(ValueError, match="export_torch_basis"):
-        mt.make_basis(mt.PlannerConfig(**kw))
+        mt.make_basis(mt.PlannerConfig(**kw), device="cpu")
 
 
 def test_evaluate_matches_jax():
@@ -77,7 +77,7 @@ def test_evaluate_matches_jax():
     kernel's larger entries) against JAX's CPU dot."""
     cfg = mp.PlannerConfig()
     jb = mp.make_basis(cfg)
-    tb = mt.make_basis(mt.PlannerConfig())
+    tb = mt.make_basis(mt.PlannerConfig(), device="cpu")
     scn = mp.reference_scenario(cfg)
     alpha = np.asarray(mp.init_alpha(cfg, jb, scn.start, scn.goal))
     jt, jv = (np.asarray(x) for x in mp.evaluate(cfg, jb, alpha))

@@ -27,7 +27,7 @@ TCFG = mt.PlannerConfig(max_obstacles=11)
 @pytest.fixture(scope="module")
 def cases():
     jb = mp.make_basis(CFG)
-    tb = mt.make_basis(TCFG)
+    tb = mt.make_basis(TCFG, device="cpu")
     rnd = mp.random_scenarios(CFG, jax.random.PRNGKey(3), N_RANDOM)
     scenes = [mp.reference_scenario(CFG)] + [
         jax.tree_util.tree_map(lambda x, i=i: x[i], rnd) for i in range(N_RANDOM)
@@ -118,7 +118,7 @@ def test_total_cost_and_gate_helpers_match(cases, i):
 def test_scenario_helpers_match():
     cfg = mp.PlannerConfig()
     ref = mp.reference_scenario(cfg)
-    got = mt.reference_scenario(mt.PlannerConfig())
+    got = mt.reference_scenario(mt.PlannerConfig(), device="cpu")
     for w, g in zip(ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     rep = mt.replicate_scenario(got, 5)
@@ -127,7 +127,7 @@ def test_scenario_helpers_match():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     with pytest.raises(ValueError, match="max_obstacles"):
         mt.make_scenario(mt.PlannerConfig(max_obstacles=2), (0, 0, 0),
-                         (1, 1, 1), [(0, 1), (1, 0), (2, 2)])
+                         (1, 1, 1), [(0, 1), (1, 0), (2, 2)], device="cpu")
 
 
 def test_random_scenarios_distribution():
@@ -136,7 +136,7 @@ def test_random_scenarios_distribution():
     n_obstacles slots live."""
     cfg = mt.PlannerConfig(max_obstacles=16)
     gen = torch.Generator().manual_seed(0)
-    s = mt.random_scenarios(cfg, gen, 4096, n_obstacles=11)
+    s = mt.random_scenarios(cfg, gen, 4096, n_obstacles=11, device="cpu")
     lo, hi = cfg.min_joint_position, cfg.max_joint_position
     m = 0.1 * (hi - lo)
     for x in (s.start, s.goal):
@@ -148,5 +148,5 @@ def test_random_scenarios_distribution():
     np.testing.assert_array_equal(s.obstacle_weight[0].numpy(),
                                   (np.arange(16) < 11).astype(np.float32))
     again = mt.random_scenarios(cfg, torch.Generator().manual_seed(0), 4096,
-                                n_obstacles=11)
+                                n_obstacles=11, device="cpu")
     assert torch.equal(again.obstacles, s.obstacles)

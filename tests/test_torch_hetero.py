@@ -69,7 +69,7 @@ def _assert_solve_equal(a, b):
 @pytest.fixture(scope="module")
 def bases():
     jb = mp.make_basis(mp.PlannerConfig())
-    return jb, mt.make_basis(mt.PlannerConfig())
+    return jb, mt.make_basis(mt.PlannerConfig(), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -340,8 +340,9 @@ def rounds_setup():
     cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
                            max_inner_iteration=48, fixed_iters=True,
                            max_obstacles=11)
-    basis = mt.make_basis(cfg)
-    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(6), 256)
+    basis = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(6), 256,
+                               device="cpu")
     args = tfleet.fused_args(cfg, basis, scns)
     return cfg, basis, scns, args, tfs.fused_solve(*args)
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (csrc/fused_solve.cu: the whole solve and one
-penalty round) against their plain PyTorch versions on the same card, and
-the rounds driver against the whole-solve kernel.  The kernels have no CPU
+penalty round; csrc/step_kernels.cu: the per-step kernels) against their
+plain PyTorch versions on the same card, the rounds driver against the
+whole-solve kernel, and the per-step driver on the card.  The kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX, hence ``--noconftest``):
@@ -14,13 +15,18 @@ import torch
 
 import irm_motion_planning_tpu_torch as mt
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
+from irm_motion_planning_tpu_torch.ops import step_kernels as sk
 from irm_motion_planning_tpu_torch.solvers import fleet
 
-pytestmark = [
-    pytest.mark.cuda,
-    pytest.mark.skipif(not torch.cuda.is_available(),
-                       reason="needs a CUDA device; the kernel has no CPU mode"),
-]
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def card():
+    """Skip without a CUDA device (decided when a test runs, not when the
+    module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
 
 SHORT = dict(max_outer_iteration=1, max_inner_iteration=4, fixed_iters=True,
              max_obstacles=11)
@@ -135,3 +141,147 @@ def test_rounds_driver_equals_whole_solve_kernel(compact):
     assert torch.equal(got.alpha, want.alpha)
     for x, y in zip(got.stats, want.stats):
         assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def step_args(args):
+    """One step's inputs on 1,000 random scenes: K5's state under penalties
+    x1/x10/x100, a quarter of the lanes frozen, per-lane learning rates
+    (BLS's four, or the GD schedule's first four)."""
+    r = _round_args(args)
+    cfg, kv, kvt, mix, a0, lsg, ljl, frozen, lr = r[:9]
+    start, goal, ox, oy, ow = r[10:]
+    ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox,
+                           oy, ow)
+    g = torch.Generator().manual_seed(1)
+    gd_lr = torch.tensor(cfg.gd_lr[:4])[
+        torch.randint(0, 4, lr.shape, generator=g)].to(lr.device)
+    head = (kv, kvt, mix, a0, ev.grad, ev.traj, ev.vel, ev.loss)
+    tail = (frozen, lsg, ljl, start, goal, ox, oy, ow)
+    return cfg, head, tail, {"bls": lr, "gd": gd_lr}
+
+
+def _assert_eval_close(got, want):
+    """A kernel's PallasEval against the plain version's, within
+    chip_smoke.py's EVAL_BOUNDS: the loss 1e-5 relative, the gradient 1e-4
+    of the lane's scale, traj and vel 1e-3 absolute."""
+    assert float(((got.loss - want.loss).abs() / want.loss.abs()).max()) <= 1e-5
+    scale = want.grad.abs().amax(dim=(0, 1))
+    assert float(((got.grad - want.grad).abs().amax(dim=(0, 1))
+                  / scale).max()) <= 1e-4
+    for x, y in zip(got[2:], want[2:]):
+        assert float((x - y).abs().max()) <= 1e-3
+
+
+def test_eval_kernels_match_plain_versions(args):
+    """K5 and K6 against their plain versions (phase 8's bounds), and bit
+    for bit the same at 64 and 256 lanes per block."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    n5, n6 = sk.cost_grad_eval.launches, sk.forward_eval.launches
+    ek = sk.cost_grad_eval(cfg, *eargs)
+    fk = sk.forward_eval(cfg, kv, mix, a0)
+    assert sk.cost_grad_eval.launches == n5 + 1
+    assert sk.forward_eval.launches == n6 + 1
+    ep = sk.cost_grad_eval_reference(cfg, *eargs)
+    fp = sk.forward_eval_reference(cfg, kv, mix, a0)
+    torch.cuda.synchronize()
+    _assert_eval_close(ek, ep)
+    for x, y in zip(fk, fp):
+        assert float((x - y).abs().max()) <= 1e-3
+    for bt in (64, 256):
+        c = cfg.replace(pallas_block_b=bt)
+        for x, y in zip(sk.cost_grad_eval(c, *eargs), ek):
+            assert torch.equal(x, y)
+        for x, y in zip(sk.forward_eval(c, kv, mix, a0), fk):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("solver", ["bls", "gd"])
+def test_step_kernels_match_plain_versions(step_args, solver):
+    """K3 and K4, one step: frozen lanes bitwise unchanged, stop flags and
+    lr in agreement with the plain version on CARD_SHORT_AGREEMENT_MIN of
+    the lanes, and on those lanes alpha within ALPHA_REL_MAX and the loss,
+    gradient, traj and vel within the bounds of the evaluation kernels;
+    bit for bit the same at 64 and 256 lanes per block, and in place
+    (``out`` = the input state) the same as into fresh tensors."""
+    cfg, head, tail, lrs = step_args
+    fn = sk.bls_inner_step if solver == "bls" else sk.gd_inner_step
+    ref = (sk.bls_inner_step_reference if solver == "bls"
+           else sk.gd_inner_step_reference)
+    sargs = (*head, lrs[solver], *tail)
+    before = fn.launches
+    got = fn(cfg, *sargs)
+    assert fn.launches == before + 1
+    want = ref(cfg, *sargs)
+    torch.cuda.synchronize()
+    frozen = tail[0][0] > 0.5
+    for x, y in zip(got, sargs[3:10]):
+        assert torch.equal(x[..., frozen], y[..., frozen])
+    same = ((got.minimized == want.minimized) & (got.new_lr == want.new_lr))[0]
+    assert float(same.float().mean()) >= tfs.CARD_SHORT_AGREEMENT_MIN
+    scale = want.new_alpha.abs().amax(dim=(0, 1))
+    rel = ((got.new_alpha - want.new_alpha).abs().amax(dim=(0, 1)) / scale)[same]
+    assert float(rel.max()) <= tfs.ALPHA_REL_MAX
+    _assert_eval_close(
+        sk.PallasEval(got.new_loss[:, same], got.new_grad[..., same],
+                      got.new_traj[..., same], got.new_vel[..., same]),
+        sk.PallasEval(want.new_loss[:, same], want.new_grad[..., same],
+                      want.new_traj[..., same], want.new_vel[..., same]))
+    for bt in (64, 256):
+        for x, y in zip(fn(cfg.replace(pallas_block_b=bt), *sargs), got):
+            assert torch.equal(x, y)
+    state = [x.clone() for x in sargs[3:10]]
+    fn(cfg, *sargs[:3], *state, *sargs[10:], out=state)
+    for x, y in zip(state, got):
+        assert torch.equal(x, y)
+
+
+def _plain(ref):
+    """A step or evaluation wrapper that runs the plain version on the card
+    and honours ``out`` as the wrapper does."""
+    def run(cfg, *args, out=None, work=None):
+        res = ref(cfg, *args)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return type(res)(*out)
+
+    run.launches = 0
+    return run
+
+
+@pytest.mark.parametrize("solver", ["bls", "gd"])
+def test_per_step_driver_launches_the_kernels(monkeypatch, solver):
+    """fleet_solve(backend="pallas") on the card at 2 rounds x 6 steps on
+    1,000 random scenes: it launches its kernels (K5 per round, K3 or K4 per
+    step, K6 per BLS round) and agrees with the same driver over the plain
+    versions on the card on CARD_SHORT_AGREEMENT_MIN of the lanes (equal
+    step counts, escalations and flags), alpha within ALPHA_REL_MAX."""
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
+                           fixed_iters=True, max_obstacles=11)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5), BATCH,
+                               device=dev)
+    step = sk.bls_inner_step if solver == "bls" else sk.gd_inner_step
+    n_step, n_eval = step.launches, sk.cost_grad_eval.launches
+    got = fleet.fleet_solve(cfg, basis, scns, solver=solver, backend="pallas")
+    torch.cuda.synchronize()
+    assert step.launches > n_step and sk.cost_grad_eval.launches == n_eval + 2
+    for name in ("bls_inner_step", "gd_inner_step", "cost_grad_eval",
+                 "forward_eval"):
+        monkeypatch.setattr(sk, name,
+                            _plain(getattr(sk, f"{name}_reference")))
+    want = fleet.fleet_solve(cfg, basis, scns, solver=solver, backend="pallas")
+    agree, rel = tfs.lane_agreement(
+        *(tfs.FusedSolve(r.alpha.movedim(0, -1).movedim(1, 0),
+                         *(x.to(torch.float32)[None] for x in (
+                             r.stats.final_cost, r.stats.converged,
+                             r.stats.outer_iters, r.stats.inner_iters)))
+          for r in (want, got)))
+    print(f"{solver}: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    assert torch.isfinite(got.alpha).all()

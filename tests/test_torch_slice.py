@@ -62,7 +62,7 @@ def test_fleet_solve_matches_jax_fused(cfgs, scenes):
     seeds), alpha within 1.1e-6."""
     jcfg, tcfg, jb = cfgs
     tb = mt.basis_from_numpy({k: np.asarray(getattr(jb, k))
-                              for k in jb._fields})
+                              for k in jb._fields}, device="cpu")
     if scenes == "reference":
         scns = mp.replicate_scenario(mp.reference_scenario(jcfg), 128)
     else:
@@ -84,7 +84,7 @@ def test_fleet_helpers_match_jax(cfgs):
     factors (measured 1.5e-3 abs on values up to 1.2e4); the costs at the
     same alpha, 2e-7 relative."""
     jcfg, tcfg, jb = cfgs
-    tb = mt.make_basis(mt.PlannerConfig())
+    tb = mt.make_basis(mt.PlannerConfig(), device="cpu")
     scns = mp.random_scenarios(jcfg, jax.random.PRNGKey(2), 64)
     jfs = jfleet.to_fleet(scns)
     tfsc = tfleet.to_fleet(_tscn(scns))
@@ -131,15 +131,19 @@ def test_bench_schedule_on_plain_path():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(backend="xla", solver="gd"), NotImplementedError),
-    (dict(backend="pallas"), NotImplementedError),
-    (dict(solver="gd"), NotImplementedError),
+    # The fused GD kernel (K1b) is not ported; GD runs per step or plain.
+    (dict(backend="fused", solver="gd"), NotImplementedError),
+    # The exact ladder is not ported on any kernel path.
+    (dict(backend="pallas", cfg=dict(ladder_eval="exact")),
+     NotImplementedError),
+    (dict(backend="tpu"), ValueError),
 ])
 def test_fleet_solve_rejects_modes_not_ported(kw, exc):
-    cfg = mt.PlannerConfig(**SHORT)
-    scns = mt.replicate_scenario(mt.reference_scenario(cfg), 2)
+    kw = dict(kw)
+    cfg = mt.PlannerConfig(**SHORT, **kw.pop("cfg", {}))
+    scns = mt.replicate_scenario(mt.reference_scenario(cfg, device="cpu"), 2)
     with pytest.raises(exc):
-        tfleet.fleet_solve(cfg, mt.make_basis(cfg), scns, **kw)
+        tfleet.fleet_solve(cfg, mt.make_basis(cfg, device="cpu"), scns, **kw)
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -152,9 +156,10 @@ def test_fleet_solve_rejects_configs_not_ported(kw, exc):
     kw = dict(kw)
     backend = kw.pop("backend", "fused")
     cfg = mt.PlannerConfig(**SHORT, **kw)
-    scns = mt.replicate_scenario(mt.reference_scenario(cfg), 2)
+    scns = mt.replicate_scenario(mt.reference_scenario(cfg, device="cpu"), 2)
     with pytest.raises(exc):
-        tfleet.fleet_solve(cfg, mt.make_basis(cfg), scns, backend=backend)
+        tfleet.fleet_solve(cfg, mt.make_basis(cfg, device="cpu"), scns,
+                           backend=backend)
 
 
 def _imports_jax(path):
