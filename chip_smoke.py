@@ -13,11 +13,16 @@ launch), the heterogeneous-fleet path (the bench's random-scenes mode:
 compaction, gated against the plain xla engine) and the per-step backend
 (``--backend pallas``, BLS and GD, K3-K6).  Phases:
 
-1. device: the card's name and power limit, the kernel build;
+1. device: the card's name and power limit, the kernel build; for K1 and
+   K2 (one warp per lane, persistent grid) the registers and spills of
+   each instantiation from the ptxas report, and from the launch plan the
+   shared memory per CTA (which must equal the C side's) and the CTAs and
+   warps per SM;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
    steps, lane agreement and alpha error on agreeing lanes; then the first
-   1,000 of those lanes (a masked, ragged last block) at 64, 128 and 256
-   lanes per block, which must equal the full batch's lanes bit for bit;
+   1,000 of those lanes at 4, 8 and 16 lanes (warps) per CTA and on a
+   one-CTA grid (one CTA's warps draw every lane from the queue), which
+   must equal the full batch's lanes bit for bit;
 3. K1 against plain, full schedule: 16,384 random scenes, converged
    fraction, mean unpenalized obstacle cost and the phantom-convergence
    rate from the exact constraint check, as bench.py gates random scenes,
@@ -27,12 +32,12 @@ compaction, gated against the plain xla engine) and the per-step backend
    endpoint error < 0.05; bench.py's strict endpoint < 0.01 is printed).
    Every lane of the replicated scene must equal lane 0 bit for bit, and the
    plain version's avg/max cost on the same inputs must lie within 1% of
-   the kernel's;
+   the kernel's; the main path's peak device memory;
 5. K2 against plain, one round (n_r = 4): 1,024 random scenes, a quarter of
    the lanes fulfilled, penalties escalated x1/x10/x100, four learning
    rates; lane agreement and alpha error on the outputs the caller reads;
-   then 1,000 of those lanes at 64/128/256 lanes per block, bit for bit the
-   full batch's lanes;
+   then 1,000 of those lanes at 4/8/16 lanes per CTA and on a one-CTA
+   grid, bit for bit the full batch's lanes;
 6. the rounds driver against K1: 16,384 random scenes at the bench
    schedule, compaction off and on; every output field must equal K1's bit
    for bit and each solve must launch K2 ten times.  K2's time (the sum of
@@ -42,7 +47,11 @@ compaction, gated against the plain xla engine) and the per-step backend
    engine's time; the gate must pass) and off (per-lane results must equal
    the compacted run's bit for bit), K2's time per solve, and K1's
    whole-solve time on the same scenes (which must equal the rounds
-   driver's result bit for bit);
+   driver's result bit for bit); compaction on against off in six pairs
+   whose order alternates (median and range of the per-pair ratio); K1's
+   bound there and K2's per solve, from
+   K1's own counts and the plain version's tally on the first 65,536 of the
+   scenes, scaled to the batch;
 8. K5 and K6 against their plain versions: 1,024 random scenes (penalties
    x1/x10/x100), then the first 1,000 of them at 64/128/256 lanes per
    block, bit for bit the full batch's lanes; each timed at 1,048,576 lanes
@@ -67,7 +76,10 @@ both per-step paths: the BLS path's, and ``launches_by_path``), its
 largest error against the plain version, its time, the plain version's
 (timed without the work tally), its bound (ops/roofline.py, from this
 run's inputs and the plain versions' tallies of the data-dependent work,
-each from an untimed call) and, for K6, one PyTorch call's time.
+each from an untimed call) and, for K6, one PyTorch call's time.  K1 and
+K2 also carry their time and bound at 1,048,576 random scenes (K2 per
+solve), their registers, spills and occupancy, and K1 the main path's
+peak device memory.
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -75,6 +87,8 @@ is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -86,7 +100,10 @@ SHORT_BATCH = 1024
 RAGGED_BATCH = 1000
 FULL_BATCH = 16384
 CHECK_LANES = 32768
+TALLY_LANES = 65536
+WARP_SHAPES = (4, 8, 16)
 TIMED_LAUNCHES = 3
+COMPACTION_PAIRS = 6
 T0 = time.perf_counter()
 
 
@@ -139,11 +156,29 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    regs = [l.strip() for l in (_build.build_info or {}).get("log", "").splitlines()
-            if "registers" in l]
+    ptxas = ptxas_report((_build.build_info or {}).get("log", ""))
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
-        f"{torch.__version__} cuda {torch.version.cuda}; kernel built in "
-        f"{build_s:.1f}s ({'; '.join(regs)})")
+        f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
+        f"{build_s:.1f}s")
+    bcfg = bench.bench_config()
+    occupancy = {}
+    for name in ("fused_solve", "fused_round"):
+        plan = fs.launch_plan(bcfg, bcfg.max_obstacles)
+        shape = fs.launch_shape(bcfg, bcfg.max_obstacles, MAIN_BATCH, name)
+        if shape["smem"] != plan["total"]:
+            fail(f"phase 1: {name} launch plan {plan['total']} B of shared "
+                 f"memory per CTA, the C side {shape['smem']} B")
+        built = {k: v for k, v in ptxas.items() if k.startswith(name)}
+        occupancy[name] = {"ptxas": built, **shape,
+                           "warps_per_cta": plan["warps"],
+                           "smem_bytes": plan["bytes"]}
+        say(f"phase 1 {name} (K{1 if name == 'fused_solve' else 2}): "
+            f"{plan['warps']} lanes (warps) per CTA, shared memory per CTA "
+            f"{plan['total']} B {plan['bytes']}, {shape['ctas_per_sm']} CTAs "
+            f"and {shape['warps_per_sm']} warps per SM on {shape['sms']} SMs; "
+            f"ptxas {built}")
+    say(f"phase 1 K3-K6 ptxas "
+        f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
 
     def random_args(cfg, batch, seed):
         basis = mt.make_basis(cfg, device=dev)
@@ -176,21 +211,24 @@ def main():
     # the last block are masked.
     cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
     p_cut = fs.fused_solve_reference(cfg, *args[1:4], *cut)
-    for bt in (64, 128, 256):
-        kr = fs.fused_solve(cfg.replace(pallas_block_b=bt), *args[1:4], *cut)
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_solve(cfg.replace(pallas_block_b=warps), *args[1:4],
+                            *cut, ctas=ctas)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                    for x, y in zip(kr, k)):
-            fail(f"phase 2: {RAGGED_BATCH} lanes at {bt} lanes per block "
-                 f"differ from the same lanes of the {SHORT_BATCH}-lane run")
+            fail(f"phase 2: {RAGGED_BATCH} lanes at {warps} lanes per CTA, "
+                 f"{ctas or 'all'} CTAs differ from the same lanes of the "
+                 f"{SHORT_BATCH}-lane run")
         agree_r, rel_r = fs.lane_agreement(p_cut, kr)
         if agree_r < fs.CARD_SHORT_AGREEMENT_MIN or rel_r > fs.ALPHA_REL_MAX:
-            fail(f"phase 2: ragged batch at {bt} lanes per block disagrees "
+            fail(f"phase 2: ragged batch at {warps} lanes per CTA disagrees "
                  f"with the plain version (lane agreement {agree_r:.4f}, "
                  f"alpha error {rel_r:.3g})")
-    say(f"phase 2 ragged batch ({RAGGED_BATCH} lanes; last block masked at "
-        f"64/128/256 lanes per block): bitwise equal to the full batch's "
-        f"lanes; lane agreement with the plain version {agree_r:.4f}")
+    say(f"phase 2 ragged batch ({RAGGED_BATCH} lanes at {WARP_SHAPES} lanes "
+        f"per CTA on the full grid, and on one CTA): bitwise equal to the "
+        f"full batch's lanes; lane agreement with the plain version "
+        f"{agree_r:.4f}")
 
     # -- phase 3: kernel against plain, full schedule ------------------
     cfg = bench.bench_config()
@@ -225,9 +263,12 @@ def main():
         fail("phase 3: kernel quality differs from the plain version's")
 
     # -- phase 4: the main path ----------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     fs.fused_solve.launches = 0
     out = bench.run_bench(batch=MAIN_BATCH, repeats=2)
     launches_k1 = fs.fused_solve.launches
+    main_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     res, timing = out["result"], out["timing"]
     best = min(timing["times_s"])
     ref_avg, ref_max = mt.REFERENCE_FINAL_COST["bls"]
@@ -239,8 +280,9 @@ def main():
         f"{[round(t, 4) for t in timing['times_s']]} s), first run with "
         f"build {timing['first_s']:.2f}s, kernel build {build_s:.1f}s, "
         f"launches {launches_k1}; avg_cost {out['avg_cost']} max_cost "
-        f"{out['max_cost']} endpoint_err {out['endpoint_err']}; "
-        f"{out['device']}, {out['power_limit']}")
+        f"{out['max_cost']} endpoint_err {out['endpoint_err']}; peak device "
+        f"memory {main_peak_gib:.3f} GiB; {out['device']}, "
+        f"{out['power_limit']}")
     say(f"phase 4 strict bench.py verdict (endpoint < 0.01 and costs within "
         f"2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
     if launches_k1 < 1:
@@ -312,14 +354,17 @@ def main():
         fail("phase 5: K2 moved a lane that came in fulfilled")
     cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x) and x.dim() > 1
            and x.shape[-1] == SHORT_BATCH else x for x in rargs]
-    for bt in (64, 128, 256):
-        kr = fs.fused_round(cut[0].replace(pallas_block_b=bt), *cut[1:])
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_round(cut[0].replace(pallas_block_b=warps), *cut[1:],
+                            ctas=ctas)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(kr, k)):
-            fail(f"phase 5: {RAGGED_BATCH} lanes at {bt} lanes per block "
-                 f"differ from the same lanes of the {SHORT_BATCH}-lane run")
-    say(f"phase 5 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
-        f"block): bitwise equal to the full batch's lanes")
+            fail(f"phase 5: {RAGGED_BATCH} lanes at {warps} lanes per CTA, "
+                 f"{ctas or 'all'} CTAs differ from the same lanes of the "
+                 f"{SHORT_BATCH}-lane run")
+    say(f"phase 5 ragged batch ({RAGGED_BATCH} lanes at {WARP_SHAPES} lanes "
+        f"per CTA on the full grid, and on one CTA): bitwise equal to the "
+        f"full batch's lanes")
 
     # -- phase 6: the rounds driver against K1 ------------------------------
     cfg = bench.bench_config()
@@ -421,6 +466,46 @@ def main():
         f"driver's result bit for bit: {same}")
     if not same:
         fail("phase 7: K1 and the rounds driver differ")
+    # Compaction's cost, as the bench times a solve, in COMPACTION_PAIRS
+    # pairs whose order alternates (on, off / off, on / ...) on these scenes.
+    runs = {c: fleet.make_fleet_solver(cfg.replace(lane_compaction=c), basis,
+                                       backend="fused") for c in (True, False)}
+    pair_s = {True: [], False: []}
+    for i in range(COMPACTION_PAIRS):
+        for c in ((True, False) if i % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            runs[c](scns)
+            torch.cuda.synchronize()
+            pair_s[c].append(time.perf_counter() - t0)
+    ratios = sorted(on / off for on, off in zip(pair_s[True], pair_s[False]))
+    say(f"phase 7 compaction in {COMPACTION_PAIRS} alternating pairs: on "
+        f"median {statistics.median(pair_s[True]):.4f} s "
+        f"{[round(t, 4) for t in pair_s[True]]}, off median "
+        f"{statistics.median(pair_s[False]):.4f} s "
+        f"{[round(t, 4) for t in pair_s[False]]}; on/off per pair median "
+        f"{statistics.median(ratios):.4f}, range {ratios[0]:.4f}-"
+        f"{ratios[-1]:.4f}")
+    del runs
+    # Bounds at the full width from K1's own counts (rounds run, accepted
+    # steps) and the plain version's tally of stops and rungs on the first
+    # TALLY_LANES scenes, scaled to the batch: K1's, and K2's over the ten
+    # launches of a solve (the same work: the rounds driver equals K1).
+    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+                      *(x[..., :TALLY_LANES] for x in args[4:]))
+    scale = MAIN_BATCH / TALLY_LANES
+    tally = kernel_counts({k: v * scale for k, v in sub.items()},
+                          float((k1.outer_iters + k1.fulfilled).sum()),
+                          float(k1.inner_iters.sum()))
+    k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, 4)
+    rounds_run = (k1.outer_iters + k1.fulfilled)[0]
+    live = [float((rounds_run > r).sum()) for r in range(rounds)]
+    k2_rand_bound = roofline.fused_round_launches(MAIN_BATCH, T, J, O, tally,
+                                                  live)
+    say(f"phase 7 bounds at {MAIN_BATCH} random scenes (plain tally on "
+        f"{TALLY_LANES} lanes x {scale:g}): K1 {k1_rand_bound.ms:.1f} ms by "
+        f"{k1_rand_bound.by}; K2 per solve ({rounds} launches, live lanes "
+        f"{[int(x) for x in live]}) {k2_rand_bound.ms:.1f} ms by "
+        f"{k2_rand_bound.by}; work {({k: round(v) for k, v in tally.items()})}")
     if not (torch.isfinite(res_on.alpha).all()
             and torch.isfinite(res_on.stats.final_cost).all()):
         fail("phase 7: non-finite output")
@@ -663,9 +748,15 @@ def main():
 
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
-                     max_abs_err, main_ms, main_plain_ms, k1_bound),
+                     max_abs_err, main_ms, main_plain_ms, k1_bound,
+                     ms_1M_random=k1_ms, bound_ms_1M_random=k1_rand_bound.ms,
+                     main_path_peak_gib=main_peak_gib,
+                     occupancy=occupancy["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
-                     k2_abs_err, k2_ms, k2_plain_ms, k2_bound),
+                     k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
+                     ms_per_solve_1M_random=k2_solve_ms,
+                     bound_ms_per_solve_1M_random=k2_rand_bound.ms,
+                     occupancy=occupancy["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"]),
@@ -690,6 +781,38 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def grid_shapes():
+    """(lanes per CTA, CTAs) of the ragged checks: each of WARP_SHAPES on
+    the full persistent grid, then the default on one CTA."""
+    return [(w, 0) for w in WARP_SHAPES] + [(0, 1)]
+
+
+def ptxas_report(log):
+    """{kernel: {registers, spill_stores, spill_loads, stack}} from nvcc's
+    ptxas report; K1/K2 as fused_solve<T,O> / fused_round<T,O> (<0,0>: the
+    generic instantiation)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)_kernel"
+                      r"(?:ILi(\d+)ELi(\d+)E)?", line)
+        if m:
+            name = m.group(1)
+            if m.group(2) is not None:
+                name += f"<{m.group(2)},{m.group(3)}>"
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def same_result(a, b):
@@ -822,7 +945,7 @@ def kernel_counts(tally, rounds, accepted):
     version's tally on the same inputs."""
     stops = float((tally["steps"] - tally["pullbacks"]).sum())
     return {"rounds": rounds, "steps": accepted + stops,
-            "rungs": tally["rungs"], "pullbacks": accepted}
+            "rungs": float(tally["rungs"].sum()), "pullbacks": accepted}
 
 
 def step_fns(sk, name):

@@ -253,7 +253,8 @@ def main(argv=None) -> int:
                    help="fused = the whole-solve kernels (BLS), pallas = the "
                         "per-step kernels, xla = the plain engine")
     p.add_argument("--block-b", type=int, default=0,
-                   help="lanes per CUDA block (0: the kernels' default, 128)")
+                   help="fused backend: lanes (warps) per CTA, 1-16 (0: 16); "
+                        "pallas backend: lanes (threads) per block (0: 128)")
     p.add_argument("--max-obstacles", type=int, default=11)
     p.add_argument("--quality-tol", type=float, default=0.02)
     p.add_argument("--random-scenarios", action="store_true",

@@ -8,8 +8,11 @@ field.  The JAX module is not imported: importing it runs the JAX package's
 Fields that were TPU execution knobs keep their name; their meaning on the
 GPU is:
 
-* ``pallas_block_b`` — lanes (threads) per CUDA block of the fused solve
-  kernel; 0 picks the default (128).  Per-lane results do not depend on it.
+* ``pallas_block_b`` — for the fused kernels (K1/K2, one warp per lane):
+  lanes (warps) per CTA, 1..16, 0 picks the default (16); for the per-step
+  kernels (K3-K6, one thread per lane): lanes (threads) per block, a
+  multiple of 32, 0 picks the default (128).  Per-lane results do not
+  depend on it.
 * ``recip_newton`` — no effect: the CUDA kernel divides exactly (IEEE
   ``1.0f / s``), where the TPU kernel used an approximate reciprocal.
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is

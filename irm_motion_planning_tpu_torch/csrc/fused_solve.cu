@@ -12,171 +12,240 @@
 // driver re-sorts lanes between rounds).  Both compute what the TPU kernels
 // compute, lane by lane; neither is a block-by-block copy.
 //
-// Design (first, simple version): ONE THREAD PER LANE.  Each thread runs its
-// lane's penalty rounds through one device function, lane_round: the fused
-// cost/gradient evaluation, the inner BLS loop (normalized direction,
-// Armijo ladder on the linearized trajectory, first pass wins, gradient
-// pull-back), the exact re-evaluation of (traj, vel) and the hard-constraint
-// check.  K1 loops it over the schedule with the x10 penalty escalation in
-// between; K2 runs it once.  Sharing the op sequence is what makes the host
-// rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
-// does for the two TPU kernels.  A thread stops its ladder at its lane's
-// first Armijo pass, its inner loop once its lane is minimized, and its
-// rounds once its lane is fulfilled (in K2 a lane that comes in fulfilled
-// returns at once): per-lane results do not depend on how lanes are
-// grouped, so this equals the TPU kernels' whole-tile skips.
+// Both are built from the warp body (warp_body.cuh): ONE WARP PER LANE, the
+// lane's solver state on chip (registers and per-warp shared memory), the
+// basis pair staged once per CTA.  K1 loops warp_round over the schedule
+// with the x10 penalty escalation in between; K2 runs it once, and a lane
+// that comes in fulfilled passes through.  Sharing the round body is what
+// makes the host rounds driver over K2 equal K1 bit for bit, as
+// pallas_step's run_inner does for the two TPU kernels.  The per-step
+// kernels K3-K6 (step_kernels.cu) are built from the one-thread-per-lane
+// lane body (lane_body.cuh); the warp body runs the same op sequence, so a
+// lane's result does not depend on which body ran it.
 //
-// What bounds K1 on this card:
-//  * the workspace traffic of the per-lane state planes.  alpha, grad,
-//    traj, vel and the direction planes live in device memory, lanes
-//    trailing ((J, T, B): neighbouring threads read neighbouring addresses).
-//    Each ladder rung reads traj, vel and both direction planes (12 floats a
-//    timestep), and the two basis products of a step stream their input
-//    planes once per chunk of ROWS output rows;
-//  * the arithmetic of each rung: J accurate sincosf and O IEEE divides per
-//    timestep (no fast math: the rungs' Armijo decisions sit at a 1e-3
-//    threshold that fp-path changes flip).
-// What the design does about it: the basis pair kv/kvt (2 x 2T x T fp32,
-// 40 KB at T=50), mix and the lane's obstacle terms sit in shared memory,
-// so the products and the obstacle loop read no device memory for them;
-// the basis products keep ROWS x J accumulators in registers, which cuts
-// the re-reads of the input planes by ROWS; the FK tangents of the accepted
-// rung are recomputed at the pull-back (bitwise the carried values: the
-// accepted iterate is the rung's candidate, formed by the same expression)
-// instead of being stored per rung; a stopping step skips the pull-back
-// (its gradient is kept and the lane is frozen for the rest of the round).
+// What bounds K1 and K2 on this card: operations.  ops/roofline.py counts
+// the work of the run (rounds, steps, ladder rungs, pull-backs) at 200.9 ms
+// for the 1M-lane replicated scene, each sincosf and division counted as
+// one operation although an accurate sincosf is some 20-40 instructions and
+// an IEEE division about 10 (no fast math: the rungs' Armijo decisions sit
+// at a 1e-3 threshold that fp-path changes flip).  The bytes they must move
+// (alpha in and out, penalties, scene, per-lane results) are under 1 GB.
 //
-// K2 has K1's bounds plus a round trip of the lane's state through device
-// memory at each round boundary: alpha in and out, 2 x J*T*4 = 1.2 KB per
-// lane per round at T=50, J=3, and the per-lane scalars; and it stages the
-// basis and obstacle terms in shared memory once per round instead of once
-// per solve.  Against a round's work (tens of BLS steps, each streaming the
-// state planes several times) that is a few percent of the traffic, so the
-// design keeps K1's layout and workspace and does nothing more about it:
-// alpha is updated in place in the output buffer, and the workspace planes
-// are re-derived from alpha at the round start as in K1.
-// wgmma, TMA and register tiling across lanes are for later versions.
-//
-// The lane body (FK, the cost sums, the ladder rung, the basis products,
-// the fused evaluation, the BLS step and the block staging) is in
-// lane_body.cuh, shared with the per-step kernels K3-K6 (step_kernels.cu).
+// What the design does about it:
+//  * no per-lane state in device memory: the previous one-thread-per-lane
+//    version kept grad, traj, vel and the direction planes there (3.4 GB at
+//    1M lanes) and streamed ~30 KB per lane per step through it;
+//  * one warp per lane: the rung loop, the Armijo exit, the stop test and
+//    the round loop are warp-uniform, so lanes of one warp no longer wait
+//    for each other (on random scenes they took different numbers of steps
+//    and rungs);
+//  * a persistent grid (SMs x the CTAs that fit per SM) whose warps draw
+//    lanes from a device counter that the wrapper zeroes before each
+//    launch: a warp that finishes a short lane takes the next, so the
+//    launch's tail is one lane long, not one block of lanes;
+//  * the basis products read the transposed basis in shared memory (32
+//    neighbouring words per warp load) and a broadcast float4 of the staged
+//    input; the sums over t are the lane body's sequential chains, run by
+//    one thread each, up to 7 at once, so the results stay bit for bit (a
+//    build with shuffle-tree sums instead was at most 2% faster); the first
+//    argmax is a shuffle tree, exact;
+//  * the FK tangents of an evaluation's cost pass are kept for its gradient
+//    pass in the direction planes (free between a step's update and the
+//    next direction), and K1 starts a round from the previous round's exact
+//    end-of-round evaluation: each saves a recomputation of values it
+//    already holds, bit for bit;
+//  * an instantiation specialised to the bench's T=50 and O=11, whose
+//    offsets and loop bounds are constants (a generic one runs other
+//    shapes, with the same results);
+//  * 16 warps per CTA and 2 CTAs per SM (32 warps): __launch_bounds__ caps a
+//    thread at 64 registers and the specialised kernels spill a few dozen
+//    bytes a thread, which costs less than halving the warps in flight
+//    (tools/fused_variants.py measures both; PERF.md).
+// wgmma and TMA are for later versions.
 
-#include "lane_body.cuh"
+#include "warp_body.cuh"
 
-// One penalty round of a live lane under its current penalties: round-start
-// exact evaluation, loss and gradient; up to n_r BLS steps from learning
-// rate lr0; the exact re-evaluation from the final alpha and the constraint
-// check.  Returns whether the constraints hold; the round's final loss goes
-// to ``loss`` and each accepted step adds one to ``inner``.
-__device__ bool lane_round(const FsParams& p, const Lane& L, int n_r,
-                           float lr0, float& loss, float& inner) {
-  forward_planes(p, L, L.alpha, 1.f, false);
-  loss = cost_grad_from_traj(p, L, true);
-  float lr = lr0;
-  for (int k = 0; k < n_r; ++k) {
-    if (bls_step<true>(p, L, loss, lr)) break;
-    inner += 1.f;  // live before the step and after it
-  }
-  forward_planes(p, L, L.alpha, 1.f, false);
-  return constraints_ok(p, L);
-}
+// The specialised instantiation: the bench's T and obstacle slots.  Other
+// shapes run the generic one (TT = OO = 0: T and O read at run time), with
+// the same op sequence and results.
+#define WB_SPEC_T 50
+#define WB_SPEC_O 11
 
-__global__ void fused_solve_kernel(FsParams p, const float* __restrict__ kv,
-                                   const float* __restrict__ kvt,
-                                   const float* __restrict__ mix,
-                                   const float* __restrict__ lam_sg0,
-                                   const float* __restrict__ lam_jl0,
-                                   const float* __restrict__ start,
-                                   const float* __restrict__ goal,
-                                   const float* __restrict__ ox,
-                                   const float* __restrict__ oy,
-                                   const float* __restrict__ ow, float* alpha,
-                                   float* out_loss, float* out_ful,
-                                   float* out_outer, float* out_inner,
-                                   float* work) {
-  extern __shared__ float smem[];
-  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
-  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= (size_t)p.B) return;
-  Lane L = bind_lane(p, smem, b, start, goal, lam_sg0[b], lam_jl0[b], alpha,
-                     work);
-
-  bool fulfilled = false;
-  float outer = 0.f, inner = 0.f, floss = INFINITY;
-  for (int r = 0; r < p.rounds && !fulfilled; ++r) {
-    fulfilled = lane_round(p, L, p.sched[r], p.lr_start, floss, inner);
-    if (!fulfilled) {
-      outer += 1.f;
-      L.lam_sg = L.lam_sg * p.inc;
-      L.lam_jl = L.lam_jl * p.inc;
+template <int TT, int OO>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, WB_MIN_CTAS)
+fused_solve_kernel(FsParams p, const float* __restrict__ kv,
+                   const float* __restrict__ kvt,
+                   const float* __restrict__ mix,
+                   const float* __restrict__ lam_sg0,
+                   const float* __restrict__ lam_jl0,
+                   const float* __restrict__ start,
+                   const float* __restrict__ goal,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ ow, float* alpha, float* out_loss,
+                   float* out_ful, float* out_outer, float* out_inner,
+                   int* queue) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  stage_cta(T, kv, kvt, mix, smem);
+  Warp w = bind_warp(smem, T, O);
+  for (int b = next_lane(queue, w.lid); b < p.B;
+       b = next_lane(queue, w.lid)) {
+    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg0[b],
+              lam_jl0[b]);
+    bool fulfilled = false;
+    float outer = 0.f, inner = 0.f, floss = INFINITY;
+    for (int r = 0; r < p.rounds && !fulfilled; ++r) {
+      fulfilled = warp_round(p, w, p.sched[r], p.lr_start, floss, inner,
+                             r > 0);
+      if (!fulfilled) {
+        outer += 1.f;
+        w.lam_sg = w.lam_sg * p.inc;
+        w.lam_jl = w.lam_jl * p.inc;
+      }
+    }
+    store_alpha(p, w, b, alpha);
+    if (w.lid == 0) {
+      out_loss[b] = floss;
+      out_ful[b] = fulfilled ? 1.f : 0.f;
+      out_outer[b] = outer;
+      out_inner[b] = inner;
     }
   }
-  out_loss[b] = floss;
-  out_ful[b] = fulfilled ? 1.f : 0.f;
-  out_outer[b] = outer;
-  out_inner[b] = inner;
 }
 
 // One round for every lane; alpha is updated in place.  A lane that comes
 // in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
 // (the caller masks both with the round-start flag).
-__global__ void fused_round_kernel(FsParams p, int n_r,
-                                   const float* __restrict__ kv,
-                                   const float* __restrict__ kvt,
-                                   const float* __restrict__ mix,
-                                   const float* __restrict__ lam_sg,
-                                   const float* __restrict__ lam_jl,
-                                   const float* __restrict__ ful,
-                                   const float* __restrict__ lr0,
-                                   const float* __restrict__ start,
-                                   const float* __restrict__ goal,
-                                   const float* __restrict__ ox,
-                                   const float* __restrict__ oy,
-                                   const float* __restrict__ ow, float* alpha,
-                                   float* out_loss, float* out_ok,
-                                   float* out_inner, float* work) {
-  extern __shared__ float smem[];
-  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
-  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= (size_t)p.B) return;
-  if (ful[b] > 0.5f) {
-    out_loss[b] = 0.f;
-    out_ok[b] = 1.f;
-    out_inner[b] = 0.f;
-    return;
+template <int TT, int OO>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, WB_MIN_CTAS)
+fused_round_kernel(FsParams p, int n_r, const float* __restrict__ kv,
+                   const float* __restrict__ kvt,
+                   const float* __restrict__ mix,
+                   const float* __restrict__ lam_sg,
+                   const float* __restrict__ lam_jl,
+                   const float* __restrict__ ful,
+                   const float* __restrict__ lr0,
+                   const float* __restrict__ start,
+                   const float* __restrict__ goal,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ ow, float* alpha, float* out_loss,
+                   float* out_ok, float* out_inner, int* queue) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  stage_cta(T, kv, kvt, mix, smem);
+  Warp w = bind_warp(smem, T, O);
+  for (int b = next_lane(queue, w.lid); b < p.B;
+       b = next_lane(queue, w.lid)) {
+    if (ful[b] > 0.5f) {
+      if (w.lid == 0) {
+        out_loss[b] = 0.f;
+        out_ok[b] = 1.f;
+        out_inner[b] = 0.f;
+      }
+      continue;
+    }
+    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg[b], lam_jl[b]);
+    float loss, inner = 0.f;
+    const bool ok = warp_round(p, w, n_r, lr0[b], loss, inner, false);
+    store_alpha(p, w, b, alpha);
+    if (w.lid == 0) {
+      out_loss[b] = loss;
+      out_ok[b] = ok ? 1.f : 0.f;
+      out_inner[b] = inner;
+    }
   }
-  Lane L = bind_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b], alpha,
-                     work);
-  float loss, inner = 0.f;
-  const bool ok = lane_round(p, L, n_r, lr0[b], loss, inner);
-  out_loss[b] = loss;
-  out_ok[b] = ok ? 1.f : 0.f;
-  out_inner[b] = inner;
 }
 
-extern "C" int fused_solve_launch(FsParams p, int block_b, const float* kv,
-                                  const float* kvt, const float* mix,
-                                  const float* lam_sg0, const float* lam_jl0,
-                                  const float* start, const float* goal,
-                                  const float* ox, const float* oy,
-                                  const float* ow, float* alpha,
-                                  float* out_loss, float* out_ful,
-                                  float* out_outer, float* out_inner,
-                                  float* work, void* stream) {
-  if (bad_launch(p, block_b)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(p, block_b);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+static bool specialised(const FsParams& p) {
+  return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
+}
+
+// The instantiation of K1 (which = 0) or K2 (which = 1) that runs p.
+static const void* kernel_for(const FsParams& p, int which) {
+  if (specialised(p))
+    return which == 0
+               ? (const void*)fused_solve_kernel<WB_SPEC_T, WB_SPEC_O>
+               : (const void*)fused_round_kernel<WB_SPEC_T, WB_SPEC_O>;
+  return which == 0 ? (const void*)fused_solve_kernel<0, 0>
+                    : (const void*)fused_round_kernel<0, 0>;
+}
+
+// The launch shape of K1 (which = 0) or K2 (which = 1) at ``warps`` lanes
+// per CTA: the dynamic shared memory per CTA, the CTAs that fit on one SM
+// and the SM count.  Refuses what the kernels cannot take.
+static int launch_shape(const FsParams& p, int warps, int which, size_t& smem,
+                        int& per_sm, int& sms) {
+  if (warps < 1 || warps > WB_MAX_WARPS || p.T < 1 || p.T > WB_MAX_T ||
+      p.O < 0 || p.B <= 0 || p.rounds > MAX_ROUNDS)
+    return (int)cudaErrorInvalidValue;
+  smem = warp_smem_bytes(p, warps);
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((p.B + block_b - 1) / block_b);
-  fused_solve_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
-      p, kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow, alpha,
-      out_loss, out_ful, out_outer, out_inner, work);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernel_for(p, which);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * warps, smem);
+  if (err != cudaSuccess) return (int)err;
+  return per_sm < 1 ? (int)cudaErrorInvalidValue : 0;
+}
+
+// The persistent grid: ``ctas`` CTAs when > 0, else every CTA that fits on
+// the card; never more than the lanes need.
+static unsigned grid_size(const FsParams& p, int warps, int ctas, int per_sm,
+                          int sms) {
+  const long long need = ((long long)p.B + warps - 1) / warps;
+  const long long full = ctas > 0 ? ctas : (long long)per_sm * sms;
+  return (unsigned)(full < need ? full : need);
+}
+
+extern "C" int fused_launch_shape(FsParams p, int warps, int which,
+                                  int* out) {
+  size_t smem;
+  int per_sm, sms;
+  const int err = launch_shape(p, warps, which, smem, per_sm, sms);
+  if (err) return err;
+  out[0] = per_sm;
+  out[1] = sms;
+  out[2] = (int)smem;
+  return 0;
+}
+
+extern "C" int fused_solve_launch(FsParams p, int warps, int ctas,
+                                  const float* kv, const float* kvt,
+                                  const float* mix, const float* lam_sg0,
+                                  const float* lam_jl0, const float* start,
+                                  const float* goal, const float* ox,
+                                  const float* oy, const float* ow,
+                                  float* alpha, float* out_loss,
+                                  float* out_ful, float* out_outer,
+                                  float* out_inner, int* queue,
+                                  void* stream) {
+  size_t smem;
+  int per_sm, sms;
+  const int err = launch_shape(p, warps, 0, smem, per_sm, sms);
+  if (err) return err;
+  if (ctas < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = specialised(p) ? fused_solve_kernel<WB_SPEC_T, WB_SPEC_O>
+                               : fused_solve_kernel<0, 0>;
+  kernel<<<grid_size(p, warps, ctas, per_sm, sms), 32 * warps, smem,
+           (cudaStream_t)stream>>>(p, kv, kvt, mix, lam_sg0, lam_jl0, start,
+                                   goal, ox, oy, ow, alpha, out_loss, out_ful,
+                                   out_outer, out_inner, queue);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_round_launch(FsParams p, int block_b, int n_r,
+extern "C" int fused_round_launch(FsParams p, int warps, int ctas, int n_r,
                                   const float* kv, const float* kvt,
                                   const float* mix, const float* lam_sg,
                                   const float* lam_jl, const float* ful,
@@ -184,18 +253,18 @@ extern "C" int fused_round_launch(FsParams p, int block_b, int n_r,
                                   const float* goal, const float* ox,
                                   const float* oy, const float* ow,
                                   float* alpha, float* out_loss, float* out_ok,
-                                  float* out_inner, float* work,
-                                  void* stream) {
-  if (bad_launch(p, block_b) || n_r < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(p, block_b);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((p.B + block_b - 1) / block_b);
-  fused_round_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
-      p, n_r, kv, kvt, mix, lam_sg, lam_jl, ful, lr0, start, goal, ox, oy, ow,
-      alpha, out_loss, out_ok, out_inner, work);
+                                  float* out_inner, int* queue, void* stream) {
+  size_t smem;
+  int per_sm, sms;
+  const int err = launch_shape(p, warps, 1, smem, per_sm, sms);
+  if (err) return err;
+  if (ctas < 0 || n_r < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = specialised(p) ? fused_round_kernel<WB_SPEC_T, WB_SPEC_O>
+                               : fused_round_kernel<0, 0>;
+  kernel<<<grid_size(p, warps, ctas, per_sm, sms), 32 * warps, smem,
+           (cudaStream_t)stream>>>(p, n_r, kv, kvt, mix, lam_sg, lam_jl, ful,
+                                   lr0, start, goal, ox, oy, ow, alpha,
+                                   out_loss, out_ok, out_inner, queue);
   return (int)cudaGetLastError();
 }
 

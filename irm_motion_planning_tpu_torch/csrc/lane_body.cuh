@@ -1,11 +1,12 @@
-// The lane body shared by every kernel of the port: one thread runs one
-// lane (one scene), with the lane's state planes in device memory, lanes
-// trailing ((J, T, B): neighbouring threads read neighbouring addresses),
-// and the basis pair, mix and the block's obstacle terms in shared memory.
-// K1/K2 (fused_solve.cu) and K3-K6 (step_kernels.cu) are built from these
-// device functions, so a step, an evaluation or a re-evaluation is the same
-// op sequence in every kernel, as pallas_step's _Body serves all six TPU
-// kernels.
+// The lane body of the per-step kernels K3-K6 (step_kernels.cu): one thread
+// runs one lane (one scene), with the lane's state planes in device memory,
+// lanes trailing ((J, T, B): neighbouring threads read neighbouring
+// addresses), and the basis pair, mix and the block's obstacle terms in
+// shared memory.  A step or an evaluation is the same op sequence in every
+// per-step kernel, as pallas_step's _Body serves the TPU kernels.  The fused
+// kernels K1/K2 (fused_solve.cu) are built from the warp body
+// (warp_body.cuh), which runs this body's op sequence one warp per lane and
+// takes FsParams, fk_point and cost_total from here.
 //
 // Built with -fmad=false: separate multiplies and adds round as they do in
 // the plain PyTorch version; the basis products use explicit fmaf.  Every
@@ -353,11 +354,9 @@ static __device__ float cost_grad_from_traj(const FsParams& p, const Lane& L,
 // in place (each thread touches only its own lane's column) and returns
 // true when the stop test fired (the lane is minimized for the rest of the
 // round); the stop test does not reject the step and keeps the gradient.
-// CARRY: the accepted rung's loss is reused (the FK carry of the whole-solve
-// kernels, K1/K2); without it (the per-step kernel K3) the loss is
-// recomputed at the accepted iterate with the gradient.
-template <bool CARRY>
-__device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
+// Without the FK carry of K1/K2 (warp_body.cuh): the loss is recomputed at
+// the accepted iterate with the gradient.
+static __device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
                          float& lr) {
   const int T = L.T;
   float g2 = 0.f;
@@ -406,12 +405,7 @@ __device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
       L.traj[i] = L.traj[i] - lr_eff * L.dir_t[i];
       L.vel[i] = L.vel[i] - lr_eff * L.dir_v[i];
     }
-  if (CARRY) {
-    if (!stop) cost_grad_from_traj(p, L, false);
-    loss = loss_best;
-  } else {
-    loss = stop ? loss_best : cost_grad_from_traj(p, L, true);
-  }
+  loss = stop ? loss_best : cost_grad_from_traj(p, L, true);
   lr = new_lr;
   return stop;
 }

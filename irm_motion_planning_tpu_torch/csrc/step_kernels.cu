@@ -14,10 +14,10 @@
 //    _Body.cost_grad_eval;
 //  * K6 forward_eval_kernel: forward_eval / _make_forward_kernel ->
 //    _Body.forward_planes.
-// Each computes what its TPU kernel computes, lane by lane, from the same
-// device functions as K1/K2 (lane_body.cuh): ONE THREAD PER LANE, the basis
-// pair, mix and the block's obstacle terms staged in shared memory, the
-// state planes in device memory with lanes trailing.
+// Each computes what its TPU kernel computes, lane by lane, from the lane
+// body (lane_body.cuh), whose op sequence K1/K2's warp body also runs: ONE
+// THREAD PER LANE, the basis pair, mix and the block's obstacle terms staged
+// in shared memory, the state planes in device memory with lanes trailing.
 //
 // State in place.  K3 and K4 update alpha, grad, traj, vel, loss, lr and
 // the minimized flag where they lie: each thread reads and writes only its
@@ -100,7 +100,7 @@ __global__ void bls_step_kernel(
   Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
                           alpha, grad, traj, vel, work);
   float l = loss[b], r = lr[b];
-  const bool stop = bls_step<false>(p, L, l, r);
+  const bool stop = bls_step(p, L, l, r);
   loss[b] = l;
   lr[b] = r;
   minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);

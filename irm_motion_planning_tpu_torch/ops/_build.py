@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of the port.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``fused_solve.cu``: the whole-solve
-and the per-round kernels; ``step_kernels.cu``: the per-step kernels), one
+and the per-round kernels, from ``warp_body.cuh``; ``step_kernels.cu``: the
+per-step kernels, from ``lane_body.cuh``), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface under ``build/`` at the repository
 root.  The library is named by the hash of every source and header
@@ -101,37 +102,47 @@ def build() -> str:
     return out
 
 
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Give ``lib``'s entry points (all, or those in ``names``) their C
+    signatures: the parameter block and the lanes per block (K3-K6) or per
+    CTA (K1/K2)[, the CTAs of K1/K2's grid][, n_r], then a c_void_p for
+    every tensor pointer; callers pass the stream last, as a c_void_p."""
+    from .fused_solve import _Params
+
+    for name, n_int, n_ptr in (
+        ("fused_solve_launch", 1, 16),
+        ("fused_round_launch", 2, 17),
+        ("bls_step_launch", 0, 19),
+        ("gd_step_launch", 0, 19),
+        ("cost_grad_eval_launch", 0, 17),
+        ("forward_eval_launch", 0, 6),
+    ):
+        if names is None or name in names:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([_Params, ctypes.c_int] + [ctypes.c_int] * n_int
+                           + [ctypes.c_void_p] * n_ptr)
+    lib.fused_launch_shape.restype = ctypes.c_int
+    lib.fused_launch_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.fused_solve_error_string.restype = ctypes.c_char_p
+    lib.fused_solve_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures: the
-    parameter block and the lanes per block[, n_r], then a c_void_p for every
-    pointer and for the stream."""
+    """The kernel library, built at first use, with its C signatures
+    (``bind``)."""
     global _lib
     with _lock:
         if _lib is None:
-            from .fused_solve import _Params
-
-            lib = ctypes.CDLL(build())
-            for name, n_int, n_ptr in (
-                ("fused_solve_launch", 0, 17),
-                ("fused_round_launch", 1, 18),
-                ("bls_step_launch", 0, 19),
-                ("gd_step_launch", 0, 19),
-                ("cost_grad_eval_launch", 0, 17),
-                ("forward_eval_launch", 0, 6),
-            ):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = ([_Params, ctypes.c_int] + [ctypes.c_int] * n_int
-                               + [ctypes.c_void_p] * n_ptr)
-            lib.fused_solve_error_string.restype = ctypes.c_char_p
-            lib.fused_solve_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
+            _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 
 def launch(name: str, params, block_b: int, args, device) -> None:
     """Call ``<name>_launch`` of the library with the parameter block, the
-    lanes per block and ``args`` (ctypes ints as they are, tensors as their
+    lanes per block or CTA and ``args`` (ctypes ints as they are, tensors as their
     data pointers) on the current stream of ``device``.  Raises when the
     launch is refused."""
     lib = load_library()

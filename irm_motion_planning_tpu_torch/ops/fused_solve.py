@@ -16,9 +16,12 @@ scalars ``(B,)`` inside and ``(1, B)`` at the public functions, obstacles
 ``(O, B)``.
 
 The wrappers take the plain version for CPU tensors and launch the CUDA
-kernels (csrc/fused_solve.cu) for CUDA tensors; they never fall back.  The
-plain versions run all lanes in lockstep with per-lane masks, so their
-per-lane results equal the kernels' per-lane early exits.
+kernels (csrc/fused_solve.cu: one warp per lane, the warp body in
+csrc/warp_body.cuh, ``cfg.pallas_block_b`` lanes per CTA as
+:func:`launch_plan` checks, a persistent grid over a lane queue) for CUDA
+tensors; they never fall back.  The plain versions run all lanes in
+lockstep with per-lane masks, so their per-lane results equal the kernels'
+per-lane early exits.
 """
 
 from __future__ import annotations
@@ -33,7 +36,14 @@ from ..config import PlannerConfig
 
 # Most penalty rounds the kernel's parameter block holds.
 MAX_ROUNDS = 32
-DEFAULT_BLOCK_B = 128
+# The warp-per-lane kernels (csrc/warp_body.cuh): lanes (warps) per CTA,
+# ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS;
+# two timesteps per thread, so at most WARP_MAX_T timesteps.
+DEFAULT_WARPS = 16
+MAX_WARPS = 16
+WARP_MAX_T = 64
+# Hopper's dynamic shared memory per block (opt-in).
+SMEM_PER_CTA_MAX = 232448
 
 
 class FusedSolve(NamedTuple):
@@ -510,8 +520,72 @@ def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: parameter block, checks and launch.
+# The CUDA kernel: parameter block, launch plan, checks and launch.
 # ---------------------------------------------------------------------------
+
+
+def warps_per_cta(cfg: PlannerConfig) -> int:
+    """Lanes (warps) per CTA of K1/K2: ``cfg.pallas_block_b``, or
+    DEFAULT_WARPS when it is 0.  Raises ValueError outside 1..MAX_WARPS."""
+    w = cfg.pallas_block_b or DEFAULT_WARPS
+    if not 1 <= w <= MAX_WARPS:
+        raise ValueError(
+            f"fused kernels: pallas_block_b is lanes (warps) per CTA, 1.."
+            f"{MAX_WARPS} (0: {DEFAULT_WARPS}), got {cfg.pallas_block_b}"
+        )
+    return w
+
+
+def launch_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K1/K2's dynamic shared memory per CTA, by piece, in bytes (mirror of
+    warp_smem_bytes in csrc/warp_body.cuh, which re-checks it): per CTA the
+    basis pair transposed (2 x 2T x T) and mix (padded to 12 floats); per
+    warp the planes alpha, grad, dir_t, dir_v (J x T each), the buffer (8
+    reduction rows of T padded to a multiple of 4, which also holds a
+    product's staged input and the stacked gradient, 2T float4), the
+    obstacle terms (float4 each) and the endpoints (20 floats).  Returns
+    {"warps", "bytes": {piece: bytes}, "total"}.  Raises ValueError for a
+    lanes-per-CTA value the kernels cannot take, NotImplementedError for a
+    T beyond the on-chip design."""
+    warps = warps_per_cta(cfg)
+    T, J = cfg.n_timesteps, cfg.n_joints
+    f = 4
+    rows = (T + 3) // 4 * 4
+    pieces = {
+        "basis": f * 4 * T * T,
+        "mix": f * 12,
+        "planes": warps * f * 4 * J * T,
+        "buffer": warps * f * 8 * rows,
+        "obstacles": warps * f * 4 * O,
+        "endpoints": warps * f * 20,
+    }
+    total = sum(pieces.values())
+    if T > WARP_MAX_T or total > SMEM_PER_CTA_MAX:
+        raise NotImplementedError(
+            f"T={T}: the fused kernels hold the basis (8 T^2 bytes) and the "
+            f"lane state on chip for T <= {WARP_MAX_T} within "
+            f"{SMEM_PER_CTA_MAX} bytes per CTA (this plan: {total}); a "
+            f"streamed basis for large T is ROADMAP queue 1 #13"
+        )
+    return {"warps": warps, "bytes": pieces, "total": total}
+
+
+def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str) -> dict:
+    """What the card makes of K1's (``kernel="fused_solve"``) or K2's
+    (``"fused_round"``) launch plan: CTAs per SM (the CUDA occupancy
+    calculator, registers and shared memory), SMs, shared memory per CTA as
+    the C side computes it, warps per SM.  Needs the card."""
+    from ._build import load_library
+
+    warps = launch_plan(cfg, O)["warps"]
+    out = (ctypes.c_int * 3)()
+    err = load_library().fused_launch_shape(
+        kernel_params(cfg, O, B), warps,
+        {"fused_solve": 0, "fused_round": 1}[kernel], out)
+    if err:
+        raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
+    return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
+            "warps_per_sm": out[0] * warps}
 
 
 class _Params(ctypes.Structure):
@@ -637,27 +711,30 @@ _LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
 
 
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
-                goal, ox, oy, ow) -> FusedSolve:
+                goal, ox, oy, ow, *, ctas: int = 0) -> FusedSolve:
     """The whole BLS penalty-method solve for every lane.
 
     kv (2T, T), kvt (T, 2T), mix (J, J), a0 (J, T, B), lam_sg0/lam_jl0
     (1, B), start/goal (J, B), ox/oy/ow (O, B), all f32.  CPU tensors run
-    :func:`fused_solve_reference`; CUDA tensors launch the kernel
-    (``cfg.pallas_block_b`` lanes per block, or 128 when it is 0) and raise
-    if it cannot be built or launched."""
+    :func:`fused_solve_reference`; CUDA tensors launch the kernel (one warp
+    per lane, ``cfg.pallas_block_b`` lanes per CTA or DEFAULT_WARPS when it
+    is 0, see :func:`launch_plan`) and raise if it cannot be built or
+    launched.  ``ctas``: CTAs of the persistent grid (0: every CTA that
+    fits on the card); per-lane results do not depend on it."""
     args = (kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow)
     where = _check_args("fused_solve", cfg, tuple(zip(_LABELS, args)),
                         lambda J, T, O, B: (
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
                             (O, B)))
+    warps_per_cta(cfg)
     if where == "cpu":
         return fused_solve_reference(cfg, *args)
     kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
         x.contiguous() for x in args
     )
     alpha = a0.clone()
-    outs = _launch("fused_solve", cfg, alpha, 4, [],
+    outs = _launch("fused_solve", cfg, alpha, 4, ctas, [],
                    [kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow])
     fused_solve.launches += 1
     return FusedSolve(alpha, *outs)
@@ -667,7 +744,8 @@ fused_solve.launches = 0
 
 
 def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
-                fulfilled, lr0, n_r: int, start, goal, ox, oy, ow) -> FusedRound:
+                fulfilled, lr0, n_r: int, start, goal, ox, oy, ow, *,
+                ctas: int = 0) -> FusedRound:
     """ONE penalty round for every lane: round-start fused evaluation under
     the lane's penalties, up to ``n_r`` BLS steps from the lane's learning
     rate ``lr0``, the exact re-evaluation and the constraint check.  The
@@ -677,8 +755,9 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
     alpha (J, T, B), lam_sg/lam_jl/fulfilled/lr0 (1, B), n_r a Python int,
     the rest as :func:`fused_solve`.  CPU tensors run
     :func:`fused_round_reference`; CUDA tensors launch the kernel (the
-    budget is a plain kernel argument: every round shares one build) and
-    raise if it cannot be built or launched."""
+    budget is a plain kernel argument: every round shares one build; lanes
+    per CTA and ``ctas`` as :func:`fused_solve`) and raise if it cannot be
+    built or launched."""
     n_r = int(n_r)
     if n_r < 0:
         raise ValueError(f"fused_round: n_r must be >= 0, got {n_r}")
@@ -690,6 +769,7 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (1, B), (1, B), (J, B), (J, B),
                             (O, B), (O, B), (O, B)))
+    warps_per_cta(cfg)
     if where == "cpu":
         return fused_round_reference(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl,
                                      fulfilled, lr0, n_r, start, goal, ox, oy,
@@ -697,7 +777,7 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
     (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal, ox, oy,
      ow) = (x.contiguous() for x in args)
     out_alpha = alpha.clone()
-    outs = _launch("fused_round", cfg, out_alpha, 3, [ctypes.c_int(n_r)],
+    outs = _launch("fused_round", cfg, out_alpha, 3, ctas, [ctypes.c_int(n_r)],
                    [kv, kvt, mix, lam_sg, lam_jl, fulfilled, lr0, start, goal,
                     ox, oy, ow])
     fused_round.launches += 1
@@ -707,26 +787,27 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
 fused_round.launches = 0
 
 
-def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, scalars,
-            inputs) -> list:
+def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, ctas: int,
+            scalars, inputs) -> list:
     """Launch ``<name>_launch`` of the kernel library on the current stream:
-    ``alpha`` (J, T, B) is updated in place, ``n_out`` (1, B) outputs are
-    returned.  Raises when the launch is refused."""
+    the persistent grid (``ctas`` CTAs, 0: all that fit) over a lane queue
+    zeroed here; ``alpha`` (J, T, B) is updated in place, ``n_out`` (1, B)
+    outputs are returned.  Raises when the launch is refused."""
     from ._build import launch
 
     J, T, B = alpha.shape
     O = inputs[-1].shape[0]
     if J != 3:
         raise NotImplementedError("the CUDA kernels are built for J=3 joints")
+    if ctas < 0:
+        raise ValueError(f"{name}: ctas must be >= 0, got {ctas}")
+    warps = launch_plan(cfg, O)["warps"]
     dev = alpha.device
     outs = [torch.empty((1, B), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    # Workspace: grad, traj, vel and the two direction planes (J, T, B),
-    # then the obstacle-gradient planes gx, gy (T, B).
-    work = torch.empty((5 * J + 2, T, B), dtype=torch.float32, device=dev)
-    launch(name, kernel_params(cfg, O, B),
-           cfg.pallas_block_b or DEFAULT_BLOCK_B,
-           [*scalars, *inputs, alpha, *outs, work], dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch(name, kernel_params(cfg, O, B), warps,
+           [ctypes.c_int(ctas), *scalars, *inputs, alpha, *outs, queue], dev)
     return outs
 
 

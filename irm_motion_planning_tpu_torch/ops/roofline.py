@@ -46,8 +46,11 @@ class Bound(NamedTuple):
 
 
 class LaneOps(NamedTuple):
-    """Operations per lane of the lane body's pieces (csrc/lane_body.cuh)
-    at T timesteps, J joints and O obstacle slots."""
+    """Operations per lane of the pieces of a lane's work at T timesteps, J
+    joints and O obstacle slots.  The per-step kernels K3-K6 run them as the
+    lane body (csrc/lane_body.cuh, one thread per lane), the fused kernels
+    K1/K2 as the warp body (csrc/warp_body.cuh, one warp per lane); both
+    run the same op sequence, so the counts serve both."""
 
     forward: int      # forward_planes: kv products and the mix combine
     rung: int         # rung_cost: candidate, FK, obstacle field, cost sums
@@ -158,3 +161,19 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
            + steps * (n.step + 4) + rungs * (n.rung + 4)
            + pulls * (n.cost + n.grad))
     return Bound(B * per_lane + _basis_bytes(T, J), ops)
+
+
+def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
+                         live) -> Bound:
+    """K2 over a whole solve, one launch per round, from the solve's work
+    counts (as :func:`fused_rounds`: the rounds driver runs K1's work) and
+    ``live``, the lanes each launch runs: every launch reads every lane's
+    fulfilled flag and writes its three per-lane results; a live lane also
+    reads alpha, its penalties, its learning rate and its scene and writes
+    alpha; each launch reads the basis."""
+    b = _lane_bytes(T, J, O)
+    ops = fused_rounds(B, T, J, O, tally, 3).ops
+    byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
+                                          + b["scene"]) + _basis_bytes(T, J)
+               for n in live)
+    return Bound(byts, ops)

@@ -35,6 +35,11 @@ import torch
 from ..config import PlannerConfig
 from . import fused_solve as fs
 
+# Lanes (threads) per block of K3-K6 when ``cfg.pallas_block_b`` is 0.  The
+# fused kernels K1/K2 read the same field as warps per CTA
+# (fused_solve.DEFAULT_WARPS).
+DEFAULT_BLOCK_B = 128
+
 
 class PallasStep(NamedTuple):
     new_alpha: torch.Tensor  # (J, T, B)
@@ -174,7 +179,7 @@ def _launch(name: str, cfg: PlannerConfig, O: int, B: int, dev, tensors):
     from ._build import launch
 
     launch(name, fs.kernel_params(cfg, O, B, schedule=False),
-           cfg.pallas_block_b or fs.DEFAULT_BLOCK_B, tensors, dev)
+           cfg.pallas_block_b or DEFAULT_BLOCK_B, tensors, dev)
 
 
 def _into(out, res):

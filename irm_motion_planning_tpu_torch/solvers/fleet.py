@@ -495,13 +495,13 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
     launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
     before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).
 
-    Why: the kernel runs one thread per lane, so a warp runs until its
-    slowest lane freezes and a block holds its SM slot until its slowest
-    warp is done; on heterogeneous fleets scattered slow lanes keep every
-    block live.  Sorting by round 0's accepted-step count (fulfilled lanes
-    last) groups lanes that freeze together.  One sort only, after round 0,
-    as in the JAX package (round 0 has the largest budget and carries the
-    signal; re-sorting later bought it nothing).
+    Why, in the JAX package: a tile of lanes runs until its slowest lane
+    freezes, so sorting by round 0's accepted-step count (fulfilled lanes
+    last) groups lanes that freeze together.  The kernel here runs one warp
+    per lane and its warps draw lanes from a queue, so no lane waits for
+    another and the sort only orders the queue; it stays because the JAX
+    package has it, and PERF.md records what it costs.  One sort only,
+    after round 0, as in the JAX package.
 
     Per-lane results are bitwise invariant under the permutation: every
     operation along the lane axis is per lane.  The bookkeeping is op for

@@ -30,8 +30,8 @@ def card():
 
 SHORT = dict(max_outer_iteration=1, max_inner_iteration=4, fixed_iters=True,
              max_obstacles=11)
-# Not a multiple of 64, 128 or 256: the last block of every launch below is
-# partly masked.
+# Not a multiple of 64, 128 or 256: the per-step kernels' last block is
+# partly masked; the fused kernels' warps draw lanes from a queue until 1,000.
 BATCH = 1000
 
 
@@ -60,14 +60,54 @@ def test_kernel_matches_plain_version_on_the_card(args):
     assert torch.isfinite(got.alpha).all()
 
 
-@pytest.mark.parametrize("block_b", [64, 256])
+@pytest.mark.parametrize("block_b", [4, 8])
 def test_kernel_lanes_do_not_depend_on_block_size(args, block_b):
-    """Per-lane results do not depend on how lanes are grouped: every block
-    size gives the default's outputs bit for bit."""
+    """Per-lane results do not depend on how lanes are grouped: every
+    number of lanes (warps) per CTA gives the default's outputs bit for
+    bit."""
     want = tfs.fused_solve(*args)
     got = tfs.fused_solve(args[0].replace(pallas_block_b=block_b), *args[1:])
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["fused_solve", "fused_round"])
+def test_kernel_lanes_do_not_depend_on_grid_size(args, kernel):
+    """The persistent grid's warps draw lanes from a queue: one CTA, whose
+    warps take every lane in turn, gives the full grid's outputs bit for
+    bit."""
+    if kernel == "fused_solve":
+        fn, a = tfs.fused_solve, args
+    else:
+        fn, a = tfs.fused_round, _round_args(args)
+    want = fn(*a)
+    got = fn(*a, ctas=1)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_generic_instantiation_matches_plain_version():
+    """Shapes other than the bench's (T=50, O=11) run the fused kernels'
+    generic instantiation: at 13 obstacle slots (two of them padding), K1
+    and K2 agree with their plain versions as the specialised ones do
+    (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX)."""
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(**{**SHORT, "max_obstacles": 13})
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(6), BATCH,
+                               device=dev)
+    args = fleet.fused_args(cfg, basis, scns)
+    agree, rel = tfs.lane_agreement(tfs.fused_solve_reference(*args),
+                                    tfs.fused_solve(*args))
+    print(f"K1 generic: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    rargs = _round_args(args)
+    agree, rel = _masked_agreement(tfs.fused_round_reference(*rargs),
+                                   tfs.fused_round(*rargs), rargs[7])
+    print(f"K2 generic: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
 
 
 def _round_args(args, seed=0):
@@ -97,14 +137,14 @@ def _masked_agreement(ref, got, ful):
 
 
 def test_round_kernel_matches_plain_version_on_ragged_lanes(args):
-    """K2 on 1,000 lanes (the last block masked) at 64, 128 and 256 lanes
-    per block: bit for bit the same at every block size, and in agreement
-    with the plain version (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX)."""
+    """K2 on 1,000 lanes at 4, 8 and 16 lanes (warps) per CTA: bit for bit
+    the same at every CTA shape, and in agreement with the plain version
+    (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX)."""
     rargs = _round_args(args)
     before = tfs.fused_round.launches
     want = tfs.fused_round(*rargs)
     assert tfs.fused_round.launches == before + 1
-    for bt in (64, 256):
+    for bt in (4, 8):
         got = tfs.fused_round(rargs[0].replace(pallas_block_b=bt), *rargs[1:])
         for x, y in zip(got, want):
             assert torch.equal(x, y)

@@ -1,0 +1,139 @@
+"""The fused kernels' launch plan (ops/fused_solve.py: one warp per lane,
+``pallas_block_b`` lanes per CTA) and the wrappers' CPU path.
+
+The CUDA side (csrc/warp_body.cuh, fused_solve.cu) computes the same shared
+memory per CTA and refuses what it cannot take; chip_smoke.py phase 1 holds
+the two equal on the card.  Here: the plan's arithmetic and limits, the
+checks the wrappers make before any launch, and that on CPU tensors the
+wrappers still run the plain versions unchanged.
+"""
+
+import pytest
+import torch
+
+import irm_motion_planning_tpu_torch as mt
+from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
+from irm_motion_planning_tpu_torch.ops import step_kernels as sk
+from irm_motion_planning_tpu_torch.solvers import fleet
+
+SHORT = dict(max_outer_iteration=1, max_inner_iteration=2, fixed_iters=True,
+             max_obstacles=11)
+# Hopper's opt-in shared memory per block (227 KB) and per SM (228 KB).
+SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+
+
+@pytest.fixture(scope="module")
+def args():
+    cfg = mt.PlannerConfig(**SHORT)
+    basis = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(2), 4,
+                               device="cpu")
+    return fleet.fused_args(cfg, basis, scns)
+
+
+def _round_args(args):
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+    B = a0.shape[-1]
+    ful = torch.tensor([[0.0, 1.0, 0.0, 0.0]])
+    lr0 = torch.full((1, B), cfg.bls_lr_start)
+    return (cfg, kv, kvt, mix, a0, lsg, ljl, ful, lr0, 2, start, goal, ox, oy,
+            ow)
+
+
+@pytest.mark.parametrize("warps", [0, 4, 8, 16])
+def test_plan_fits_shared_memory(warps):
+    """At T=50, O=11 (the bench) the plan fits one CTA at the default and at
+    the shapes chip_smoke.py runs; its pieces are the layout of
+    warp_body.cuh: the basis pair transposed and mix per CTA, per warp four
+    (J, T) planes, 8 reduction rows of T padded to a multiple of 4, the
+    obstacle terms and 20 floats of endpoints."""
+    cfg = mt.PlannerConfig(max_obstacles=11, pallas_block_b=warps)
+    plan = tfs.launch_plan(cfg, 11)
+    w = warps or tfs.DEFAULT_WARPS
+    assert plan["warps"] == w
+    assert plan["bytes"] == {
+        "basis": 4 * 4 * 50 * 50, "mix": 48, "planes": w * 4 * 4 * 3 * 50,
+        "buffer": w * 4 * 8 * 52, "obstacles": w * 4 * 4 * 11,
+        "endpoints": w * 4 * 20,
+    }
+    assert plan["total"] == sum(plan["bytes"].values()) <= SMEM_LIMIT
+    if w == tfs.DEFAULT_WARPS:
+        # Two CTAs of the default fit on one SM (228 KB, 1 KB reserved each).
+        assert 2 * (plan["total"] + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("T", [65, 120])
+def test_plan_refuses_large_t(T):
+    """A T beyond the on-chip design (two timesteps per thread; a resident
+    basis of 8 T^2 bytes) raises NotImplementedError naming the roadmap item
+    that streams the basis."""
+    cfg = mt.PlannerConfig(n_timesteps=T, max_obstacles=11)
+    with pytest.raises(NotImplementedError, match="queue 1 #13"):
+        tfs.launch_plan(cfg, 11)
+
+
+@pytest.mark.parametrize("bad", [-1, 17, 64, 128])
+@pytest.mark.parametrize("kernel", ["fused_solve", "fused_round"])
+def test_fused_kernels_refuse_bad_lanes_per_cta(args, kernel, bad):
+    """For K1/K2 ``pallas_block_b`` is lanes (warps) per CTA, 1..16: other
+    values raise ValueError, on the CPU too, before anything runs."""
+    cfg = args[0].replace(pallas_block_b=bad)
+    with pytest.raises(ValueError, match="warps"):
+        tfs.launch_plan(cfg, 11)
+    with pytest.raises(ValueError, match="warps"):
+        if kernel == "fused_solve":
+            tfs.fused_solve(cfg, *args[1:])
+        else:
+            tfs.fused_round(cfg, *_round_args(args)[1:])
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_step_kernels_keep_threads_per_block(args, threads):
+    """K3-K6 keep the meaning "threads = lanes per block": 64, 128 and 256
+    run (the plain versions, on the CPU) and give the default's results."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+    c = cfg.replace(pallas_block_b=threads)
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ev = sk.cost_grad_eval(c, *eargs)
+    for x, y in zip(ev, sk.cost_grad_eval(cfg, *eargs)):
+        assert torch.equal(x, y)
+    fw = sk.forward_eval(c, kv, mix, a0)
+    assert torch.equal(fw.traj, ev.traj)
+    state = (a0, ev.grad, ev.traj, ev.vel, ev.loss)
+    tail = (torch.zeros_like(lsg), lsg, ljl, start, goal, ox, oy, ow)
+    for step, lr in ((sk.bls_inner_step, cfg.bls_lr_start),
+                     (sk.gd_inner_step, cfg.gd_lr[0])):
+        lrs = torch.full_like(lsg, lr)
+        got = step(c, kv, kvt, mix, *state, lrs, *tail)
+        want = step(cfg, kv, kvt, mix, *state, lrs, *tail)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_fused_solve_cpu_runs_plain_version(args):
+    """On CPU tensors fused_solve is its plain version, bit for bit, at
+    every lanes-per-CTA value and grid size, and launches nothing."""
+    before = tfs.fused_solve.launches
+    want = tfs.fused_solve_reference(*args)
+    for warps, ctas in ((0, 0), (4, 1)):
+        got = tfs.fused_solve(args[0].replace(pallas_block_b=warps),
+                              *args[1:], ctas=ctas)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert tfs.fused_solve.launches == before
+
+
+def test_fused_round_cpu_runs_plain_version(args):
+    """On CPU tensors fused_round is its plain version, bit for bit (the
+    fulfilled lane passes through), and launches nothing."""
+    rargs = _round_args(args)
+    before = tfs.fused_round.launches
+    want = tfs.fused_round_reference(*rargs)
+    got = tfs.fused_round(rargs[0].replace(pallas_block_b=8), *rargs[1:],
+                          ctas=1)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert torch.equal(got.alpha[..., 1], rargs[4][..., 1])
+    assert float(got.ok[0, 1]) == 1.0 and float(got.inner[0, 1]) == 0.0
+    assert tfs.fused_round.launches == before
