@@ -3,21 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from irm_motion_planning_tpu_torch/csrc
-(K1, the whole BLS solve; K2, one penalty round; K3/K4, one BLS/GD inner
-step; K5, the fused cost/gradient evaluation; K6, the forward evaluation),
-holds each against its plain PyTorch version, and drives the port's paths
-through them: the main path (irm_motion_planning_tpu_torch.bench's default
-protocol: the reference scene replicated over 1,048,576 lanes, one K1
-launch), the heterogeneous-fleet path (the bench's random-scenes mode:
-1,048,576 random scenes, one K2 launch per penalty round with lane
-compaction, gated against the plain xla engine) and the per-step backend
-(``--backend pallas``, BLS and GD, K3-K6).  Phases:
+(K1, the whole solve, and K2, one penalty round, each for BLS and for GD;
+K3/K4, one BLS/GD inner step; K5, the fused cost/gradient evaluation; K6,
+the forward evaluation), holds each against its plain PyTorch version, and
+drives the port's paths through them: the main path
+(irm_motion_planning_tpu_torch.bench's default protocol: the reference
+scene replicated over 1,048,576 lanes, one K1 launch), the
+heterogeneous-fleet path (the bench's random-scenes mode: 1,048,576 random
+scenes, one K2 launch per penalty round with lane compaction, gated against
+the plain xla engine), the per-step backend (``--backend pallas``, BLS and
+GD, K3-K6) and GD on the fused backend (``--solver gd``, K1 and K2 with the
+GD step).  Phases:
 
 1. device: the card's name and power limit, the kernel build; for K1 and
-   K2 (one warp per lane, persistent grid) the registers and spills of
-   each instantiation from the ptxas report, and from the launch plan the
-   shared memory per CTA (which must equal the C side's) and the CTAs and
-   warps per SM;
+   K2 (one warp per lane, persistent grid), for each solver, the registers
+   and spills of each instantiation from the ptxas report
+   (``fused_solve<gd,50,11>``: solver, T, O; ``<bls,0,0>`` the generic
+   one), and from the launch plan the shared memory per CTA (which must
+   equal the C side's) and the CTAs and warps per SM;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
    steps, lane agreement and alpha error on agreeing lanes; then the first
    1,000 of those lanes at 4, 8 and 16 lanes (warps) per CTA and on a
@@ -69,7 +72,24 @@ compaction, gated against the plain xla engine) and the per-step backend
    then 1,048,576 random scenes with the paired xla gate on 32,768 lanes;
 11. the GD per-step path (bench --solver gd --backend pallas): the same,
    gated against REFERENCE_FINAL_COST["gd"] with endpoint < 0.05 (bench's
-   strict 0.042 printed), and the paired gate against the GD xla engine.
+   strict 0.042 printed), and the paired gate against the GD xla engine;
+12. K1-GD and K2-GD against their plain versions: K1-GD on 1,024 random
+   scenes at 2 rounds x 6 steps (lane agreement, alpha error); K2-GD one
+   round (n_r = 4) with a quarter of the lanes fulfilled (bitwise
+   unchanged) and the GD schedule's first four learning rates; for both the
+   first 1,000 lanes at 4/8/16 lanes per CTA and on one CTA, bit for bit
+   the full batch's lanes;
+13. the GD fused path (bench --solver gd): the replicated scene at
+   1,048,576 lanes (solves/s, one K1 launch per solve and no K2 launch,
+   every lane equal to lane 0, the GD gate with the strict verdict, peak
+   device memory; K1-GD alone, its plain version and bound); K1-GD against
+   the per-step GD path on 16,384 random scenes (bitwise, or lane
+   agreement >= 0.99) and the GD rounds driver against K1-GD there
+   (compaction off and on, bit for bit, ten K2-GD launches; K2-GD's ten
+   rounds against their plain versions); 1,048,576 random scenes with
+   compaction (the paired GD xla gate on 32,768 lanes must pass), then
+   without, then K1-GD on the same scenes, all bitwise equal per lane;
+   K2-GD's time per solve, and the GD bounds there.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -79,7 +99,8 @@ run's inputs and the plain versions' tallies of the data-dependent work,
 each from an untimed call) and, for K6, one PyTorch call's time.  K1 and
 K2 also carry their time and bound at 1,048,576 random scenes (K2 per
 solve), their registers, spills and occupancy, and K1 the main path's
-peak device memory.
+peak device memory; under ``gd`` the same numbers for their GD
+instantiations (phases 12-13).
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -162,21 +183,27 @@ def main():
         f"{build_s:.1f}s")
     bcfg = bench.bench_config()
     occupancy = {}
-    for name in ("fused_solve", "fused_round"):
-        plan = fs.launch_plan(bcfg, bcfg.max_obstacles)
-        shape = fs.launch_shape(bcfg, bcfg.max_obstacles, MAIN_BATCH, name)
-        if shape["smem"] != plan["total"]:
-            fail(f"phase 1: {name} launch plan {plan['total']} B of shared "
-                 f"memory per CTA, the C side {shape['smem']} B")
-        built = {k: v for k, v in ptxas.items() if k.startswith(name)}
-        occupancy[name] = {"ptxas": built, **shape,
-                           "warps_per_cta": plan["warps"],
-                           "smem_bytes": plan["bytes"]}
-        say(f"phase 1 {name} (K{1 if name == 'fused_solve' else 2}): "
-            f"{plan['warps']} lanes (warps) per CTA, shared memory per CTA "
-            f"{plan['total']} B {plan['bytes']}, {shape['ctas_per_sm']} CTAs "
-            f"and {shape['warps_per_sm']} warps per SM on {shape['sms']} SMs; "
-            f"ptxas {built}")
+    for solver in fs.SOLVERS:
+        for name in ("fused_solve", "fused_round"):
+            plan = fs.launch_plan(bcfg, bcfg.max_obstacles)
+            shape = fs.launch_shape(bcfg, bcfg.max_obstacles, MAIN_BATCH,
+                                    name, solver)
+            if shape["smem"] != plan["total"]:
+                fail(f"phase 1: {name} launch plan {plan['total']} B of "
+                     f"shared memory per CTA, the C side {shape['smem']} B")
+            built = {k: v for k, v in ptxas.items()
+                     if k.startswith(f"{name}<{solver},")}
+            if len(built) != 2:
+                fail(f"phase 1: no ptxas report of {name}<{solver},...> "
+                     f"(specialised and generic): {sorted(ptxas)}")
+            occupancy[name, solver] = {"ptxas": built, **shape,
+                                       "warps_per_cta": plan["warps"],
+                                       "smem_bytes": plan["bytes"]}
+            say(f"phase 1 {name} (K{1 if name == 'fused_solve' else 2}, "
+                f"{solver}): {plan['warps']} lanes (warps) per CTA, shared "
+                f"memory per CTA {plan['total']} B {plan['bytes']}, "
+                f"{shape['ctas_per_sm']} CTAs and {shape['warps_per_sm']} "
+                f"warps per SM on {shape['sms']} SMs; ptxas {built}")
     say(f"phase 1 K3-K6 ptxas "
         f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
 
@@ -678,7 +705,7 @@ def main():
             fail(f"phase 9: the {name} step disagrees with its plain version "
                  f"at {MAIN_BATCH} lanes")
         step_abs_err[name] = max(step_abs_err[name], err["abs"])
-        del state, tally
+        del state, state0, tally
     del mev, k6_out, work, margs, meargs, mtail, ma0
     torch.cuda.empty_cache()
 
@@ -746,17 +773,22 @@ def main():
         torch.cuda.empty_cache()
         paths[solver] = (launches, per_solve)
 
+    gd = gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
+                   occupancy)
+
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
                      max_abs_err, main_ms, main_plain_ms, k1_bound,
                      ms_1M_random=k1_ms, bound_ms_1M_random=k1_rand_bound.ms,
                      main_path_peak_gib=main_peak_gib,
-                     occupancy=occupancy["fused_solve"]),
+                     occupancy=occupancy["fused_solve", "bls"],
+                     gd=gd["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_per_solve_1M_random=k2_solve_ms,
                      bound_ms_per_solve_1M_random=k2_rand_bound.ms,
-                     occupancy=occupancy["fused_round"]),
+                     occupancy=occupancy["fused_round", "bls"],
+                     gd=gd["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"]),
@@ -775,12 +807,321 @@ def main():
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if not all(math.isfinite(x) for e in kernels
-               for x in (e["ms"], e["plain_ms"], e["bound_ms"])):
+               for d in (e, e.get("gd", e))
+               for x in (d["ms"], d["plain_ms"], d["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
+              occupancy):
+    """Phases 12 and 13, GD through the fused kernels; returns the "gd"
+    entries of K1's and K2's lines in the kernels line."""
+    cfg = bench.bench_config(solver="gd")
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+
+    # -- phase 12: K1-GD and K2-GD against plain, short horizon ---------------
+    scfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
+                            fixed_iters=True, max_obstacles=11)
+    _, _, args = random_args(scfg, SHORT_BATCH, 0)
+    k = fs.fused_solve(*args, solver="gd")
+    torch.cuda.synchronize()
+    p = fs.fused_solve_reference(*args, solver="gd")
+    agree, rel = fs.lane_agreement(p, k)
+    same = ((k.inner_iters == p.inner_iters) & (k.outer_iters == p.outer_iters)
+            & (k.fulfilled == p.fulfilled))[0]
+    k1_abs_err = float((k.alpha - p.alpha).abs()[:, :, same].max())
+    say(f"phase 12 K1-GD short horizon ({SHORT_BATCH} random scenes, 2x6 "
+        f"steps): lane agreement {agree:.4f} (bound >= "
+        f"{fs.CARD_SHORT_AGREEMENT_MIN}), alpha error on agreeing lanes "
+        f"{k1_abs_err:.3g} abs, {rel:.3g} of the lane's scale (bound <= "
+        f"{fs.ALPHA_REL_MAX}); {int((k.inner_iters - p.inner_iters).abs().sum())}"
+        f" steps differ in all")
+    if agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX:
+        fail("phase 12: K1-GD disagrees with its plain version")
+    cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
+    p_cut = fs.fused_solve_reference(scfg, *args[1:4], *cut, solver="gd")
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_solve(scfg.replace(pallas_block_b=warps), *args[1:4],
+                            *cut, solver="gd", ctas=ctas)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                   for x, y in zip(kr, k)):
+            fail(f"phase 12: K1-GD, {RAGGED_BATCH} lanes at {warps} lanes "
+                 f"per CTA, {ctas or 'all'} CTAs differ from the same lanes "
+                 f"of the {SHORT_BATCH}-lane run")
+        agree_r, rel_r = fs.lane_agreement(p_cut, kr)
+        if agree_r < fs.CARD_SHORT_AGREEMENT_MIN or rel_r > fs.ALPHA_REL_MAX:
+            fail(f"phase 12: K1-GD's ragged batch at {warps} lanes per CTA "
+                 f"disagrees with the plain version ({agree_r:.4f}, "
+                 f"{rel_r:.3g})")
+    rargs = round_args(args, 4, seed=0, solver="gd")
+    ful = rargs[7]
+    k2 = fs.fused_round(*rargs, solver="gd")
+    torch.cuda.synchronize()
+    p2 = fs.fused_round_reference(*rargs, solver="gd")
+    agree2, rel2, k2_abs_err = round_agreement(p2, k2, ful)
+    say(f"phase 12 K2-GD one round ({SHORT_BATCH} random scenes, n_r 4, "
+        f"{int((ful > 0.5).sum())} lanes fulfilled, learning rates "
+        f"{list(scfg.gd_lr[:4])}): lane agreement {agree2:.4f}, alpha error "
+        f"on agreeing lanes {k2_abs_err:.3g} abs, {rel2:.3g} of the lane's "
+        f"scale")
+    if agree2 < fs.CARD_SHORT_AGREEMENT_MIN or rel2 > fs.ALPHA_REL_MAX:
+        fail("phase 12: K2-GD disagrees with its plain version")
+    if not (torch.equal(k2.alpha[:, :, ful[0] > 0.5],
+                        rargs[4][:, :, ful[0] > 0.5])
+            and bool((k2.inner[ful > 0.5] == 0).all())):
+        fail("phase 12: K2-GD moved a lane that came in fulfilled")
+    cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x) and x.dim() > 1
+           and x.shape[-1] == SHORT_BATCH else x for x in rargs]
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_round(cut[0].replace(pallas_block_b=warps), *cut[1:],
+                            solver="gd", ctas=ctas)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                   for x, y in zip(kr, k2)):
+            fail(f"phase 12: K2-GD, {RAGGED_BATCH} lanes at {warps} lanes "
+                 f"per CTA, {ctas or 'all'} CTAs differ from the full batch's")
+    say(f"phase 12 ragged batch ({RAGGED_BATCH} lanes at {WARP_SHAPES} lanes "
+        f"per CTA on the full grid, and on one CTA): K1-GD and K2-GD bitwise "
+        f"equal to the full batch's lanes; K1-GD lane agreement with the "
+        f"plain version {agree_r:.4f}")
+    del k, p, p_cut, k2, p2, args, rargs, cut
+
+    # -- phase 13: the GD fused path -----------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    fs.fused_solve.launches = 0
+    fs.fused_round.launches = 0
+    out = bench.run_bench(batch=MAIN_BATCH, repeats=2, solver="gd")
+    launches_k1 = fs.fused_solve.launches
+    k2_on_main = fs.fused_round.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    res, timing = out["result"], out["timing"]
+    best = min(timing["times_s"])
+    ref_avg, ref_max = mt.REFERENCE_FINAL_COST["gd"]
+    strict = bench.endpoint_bound(cfg, "gd")
+    say(f"phase 13 GD fused path (bench --solver gd, reference scene x "
+        f"{MAIN_BATCH}): {MAIN_BATCH / best:.1f} solves/s, "
+        f"{1e6 * best / MAIN_BATCH:.4f} us/solve (best of "
+        f"{[round(t, 4) for t in timing['times_s']]} s; first run "
+        f"{timing['first_s']:.2f} s), K1 launches {launches_k1}, K2 launches "
+        f"{k2_on_main}; avg_cost {out['avg_cost']} max_cost "
+        f"{out['max_cost']} endpoint_err {out['endpoint_err']}; peak device "
+        f"memory {peak_gib:.3f} GiB ({held_gib:.3f} GiB held before the "
+        f"run); {out['device']}, {out['power_limit']}")
+    say(f"phase 13 strict bench.py verdict (endpoint < {strict} and costs "
+        f"within 2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
+    if launches_k1 != 1 + len(timing["times_s"]) or k2_on_main:
+        fail(f"phase 13: the GD fused path made {launches_k1} K1 and "
+             f"{k2_on_main} K2 launches, not one K1 launch per solve")
+    finite = bool(torch.isfinite(res.alpha).all()
+                  and torch.isfinite(res.stats.final_cost).all())
+    if not (finite and out["avg_cost"] <= ref_avg * 1.02
+            and out["max_cost"] <= ref_max * 1.02
+            and out["endpoint_err"] < 0.05):
+        fail("phase 13: GD fused output outside the quality bounds")
+    if not lanes_match_lane0((res.alpha, *res.stats), 0):
+        fail("phase 13: the GD fused path's lanes differ from lane 0")
+    alpha0 = res.alpha[0].clone()
+    del out, res
+
+    # K1-GD alone and its plain version on the main path's inputs.
+    basis = mt.make_basis(cfg, device=dev)
+    scn0 = mt.reference_scenario(cfg, device=dev)
+    args = fleet.fused_args(cfg, basis, mt.replicate_scenario(scn0, MAIN_BATCH))
+    k, main_ms = timed(lambda: fs.fused_solve(*args, solver="gd"))
+    if not (lanes_match_lane0(k, -1)
+            and torch.equal(k.alpha[:, :, 0].T, alpha0)):
+        fail("phase 13: K1-GD's lanes differ from the GD path's lane 0")
+    kq = mt.solution_quality(cfg, basis, scn0, alpha0)
+    k1_rounds = float((k.outer_iters + k.fulfilled).sum())
+    k1_accepted = float(k.inner_iters.sum())
+    del k
+    p, main_plain_ms = timed(lambda: fs.fused_solve_reference(*args,
+                                                              solver="gd"))
+    pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
+    gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
+            for key in ("avg_cost", "max_cost")]
+    del p
+    # Every lane holds the same scene: the plain tally of the first
+    # TALLY_LANES lanes, scaled, is the whole batch's.
+    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+                      *(x[..., :TALLY_LANES] for x in args[4:]), solver="gd")
+    scale = MAIN_BATCH / TALLY_LANES
+    k1_bound = roofline.fused_rounds(
+        MAIN_BATCH, T, J, O,
+        kernel_counts({key: v * scale for key, v in sub.items()}, k1_rounds,
+                      k1_accepted, "gd"), 4, "gd")
+    say(f"phase 13 K1-GD alone {main_ms:.1f} ms, plain version "
+        f"{main_plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals "
+        f"lane 0; plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
+        f"{float(pq['max_cost']):.5f} vs kernel {float(kq['avg_cost']):.5f}/"
+        f"{float(kq['max_cost']):.5f} (gaps {gaps[0]:.2e}/{gaps[1]:.2e}, "
+        f"bound 1e-2); bound {k1_bound.ms:.1f} ms by {k1_bound.by} (rounds "
+        f"{k1_rounds:.0f}, accepted steps {k1_accepted:.0f})")
+    if max(gaps) > 0.01:
+        fail("phase 13: the plain GD version's costs differ from K1-GD's")
+    del args
+    torch.cuda.empty_cache()
+
+    # K1-GD against the per-step GD path, and the rounds driver against
+    # K1-GD (with K2-GD's ten rounds against their plain versions), on
+    # FULL_BATCH random scenes at the bench's GD schedule.
+    basis, scns, args = random_args(cfg, FULL_BATCH, 1)
+    k1 = fs.fused_solve(*args, solver="gd")
+    want = fleet.kernel_result(k1)
+    step = fleet.fleet_solve(cfg, basis, scns, solver="gd", backend="pallas")
+    bitwise = same_result(step, want)
+    agree_s, _ = fs.lane_agreement(
+        k1, fs.FusedSolve(step.alpha.movedim(0, -1).movedim(1, 0),
+                          *(x.to(torch.float32)[None] for x in (
+                              step.stats.final_cost, step.stats.converged,
+                              step.stats.outer_iters,
+                              step.stats.inner_iters))))
+    say(f"phase 13 K1-GD against the per-step GD path (K5 + K4) on "
+        f"{FULL_BATCH} random scenes: bitwise equal {bitwise}, lane "
+        f"agreement {agree_s:.4f} (bound: bitwise, or >= "
+        f"{fs.CARD_SHORT_AGREEMENT_MIN}); converged "
+        f"{float(k1.fulfilled.mean()):.4f}")
+    if not bitwise and agree_s < fs.CARD_SHORT_AGREEMENT_MIN:
+        fail("phase 13: K1-GD and the per-step GD path disagree")
+    rounds = len(fs.inner_schedule(cfg))
+    for compact in (False, True):
+        before = fs.fused_round.launches
+        with KernelTimer(fs, "fused_round", capture=not compact) as timer:
+            got = fleet._fused_rounds_solve(
+                cfg.replace(lane_compaction=compact), args[1:], "gd")
+            torch.cuda.synchronize()
+        launched = fs.fused_round.launches - before
+        same = same_result(got, want)
+        say(f"phase 13 GD rounds driver, compaction "
+            f"{'on' if compact else 'off'} ({FULL_BATCH} random scenes): "
+            f"{launched} K2-GD launches, {timer.total_ms():.1f} ms in K2, "
+            f"bitwise equal to K1-GD: {same}")
+        if not same:
+            fail("phase 13: the GD rounds driver differs from K1-GD")
+        if launched != rounds:
+            fail(f"phase 13: {launched} K2-GD launches, not {rounds}")
+        if not compact:
+            k2_ms = timer.total_ms()
+            k2_plain_ms, agreements = 0.0, []
+            k2_bound = roofline.Bound(0.0, 0.0)
+            for rin, rout in zip(timer.inputs, timer.outputs):
+                rp, ms = timed(lambda: fs.fused_round_reference(
+                    *rin, solver="gd"))
+                k2_plain_ms += ms
+                k2_bound = k2_bound + roofline.fused_rounds(
+                    FULL_BATCH, T, J, O,
+                    kernel_counts(plain_tally(fs.fused_round_reference, *rin,
+                                              solver="gd"),
+                                  float((rin[7] < 0.5).sum()),
+                                  float(rout.inner.sum()), "gd"), 3, "gd")
+                agreements.append(round_agreement(rp, rout, rin[7])[0])
+            say(f"phase 13 K2-GD {k2_ms:.1f} ms over {rounds} launches, "
+                f"plain version {k2_plain_ms:.1f} ms on the same inputs, "
+                f"bound {k2_bound.ms:.2f} ms by {k2_bound.by}; per-round lane "
+                f"agreement {[round(a, 4) for a in agreements]}")
+            del timer.inputs[:], timer.outputs[:]
+    del k1, want, got, step, args, scns
+    torch.cuda.empty_cache()
+
+    # The GD heterogeneous path: 1M random scenes, compaction on with the
+    # paired GD xla gate, then off, then K1-GD on the same scenes.
+    fs.fused_round.launches = 0
+    fs.fused_solve.launches = 0
+    with KernelTimer(fs, "fused_round") as timer:
+        het = bench.run_bench(batch=MAIN_BATCH, repeats=2, solver="gd",
+                              random_scenarios=True, seed=0,
+                              quality_check_lanes=CHECK_LANES)
+    het_launches = fs.fused_round.launches
+    het_k1 = fs.fused_solve.launches
+    times = het["timing"]["times_s"]
+    k2_solve_ms = timer.total_ms() / (1 + len(times))
+    b = het["gate"]["bands"]
+    say(f"phase 13 GD heterogeneous path, compaction on ({MAIN_BATCH} random "
+        f"scenes): {MAIN_BATCH / min(times):.1f} solves/s (best of "
+        f"{[round(t, 4) for t in times]} s), {het_launches} K2-GD launches, "
+        f"{het_k1} K1 launches; K2-GD {k2_solve_ms:.1f} ms per solve; "
+        f"converged {het['converged_frac']}; paired GD xla gate on "
+        f"{CHECK_LANES} lanes (xla engine {het['timing']['xla_s']:.2f} s): "
+        f"converged {b['check_converged_frac']:.4f} vs xla "
+        f"{het['xla_converged_frac']} (band {b['converged']:.4f}); obstacle "
+        f"cost {b['check_obstacle_cost']:.5f} vs {b['xla_obstacle_cost']:.5f} "
+        f"(band {b['cost']:.5f}); phantom {het['phantom_frac']} (bound "
+        f"{b['phantom']:.2e}): {'PASS' if het['quality_ok'] else 'FAIL'}")
+    if het_launches != rounds * (1 + len(times)):
+        fail(f"phase 13: {het_launches} K2-GD launches on the GD "
+             f"heterogeneous path, not {rounds} per solve")
+    gate_ok = het["quality_ok"]
+    res_on = het.pop("result")
+    del het
+    off = bench.run_bench(batch=MAIN_BATCH, repeats=2, solver="gd",
+                          random_scenarios=True, seed=0,
+                          quality_check_lanes=0, lane_compaction=False)
+    res_off = off.pop("result")
+    off_times = off["timing"]["times_s"]
+    same_off = same_result(res_on, res_off)
+    del res_off, off
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                               MAIN_BATCH, device=dev)
+    args = fleet.fused_args(cfg, basis, scns)
+    k1, k1_rand_ms = timed(lambda: fs.fused_solve(*args, solver="gd"))
+    same_k1 = same_result(res_on, fleet.kernel_result(k1))
+    say(f"phase 13 GD compaction off: {MAIN_BATCH / min(off_times):.1f} "
+        f"solves/s (best of {[round(t, 4) for t in off_times]} s), per-lane "
+        f"results equal the compacted run's bit for bit: {same_off}; K1-GD "
+        f"on the same scenes {k1_rand_ms:.1f} ms, equal to the rounds "
+        f"driver's bit for bit: {same_k1}")
+    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+                      *(x[..., :TALLY_LANES] for x in args[4:]), solver="gd")
+    tally = kernel_counts({key: v * scale for key, v in sub.items()},
+                          float((k1.outer_iters + k1.fulfilled).sum()),
+                          float(k1.inner_iters.sum()), "gd")
+    k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, 4, "gd")
+    rounds_run = (k1.outer_iters + k1.fulfilled)[0]
+    live = [float((rounds_run > r).sum()) for r in range(rounds)]
+    k2_rand_bound = roofline.fused_round_launches(MAIN_BATCH, T, J, O, tally,
+                                                  live, "gd")
+    say(f"phase 13 GD bounds at {MAIN_BATCH} random scenes (plain tally on "
+        f"{TALLY_LANES} lanes x {scale:g}): K1-GD {k1_rand_bound.ms:.1f} ms "
+        f"by {k1_rand_bound.by}; K2-GD per solve ({rounds} launches, live "
+        f"lanes {[int(x) for x in live]}) {k2_rand_bound.ms:.1f} ms by "
+        f"{k2_rand_bound.by}; work {({key: round(v) for key, v in tally.items()})}")
+    if not (same_off and same_k1):
+        fail("phase 13: the GD rounds driver (compaction on/off) and K1-GD "
+             "differ on the same scenes")
+    if not (torch.isfinite(res_on.alpha).all()
+            and torch.isfinite(res_on.stats.final_cost).all()):
+        fail("phase 13: non-finite GD output")
+    if not gate_ok:
+        fail("phase 13: the paired GD xla gate failed")
+    del res_on, k1, args, scns
+    torch.cuda.empty_cache()
+
+    def entry(launches, max_abs_err, ms, plain_ms, bound, occ, **extra):
+        return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound.ms,
+                "bound_by": bound.by, "library_ms": None, **extra,
+                "occupancy": occ}
+
+    return {
+        "fused_solve": entry(launches_k1, k1_abs_err, main_ms, main_plain_ms,
+                             k1_bound, occupancy["fused_solve", "gd"],
+                             ms_1M_random=k1_rand_ms,
+                             bound_ms_1M_random=k1_rand_bound.ms,
+                             main_path_peak_gib=peak_gib,
+                             held_before_gib=held_gib),
+        "fused_round": entry(het_launches, k2_abs_err, k2_ms, k2_plain_ms,
+                             k2_bound, occupancy["fused_round", "gd"],
+                             ms_per_solve_1M_random=k2_solve_ms,
+                             bound_ms_per_solve_1M_random=k2_rand_bound.ms),
+    }
 
 
 def grid_shapes():
@@ -791,16 +1132,21 @@ def grid_shapes():
 
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads, stack}} from nvcc's
-    ptxas report; K1/K2 as fused_solve<T,O> / fused_round<T,O> (<0,0>: the
-    generic instantiation)."""
+    ptxas report; K1/K2 as fused_solve<solver,T,O> / fused_round<solver,T,O>
+    (solver bls or gd; <solver,0,0>: the generic instantiation)."""
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z\d+(\w+?)_kernel"
-                      r"(?:ILi(\d+)ELi(\d+)E)?", line)
+                      r"(?:I((?:L[ib]\d+E)+)E)?", line)
         if m:
             name = m.group(1)
             if m.group(2) is not None:
-                name += f"<{m.group(2)},{m.group(3)}>"
+                targs = re.findall(r"L[ib](\d+)E", m.group(2))
+                if name.startswith("fused_") and len(targs) == 3:
+                    targs[0] = fs.SOLVERS[int(targs[0])]
+                name += f"<{','.join(targs)}>"
             out[name] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -821,9 +1167,10 @@ def same_result(a, b):
         torch.equal(x, y) for x, y in zip(a.stats, b.stats))
 
 
-def round_args(args, n_r, seed):
+def round_args(args, n_r, seed, solver="bls"):
     """fused_round's arguments from fused_solve's: a quarter of the lanes
-    fulfilled, penalties escalated x1/x10/x100, four learning rates."""
+    fulfilled, penalties escalated x1/x10/x100, four learning rates (BLS's,
+    or the GD schedule's first four)."""
     cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
     g = torch.Generator().manual_seed(seed)
     B = a0.shape[-1]
@@ -831,8 +1178,8 @@ def round_args(args, n_r, seed):
     ful = (torch.rand((1, B), generator=g) < 0.25).float().to(dev)
     esc = torch.tensor([1.0, 10.0, 100.0])[
         torch.randint(0, 3, (1, B), generator=g)].to(dev)
-    lr0 = torch.tensor([0.2, 0.1, 0.05, 0.3])[
-        torch.randint(0, 4, (1, B), generator=g)].to(dev)
+    lrs = [0.2, 0.1, 0.05, 0.3] if solver == "bls" else list(cfg.gd_lr[:4])
+    lr0 = torch.tensor(lrs)[torch.randint(0, 4, (1, B), generator=g)].to(dev)
     return (cfg, kv, kvt, mix, a0, lsg * esc, ljl * esc, ful, lr0, n_r, start,
             goal, ox, oy, ow)
 
@@ -930,19 +1277,23 @@ def planes_error(k, p):
     return max(float((x - y).abs().max()) for x, y in zip(k, p))
 
 
-def plain_tally(ref, *args):
+def plain_tally(ref, *args, **kw):
     """The work tally (fused_solve.count_work) of the plain version ``ref``
     on ``args``, from a call of its own, so that no timed call keeps it."""
     tally = {}
-    ref(*args, tally=tally)
+    ref(*args, tally=tally, **kw)
     return tally
 
 
-def kernel_counts(tally, rounds, accepted):
+def kernel_counts(tally, rounds, accepted, solver="bls"):
     """A whole-solve or round kernel's work counts for its bound: the rounds
     its lanes ran and the steps it accepted (each pays a pull-back) from the
-    kernel's own outputs; the stop steps and the ladder rungs from the plain
-    version's tally on the same inputs."""
+    kernel's own outputs; the stop steps (BLS: and the ladder rungs) from
+    the plain version's tally on the same inputs."""
+    if solver == "gd":
+        stops = float((tally["steps"] - tally["accepted"]).sum())
+        return {"rounds": rounds, "steps": accepted + stops,
+                "accepted": accepted}
     stops = float((tally["steps"] - tally["pullbacks"]).sum())
     return {"rounds": rounds, "steps": accepted + stops,
             "rungs": float(tally["rungs"].sum()), "pullbacks": accepted}

@@ -2,9 +2,9 @@
 irm_motion_planning_tpu.
 
 RKHS trajectory optimization for a planar n-link arm (penalty method around
-a backtracking line search), batched over many scenes, with the whole solve
-in one hand-written CUDA kernel for Hopper GPUs (ops/fused_solve.py,
-csrc/fused_solve.cu).  Imports torch, never jax.
+a backtracking line search or gradient descent), batched over many scenes,
+with the whole solve in one hand-written CUDA kernel for Hopper GPUs
+(ops/fused_solve.py, csrc/fused_solve.cu).  Imports torch, never jax.
 """
 
 import torch

@@ -3,16 +3,18 @@ quality gates.
 
     python -m irm_motion_planning_tpu_torch.bench [--batch N] [--repeats R]
     python -m irm_motion_planning_tpu_torch.bench --random-scenarios [--seed S]
+    python -m irm_motion_planning_tpu_torch.bench --solver gd [--random-scenarios]
     python -m irm_motion_planning_tpu_torch.bench --solver gd --backend pallas
 
 Protocol (the repository's bench.py, fleet engine): ``--solver`` BLS (the
 default, with the linearized ladder) or GD at its fixed per-round schedule
 (REFERENCE_INNER_SCHEDULE_BLS or _GD; GD's learning rates follow the
 ``gd_lr`` schedule), ``max_obstacles=11``, 1,048,576 lanes, on
-``--backend`` fused (the whole-solve kernels, BLS only; the default),
-pallas (the per-step kernels) or xla (the plain engine).  The first run
-(which builds the kernels) is excluded; each timed run ends with
-``torch.cuda.synchronize()``; the best of ``--repeats`` counts.
+``--backend`` fused (the whole-solve kernels, K1 or per round K2, for
+either solver; the default), pallas (the per-step kernels) or xla (the
+plain engine).  The first run (which builds the kernels) is excluded; each
+timed run ends with ``torch.cuda.synchronize()``; the best of ``--repeats``
+counts.
 
 * Replicated mode (the default): the reference scene on every lane.  The
   gate: avg/max unpenalized obstacle cost of the solved scene within
@@ -250,8 +252,10 @@ def main(argv=None) -> int:
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
     p.add_argument("--backend", choices=["fused", "pallas", "xla"],
                    default="fused",
-                   help="fused = the whole-solve kernels (BLS), pallas = the "
-                        "per-step kernels, xla = the plain engine")
+                   help="fused = the whole-solve kernels (K1, or K2 per "
+                        "round with lane compaction), pallas = the per-step "
+                        "kernels, xla = the plain engine; each runs both "
+                        "solvers")
     p.add_argument("--block-b", type=int, default=0,
                    help="fused backend: lanes (warps) per CTA, 1-16 (0: 16); "
                         "pallas backend: lanes (threads) per block (0: 128)")

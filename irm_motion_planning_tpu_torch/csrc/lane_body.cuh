@@ -5,8 +5,8 @@
 // shared memory.  A step or an evaluation is the same op sequence in every
 // per-step kernel, as pallas_step's _Body serves the TPU kernels.  The fused
 // kernels K1/K2 (fused_solve.cu) are built from the warp body
-// (warp_body.cuh), which runs this body's op sequence one warp per lane and
-// takes FsParams, fk_point and cost_total from here.
+// (warp_body.cuh), which runs this body's op sequence (bls_step and gd_step)
+// one warp per lane and takes FsParams, fk_point and cost_total from here.
 //
 // Built with -fmad=false: separate multiplies and adds round as they do in
 // the plain PyTorch version; the basis products use explicit fmaf.  Every
@@ -22,7 +22,10 @@
 #define MAX_ROUNDS 32
 #define ROWS 10
 
-// Mirror of _Params in ops/fused_solve.py (same order, all 4-byte fields).
+// Mirror of _Params in ops/fused_solve.py (same order, all 4-byte fields;
+// fused_params_layout in fused_solve.cu reports its size and the offset of
+// its last field, which the loader checks against the mirror).  gd_lr[r]:
+// GD's learning rate of round r (K1 with the GD solver).
 struct FsParams {
   int T, O, B, rounds, n_bls, masked;
   int sched[MAX_ROUNDS];
@@ -31,6 +34,7 @@ struct FsParams {
   float lam_max, mean_w, pos_hi, pos_lo, vel_hi;
   float lambda_reg, bls_alpha, beta_plus, beta_minus, lr_fail, lr_start;
   float loss_red, inc, eps_pos, eps_vel, max_jp, min_jp, max_jv;
+  float gd_lr[MAX_ROUNDS];
 };
 
 // Per-thread view of one lane.

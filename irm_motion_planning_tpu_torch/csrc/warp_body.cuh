@@ -25,9 +25,10 @@
 // alpha_norm) and the constraint extrema are the lane body's sequential
 // chains, each run by one thread over a row the owners wrote and broadcast
 // with __shfl_sync; the blend's first argmax is a shuffle tree, which
-// rounds nothing.  Each lane therefore runs the lane body's op sequence,
-// and K1/K2 give the one-thread-per-lane kernels' results bit for bit.  FK
-// and the penalized loss are the lane body's own functions.
+// rounds nothing.  Each lane therefore runs the lane body's op sequence
+// (its bls_step or gd_step), and K1/K2 give the one-thread-per-lane
+// kernels' results bit for bit.  FK and the penalized loss are the lane
+// body's own functions.
 
 #pragma once
 
@@ -536,7 +537,7 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
 }
 
 // ---------------------------------------------------------------------------
-// The BLS step, the round and the constraint check.
+// The BLS and GD steps, the constraint check and the round.
 // ---------------------------------------------------------------------------
 
 // Loss of the candidate (traj - lr dir_t, vel - lr dir_v): one ladder rung.
@@ -697,14 +698,80 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
   return __shfl_sync(FULL_MASK, ok, 0) != 0;
 }
 
+// One GD inner step of a live lane (the lane body's gd_step, same op
+// sequence): the trial (1 - lambda_reg lr) alpha - lr grad, staged as a
+// product input; its forward rows into traj/vel; the cost pass with the
+// loss; the stop test, which REJECTS the trial; only when it does not fire,
+// alpha becomes the trial (recomputed from the untouched alpha and grad:
+// the same floats) and the gradient pass runs at it.  No plane beyond
+// BLS's: on a reject alpha, grad and ``loss`` are untouched and only
+// traj/vel hold the trial's evaluation, which the round's caller restores.
+// Returns stop.
+static __device__ __forceinline__ bool gd_step(const FsParams& p, Warp& w,
+                                               float& loss, float lr) {
+  const int T = w.T;
+  const float a_fac = 1.f - p.lambda_reg * lr;
+  __syncwarp();  // the buffer's last readers are done
+  float4* in = (float4*)w.buf;
+#pragma unroll
+  for (int s = 0; s < WB_SLOTS; ++s) {
+    if (!w.owns(s)) continue;
+    const int t = w.tt(s);
+    in[t] = make_float4(a_fac * w.alpha[t] - lr * w.grad[t],
+                        a_fac * w.alpha[T + t] - lr * w.grad[T + t],
+                        a_fac * w.alpha[2 * T + t] - lr * w.grad[2 * T + t],
+                        0.f);
+  }
+  __syncwarp();
+  {
+    float out[2 * WB_SLOTS][NJ];
+    forward_rows(w, out);
+#pragma unroll
+    for (int s = 0; s < WB_SLOTS; ++s)
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        w.traj[s][i] = out[s][i];
+        w.vel[s][i] = out[WB_SLOTS + s][i];
+      }
+  }
+  int first;
+  const float nloss = cost_pass(p, w, true, first);
+  if ((loss - nloss) < p.loss_red) return true;
+#pragma unroll
+  for (int s = 0; s < WB_SLOTS; ++s) {
+    if (!w.owns(s)) continue;
+    const int t = w.tt(s);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int i = j * T + t;
+      w.alpha[i] = a_fac * w.alpha[i] - lr * w.grad[i];
+    }
+  }
+  grad_pass(p, w, first);
+  loss = nloss;
+  return false;
+}
+
+// The solvers of the round body (template argument, never a run-time
+// switch): the index ops/fused_solve.py's SOLVERS gives each.
+#define SOLVER_BLS 0
+#define SOLVER_GD 1
+
 // One penalty round of a live lane under its current penalties (the lane
 // body's round): round-start exact evaluation, loss and gradient; up to n_r
-// BLS steps from learning rate lr0; the exact re-evaluation from the final
+// steps of SOLVER from learning rate lr0; the exact evaluation at the final
 // alpha and the constraint check.  Returns whether the constraints hold;
-// the round's final loss goes to ``loss`` and each accepted step adds one
-// to ``inner``.  ``evaluated``: traj and vel already hold the exact
-// evaluation of alpha (the previous round's end, in K1), the same values
-// the round-start evaluation would give.
+// the round's final loss goes to ``loss`` and each step after which the
+// lane is still live adds one to ``inner``.  ``evaluated``: traj and vel
+// already hold the exact evaluation of alpha (the previous round's end, in
+// K1), the same values the round-start evaluation would give.
+//
+// The exact evaluation at the end: BLS re-evaluates from alpha (its
+// linearized carry drifts).  GD's carried (traj, vel) are exact already, so
+// the JAX kernel skips the re-evaluation; here they are too, except after a
+// rejected trial, whose evaluation gd_step left in traj/vel: the carried
+// one is rebuilt from the untouched alpha, the same floats bit for bit.
+template <int SOLVER>
 static __device__ __forceinline__ bool warp_round(const FsParams& p, Warp& w,
                                                   int n_r, float lr0,
                                                   float& loss, float& inner,
@@ -713,11 +780,21 @@ static __device__ __forceinline__ bool warp_round(const FsParams& p, Warp& w,
   int first;
   loss = cost_pass(p, w, true, first);
   grad_pass(p, w, first);
-  float lr = lr0;
-  for (int k = 0; k < n_r; ++k) {
-    if (bls_step(p, w, loss, lr)) break;
-    inner += 1.f;  // live before the step and after it
+  if constexpr (SOLVER == SOLVER_GD) {
+    bool rejected = false;
+    for (int k = 0; k < n_r; ++k) {
+      rejected = gd_step(p, w, loss, lr0);
+      if (rejected) break;
+      inner += 1.f;  // live before the step and after it
+    }
+    if (rejected) eval_alpha(w);
+  } else {
+    float lr = lr0;
+    for (int k = 0; k < n_r; ++k) {
+      if (bls_step(p, w, loss, lr)) break;
+      inner += 1.f;  // live before the step and after it
+    }
+    eval_alpha(w);
   }
-  eval_alpha(w);
   return constraints_ok(p, w);
 }

@@ -105,13 +105,14 @@ def build() -> str:
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
     signatures: the parameter block and the lanes per block (K3-K6) or per
-    CTA (K1/K2)[, the CTAs of K1/K2's grid][, n_r], then a c_void_p for
-    every tensor pointer; callers pass the stream last, as a c_void_p."""
+    CTA (K1/K2)[, K1/K2's solver and the CTAs of their grid][, n_r], then a
+    c_void_p for every tensor pointer; callers pass the stream last, as a
+    c_void_p."""
     from .fused_solve import _Params
 
     for name, n_int, n_ptr in (
-        ("fused_solve_launch", 1, 16),
-        ("fused_round_launch", 2, 17),
+        ("fused_solve_launch", 2, 16),
+        ("fused_round_launch", 3, 17),
         ("bls_step_launch", 0, 19),
         ("gd_step_launch", 0, 19),
         ("cost_grad_eval_launch", 0, 17),
@@ -124,19 +125,46 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
                            + [ctypes.c_void_p] * n_ptr)
     lib.fused_launch_shape.restype = ctypes.c_int
     lib.fused_launch_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.fused_params_layout.restype = ctypes.c_int
+    lib.fused_params_layout.argtypes = [ctypes.c_void_p]
     lib.fused_solve_error_string.restype = ctypes.c_char_p
     lib.fused_solve_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def params_layout() -> tuple:
+    """(size, offset of the last field) of the ctypes mirror _Params, as
+    the C side's fused_params_layout reports them for struct FsParams."""
+    from .fused_solve import _Params
+
+    last = _Params._fields_[-1][0]
+    return ctypes.sizeof(_Params), getattr(_Params, last).offset
+
+
+def check_layout(lib: ctypes.CDLL) -> None:
+    """Refuse a library whose struct FsParams is laid out otherwise than
+    the ctypes mirror: a field added on one side only, or elsewhere, would
+    shift every later field without any other error."""
+    out = (ctypes.c_int * 2)()
+    lib.fused_params_layout(out)
+    if tuple(out) != params_layout():
+        raise RuntimeError(
+            f"struct FsParams (size, last-field offset) {tuple(out)} differs "
+            f"from its ctypes mirror _Params {params_layout()}: the kernels "
+            f"would read shifted parameters"
+        )
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures
-    (``bind``)."""
+    (``bind``) and its parameter layout checked (``check_layout``)."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = bind(ctypes.CDLL(build()))
+            lib = bind(ctypes.CDLL(build()))
+            check_layout(lib)
+            _lib = lib
     return _lib
 
 

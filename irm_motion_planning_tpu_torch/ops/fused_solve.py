@@ -1,15 +1,21 @@
-"""The fused BLS kernels and their plain PyTorch versions (counterparts of
+"""The fused kernels and their plain PyTorch versions (counterparts of
 ``pallas_step.fused_solve`` and ``pallas_step.fused_round`` /
-``_make_solve_kernel`` in irm_motion_planning_tpu/ops/pallas_step.py).
+``_make_solve_kernel`` in irm_motion_planning_tpu/ops/pallas_step.py), for
+both solvers: BLS (``solver="bls"``) and GD (``solver="gd"``).
 
-A penalty round is: a fused cost/gradient evaluation, the inner BLS loop to
-the round's budget (normalized direction, Armijo ladder on the linearized
-trajectory, FK carry of the accepted rung, gradient pull-back), an exact
-re-evaluation of the trajectory and the hard-constraint check.
-``fused_solve`` runs every round of the whole penalty-method solve in one
-call, with the x10 penalty escalation on lanes that still fail;
-``fused_round`` runs one round and leaves the escalation to its caller
-(solvers/fleet.py, which re-sorts lanes between rounds).
+A penalty round is: a fused cost/gradient evaluation, the inner loop to the
+round's budget, and the hard-constraint check on the exact evaluation.  A
+BLS step takes the normalized direction, the Armijo ladder on the linearized
+trajectory, the FK carry of the accepted rung and the gradient pull-back,
+and the round ends with an exact re-evaluation of the trajectory (the
+linearized carry drifts).  A GD step evaluates the trial ``(1 - lambda_reg
+lr) alpha - lr grad`` exactly; the stop test rejects it, and the round ends
+on its carried evaluation, which is already exact.  ``fused_solve`` runs
+every round of the whole penalty-method solve in one call, with the x10
+penalty escalation on lanes that still fail (GD's learning rate per round
+from ``gd_lr``); ``fused_round`` runs one round from a per-lane learning
+rate and leaves the escalation to its caller (solvers/fleet.py, which
+re-sorts lanes between rounds).
 
 Layout: lanes trailing.  Per-joint planes are ``(J, T, B)``, per-lane
 scalars ``(B,)`` inside and ``(1, B)`` at the public functions, obstacles
@@ -36,6 +42,9 @@ from ..config import PlannerConfig
 
 # Most penalty rounds the kernel's parameter block holds.
 MAX_ROUNDS = 32
+# The solvers of the fused kernels, by the index of their instantiation in
+# csrc/fused_solve.cu (SOLVER_BLS = 0, SOLVER_GD = 1).
+SOLVERS = ("bls", "gd")
 # The warp-per-lane kernels (csrc/warp_body.cuh): lanes (warps) per CTA,
 # ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS;
 # two timesteps per thread, so at most WARP_MAX_T timesteps.
@@ -439,12 +448,17 @@ def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
 
 
 def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-              minimized, lr, n_r, icnt, tally=None):
-    """Round-start fused evaluation, up to ``n_r`` BLS steps from the
-    per-lane learning rate ``lr`` (B,), then the exact re-evaluation of
-    (traj, vel) from the final alpha.  Shared by both plain versions, as
-    pallas_step's run_inner serves both TPU kernels.  ``tally``: see
-    :func:`count_work`.  Returns (alpha, traj, vel, loss, icnt)."""
+              minimized, lr, n_r, icnt, tally=None, solver="bls"):
+    """Round-start fused evaluation and up to ``n_r`` steps of ``solver``
+    from the per-lane learning rate ``lr`` (B,).  BLS then re-evaluates
+    (traj, vel) exactly from the final alpha (its linearized carry drifts);
+    GD's carried (traj, vel) are the exact evaluation of alpha already (an
+    accepted trial's, or the round start's), so re-evaluating would change
+    nothing and, as in the JAX kernel, is skipped.  Shared by both plain
+    versions, as pallas_step's run_inner serves both TPU kernels.
+    ``tally``: see :func:`count_work`.  Returns (alpha, traj, vel, loss,
+    icnt)."""
+    gd = _solver_is_gd(solver)
     count_work(tally, "rounds", ~minimized)
     loss, grad, traj, vel, px, py = cost_grad_eval(
         cfg, c, kv, kvt, mix, alpha, start, goal, obs, lam_sg, lam_jl
@@ -452,21 +466,43 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
     for _ in range(n_r):
         if not bool((~minimized).any()):
             break
-        (alpha, grad, traj, vel, loss, lr, new_min, px, py) = bls_step(
-            cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
-            alpha, grad, traj, vel, loss, lr, minimized, px=px, py=py,
-            tally=tally,
-        )
+        if gd:
+            alpha, grad, traj, vel, loss, lr, new_min = gd_step(
+                cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
+                alpha, grad, traj, vel, loss, lr, minimized, tally=tally,
+            )
+        else:
+            (alpha, grad, traj, vel, loss, lr, new_min, px, py) = bls_step(
+                cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
+                alpha, grad, traj, vel, loss, lr, minimized, px=px, py=py,
+                tally=tally,
+            )
         # A step counts when the lane was live before it and after it.
         icnt = icnt + (~minimized & ~new_min).to(torch.float32)
         minimized = new_min
-    traj, vel = forward_planes(kv, mix, alpha)
+    if not gd:
+        traj, vel = forward_planes(kv, mix, alpha)
     return alpha, traj, vel, loss, icnt
 
 
+def _solver_is_gd(solver: str) -> bool:
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}")
+    return solver == "gd"
+
+
+def round_lr(cfg: PlannerConfig, r: int, solver: str) -> float:
+    """Round r's learning rate at the round start: ``bls_lr_start`` for
+    BLS; for GD the schedule's ``gd_lr[min(r, len(gd_lr) - 1)]``
+    (pallas_step's per-round selection)."""
+    if not _solver_is_gd(solver):
+        return cfg.bls_lr_start
+    return cfg.gd_lr[min(r, len(cfg.gd_lr) - 1)]
+
+
 def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
-                          lam_jl0, start, goal, ox, oy, ow,
-                          tally=None) -> FusedSolve:
+                          lam_jl0, start, goal, ox, oy, ow, tally=None,
+                          solver: str = "bls") -> FusedSolve:
     """Plain PyTorch version of the fused solve kernel; same arguments and
     outputs as :func:`fused_solve`.  ``tally``: see :func:`count_work`."""
     c = consts(cfg)
@@ -479,13 +515,13 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
     fulfilled = torch.zeros(B, dtype=torch.bool, device=a0.device)
     outer, icnt = zeros.clone(), zeros.clone()
     floss = torch.full_like(zeros, float("inf"))
-    lr0 = torch.full_like(zeros, cfg.bls_lr_start)
-    for n_r in inner_schedule(cfg):
+    for r, n_r in enumerate(inner_schedule(cfg)):
         if bool(fulfilled.all()):
             break
+        lr0 = torch.full_like(zeros, round_lr(cfg, r, solver))
         alpha, traj, vel, loss, icnt = run_inner(
             cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-            fulfilled, lr0, n_r, icnt, tally,
+            fulfilled, lr0, n_r, icnt, tally, solver,
         )
         now = fulfilled | constraints_ok(cfg, traj, vel, start, goal)
         floss = torch.where(fulfilled, floss, loss)
@@ -499,7 +535,8 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
 
 def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
                           lam_jl, fulfilled, lr0, n_r: int, start, goal, ox,
-                          oy, ow, tally=None) -> FusedRound:
+                          oy, ow, tally=None,
+                          solver: str = "bls") -> FusedRound:
     """Plain PyTorch version of the fused-round kernel; same arguments and
     outputs as :func:`fused_round`.  Lanes that come in fulfilled start
     minimized (alpha passes through, no step counts) and report loss 0 and
@@ -512,7 +549,7 @@ def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
     alpha, traj, vel, loss, icnt = run_inner(
         cfg, c, kv, kvt, mix, start, goal, obs_ctx(ox, oy, ow), alpha,
         lam_sg.reshape(B), lam_jl.reshape(B), was, lr0.reshape(B), int(n_r),
-        icnt, tally,
+        icnt, tally, solver,
     )
     ok = constraints_ok(cfg, traj, vel, start, goal) | was
     return FusedRound(alpha, torch.where(was, 0.0, loss)[None],
@@ -570,28 +607,40 @@ def launch_plan(cfg: PlannerConfig, O: int) -> dict:
     return {"warps": warps, "bytes": pieces, "total": total}
 
 
-def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str) -> dict:
-    """What the card makes of K1's (``kernel="fused_solve"``) or K2's
-    (``"fused_round"``) launch plan: CTAs per SM (the CUDA occupancy
-    calculator, registers and shared memory), SMs, shared memory per CTA as
-    the C side computes it, warps per SM.  Needs the card."""
+def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
+                 solver: str = "bls") -> dict:
+    """What the card makes of the launch plan of K1 (``kernel=
+    "fused_solve"``) or K2 (``"fused_round"``) for ``solver``: CTAs per SM
+    (the CUDA occupancy calculator, registers and shared memory), SMs,
+    shared memory per CTA as the C side computes it, warps per SM.  Needs
+    the card."""
     from ._build import load_library
 
     warps = launch_plan(cfg, O)["warps"]
     out = (ctypes.c_int * 3)()
     err = load_library().fused_launch_shape(
         kernel_params(cfg, O, B), warps,
-        {"fused_solve": 0, "fused_round": 1}[kernel], out)
+        {"fused_solve": 0, "fused_round": 1}[kernel], solver_index(solver),
+        out)
     if err:
         raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
             "warps_per_sm": out[0] * warps}
 
 
+def solver_index(solver: str) -> int:
+    """The solver's instantiation index in csrc/fused_solve.cu."""
+    _solver_is_gd(solver)
+    return SOLVERS.index(solver)
+
+
 class _Params(ctypes.Structure):
-    """Mirror of ``struct FsParams`` in csrc/fused_solve.cu (passed by
-    value).  Float fields hold the f32 roundings of the Python-float
-    constants, as JAX's weak typing rounds them."""
+    """Mirror of ``struct FsParams`` in csrc/lane_body.cuh (passed by
+    value), field for field in the same order; ``_build.load_library``
+    refuses a library whose struct size or last-field offset differ, and
+    tests/test_torch_fused_gd.py holds the field lists equal.  Float fields
+    hold the f32 roundings of the Python-float constants, as JAX's weak
+    typing rounds them."""
 
     _fields_ = [
         ("T", ctypes.c_int), ("O", ctypes.c_int), ("B", ctypes.c_int),
@@ -612,13 +661,16 @@ class _Params(ctypes.Structure):
         ("eps_pos", ctypes.c_float), ("eps_vel", ctypes.c_float),
         ("max_jp", ctypes.c_float), ("min_jp", ctypes.c_float),
         ("max_jv", ctypes.c_float),
+        ("gd_lr", ctypes.c_float * MAX_ROUNDS),
     ]
 
 
 def kernel_params(cfg: PlannerConfig, O: int, B: int,
                   schedule: bool = True) -> _Params:
     """The kernels' parameter block; ``schedule=False`` leaves the round
-    schedule out (the per-step kernels run no rounds)."""
+    schedule out (the per-step kernels run no rounds).  ``gd_lr[r]`` is GD's
+    learning rate of round r (:func:`round_lr`) for every r the block
+    holds."""
     c = consts(cfg)
     sched = inner_schedule(cfg) if schedule else []
     if len(sched) > MAX_ROUNDS:
@@ -634,6 +686,8 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
     )
     for r, n_r in enumerate(sched):
         p.sched[r] = n_r
+    for r in range(MAX_ROUNDS):
+        p.gd_lr[r] = f32(round_lr(cfg, r, "gd"))
     for j, l in enumerate(c.link):
         p.link[j] = f32(l)
     for name, value in (
@@ -660,15 +714,13 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
 
 
 def check_supported(cfg: PlannerConfig) -> None:
-    """Raise NotImplementedError for the modes this port does not run yet."""
+    """Raise NotImplementedError for the BLS modes this port does not run
+    yet."""
     if cfg.ladder_eval != "linearized":
         raise NotImplementedError(
             "ladder_eval='exact' is not ported yet (ROADMAP queue 1 #10)"
         )
-    if cfg.matmul_precision != "highest":
-        raise NotImplementedError(
-            "only matmul_precision='highest' (full fp32) is implemented"
-        )
+    check_precision(cfg)
     if cfg.bls_bf16_ladder:
         raise NotImplementedError(
             "the bf16 ladder tier is not ported (ROADMAP queue 1 #13)"
@@ -678,6 +730,22 @@ def check_supported(cfg: PlannerConfig) -> None:
             "exact_constraint_eval=False is not ported; the port always "
             "checks constraints on the exact evaluation"
         )
+
+
+def check_precision(cfg: PlannerConfig) -> None:
+    """The check of the code without a ladder (GD, K4-K6): only the
+    basis-product precision.  GD ignores the ladder options and always
+    checks constraints on an exact evaluation, as the JAX kernels do."""
+    if cfg.matmul_precision != "highest":
+        raise NotImplementedError(
+            "only matmul_precision='highest' (full fp32) is implemented"
+        )
+
+
+def solver_check(solver: str):
+    """The support check of ``solver``'s code: :func:`check_supported` for
+    BLS, :func:`check_precision` for GD."""
+    return check_precision if _solver_is_gd(solver) else check_supported
 
 
 def _check_args(name: str, cfg: PlannerConfig, named, lane_shape,
@@ -711,8 +779,11 @@ _LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
 
 
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
-                goal, ox, oy, ow, *, ctas: int = 0) -> FusedSolve:
-    """The whole BLS penalty-method solve for every lane.
+                goal, ox, oy, ow, *, solver: str = "bls",
+                ctas: int = 0) -> FusedSolve:
+    """The whole penalty-method solve of ``solver`` (``"bls"`` or ``"gd"``;
+    GD's round r starts from ``gd_lr[min(r, len(gd_lr) - 1)]``) for every
+    lane.
 
     kv (2T, T), kvt (T, 2T), mix (J, J), a0 (J, T, B), lam_sg0/lam_jl0
     (1, B), start/goal (J, B), ox/oy/ow (O, B), all f32.  CPU tensors run
@@ -726,15 +797,15 @@ def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
                         lambda J, T, O, B: (
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
-                            (O, B)))
+                            (O, B)), solver_check(solver))
     warps_per_cta(cfg)
     if where == "cpu":
-        return fused_solve_reference(cfg, *args)
+        return fused_solve_reference(cfg, *args, solver=solver)
     kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
         x.contiguous() for x in args
     )
     alpha = a0.clone()
-    outs = _launch("fused_solve", cfg, alpha, 4, ctas, [],
+    outs = _launch("fused_solve", cfg, solver, alpha, 4, ctas, [],
                    [kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow])
     fused_solve.launches += 1
     return FusedSolve(alpha, *outs)
@@ -745,10 +816,11 @@ fused_solve.launches = 0
 
 def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                 fulfilled, lr0, n_r: int, start, goal, ox, oy, ow, *,
-                ctas: int = 0) -> FusedRound:
-    """ONE penalty round for every lane: round-start fused evaluation under
-    the lane's penalties, up to ``n_r`` BLS steps from the lane's learning
-    rate ``lr0``, the exact re-evaluation and the constraint check.  The
+                solver: str = "bls", ctas: int = 0) -> FusedRound:
+    """ONE penalty round of ``solver`` for every lane: round-start fused
+    evaluation under the lane's penalties, up to ``n_r`` steps from the
+    lane's learning rate ``lr0`` (BLS adapts it from there; GD keeps it),
+    the exact evaluation at the final alpha and the constraint check.  The
     penalty escalation is the caller's.  Lanes with ``fulfilled`` set pass
     through (alpha unchanged, no steps, loss 0, ok 1).
 
@@ -768,16 +840,17 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                         lambda J, T, O, B: (
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (1, B), (1, B), (J, B), (J, B),
-                            (O, B), (O, B), (O, B)))
+                            (O, B), (O, B), (O, B)), solver_check(solver))
     warps_per_cta(cfg)
     if where == "cpu":
         return fused_round_reference(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl,
                                      fulfilled, lr0, n_r, start, goal, ox, oy,
-                                     ow)
+                                     ow, solver=solver)
     (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal, ox, oy,
      ow) = (x.contiguous() for x in args)
     out_alpha = alpha.clone()
-    outs = _launch("fused_round", cfg, out_alpha, 3, ctas, [ctypes.c_int(n_r)],
+    outs = _launch("fused_round", cfg, solver, out_alpha, 3, ctas,
+                   [ctypes.c_int(n_r)],
                    [kv, kvt, mix, lam_sg, lam_jl, fulfilled, lr0, start, goal,
                     ox, oy, ow])
     fused_round.launches += 1
@@ -787,12 +860,13 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
 fused_round.launches = 0
 
 
-def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, ctas: int,
-            scalars, inputs) -> list:
-    """Launch ``<name>_launch`` of the kernel library on the current stream:
-    the persistent grid (``ctas`` CTAs, 0: all that fit) over a lane queue
-    zeroed here; ``alpha`` (J, T, B) is updated in place, ``n_out`` (1, B)
-    outputs are returned.  Raises when the launch is refused."""
+def _launch(name: str, cfg: PlannerConfig, solver: str, alpha, n_out: int,
+            ctas: int, scalars, inputs) -> list:
+    """Launch ``<name>_launch`` of the kernel library on the current stream,
+    the instantiation of ``solver``: the persistent grid (``ctas`` CTAs, 0:
+    all that fit) over a lane queue zeroed here; ``alpha`` (J, T, B) is
+    updated in place, ``n_out`` (1, B) outputs are returned.  Raises when
+    the launch is refused."""
     from ._build import launch
 
     J, T, B = alpha.shape
@@ -807,7 +881,8 @@ def _launch(name: str, cfg: PlannerConfig, alpha, n_out: int, ctas: int,
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     launch(name, kernel_params(cfg, O, B), warps,
-           [ctypes.c_int(ctas), *scalars, *inputs, alpha, *outs, queue], dev)
+           [ctypes.c_int(solver_index(solver)), ctypes.c_int(ctas), *scalars,
+            *inputs, alpha, *outs, queue], dev)
     return outs
 
 

@@ -58,6 +58,7 @@ class LaneOps(NamedTuple):
     loss: int         # cost_total: the penalized loss from the sums
     grad: int         # grad_pass: pass B and the kvt pull-back
     step: int         # bls_step without the rungs and the pull-back
+    trial: int        # gd_step's trial (1 - lambda_reg lr) alpha - lr grad
     constraints: int  # constraints_ok
 
     @classmethod
@@ -77,6 +78,7 @@ class LaneOps(NamedTuple):
             # hoist, the accepted update of alpha, traj and vel
             step=(2 * J * T + 2 + T * (J + 2) + J * T + forward
                   + 2 * (2 * T) * J + 8 * J * T),
+            trial=3 * J * T + 2,
             constraints=8 * J * T,
         )
 
@@ -138,33 +140,47 @@ def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
     live_in = 2 * b["plane"] + 4 * b["scalar"] + b["scene"]
     byts = (B * F32 + steps * live_in + acc * (4 * b["plane"] + F32)
             + (steps - acc) * F32 + _basis_bytes(T, J))
-    ops = (steps * (3 * J * T + 2 + n.forward + n.cost + n.loss)
-           + acc * n.grad)
+    ops = steps * (n.trial + n.forward + n.cost + n.loss) + acc * n.grad
     return Bound(byts, ops)
 
 
 def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
-                 n_out: int) -> Bound:
-    """K1 (all rounds) or K2 (one round), from the work counts of the run
-    (rounds, steps, rungs, pull-backs): each lane reads alpha, its
-    penalties and scene and writes alpha and ``n_out`` per-lane results;
-    each round a lane runs pays the round-start evaluation, the
-    end-of-round re-evaluation and the constraint check; each step its
-    fixed part, each rung its cost, each step that does not stop the
-    pull-back (the FK carry reuses the loss)."""
+                 n_out: int, solver: str = "bls") -> Bound:
+    """K1 (all rounds) or K2 (one round) of ``solver``, from the work counts
+    of the run: each lane reads alpha, its penalties and scene and writes
+    alpha and ``n_out`` per-lane results.
+
+    BLS (rounds, steps, rungs, pull-backs): each round a lane runs pays the
+    round-start evaluation, the end-of-round re-evaluation and the
+    constraint check; each step its fixed part, each rung its cost, each
+    step that does not stop the pull-back (the FK carry reuses the loss).
+
+    GD (rounds, steps, accepted): each round pays the round-start
+    evaluation and the constraint check (the carried evaluation is exact:
+    no re-evaluation); each step the trial, its forward and its cost pass
+    with the loss; each accepted step the pull-back."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
-    rounds, steps, rungs, pulls = (_total(tally[k]) for k in
-                                   ("rounds", "steps", "rungs", "pullbacks"))
     per_lane = (2 * b["plane"] + 4 * b["scalar"] + b["scene"]
                 + n_out * b["scalar"])
-    ops = (rounds * (2 * n.forward + n.cost + n.loss + n.grad + n.constraints)
-           + steps * (n.step + 4) + rungs * (n.rung + 4)
-           + pulls * (n.cost + n.grad))
+    if solver == "gd":
+        rounds, steps, acc = (_total(tally[k]) for k in
+                              ("rounds", "steps", "accepted"))
+        ops = (rounds * (n.forward + n.cost + n.loss + n.grad + n.constraints)
+               + steps * (n.trial + n.forward + n.cost + n.loss)
+               + acc * n.grad)
+    else:
+        rounds, steps, rungs, pulls = (_total(tally[k]) for k in
+                                       ("rounds", "steps", "rungs",
+                                        "pullbacks"))
+        ops = (rounds * (2 * n.forward + n.cost + n.loss + n.grad
+                         + n.constraints)
+               + steps * (n.step + 4) + rungs * (n.rung + 4)
+               + pulls * (n.cost + n.grad))
     return Bound(B * per_lane + _basis_bytes(T, J), ops)
 
 
 def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
-                         live) -> Bound:
+                         live, solver: str = "bls") -> Bound:
     """K2 over a whole solve, one launch per round, from the solve's work
     counts (as :func:`fused_rounds`: the rounds driver runs K1's work) and
     ``live``, the lanes each launch runs: every launch reads every lane's
@@ -172,7 +188,7 @@ def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
     reads alpha, its penalties, its learning rate and its scene and writes
     alpha; each launch reads the basis."""
     b = _lane_bytes(T, J, O)
-    ops = fused_rounds(B, T, J, O, tally, 3).ops
+    ops = fused_rounds(B, T, J, O, tally, 3, solver).ops
     byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)

@@ -72,15 +72,6 @@ def workspace(J: int, T: int, B: int, device, gd: bool = False):
     return torch.empty((planes, T, B), dtype=torch.float32, device=device)
 
 
-def check_precision(cfg: PlannerConfig) -> None:
-    """The check of the kernels without a ladder (K4-K6, GD): only the
-    basis-product precision."""
-    if cfg.matmul_precision != "highest":
-        raise NotImplementedError(
-            "only matmul_precision='highest' (full fp32) is implemented"
-        )
-
-
 _STEP_LABELS = ("kv", "kvt", "mix", "alpha", "grad", "traj", "vel", "loss",
                 "lr", "minimized", "lam_sg", "lam_jl", "start", "goal", "ox",
                 "oy", "ow")
@@ -194,7 +185,7 @@ def _into(out, res):
 
 def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
           reference, wrapper) -> PallasStep:
-    supported = check_precision if gd else fs.check_supported
+    supported = fs.solver_check("gd" if gd else "bls")
     where = fs._check_args(name, cfg, tuple(zip(_STEP_LABELS, args)),
                            _step_shapes, supported)
     state = args[3:10]
@@ -265,7 +256,7 @@ def cost_grad_eval(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                                (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                                (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
                                (O, B)),
-                           check_precision)
+                           fs.check_precision)
     J, T, B = alpha.shape
     if out is not None:
         out = PallasEval(*out)
@@ -297,7 +288,7 @@ def forward_eval(cfg: PlannerConfig, kv, mix, alpha,
     where = fs._check_args("forward_eval", cfg,
                            tuple(zip(("kv", "mix", "alpha"), args)),
                            lambda J, T, O, B: ((2 * T, T), (J, J), (J, T, B)),
-                           check_precision)
+                           fs.check_precision)
     if out is not None:
         out = PallasForward(*out)
         _check_out("forward_eval", out, (alpha, alpha))

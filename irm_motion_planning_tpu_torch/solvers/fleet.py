@@ -6,7 +6,7 @@ Every tensor carries the scene lane as its LAST axis: alpha and trajectory
 (B,).  Line-search candidates add a rung axis before the lanes,
 (T, J, n+1, B).  Three engines:
 
-* ``backend="fused"``: the whole BLS solve in one kernel launch
+* ``backend="fused"``: the whole solve, BLS or GD, in one kernel launch
   (ops/fused_solve.py: the CUDA kernel on a GPU, its plain version on the
   CPU); with ``cfg.lane_compaction`` one launch per penalty round instead,
   with the lanes re-sorted after round 0 (:func:`_fused_rounds_solve`);
@@ -489,11 +489,15 @@ def compaction_order(ful: torch.Tensor, floss: torch.Tensor,
     return torch.argsort(key, stable=True)
 
 
-def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
-    """The BLS solve as one fused-round launch per penalty round
+def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
+                        solver: str = "bls") -> SolveResult:
+    """The solve of ``solver`` as one fused-round launch per penalty round
     (ops.fused_solve.fused_round), with the penalty bookkeeping between
     launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
-    before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).
+    before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).  Each
+    round starts every lane from the round's learning rate
+    (fused_solve.round_lr: ``bls_lr_start``, or GD's ``gd_lr[min(r, len -
+    1)]``), as the JAX package's rounds driver does.
 
     Why, in the JAX package: a tile of lanes runs until its slowest lane
     freezes, so sorting by round 0's accepted-step count (fulfilled lanes
@@ -514,7 +518,6 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
     zeros = torch.zeros((1, B), dtype=torch.float32, device=dev)
     ful, outer, total_inner = zeros, zeros, zeros
     floss = torch.full((1, B), float("inf"), device=dev)
-    lr0 = torch.full((1, B), cfg.bls_lr_start, dtype=torch.float32, device=dev)
     perm = torch.arange(B, device=dev)   # lane i holds original lane perm[i]
     last_steps = zeros[0]
     for r, n_r in enumerate(fs.inner_schedule(cfg)):
@@ -527,8 +530,10 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple) -> SolveResult:
                     start, goal, ox, oy, ow, perm, last_steps,
                 )
             )
+        lr0 = torch.full((1, B), fs.round_lr(cfg, r, solver),
+                         dtype=torch.float32, device=dev)
         out = fs.fused_round(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl, ful,
-                             lr0, n_r, start, goal, ox, oy, ow)
+                             lr0, n_r, start, goal, ox, oy, ow, solver=solver)
         # Penalty bookkeeping: op for op the whole-solve kernel's.
         was = ful
         now = torch.maximum(was, out.ok)
@@ -643,10 +648,11 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                 backend: str = "fused") -> SolveResult:
     """Solve a batch of scenes (leading-batch Scenario); ``alpha0`` is an
     optional (B, T, J) warm start.  ``solver``: ``"bls"`` or ``"gd"``.
-    ``backend``: ``"fused"`` (the whole-solve kernels, BLS; one launch per
-    round with ``cfg.lane_compaction``), ``"pallas"`` (the per-step
-    kernels) or ``"xla"`` (the plain engine).  The device of the scenes
-    decides where it runs.  Returns leading-batch results."""
+    ``backend``: ``"fused"`` (the whole-solve kernels: one launch per solve,
+    or one per round with ``cfg.lane_compaction``), ``"pallas"`` (the
+    per-step kernels) or ``"xla"`` (the plain engine); each runs both
+    solvers.  The device of the scenes decides where it runs.  Returns
+    leading-batch results."""
     if solver not in ("bls", "gd"):
         raise ValueError(f"unknown solver {solver!r}")
     if solver == "bls" and cfg.bls_mode == "sequential":
@@ -663,13 +669,8 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         )
     if backend not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if solver == "gd" and backend == "fused":
-        raise NotImplementedError(
-            "the fused GD kernel is not ported yet (ROADMAP queue 1 #9); use "
-            "backend='pallas' or 'xla'"
-        )
     if backend == "pallas":
-        (sk.check_precision if solver == "gd" else fs.check_supported)(cfg)
+        fs.solver_check(solver)(cfg)
         return _pallas_solve(cfg, basis, scenarios, alpha0, solver)
     if backend == "xla":
         if cfg.matmul_precision != "highest":
@@ -693,8 +694,8 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         return SolveResult(alpha=alpha_from_fleet(res.alpha), stats=res.stats)
     args = fused_args(cfg, basis, scenarios, alpha0)
     if cfg.lane_compaction:
-        return _fused_rounds_solve(cfg, args[1:])
-    return kernel_result(fs.fused_solve(*args))
+        return _fused_rounds_solve(cfg, args[1:], solver)
+    return kernel_result(fs.fused_solve(*args, solver=solver))
 
 
 def make_fleet_solver(cfg: PlannerConfig, basis: Basis, solver: str = "bls",

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (csrc/fused_solve.cu: the whole solve and one
-penalty round; csrc/step_kernels.cu: the per-step kernels) against their
-plain PyTorch versions on the same card, the rounds driver against the
-whole-solve kernel, and the per-step driver on the card.  The kernels have no CPU
+penalty round, for BLS and GD; csrc/step_kernels.cu: the per-step kernels)
+against their plain PyTorch versions on the same card, the rounds driver
+against the whole-solve kernel, the fused GD kernel against the per-step GD
+path, and the per-step driver on the card.  The kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX, hence ``--noconftest``):
@@ -45,13 +46,17 @@ def args():
     return fleet.fused_args(cfg, basis, scns)
 
 
-def test_kernel_matches_plain_version_on_the_card(args):
+SOLVERS = pytest.mark.parametrize("solver", ["bls", "gd"])
+
+
+@SOLVERS
+def test_kernel_matches_plain_version_on_the_card(args, solver):
     """Lane agreement with the plain version at 1 round x 4 steps, the bound
     chip_smoke.py holds the kernel to (CARD_SHORT_AGREEMENT_MIN)."""
     before = tfs.fused_solve.launches
-    got = tfs.fused_solve(*args)
+    got = tfs.fused_solve(*args, solver=solver)
     assert tfs.fused_solve.launches == before + 1
-    ref = tfs.fused_solve_reference(*args)
+    ref = tfs.fused_solve_reference(*args, solver=solver)
     torch.cuda.synchronize()
     agree, rel = tfs.lane_agreement(ref, got)
     print(f"lane agreement {agree:.4f}, alpha rel err {rel:.3g}")
@@ -60,33 +65,37 @@ def test_kernel_matches_plain_version_on_the_card(args):
     assert torch.isfinite(got.alpha).all()
 
 
+@SOLVERS
 @pytest.mark.parametrize("block_b", [4, 8])
-def test_kernel_lanes_do_not_depend_on_block_size(args, block_b):
+def test_kernel_lanes_do_not_depend_on_block_size(args, block_b, solver):
     """Per-lane results do not depend on how lanes are grouped: every
     number of lanes (warps) per CTA gives the default's outputs bit for
     bit."""
-    want = tfs.fused_solve(*args)
-    got = tfs.fused_solve(args[0].replace(pallas_block_b=block_b), *args[1:])
+    want = tfs.fused_solve(*args, solver=solver)
+    got = tfs.fused_solve(args[0].replace(pallas_block_b=block_b), *args[1:],
+                          solver=solver)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
 
+@SOLVERS
 @pytest.mark.parametrize("kernel", ["fused_solve", "fused_round"])
-def test_kernel_lanes_do_not_depend_on_grid_size(args, kernel):
+def test_kernel_lanes_do_not_depend_on_grid_size(args, kernel, solver):
     """The persistent grid's warps draw lanes from a queue: one CTA, whose
     warps take every lane in turn, gives the full grid's outputs bit for
     bit."""
     if kernel == "fused_solve":
         fn, a = tfs.fused_solve, args
     else:
-        fn, a = tfs.fused_round, _round_args(args)
-    want = fn(*a)
-    got = fn(*a, ctas=1)
+        fn, a = tfs.fused_round, _round_args(args, solver=solver)
+    want = fn(*a, solver=solver)
+    got = fn(*a, ctas=1, solver=solver)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
 
-def test_generic_instantiation_matches_plain_version():
+@SOLVERS
+def test_generic_instantiation_matches_plain_version(solver):
     """Shapes other than the bench's (T=50, O=11) run the fused kernels'
     generic instantiation: at 13 obstacle slots (two of them padding), K1
     and K2 agree with their plain versions as the specialised ones do
@@ -97,22 +106,25 @@ def test_generic_instantiation_matches_plain_version():
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(6), BATCH,
                                device=dev)
     args = fleet.fused_args(cfg, basis, scns)
-    agree, rel = tfs.lane_agreement(tfs.fused_solve_reference(*args),
-                                    tfs.fused_solve(*args))
+    agree, rel = tfs.lane_agreement(
+        tfs.fused_solve_reference(*args, solver=solver),
+        tfs.fused_solve(*args, solver=solver))
     print(f"K1 generic: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
     assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
     assert rel <= tfs.ALPHA_REL_MAX
-    rargs = _round_args(args)
-    agree, rel = _masked_agreement(tfs.fused_round_reference(*rargs),
-                                   tfs.fused_round(*rargs), rargs[7])
+    rargs = _round_args(args, solver=solver)
+    agree, rel = _masked_agreement(
+        tfs.fused_round_reference(*rargs, solver=solver),
+        tfs.fused_round(*rargs, solver=solver), rargs[7])
     print(f"K2 generic: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
     assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
     assert rel <= tfs.ALPHA_REL_MAX
 
 
-def _round_args(args, seed=0):
+def _round_args(args, seed=0, solver="bls"):
     """fused_round's arguments from fused_solve's: a quarter of the lanes
-    fulfilled, penalties escalated x1/x10/x100, four learning rates."""
+    fulfilled, penalties escalated x1/x10/x100, four learning rates (BLS's,
+    or the GD schedule's first four)."""
     cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
     g = torch.Generator().manual_seed(seed)
     B = a0.shape[-1]
@@ -120,8 +132,8 @@ def _round_args(args, seed=0):
     ful = (torch.rand((1, B), generator=g) < 0.25).float().to(dev)
     esc = torch.tensor([1.0, 10.0, 100.0])[
         torch.randint(0, 3, (1, B), generator=g)].to(dev)
-    lr0 = torch.tensor([0.2, 0.1, 0.05, 0.3])[
-        torch.randint(0, 4, (1, B), generator=g)].to(dev)
+    lrs = [0.2, 0.1, 0.05, 0.3] if solver == "bls" else list(cfg.gd_lr[:4])
+    lr0 = torch.tensor(lrs)[torch.randint(0, 4, (1, B), generator=g)].to(dev)
     return (cfg, kv, kvt, mix, a0, lsg * esc, ljl * esc, ful, lr0, 4, start,
             goal, ox, oy, ow)
 
@@ -136,23 +148,25 @@ def _masked_agreement(ref, got, ful):
     return float(same.float().mean()), float(rel.max())
 
 
-def test_round_kernel_matches_plain_version_on_ragged_lanes(args):
+@SOLVERS
+def test_round_kernel_matches_plain_version_on_ragged_lanes(args, solver):
     """K2 on 1,000 lanes at 4, 8 and 16 lanes (warps) per CTA: bit for bit
     the same at every CTA shape, and in agreement with the plain version
     (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX)."""
-    rargs = _round_args(args)
+    rargs = _round_args(args, solver=solver)
     before = tfs.fused_round.launches
-    want = tfs.fused_round(*rargs)
+    want = tfs.fused_round(*rargs, solver=solver)
     assert tfs.fused_round.launches == before + 1
     for bt in (4, 8):
-        got = tfs.fused_round(rargs[0].replace(pallas_block_b=bt), *rargs[1:])
+        got = tfs.fused_round(rargs[0].replace(pallas_block_b=bt), *rargs[1:],
+                              solver=solver)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
     ful = rargs[7]
     assert torch.equal(want.alpha[:, :, ful[0] > 0.5],
                        rargs[4][:, :, ful[0] > 0.5])
     assert (want.inner[ful > 0.5] == 0).all()
-    ref = tfs.fused_round_reference(*rargs)
+    ref = tfs.fused_round_reference(*rargs, solver=solver)
     torch.cuda.synchronize()
     agree, rel = _masked_agreement(ref, want, ful)
     print(f"round kernel: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
@@ -160,8 +174,9 @@ def test_round_kernel_matches_plain_version_on_ragged_lanes(args):
     assert rel <= tfs.ALPHA_REL_MAX
 
 
+@SOLVERS
 @pytest.mark.parametrize("compact", [False, True])
-def test_rounds_driver_equals_whole_solve_kernel(compact):
+def test_rounds_driver_equals_whole_solve_kernel(compact, solver):
     """The rounds driver over K2 (one launch per round) equals K1 bit for
     bit on every output field, with and without lane compaction."""
     dev = torch.device("cuda", 0)
@@ -172,14 +187,33 @@ def test_rounds_driver_equals_whole_solve_kernel(compact):
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(4), 4096,
                                device=dev)
     args = fleet.fused_args(cfg, basis, scns)
-    k1 = tfs.fused_solve(*args)
+    k1 = tfs.fused_solve(*args, solver=solver)
     before = tfs.fused_round.launches
     got = fleet._fused_rounds_solve(cfg.replace(lane_compaction=compact),
-                                    args[1:])
+                                    args[1:], solver)
     assert tfs.fused_round.launches == before + 3
     want = fleet.kernel_result(k1)
     assert torch.equal(got.alpha, want.alpha)
     for x, y in zip(got.stats, want.stats):
+        assert torch.equal(x, y)
+
+
+def test_fused_gd_equals_per_step_gd_on_the_card():
+    """K1-GD runs the warp form of the lane body's GD op sequence, and the
+    per-step GD path (K5 once per round, K4 per step) runs the lane body:
+    on 4,096 random scenes at 3 rounds (48/8/4 steps) every output field
+    is equal bit for bit."""
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
+                           max_inner_iteration=48, fixed_iters=True,
+                           max_obstacles=11)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(8), 4096,
+                               device=dev)
+    fused = fleet.fleet_solve(cfg, basis, scns, solver="gd")
+    step = fleet.fleet_solve(cfg, basis, scns, solver="gd", backend="pallas")
+    assert torch.equal(fused.alpha, step.alpha)
+    for x, y in zip(fused.stats, step.stats):
         assert torch.equal(x, y)
 
 

@@ -131,8 +131,10 @@ def test_bench_schedule_on_plain_path():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    # The fused GD kernel (K1b) is not ported; GD runs per step or plain.
-    (dict(backend="fused", solver="gd"), NotImplementedError),
+    # The exact ladder is not ported on the fused kernels either (BLS; GD
+    # ignores the ladder options).
+    (dict(backend="fused", cfg=dict(ladder_eval="exact")),
+     NotImplementedError),
     # The exact ladder is not ported on any kernel path.
     (dict(backend="pallas", cfg=dict(ladder_eval="exact")),
      NotImplementedError),

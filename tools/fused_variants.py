@@ -6,9 +6,10 @@ Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` once per
 variant with the given ``-D`` flags (each its own ``nvcc``, all started
 together, beside the port's own build), prints each build's ptxas report
 (registers, spills) and its launch shape, then runs K1 of every variant on
-the bench's 1,048,576-lane inputs (the replicated reference scene, then
-random scenes, seed 0), twice each, timed with CUDA events, and says
-whether its outputs equal the default build's bit for bit.
+the bench's 1,048,576-lane inputs (the BLS solver on the replicated
+reference scene, then on random scenes, seed 0), twice each, timed with
+CUDA events, and says whether its outputs equal the default build's bit for
+bit.
 
 The flags the warp body reads: ``WB_MIN_CTAS=n`` (CTAs of 16 warps per SM
 that ``__launch_bounds__`` asks registers for; 2 by default),
@@ -75,7 +76,8 @@ class Variant:
     def shape(self, cfg, O, B):
         out = (ctypes.c_int * 3)()
         err = self.lib.fused_launch_shape(fs.kernel_params(cfg, O, B),
-                                          self.warps, 0, out)
+                                          self.warps, 0,
+                                          fs.solver_index("bls"), out)
         return {"err": err, "ctas_per_sm": out[0], "smem": out[2]}
 
     def solve(self, args):
@@ -85,7 +87,8 @@ class Variant:
         outs = [torch.empty((1, B), device=a0.device) for _ in range(4)]
         queue = torch.zeros(1, dtype=torch.int32, device=a0.device)
         err = self.lib.fused_solve_launch(
-            fs.kernel_params(cfg, ox.shape[0], B), self.warps, 0,
+            fs.kernel_params(cfg, ox.shape[0], B), self.warps,
+            fs.solver_index("bls"), 0,
             *ptrs(kv, kvt, mix, lsg, ljl, start, goal, ox, oy, ow, alpha,
                   *outs, queue), stream())
         if err:
