@@ -3,24 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from irm_motion_planning_tpu_torch/csrc
-(K1, the whole solve, and K2, one penalty round, each for BLS and for GD;
-K3/K4, one BLS/GD inner step; K5, the fused cost/gradient evaluation; K6,
-the forward evaluation), holds each against its plain PyTorch version, and
+(K1, the whole solve, and K2, one penalty round, each for BLS in both
+ladder tiers and for GD; K3/K4, one BLS (both tiers) or GD inner step; K5,
+the fused cost/gradient evaluation; K6, the forward evaluation), holds each
+against its plain PyTorch version, and
 drives the port's paths through them: the main path
 (irm_motion_planning_tpu_torch.bench's default protocol: the reference
 scene replicated over 1,048,576 lanes, one K1 launch), the
 heterogeneous-fleet path (the bench's random-scenes mode: 1,048,576 random
 scenes, one K2 launch per penalty round with lane compaction, gated against
 the plain xla engine), the per-step backend (``--backend pallas``, BLS and
-GD, K3-K6) and GD on the fused backend (``--solver gd``, K1 and K2 with the
-GD step).  Phases:
+GD, K3-K6), GD on the fused backend (``--solver gd``, K1 and K2 with the
+GD step) and the exact ladder (``--ladder-eval exact``, K1, K2 and K3 with
+the exact BLS step).  Phases:
 
 1. device: the card's name and power limit, the kernel build; for K1 and
-   K2 (one warp per lane, persistent grid), for each solver, the registers
-   and spills of each instantiation from the ptxas report
-   (``fused_solve<gd,50,11>``: solver, T, O; ``<bls,0,0>`` the generic
-   one), and from the launch plan the shared memory per CTA (which must
-   equal the C side's) and the CTAs and warps per SM;
+   K2 (one warp per lane, persistent grid), for each program (bls, gd,
+   bls_exact), the registers and spills of each instantiation from the
+   ptxas report (``fused_solve<gd,50,11>``: program, T, O; ``<bls,0,0>``
+   the generic one), and from the launch plan the shared memory per CTA
+   (which must equal the C side's) and the CTAs and warps per SM;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
    steps, lane agreement and alpha error on agreeing lanes; then the first
    1,000 of those lanes at 4, 8 and 16 lanes (warps) per CTA and on a
@@ -42,9 +44,10 @@ GD step).  Phases:
    then 1,000 of those lanes at 4/8/16 lanes per CTA and on a one-CTA
    grid, bit for bit the full batch's lanes;
 6. the rounds driver against K1: 16,384 random scenes at the bench
-   schedule, compaction off and on; every output field must equal K1's bit
-   for bit and each solve must launch K2 ten times.  K2's time (the sum of
-   its ten launches) and the plain version's on the same ten inputs;
+   schedule, compaction off, on and off again; every output field must
+   equal K1's bit for bit and each solve must launch K2 ten times.  K2's
+   time (the sum of its ten launches, compaction off: the first reading and
+   the second) and the plain version's on the same ten inputs;
 7. the heterogeneous path: solves/s with compaction on (K2 launch count,
    the paired xla gate on 32,768 lanes with its values, bands and the xla
    engine's time; the gate must pass) and off (per-lane results must equal
@@ -89,7 +92,29 @@ GD step).  Phases:
    rounds against their plain versions); 1,048,576 random scenes with
    compaction (the paired GD xla gate on 32,768 lanes must pass), then
    without, then K1-GD on the same scenes, all bitwise equal per lane;
-   K2-GD's time per solve, and the GD bounds there.
+   K2-GD's time per solve, and the GD bounds there;
+14. K1-exact and K2-exact against their plain versions: K1-exact on 1,024
+   random scenes at 2 rounds x 6 steps, K2-exact one round (n_r = 4) with a
+   quarter of the lanes fulfilled (bitwise unchanged), lane agreement >=
+   CARD_SHORT_AGREEMENT_MIN; for both the first 1,000 lanes at
+   4/8/16 lanes per CTA and on one CTA, bit for bit the full batch's lanes;
+15. K3-exact against its plain version, one step from K5's state on the
+   same 1,024 scenes (a quarter frozen, bitwise unchanged), the ragged
+   batch at 64/128/256 threads per block bitwise, and at 1,048,576 lanes on
+   the main path's inputs (timed, held to plain, bound);
+16. the exact paths: K1-exact against the per-step exact path (K5 + K3-exact,
+   no K6 launch) on 16,384 random scenes at the bench schedule, bit for
+   bit; the exact rounds driver against K1-exact with compaction off and
+   on (bitwise, ten K2-exact launches, K2-exact's ten rounds against their
+   plain versions); ``bench --ladder-eval exact`` at 1M replicated (one K1
+   launch per solve, the exact gate endpoint < 0.05, the strict 0.01
+   reading printed, lanes equal lane 0, peak memory; K1-exact alone, its
+   plain version and bound); 1M random scenes with compaction and the
+   paired gate against the exact xla engine on 32,768 lanes, then K1-exact
+   on the same scenes, bitwise equal; K2-exact's time per solve and the
+   bounds there; and, for information, the certify statistics
+   (irm_motion_planning_tpu_torch/certify.py) of the card's exact tier on
+   the 2,048 scenes of certify_oracle_cpu2048.npz.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -98,9 +123,10 @@ largest error against the plain version, its time, the plain version's
 run's inputs and the plain versions' tallies of the data-dependent work,
 each from an untimed call) and, for K6, one PyTorch call's time.  K1 and
 K2 also carry their time and bound at 1,048,576 random scenes (K2 per
-solve), their registers, spills and occupancy, and K1 the main path's
+solve; K2 also its second reading at 16,384, ``ms_second_reading``), their registers, spills and occupancy, and K1 the main path's
 peak device memory; under ``gd`` the same numbers for their GD
-instantiations (phases 12-13).
+instantiations (phases 12-13), and under ``exact`` K1's, K2's and K3's
+for the exact ladder (phases 14-16, with their lane agreement).
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -108,12 +134,14 @@ is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 MAIN_BATCH = 1048576
@@ -181,9 +209,12 @@ def main():
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
         f"{build_s:.1f}s")
-    bcfg = bench.bench_config()
     occupancy = {}
-    for solver in fs.SOLVERS:
+    for prog in fs.PROGRAMS:
+        # The program's solver, and BLS's ladder tier.
+        solver = "gd" if prog == "gd" else "bls"
+        bcfg = bench.bench_config(
+            ladder_eval="exact" if prog == "bls_exact" else "linearized")
         for name in ("fused_solve", "fused_round"):
             plan = fs.launch_plan(bcfg, bcfg.max_obstacles)
             shape = fs.launch_shape(bcfg, bcfg.max_obstacles, MAIN_BATCH,
@@ -192,15 +223,15 @@ def main():
                 fail(f"phase 1: {name} launch plan {plan['total']} B of "
                      f"shared memory per CTA, the C side {shape['smem']} B")
             built = {k: v for k, v in ptxas.items()
-                     if k.startswith(f"{name}<{solver},")}
+                     if k.startswith(f"{name}<{prog},")}
             if len(built) != 2:
-                fail(f"phase 1: no ptxas report of {name}<{solver},...> "
+                fail(f"phase 1: no ptxas report of {name}<{prog},...> "
                      f"(specialised and generic): {sorted(ptxas)}")
-            occupancy[name, solver] = {"ptxas": built, **shape,
-                                       "warps_per_cta": plan["warps"],
-                                       "smem_bytes": plan["bytes"]}
+            occupancy[name, prog] = {"ptxas": built, **shape,
+                                     "warps_per_cta": plan["warps"],
+                                     "smem_bytes": plan["bytes"]}
             say(f"phase 1 {name} (K{1 if name == 'fused_solve' else 2}, "
-                f"{solver}): {plan['warps']} lanes (warps) per CTA, shared "
+                f"{prog}): {plan['warps']} lanes (warps) per CTA, shared "
                 f"memory per CTA {plan['total']} B {plan['bytes']}, "
                 f"{shape['ctas_per_sm']} CTAs and {shape['warps_per_sm']} "
                 f"warps per SM on {shape['sms']} SMs; ptxas {built}")
@@ -343,7 +374,7 @@ def main():
     k1_bound = roofline.fused_rounds(
         MAIN_BATCH, T, J, O,
         kernel_counts(plain_tally(fs.fused_solve_reference, *args), k1_rounds,
-                      k1_accepted), 4)
+                      k1_accepted), True)
     pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
     gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
             for key in ("avg_cost", "max_cost")]
@@ -399,40 +430,9 @@ def main():
     k1 = fs.fused_solve(*args)
     want = fleet.kernel_result(k1)
     rounds = len(fs.inner_schedule(cfg))
-    k2_ms = k2_plain_ms = None
-    for compact in (False, True):
-        before = fs.fused_round.launches
-        with KernelTimer(fs, "fused_round", capture=not compact) as timer:
-            got = fleet._fused_rounds_solve(
-                cfg.replace(lane_compaction=compact), args[1:])
-            torch.cuda.synchronize()
-        launched = fs.fused_round.launches - before
-        same = same_result(got, want)
-        say(f"phase 6 rounds driver, compaction {'on' if compact else 'off'} "
-            f"({FULL_BATCH} random scenes): {launched} K2 launches, "
-            f"{timer.total_ms():.1f} ms in K2, bitwise equal to K1: {same}")
-        if not same:
-            fail("phase 6: the rounds driver differs from K1")
-        if launched != rounds:
-            fail(f"phase 6: {launched} K2 launches, not {rounds}")
-        if not compact:
-            k2_ms = timer.total_ms()
-            k2_plain_ms, agreements = 0.0, []
-            k2_bound = roofline.Bound(0.0, 0.0)
-            for rin, rout in zip(timer.inputs, timer.outputs):
-                rp, ms = timed(lambda: fs.fused_round_reference(*rin))
-                k2_plain_ms += ms
-                k2_bound = k2_bound + roofline.fused_rounds(
-                    FULL_BATCH, T, J, O,
-                    kernel_counts(plain_tally(fs.fused_round_reference, *rin),
-                                  float((rin[7] < 0.5).sum()),
-                                  float(rout.inner.sum())), 3)
-                agreements.append(round_agreement(rp, rout, rin[7])[0])
-            say(f"phase 6 K2 {k2_ms:.1f} ms over {rounds} launches, plain "
-                f"version {k2_plain_ms:.1f} ms on the same inputs; per-round lane "
-                f"agreement {[round(a, 4) for a in agreements]}")
-            del timer.inputs[:], timer.outputs[:]
-    del k1, want, got, args
+    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
+        fs, fleet, roofline, cfg, args, want, "bls", 6, "rounds driver", "K2")
+    del k1, want, args
     torch.cuda.empty_cache()
 
     # -- phase 7: the heterogeneous path ------------------------------------
@@ -523,7 +523,7 @@ def main():
     tally = kernel_counts({k: v * scale for k, v in sub.items()},
                           float((k1.outer_iters + k1.fulfilled).sum()),
                           float(k1.inner_iters.sum()))
-    k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, 4)
+    k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, True)
     rounds_run = (k1.outer_iters + k1.fulfilled)[0]
     live = [float((rounds_run > r).sum()) for r in range(rounds)]
     k2_rand_bound = roofline.fused_round_launches(MAIN_BATCH, T, J, O, tally,
@@ -588,7 +588,7 @@ def main():
     mkv, mkvt, mmix, ma0, mlsg, mljl = margs[:6]
     mtail = margs[4:]
     meargs = (mkv, mkvt, mmix, ma0, *mtail)
-    work = sk.workspace(J, T, MAIN_BATCH, dev, gd=True)
+    work = sk.workspace(J, T, MAIN_BATCH, dev, trial=True)
     mev = sk.PallasEval(torch.empty_like(mlsg),
                         *(torch.empty_like(ma0) for _ in range(3)))
     k5_ms = best_ms(lambda: sk.cost_grad_eval(mcfg, *meargs, out=mev,
@@ -668,31 +668,8 @@ def main():
                      ("gd", torch.full_like(mlsg, mcfg.gd_lr[0]))):
         fn, ref = step_fns(sk, name)
         state0 = (ma0, *mev[1:], mev.loss, lr, mlive)
-        state = sk.PallasStep(*(x.clone() for x in state0))
-
-        def launch():
-            for x, y in zip(state, state0):
-                x.copy_(y)
-            start_ev = torch.cuda.Event(enable_timing=True)
-            end_ev = torch.cuda.Event(enable_timing=True)
-            start_ev.record()
-            fn(mcfg, mkv, mkvt, mmix, *state, *mtail, out=state, work=work)
-            end_ev.record()
-            return start_ev, end_ev
-
-        evs = [launch() for _ in range(TIMED_LAUNCHES)]
-        torch.cuda.synchronize()
-        ms = min(a.elapsed_time(b) for a, b in evs)
-
-        # state holds one launch from state0.  The plain version on the
-        # same inputs: a first call with the work tally, for the comparison
-        # and the bound, then a timed one without it.
-        def plain(**kw):
-            return ref(mcfg, mkv, mkvt, mmix, *state0, *mtail, **kw)
-
-        tally = {}
-        agree, err = step_errors(plain(tally=tally), state)
-        _, step_plain_ms = timed(plain)
+        ms, step_plain_ms, tally, agree, err = full_width_step(
+            fn, ref, mcfg, (mkv, mkvt, mmix), state0, mtail, work)
         bound = (roofline.bls_inner_step if name == "bls"
                  else roofline.gd_inner_step)(MAIN_BATCH, T, J, O, tally)
         step_time[name] = (ms, step_plain_ms, bound)
@@ -705,7 +682,7 @@ def main():
             fail(f"phase 9: the {name} step disagrees with its plain version "
                  f"at {MAIN_BATCH} lanes")
         step_abs_err[name] = max(step_abs_err[name], err["abs"])
-        del state, state0, tally
+        del state0, tally
     del mev, k6_out, work, margs, meargs, mtail, ma0
     torch.cuda.empty_cache()
 
@@ -775,6 +752,8 @@ def main():
 
     gd = gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                    occupancy)
+    exact = exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
+                         occupancy)
 
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
@@ -782,16 +761,17 @@ def main():
                      ms_1M_random=k1_ms, bound_ms_1M_random=k1_rand_bound.ms,
                      main_path_peak_gib=main_peak_gib,
                      occupancy=occupancy["fused_solve", "bls"],
-                     gd=gd["fused_solve"]),
+                     gd=gd["fused_solve"], exact=exact["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
+                     ms_second_reading=k2_ms_again,
                      ms_per_solve_1M_random=k2_solve_ms,
                      bound_ms_per_solve_1M_random=k2_rand_bound.ms,
                      occupancy=occupancy["fused_round", "bls"],
-                     gd=gd["fused_round"]),
+                     gd=gd["fused_round"], exact=exact["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
-                     *step_time["bls"]),
+                     *step_time["bls"], exact=exact["bls_inner_step"]),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
                      *step_time["gd"]),
@@ -807,7 +787,7 @@ def main():
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if not all(math.isfinite(x) for e in kernels
-               for d in (e, e.get("gd", e))
+               for d in (e, e.get("gd", e), e.get("exact", e))
                for x in (d["ms"], d["plain_ms"], d["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
@@ -822,6 +802,7 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     entries of K1's and K2's lines in the kernels line."""
     cfg = bench.bench_config(solver="gd")
     T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    rounds = len(fs.inner_schedule(cfg))
 
     # -- phase 12: K1-GD and K2-GD against plain, short horizon ---------------
     scfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
@@ -930,44 +911,8 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     alpha0 = res.alpha[0].clone()
     del out, res
 
-    # K1-GD alone and its plain version on the main path's inputs.
-    basis = mt.make_basis(cfg, device=dev)
-    scn0 = mt.reference_scenario(cfg, device=dev)
-    args = fleet.fused_args(cfg, basis, mt.replicate_scenario(scn0, MAIN_BATCH))
-    k, main_ms = timed(lambda: fs.fused_solve(*args, solver="gd"))
-    if not (lanes_match_lane0(k, -1)
-            and torch.equal(k.alpha[:, :, 0].T, alpha0)):
-        fail("phase 13: K1-GD's lanes differ from the GD path's lane 0")
-    kq = mt.solution_quality(cfg, basis, scn0, alpha0)
-    k1_rounds = float((k.outer_iters + k.fulfilled).sum())
-    k1_accepted = float(k.inner_iters.sum())
-    del k
-    p, main_plain_ms = timed(lambda: fs.fused_solve_reference(*args,
-                                                              solver="gd"))
-    pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
-    gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
-            for key in ("avg_cost", "max_cost")]
-    del p
-    # Every lane holds the same scene: the plain tally of the first
-    # TALLY_LANES lanes, scaled, is the whole batch's.
-    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
-                      *(x[..., :TALLY_LANES] for x in args[4:]), solver="gd")
-    scale = MAIN_BATCH / TALLY_LANES
-    k1_bound = roofline.fused_rounds(
-        MAIN_BATCH, T, J, O,
-        kernel_counts({key: v * scale for key, v in sub.items()}, k1_rounds,
-                      k1_accepted, "gd"), 4, "gd")
-    say(f"phase 13 K1-GD alone {main_ms:.1f} ms, plain version "
-        f"{main_plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals "
-        f"lane 0; plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
-        f"{float(pq['max_cost']):.5f} vs kernel {float(kq['avg_cost']):.5f}/"
-        f"{float(kq['max_cost']):.5f} (gaps {gaps[0]:.2e}/{gaps[1]:.2e}, "
-        f"bound 1e-2); bound {k1_bound.ms:.1f} ms by {k1_bound.by} (rounds "
-        f"{k1_rounds:.0f}, accepted steps {k1_accepted:.0f})")
-    if max(gaps) > 0.01:
-        fail("phase 13: the plain GD version's costs differ from K1-GD's")
-    del args
-    torch.cuda.empty_cache()
+    main_ms, main_plain_ms, k1_bound = replicated_k1(
+        mt, fs, fleet, roofline, cfg, "gd", alpha0, dev, 13, "K1-GD")
 
     # K1-GD against the per-step GD path, and the rounds driver against
     # K1-GD (with K2-GD's ten rounds against their plain versions), on
@@ -990,44 +935,10 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         f"{float(k1.fulfilled.mean()):.4f}")
     if not bitwise and agree_s < fs.CARD_SHORT_AGREEMENT_MIN:
         fail("phase 13: K1-GD and the per-step GD path disagree")
-    rounds = len(fs.inner_schedule(cfg))
-    for compact in (False, True):
-        before = fs.fused_round.launches
-        with KernelTimer(fs, "fused_round", capture=not compact) as timer:
-            got = fleet._fused_rounds_solve(
-                cfg.replace(lane_compaction=compact), args[1:], "gd")
-            torch.cuda.synchronize()
-        launched = fs.fused_round.launches - before
-        same = same_result(got, want)
-        say(f"phase 13 GD rounds driver, compaction "
-            f"{'on' if compact else 'off'} ({FULL_BATCH} random scenes): "
-            f"{launched} K2-GD launches, {timer.total_ms():.1f} ms in K2, "
-            f"bitwise equal to K1-GD: {same}")
-        if not same:
-            fail("phase 13: the GD rounds driver differs from K1-GD")
-        if launched != rounds:
-            fail(f"phase 13: {launched} K2-GD launches, not {rounds}")
-        if not compact:
-            k2_ms = timer.total_ms()
-            k2_plain_ms, agreements = 0.0, []
-            k2_bound = roofline.Bound(0.0, 0.0)
-            for rin, rout in zip(timer.inputs, timer.outputs):
-                rp, ms = timed(lambda: fs.fused_round_reference(
-                    *rin, solver="gd"))
-                k2_plain_ms += ms
-                k2_bound = k2_bound + roofline.fused_rounds(
-                    FULL_BATCH, T, J, O,
-                    kernel_counts(plain_tally(fs.fused_round_reference, *rin,
-                                              solver="gd"),
-                                  float((rin[7] < 0.5).sum()),
-                                  float(rout.inner.sum()), "gd"), 3, "gd")
-                agreements.append(round_agreement(rp, rout, rin[7])[0])
-            say(f"phase 13 K2-GD {k2_ms:.1f} ms over {rounds} launches, "
-                f"plain version {k2_plain_ms:.1f} ms on the same inputs, "
-                f"bound {k2_bound.ms:.2f} ms by {k2_bound.by}; per-round lane "
-                f"agreement {[round(a, 4) for a in agreements]}")
-            del timer.inputs[:], timer.outputs[:]
-    del k1, want, got, step, args, scns
+    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
+        fs, fleet, roofline, cfg, args, want, "gd", 13, "GD rounds driver",
+        "K2-GD")
+    del k1, want, step, args, scns
     torch.cuda.empty_cache()
 
     # The GD heterogeneous path: 1M random scenes, compaction on with the
@@ -1067,32 +978,11 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     off_times = off["timing"]["times_s"]
     same_off = same_result(res_on, res_off)
     del res_off, off
-    basis = mt.make_basis(cfg, device=dev)
-    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
-                               MAIN_BATCH, device=dev)
-    args = fleet.fused_args(cfg, basis, scns)
-    k1, k1_rand_ms = timed(lambda: fs.fused_solve(*args, solver="gd"))
-    same_k1 = same_result(res_on, fleet.kernel_result(k1))
     say(f"phase 13 GD compaction off: {MAIN_BATCH / min(off_times):.1f} "
         f"solves/s (best of {[round(t, 4) for t in off_times]} s), per-lane "
-        f"results equal the compacted run's bit for bit: {same_off}; K1-GD "
-        f"on the same scenes {k1_rand_ms:.1f} ms, equal to the rounds "
-        f"driver's bit for bit: {same_k1}")
-    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
-                      *(x[..., :TALLY_LANES] for x in args[4:]), solver="gd")
-    tally = kernel_counts({key: v * scale for key, v in sub.items()},
-                          float((k1.outer_iters + k1.fulfilled).sum()),
-                          float(k1.inner_iters.sum()), "gd")
-    k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, 4, "gd")
-    rounds_run = (k1.outer_iters + k1.fulfilled)[0]
-    live = [float((rounds_run > r).sum()) for r in range(rounds)]
-    k2_rand_bound = roofline.fused_round_launches(MAIN_BATCH, T, J, O, tally,
-                                                  live, "gd")
-    say(f"phase 13 GD bounds at {MAIN_BATCH} random scenes (plain tally on "
-        f"{TALLY_LANES} lanes x {scale:g}): K1-GD {k1_rand_bound.ms:.1f} ms "
-        f"by {k1_rand_bound.by}; K2-GD per solve ({rounds} launches, live "
-        f"lanes {[int(x) for x in live]}) {k2_rand_bound.ms:.1f} ms by "
-        f"{k2_rand_bound.by}; work {({key: round(v) for key, v in tally.items()})}")
+        f"results equal the compacted run's bit for bit: {same_off}")
+    k1_rand_ms, same_k1, k1_rand_bound, k2_rand_bound = random_k1(
+        mt, fs, fleet, roofline, cfg, "gd", res_on, dev, 13, "K1-GD")
     if not (same_off and same_k1):
         fail("phase 13: the GD rounds driver (compaction on/off) and K1-GD "
              "differ on the same scenes")
@@ -1101,7 +991,7 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         fail("phase 13: non-finite GD output")
     if not gate_ok:
         fail("phase 13: the paired GD xla gate failed")
-    del res_on, k1, args, scns
+    del res_on
     torch.cuda.empty_cache()
 
     def entry(launches, max_abs_err, ms, plain_ms, bound, occ, **extra):
@@ -1119,9 +1009,446 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                              held_before_gib=held_gib),
         "fused_round": entry(het_launches, k2_abs_err, k2_ms, k2_plain_ms,
                              k2_bound, occupancy["fused_round", "gd"],
+                             ms_second_reading=k2_ms_again,
                              ms_per_solve_1M_random=k2_solve_ms,
                              bound_ms_per_solve_1M_random=k2_rand_bound.ms),
     }
+
+
+def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
+                 occupancy):
+    """Phases 14-16, BLS with the exact ladder through K1, K2 and K3;
+    returns the "exact" entries of K1's, K2's and K3's lines in the kernels
+    line."""
+    cfg = bench.bench_config(ladder_eval="exact")
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    rounds = len(fs.inner_schedule(cfg))
+
+    # -- phase 14: K1-exact and K2-exact against plain ------------------------
+    scfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
+                            fixed_iters=True, max_obstacles=11,
+                            ladder_eval="exact")
+    _, _, args = random_args(scfg, SHORT_BATCH, 0)
+    k = fs.fused_solve(*args)
+    torch.cuda.synchronize()
+    p = fs.fused_solve_reference(*args)
+    k1_agree, rel = fs.lane_agreement(p, k)
+    same = ((k.inner_iters == p.inner_iters) & (k.outer_iters == p.outer_iters)
+            & (k.fulfilled == p.fulfilled))[0]
+    k1_abs_err = float((k.alpha - p.alpha).abs()[:, :, same].max())
+    say(f"phase 14 K1-exact short horizon ({SHORT_BATCH} random scenes, 2x6 "
+        f"steps): lane agreement {k1_agree:.4f} (bound >= "
+        f"{fs.CARD_SHORT_AGREEMENT_MIN}), alpha error on agreeing lanes "
+        f"{k1_abs_err:.3g} abs, {rel:.3g} of the lane's scale (bound <= "
+        f"{fs.ALPHA_REL_MAX})")
+    if k1_agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX:
+        fail("phase 14: K1-exact disagrees with its plain version")
+    cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_solve(scfg.replace(pallas_block_b=warps), *args[1:4],
+                            *cut, ctas=ctas)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                   for x, y in zip(kr, k)):
+            fail(f"phase 14: K1-exact, {RAGGED_BATCH} lanes at {warps} lanes "
+                 f"per CTA, {ctas or 'all'} CTAs differ from the same lanes "
+                 f"of the {SHORT_BATCH}-lane run")
+    rargs = round_args(args, 4, seed=0)
+    ful = rargs[7]
+    k2 = fs.fused_round(*rargs)
+    torch.cuda.synchronize()
+    p2 = fs.fused_round_reference(*rargs)
+    k2_agree, rel2, k2_abs_err = round_agreement(p2, k2, ful)
+    say(f"phase 14 K2-exact one round ({SHORT_BATCH} random scenes, n_r 4, "
+        f"{int((ful > 0.5).sum())} lanes fulfilled): lane agreement "
+        f"{k2_agree:.4f}, alpha error on agreeing lanes {k2_abs_err:.3g} abs, "
+        f"{rel2:.3g} of the lane's scale")
+    if k2_agree < fs.CARD_SHORT_AGREEMENT_MIN or rel2 > fs.ALPHA_REL_MAX:
+        fail("phase 14: K2-exact disagrees with its plain version")
+    if not (torch.equal(k2.alpha[:, :, ful[0] > 0.5],
+                        rargs[4][:, :, ful[0] > 0.5])
+            and bool((k2.inner[ful > 0.5] == 0).all())):
+        fail("phase 14: K2-exact moved a lane that came in fulfilled")
+    rcut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x) and x.dim() > 1
+            and x.shape[-1] == SHORT_BATCH else x for x in rargs]
+    for warps, ctas in grid_shapes():
+        kr = fs.fused_round(rcut[0].replace(pallas_block_b=warps), *rcut[1:],
+                            ctas=ctas)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                   for x, y in zip(kr, k2)):
+            fail(f"phase 14: K2-exact, {RAGGED_BATCH} lanes at {warps} lanes "
+                 f"per CTA, {ctas or 'all'} CTAs differ from the full batch's")
+    say(f"phase 14 ragged batch ({RAGGED_BATCH} lanes at {WARP_SHAPES} lanes "
+        f"per CTA on the full grid, and on one CTA): K1-exact and K2-exact "
+        f"bitwise equal to the full batch's lanes")
+
+    # -- phase 15: K3-exact against plain, one step ---------------------------
+    _, kv, kvt, mix, a0, _, _, start, goal, ox, oy, ow = args
+    lsg, ljl, lr0 = rargs[5], rargs[6], rargs[8]
+    ev = sk.cost_grad_eval(scfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox,
+                           oy, ow)
+    sargs = (kv, kvt, mix, a0, ev.grad, ev.traj, ev.vel, ev.loss, lr0, ful,
+             lsg, ljl, start, goal, ox, oy, ow)
+    ks = sk.bls_inner_step(scfg, *sargs)
+    torch.cuda.synchronize()
+    frozen = ful[0] > 0.5
+    if not all(torch.equal(x[..., frozen], y[..., frozen])
+               for x, y in zip(ks, sargs[3:10])):
+        fail("phase 15: the exact step moved a frozen lane")
+    k3_agree, err = step_errors(sk.bls_inner_step_reference(scfg, *sargs), ks)
+    say(f"phase 15 K3-exact one step ({SHORT_BATCH} random scenes, "
+        f"{int(frozen.sum())} frozen, {int((ks.minimized - ful).sum())} stop): "
+        f"frozen lanes bitwise unchanged; {step_summary(k3_agree, err)}")
+    if not step_ok(k3_agree, err):
+        fail("phase 15: K3-exact disagrees with its plain version")
+    k3_abs_err = err["abs"]
+    scut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x)
+            and x.shape[-1] == SHORT_BATCH else x for x in sargs]
+    for bt in (64, 128, 256):
+        kr = sk.bls_inner_step(scfg.replace(pallas_block_b=bt), *scut)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(kr, ks)):
+            fail(f"phase 15: K3-exact, {RAGGED_BATCH} lanes at {bt} lanes per "
+                 f"block differ from the full batch's")
+    say(f"phase 15 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
+        f"block): K3-exact bitwise equal to the full batch's lanes")
+    del k, p, k2, p2, ks, ev, args, rargs, sargs, cut, rcut, scut
+
+    # K3-exact at full width from K5's state on the main path's inputs
+    # (round 0, step 0: every lane live).
+    basis = mt.make_basis(cfg, device=dev)
+    scn0 = mt.reference_scenario(cfg, device=dev)
+    margs = fleet.fused_args(cfg, basis,
+                             mt.replicate_scenario(scn0, MAIN_BATCH))[1:]
+    mkv, mkvt, mmix, ma0, mlsg = margs[:5]
+    mtail = margs[4:]
+    work = sk.workspace(J, T, MAIN_BATCH, dev, trial=True)
+    mev = sk.cost_grad_eval(cfg, mkv, mkvt, mmix, ma0, *mtail, work=work)
+    state0 = (ma0, *mev[1:], mev.loss, torch.full_like(mlsg, cfg.bls_lr_start),
+              torch.zeros_like(mlsg))
+    k3_ms, k3_plain_ms, tally, agree, err = full_width_step(
+        sk.bls_inner_step, sk.bls_inner_step_reference, cfg,
+        (mkv, mkvt, mmix), state0, mtail, work)
+    k3_bound = roofline.bls_inner_step(MAIN_BATCH, T, J, O, tally, "exact")
+    say(f"phase 15 K3-exact at {MAIN_BATCH} lanes (main path's inputs, round "
+        f"0 step 0, best of {TIMED_LAUNCHES}): {k3_ms:.3f} ms, plain "
+        f"{k3_plain_ms:.1f} ms, bound {k3_bound.ms:.3f} ms by {k3_bound.by} "
+        f"({', '.join(f'{key} {float(v.sum()):.0f}' for key, v in tally.items())}); "
+        f"against plain: {step_summary(agree, err)}")
+    if not step_ok(agree, err):
+        fail(f"phase 15: K3-exact disagrees with its plain version at "
+             f"{MAIN_BATCH} lanes")
+    k3_abs_err = max(k3_abs_err, err["abs"])
+    del mev, state0, work, margs, mtail, ma0, tally
+    torch.cuda.empty_cache()
+
+    # -- phase 16: the exact paths --------------------------------------------
+    # K1-exact against the per-step exact path (K5 per round, K3-exact per
+    # step, no K6), and the rounds driver against K1-exact, on FULL_BATCH
+    # random scenes at the bench's schedule.
+    basis, scns, args = random_args(cfg, FULL_BATCH, 1)
+    k1 = fs.fused_solve(*args)
+    want = fleet.kernel_result(k1)
+    for name in ("bls_inner_step", "cost_grad_eval", "forward_eval"):
+        getattr(sk, name).launches = 0
+    step = fleet.fleet_solve(cfg, basis, scns, backend="pallas")
+    step_launches = {name: getattr(sk, name).launches
+                     for name in ("bls_inner_step", "cost_grad_eval",
+                                  "forward_eval")}
+    bitwise = same_result(step, want)
+    say(f"phase 16 K1-exact against the per-step exact path (K5 + K3-exact) "
+        f"on {FULL_BATCH} random scenes: bitwise equal {bitwise}; per-step "
+        f"launches {step_launches}; converged "
+        f"{float(k1.fulfilled.mean()):.4f}")
+    if not bitwise:
+        fail("phase 16: K1-exact and the per-step exact path differ")
+    if step_launches["forward_eval"] or not step_launches["bls_inner_step"]:
+        fail(f"phase 16: the per-step exact path launched {step_launches}: "
+             f"K3 every step and no K6")
+    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
+        fs, fleet, roofline, cfg, args, want, "bls", 16, "exact rounds driver",
+        "K2-exact")
+    del k1, want, step, args, scns
+    torch.cuda.empty_cache()
+
+    # bench --ladder-eval exact: the replicated reference scene at full
+    # width, one K1-exact launch per solve.
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    fs.fused_solve.launches = 0
+    fs.fused_round.launches = 0
+    out = bench.run_bench(batch=MAIN_BATCH, repeats=2, ladder_eval="exact")
+    launches_k1 = fs.fused_solve.launches
+    k2_on_main = fs.fused_round.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    res, timing = out["result"], out["timing"]
+    best = min(timing["times_s"])
+    ref_avg, ref_max = mt.REFERENCE_FINAL_COST["bls"]
+    gate = bench.endpoint_bound(cfg, "bls")
+    say(f"phase 16 exact path (bench --ladder-eval exact, reference scene x "
+        f"{MAIN_BATCH}): {MAIN_BATCH / best:.1f} solves/s, "
+        f"{1e6 * best / MAIN_BATCH:.4f} us/solve (best of "
+        f"{[round(t, 4) for t in timing['times_s']]} s; first run "
+        f"{timing['first_s']:.2f} s), K1 launches {launches_k1}, K2 launches "
+        f"{k2_on_main}; avg_cost {out['avg_cost']} max_cost "
+        f"{out['max_cost']} endpoint_err {out['endpoint_err']}; peak device "
+        f"memory {peak_gib:.3f} GiB ({held_gib:.3f} GiB held before the "
+        f"run); {out['device']}, {out['power_limit']}")
+    say(f"phase 16 bench.py verdict for the exact ladder (endpoint < {gate} "
+        f"and costs within 2%): {'PASS' if out['quality_ok'] else 'FAIL'}; "
+        f"the strict endpoint reading (< {cfg.eps_position}, the linearized "
+        f"ladder's gate): {out['endpoint_err']} "
+        f"{'PASS' if out['endpoint_err'] < cfg.eps_position else 'FAIL'}")
+    if launches_k1 != 1 + len(timing["times_s"]) or k2_on_main:
+        fail(f"phase 16: the exact path made {launches_k1} K1 and "
+             f"{k2_on_main} K2 launches, not one K1 launch per solve")
+    finite = bool(torch.isfinite(res.alpha).all()
+                  and torch.isfinite(res.stats.final_cost).all())
+    if not (finite and out["quality_ok"] and out["avg_cost"] <= ref_avg * 1.02
+            and out["max_cost"] <= ref_max * 1.02
+            and out["endpoint_err"] < gate):
+        fail("phase 16: exact output outside the quality bounds")
+    if not lanes_match_lane0((res.alpha, *res.stats), 0):
+        fail("phase 16: the exact path's lanes differ from lane 0")
+    alpha0 = res.alpha[0].clone()
+    del out, res
+
+    main_ms, main_plain_ms, k1_bound = replicated_k1(
+        mt, fs, fleet, roofline, cfg, "bls", alpha0, dev, 16, "K1-exact")
+
+    # The exact heterogeneous path: 1M random scenes, compaction on with the
+    # paired gate against the exact xla engine, then K1-exact on the same
+    # scenes.
+    fs.fused_round.launches = 0
+    fs.fused_solve.launches = 0
+    with KernelTimer(fs, "fused_round") as timer:
+        het = bench.run_bench(batch=MAIN_BATCH, repeats=2, ladder_eval="exact",
+                              random_scenarios=True, seed=0,
+                              quality_check_lanes=CHECK_LANES)
+    het_launches = fs.fused_round.launches
+    het_k1 = fs.fused_solve.launches
+    times = het["timing"]["times_s"]
+    k2_solve_ms = timer.total_ms() / (1 + len(times))
+    b = het["gate"]["bands"]
+    say(f"phase 16 exact heterogeneous path, compaction on ({MAIN_BATCH} "
+        f"random scenes): {MAIN_BATCH / min(times):.1f} solves/s (best of "
+        f"{[round(t, 4) for t in times]} s), {het_launches} K2-exact "
+        f"launches, {het_k1} K1 launches; K2-exact {k2_solve_ms:.1f} ms per "
+        f"solve; converged {het['converged_frac']}; paired exact xla gate on "
+        f"{CHECK_LANES} lanes (xla engine {het['timing']['xla_s']:.2f} s): "
+        f"converged {b['check_converged_frac']:.4f} vs xla "
+        f"{het['xla_converged_frac']} (band {b['converged']:.4f}); obstacle "
+        f"cost {b['check_obstacle_cost']:.5f} vs {b['xla_obstacle_cost']:.5f} "
+        f"(band {b['cost']:.5f}); phantom {het['phantom_frac']} (bound "
+        f"{b['phantom']:.2e}): {'PASS' if het['quality_ok'] else 'FAIL'}")
+    if het_launches != rounds * (1 + len(times)):
+        fail(f"phase 16: {het_launches} K2-exact launches on the exact "
+             f"heterogeneous path, not {rounds} per solve")
+    gate_ok = het["quality_ok"]
+    res_on = het.pop("result")
+    del het
+    k1_rand_ms, same_k1, k1_rand_bound, k2_rand_bound = random_k1(
+        mt, fs, fleet, roofline, cfg, "bls", res_on, dev, 16, "K1-exact")
+    if not same_k1:
+        fail("phase 16: the exact rounds driver and K1-exact differ on the "
+             "same scenes")
+    if not (torch.isfinite(res_on.alpha).all()
+            and torch.isfinite(res_on.stats.final_cost).all()):
+        fail("phase 16: non-finite exact output")
+    if not gate_ok:
+        fail("phase 16: the paired exact xla gate failed")
+    del res_on
+    torch.cuda.empty_cache()
+
+    # The certification statistics of the card's exact tier on the CPU
+    # oracle's scenes, for information: certify.py calibrates its bounds
+    # for an engine and an oracle on one platform.
+    from irm_motion_planning_tpu_torch import certify
+
+    data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "certify_oracle_cpu2048.npz"))
+    row = certify.certify_exact(data, dev)
+    bc = row["both_converged"]
+    say(f"phase 16 certify statistics of the card's exact tier on the CPU "
+        f"oracle's {row['batch']} scenes (for information; on-platform "
+        f"bounds mean {certify.MEAN_BOUND}, median {certify.MEDIAN_BOUND}): "
+        f"converged "
+        f"{row['engine_converged_frac']} vs the oracle's "
+        f"{row['oracle_converged_frac']}; both converged n={bc['avg']['n']}: "
+        f"mean gap avg {bc['avg'].get('mean_gap')} max "
+        f"{bc['max'].get('mean_gap')}, median avg {bc['avg'].get('p50_gap')} "
+        f"max {bc['max'].get('p50_gap')}; all scenes mean gap avg "
+        f"{row['all']['avg']['mean_gap']} max {row['all']['max']['mean_gap']};"
+        f" on-platform verdict {'PASS' if row['pass'] else 'FAIL'}")
+
+    def entry(launches, agreement, max_abs_err, ms, plain_ms, bound, **extra):
+        return {"launches": launches, "lane_agreement": agreement,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound.ms, "bound_by": bound.by,
+                "library_ms": None, **extra}
+
+    return {
+        "fused_solve": entry(launches_k1, k1_agree, k1_abs_err, main_ms,
+                             main_plain_ms, k1_bound,
+                             ms_1M_random=k1_rand_ms,
+                             bound_ms_1M_random=k1_rand_bound.ms,
+                             main_path_peak_gib=peak_gib,
+                             held_before_gib=held_gib,
+                             occupancy=occupancy["fused_solve", "bls_exact"]),
+        "fused_round": entry(het_launches, k2_agree, k2_abs_err, k2_ms,
+                             k2_plain_ms, k2_bound,
+                             ms_second_reading=k2_ms_again,
+                             ms_per_solve_1M_random=k2_solve_ms,
+                             bound_ms_per_solve_1M_random=k2_rand_bound.ms,
+                             occupancy=occupancy["fused_round", "bls_exact"]),
+        "bls_inner_step": entry(step_launches["bls_inner_step"], k3_agree,
+                                k3_abs_err, k3_ms, k3_plain_ms, k3_bound),
+    }
+
+
+def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
+                  label):
+    """K1 of ``solver`` under ``cfg`` alone on the replicated main path's
+    inputs at MAIN_BATCH lanes: every lane must equal the path's lane 0
+    ``alpha0``; its plain version on the same inputs, whose lane 0 costs
+    must lie within 1% of the kernel's; its bound from K1's own counts and
+    the plain tally of the first TALLY_LANES lanes, scaled (every lane holds
+    the same scene).  Returns (ms, plain_ms, bound)."""
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    basis = mt.make_basis(cfg, device=dev)
+    scn0 = mt.reference_scenario(cfg, device=dev)
+    args = fleet.fused_args(cfg, basis, mt.replicate_scenario(scn0, MAIN_BATCH))
+    k, ms = timed(lambda: fs.fused_solve(*args, solver=solver))
+    if not (lanes_match_lane0(k, -1)
+            and torch.equal(k.alpha[:, :, 0].T, alpha0)):
+        fail(f"phase {phase}: {label}'s lanes differ from the path's lane 0")
+    kq = mt.solution_quality(cfg, basis, scn0, alpha0)
+    rounds = float((k.outer_iters + k.fulfilled).sum())
+    accepted = float(k.inner_iters.sum())
+    del k
+    p, plain_ms = timed(lambda: fs.fused_solve_reference(*args,
+                                                         solver=solver))
+    pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
+    gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
+            for key in ("avg_cost", "max_cost")]
+    del p
+    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+                      *(x[..., :TALLY_LANES] for x in args[4:]), solver=solver)
+    scale = MAIN_BATCH / TALLY_LANES
+    bound = roofline.fused_rounds(
+        MAIN_BATCH, T, J, O,
+        kernel_counts({key: v * scale for key, v in sub.items()}, rounds,
+                      accepted, solver), True, solver, cfg.ladder_eval)
+    say(f"phase {phase} {label} alone {ms:.1f} ms, plain version "
+        f"{plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals lane 0; "
+        f"plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
+        f"{float(pq['max_cost']):.5f} vs kernel {float(kq['avg_cost']):.5f}/"
+        f"{float(kq['max_cost']):.5f} (gaps {gaps[0]:.2e}/{gaps[1]:.2e}, "
+        f"bound 1e-2), plain endpoint_err {float(pq['endpoint_err']):.4f}; "
+        f"bound {bound.ms:.1f} ms by {bound.by} (rounds {rounds:.0f}, "
+        f"accepted steps {accepted:.0f})")
+    if max(gaps) > 0.01:
+        fail(f"phase {phase}: the plain version's costs differ from "
+             f"{label}'s")
+    del args
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bound
+
+
+def rounds_driver_check(fs, fleet, roofline, cfg, args, want, solver, phase,
+                        label, k2):
+    """The rounds driver over K2 against K1's result ``want`` on the
+    FULL_BATCH lanes of ``args`` (fused_solve's), compaction off, on and off
+    again: every output field bit for bit, one K2 launch per round.  K2's
+    time over the rounds (compaction off, CUDA events; the first reading and
+    the second, taken after the compacted run), its plain version's on the
+    first reading's inputs, their bound and the per-round lane agreement.
+    Returns (k2_ms, k2_ms_again, k2_plain_ms, k2_bound)."""
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    rounds = len(fs.inner_schedule(cfg))
+    readings = []
+    for i, compact in enumerate((False, True, False)):
+        before = fs.fused_round.launches
+        with KernelTimer(fs, "fused_round", capture=i == 0) as timer:
+            got = fleet._fused_rounds_solve(
+                cfg.replace(lane_compaction=compact), args[1:], solver)
+            torch.cuda.synchronize()
+        launched = fs.fused_round.launches - before
+        same = same_result(got, want)
+        say(f"phase {phase} {label}, compaction {'on' if compact else 'off'} "
+            f"({FULL_BATCH} random scenes): {launched} {k2} launches, "
+            f"{timer.total_ms():.1f} ms in K2, bitwise equal to K1: {same}")
+        if not same:
+            fail(f"phase {phase}: the {label} differs from K1")
+        if launched != rounds:
+            fail(f"phase {phase}: {launched} {k2} launches, not {rounds}")
+        if not compact:
+            readings.append(timer.total_ms())
+        if i == 0:
+            k2_plain_ms, agreements = 0.0, []
+            k2_bound = roofline.Bound(0.0, 0.0)
+            for rin, rout in zip(timer.inputs, timer.outputs):
+                rp, ms = timed(lambda: fs.fused_round_reference(
+                    *rin, solver=solver))
+                k2_plain_ms += ms
+                k2_bound = k2_bound + roofline.fused_rounds(
+                    FULL_BATCH, T, J, O,
+                    kernel_counts(plain_tally(fs.fused_round_reference, *rin,
+                                              solver=solver),
+                                  float((rin[7] < 0.5).sum()),
+                                  float(rout.inner.sum()), solver), False,
+                    solver, cfg.ladder_eval)
+                agreements.append(round_agreement(rp, rout, rin[7])[0])
+            say(f"phase {phase} {k2} {readings[0]:.1f} ms over {rounds} "
+                f"launches, plain version {k2_plain_ms:.1f} ms on the same "
+                f"inputs, bound {k2_bound.ms:.2f} ms by {k2_bound.by}; "
+                f"per-round lane agreement "
+                f"{[round(a, 4) for a in agreements]}")
+            del timer.inputs[:], timer.outputs[:]
+    say(f"phase {phase} {k2} over {rounds} launches, compaction off: first "
+        f"reading {readings[0]:.1f} ms, second {readings[1]:.1f} ms")
+    return readings[0], readings[1], k2_plain_ms, k2_bound
+
+
+def random_k1(mt, fs, fleet, roofline, cfg, solver, res_on, dev, phase,
+              label):
+    """K1 of ``solver`` under ``cfg`` on the MAIN_BATCH random scenes (seed
+    0) of the bench's random mode, timed, and whether it equals the rounds
+    driver's result ``res_on`` there bit for bit; the bounds of K1 and of
+    K2 per solve on these scenes, from K1's own counts and the plain tally
+    of the first TALLY_LANES scenes, scaled.  Returns (ms, equal, K1's
+    bound, K2's bound)."""
+    T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
+    rounds = len(fs.inner_schedule(cfg))
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                               MAIN_BATCH, device=dev)
+    args = fleet.fused_args(cfg, basis, scns)
+    k1, ms = timed(lambda: fs.fused_solve(*args, solver=solver))
+    same = same_result(res_on, fleet.kernel_result(k1))
+    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+                      *(x[..., :TALLY_LANES] for x in args[4:]), solver=solver)
+    scale = MAIN_BATCH / TALLY_LANES
+    tally = kernel_counts({key: v * scale for key, v in sub.items()},
+                          float((k1.outer_iters + k1.fulfilled).sum()),
+                          float(k1.inner_iters.sum()), solver)
+    k1_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, True, solver,
+                                     cfg.ladder_eval)
+    rounds_run = (k1.outer_iters + k1.fulfilled)[0]
+    live = [float((rounds_run > r).sum()) for r in range(rounds)]
+    k2_bound = roofline.fused_round_launches(MAIN_BATCH, T, J, O, tally, live,
+                                             solver, cfg.ladder_eval)
+    say(f"phase {phase} {label} on the same scenes {ms:.1f} ms, equal to the "
+        f"rounds driver's result bit for bit: {same}; bounds at {MAIN_BATCH} "
+        f"random scenes (plain tally on {TALLY_LANES} lanes x {scale:g}): K1 "
+        f"{k1_bound.ms:.1f} ms by {k1_bound.by}; K2 per solve ({rounds} "
+        f"launches, live lanes {[int(x) for x in live]}) {k2_bound.ms:.1f} ms "
+        f"by {k2_bound.by}; work "
+        f"{({key: round(v) for key, v in tally.items()})}")
+    del k1, args, scns
+    torch.cuda.empty_cache()
+    return ms, same, k1_bound, k2_bound
 
 
 def grid_shapes():
@@ -1132,8 +1459,10 @@ def grid_shapes():
 
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads, stack}} from nvcc's
-    ptxas report; K1/K2 as fused_solve<solver,T,O> / fused_round<solver,T,O>
-    (solver bls or gd; <solver,0,0>: the generic instantiation)."""
+    ptxas report; K1/K2 as fused_solve<program,T,O> /
+    fused_round<program,T,O> (program bls, gd or bls_exact; <program,0,0>:
+    the generic instantiation); K3 as bls_step<0> (linearized ladder) and
+    bls_step<1> (exact)."""
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
 
     out, name = {}, None
@@ -1145,7 +1474,7 @@ def ptxas_report(log):
             if m.group(2) is not None:
                 targs = re.findall(r"L[ib](\d+)E", m.group(2))
                 if name.startswith("fused_") and len(targs) == 3:
-                    targs[0] = fs.SOLVERS[int(targs[0])]
+                    targs[0] = fs.PROGRAMS[int(targs[0])]
                 name += f"<{','.join(targs)}>"
             out[name] = {}
             continue
@@ -1347,6 +1676,40 @@ def step_summary(agree, err):
             f"{err['grad']:.3g} of the lane's scale, traj/vel "
             f"{err['planes']:.3g} abs (bounds {EVAL_BOUNDS}), largest abs "
             f"error {err['abs']:.3g}")
+
+
+def full_width_step(fn, ref, cfg, head, state0, tail, work):
+    """A step kernel ``fn`` (K3 or K4) at full width from ``state0``: the
+    least CUDA-event time of TIMED_LAUNCHES launches, each from a copy of
+    state0, in place; then its plain version ``ref`` on the same inputs, a
+    first call with the work tally (for the comparison with the last
+    launch's state and the bound) and a timed one without it.  Returns (ms,
+    plain_ms, tally, lane agreement, errors) (see :func:`step_errors`)."""
+    from irm_motion_planning_tpu_torch.ops import step_kernels as sk
+
+    state = sk.PallasStep(*(x.clone() for x in state0))
+
+    def launch():
+        for x, y in zip(state, state0):
+            x.copy_(y)
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        fn(cfg, *head, *state, *tail, out=state, work=work)
+        end_ev.record()
+        return start_ev, end_ev
+
+    evs = [launch() for _ in range(TIMED_LAUNCHES)]
+    torch.cuda.synchronize()
+    ms = min(a.elapsed_time(b) for a, b in evs)
+
+    def plain(**kw):
+        return ref(cfg, *head, *state0, *tail, **kw)
+
+    tally = {}
+    agree, err = step_errors(plain(tally=tally), state)
+    _, plain_ms = timed(plain)
+    return ms, plain_ms, tally, agree, err
 
 
 def best_ms(fn, reps=TIMED_LAUNCHES):

@@ -3,15 +3,19 @@
 //
 // K1, fused_solve_kernel, replaces the TPU kernel program
 // irm_motion_planning_tpu/ops/pallas_step.py: fused_solve /
-// _make_solve_kernel(per_round=False) in its two compilations:
+// _make_solve_kernel(per_round=False) in its three compilations:
 //  * solver="bls" with ladder_eval="linearized": the BLS step _bls_step,
 //    the FK carry and the exact end-of-round constraint evaluation;
+//  * solver="bls" with ladder_eval="exact": _bls_step's exact tier (each
+//    Armijo rung's candidate alpha through the basis, the accepted iterate
+//    evaluated exactly), with neither the FK carry nor the end-of-round
+//    re-evaluation (the carried evaluation is exact);
 //  * solver="gd": the GD step _gd_step (the stop test rejects the trial),
 //    round r's learning rate from the gd_lr schedule (gd_lr[min(r, len -
 //    1)], an unrolled select there, FsParams.gd_lr here) and no end-of-round
 //    re-evaluation (GD's carried evaluation is exact).
 // K2, fused_round_kernel, replaces pallas_step.fused_round /
-// _make_solve_kernel(per_round=True) (round_kernel) in the same two
+// _make_solve_kernel(per_round=True) (round_kernel) in the same three
 // compilations: one round, the inner budget n_r and a per-lane learning
 // rate as inputs, the penalty escalation left to the caller (the host
 // driver re-sorts lanes between rounds).  Both compute what the TPU kernels
@@ -19,10 +23,10 @@
 //
 // Both are built from the warp body (warp_body.cuh): ONE WARP PER LANE, the
 // lane's solver state on chip (registers and per-warp shared memory), the
-// basis pair staged once per CTA.  The solver is a template argument of
-// both kernels and of the round body warp_round (bls_step or gd_step), so
-// each of the four programs is compiled on its own and none reads a
-// run-time switch.  K1 loops warp_round over the schedule with the x10
+// basis pair staged once per CTA.  The program (the solver, and BLS's
+// ladder tier) is a template argument of both kernels and of the round body
+// warp_round (bls_step<false>, bls_step<true> or gd_step), so each of the
+// six programs is compiled on its own and none reads a run-time switch.  K1 loops warp_round over the schedule with the x10
 // penalty escalation in between; K2 runs it once, and a lane that comes in
 // fulfilled passes through.  Sharing the round body is what makes the host
 // rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
@@ -66,7 +70,10 @@
 //  * GD needs no plane beyond BLS's: the trial is staged in the buffer as a
 //    product input, its evaluation goes to the traj/vel registers, and the
 //    stop test comes before the gradient pass, so a rejected trial leaves
-//    alpha and grad untouched (warp_body.cuh, gd_step);
+//    alpha and grad untouched (warp_body.cuh, gd_step); the exact ladder
+//    likewise stages each rung's candidate alpha in the buffer and
+//    evaluates it into the traj/vel registers, where the accepted rung's
+//    evaluation is the new iterate's;
 //  * an instantiation specialised to the bench's T=50 and O=11, whose
 //    offsets and loop bounds are constants (a generic one runs other
 //    shapes, with the same results);
@@ -178,7 +185,7 @@ static bool specialised(const FsParams& p) {
   return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
 }
 
-// K1's and K2's instantiations of one solver, specialised or generic.
+// K1's and K2's instantiations of one program, specialised or generic.
 template <int SOLVER>
 static const void* kernel_of(const FsParams& p, int which) {
   if (specialised(p))
@@ -189,11 +196,13 @@ static const void* kernel_of(const FsParams& p, int which) {
                     : (const void*)fused_round_kernel<SOLVER, 0, 0>;
 }
 
-// The instantiation of K1 (which = 0) or K2 (which = 1) for ``solver``
-// (SOLVER_BLS or SOLVER_GD) that runs p; nullptr for another solver.
+// The instantiation of K1 (which = 0) or K2 (which = 1) for the program
+// ``solver`` (SOLVER_BLS, SOLVER_GD or SOLVER_BLS_EXACT) that runs p;
+// nullptr for another value.
 static const void* kernel_for(const FsParams& p, int which, int solver) {
   if (solver == SOLVER_BLS) return kernel_of<SOLVER_BLS>(p, which);
   if (solver == SOLVER_GD) return kernel_of<SOLVER_GD>(p, which);
+  if (solver == SOLVER_BLS_EXACT) return kernel_of<SOLVER_BLS_EXACT>(p, which);
   return nullptr;
 }
 

@@ -148,7 +148,10 @@ __device__ __forceinline__ float obstacle_point(const Lane& L, float ex,
   return acc;
 }
 
-// Loss of the candidate (traj - lr dir_t, vel - lr dir_v): one ladder rung.
+// Loss of one ladder rung.  Linearized: the candidate (traj - lr dir_t,
+// vel - lr dir_v).  EXACT: the candidate's exact evaluation, already in
+// (traj, vel) of ``L`` (lr unused).
+template <bool EXACT>
 static __device__ float rung_cost(const FsParams& p, const Lane& L, float lr) {
   CostAcc a;
   cost_init(a);
@@ -157,8 +160,13 @@ static __device__ float rung_cost(const FsParams& p, const Lane& L, float lr) {
     float tr[NJ], ve[NJ], px[NJ], py[NJ], ex, ey;
     for (int j = 0; j < NJ; ++j) {
       const size_t i = L.at(j, t);
-      tr[j] = L.traj[i] - lr * L.dir_t[i];
-      ve[j] = L.vel[i] - lr * L.dir_v[i];
+      if constexpr (EXACT) {
+        tr[j] = L.traj[i];
+        ve[j] = L.vel[i];
+      } else {
+        tr[j] = L.traj[i] - lr * L.dir_t[i];
+        ve[j] = L.vel[i] - lr * L.dir_v[i];
+      }
     }
     fk_point(p, tr, px, py, ex, ey);
     cost_add(p, a, t, obstacle_point(L, ex, ey), tr, ve);
@@ -351,17 +359,27 @@ static __device__ float cost_grad_from_traj(const FsParams& p, const Lane& L,
   return loss;
 }
 
-// One BLS inner step of a live lane (pallas_step._bls_step, linearized
-// ladder): normalized direction, its forward evaluation, the early-exit
-// Armijo ladder (first pass wins) against the carried loss, the accepted
-// iterate, and the gradient pulled back at it.  Updates alpha, traj and vel
-// in place (each thread touches only its own lane's column) and returns
-// true when the stop test fired (the lane is minimized for the rest of the
-// round); the stop test does not reject the step and keeps the gradient.
-// Without the FK carry of K1/K2 (warp_body.cuh): the loss is recomputed at
-// the accepted iterate with the gradient.
-static __device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
-                         float& lr) {
+// One BLS inner step of a live lane (pallas_step._bls_step): normalized
+// direction, the early-exit Armijo ladder (first pass wins) against the
+// carried loss, the accepted iterate, and the gradient pulled back at it.
+// Updates alpha, traj and vel in place (each thread touches only its own
+// lane's column) and returns true when the stop test fired (the lane is
+// minimized for the rest of the round); the stop test does not reject the
+// step and keeps the gradient.  Without the FK carry of K1/K2
+// (warp_body.cuh): the loss is recomputed at the accepted iterate with the
+// gradient.
+//
+// Linearized (EXACT false): the direction's forward evaluation into
+// dir_t/dir_v and the ladder on the linearized trajectory.  EXACT: each
+// rung's candidate alpha (1 - lambda_reg lr) alpha - lr (grad inv_norm), in
+// the operand order of the accepted update, goes into ``trial`` ((J, T, B)
+// scratch) and its exact evaluation into dir_t/dir_v, which this tier does
+// not use otherwise; the accepted iterate's (traj, vel) are the accepted
+// rung's evaluation (the same floats as the new alpha's), or, when no rung
+// passed, alpha's evaluated anew.
+template <bool EXACT>
+static __device__ bool bls_step(const FsParams& p, const Lane& L, float* trial,
+                                float& loss, float& lr) {
   const int T = L.T;
   float g2 = 0.f;
   for (int j = 0; j < NJ; ++j) {
@@ -381,13 +399,28 @@ static __device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
     alpha_norm = alpha_norm + gs * (gs * inv_norm);
   }
 
-  forward_planes(p, L, L.grad, inv_norm, true);
+  if constexpr (!EXACT) forward_planes(p, L, L.grad, inv_norm, true);
 
   bool found = false;
   float lr_best = 0.f, loss_best = loss, rung = 1.f;
   for (int k = 0; k < p.n_bls; ++k) {
     const float lr_r = lr * rung;
-    const float closs = rung_cost(p, L, lr_r);
+    float closs;
+    if constexpr (EXACT) {
+      const float a_fac = 1.f - p.lambda_reg * lr_r;
+      for (int j = 0; j < NJ; ++j)
+        for (int t = 0; t < T; ++t) {
+          const size_t i = L.at(j, t);
+          trial[i] = a_fac * L.alpha[i] - lr_r * (L.grad[i] * inv_norm);
+        }
+      Lane E = L;  // the rung's evaluation lives in the direction planes
+      E.traj = L.dir_t;
+      E.vel = L.dir_v;
+      forward_planes(p, E, trial, 1.f, false);
+      closs = rung_cost<true>(p, E, lr_r);
+    } else {
+      closs = rung_cost<false>(p, L, lr_r);
+    }
     const float required = loss - p.bls_alpha * lr_r * alpha_norm;
     if (closs <= required) {  // first pass wins
       found = true;
@@ -406,9 +439,19 @@ static __device__ bool bls_step(const FsParams& p, const Lane& L, float& loss,
     for (int t = 0; t < T; ++t) {
       const size_t i = L.at(j, t);
       L.alpha[i] = a_fac * L.alpha[i] - lr_eff * (L.grad[i] * inv_norm);
-      L.traj[i] = L.traj[i] - lr_eff * L.dir_t[i];
-      L.vel[i] = L.vel[i] - lr_eff * L.dir_v[i];
+      if constexpr (EXACT) {
+        if (found) {
+          L.traj[i] = L.dir_t[i];
+          L.vel[i] = L.dir_v[i];
+        }
+      } else {
+        L.traj[i] = L.traj[i] - lr_eff * L.dir_t[i];
+        L.vel[i] = L.vel[i] - lr_eff * L.dir_v[i];
+      }
     }
+  if constexpr (EXACT) {
+    if (!found) forward_planes(p, L, L.alpha, 1.f, false);
+  }
   loss = stop ? loss_best : cost_grad_from_traj(p, L, true);
   lr = new_lr;
   return stop;

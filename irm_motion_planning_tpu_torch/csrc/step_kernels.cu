@@ -7,7 +7,10 @@
 //
 // They replace, in irm_motion_planning_tpu/ops/pallas_step.py:
 //  * K3 bls_step_kernel: bls_inner_step / _make_step_kernel -> _bls_step
-//    without the FK carry (the loss is recomputed at the accepted iterate);
+//    without the FK carry (the loss is recomputed at the accepted iterate),
+//    in its two compilations, one per ladder tier: linearized
+//    (bls_step_kernel<false>) and exact (<true>: each rung's candidate alpha
+//    through the basis, from the workspace's trial plane);
 //  * K4 gd_step_kernel: gd_inner_step / _make_gd_step_kernel -> _gd_step
 //    (the stop test rejects the trial; lr passes through);
 //  * K5 cost_grad_eval_kernel: cost_grad_eval / _make_eval_kernel ->
@@ -25,7 +28,8 @@
 // (minimized > 0.5) is not touched at all, which is the TPU kernels'
 // pass-through; a block whose lanes are all frozen returns before it stages
 // anything (the TPU kernel's whole-tile skip).  The workspace (dir_t, dir_v
-// (J, T, B), gx, gy (T, B), and for K4 the trial alpha (J, T, B)) is
+// (J, T, B), gx, gy (T, B), and for K4 and the exact K3 the trial alpha
+// (J, T, B)) is
 // allocated by the caller once per solve.
 //
 // What bounds them on this card (bounds from the shapes in PERF.md):
@@ -81,7 +85,16 @@ __device__ __forceinline__ bool step_live(const FsParams& p,
   return live;
 }
 
-// K3: one BLS inner step for every live lane, in place.
+// The trial plane of the workspace [dir_t, dir_v (J, T, B); gx, gy (T, B);
+// trial (J, T, B)].
+static __device__ __forceinline__ float* trial_plane(const FsParams& p,
+                                                     float* work) {
+  return work + 2 * (size_t)NJ * p.T * p.B + 2 * (size_t)p.T * p.B;
+}
+
+// K3: one BLS inner step for every live lane, in place, in the ladder tier
+// EXACT (a template argument: two programs, no run-time switch).
+template <bool EXACT>
 __global__ void bls_step_kernel(
     FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
     const float* __restrict__ mix, const float* __restrict__ lam_sg,
@@ -100,7 +113,7 @@ __global__ void bls_step_kernel(
   Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
                           alpha, grad, traj, vel, work);
   float l = loss[b], r = lr[b];
-  const bool stop = bls_step(p, L, l, r);
+  const bool stop = bls_step<EXACT>(p, L, trial_plane(p, work), l, r);
   loss[b] = l;
   lr[b] = r;
   minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
@@ -124,9 +137,8 @@ __global__ void gd_step_kernel(
   if (!live) return;
   Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
                           alpha, grad, traj, vel, work);
-  float* trial = work + 2 * (size_t)NJ * p.T * p.B + 2 * (size_t)p.T * p.B;
   float l = loss[b];
-  const bool stop = gd_step(p, L, trial, l, lr[b]);
+  const bool stop = gd_step(p, L, trial_plane(p, work), l, lr[b]);
   loss[b] = l;
   minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
 }
@@ -186,23 +198,39 @@ static int launch_config(const FsParams& p, int block_b, Kernel kernel,
   return 0;
 }
 
-extern "C" int bls_step_launch(FsParams p, int block_b, const float* kv,
-                               const float* kvt, const float* mix,
-                               const float* lam_sg, const float* lam_jl,
-                               const float* start, const float* goal,
-                               const float* ox, const float* oy,
-                               const float* ow, float* alpha, float* grad,
-                               float* traj, float* vel, float* loss,
-                               float* lr, float* minimized, float* work,
-                               void* stream) {
+template <bool EXACT>
+static int bls_step_run(FsParams p, int block_b, const float* kv,
+                        const float* kvt, const float* mix,
+                        const float* lam_sg, const float* lam_jl,
+                        const float* start, const float* goal, const float* ox,
+                        const float* oy, const float* ow, float* alpha,
+                        float* grad, float* traj, float* vel, float* loss,
+                        float* lr, float* minimized, float* work,
+                        void* stream) {
   const size_t smem = smem_bytes(p, block_b);
   unsigned grid;
-  int err = launch_config(p, block_b, bls_step_kernel, smem, grid);
+  int err = launch_config(p, block_b, bls_step_kernel<EXACT>, smem, grid);
   if (err) return err;
-  bls_step_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
+  bls_step_kernel<EXACT><<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha, grad,
       traj, vel, loss, lr, minimized, work);
   return (int)cudaGetLastError();
+}
+
+// ``exact`` picks the program of the ladder tier (the exact one needs the
+// workspace's trial plane).
+extern "C" int bls_step_launch(FsParams p, int block_b, int exact,
+                               const float* kv, const float* kvt,
+                               const float* mix, const float* lam_sg,
+                               const float* lam_jl, const float* start,
+                               const float* goal, const float* ox,
+                               const float* oy, const float* ow, float* alpha,
+                               float* grad, float* traj, float* vel,
+                               float* loss, float* lr, float* minimized,
+                               float* work, void* stream) {
+  return (exact ? bls_step_run<true> : bls_step_run<false>)(
+      p, block_b, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha,
+      grad, traj, vel, loss, lr, minimized, work, stream);
 }
 
 extern "C" int gd_step_launch(FsParams p, int block_b, const float* kv,

@@ -371,9 +371,8 @@ static __device__ __forceinline__ void forward_rows(
     }
 }
 
-// (traj, vel) = the exact evaluation of alpha.
-static __device__ __forceinline__ void eval_alpha(Warp& w) {
-  stage_input(w, w.alpha, 1.f);
+// (traj, vel) = the staged input through kv, into this thread's registers.
+static __device__ __forceinline__ void eval_staged(Warp& w) {
   float out[2 * WB_SLOTS][NJ];
   forward_rows(w, out);
 #pragma unroll
@@ -383,6 +382,12 @@ static __device__ __forceinline__ void eval_alpha(Warp& w) {
       w.traj[s][i] = out[s][i];
       w.vel[s][i] = out[WB_SLOTS + s][i];
     }
+}
+
+// (traj, vel) = the exact evaluation of alpha.
+static __device__ __forceinline__ void eval_alpha(Warp& w) {
+  stage_input(w, w.alpha, 1.f);
+  eval_staged(w);
 }
 
 // ---------------------------------------------------------------------------
@@ -540,20 +545,49 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
 // The BLS and GD steps, the constraint check and the round.
 // ---------------------------------------------------------------------------
 
-// Loss of the candidate (traj - lr dir_t, vel - lr dir_v): one ladder rung.
+// Loss of one ladder rung at learning rate lr.  Linearized: the candidate
+// (traj - lr dir_t, vel - lr dir_v).  EXACT: the candidate alpha
+// (1 - lambda_reg lr) alpha - lr (grad inv_norm), in the operand order of
+// the accepted update, staged as a product input (float4 per timestep, as
+// gd_step stages its trial) and evaluated through kv into the traj/vel
+// registers, which the exact ladder does not read (bls_step re-evaluates
+// them); then the same cost rows and reduction.
+template <bool EXACT>
 static __device__ __forceinline__ float rung_cost(const FsParams& p, Warp& w,
-                                                  float lr) {
+                                                  float lr, float inv_norm) {
   const int T = w.T;
-  __syncwarp();
+  if constexpr (EXACT) {
+    const float a_fac = 1.f - p.lambda_reg * lr;
+    __syncwarp();  // the buffer's last readers are done
+    float4* in = (float4*)w.buf;
+#pragma unroll
+    for (int s = 0; s < WB_SLOTS; ++s) {
+      if (!w.owns(s)) continue;
+      const int t = w.tt(s);
+      in[t] = make_float4(
+          a_fac * w.alpha[t] - lr * (w.grad[t] * inv_norm),
+          a_fac * w.alpha[T + t] - lr * (w.grad[T + t] * inv_norm),
+          a_fac * w.alpha[2 * T + t] - lr * (w.grad[2 * T + t] * inv_norm),
+          0.f);
+    }
+    __syncwarp();
+    eval_staged(w);
+  }
+  __syncwarp();  // the product's reads of the buffer are done
   float cvs[WB_SLOTS];
 #pragma unroll
   for (int s = 0; s < WB_SLOTS; ++s) {
-    const int t = w.ts(s);
+    [[maybe_unused]] const int t = w.ts(s);
     float tr[NJ], ve[NJ], px[NJ], py[NJ], ex, ey;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      tr[j] = w.traj[s][j] - lr * w.dir_t[j * T + t];
-      ve[j] = w.vel[s][j] - lr * w.dir_v[j * T + t];
+      if constexpr (EXACT) {
+        tr[j] = w.traj[s][j];
+        ve[j] = w.vel[s][j];
+      } else {
+        tr[j] = w.traj[s][j] - lr * w.dir_t[j * T + t];
+        ve[j] = w.vel[s][j] - lr * w.dir_v[j * T + t];
+      }
     }
     fk_point(p, tr, px, py, ex, ey);
     cvs[s] = field(w, ex, ey);
@@ -563,10 +597,21 @@ static __device__ __forceinline__ float rung_cost(const FsParams& p, Warp& w,
   return cost_reduce(p, w, cvs, true, first);
 }
 
-// One BLS inner step of a live lane with the FK carry (the lane body's
-// bls_step<CARRY>: normalized direction, its forward evaluation, the
-// early-exit Armijo ladder (first pass wins), the accepted iterate, and the
-// gradient pulled back at it unless the stop test fired).  Returns stop.
+// One BLS inner step of a live lane (the lane body's bls_step<EXACT>):
+// normalized direction, the early-exit Armijo ladder (first pass wins), the
+// accepted iterate, and the gradient pulled back at it unless the stop test
+// fired.  Returns stop.
+//
+// Linearized (EXACT false): the direction's forward evaluation, the ladder
+// on the linearized trajectory, and the FK carry: the pull-back's cost pass
+// recomputes FK at the accepted candidate, the same floats, and the rung's
+// loss is kept.  EXACT: each rung evaluates its candidate alpha through the
+// basis (rung_cost<true>), and the accepted iterate's (traj, vel) are its
+// exact evaluation: the accepted rung's, left in the registers (its staged
+// candidate is the new alpha's floats), or, when no rung passed, alpha's
+// evaluated anew; unless the stop test fires, the cost pass recomputes the
+// loss there.
+template <bool EXACT>
 static __device__ __forceinline__ bool bls_step(const FsParams& p, Warp& w,
                                                 float& loss, float& lr) {
   const int T = w.T;
@@ -597,8 +642,8 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, Warp& w,
   const float alpha_norm = __shfl_sync(FULL_MASK, sum, 0);
 
   // The direction's forward evaluation, hoisted: dir = lambda_reg x + g.
-  stage_input(w, w.grad, inv_norm);
-  {
+  if constexpr (!EXACT) {
+    stage_input(w, w.grad, inv_norm);
     float out[2 * WB_SLOTS][NJ];
     forward_rows(w, out);
 #pragma unroll
@@ -617,7 +662,7 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, Warp& w,
   float lr_best = 0.f, loss_best = loss, rung = 1.f;
   for (int k = 0; k < p.n_bls; ++k) {
     const float lr_r = lr * rung;
-    const float closs = rung_cost(p, w, lr_r);
+    const float closs = rung_cost<EXACT>(p, w, lr_r, inv_norm);
     const float required = loss - p.bls_alpha * lr_r * alpha_norm;
     if (closs <= required) {  // first pass wins
       found = true;
@@ -640,16 +685,25 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, Warp& w,
       const int i = j * T + t;
       if (w.owns(s))
         w.alpha[i] = a_fac * w.alpha[i] - lr_eff * (w.grad[i] * inv_norm);
-      w.traj[s][j] = w.traj[s][j] - lr_eff * w.dir_t[i];
-      w.vel[s][j] = w.vel[s][j] - lr_eff * w.dir_v[i];
+      if constexpr (!EXACT) {
+        w.traj[s][j] = w.traj[s][j] - lr_eff * w.dir_t[i];
+        w.vel[s][j] = w.vel[s][j] - lr_eff * w.dir_v[i];
+      }
     }
   }
+  if constexpr (EXACT) {
+    if (!found) eval_alpha(w);
+  }
+  float nloss = loss_best;
   if (!stop) {
     int first;
-    cost_pass(p, w, false, first);
+    if constexpr (EXACT)
+      nloss = cost_pass(p, w, true, first);
+    else
+      cost_pass(p, w, false, first);
     grad_pass(p, w, first);
   }
-  loss = loss_best;
+  loss = nloss;
   lr = new_lr;
   return stop;
 }
@@ -723,17 +777,7 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, Warp& w,
                         0.f);
   }
   __syncwarp();
-  {
-    float out[2 * WB_SLOTS][NJ];
-    forward_rows(w, out);
-#pragma unroll
-    for (int s = 0; s < WB_SLOTS; ++s)
-#pragma unroll
-      for (int i = 0; i < NJ; ++i) {
-        w.traj[s][i] = out[s][i];
-        w.vel[s][i] = out[WB_SLOTS + s][i];
-      }
-  }
+  eval_staged(w);
   int first;
   const float nloss = cost_pass(p, w, true, first);
   if ((loss - nloss) < p.loss_red) return true;
@@ -752,10 +796,12 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, Warp& w,
   return false;
 }
 
-// The solvers of the round body (template argument, never a run-time
-// switch): the index ops/fused_solve.py's SOLVERS gives each.
+// The programs of the round body (template argument, never a run-time
+// switch): the index ops/fused_solve.py's PROGRAMS gives each.  BLS has one
+// per ladder tier.
 #define SOLVER_BLS 0
 #define SOLVER_GD 1
+#define SOLVER_BLS_EXACT 2
 
 // One penalty round of a live lane under its current penalties (the lane
 // body's round): round-start exact evaluation, loss and gradient; up to n_r
@@ -766,9 +812,10 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, Warp& w,
 // already hold the exact evaluation of alpha (the previous round's end, in
 // K1), the same values the round-start evaluation would give.
 //
-// The exact evaluation at the end: BLS re-evaluates from alpha (its
-// linearized carry drifts).  GD's carried (traj, vel) are exact already, so
-// the JAX kernel skips the re-evaluation; here they are too, except after a
+// The exact evaluation at the end: BLS with the linearized ladder
+// re-evaluates from alpha (its linearized carry drifts).  The exact
+// ladder's carried (traj, vel) are exact already, and so are GD's, so the
+// JAX kernel skips the re-evaluation for both; here too, except after GD's
 // rejected trial, whose evaluation gd_step left in traj/vel: the carried
 // one is rebuilt from the untouched alpha, the same floats bit for bit.
 template <int SOLVER>
@@ -791,10 +838,10 @@ static __device__ __forceinline__ bool warp_round(const FsParams& p, Warp& w,
   } else {
     float lr = lr0;
     for (int k = 0; k < n_r; ++k) {
-      if (bls_step(p, w, loss, lr)) break;
+      if (bls_step<SOLVER == SOLVER_BLS_EXACT>(p, w, loss, lr)) break;
       inner += 1.f;  // live before the step and after it
     }
-    eval_alpha(w);
+    if constexpr (SOLVER == SOLVER_BLS) eval_alpha(w);
   }
   return constraints_ok(p, w);
 }

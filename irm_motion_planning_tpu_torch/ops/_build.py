@@ -105,15 +105,15 @@ def build() -> str:
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
     signatures: the parameter block and the lanes per block (K3-K6) or per
-    CTA (K1/K2)[, K1/K2's solver and the CTAs of their grid][, n_r], then a
-    c_void_p for every tensor pointer; callers pass the stream last, as a
-    c_void_p."""
+    CTA (K1/K2)[, K1/K2's program and the CTAs of their grid][, n_r][, K3's
+    ladder tier], then a c_void_p for every tensor pointer; callers pass the
+    stream last, as a c_void_p."""
     from .fused_solve import _Params
 
     for name, n_int, n_ptr in (
         ("fused_solve_launch", 2, 16),
         ("fused_round_launch", 3, 17),
-        ("bls_step_launch", 0, 19),
+        ("bls_step_launch", 1, 19),
         ("gd_step_launch", 0, 19),
         ("cost_grad_eval_launch", 0, 17),
         ("forward_eval_launch", 0, 6),

@@ -1,16 +1,21 @@
 """The fused kernels and their plain PyTorch versions (counterparts of
 ``pallas_step.fused_solve`` and ``pallas_step.fused_round`` /
 ``_make_solve_kernel`` in irm_motion_planning_tpu/ops/pallas_step.py), for
-both solvers: BLS (``solver="bls"``) and GD (``solver="gd"``).
+both solvers: BLS (``solver="bls"``, either ladder tier) and GD
+(``solver="gd"``).
 
 A penalty round is: a fused cost/gradient evaluation, the inner loop to the
 round's budget, and the hard-constraint check on the exact evaluation.  A
-BLS step takes the normalized direction, the Armijo ladder on the linearized
-trajectory, the FK carry of the accepted rung and the gradient pull-back,
-and the round ends with an exact re-evaluation of the trajectory (the
-linearized carry drifts).  A GD step evaluates the trial ``(1 - lambda_reg
-lr) alpha - lr grad`` exactly; the stop test rejects it, and the round ends
-on its carried evaluation, which is already exact.  ``fused_solve`` runs
+BLS step takes the normalized direction and the Armijo ladder, in one of
+two tiers (``cfg.ladder_eval``).  Linearized: the ladder runs on the
+linearized trajectory, the accepted rung's FK is carried into the gradient
+pull-back, and the round ends with an exact re-evaluation of the trajectory
+(the linearized carry drifts).  Exact: each rung's candidate alpha goes
+through the basis, the accepted iterate is evaluated exactly with the loss
+recomputed, and the round ends on that evaluation.  A GD step evaluates the
+trial ``(1 - lambda_reg lr) alpha - lr grad`` exactly; the stop test
+rejects it, and the round ends on its carried evaluation, which is already
+exact.  ``fused_solve`` runs
 every round of the whole penalty-method solve in one call, with the x10
 penalty escalation on lanes that still fail (GD's learning rate per round
 from ``gd_lr``); ``fused_round`` runs one round from a per-lane learning
@@ -42,9 +47,12 @@ from ..config import PlannerConfig
 
 # Most penalty rounds the kernel's parameter block holds.
 MAX_ROUNDS = 32
-# The solvers of the fused kernels, by the index of their instantiation in
-# csrc/fused_solve.cu (SOLVER_BLS = 0, SOLVER_GD = 1).
+# The solvers of the fused kernels.
 SOLVERS = ("bls", "gd")
+# Their compiled programs, by the index of their instantiation in
+# csrc/fused_solve.cu (SOLVER_BLS = 0, SOLVER_GD = 1, SOLVER_BLS_EXACT = 2):
+# BLS has one per ladder tier.
+PROGRAMS = ("bls", "gd", "bls_exact")
 # The warp-per-lane kernels (csrc/warp_body.cuh): lanes (warps) per CTA,
 # ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS;
 # two timesteps per thread, so at most WARP_MAX_T timesteps.
@@ -313,15 +321,25 @@ def count_work(tally, key: str, lanes) -> None:
 def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
              lam_sg, lam_jl, alpha, grad, traj, vel, loss, bls_lr, minimized,
              px=None, py=None, tally=None):
-    """One BLS inner step for every lane (pallas_step._bls_step, linearized
-    ladder).  ``minimized`` (B,) bool freezes lanes.  With ``px``/``py``
-    given, the accepted rung's FK planes are carried into the pull-back and
-    its loss is reused; without them the loss is recomputed at the accepted
-    iterate (the per-step kernel's mode).  ``tally``: see :func:`count_work`.
-    Returns (alpha, grad, traj, vel, loss, lr, minimized[, px, py])."""
+    """One BLS inner step for every lane (pallas_step._bls_step) in the
+    ladder tier ``cfg.ladder_eval``.  ``minimized`` (B,) bool freezes lanes.
+
+    Linearized: each rung's candidate is the linearized trajectory.  With
+    ``px``/``py`` given, the accepted rung's FK planes are carried into the
+    pull-back and its loss is reused; without them the loss is recomputed at
+    the accepted iterate (the per-step kernel's mode).  Exact: each rung's
+    candidate alpha ``(1 - lambda_reg lr_r) alpha - lr_r n_grad`` goes
+    through the basis; the accepted iterate is evaluated exactly (also when
+    the stop test fires) and, unless it fires, its loss and gradient are
+    recomputed there; no FK carry (``px``/``py`` must be None).  ``tally``:
+    see :func:`count_work`.  Returns (alpha, grad, traj, vel, loss, lr,
+    minimized[, px, py])."""
     n = cfg.max_bls_iteration
     frozen = minimized
+    exact = cfg.ladder_eval == "exact"
     carry_fk = px is not None
+    if exact and carry_fk:
+        raise ValueError("the exact ladder has no FK carry")
     count_work(tally, "steps", ~frozen)
 
     g2 = (grad * grad).sum(dim=1).sum(dim=0)
@@ -332,9 +350,10 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     gsum = grad.sum(dim=0)
     alpha_norm = (gsum * (gsum * inv_norm)).sum(dim=0)
 
-    gtraj, gvel = forward_planes(kv, mix, n_grad)
-    dir_t = cfg.lambda_reg * traj + gtraj
-    dir_v = cfg.lambda_reg * vel + gvel
+    if not exact:
+        gtraj, gvel = forward_planes(kv, mix, n_grad)
+        dir_t = cfg.lambda_reg * traj + gtraj
+        dir_v = cfg.lambda_reg * vel + gvel
 
     found = torch.zeros_like(frozen)
     lr_best = torch.zeros_like(loss)
@@ -348,8 +367,12 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
             break
         lr_r = bls_lr * float(rung)
         count_work(tally, "rungs", ~found & ~frozen)
-        cand_t = traj - lr_r * dir_t
-        cand_v = vel - lr_r * dir_v
+        if exact:
+            cand_t, cand_v = forward_planes(
+                kv, mix, (1.0 - cfg.lambda_reg * lr_r) * alpha - lr_r * n_grad)
+        else:
+            cand_t = traj - lr_r * dir_t
+            cand_v = vel - lr_r * dir_v
         ee_x, ee_y, rpx, rpy = fk_ee(c, cand_t)
         cost_v = obstacle_cost_v(ee_x, ee_y, obs)
         closs = scalar_cost(cfg, c, cand_t, cand_v, cost_v, start, goal,
@@ -372,8 +395,11 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
 
     a_fac = 1.0 - cfg.lambda_reg * lr_eff
     new_alpha = a_fac * alpha - lr_eff * n_grad
-    nt = traj - lr_eff * dir_t
-    nv = vel - lr_eff * dir_v
+    if exact:
+        nt, nv = forward_planes(kv, mix, new_alpha)
+    else:
+        nt = traj - lr_eff * dir_t
+        nv = vel - lr_eff * dir_v
     if carry_fk:
         nloss, npx, npy = loss_best, cpx, cpy
         _, ngrad, _, _ = cost_grad_from_traj(
@@ -450,15 +476,16 @@ def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
 def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
               minimized, lr, n_r, icnt, tally=None, solver="bls"):
     """Round-start fused evaluation and up to ``n_r`` steps of ``solver``
-    from the per-lane learning rate ``lr`` (B,).  BLS then re-evaluates
-    (traj, vel) exactly from the final alpha (its linearized carry drifts);
-    GD's carried (traj, vel) are the exact evaluation of alpha already (an
-    accepted trial's, or the round start's), so re-evaluating would change
-    nothing and, as in the JAX kernel, is skipped.  Shared by both plain
-    versions, as pallas_step's run_inner serves both TPU kernels.
-    ``tally``: see :func:`count_work`.  Returns (alpha, traj, vel, loss,
-    icnt)."""
+    from the per-lane learning rate ``lr`` (B,).  BLS with the linearized
+    ladder (FK carry) then re-evaluates (traj, vel) exactly from the final
+    alpha (its linearized carry drifts); GD's and the exact ladder's carried
+    (traj, vel) are the exact evaluation of alpha already (an accepted
+    iterate's, or the round start's), so re-evaluating would change nothing
+    and, as in the JAX kernel, is skipped.  Shared by both plain versions,
+    as pallas_step's run_inner serves both TPU kernels.  ``tally``: see
+    :func:`count_work`.  Returns (alpha, traj, vel, loss, icnt)."""
     gd = _solver_is_gd(solver)
+    linearized = not gd and cfg.ladder_eval == "linearized"
     count_work(tally, "rounds", ~minimized)
     loss, grad, traj, vel, px, py = cost_grad_eval(
         cfg, c, kv, kvt, mix, alpha, start, goal, obs, lam_sg, lam_jl
@@ -471,16 +498,21 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
                 cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
                 alpha, grad, traj, vel, loss, lr, minimized, tally=tally,
             )
-        else:
+        elif linearized:
             (alpha, grad, traj, vel, loss, lr, new_min, px, py) = bls_step(
                 cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
                 alpha, grad, traj, vel, loss, lr, minimized, px=px, py=py,
                 tally=tally,
             )
+        else:
+            alpha, grad, traj, vel, loss, lr, new_min = bls_step(
+                cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
+                alpha, grad, traj, vel, loss, lr, minimized, tally=tally,
+            )
         # A step counts when the lane was live before it and after it.
         icnt = icnt + (~minimized & ~new_min).to(torch.float32)
         minimized = new_min
-    if not gd:
+    if linearized:
         traj, vel = forward_planes(kv, mix, alpha)
     return alpha, traj, vel, loss, icnt
 
@@ -610,28 +642,35 @@ def launch_plan(cfg: PlannerConfig, O: int) -> dict:
 def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
                  solver: str = "bls") -> dict:
     """What the card makes of the launch plan of K1 (``kernel=
-    "fused_solve"``) or K2 (``"fused_round"``) for ``solver``: CTAs per SM
-    (the CUDA occupancy calculator, registers and shared memory), SMs,
-    shared memory per CTA as the C side computes it, warps per SM.  Needs
-    the card."""
+    "fused_solve"``) or K2 (``"fused_round"``) for ``solver`` (BLS: in the
+    ladder tier of ``cfg``): CTAs per SM (the CUDA occupancy calculator,
+    registers and shared memory), SMs, shared memory per CTA as the C side
+    computes it, warps per SM.  Needs the card."""
     from ._build import load_library
 
     warps = launch_plan(cfg, O)["warps"]
     out = (ctypes.c_int * 3)()
     err = load_library().fused_launch_shape(
         kernel_params(cfg, O, B), warps,
-        {"fused_solve": 0, "fused_round": 1}[kernel], solver_index(solver),
-        out)
+        {"fused_solve": 0, "fused_round": 1}[kernel],
+        program_index(cfg, solver), out)
     if err:
         raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
             "warps_per_sm": out[0] * warps}
 
 
-def solver_index(solver: str) -> int:
-    """The solver's instantiation index in csrc/fused_solve.cu."""
-    _solver_is_gd(solver)
-    return SOLVERS.index(solver)
+def program(cfg: PlannerConfig, solver: str) -> str:
+    """The compiled program of K1/K2 that runs ``solver`` under ``cfg``:
+    GD's, or BLS's of the ladder tier ``cfg.ladder_eval``."""
+    if _solver_is_gd(solver):
+        return "gd"
+    return "bls" if cfg.ladder_eval == "linearized" else "bls_exact"
+
+
+def program_index(cfg: PlannerConfig, solver: str) -> int:
+    """The instantiation index in csrc/fused_solve.cu of :func:`program`."""
+    return PROGRAMS.index(program(cfg, solver))
 
 
 class _Params(ctypes.Structure):
@@ -715,17 +754,15 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
 
 def check_supported(cfg: PlannerConfig) -> None:
     """Raise NotImplementedError for the BLS modes this port does not run
-    yet."""
-    if cfg.ladder_eval != "linearized":
-        raise NotImplementedError(
-            "ladder_eval='exact' is not ported yet (ROADMAP queue 1 #10)"
-        )
+    yet.  Both ladder tiers run.  ``exact_constraint_eval=False`` is a no-op
+    under the exact ladder, whose carried evaluation is exact, as in the
+    JAX kernel; under the linearized ladder it raises."""
     check_precision(cfg)
     if cfg.bls_bf16_ladder:
         raise NotImplementedError(
-            "the bf16 ladder tier is not ported (ROADMAP queue 1 #13)"
+            "the bf16 ladder tier is not ported (ROADMAP queue 1 #2, large T)"
         )
-    if not cfg.exact_constraint_eval:
+    if cfg.ladder_eval == "linearized" and not cfg.exact_constraint_eval:
         raise NotImplementedError(
             "exact_constraint_eval=False is not ported; the port always "
             "checks constraints on the exact evaluation"
@@ -781,9 +818,9 @@ _LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
                 goal, ox, oy, ow, *, solver: str = "bls",
                 ctas: int = 0) -> FusedSolve:
-    """The whole penalty-method solve of ``solver`` (``"bls"`` or ``"gd"``;
-    GD's round r starts from ``gd_lr[min(r, len(gd_lr) - 1)]``) for every
-    lane.
+    """The whole penalty-method solve of ``solver`` (``"bls"``, in the ladder
+    tier ``cfg.ladder_eval``, or ``"gd"``; GD's round r starts from
+    ``gd_lr[min(r, len(gd_lr) - 1)]``) for every lane.
 
     kv (2T, T), kvt (T, 2T), mix (J, J), a0 (J, T, B), lam_sg0/lam_jl0
     (1, B), start/goal (J, B), ox/oy/ow (O, B), all f32.  CPU tensors run
@@ -881,7 +918,8 @@ def _launch(name: str, cfg: PlannerConfig, solver: str, alpha, n_out: int,
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     launch(name, kernel_params(cfg, O, B), warps,
-           [ctypes.c_int(solver_index(solver)), ctypes.c_int(ctas), *scalars,
+           [ctypes.c_int(program_index(cfg, solver)), ctypes.c_int(ctas),
+            *scalars,
             *inputs, alpha, *outs, queue], dev)
     return outs
 
@@ -898,6 +936,8 @@ LANE_AGREEMENT_MIN = 0.60
 # H100 (1,024 random scenes at the short configs, 16,384 at the full
 # benchmark schedule): 1.0 at 1 round x 4 steps over six seeds, 0.997-1.0
 # at 2 rounds x 6 steps, 0.883-0.891 at the full schedule over five seeds.
+# The exact ladder's K1, K2 and K3 agree as closely: 1.0 at 1 round x 4
+# steps on 1,000 random scenes, and one K3 step on every lane.
 CARD_SHORT_AGREEMENT_MIN = 0.99
 CARD_FULL_AGREEMENT_MIN = 0.87
 ALPHA_REL_MAX = 1e-4

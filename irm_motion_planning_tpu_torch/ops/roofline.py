@@ -54,10 +54,13 @@ class LaneOps(NamedTuple):
 
     forward: int      # forward_planes: kv products and the mix combine
     rung: int         # rung_cost: candidate, FK, obstacle field, cost sums
+    rung_exact: int   # the exact ladder's rung: candidate alpha, its
+    #                   forward, FK, obstacle field, cost sums
     cost: int         # cost_pass: FK, field and its gradient, cost sums
     loss: int         # cost_total: the penalized loss from the sums
     grad: int         # grad_pass: pass B and the kvt pull-back
     step: int         # bls_step without the rungs and the pull-back
+    step_exact: int   # the same, exact ladder: no direction forward
     trial: int        # gd_step's trial (1 - lambda_reg lr) alpha - lr grad
     constraints: int  # constraints_ok
 
@@ -68,17 +71,22 @@ class LaneOps(NamedTuple):
         loss = 16 * J + 8
         forward = 2 * (2 * T) * T * J + (2 * T) * J * (2 * J - 1)
         pull = 2 * T * (2 * T) * J + T * J * (2 * J - 1)
+        field = fk + T * (4 + 8 * O) + sums + loss
+        trial = 3 * J * T + 2
+        # norm and alpha_norm, n_grad, the accepted update of alpha
+        step_exact = 2 * J * T + 2 + T * (J + 2) + J * T + 4 * J * T
         return cls(
             forward=forward,
-            rung=T * 4 * J + fk + T * (4 + 8 * O) + sums + loss,
+            rung=T * 4 * J + field,
+            rung_exact=trial + forward + field,
             cost=fk + T * (4 + 14 * O + 4) + sums,
             loss=loss,
             grad=fk + T * (4 + 2 * J + 13 * J) + pull,
-            # norm and alpha_norm, n_grad, the direction's forward and its
-            # hoist, the accepted update of alpha, traj and vel
-            step=(2 * J * T + 2 + T * (J + 2) + J * T + forward
-                  + 2 * (2 * T) * J + 8 * J * T),
-            trial=3 * J * T + 2,
+            # and the direction's forward and its hoist, the accepted update
+            # of traj and vel
+            step=step_exact + forward + 2 * (2 * T) * J + 4 * J * T,
+            step_exact=step_exact,
+            trial=trial,
             constraints=8 * J * T,
         )
 
@@ -112,12 +120,24 @@ def cost_grad_eval(B: int, T: int, J: int, O: int) -> Bound:
                  B * (n.forward + n.cost + n.loss + n.grad))
 
 
-def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
+def _bls_ops(n: LaneOps, ladder_eval: str) -> tuple:
+    """(a step's fixed part, a rung) of BLS in the ladder tier, each with
+    its 4 Armijo and stop operations."""
+    if ladder_eval == "exact":
+        return n.step_exact + 4, n.rung_exact + 4
+    return n.step + 4, n.rung + 4
+
+
+def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
+                   ladder_eval: str = "linearized") -> Bound:
     """K3 in place, from the plain version's tally on the same inputs (the
     kernel returns no rung count): every lane reads its frozen flag; a live
     lane reads the four state planes, loss, lr, penalties and scene and
     writes the state back; the steps that do not stop pay the pull-back
-    with the loss."""
+    with the loss.  Exact ladder: each rung evaluates its candidate through
+    the basis, and the accepted rung's evaluation is the new iterate's (no
+    further forward: the step without a passing rung, which re-evaluates,
+    is not counted)."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     steps, rungs, pulls = (_total(tally[k]) for k in
                            ("steps", "rungs", "pullbacks"))
@@ -125,8 +145,8 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
     live_out = 3 * b["plane"] + 3 * b["scalar"]
     byts = (B * F32 + steps * (live_in + live_out) + pulls * b["plane"]
             + _basis_bytes(T, J))
-    ops = (steps * (n.step + 4) + rungs * (n.rung + 4)
-           + pulls * (n.cost + n.loss + n.grad))
+    step, rung = _bls_ops(n, ladder_eval)
+    ops = steps * step + rungs * rung + pulls * (n.cost + n.loss + n.grad)
     return Bound(byts, ops)
 
 
@@ -145,50 +165,64 @@ def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
 
 
 def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
-                 n_out: int, solver: str = "bls") -> Bound:
-    """K1 (all rounds) or K2 (one round) of ``solver``, from the work counts
-    of the run: each lane reads alpha, its penalties and scene and writes
-    alpha and ``n_out`` per-lane results.
+                 whole_solve: bool, solver: str = "bls",
+                 ladder_eval: str = "linearized") -> Bound:
+    """K1 (``whole_solve``: all rounds) or K2 (one round) of ``solver``,
+    from the work counts of the run: each lane reads alpha, its penalties
+    and scene and writes alpha and its per-lane results (K1 four, K2 three).
 
-    BLS (rounds, steps, rungs, pull-backs): each round a lane runs pays the
-    round-start evaluation, the end-of-round re-evaluation and the
-    constraint check; each step its fixed part, each rung its cost, each
-    step that does not stop the pull-back (the FK carry reuses the loss).
+    Each round a lane runs pays the round-start cost pass with the loss and
+    its pull-back, and the constraint check.  The round-start forward is paid
+    once per lane by K1, whose later rounds start from the previous round's
+    end evaluation, and once per round by K2, which starts from alpha.
 
-    GD (rounds, steps, accepted): each round pays the round-start
-    evaluation and the constraint check (the carried evaluation is exact:
-    no re-evaluation); each step the trial, its forward and its cost pass
-    with the loss; each accepted step the pull-back."""
+    BLS (rounds, steps, rungs, pull-backs): each step its fixed part, each
+    rung its cost, each step that does not stop the pull-back.  Linearized
+    ladder: the end-of-round re-evaluation, and the pull-back reuses the
+    accepted rung's loss (the FK carry).  Exact ladder: no re-evaluation
+    (the carried evaluation is exact), each rung's candidate through the
+    basis, and the pull-back recomputes the loss at the accepted rung's
+    evaluation (a step without a passing rung, which re-evaluates, is not
+    counted).
+
+    GD (rounds, steps, accepted): no re-evaluation (the carried evaluation
+    is exact); each step the trial, its forward and its cost pass with the
+    loss; each accepted step the pull-back."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
+    n_out = 4 if whole_solve else 3
     per_lane = (2 * b["plane"] + 4 * b["scalar"] + b["scene"]
                 + n_out * b["scalar"])
+    rounds = _total(tally["rounds"])
+    starts = B if whole_solve else rounds
+    ops = (starts * n.forward
+           + rounds * (n.cost + n.loss + n.grad + n.constraints))
     if solver == "gd":
-        rounds, steps, acc = (_total(tally[k]) for k in
-                              ("rounds", "steps", "accepted"))
-        ops = (rounds * (n.forward + n.cost + n.loss + n.grad + n.constraints)
-               + steps * (n.trial + n.forward + n.cost + n.loss)
-               + acc * n.grad)
+        steps, acc = (_total(tally[k]) for k in ("steps", "accepted"))
+        ops += (steps * (n.trial + n.forward + n.cost + n.loss)
+                + acc * n.grad)
     else:
-        rounds, steps, rungs, pulls = (_total(tally[k]) for k in
-                                       ("rounds", "steps", "rungs",
-                                        "pullbacks"))
-        ops = (rounds * (2 * n.forward + n.cost + n.loss + n.grad
-                         + n.constraints)
-               + steps * (n.step + 4) + rungs * (n.rung + 4)
-               + pulls * (n.cost + n.grad))
+        steps, rungs, pulls = (_total(tally[k]) for k in
+                               ("steps", "rungs", "pullbacks"))
+        exact = ladder_eval == "exact"
+        step, rung = _bls_ops(n, ladder_eval)
+        ops += ((0 if exact else rounds * n.forward)
+                + steps * step + rungs * rung
+                + pulls * (n.cost + n.grad + (n.loss if exact else 0)))
     return Bound(B * per_lane + _basis_bytes(T, J), ops)
 
 
 def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
-                         live, solver: str = "bls") -> Bound:
+                         live, solver: str = "bls",
+                         ladder_eval: str = "linearized") -> Bound:
     """K2 over a whole solve, one launch per round, from the solve's work
-    counts (as :func:`fused_rounds`: the rounds driver runs K1's work) and
+    counts (as :func:`fused_rounds` for K2: the rounds driver runs K1's
+    work, each round starting from alpha) and
     ``live``, the lanes each launch runs: every launch reads every lane's
     fulfilled flag and writes its three per-lane results; a live lane also
     reads alpha, its penalties, its learning rate and its scene and writes
     alpha; each launch reads the basis."""
     b = _lane_bytes(T, J, O)
-    ops = fused_rounds(B, T, J, O, tally, 3, solver).ops
+    ops = fused_rounds(B, T, J, O, tally, False, solver, ladder_eval).ops
     byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)

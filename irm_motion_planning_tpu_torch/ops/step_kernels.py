@@ -2,9 +2,9 @@
 ``pallas_step.bls_inner_step``, ``gd_inner_step``, ``cost_grad_eval`` and
 ``forward_eval`` in irm_motion_planning_tpu/ops/pallas_step.py).
 
-* ``bls_inner_step`` (K3): one BLS inner step for every lane, the linearized
-  ladder without the FK carry (the loss is recomputed at the accepted
-  iterate); frozen lanes pass through;
+* ``bls_inner_step`` (K3): one BLS inner step for every lane, in the ladder
+  tier ``cfg.ladder_eval`` (linearized without the FK carry: the loss is
+  recomputed at the accepted iterate; or exact); frozen lanes pass through;
 * ``gd_inner_step`` (K4): one GD inner step; the stop test rejects the
   trial, lr passes through;
 * ``cost_grad_eval`` (K5): loss, gradient and exact (traj, vel) at alpha;
@@ -28,6 +28,7 @@ call allocates its own.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -63,12 +64,12 @@ class PallasForward(NamedTuple):
     vel: torch.Tensor
 
 
-def workspace(J: int, T: int, B: int, device, gd: bool = False):
+def workspace(J: int, T: int, B: int, device, trial: bool = False):
     """The per-step kernels' scratch planes, (2J + 2, T, B): the direction
     planes dir_t, dir_v and the obstacle-gradient planes gx, gy; with
-    ``gd`` also the trial alpha, (3J + 2, T, B).  The GD size serves every
-    kernel."""
-    planes = (3 if gd else 2) * J + 2
+    ``trial`` also a trial alpha (GD's trial, the exact ladder's rung
+    candidate), (3J + 2, T, B).  The larger size serves every kernel."""
+    planes = (3 if trial else 2) * J + 2
     return torch.empty((planes, T, B), dtype=torch.float32, device=device)
 
 
@@ -154,10 +155,10 @@ def _check_out(name: str, out, like) -> None:
                              f"of the result's shape on the inputs' device")
 
 
-def _check_work(name: str, work, J, T, B, dev, gd: bool) -> torch.Tensor:
+def _check_work(name: str, work, J, T, B, dev, trial: bool) -> torch.Tensor:
     if work is None:
-        return workspace(J, T, B, dev, gd)
-    need = (3 if gd else 2) * J + 2
+        return workspace(J, T, B, dev, trial)
+    need = (3 if trial else 2) * J + 2
     if (work.dim() != 3 or work.shape[0] < need or tuple(work.shape[1:]) != (T, B)
             or work.dtype != torch.float32 or work.device != dev
             or not work.is_contiguous()):
@@ -166,11 +167,11 @@ def _check_work(name: str, work, J, T, B, dev, gd: bool) -> torch.Tensor:
     return work
 
 
-def _launch(name: str, cfg: PlannerConfig, O: int, B: int, dev, tensors):
+def _launch(name: str, cfg: PlannerConfig, O: int, B: int, dev, args):
     from ._build import launch
 
     launch(name, fs.kernel_params(cfg, O, B, schedule=False),
-           cfg.pallas_block_b or DEFAULT_BLOCK_B, tensors, dev)
+           cfg.pallas_block_b or DEFAULT_BLOCK_B, args, dev)
 
 
 def _into(out, res):
@@ -204,11 +205,16 @@ def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
             if o.data_ptr() != x.data_ptr():
                 o.copy_(x)
     dev = args[3].device
-    work = _check_work(name, work, J, T, B, dev, gd)
+    # The BLS step's instantiation (a kernel template argument): the ladder
+    # tier; the exact ladder stages its rung candidates in the trial plane.
+    exact = not gd and cfg.ladder_eval == "exact"
+    work = _check_work(name, work, J, T, B, dev, gd or exact)
     kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow = (
         x.contiguous() for x in args[:3] + args[10:])
     _launch(name, cfg, ox.shape[0], B, dev,
-            [kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, *out, work])
+            ([] if gd else [ctypes.c_int(int(exact))])
+            + [kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, *out,
+               work])
     wrapper.launches += 1
     return out
 
@@ -217,9 +223,10 @@ def bls_inner_step(cfg: PlannerConfig, kv, kvt, mix, alpha, grad, traj, vel,
                    loss, bls_lr, minimized, lam_sg, lam_jl, start, goal, ox,
                    oy, ow, out: Optional[PallasStep] = None,
                    work: Optional[torch.Tensor] = None) -> PallasStep:
-    """One BLS inner step for every lane (K3).  Lanes with ``minimized >
-    0.5`` pass through unchanged.  The Armijo baseline is the carried
-    ``loss``."""
+    """One BLS inner step for every lane (K3), in the ladder tier
+    ``cfg.ladder_eval``.  Lanes with ``minimized > 0.5`` pass through
+    unchanged.  The Armijo baseline is the carried ``loss``.  ``work``
+    needs the trial plane (:func:`workspace`) in the exact tier."""
     args = (kv, kvt, mix, alpha, grad, traj, vel, loss, bls_lr, minimized,
             lam_sg, lam_jl, start, goal, ox, oy, ow)
     return _step("bls_step", cfg, args, out, work, False,

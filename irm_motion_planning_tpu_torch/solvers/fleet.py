@@ -13,11 +13,14 @@ Every tensor carries the scene lane as its LAST axis: alpha and trajectory
 * ``backend="pallas"``: the per-step backend, BLS or GD: one kernel launch
   per inner step and one fused evaluation per penalty round
   (ops/step_kernels.py, driven by :func:`_pallas_solve`);
-* ``backend="xla"``: the plain PyTorch engine, the counterpart of the JAX
-  package's portable backend: :func:`run_dual_loop` around the rung-major
-  BLS ladder of :func:`make_bls_inner` or the GD loop of
-  :func:`make_gd_inner`.  It is the reference the bench's paired quality
-  gate holds the kernels to.
+* ``backend="xla"`` (the default, as in the JAX package): the plain
+  PyTorch engine, the counterpart of the JAX package's portable backend:
+  :func:`run_dual_loop` around the rung-major BLS ladder of
+  :func:`make_bls_inner` or the GD loop of :func:`make_gd_inner`.  It is
+  the reference the bench's paired quality gate holds the kernels to.
+
+BLS runs in either Armijo ladder tier (``cfg.ladder_eval``: linearized or
+exact) on every backend.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
@@ -293,9 +296,12 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
     inner_iters, loss)`` (the factory :func:`run_dual_loop` takes).
 
     Each step evaluates all ``n = max_bls_iteration`` Armijo rungs at once,
-    rung-major ``(T, J, n+1, B)``, on the linearized trajectory (evaluation
-    is linear in alpha: a rung's trajectory is ``(1 - lambda_reg lr) traj -
-    lr eval(n_grad)``), and takes the first rung that passes.  Rung n is the
+    rung-major ``(T, J, n+1, B)``, and takes the first rung that passes.  In
+    the ladder tier ``cfg.ladder_eval``: linearized, on the linearized
+    trajectory (evaluation is linear in alpha: a rung's trajectory is ``(1 -
+    lambda_reg lr) traj - lr eval(n_grad)``); exact, each rung's candidate
+    alpha ``(1 - lambda_reg lr) alpha - lr n_grad`` through the basis (ref:
+    optimizer_BLS.py:139).  Rung n is the
     zero-lr candidate, alpha itself, evaluated through the SAME path as the
     real rungs: its loss is the Armijo and stop baseline.  A baseline from
     another fp path (the carried loss) differs by ~1e-4 relative on this
@@ -303,10 +309,6 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
     the 1e-3 stop threshold, and flips near-threshold decisions (in the JAX
     package it took the converged fraction from the reference's 53% to
     77% on 256 random scenes)."""
-    if cfg.ladder_eval != "linearized":
-        raise NotImplementedError(
-            "ladder_eval='exact' is not ported yet (ROADMAP queue 1 #10)"
-        )
     n = cfg.max_bls_iteration
     dev = basis.kv.device
     # float32 powers of beta_minus, as jnp.power computes them (exact for
@@ -325,9 +327,14 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
         lrs = rungs[:, None] * s.bls_lr[None]                      # (n, B)
         lrs_b = torch.cat([lrs, torch.zeros_like(lrs[:1])])        # (n+1, B)
         a_fac = 1.0 - cfg.lambda_reg * lrs_b
-        gtraj, gvel = fleet_evaluate(cfg, basis, n_grad)
-        cand_traj = a_fac * s.traj[:, :, None] - lrs_b * gtraj[:, :, None]
-        cand_vel = a_fac * s.vel[:, :, None] - lrs_b * gvel[:, :, None]
+        if cfg.ladder_eval == "linearized":
+            gtraj, gvel = fleet_evaluate(cfg, basis, n_grad)
+            cand_traj = a_fac * s.traj[:, :, None] - lrs_b * gtraj[:, :, None]
+            cand_vel = a_fac * s.vel[:, :, None] - lrs_b * gvel[:, :, None]
+        else:
+            cand_traj, cand_vel = fleet_evaluate(
+                cfg, basis, a_fac * s.alpha[:, :, None]
+                - lrs_b * n_grad[:, :, None])                   # (T, J, n+1, B)
         cand_loss = fleet_cost_from_traj(cfg, scn, penalty, cand_traj,
                                          cand_vel)                  # (n+1, B)
         del cand_traj, cand_vel
@@ -556,7 +563,8 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     """The penalty-method dual loop over the per-step kernels (op for op
     irm_motion_planning_tpu/solvers/fleet.py::_pallas_solve): per round, the
     fused evaluation (K5) under the lane's penalties; the round's inner
-    steps, one launch each of K3 (BLS, learning rate from bls_lr_start) or
+    steps, one launch each of K3 (BLS in the ladder tier of ``cfg``,
+    learning rate from bls_lr_start) or
     K4 (GD, the per-lane gd_lr[outer_iter]); for BLS with the linearized
     ladder the exact re-evaluation of (traj, vel) (K6), since the ladder's
     planes drift; the constraint check and the penalty escalation.  Lanes
@@ -580,7 +588,7 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     gd_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
     inc = float(cfg.lambda_constraint_increase)
     alpha = a0.clone()
-    work = sk.workspace(J, T, B, dev, gd)
+    work = sk.workspace(J, T, B, dev, trial=gd or cfg.ladder_eval == "exact")
     ev = sk.PallasEval(torch.empty((1, B), dtype=torch.float32, device=dev),
                        *(torch.empty_like(alpha) for _ in range(3)))
     fulfilled = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -645,14 +653,15 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
 
 def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                 alpha0: Optional[torch.Tensor] = None, solver: str = "bls",
-                backend: str = "fused") -> SolveResult:
+                backend: str = "xla") -> SolveResult:
     """Solve a batch of scenes (leading-batch Scenario); ``alpha0`` is an
-    optional (B, T, J) warm start.  ``solver``: ``"bls"`` or ``"gd"``.
-    ``backend``: ``"fused"`` (the whole-solve kernels: one launch per solve,
-    or one per round with ``cfg.lane_compaction``), ``"pallas"`` (the
-    per-step kernels) or ``"xla"`` (the plain engine); each runs both
-    solvers.  The device of the scenes decides where it runs.  Returns
-    leading-batch results."""
+    optional (B, T, J) warm start.  ``solver``: ``"bls"`` (in the ladder
+    tier ``cfg.ladder_eval``) or ``"gd"``.  ``backend``: ``"xla"`` (the
+    plain engine, the default, as in the JAX package), ``"fused"`` (the
+    whole-solve kernels: one launch per solve, or one per round with
+    ``cfg.lane_compaction``) or ``"pallas"`` (the per-step kernels); each
+    runs both solvers and both ladder tiers.  The device of the scenes
+    decides where it runs.  Returns leading-batch results."""
     if solver not in ("bls", "gd"):
         raise ValueError(f"unknown solver {solver!r}")
     if solver == "bls" and cfg.bls_mode == "sequential":
@@ -699,7 +708,7 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
 
 
 def make_fleet_solver(cfg: PlannerConfig, basis: Basis, solver: str = "bls",
-                      backend: str = "fused"):
+                      backend: str = "xla"):
     """A solver bound to (cfg, basis): leading-batch Scenario ->
     SolveResult."""
 

@@ -213,16 +213,22 @@ def test_fleet_solve_gd_fused_matches_jax(setup):
 
 def test_gd_support_check_follows_the_solver(setup):
     """GD ignores the ladder options, as the JAX kernel does: the exact
-    ladder and the bf16 tier run it; BLS raises for them.  Both solvers
-    refuse a precision other than full fp32."""
+    ladder and the bf16 tier run it, as its one program.  BLS runs either
+    ladder tier, each its own program, and raises for the bf16 tier.  Both
+    solvers refuse a precision other than full fp32."""
     _, tcfg, _, _, args = setup
     targs = [_t(x)[..., :2] if _t(x).dim() > 1 and _t(x).shape[-1] == 128
              else _t(x) for x in args]
     for kw in (dict(ladder_eval="exact"), dict(bls_bf16_ladder=True)):
         cfg = tcfg.replace(**kw)
         tfs.fused_solve(cfg, *targs, solver="gd")
-        with pytest.raises(NotImplementedError):
-            tfs.fused_solve(cfg, *targs)
+        assert tfs.program(cfg, "gd") == "gd"
+    exact = tcfg.replace(ladder_eval="exact")
+    tfs.fused_solve(exact, *targs)
+    assert [tfs.program(c, "bls") for c in (tcfg, exact)] == [
+        "bls", "bls_exact"]
+    with pytest.raises(NotImplementedError):
+        tfs.fused_solve(tcfg.replace(bls_bf16_ladder=True), *targs)
     for solver in ("bls", "gd"):
         with pytest.raises(NotImplementedError):
             tfs.fused_solve(tcfg.replace(matmul_precision="default"), *targs,

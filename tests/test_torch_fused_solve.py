@@ -169,7 +169,11 @@ def test_wrapper_runs_plain_version_on_cpu(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ladder_eval="exact"), dict(matmul_precision="default"),
+    # The reference admits the bf16 tier under the exact ladder and then
+    # compiles the unquantised kernel on a bf16-sized plan; the port refuses
+    # the bf16 tier under either ladder.
+    dict(ladder_eval="exact", bls_bf16_ladder=True),
+    dict(matmul_precision="default"),
     dict(bls_bf16_ladder=True), dict(exact_constraint_eval=False),
 ])
 def test_wrapper_rejects_modes_not_ported(setup, kw):

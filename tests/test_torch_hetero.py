@@ -329,8 +329,14 @@ def test_fused_round_wrapper_checks(round_inputs):
     with pytest.raises(ValueError, match="n_r"):
         tfs.fused_round(tcfg, *args, -1, *map(_t, tail))
     with pytest.raises(NotImplementedError):
-        tfs.fused_round(tcfg.replace(ladder_eval="exact"), *args, 2,
+        tfs.fused_round(tcfg.replace(bls_bf16_ladder=True), *args, 2,
                         *map(_t, tail))
+    # The exact ladder runs: the plain version of its own program.
+    exact = tcfg.replace(ladder_eval="exact")
+    for x, y in zip(tfs.fused_round(exact, *args, 2, *map(_t, tail)),
+                    tfs.fused_round_reference(exact, *args, 2,
+                                              *map(_t, tail))):
+        assert torch.equal(x, y)
 
 
 @pytest.fixture(scope="module")
@@ -368,7 +374,7 @@ def test_compaction_keeps_per_lane_results(rounds_setup):
     plain = tfleet._fused_rounds_solve(cfg, args[1:])
     compact = tfleet._fused_rounds_solve(on, args[1:])
     _assert_solve_equal(compact, plain)
-    via_api = tfleet.fleet_solve(on, basis, scns)
+    via_api = tfleet.fleet_solve(on, basis, scns, backend="fused")
     _assert_solve_equal(via_api, plain)
 
 

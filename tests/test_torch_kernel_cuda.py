@@ -1,8 +1,9 @@
 """The port's CUDA kernels (csrc/fused_solve.cu: the whole solve and one
-penalty round, for BLS and GD; csrc/step_kernels.cu: the per-step kernels)
-against their plain PyTorch versions on the same card, the rounds driver
-against the whole-solve kernel, the fused GD kernel against the per-step GD
-path, and the per-step driver on the card.  The kernels have no CPU
+penalty round, for BLS in either ladder tier and GD; csrc/step_kernels.cu:
+the per-step kernels) against their plain PyTorch versions on the same
+card, the rounds driver against the whole-solve kernel, the fused GD and
+exact-ladder kernels against their per-step paths, and the per-step driver
+on the card.  The kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX, hence ``--noconftest``):
@@ -210,7 +211,7 @@ def test_fused_gd_equals_per_step_gd_on_the_card():
     basis = mt.make_basis(cfg, device=dev)
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(8), 4096,
                                device=dev)
-    fused = fleet.fleet_solve(cfg, basis, scns, solver="gd")
+    fused = fleet.fleet_solve(cfg, basis, scns, solver="gd", backend="fused")
     step = fleet.fleet_solve(cfg, basis, scns, solver="gd", backend="pallas")
     assert torch.equal(fused.alpha, step.alpha)
     for x, y in zip(fused.stats, step.stats):
@@ -271,15 +272,18 @@ def test_eval_kernels_match_plain_versions(args):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("solver", ["bls", "gd"])
+@pytest.mark.parametrize("solver", ["bls", "gd", "bls_exact"])
 def test_step_kernels_match_plain_versions(step_args, solver):
-    """K3 and K4, one step: frozen lanes bitwise unchanged, stop flags and
-    lr in agreement with the plain version on CARD_SHORT_AGREEMENT_MIN of
-    the lanes, and on those lanes alpha within ALPHA_REL_MAX and the loss,
-    gradient, traj and vel within the bounds of the evaluation kernels;
-    bit for bit the same at 64 and 256 lanes per block, and in place
-    (``out`` = the input state) the same as into fresh tensors."""
+    """K3 (in either ladder tier) and K4, one step: frozen lanes bitwise
+    unchanged, stop flags and lr in agreement with the plain version on
+    CARD_SHORT_AGREEMENT_MIN of the lanes, and on those lanes alpha within
+    ALPHA_REL_MAX and the loss, gradient, traj and vel within the bounds of
+    the evaluation kernels; bit for bit the same at 64 and 256 lanes per
+    block, and in place (``out`` = the input state) the same as into fresh
+    tensors."""
     cfg, head, tail, lrs = step_args
+    if solver == "bls_exact":
+        cfg, solver = cfg.replace(ladder_eval="exact"), "bls"
     fn = sk.bls_inner_step if solver == "bls" else sk.gd_inner_step
     ref = (sk.bls_inner_step_reference if solver == "bls"
            else sk.gd_inner_step_reference)
@@ -293,6 +297,8 @@ def test_step_kernels_match_plain_versions(step_args, solver):
     for x, y in zip(got, sargs[3:10]):
         assert torch.equal(x[..., frozen], y[..., frozen])
     same = ((got.minimized == want.minimized) & (got.new_lr == want.new_lr))[0]
+    print(f"{cfg.ladder_eval} {solver}: stop flags and lr agree on "
+          f"{float(same.float().mean()):.4f}")
     assert float(same.float().mean()) >= tfs.CARD_SHORT_AGREEMENT_MIN
     scale = want.new_alpha.abs().amax(dim=(0, 1))
     rel = ((got.new_alpha - want.new_alpha).abs().amax(dim=(0, 1)) / scale)[same]
@@ -359,3 +365,59 @@ def test_per_step_driver_launches_the_kernels(monkeypatch, solver):
     assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
     assert rel <= tfs.ALPHA_REL_MAX
     assert torch.isfinite(got.alpha).all()
+
+
+def _exact(args):
+    return (args[0].replace(ladder_eval="exact"), *args[1:])
+
+
+def test_exact_kernels_match_plain_versions(args):
+    """K1 and K2 in the exact tier (their third program) against their plain
+    versions at 1 round x 4 steps (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX),
+    and bit for bit the same at 4 lanes per CTA and on one CTA."""
+    a = _exact(args)
+    before = tfs.fused_solve.launches
+    got = tfs.fused_solve(*a)
+    assert tfs.fused_solve.launches == before + 1
+    agree, rel = tfs.lane_agreement(tfs.fused_solve_reference(*a), got)
+    print(f"K1-exact: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    rargs = _round_args(a)
+    k2 = tfs.fused_round(*rargs)
+    agree, rel = _masked_agreement(tfs.fused_round_reference(*rargs), k2,
+                                   rargs[7])
+    print(f"K2-exact: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    for warps, ctas in ((4, 0), (0, 1)):
+        c = a[0].replace(pallas_block_b=warps)
+        for x, y in zip(tfs.fused_solve(c, *a[1:], ctas=ctas), got):
+            assert torch.equal(x, y)
+        for x, y in zip(tfs.fused_round(c, *rargs[1:], ctas=ctas), k2):
+            assert torch.equal(x, y)
+
+
+def test_fused_exact_equals_per_step_exact_on_the_card():
+    """K1-exact runs the warp form of the lane body's exact BLS step, and
+    the per-step exact path (K5 once per round, K3-exact per step, no K6)
+    runs the lane body: on 4,096 random scenes at 3 rounds (48/8/4 steps)
+    every output field is equal bit for bit; so is the rounds driver over
+    K2-exact with lane compaction."""
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
+                           max_inner_iteration=48, fixed_iters=True,
+                           max_obstacles=11, ladder_eval="exact")
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(8), 4096,
+                               device=dev)
+    fused = fleet.fleet_solve(cfg, basis, scns, backend="fused")
+    n6 = sk.forward_eval.launches
+    step = fleet.fleet_solve(cfg, basis, scns, backend="pallas")
+    assert sk.forward_eval.launches == n6
+    rounds = fleet.fleet_solve(cfg.replace(lane_compaction=True), basis, scns,
+                               backend="fused")
+    for other in (step, rounds):
+        assert torch.equal(fused.alpha, other.alpha)
+        for x, y in zip(fused.stats, other.stats):
+            assert torch.equal(x, y)

@@ -68,7 +68,7 @@ def test_fleet_solve_matches_jax_fused(cfgs, scenes):
     else:
         scns = mp.random_scenarios(jcfg, jax.random.PRNGKey(5), 128)
     want = jfleet.fleet_solve(jcfg, jb, scns, backend="fused", interpret=True)
-    got = tfleet.fleet_solve(tcfg, tb, _tscn(scns))
+    got = tfleet.fleet_solve(tcfg, tb, _tscn(scns), backend="fused")
     assert got.alpha.shape == (128, 50, 3)
     assert got.stats.inner_iters.dtype == torch.int32
     assert got.stats.converged.dtype == torch.bool
@@ -131,12 +131,13 @@ def test_bench_schedule_on_plain_path():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    # The exact ladder is not ported on the fused kernels either (BLS; GD
+    # The bf16 ladder tier is not ported on the fused kernels (BLS; GD
     # ignores the ladder options).
-    (dict(backend="fused", cfg=dict(ladder_eval="exact")),
+    (dict(backend="fused", cfg=dict(bls_bf16_ladder=True)),
      NotImplementedError),
-    # The exact ladder is not ported on any kernel path.
-    (dict(backend="pallas", cfg=dict(ladder_eval="exact")),
+    # Under the linearized ladder the port always checks constraints on the
+    # exact evaluation, on every kernel path.
+    (dict(backend="pallas", cfg=dict(exact_constraint_eval=False)),
      NotImplementedError),
     (dict(backend="tpu"), ValueError),
 ])

@@ -289,9 +289,15 @@ def test_step_wrappers_check_arguments(setup, step_inputs):
     with pytest.raises(ValueError, match="lr float32"):
         sk.bls_inner_step(tcfg, *bad)
     with pytest.raises(NotImplementedError):
-        sk.bls_inner_step(tcfg.replace(ladder_eval="exact"), *args)
+        sk.bls_inner_step(tcfg.replace(ladder_eval="exact",
+                                       bls_bf16_ladder=True), *args)
     with pytest.raises(NotImplementedError):
         sk.gd_inner_step(tcfg.replace(matmul_precision="default"), *args)
+    # Both ladder tiers run, each the plain version of its own program.
+    cfg = tcfg.replace(ladder_eval="exact")
+    for x, y in zip(sk.bls_inner_step(cfg, *args),
+                    sk.bls_inner_step_reference(cfg, *args)):
+        assert torch.equal(x, y)
     # GD has no ladder: the ladder's modes do not concern it.
     sk.gd_inner_step(tcfg.replace(ladder_eval="exact"), *args)
 
@@ -460,4 +466,4 @@ def test_roofline_counts_the_k6_example():
     assert k3.ops == 4 * (n.step + 4) + 8 * (n.rung + 4) + 3 * (
         n.cost + n.loss + n.grad)
     assert roofline.gd_inner_step(4, 50, 3, 11, tally).ops > 0
-    assert roofline.fused_rounds(4, 50, 3, 11, tally, 4).ops > k3.ops
+    assert roofline.fused_rounds(4, 50, 3, 11, tally, True).ops > k3.ops

@@ -77,7 +77,7 @@ class Variant:
         out = (ctypes.c_int * 3)()
         err = self.lib.fused_launch_shape(fs.kernel_params(cfg, O, B),
                                           self.warps, 0,
-                                          fs.solver_index("bls"), out)
+                                          fs.program_index(cfg, "bls"), out)
         return {"err": err, "ctas_per_sm": out[0], "smem": out[2]}
 
     def solve(self, args):
@@ -88,7 +88,7 @@ class Variant:
         queue = torch.zeros(1, dtype=torch.int32, device=a0.device)
         err = self.lib.fused_solve_launch(
             fs.kernel_params(cfg, ox.shape[0], B), self.warps,
-            fs.solver_index("bls"), 0,
+            fs.program_index(cfg, "bls"), 0,
             *ptrs(kv, kvt, mix, lsg, ljl, start, goal, ox, oy, ow, alpha,
                   *outs, queue), stream())
         if err:
