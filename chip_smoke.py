@@ -44,10 +44,12 @@ the exact BLS step).  Phases:
    then 1,000 of those lanes at 4/8/16 lanes per CTA and on a one-CTA
    grid, bit for bit the full batch's lanes;
 6. the rounds driver against K1: 16,384 random scenes at the bench
-   schedule, compaction off, on and off again; every output field must
-   equal K1's bit for bit and each solve must launch K2 ten times.  K2's
-   time (the sum of its ten launches, compaction off: the first reading and
-   the second) and the plain version's on the same ten inputs;
+   schedule, a warm-up run, then compaction off, on and off again; every
+   output field must equal K1's bit for bit and each solve must launch K2
+   ten times.  K2's time (the sum of its ten launches, compaction off: the
+   second reading, with the warm-up's and the first beside it, each with
+   its slowest launch and the host's time inside that call) and the plain
+   version's on the same ten inputs;
 7. the heterogeneous path: solves/s with compaction on (K2 launch count,
    the paired xla gate on 32,768 lanes with its values, bands and the xla
    engine's time; the gate must pass) and off (per-lane results must equal
@@ -114,7 +116,22 @@ the exact BLS step).  Phases:
    on the same scenes, bitwise equal; K2-exact's time per solve and the
    bounds there; and, for information, the certify statistics
    (irm_motion_planning_tpu_torch/certify.py) of the card's exact tier on
-   the 2,048 scenes of certify_oracle_cpu2048.npz.
+   the 2,048 scenes of certify_oracle_cpu2048.npz;
+17. large T (the streamed body of K1/K2, which runs K7, and K3-K6 with the
+   basis in device memory): the L2 rate; streamed K1 and the rounds driver
+   over streamed K2 bit for bit resident K1 at T=50 for each program; at
+   T=200 K1 and K2 against plain with the ragged batch, K3-K6 against
+   plain with their ragged batch; 65,536 random scenes per program (one K1
+   launch per solve, the paired xla gate on 8,192 lanes, which holds the
+   linearized ladder to its phantom and cost bands; K1's converged
+   fraction against its plain version's on those lanes within bench.py's
+   band, every program; K1's bound, the function's, beside the design's
+   basis reads from L2; the rounds driver bitwise; the GD and exact
+   per-step paths bitwise); the linearized per-step path's launches; K3-K6
+   timed at 65,536 lanes of the reference scene, and held to plain lane by
+   lane on 65,536 random scenes (at most TIE_LANES_MAX lanes per kernel,
+   each a tie of the blend's first argmax); the problemsize sweep, fused
+   and xla, K1 launched at every size.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -123,10 +140,12 @@ largest error against the plain version, its time, the plain version's
 run's inputs and the plain versions' tallies of the data-dependent work,
 each from an untimed call) and, for K6, one PyTorch call's time.  K1 and
 K2 also carry their time and bound at 1,048,576 random scenes (K2 per
-solve; K2 also its second reading at 16,384, ``ms_second_reading``), their registers, spills and occupancy, and K1 the main path's
-peak device memory; under ``gd`` the same numbers for their GD
-instantiations (phases 12-13), and under ``exact`` K1's, K2's and K3's
-for the exact ladder (phases 14-16, with their lane agreement).
+solve; at 16,384 lanes K2's ``ms`` is its second reading and
+``ms_first_reading`` and ``ms_warm_up`` the two before), their registers,
+spills and occupancy, and K1 the main path's peak device memory; under
+``gd`` the same numbers for their GD instantiations (phases 12-13), under
+``exact`` K1's, K2's and K3's for the exact ladder (phases 14-16, with
+their lane agreement), and under ``streamed`` those at T=200 (phase 17).
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -153,6 +172,19 @@ TALLY_LANES = 65536
 WARP_SHAPES = (4, 8, 16)
 TIMED_LAUNCHES = 3
 COMPACTION_PAIRS = 6
+# Phase 17, large T: the problem size, the full-width batch with the paired
+# gate's lanes and the plain tally's, the per-step path's batch, the
+# problem-size sweep's batch, and the buffer, copies and reads that measure
+# the L2 rate.
+LARGE_T = 200
+LARGE_BATCH = 65536
+LARGE_CHECK = 8192
+LARGE_TALLY = 8192
+STEP_BATCH = 16384
+SWEEP_BATCH = 4096
+L2_COPY_BYTES = 16 << 20
+L2_COPIES = 200
+L2_READS = 64
 T0 = time.perf_counter()
 
 
@@ -163,6 +195,18 @@ def fail(msg):
 
 def say(msg):
     print(f"[{time.perf_counter() - T0:.0f}s] {msg}", flush=True)
+
+
+_PHASE = {"n": None, "t": T0}
+
+
+def phase_clock(n):
+    """Print the seconds of the phase that ends here and start phase n
+    (None: the last phase ends)."""
+    now = time.perf_counter()
+    if _PHASE["n"] is not None:
+        say(f"phase {_PHASE['n']} took {now - _PHASE['t']:.1f}s")
+    _PHASE.update(n=n, t=now)
 
 
 def timed(fn):
@@ -197,6 +241,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     # -- phase 1: device and build -------------------------------------
+    phase_clock(1)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -224,9 +269,9 @@ def main():
                      f"shared memory per CTA, the C side {shape['smem']} B")
             built = {k: v for k, v in ptxas.items()
                      if k.startswith(f"{name}<{prog},")}
-            if len(built) != 2:
+            if len(built) != 3:
                 fail(f"phase 1: no ptxas report of {name}<{prog},...> "
-                     f"(specialised and generic): {sorted(ptxas)}")
+                     f"(specialised, generic and streamed): {sorted(ptxas)}")
             occupancy[name, prog] = {"ptxas": built, **shape,
                                      "warps_per_cta": plan["warps"],
                                      "smem_bytes": plan["bytes"]}
@@ -235,6 +280,25 @@ def main():
                 f"memory per CTA {plan['total']} B {plan['bytes']}, "
                 f"{shape['ctas_per_sm']} CTAs and {shape['warps_per_sm']} "
                 f"warps per SM on {shape['sms']} SMs; ptxas {built}")
+            # The streamed plan at large T: plan and C side must agree.
+            for size in (100, 150, 200):
+                lcfg = bcfg.replace(n_timesteps=size)
+                lplan = fs.launch_plan(lcfg, bcfg.max_obstacles)
+                lshape = fs.launch_shape(lcfg, bcfg.max_obstacles, MAIN_BATCH,
+                                         name, solver)
+                if lshape["smem"] != lplan["total"]:
+                    fail(f"phase 1: {name} at T={size}: launch plan "
+                         f"{lplan['total']} B per CTA, the C side "
+                         f"{lshape['smem']} B")
+                occupancy[name, prog][f"T{size}"] = {
+                    **lshape, "plan": lplan["plan"],
+                    "warps_per_cta": lplan["warps"],
+                    "smem_bytes": lplan["bytes"]}
+                say(f"phase 1 {name} ({prog}) at T={size}: {lplan['plan']} "
+                    f"plan, {lplan['warps']} lanes per CTA, "
+                    f"{lplan['total']} B per CTA {lplan['bytes']}, "
+                    f"{lshape['ctas_per_sm']} CTAs and "
+                    f"{lshape['warps_per_sm']} warps per SM")
     say(f"phase 1 K3-K6 ptxas "
         f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
 
@@ -245,6 +309,7 @@ def main():
         return basis, scns, fleet.fused_args(cfg, basis, scns)
 
     # -- phase 2: kernel against plain, short horizon ------------------
+    phase_clock(2)
     cfg = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
                            fixed_iters=True, max_obstacles=11)
     _, _, args = random_args(cfg, SHORT_BATCH, 0)
@@ -289,6 +354,7 @@ def main():
         f"{agree_r:.4f}")
 
     # -- phase 3: kernel against plain, full schedule ------------------
+    phase_clock(3)
     cfg = bench.bench_config()
     basis, scns, args = random_args(cfg, FULL_BATCH, 1)
     k, k_ms = timed(lambda: fs.fused_solve(*args))
@@ -321,6 +387,7 @@ def main():
         fail("phase 3: kernel quality differs from the plain version's")
 
     # -- phase 4: the main path ----------------------------------------
+    phase_clock(4)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fs.fused_solve.launches = 0
@@ -391,6 +458,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 5: K2 against plain, one round -------------------------------
+    phase_clock(5)
     cfg = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
                            fixed_iters=True, max_obstacles=11)
     _, _, args = random_args(cfg, SHORT_BATCH, 0)
@@ -425,17 +493,20 @@ def main():
         f"full batch's lanes")
 
     # -- phase 6: the rounds driver against K1 ------------------------------
+    phase_clock(6)
     cfg = bench.bench_config()
     _, _, args = random_args(cfg, FULL_BATCH, 2)
     k1 = fs.fused_solve(*args)
     want = fleet.kernel_result(k1)
     rounds = len(fs.inner_schedule(cfg))
-    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
-        fs, fleet, roofline, cfg, args, want, "bls", 6, "rounds driver", "K2")
+    k2_ms, k2_ms_first, k2_plain_ms, k2_bound, k2_ms_warm = (
+        rounds_driver_check(fs, fleet, roofline, cfg, args, want, "bls", 6,
+                            "rounds driver", "K2"))
     del k1, want, args
     torch.cuda.empty_cache()
 
     # -- phase 7: the heterogeneous path ------------------------------------
+    phase_clock(7)
     fs.fused_round.launches = 0
     fs.fused_solve.launches = 0
     with KernelTimer(fs, "fused_round") as timer:
@@ -542,6 +613,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 8: K5 and K6 against plain ------------------------------------
+    phase_clock(8)
     cfg = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
                            fixed_iters=True, max_obstacles=11)
     _, _, args = random_args(cfg, SHORT_BATCH, 0)
@@ -623,6 +695,7 @@ def main():
     k6_abs_err = max(k6_abs_err, k6_full_err)
 
     # -- phase 9: K3 and K4 against plain, one step --------------------------
+    phase_clock(9)
     gd_lrs = torch.tensor(cfg.gd_lr[:4])[
         torch.randint(0, 4, (1, SHORT_BATCH),
                       generator=torch.Generator().manual_seed(1))].to(dev)
@@ -689,6 +762,7 @@ def main():
     # -- phases 10 and 11: the per-step paths --------------------------------
     paths = {}
     for phase, solver in ((10, "bls"), (11, "gd")):
+        phase_clock(phase)
         step = "bls_inner_step" if solver == "bls" else "gd_inner_step"
         names = [step, "cost_grad_eval"] + (["forward_eval"] if solver == "bls"
                                             else [])
@@ -754,6 +828,8 @@ def main():
                    occupancy)
     exact = exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                          occupancy)
+    large = large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas)
+    phase_clock(None)
 
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
@@ -761,33 +837,40 @@ def main():
                      ms_1M_random=k1_ms, bound_ms_1M_random=k1_rand_bound.ms,
                      main_path_peak_gib=main_peak_gib,
                      occupancy=occupancy["fused_solve", "bls"],
-                     gd=gd["fused_solve"], exact=exact["fused_solve"]),
+                     gd=gd["fused_solve"], exact=exact["fused_solve"],
+                     streamed=large["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
-                     ms_second_reading=k2_ms_again,
+                     ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
                      ms_per_solve_1M_random=k2_solve_ms,
                      bound_ms_per_solve_1M_random=k2_rand_bound.ms,
                      occupancy=occupancy["fused_round", "bls"],
-                     gd=gd["fused_round"], exact=exact["fused_round"]),
+                     gd=gd["fused_round"], exact=exact["fused_round"],
+                     streamed=large["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
-                     *step_time["bls"], exact=exact["bls_inner_step"]),
+                     *step_time["bls"], exact=exact["bls_inner_step"],
+                     streamed=large["bls_inner_step"]),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
-                     *step_time["gd"]),
+                     *step_time["gd"], streamed=large["gd_inner_step"]),
         # K5 runs on both per-step paths: ``launches`` is the BLS path's
         # count, the GD path's stands beside it.
         kernel_entry("cost_grad_eval", "step_kernels.cu", 1821,
                      paths["bls"][0]["cost_grad_eval"], k5_abs_err, k5_ms,
                      k5_plain_ms, k5_bound, launches_by_path={
-                         s: paths[s][0]["cost_grad_eval"] for s in paths}),
+                         s: paths[s][0]["cost_grad_eval"] for s in paths},
+                     streamed=large["cost_grad_eval"]),
         kernel_entry("forward_eval", "step_kernels.cu", 1767,
                      paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
-                     k6_plain_ms, k6_bound, library_ms=k6_lib_ms),
+                     k6_plain_ms, k6_bound, library_ms=k6_lib_ms,
+                     streamed=large["forward_eval"]),
+        large["k7"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if not all(math.isfinite(x) for e in kernels
-               for d in (e, e.get("gd", e), e.get("exact", e))
+               for d in (e, e.get("gd", e), e.get("exact", e),
+                         e.get("streamed", e))
                for x in (d["ms"], d["plain_ms"], d["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
@@ -805,6 +888,7 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     rounds = len(fs.inner_schedule(cfg))
 
     # -- phase 12: K1-GD and K2-GD against plain, short horizon ---------------
+    phase_clock(12)
     scfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
                             fixed_iters=True, max_obstacles=11)
     _, _, args = random_args(scfg, SHORT_BATCH, 0)
@@ -873,6 +957,7 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     del k, p, p_cut, k2, p2, args, rargs, cut
 
     # -- phase 13: the GD fused path -----------------------------------------
+    phase_clock(13)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held_gib = torch.cuda.memory_allocated() / 2**30
@@ -935,9 +1020,9 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         f"{float(k1.fulfilled.mean()):.4f}")
     if not bitwise and agree_s < fs.CARD_SHORT_AGREEMENT_MIN:
         fail("phase 13: K1-GD and the per-step GD path disagree")
-    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
-        fs, fleet, roofline, cfg, args, want, "gd", 13, "GD rounds driver",
-        "K2-GD")
+    k2_ms, k2_ms_first, k2_plain_ms, k2_bound, k2_ms_warm = (
+        rounds_driver_check(fs, fleet, roofline, cfg, args, want, "gd", 13,
+                            "GD rounds driver", "K2-GD"))
     del k1, want, step, args, scns
     torch.cuda.empty_cache()
 
@@ -1009,7 +1094,8 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                              held_before_gib=held_gib),
         "fused_round": entry(het_launches, k2_abs_err, k2_ms, k2_plain_ms,
                              k2_bound, occupancy["fused_round", "gd"],
-                             ms_second_reading=k2_ms_again,
+                             ms_first_reading=k2_ms_first,
+                             ms_warm_up=k2_ms_warm,
                              ms_per_solve_1M_random=k2_solve_ms,
                              bound_ms_per_solve_1M_random=k2_rand_bound.ms),
     }
@@ -1025,6 +1111,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     rounds = len(fs.inner_schedule(cfg))
 
     # -- phase 14: K1-exact and K2-exact against plain ------------------------
+    phase_clock(14)
     scfg = mt.PlannerConfig(max_outer_iteration=2, max_inner_iteration=6,
                             fixed_iters=True, max_obstacles=11,
                             ladder_eval="exact")
@@ -1084,6 +1171,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         f"bitwise equal to the full batch's lanes")
 
     # -- phase 15: K3-exact against plain, one step ---------------------------
+    phase_clock(15)
     _, kv, kvt, mix, a0, _, _, start, goal, ox, oy, ow = args
     lsg, ljl, lr0 = rargs[5], rargs[6], rargs[8]
     ev = sk.cost_grad_eval(scfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox,
@@ -1144,6 +1232,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     torch.cuda.empty_cache()
 
     # -- phase 16: the exact paths --------------------------------------------
+    phase_clock(16)
     # K1-exact against the per-step exact path (K5 per round, K3-exact per
     # step, no K6), and the rounds driver against K1-exact, on FULL_BATCH
     # random scenes at the bench's schedule.
@@ -1166,9 +1255,9 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     if step_launches["forward_eval"] or not step_launches["bls_inner_step"]:
         fail(f"phase 16: the per-step exact path launched {step_launches}: "
              f"K3 every step and no K6")
-    k2_ms, k2_ms_again, k2_plain_ms, k2_bound = rounds_driver_check(
-        fs, fleet, roofline, cfg, args, want, "bls", 16, "exact rounds driver",
-        "K2-exact")
+    k2_ms, k2_ms_first, k2_plain_ms, k2_bound, k2_ms_warm = (
+        rounds_driver_check(fs, fleet, roofline, cfg, args, want, "bls", 16,
+                            "exact rounds driver", "K2-exact"))
     del k1, want, step, args, scns
     torch.cuda.empty_cache()
 
@@ -1298,13 +1387,726 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                              occupancy=occupancy["fused_solve", "bls_exact"]),
         "fused_round": entry(het_launches, k2_agree, k2_abs_err, k2_ms,
                              k2_plain_ms, k2_bound,
-                             ms_second_reading=k2_ms_again,
+                             ms_first_reading=k2_ms_first,
+                             ms_warm_up=k2_ms_warm,
                              ms_per_solve_1M_random=k2_solve_ms,
                              bound_ms_per_solve_1M_random=k2_rand_bound.ms,
                              occupancy=occupancy["fused_round", "bls_exact"]),
         "bls_inner_step": entry(step_launches["bls_inner_step"], k3_agree,
                                 k3_abs_err, k3_ms, k3_plain_ms, k3_bound),
     }
+
+
+def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
+    """Phase 17, large T: the streamed body of K1/K2 (K7) and K3-K6 with
+    the basis in device memory.  Returns the "streamed" entries of K1-K6's
+    lines and K7's line in the kernels line."""
+    from irm_motion_planning_tpu_torch import problemsize
+
+    phase_clock(17)
+    T, J, O = LARGE_T, 3, 11
+    out = {"programs": {}}
+
+    # The L2 rate the streamed designs' basis reads divide by (a diagnostic
+    # beside the bound: ops/roofline.py), two ways on an L2-resident 16 MiB
+    # buffer: torch's copy of it into a second one (32 MiB in all),
+    # L2_COPIES copies replayed from one CUDA graph (no host launch gaps),
+    # read and write counted; and one reduction that reads it L2_READS
+    # times (an expanded view, one launch).  roofline takes the larger: the
+    # faster rate gives the lower time.
+    src = torch.empty(L2_COPY_BYTES // 4, device=dev).uniform_()
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(L2_COPIES):
+            dst.copy_(src)
+    graph.replay()
+    _, ms = timed(graph.replay)
+    copy_rate = 2 * L2_COPY_BYTES * L2_COPIES / (ms * 1e-3)
+    wide = src.view(1, -1).expand(L2_READS, -1)
+    wide.sum(dim=1)
+    _, ms = timed(lambda: wide.sum(dim=1))
+    read_rate = L2_COPY_BYTES * L2_READS / (ms * 1e-3)
+    l2_rate = max(copy_rate, read_rate)
+    del src, dst, graph, wide
+    say(f"phase 17 L2 rate: copy {copy_rate / 1e12:.3f} TB/s ({L2_COPY_BYTES >> 20}"
+        f" MiB x {L2_COPIES} from one CUDA graph), read {read_rate / 1e12:.3f}"
+        f" TB/s (one reduction over {L2_READS} x {L2_COPY_BYTES >> 20} MiB); "
+        f"ops/roofline.py divides by {roofline.L2_BYTES_PER_S / 1e12:.3f} TB/s")
+
+    # Streamed against resident at T = 50: K1 in the streamed plan, and the
+    # rounds driver over streamed K2 with compaction off and on, each bit
+    # for bit resident K1, for every program.
+    for prog in fs.PROGRAMS:
+        solver = "gd" if prog == "gd" else "bls"
+        cfg = bench.bench_config(
+            solver=solver,
+            ladder_eval="exact" if prog == "bls_exact" else "linearized")
+        basis = mt.make_basis(cfg, device=dev)
+        scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
+                                   FULL_BATCH, device=dev)
+        args = fleet.fused_args(cfg, basis, scns)
+        k_res, ms_res = timed(lambda: fs.fused_solve(*args, solver=solver,
+                                                     plan="resident"))
+        k_str, ms_str = timed(lambda: fs.fused_solve(*args, solver=solver,
+                                                     plan="streamed"))
+        want = fleet.kernel_result(k_res)
+        same = [same_result(want, fleet.kernel_result(k_str))]
+        for compact in (False, True):
+            same.append(same_result(want, fleet._fused_rounds_solve(
+                cfg.replace(lane_compaction=compact), args[1:], solver,
+                plan="streamed")))
+        say(f"phase 17 T=50 {prog} ({FULL_BATCH} random scenes, bench "
+            f"schedule): streamed K1 {ms_str:.1f} ms against resident "
+            f"{ms_res:.1f} ms; bitwise equal to resident K1: streamed K1 "
+            f"{same[0]}, rounds driver on streamed K2 compaction off "
+            f"{same[1]}, on {same[2]}")
+        if not all(same):
+            fail(f"phase 17: the streamed {prog} programs differ from the "
+                 f"resident ones at T=50")
+        out["programs"][prog] = {"t50_streamed_ms": ms_str,
+                                 "t50_resident_ms": ms_res}
+        del k_res, k_str, want, args, scns
+    torch.cuda.empty_cache()
+
+    # T = 200, kernel against plain: K1 at 2 x 6 steps and K2 for one round
+    # with a quarter of the lanes fulfilled, for each program; the ragged
+    # batch at every lanes-per-CTA shape of the plan and on one CTA.
+    scfg = mt.PlannerConfig(n_timesteps=T, max_outer_iteration=2,
+                            max_inner_iteration=6, fixed_iters=True,
+                            max_obstacles=O)
+    plan = fs.launch_plan(scfg, O)
+    shapes = sorted({1, 2, plan["warps"] // 2, plan["warps"]})
+    basis = mt.make_basis(scfg, device=dev)
+    scns = mt.random_scenarios(scfg, torch.Generator().manual_seed(6),
+                               SHORT_BATCH, device=dev)
+    args0 = fleet.fused_args(scfg, basis, scns)
+    agreement, max_abs = {}, 0.0
+    for prog in fs.PROGRAMS:
+        solver = "gd" if prog == "gd" else "bls"
+        c = scfg.replace(ladder_eval="exact" if prog == "bls_exact"
+                         else "linearized")
+        args = (c, *args0[1:])
+        k = fs.fused_solve(*args, solver=solver)
+        p = fs.fused_solve_reference(*args, solver=solver)
+        agree, rel = fs.lane_agreement(p, k)
+        same = ((k.inner_iters == p.inner_iters)
+                & (k.outer_iters == p.outer_iters)
+                & (k.fulfilled == p.fulfilled))[0]
+        max_abs = max(max_abs, float((k.alpha - p.alpha).abs()[:, :, same]
+                                     .max()))
+        rargs = round_args(args, 4, seed=0, solver=solver)
+        ful = rargs[7]
+        k2 = fs.fused_round(*rargs, solver=solver)
+        agree2, rel2, abs2 = round_agreement(
+            fs.fused_round_reference(*rargs, solver=solver), k2, ful)
+        max_abs = max(max_abs, abs2)
+        agreement[prog] = min(agree, agree2)
+        say(f"phase 17 T={T} {prog} against plain ({SHORT_BATCH} random "
+            f"scenes, {plan['warps']} lanes per CTA): K1 at 2x6 steps lane "
+            f"agreement {agree:.4f}, alpha {rel:.3g} of the lane's scale; K2 "
+            f"one round ({int((ful > 0.5).sum())} fulfilled) {agree2:.4f}, "
+            f"{rel2:.3g} (bounds >= {fs.CARD_SHORT_AGREEMENT_MIN}, <= "
+            f"{fs.ALPHA_REL_MAX})")
+        if (min(agree, agree2) < fs.CARD_SHORT_AGREEMENT_MIN
+                or max(rel, rel2) > fs.ALPHA_REL_MAX):
+            fail(f"phase 17: streamed {prog} disagrees with its plain "
+                 f"version at T={T}")
+        cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
+        rcut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x) and x.dim() > 1
+                and x.shape[-1] == SHORT_BATCH else x for x in rargs]
+        for warps, ctas in [(w, 0) for w in shapes] + [(0, 1)]:
+            cw = c.replace(pallas_block_b=warps)
+            kr = fs.fused_solve(cw, *args[1:4], *cut, solver=solver,
+                                ctas=ctas)
+            k2r = fs.fused_round(cw, *rcut[1:], solver=solver, ctas=ctas)
+            if not (all(torch.equal(x, y[..., :RAGGED_BATCH])
+                        for x, y in zip(kr, k))
+                    and all(torch.equal(x, y[..., :RAGGED_BATCH])
+                            for x, y in zip(k2r, k2))):
+                fail(f"phase 17: {prog} at T={T}, {RAGGED_BATCH} lanes at "
+                     f"{warps} lanes per CTA, {ctas or 'all'} CTAs differ "
+                     f"from the full batch's")
+        del k, p, k2
+    say(f"phase 17 T={T} ragged batch ({RAGGED_BATCH} lanes at {shapes} "
+        f"lanes per CTA and on one CTA): K1 and K2 bitwise equal to the full "
+        f"batch's lanes, every program")
+
+    # K3-K6 at T = 200 (the basis in device memory) against plain at 1,024
+    # lanes, the ragged batch at 64/128/256 threads per block bitwise.
+    if sk.step_plan(scfg, O)["basis"] != "device":
+        fail(f"phase 17: the step plan stages the basis at T={T}")
+    _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args0
+    rargs = round_args(args0, 4, seed=0)
+    lsg, ljl, ful, lr0 = rargs[5:9]
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ek = sk.cost_grad_eval(scfg, *eargs)
+    fk = sk.forward_eval(scfg, kv, mix, a0)
+    k5_err = eval_errors(ek, sk.cost_grad_eval_reference(scfg, *eargs))
+    k6_err = planes_error(fk, sk.forward_eval_reference(scfg, kv, mix, a0))
+    gd_lrs = torch.tensor(scfg.gd_lr[:4])[
+        torch.randint(0, 4, (1, SHORT_BATCH),
+                      generator=torch.Generator().manual_seed(1))].to(dev)
+    step_err = {}
+    for name, lr, c in (("bls", lr0, scfg),
+                        ("bls_exact", lr0, scfg.replace(ladder_eval="exact")),
+                        ("gd", gd_lrs, scfg)):
+        fn, ref = step_fns(sk, "gd" if name == "gd" else "bls")
+        sargs = (kv, kvt, mix, a0, ek.grad, ek.traj, ek.vel, ek.loss, lr, ful,
+                 lsg, ljl, start, goal, ox, oy, ow)
+        ks = fn(c, *sargs)
+        agree, err = step_errors(ref(c, *sargs), ks)
+        step_err[name] = (agree, err)
+        if not step_ok(agree, err):
+            fail(f"phase 17: the {name} step disagrees with its plain "
+                 f"version at T={T}: {step_summary(agree, err)}")
+        cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x)
+               and x.shape[-1] == SHORT_BATCH else x for x in sargs]
+        for bt in (64, 128, 256):
+            kr = fn(c.replace(pallas_block_b=bt), *cut)
+            if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                       for x, y in zip(kr, ks)):
+                fail(f"phase 17: {name} step at T={T}, {bt} lanes per block "
+                     f"differs from the full batch's")
+    ecut = [x[..., :RAGGED_BATCH] if x.shape[-1] == SHORT_BATCH else x
+            for x in eargs]
+    for bt in (64, 128, 256):
+        cb = scfg.replace(pallas_block_b=bt)
+        er = sk.cost_grad_eval(cb, *ecut)
+        fr = sk.forward_eval(cb, kv, mix, ecut[3])
+        if not (all(torch.equal(x, y[..., :RAGGED_BATCH])
+                    for x, y in zip(er, ek))
+                and all(torch.equal(x, y[..., :RAGGED_BATCH])
+                        for x, y in zip(fr, fk))):
+            fail(f"phase 17: K5/K6 at T={T}, {bt} lanes per block differ "
+                 f"from the full batch's")
+    say(f"phase 17 K3-K6 at T={T} (basis in device memory) against plain "
+        f"({SHORT_BATCH} random scenes): K5 loss {k5_err['loss']:.3g}, grad "
+        f"{k5_err['grad']:.3g}, traj/vel {k5_err['planes']:.3g}; K6 "
+        f"{k6_err:.3g} (bounds {EVAL_BOUNDS}); "
+        + "; ".join(f"{n} step {step_summary(*e)}" for n, e in
+                    step_err.items())
+        + "; ragged batch at 64/128/256 threads bitwise")
+    if not (eval_ok(k5_err) and k6_err <= EVAL_BOUNDS["planes"]):
+        fail(f"phase 17: K5 or K6 disagrees with its plain version at T={T}")
+    step_abs = {n: e[1]["abs"] for n, e in step_err.items()}
+    del ek, fk, args0, rargs, eargs
+    torch.cuda.empty_cache()
+
+    # T = 200 at full width: LARGE_BATCH random scenes for each program, as
+    # bench --random-scenarios without compaction runs them (one K1 launch
+    # per solve), with the paired xla gate on LARGE_CHECK lanes; K1 alone,
+    # its plain version on LARGE_TALLY lanes (K1's converged fraction held
+    # to the plain version's within bench.py's band), its bound (the
+    # function's) beside the design's L2 reads; the rounds driver with
+    # compaction bit for bit against K1, K2's time per solve and bound.  The
+    # gate holds GD and the exact ladder whole.  The linearized ladder it
+    # holds to its phantom and cost bands; its converged band against xla
+    # is printed, not held: at T = 200 the linearized fused algorithm
+    # converges fewer lanes than the xla engine, which evaluates every step
+    # exactly, in the JAX package too (its fused kernel, interpreted, 4.1-7.6
+    # points under its xla engine on 512 scenes at each of four seeds:
+    # tools/compare_converged.py), by more than the band (2 points at these
+    # fractions).  ROADMAP queue 3, fact 5 records it.
+    gates_ok = True
+    for prog in fs.PROGRAMS:
+        solver = "gd" if prog == "gd" else "bls"
+        ladder = "exact" if prog == "bls_exact" else "linearized"
+        cfg = bench.bench_config(solver=solver, ladder_eval=ladder,
+                                 n_timesteps=T)
+        rounds = len(fs.inner_schedule(cfg))
+        fs.fused_solve.launches = 0
+        run = bench.run_bench(batch=LARGE_BATCH, repeats=1, solver=solver,
+                              ladder_eval=ladder, random_scenarios=True,
+                              seed=0, quality_check_lanes=LARGE_CHECK,
+                              lane_compaction=False, n_timesteps=T)
+        launches = fs.fused_solve.launches
+        b = run["gate"]["bands"]
+        best = min(run["timing"]["times_s"])
+        conv_ok = (abs(b["check_converged_frac"] - b["xla_converged_frac"])
+                   <= b["converged"])
+        held = (run["quality_ok"] if prog != "bls" else
+                run["phantom_frac"] <= b["phantom"]
+                and abs(b["check_obstacle_cost"] - b["xla_obstacle_cost"])
+                <= b["cost"])
+        gates_ok = gates_ok and held
+        say(f"phase 17 T={T} {prog} ({LARGE_BATCH} random scenes, "
+            f"bench --random-scenarios --lane-compaction false): "
+            f"{LARGE_BATCH / best:.1f} solves/s ({best:.4f} s), {launches} K1 "
+            f"launches; converged {run['converged_frac']}; paired xla gate on "
+            f"{LARGE_CHECK} lanes (xla engine {run['timing']['xla_s']:.2f} "
+            f"s): converged {b['check_converged_frac']:.4f} vs xla "
+            f"{run['xla_converged_frac']} (band {b['converged']:.4f}); "
+            f"obstacle cost {b['check_obstacle_cost']:.5f} vs "
+            f"{b['xla_obstacle_cost']:.5f} (band {b['cost']:.5f}); phantom "
+            f"{run['phantom_frac']} (bound {b['phantom']:.2e}): "
+            f"{'PASS' if run['quality_ok'] else 'FAIL'}"
+            + ("" if prog != "bls" else
+               f" (held: phantom and cost {'PASS' if held else 'FAIL'}; "
+               f"converged band {'PASS' if conv_ok else 'FAIL'}, printed)"))
+        if launches != 1 + len(run["timing"]["times_s"]):
+            fail(f"phase 17: {launches} K1 launches at T={T}, not one per "
+                 f"solve")
+        run_ok = run["quality_ok"]
+        del run
+        basis = mt.make_basis(cfg, device=dev)
+        scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                                   LARGE_BATCH, device=dev)
+        args = fleet.fused_args(cfg, basis, scns)
+        k1, k1_ms = timed(lambda: fs.fused_solve(*args, solver=solver))
+        want = fleet.kernel_result(k1)
+        sub = (cfg, *args[1:4], *(x[..., :LARGE_TALLY] for x in args[4:]))
+        p1, plain_ms = timed(lambda: fs.fused_solve_reference(*sub,
+                                                              solver=solver))
+        # K1's converged fraction against its plain version's on the same
+        # LARGE_TALLY lanes, within bench.py's converged band.
+        k_conv = float((k1.fulfilled[0, :LARGE_TALLY] > 0.5).float().mean())
+        p_conv = float((p1.fulfilled[0] > 0.5).float().mean())
+        plain_band = max(0.02, min(0.15 * max(k_conv, p_conv), 0.05))
+        plain_conv_ok = abs(k_conv - p_conv) <= plain_band
+        gates_ok = gates_ok and plain_conv_ok
+        say(f"phase 17 T={T} {prog} K1 against its plain version on the "
+            f"first {LARGE_TALLY} scenes: converged {k_conv:.4f} vs plain "
+            f"{p_conv:.4f} (band {plain_band:.4f}): "
+            f"{'PASS' if plain_conv_ok else 'FAIL'}")
+        del p1
+        scale = LARGE_BATCH / LARGE_TALLY
+        tally = kernel_counts(
+            {key: v * scale for key, v in plain_tally(
+                fs.fused_solve_reference, *sub, solver=solver).items()},
+            float((k1.outer_iters + k1.fulfilled).sum()),
+            float(k1.inner_iters.sum()), solver)
+        k1_bound = roofline.fused_rounds(LARGE_BATCH, T, J, O, tally, True,
+                                         solver, ladder, streamed=True)
+        with KernelTimer(fs, "fused_round") as timer:
+            got = fleet._fused_rounds_solve(cfg.replace(lane_compaction=True),
+                                            args[1:], solver)
+        k2_ms = timer.total_ms()
+        same = same_result(got, want)
+        with plain_rounds(fs):
+            _, k2_plain_ms = timed(lambda: fleet._fused_rounds_solve(
+                cfg, sub[1:], solver))
+        rounds_run = (k1.outer_iters + k1.fulfilled)[0]
+        live = [float((rounds_run > r).sum()) for r in range(rounds)]
+        k2_bound = roofline.fused_round_launches(LARGE_BATCH, T, J, O, tally,
+                                                 live, solver, ladder,
+                                                 streamed=True)
+        say(f"phase 17 T={T} {prog} K1 alone {k1_ms:.1f} ms "
+            f"({1e3 * k1_ms / LARGE_BATCH:.3f} us per lane), plain version "
+            f"{plain_ms:.1f} ms on {LARGE_TALLY} lanes; bound {k1_bound.ms:.1f} "
+            f"ms by {k1_bound.by} (the function's; the design's basis reads "
+            f"{k1_bound.l2_bytes / 1e9:.2f} GB, "
+            f"{k1_bound.l2_bytes / LARGE_BATCH / 1e6:.2f} MB per lane, "
+            f"{k1_bound.design_l2_ms:.1f} ms at the L2 rate); rounds driver "
+            f"with compaction ({rounds} K2 launches, {k2_ms:.1f} ms in K2, "
+            f"bound {k2_bound.ms:.1f} ms by {k2_bound.by}, the design's L2 "
+            f"reads {k2_bound.design_l2_ms:.1f} ms; plain rounds "
+            f"{k2_plain_ms:.1f} ms on "
+            f"{LARGE_TALLY} lanes) bitwise equal to K1: {same}; work "
+            f"{({key: round(v) for key, v in tally.items()})}")
+        if not same:
+            fail(f"phase 17: the rounds driver differs from K1 at T={T}")
+        if not (torch.isfinite(k1.alpha).all()
+                and torch.isfinite(k1.final_loss).all()):
+            fail(f"phase 17: non-finite {prog} output at T={T}")
+        out["programs"][prog].update(
+            gate={"ok": run_ok, "converged_band_ok": conv_ok, "held": held,
+                  "plain_converged": [k_conv, p_conv, plain_band]},
+            k1_ms=k1_ms, k1_plain_ms=plain_ms, k1_bound=k1_bound,
+            k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound=k2_bound,
+            solves_per_s=LARGE_BATCH / best,
+            agreement=agreement[prog], launches=launches, k2_launches=rounds)
+        # The per-step path on STEP_BATCH of the scenes: GD's and the exact
+        # ladder's equal K1 bit for bit (the same op sequence);
+        # the linearized ladder's (no FK carry) is held by its launches.
+        if prog != "bls":
+            n = STEP_BATCH
+            scns_n = mt.Scenario(*(x[:n] for x in scns))
+            names = ["cost_grad_eval",
+                     "gd_inner_step" if prog == "gd" else "bls_inner_step"]
+            for nm in names:
+                getattr(sk, nm).launches = 0
+            with KernelTimer(sk, *names) as st:
+                step = fleet.fleet_solve(cfg, basis, scns_n, solver=solver,
+                                         backend="pallas")
+            k1n = fs.fused_solve(*fleet.fused_args(cfg, basis, scns_n),
+                                 solver=solver)
+            same = same_result(step, fleet.kernel_result(k1n))
+            counts = {nm: getattr(sk, nm).launches for nm in names}
+            say(f"phase 17 T={T} {prog} per-step path on {n} of the scenes: "
+                f"launches {counts}, kernel ms "
+                f"{ {nm: round(st.total_ms(nm), 1) for nm in names} }; "
+                f"bitwise equal to K1: {same}")
+            if not same or min(counts.values()) < 1:
+                fail(f"phase 17: the {prog} per-step path at T={T} differs "
+                     f"from K1 or launched nothing")
+            out["programs"][prog]["step"] = {
+                nm: (counts[nm], st.total_ms(nm)) for nm in names}
+            del step, k1n
+        del k1, want, got, args, scns
+        torch.cuda.empty_cache()
+    if not gates_ok:
+        fail(f"phase 17: a paired xla gate failed at T={T}")
+
+    # The linearized per-step path at T = 200 (K5, K3, K6) with its launch
+    # counts; then each per-step kernel timed at LARGE_BATCH lanes on the
+    # main path's inputs at T = 200 (the reference scene replicated, at the
+    # warm start, round 0 step 0), as phase 9 times them at T = 50, and held
+    # to its plain version there.
+    cfg = bench.bench_config(n_timesteps=T)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                               STEP_BATCH, device=dev)
+    names = ["bls_inner_step", "cost_grad_eval", "forward_eval"]
+    for nm in names:
+        getattr(sk, nm).launches = 0
+    with KernelTimer(sk, *names) as st:
+        fleet.fleet_solve(cfg, basis, scns, backend="pallas")
+    step_launches = {nm: getattr(sk, nm).launches for nm in names}
+    step_ms = {nm: st.total_ms(nm) for nm in names}
+    say(f"phase 17 T={T} bls per-step path on {STEP_BATCH} random scenes: "
+        f"launches {step_launches}, kernel ms "
+        f"{ {nm: round(v, 1) for nm, v in step_ms.items()} }")
+    if min(step_launches.values()) < 1:
+        fail(f"phase 17: the per-step path at T={T} skipped a kernel")
+    scns = mt.replicate_scenario(mt.reference_scenario(cfg, device=dev),
+                                 LARGE_BATCH)
+    _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = fleet.fused_args(
+        cfg, basis, scns)
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    work = sk.workspace(J, T, LARGE_BATCH, dev, trial=True)
+    ev = sk.PallasEval(torch.empty_like(lsg),
+                       *(torch.empty_like(a0) for _ in range(3)))
+    k5_ms = best_ms(lambda: sk.cost_grad_eval(cfg, *eargs, out=ev, work=work))
+    _, k5_plain = timed(lambda: sk.cost_grad_eval_reference(cfg, *eargs))
+    k6_out = sk.PallasForward(torch.empty_like(a0), torch.empty_like(a0))
+    k6_ms = best_ms(lambda: sk.forward_eval(cfg, kv, mix, a0, out=k6_out))
+    _, k6_plain = timed(lambda: sk.forward_eval_reference(cfg, kv, mix, a0))
+    k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
+    steps = {}
+    for name, lr in (("bls", torch.full_like(lsg, cfg.bls_lr_start)),
+                     ("gd", torch.full_like(lsg, cfg.gd_lr[0]))):
+        fn, ref = step_fns(sk, name)
+        ms, plain_ms, tally, agree, err = full_width_step(
+            fn, ref, cfg, (kv, kvt, mix),
+            (a0, *ev[1:], ev.loss, lr, torch.zeros_like(lsg)),
+            (lsg, ljl, start, goal, ox, oy, ow), work)
+        bound = (roofline.bls_inner_step(LARGE_BATCH, T, J, O, tally,
+                                         device_basis=True)
+                 if name == "bls" else
+                 roofline.gd_inner_step(LARGE_BATCH, T, J, O, tally,
+                                        device_basis=True))
+        if not step_ok(agree, err):
+            fail(f"phase 17: the {name} step disagrees with its plain "
+                 f"version at T={T}, {LARGE_BATCH} lanes: "
+                 f"{step_summary(agree, err)}")
+        steps[name] = (ms, plain_ms, bound, agree)
+    k5_bound = roofline.cost_grad_eval(LARGE_BATCH, T, J, O, device_basis=True)
+    k6_bound = roofline.forward_eval(LARGE_BATCH, T, J, device_basis=True)
+    say(f"phase 17 T={T} per-step kernels at {LARGE_BATCH} lanes (reference "
+        f"scene, round 0, step 0): K3 {steps['bls'][0]:.3f} ms (plain {steps['bls'][1]:.1f}, "
+        f"bound {steps['bls'][2].ms:.3f} by {steps['bls'][2].by}); K4 "
+        f"{steps['gd'][0]:.3f} ms (plain {steps['gd'][1]:.1f}, bound "
+        f"{steps['gd'][2].ms:.3f} by {steps['gd'][2].by}); K5 {k5_ms:.3f} ms "
+        f"(plain {k5_plain:.1f}, bound {k5_bound.ms:.3f} by {k5_bound.by}); "
+        f"K6 {k6_ms:.3f} ms (plain {k6_plain:.1f}, one torch.einsum "
+        f"{k6_lib:.3f}, bound {k6_bound.ms:.3f} by {k6_bound.by})")
+    del work, ev, k6_out, eargs, scns
+    torch.cuda.empty_cache()
+    ties = random_step_kernels(mt, fs, sk, fleet, cfg, basis, dev)
+
+    # The sweep: problemsize's sizes at batch SWEEP_BATCH, the fused backend
+    # (which must launch K1 at every size: no fallback) and the xla engine.
+    sweep = {}
+    for backend in ("fused", "xla"):
+        for size in (25, 50, 100, 150, 200):
+            row = problemsize.run_size(size, SWEEP_BATCH, 1, "bls", backend,
+                                       15, dev)
+            sweep.setdefault(size, {})[backend] = row
+            if backend == "fused" and row["launches"]["fused_solve"] < 1:
+                fail(f"phase 17: the fused sweep did not launch K1 at "
+                     f"T={size}")
+    say(f"phase 17 problemsize sweep (batch {SWEEP_BATCH}, bls, inner 15, "
+        f"best of 1 after a first run): " + "; ".join(
+            f"T={size} fused {r['fused']['per_solve_us']} us/solve "
+            f"({r['fused']['plan']['plan']}, {r['fused']['launches']}) xla "
+            f"{r['xla']['per_solve_us']} us/solve" for size, r in sweep.items()))
+
+    def streamed(ms, bound, plain_ms, agree, **extra):
+        return {"T": T, "ms": ms, "bound_ms": bound.ms, "bound_by": bound.by,
+                "bytes": bound.l2_bytes, "design_l2_ms": bound.design_l2_ms,
+                "plain_ms": plain_ms, "lane_agreement": agree, **extra}
+
+    prg = out["programs"]
+    bls = prg["bls"]
+    k1_programs = {p: streamed(prg[p]["k1_ms"], prg[p]["k1_bound"],
+                               prg[p]["k1_plain_ms"], prg[p]["agreement"],
+                               lanes=LARGE_BATCH, plain_lanes=LARGE_TALLY,
+                               solves_per_s=prg[p]["solves_per_s"],
+                               t50_streamed_ms=prg[p]["t50_streamed_ms"],
+                               t50_resident_ms=prg[p]["t50_resident_ms"])
+                   for p in fs.PROGRAMS}
+    entries = {
+        "fused_solve": {**k1_programs["bls"], "programs": k1_programs,
+                        "ptxas": {k: v for k, v in ptxas.items()
+                                  if k.endswith(",streamed>")}},
+        "fused_round": streamed(
+            bls["k2_ms"], bls["k2_bound"], bls["k2_plain_ms"],
+            bls["agreement"], plain_lanes=LARGE_TALLY,
+            per_solve_lanes=LARGE_BATCH, launches=bls["k2_launches"],
+            programs={p: {"ms": prg[p]["k2_ms"],
+                          "bound_ms": prg[p]["k2_bound"].ms}
+                      for p in fs.PROGRAMS}),
+        "bls_inner_step": streamed(
+            steps["bls"][0], steps["bls"][2], steps["bls"][1],
+            steps["bls"][3], lanes=LARGE_BATCH,
+            launches=step_launches["bls_inner_step"],
+            max_abs_err=max(step_abs["bls"], step_abs["bls_exact"])),
+        "gd_inner_step": streamed(
+            steps["gd"][0], steps["gd"][2], steps["gd"][1], steps["gd"][3],
+            lanes=LARGE_BATCH, launches=prg["gd"]["step"]["gd_inner_step"][0],
+            max_abs_err=step_abs["gd"]),
+        "cost_grad_eval": streamed(
+            k5_ms, k5_bound, k5_plain, None, lanes=LARGE_BATCH,
+            launches=step_launches["cost_grad_eval"],
+            max_abs_err=k5_err["abs"]),
+        "forward_eval": streamed(
+            k6_ms, k6_bound, k6_plain, None, lanes=LARGE_BATCH,
+            launches=step_launches["forward_eval"], max_abs_err=k6_err,
+            library_ms=k6_lib),
+    }
+    entries["bls_inner_step"]["random"] = {
+        "bls": ties["bls"], "bls_exact": ties["bls_exact"]}
+    for name, key in (("gd_inner_step", "gd"),
+                      ("cost_grad_eval", "cost_grad_eval"),
+                      ("forward_eval", "forward_eval")):
+        entries[name]["random"] = ties[key]
+    # K7 runs inside the streamed programs of K1/K2: its line carries K1-BLS
+    # at T = 200 (the kernel it runs in), the programs that run it and the
+    # bytes each streams per solve.
+    entries["k7"] = kernel_entry(
+        "streamed_matmul", "warp_body.cuh", 419,
+        sum(prg[p]["launches"] for p in fs.PROGRAMS), max_abs, bls["k1_ms"],
+        bls["k1_plain_ms"], bls["k1_bound"],
+        measured_as=f"K1-BLS at T={T}, {LARGE_BATCH} random scenes (plain on "
+                    f"{LARGE_TALLY}): K7 has no launch of its own",
+        paired_gate_t200={p: prg[p]["gate"] for p in fs.PROGRAMS},
+        programs={p: {"K1_bytes_per_solve": prg[p]["k1_bound"].l2_bytes,
+                      "K2_bytes_per_solve": prg[p]["k2_bound"].l2_bytes}
+                  for p in fs.PROGRAMS},
+        bitwise_resident_t50=True, l2_bytes_per_s=l2_rate,
+        problem_size_sweep=sweep)
+    return entries
+
+
+# K3-K6 at T = 200 on LARGE_BATCH random scenes, lane by lane against the
+# plain version.  Two roundings let a lane part from it, and each parted
+# lane must show which:
+# - a tie of the blend's first argmax over T: two timesteps' obstacle
+#   costs equal to rounding, so the kernel's trajectory and the plain
+#   version's (which differ by ~1e-7) put lam_max = 0.8 of the blend's
+#   weight on different timesteps and the gradient moves by O(1) of its
+#   scale.  Shown by the first argmax at the kernel's trajectory differing
+#   from the one at the plain version's, or by the plain version's two
+#   largest costs lying within TIE_GAP_MAX (relative) of each other;
+# - in the tiers that evaluate the new iterate exactly (the exact ladder,
+#   GD), the new alpha's rounding (within ALPHA_REL_MAX of the plain
+#   version's) carried through the basis: the warm start's O(1e4)
+#   coefficients cancel to O(1), so a 1e-8 relative change of alpha moves
+#   traj/vel by up to ~1e-3.  Shown by the plain evaluation of the kernel's
+#   own new alpha (cost_grad_eval_reference) agreeing with the kernel's
+#   loss, grad, traj and vel within EVAL_BOUNDS.
+# Measured on an H100 at 65,536 random scenes (seed 0): K3 linearized 2
+# lanes, both first-argmax flips at top-two gaps of 1.6e-7 and 6.7e-8; K3
+# exact 43 lanes (traj/vel up to 4.3e-3 abs), 41 of them shown by the
+# kernel's own alpha and 2 by gaps under 1e-5; K4, K5 and K6 none.
+# Allowed per kernel: at most TIE_LANES_MAX ties and PARTED_LANES_MAX
+# parted lanes in all, each shown (an exact-tier lane by its own alpha
+# first).
+TIE_LANES_MAX = 8
+TIE_GAP_MAX = 1e-5
+PARTED_LANES_MAX = LARGE_BATCH // 1000
+
+
+def lane_misses(k, p):
+    """(B,) bool: the lanes where the kernel's (loss, grad, traj, vel) part
+    from the plain version's beyond EVAL_BOUNDS (NaN parts)."""
+    (kl, kg, kt, kv), (pl, pg, pt, pv) = k, p
+    loss = (kl - pl).abs()[0] / pl.abs()[0]
+    grad = (kg - pg).abs().amax(dim=(0, 1)) / pg.abs().amax(dim=(0, 1))
+    planes = torch.maximum((kt - pt).abs().amax(dim=(0, 1)),
+                           (kv - pv).abs().amax(dim=(0, 1)))
+    return ~((loss <= EVAL_BOUNDS["loss"]) & (grad <= EVAL_BOUNDS["grad"])
+             & (planes <= EVAL_BOUNDS["planes"]))
+
+
+def random_step_kernels(mt, fs, sk, fleet, cfg, basis, dev):
+    """K5, K6, K3 (both tiers) and K4 at T = cfg.n_timesteps on LARGE_BATCH
+    random scenes (seed 0, at the warm start, round 0, step 0), each held to
+    its plain version on the card lane by lane: the steps' stop flags and lr
+    on >= CARD_SHORT_AGREEMENT_MIN of the lanes and alpha within
+    ALPHA_REL_MAX on those; every other field within EVAL_BOUNDS on every
+    lane but the parted ones, each shown to be one of the two roundings
+    above.  For each parted lane it prints the two argmax timesteps, their
+    gap, whether the plain evaluation of the kernel's own alpha sides with
+    the kernel, and whether the plain version on the CPU (another summation
+    order) sides with the kernel or with the card's plain version.
+    Returns, per kernel, the readings."""
+    T = cfg.n_timesteps
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                               LARGE_BATCH, device=dev)
+    _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = fleet.fused_args(
+        cfg, basis, scns)
+    del scns
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ek = sk.cost_grad_eval(cfg, *eargs)
+    out = {}
+
+    def lanes_of(x, idx):
+        return (x[..., idx] if torch.is_tensor(x)
+                and x.shape[-1] == LARGE_BATCH else x)
+
+    def hold(name, c, k, p, ref, args, fields, agree=None, alpha_rel=0.0,
+             exact_eval=False):
+        """Hold kernel result k to the card's plain p on ``fields`` (the
+        (loss, grad, traj, vel) of each), lane by lane; a step (``agree``,
+        its stop flag and lr agreement) on the lanes whose flag and lr
+        agree; ``exact_eval``: the step evaluates its new alpha exactly."""
+        kf, pf = fields(k), fields(p)
+        miss = lane_misses(kf, pf)
+        if agree is not None:
+            miss &= ((k.minimized == p.minimized) & (k.new_lr == p.new_lr))[0]
+        idx = miss.nonzero()[:, 0]
+        lanes = []
+        if len(idx):
+            cf = fields(ref(c, *(lanes_of(x, idx).cpu() for x in args)))
+            kc = [x[..., idx] for x in kf]
+            pc = [x[..., idx] for x in pf]
+            by_k = ~lane_misses([x.cpu() for x in kc], cf)
+            by_p = ~lane_misses([x.cpu() for x in pc], cf)
+            own = torch.zeros(len(idx), dtype=torch.bool, device=idx.device)
+            if exact_eval:
+                own = ~lane_misses(kc, sk.cost_grad_eval_reference(
+                    c, kv, kvt, mix, k.new_alpha[..., idx],
+                    *(lanes_of(x, idx) for x in eargs[4:])))
+            obs = [x[:, idx] for x in (ox, oy, ow)]
+            ck = fs.blend_costs(cfg, kc[2], *obs)
+            cp = fs.blend_costs(cfg, pc[2], *obs)
+            fk, fp = fs.first_argmax(ck), fs.first_argmax(cp)
+            n = torch.arange(len(idx), device=idx.device)
+            rest = cp.clone()
+            rest[fp, n] = -math.inf
+            gap = (cp[fp, n] - rest.max(dim=0).values) / cp[fp, n].abs()
+            gerr = ((kc[1] - pc[1]).abs().amax(dim=(0, 1))
+                    / pc[1].abs().amax(dim=(0, 1)))
+            perr = torch.maximum((kc[2] - pc[2]).abs().amax(dim=(0, 1)),
+                                 (kc[3] - pc[3]).abs().amax(dim=(0, 1)))
+            for i in range(len(idx)):
+                tie = bool(fk[i] != fp[i]) or float(gap[i]) <= TIE_GAP_MAX
+                lanes.append({
+                    "lane": int(idx[i]), "grad_err": float(gerr[i]),
+                    "planes_abs": float(perr[i]),
+                    "argmax_kernel_traj": int(fk[i]),
+                    "argmax_plain_traj": int(fp[i]), "gap": float(gap[i]),
+                    "own_alpha_sides_with_kernel": bool(own[i]),
+                    "cpu_plain_sides_with": ("kernel" if by_k[i] else
+                                             "card plain" if by_p[i]
+                                             else "neither"),
+                    "shown": ("own alpha" if own[i] else
+                              "tie" if tie else None)})
+        ties = sum(x["shown"] == "tie" for x in lanes)
+        ok = (len(lanes) <= PARTED_LANES_MAX and ties <= TIE_LANES_MAX
+              and all(x["shown"] for x in lanes)
+              and (agree is None or agree >= fs.CARD_SHORT_AGREEMENT_MIN)
+              and alpha_rel <= fs.ALPHA_REL_MAX)
+        planes = max((x["planes_abs"] for x in lanes), default=0.0)
+        say(f"phase 17 T={T} {name} on {LARGE_BATCH} random scenes against "
+            f"plain: {len(lanes)} lanes out of {EVAL_BOUNDS} (at most "
+            f"{PARTED_LANES_MAX}): {ties} first-argmax ties (at most "
+            f"{TIE_LANES_MAX}), "
+            f"{sum(x['shown'] == 'own alpha' for x in lanes)} shown by the "
+            f"plain evaluation of the kernel's own alpha, "
+            f"{sum(not x['shown'] for x in lanes)} not shown; on those lanes "
+            f"traj/vel up to {planes:.3g} abs; the CPU's plain version sides "
+            f"with the kernel on "
+            f"{sum(x['cpu_plain_sides_with'] == 'kernel' for x in lanes)}, "
+            f"the card plain on "
+            f"{sum(x['cpu_plain_sides_with'] == 'card plain' for x in lanes)}"
+            + ("" if agree is None else
+               f"; stop flag and lr agree on {agree:.5f}, alpha "
+               f"{alpha_rel:.3g} of the lane's scale")
+            + "".join(f"; tie at lane {x['lane']}: grad {x['grad_err']:.3g} "
+                      f"of its scale, first argmax {x['argmax_kernel_traj']} "
+                      f"at the kernel's traj, {x['argmax_plain_traj']} at the "
+                      f"plain version's, top-two gap {x['gap']:.3g}"
+                      for x in lanes if x["shown"] == "tie")
+            + "".join(f"; not shown at lane {x['lane']}: {x}"
+                      for x in lanes if not x["shown"])
+            + f": {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"phase 17: {name} parts from its plain version at T={T} on "
+                 f"random scenes beyond the roundings shown")
+        out[name] = {"lanes": LARGE_BATCH, "parted": lanes,
+                     "stop_lr_agreement": agree, "alpha_rel": alpha_rel}
+
+    hold("cost_grad_eval", cfg, ek, sk.cost_grad_eval_reference(cfg, *eargs),
+         sk.cost_grad_eval_reference, eargs, tuple)
+    fk6 = sk.forward_eval(cfg, kv, mix, a0)
+    k6_err = planes_error(fk6, sk.forward_eval_reference(cfg, kv, mix, a0))
+    say(f"phase 17 T={T} forward_eval on {LARGE_BATCH} random scenes against "
+        f"plain: traj/vel {k6_err:.3g} abs (bound {EVAL_BOUNDS['planes']})")
+    if not k6_err <= EVAL_BOUNDS["planes"]:
+        fail(f"phase 17: forward_eval disagrees with its plain version at "
+             f"T={T} on random scenes")
+    out["forward_eval"] = {"lanes": LARGE_BATCH, "planes_abs": k6_err}
+    del fk6
+
+    def step_fields(r):
+        return (r.new_loss, r.new_grad, r.new_traj, r.new_vel)
+
+    zero = torch.zeros_like(lsg)
+    for name, solver, c, lr in (
+            ("bls", "bls", cfg, torch.full_like(lsg, cfg.bls_lr_start)),
+            ("bls_exact", "bls", cfg.replace(ladder_eval="exact"),
+             torch.full_like(lsg, cfg.bls_lr_start)),
+            ("gd", "gd", cfg, torch.full_like(lsg, cfg.gd_lr[0]))):
+        fn, ref = step_fns(sk, solver)
+        sargs = (kv, kvt, mix, a0, ek.grad, ek.traj, ek.vel, ek.loss, lr,
+                 zero, lsg, ljl, start, goal, ox, oy, ow)
+        k, p = fn(c, *sargs), ref(c, *sargs)
+        agree, err = step_errors(p, k)
+        hold(name, c, k, p, ref, sargs, step_fields, agree,
+             float("inf") if err is None else err["alpha"],
+             exact_eval=name != "bls")
+        del k, p
+    del ek, eargs
+    torch.cuda.empty_cache()
+    return out
+
+
+class plain_rounds:
+    """Within the block, the rounds driver's K2 calls run K2's plain
+    version (fused_round_reference) on the same inputs: its time per solve
+    beside the kernel's."""
+
+    def __init__(self, fs):
+        self.fs = fs
+
+    def __enter__(self):
+        self.orig = self.fs.fused_round
+        ref = self.fs.fused_round_reference
+
+        def plain(*a, plan="", **kw):
+            return ref(*a, **kw)
+
+        plain.launches = self.orig.launches
+        self.fs.fused_round = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.fs.fused_round = self.orig
+        return False
 
 
 def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
@@ -1359,33 +2161,40 @@ def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
 def rounds_driver_check(fs, fleet, roofline, cfg, args, want, solver, phase,
                         label, k2):
     """The rounds driver over K2 against K1's result ``want`` on the
-    FULL_BATCH lanes of ``args`` (fused_solve's), compaction off, on and off
-    again: every output field bit for bit, one K2 launch per round.  K2's
-    time over the rounds (compaction off, CUDA events; the first reading and
-    the second, taken after the compacted run), its plain version's on the
-    first reading's inputs, their bound and the per-round lane agreement.
-    Returns (k2_ms, k2_ms_again, k2_plain_ms, k2_bound)."""
+    FULL_BATCH lanes of ``args`` (fused_solve's): a warm-up run, then
+    compaction off, on and off again; every output field bit for bit, one
+    K2 launch per round.  K2's time over the rounds (compaction off, CUDA
+    events: the first reading and the second, taken after the compacted
+    run; each run also prints its slowest launch and the host's
+    milliseconds inside that call, which tell a host stall from a slow
+    kernel), its plain version's on the first reading's inputs, their bound
+    and the per-round lane agreement.  Returns (k2_ms: the second reading,
+    k2_ms_first, k2_plain_ms, k2_bound, warm-up reading)."""
     T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
     rounds = len(fs.inner_schedule(cfg))
     readings = []
-    for i, compact in enumerate((False, True, False)):
+    for i, compact in enumerate((False, False, True, False)):
         before = fs.fused_round.launches
-        with KernelTimer(fs, "fused_round", capture=i == 0) as timer:
+        with KernelTimer(fs, "fused_round", capture=i == 1) as timer:
             got = fleet._fused_rounds_solve(
                 cfg.replace(lane_compaction=compact), args[1:], solver)
             torch.cuda.synchronize()
         launched = fs.fused_round.launches - before
         same = same_result(got, want)
-        say(f"phase {phase} {label}, compaction {'on' if compact else 'off'} "
-            f"({FULL_BATCH} random scenes): {launched} {k2} launches, "
-            f"{timer.total_ms():.1f} ms in K2, bitwise equal to K1: {same}")
+        slow_ms, slow_host = timer.slowest()
+        say(f"phase {phase} {label}, {'warm-up, ' if i == 0 else ''}"
+            f"compaction {'on' if compact else 'off'} ({FULL_BATCH} random "
+            f"scenes): {launched} {k2} launches, {timer.total_ms():.1f} ms in "
+            f"{k2} (slowest launch {slow_ms:.2f} ms, the host {slow_host:.2f} "
+            f"ms inside that call; host {sum(timer.host['fused_round']):.2f} "
+            f"ms inside all), bitwise equal to K1: {same}")
         if not same:
             fail(f"phase {phase}: the {label} differs from K1")
         if launched != rounds:
             fail(f"phase {phase}: {launched} {k2} launches, not {rounds}")
         if not compact:
             readings.append(timer.total_ms())
-        if i == 0:
+        if i == 1:
             k2_plain_ms, agreements = 0.0, []
             k2_bound = roofline.Bound(0.0, 0.0)
             for rin, rout in zip(timer.inputs, timer.outputs):
@@ -1400,15 +2209,16 @@ def rounds_driver_check(fs, fleet, roofline, cfg, args, want, solver, phase,
                                   float(rout.inner.sum()), solver), False,
                     solver, cfg.ladder_eval)
                 agreements.append(round_agreement(rp, rout, rin[7])[0])
-            say(f"phase {phase} {k2} {readings[0]:.1f} ms over {rounds} "
+            say(f"phase {phase} {k2} {readings[1]:.1f} ms over {rounds} "
                 f"launches, plain version {k2_plain_ms:.1f} ms on the same "
                 f"inputs, bound {k2_bound.ms:.2f} ms by {k2_bound.by}; "
                 f"per-round lane agreement "
                 f"{[round(a, 4) for a in agreements]}")
             del timer.inputs[:], timer.outputs[:]
-    say(f"phase {phase} {k2} over {rounds} launches, compaction off: first "
-        f"reading {readings[0]:.1f} ms, second {readings[1]:.1f} ms")
-    return readings[0], readings[1], k2_plain_ms, k2_bound
+    say(f"phase {phase} {k2} over {rounds} launches, compaction off: warm-up "
+        f"{readings[0]:.1f} ms, first reading {readings[1]:.1f} ms, second "
+        f"{readings[2]:.1f} ms (reported)")
+    return readings[2], readings[1], k2_plain_ms, k2_bound, readings[0]
 
 
 def random_k1(mt, fs, fleet, roofline, cfg, solver, res_on, dev, phase,
@@ -1461,8 +2271,9 @@ def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads, stack}} from nvcc's
     ptxas report; K1/K2 as fused_solve<program,T,O> /
     fused_round<program,T,O> (program bls, gd or bls_exact; <program,0,0>:
-    the generic instantiation); K3 as bls_step<0> (linearized ladder) and
-    bls_step<1> (exact)."""
+    the generic instantiation; <program,0,0,streamed>: the streamed body);
+    K3 as bls_step<tier,basis> (tier 0 linearized, 1 exact; basis 0 staged,
+    1 in device memory), K4-K6 as <basis>."""
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
 
     out, name = {}, None
@@ -1473,8 +2284,10 @@ def ptxas_report(log):
             name = m.group(1)
             if m.group(2) is not None:
                 targs = re.findall(r"L[ib](\d+)E", m.group(2))
-                if name.startswith("fused_") and len(targs) == 3:
+                if name.startswith("fused_") and len(targs) == 4:
                     targs[0] = fs.PROGRAMS[int(targs[0])]
+                    targs = targs[:3] + (["streamed"] if targs[3] == "1"
+                                         else [])
                 name += f"<{','.join(targs)}>"
             out[name] = {}
             continue
@@ -1529,15 +2342,16 @@ def round_agreement(ref, got, ful):
 
 class KernelTimer:
     """Within the block, times every launch of the named wrappers of
-    ``module`` with CUDA events (and, with ``capture``, keeps their inputs
-    and outputs) by wrapping the module functions that the drivers look up
-    at each call.  A wrapped function counts its launches on the module
-    attribute, so the wrapper carries each count in and hands it back on
-    exit."""
+    ``module`` with CUDA events, and the host's seconds inside each call
+    (and, with ``capture``, keeps their inputs and outputs) by wrapping the
+    module functions that the drivers look up at each call.  A wrapped
+    function counts its launches on the module attribute, so the wrapper
+    carries each count in and hands it back on exit."""
 
     def __init__(self, module, *names, capture: bool = False):
         self.module, self.names, self.capture = module, names, capture
         self.events = {n: [] for n in names}
+        self.host = {n: [] for n in names}
         self.inputs, self.outputs = [], []
 
     def __enter__(self):
@@ -1550,9 +2364,11 @@ class KernelTimer:
         def wrapped(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             out = orig(*a, **kw)
             end.record()
+            self.host[name].append(1e3 * (time.perf_counter() - t0))
             self.events[name].append((start, end))
             if self.capture:
                 self.inputs.append(a)
@@ -1569,9 +2385,18 @@ class KernelTimer:
         return False
 
     def total_ms(self, name=None):
+        return sum(self.launch_ms(name))
+
+    def launch_ms(self, name=None):
+        """Each launch's CUDA-event milliseconds."""
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e)
-                   for s, e in self.events[name or self.names[0]])
+        return [s.elapsed_time(e) for s, e in self.events[name or self.names[0]]]
+
+    def slowest(self, name=None):
+        """(event ms, host ms inside the call) of the slowest launch."""
+        ms = self.launch_ms(name)
+        i = max(range(len(ms)), key=ms.__getitem__)
+        return ms[i], self.host[name or self.names[0]][i]
 
 
 # Kernel against plain on the card for the evaluations: both run the same

@@ -86,13 +86,14 @@ def gpu_name_and_power_limit():
 
 
 def bench_config(max_obstacles: int = 11, block_b: int = 0,
-                 solver: str = "bls",
-                 ladder_eval: str = "linearized") -> PlannerConfig:
+                 solver: str = "bls", ladder_eval: str = "linearized",
+                 n_timesteps: int = 50) -> PlannerConfig:
     sched = SCHEDULES[solver]
     return PlannerConfig(
         bls_mode="ladder", fixed_iters=True, inner_schedule=sched,
         max_inner_iteration=max(sched), max_obstacles=max_obstacles,
         pallas_block_b=block_b, ladder_eval=ladder_eval,
+        n_timesteps=n_timesteps,
     )
 
 
@@ -147,6 +148,7 @@ def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int,
         "xla_s": xla_s,
         "bands": {"converged": conv_band, "cost": cost_band,
                   "phantom": 2.0 / n_check, "check_converged_frac": sub_conv,
+                  "xla_converged_frac": ref_conv,
                   "check_obstacle_cost": sub_cost, "xla_obstacle_cost": ref_cost},
     }
 
@@ -156,18 +158,24 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
               device: str = "cuda", random_scenarios: bool = False,
               seed: int = 0, quality_check_lanes: int = 32768,
               lane_compaction: Optional[bool] = None, solver: str = "bls",
-              backend: str = "fused", ladder_eval: str = "linearized") -> dict:
+              backend: str = "fused", ladder_eval: str = "linearized",
+              n_timesteps: int = 50) -> dict:
     """Run the protocol; returns the JSON fields plus ``timing`` (seconds
     of the first run, of each timed run and of the paired check's engine),
     ``gate`` (the paired gate's bands, random mode) and ``result`` (the
-    solve)."""
+    solve).  ``n_timesteps``: T (the committed basis exports: 25, 50, 100,
+    150, 200); the replicated mode's gate holds the reference's T = 50
+    costs, so other T run in random mode."""
+    if n_timesteps != 50 and not random_scenarios:
+        raise ValueError("the replicated-scene gate is the reference's at "
+                         "T = 50; other T run with random scenes")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark runs on a GPU")
     if lane_compaction is None:
         lane_compaction = random_scenarios and backend == "fused"
-    cfg = bench_config(max_obstacles, block_b, solver, ladder_eval).replace(
-        lane_compaction=lane_compaction)
+    cfg = bench_config(max_obstacles, block_b, solver, ladder_eval,
+                       n_timesteps).replace(lane_compaction=lane_compaction)
     basis = make_basis(cfg, device=dev)
     if random_scenarios:
         scns = random_scenarios_fn(cfg, torch.Generator().manual_seed(seed),

@@ -9,7 +9,8 @@ Fields that were TPU execution knobs keep their name; their meaning on the
 GPU is:
 
 * ``pallas_block_b`` — for the fused kernels (K1/K2, one warp per lane):
-  lanes (warps) per CTA, 1..16, 0 picks the default (16); for the per-step
+  lanes (warps) per CTA, 1..16, 0 picks the default (16); past T = 64 (the
+  streamed plan) at most as many as fit in shared memory; for the per-step
   kernels (K3-K6, one thread per lane): lanes (threads) per block, a
   multiple of 32, 0 picks the default (128).  Per-lane results do not
   depend on it.

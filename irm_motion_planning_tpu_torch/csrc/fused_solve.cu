@@ -22,11 +22,15 @@
 // compute, lane by lane; neither is a block-by-block copy.
 //
 // Both are built from the warp body (warp_body.cuh): ONE WARP PER LANE, the
-// lane's solver state on chip (registers and per-warp shared memory), the
-// basis pair staged once per CTA.  The program (the solver, and BLS's
-// ladder tier) is a template argument of both kernels and of the round body
-// warp_round (bls_step<false>, bls_step<true> or gd_step), so each of the
-// six programs is compiled on its own and none reads a run-time switch.  K1 loops warp_round over the schedule with the x10
+// lane's solver state on chip (registers and per-warp shared memory).  The
+// program (the solver, and BLS's ladder tier) is a template argument of
+// both kernels and of the round body warp_round (bls_step<false>,
+// bls_step<true> or gd_step), and so is the body (STREAM): the resident one
+// (T <= 64, the basis pair staged once per CTA) or the streamed one (any T
+// from 32 up, the basis pair read from device memory by K7, the streamed
+// basis contraction that replaces pallas_step's _Body._streamed_matmul).
+// Each of the twelve programs is compiled on its own and none reads a
+// run-time switch.  K1 loops warp_round over the schedule with the x10
 // penalty escalation in between; K2 runs it once, and a lane that comes in
 // fulfilled passes through.  Sharing the round body is what makes the host
 // rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
@@ -81,6 +85,13 @@
 //    thread at 64 registers and the specialised kernels spill a few dozen
 //    bytes a thread, which costs less than halving the warps in flight
 //    (tools/fused_variants.py measures both; PERF.md).
+// The streamed programs (T > 64) keep the lane state on chip and stream the
+// basis: each basis product reads 8 T^2 bytes per lane, from L2 (the basis
+// at T = 2,000 is 32 MB, within the 50 MB L2), so their bound is the larger
+// of the same operations and those bytes over the L2 rate
+// (ops/roofline.py).  Their CTA holds as many warps as fit in shared memory
+// (launch_plan: 10 at T = 200), one CTA per SM, at most 128 registers a
+// thread (__launch_bounds__(512, 1)).
 // wgmma and TMA are for later versions.
 
 #include "warp_body.cuh"
@@ -93,8 +104,25 @@
 #define WB_SPEC_T 50
 #define WB_SPEC_O 11
 
-template <int SOLVER, int TT, int OO>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, WB_MIN_CTAS)
+// The warp's view of its lane in the body STREAM: the resident body stages
+// the basis pair kv/kvt in shared memory; the streamed body reads kv/kvt,
+// which are then the transposed, padded pair (see SWarp), from device
+// memory.
+template <bool STREAM>
+static __device__ __forceinline__ auto bind_body(float* smem, int T, int O,
+                                                 const float* kv,
+                                                 const float* kvt,
+                                                 const float* mix) {
+  if constexpr (STREAM) {
+    return bind_swarp(smem, T, O, kv, kvt, mix);
+  } else {
+    stage_cta(T, kv, kvt, mix, smem);
+    return bind_warp(smem, T, O);
+  }
+}
+
+template <int SOLVER, int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
 fused_solve_kernel(FsParams p, const float* __restrict__ kv,
                    const float* __restrict__ kvt,
                    const float* __restrict__ mix,
@@ -109,8 +137,7 @@ fused_solve_kernel(FsParams p, const float* __restrict__ kv,
   extern __shared__ float4 smem4[];
   float* smem = (float*)smem4;
   const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  stage_cta(T, kv, kvt, mix, smem);
-  Warp w = bind_warp(smem, T, O);
+  auto w = bind_body<STREAM>(smem, T, O, kv, kvt, mix);
   for (int b = next_lane(queue, w.lid); b < p.B;
        b = next_lane(queue, w.lid)) {
     load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg0[b],
@@ -140,8 +167,8 @@ fused_solve_kernel(FsParams p, const float* __restrict__ kv,
 // One round for every lane; alpha is updated in place.  A lane that comes
 // in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
 // (the caller masks both with the round-start flag).
-template <int SOLVER, int TT, int OO>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, WB_MIN_CTAS)
+template <int SOLVER, int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
 fused_round_kernel(FsParams p, int n_r, const float* __restrict__ kv,
                    const float* __restrict__ kvt,
                    const float* __restrict__ mix,
@@ -157,8 +184,7 @@ fused_round_kernel(FsParams p, int n_r, const float* __restrict__ kv,
   extern __shared__ float4 smem4[];
   float* smem = (float*)smem4;
   const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  stage_cta(T, kv, kvt, mix, smem);
-  Warp w = bind_warp(smem, T, O);
+  auto w = bind_body<STREAM>(smem, T, O, kv, kvt, mix);
   for (int b = next_lane(queue, w.lid); b < p.B;
        b = next_lane(queue, w.lid)) {
     if (ful[b] > 0.5f) {
@@ -185,38 +211,50 @@ static bool specialised(const FsParams& p) {
   return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
 }
 
-// K1's and K2's instantiations of one program, specialised or generic.
+// K1's and K2's instantiations of one program: streamed (generic), or
+// resident, specialised or generic.
 template <int SOLVER>
-static const void* kernel_of(const FsParams& p, int which) {
+static const void* kernel_of(const FsParams& p, int which, bool streamed) {
+  if (streamed)
+    return which == 0 ? (const void*)fused_solve_kernel<SOLVER, 0, 0, true>
+                      : (const void*)fused_round_kernel<SOLVER, 0, 0, true>;
   if (specialised(p))
     return which == 0
-               ? (const void*)fused_solve_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O>
-               : (const void*)fused_round_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O>;
-  return which == 0 ? (const void*)fused_solve_kernel<SOLVER, 0, 0>
-                    : (const void*)fused_round_kernel<SOLVER, 0, 0>;
+               ? (const void*)
+                     fused_solve_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O, false>
+               : (const void*)
+                     fused_round_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O, false>;
+  return which == 0 ? (const void*)fused_solve_kernel<SOLVER, 0, 0, false>
+                    : (const void*)fused_round_kernel<SOLVER, 0, 0, false>;
 }
 
 // The instantiation of K1 (which = 0) or K2 (which = 1) for the program
-// ``solver`` (SOLVER_BLS, SOLVER_GD or SOLVER_BLS_EXACT) that runs p;
-// nullptr for another value.
-static const void* kernel_for(const FsParams& p, int which, int solver) {
-  if (solver == SOLVER_BLS) return kernel_of<SOLVER_BLS>(p, which);
-  if (solver == SOLVER_GD) return kernel_of<SOLVER_GD>(p, which);
-  if (solver == SOLVER_BLS_EXACT) return kernel_of<SOLVER_BLS_EXACT>(p, which);
+// ``solver`` (SOLVER_BLS, SOLVER_GD or SOLVER_BLS_EXACT) in the body
+// ``streamed`` that runs p; nullptr for another value.
+static const void* kernel_for(const FsParams& p, int which, int solver,
+                              bool streamed) {
+  if (solver == SOLVER_BLS) return kernel_of<SOLVER_BLS>(p, which, streamed);
+  if (solver == SOLVER_GD) return kernel_of<SOLVER_GD>(p, which, streamed);
+  if (solver == SOLVER_BLS_EXACT)
+    return kernel_of<SOLVER_BLS_EXACT>(p, which, streamed);
   return nullptr;
 }
 
-// The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` at
+// The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` in
+// the body ``streamed`` (0: resident, 1: streamed; launch_plan's "plan") at
 // ``warps`` lanes per CTA: the dynamic shared memory per CTA, the CTAs that
-// fit on one SM and the SM count.  Refuses what the kernels cannot take.
+// fit on one SM and the SM count.  Refuses what the kernels cannot take:
+// the resident body past WB_MAX_T timesteps, the streamed one below 32 (a
+// thread owns at least one timestep).
 static int launch_shape(const FsParams& p, int warps, int which, int solver,
-                        const void*& kernel, size_t& smem, int& per_sm,
-                        int& sms) {
-  kernel = kernel_for(p, which, solver);
+                        int streamed, const void*& kernel, size_t& smem,
+                        int& per_sm, int& sms) {
+  kernel = kernel_for(p, which, solver, streamed != 0);
   if (!kernel || warps < 1 || warps > WB_MAX_WARPS || p.T < 1 ||
-      p.T > WB_MAX_T || p.O < 0 || p.B <= 0 || p.rounds > MAX_ROUNDS)
+      (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
+      p.rounds > MAX_ROUNDS || (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
-  smem = warp_smem_bytes(p, warps);
+  smem = warp_smem_bytes(p, warps, streamed != 0);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -245,12 +283,12 @@ static unsigned grid_size(const FsParams& p, int warps, int ctas, int per_sm,
 }
 
 extern "C" int fused_launch_shape(FsParams p, int warps, int which,
-                                  int solver, int* out) {
+                                  int solver, int streamed, int* out) {
   const void* kernel;
   size_t smem;
   int per_sm, sms;
-  const int err =
-      launch_shape(p, warps, which, solver, kernel, smem, per_sm, sms);
+  const int err = launch_shape(p, warps, which, solver, streamed, kernel,
+                               smem, per_sm, sms);
   if (err) return err;
   out[0] = per_sm;
   out[1] = sms;
@@ -268,7 +306,8 @@ extern "C" int fused_params_layout(int* out) {
 }
 
 extern "C" int fused_solve_launch(FsParams p, int warps, int solver,
-                                  int ctas, const float* kv, const float* kvt,
+                                  int streamed, int ctas, const float* kv,
+                                  const float* kvt,
                                   const float* mix, const float* lam_sg0,
                                   const float* lam_jl0, const float* start,
                                   const float* goal, const float* ox,
@@ -280,7 +319,8 @@ extern "C" int fused_solve_launch(FsParams p, int warps, int solver,
   const void* kernel;
   size_t smem;
   int per_sm, sms;
-  const int err = launch_shape(p, warps, 0, solver, kernel, smem, per_sm, sms);
+  const int err =
+      launch_shape(p, warps, 0, solver, streamed, kernel, smem, per_sm, sms);
   if (err) return err;
   if (ctas < 0) return (int)cudaErrorInvalidValue;
   void* args[] = {&p,     &kv,   &kvt,  &mix,   &lam_sg0,  &lam_jl0,
@@ -292,8 +332,9 @@ extern "C" int fused_solve_launch(FsParams p, int warps, int solver,
                                (cudaStream_t)stream);
 }
 
-extern "C" int fused_round_launch(FsParams p, int warps, int solver, int ctas,
-                                  int n_r, const float* kv, const float* kvt,
+extern "C" int fused_round_launch(FsParams p, int warps, int solver,
+                                  int streamed, int ctas, int n_r,
+                                  const float* kv, const float* kvt,
                                   const float* mix, const float* lam_sg,
                                   const float* lam_jl, const float* ful,
                                   const float* lr0, const float* start,
@@ -304,7 +345,8 @@ extern "C" int fused_round_launch(FsParams p, int warps, int solver, int ctas,
   const void* kernel;
   size_t smem;
   int per_sm, sms;
-  const int err = launch_shape(p, warps, 1, solver, kernel, smem, per_sm, sms);
+  const int err =
+      launch_shape(p, warps, 1, solver, streamed, kernel, smem, per_sm, sms);
   if (err) return err;
   if (ctas < 0 || n_r < 0) return (int)cudaErrorInvalidValue;
   void* args[] = {&p,     &n_r,   &kv,   &kvt, &mix, &lam_sg,   &lam_jl,

@@ -1,8 +1,13 @@
 // The lane body of the per-step kernels K3-K6 (step_kernels.cu): one thread
 // runs one lane (one scene), with the lane's state planes in device memory,
 // lanes trailing ((J, T, B): neighbouring threads read neighbouring
-// addresses), and the basis pair, mix and the block's obstacle terms in
-// shared memory.  A step or an evaluation is the same op sequence in every
+// addresses), and mix and the block's obstacle terms in shared memory.  The
+// basis pair is staged in shared memory too while it fits (16 T^2 bytes
+// beside the obstacle terms, T up to about 110 at 128 lanes per block);
+// beyond, it is read from device memory, where the 32 threads of a warp
+// read the same word at the same (row, t): one broadcast from L1.  Which of
+// the two is a template argument (DEV) of the kernels; the op order is the
+// same, so are the results.  A step or an evaluation is the same op sequence in every
 // per-step kernel, as pallas_step's _Body serves the TPU kernels.  The fused
 // kernels K1/K2 (fused_solve.cu) are built from the warp body
 // (warp_body.cuh), which runs this body's op sequence (bls_step and gd_step)
@@ -41,8 +46,8 @@ struct FsParams {
 struct Lane {
   size_t b, B;
   int T, O, BT;
-  const float* kv;   // shared (2T, T)
-  const float* kvt;  // shared (T, 2T)
+  const float* kv;   // shared or device memory (2T, T)
+  const float* kvt;  // shared or device memory (T, 2T)
   const float* mix;  // shared (J, J)
   const float* ox;   // shared, this lane's column; element o at [o * BT]
   const float* oy;
@@ -516,9 +521,17 @@ static __device__ bool constraints_ok(const FsParams& p, const Lane& L) {
   return pos_ok && vel_ok && box_ok && vmax <= p.max_jv;
 }
 
-// Stage the basis pair, mix and this block's obstacle terms (ox, oy, q_o =
-// 0.5 + 0.5 |o|^2 and 0.8 w_o, (O, BT) each) in shared memory.  Every
-// thread of the block takes part; lanes past B stage zeros.
+// Floats of the basis pair in shared memory: 4 T^2 when staged (DEV
+// false), none when the kernels read it from device memory (DEV true).
+template <bool DEV>
+__host__ __device__ __forceinline__ size_t staged_basis_floats(int T) {
+  return DEV ? 0 : (size_t)4 * T * T;
+}
+
+// Stage the basis pair (unless DEV), mix and this block's obstacle terms
+// (ox, oy, q_o = 0.5 + 0.5 |o|^2 and 0.8 w_o, (O, BT) each) in shared
+// memory.  Every thread of the block takes part; lanes past B stage zeros.
+template <bool DEV>
 static __device__ void stage_block(const FsParams& p,
                                    const float* __restrict__ kv,
                                    const float* __restrict__ kvt,
@@ -527,13 +540,15 @@ static __device__ void stage_block(const FsParams& p,
                                    const float* __restrict__ oy,
                                    const float* __restrict__ ow, float* smem) {
   const int T = p.T, O = p.O, BT = blockDim.x, tid = threadIdx.x;
-  float* s_kv = smem;
-  float* s_kvt = s_kv + 2 * T * T;
-  float* s_mix = s_kvt + 2 * T * T;
+  float* s_mix = smem + staged_basis_floats<DEV>(T);
   float* s_obs = s_mix + NJ * NJ;
-  for (int i = tid; i < 2 * T * T; i += BT) {
-    s_kv[i] = kv[i];
-    s_kvt[i] = kvt[i];
+  if constexpr (!DEV) {
+    float* s_kv = smem;
+    float* s_kvt = s_kv + 2 * T * T;
+    for (int i = tid; i < 2 * T * T; i += BT) {
+      s_kv[i] = kv[i];
+      s_kvt[i] = kvt[i];
+    }
   }
   if (tid < NJ * NJ) s_mix[tid] = mix[tid];
   const size_t B = p.B;
@@ -551,24 +566,28 @@ static __device__ void stage_block(const FsParams& p,
   __syncthreads();
 }
 
-// This thread's view of lane b: the staged shared memory, the lane's
-// endpoints and penalties, alpha and the workspace planes.
+// This thread's view of lane b: the staged shared memory (and, with DEV,
+// the basis pair kv/kvt in device memory), the lane's endpoints and
+// penalties, alpha and the workspace planes.
+template <bool DEV>
 static __device__ Lane bind_lane(const FsParams& p, float* smem, size_t b,
+                                 const float* kv, const float* kvt,
                                  const float* __restrict__ start,
                                  const float* __restrict__ goal, float lam_sg,
                                  float lam_jl, float* alpha, float* work) {
   const int T = p.T, O = p.O, BT = blockDim.x, tid = threadIdx.x;
   const size_t B = p.B;
-  float* s_obs = smem + 4 * T * T + NJ * NJ;
+  float* s_mix = smem + staged_basis_floats<DEV>(T);
+  float* s_obs = s_mix + NJ * NJ;
   Lane L;
   L.b = b;
   L.B = B;
   L.T = T;
   L.O = O;
   L.BT = BT;
-  L.kv = smem;
-  L.kvt = smem + 2 * T * T;
-  L.mix = smem + 4 * T * T;
+  L.kv = DEV ? kv : smem;
+  L.kvt = DEV ? kvt : smem + 2 * T * T;
+  L.mix = s_mix;
   L.ox = s_obs + (0 * O) * BT + tid;
   L.oy = s_obs + (1 * O) * BT + tid;
   L.q = s_obs + (2 * O) * BT + tid;
@@ -591,11 +610,12 @@ static __device__ Lane bind_lane(const FsParams& p, float* smem, size_t b,
   return L;
 }
 
-// Dynamic shared memory of a kernel that stages with stage_block: the basis
-// pair, mix and four obstacle planes of the block's lanes.
-static size_t smem_bytes(const FsParams& p, int block_b) {
-  return sizeof(float) *
-         ((size_t)4 * p.T * p.T + NJ * NJ + (size_t)4 * p.O * block_b);
+// Dynamic shared memory of a kernel that stages with stage_block<DEV>: the
+// basis pair (unless dev), mix and four obstacle planes of the block's
+// lanes.  Mirror of step_plan in ops/step_kernels.py.
+static size_t smem_bytes(const FsParams& p, int block_b, bool dev) {
+  return sizeof(float) * ((dev ? 0 : (size_t)4 * p.T * p.T) + NJ * NJ +
+                          (size_t)4 * p.O * block_b);
 }
 
 static bool bad_launch(const FsParams& p, int block_b) {

@@ -19,8 +19,14 @@
 //    _Body.forward_planes.
 // Each computes what its TPU kernel computes, lane by lane, from the lane
 // body (lane_body.cuh), whose op sequence K1/K2's warp body also runs: ONE
-// THREAD PER LANE, the basis pair, mix and the block's obstacle terms staged
-// in shared memory, the state planes in device memory with lanes trailing.
+// THREAD PER LANE, mix and the block's obstacle terms staged in shared
+// memory, the state planes in device memory with lanes trailing.  The basis
+// pair is staged too while it fits in shared memory beside them; beyond
+// (the step plan of ops/step_kernels.py: T past about 110 at 128 lanes per
+// block), each kernel's DEV instantiation reads it from device memory,
+// where a warp's 32 lanes read the same word at once (one L1 broadcast) and
+// the whole basis stays in L2: the counterpart of pallas_step's streamed
+// basis (stream_rb > 0) for these kernels.  Same op order, same results.
 //
 // State in place.  K3 and K4 update alpha, grad, traj, vel, loss, lr and
 // the minimized flag where they lie: each thread reads and writes only its
@@ -45,10 +51,12 @@
 //    forward, the evaluation, the pull-back): bound by operations too, by
 //    the ladder's rung count for K3.  The workspace traffic (the direction
 //    planes read by every rung) is the design's extra cost.
-// What the design does about it: the basis, mix and obstacle terms never
-// come from device memory in the inner loops; the basis products keep ROWS
-// x J accumulators in registers; frozen lanes and frozen blocks skip all
-// work.  wgmma, TMA and register tiling across lanes are for later
+//  * With the basis in device memory (DEV), every basis product reads
+//    8 T^2 bytes per warp of 32 lanes from L2 (ops/roofline.py).
+// What the design does about it: mix and the obstacle terms (and, while it
+// fits, the basis) never come from device memory in the inner loops; the
+// basis products keep ROWS x J accumulators in registers; frozen lanes and
+// frozen blocks skip all work.  wgmma, TMA and register tiling across lanes are for later
 // versions.
 
 #include "lane_body.cuh"
@@ -56,13 +64,16 @@
 // This thread's view of lane b for the per-step kernels: the staged shared
 // memory, the lane's endpoints and penalties, the state planes and the
 // workspace [dir_t, dir_v (J, T, B); gx, gy (T, B)].
+template <bool DEV>
 static __device__ Lane bind_step_lane(const FsParams& p, float* smem, size_t b,
+                                      const float* kv, const float* kvt,
                                       const float* __restrict__ start,
                                       const float* __restrict__ goal,
                                       float lam_sg, float lam_jl, float* alpha,
                                       float* grad, float* traj, float* vel,
                                       float* work) {
-  Lane L = bind_lane(p, smem, b, start, goal, lam_sg, lam_jl, alpha, work);
+  Lane L = bind_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg, lam_jl,
+                          alpha, work);
   const size_t plane = (size_t)NJ * p.T * p.B;
   L.grad = grad;
   L.traj = traj;
@@ -93,8 +104,9 @@ static __device__ __forceinline__ float* trial_plane(const FsParams& p,
 }
 
 // K3: one BLS inner step for every live lane, in place, in the ladder tier
-// EXACT (a template argument: two programs, no run-time switch).
-template <bool EXACT>
+// EXACT (a template argument: two programs, no run-time switch), with the
+// basis staged or, DEV, in device memory.
+template <bool EXACT, bool DEV>
 __global__ void bls_step_kernel(
     FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
     const float* __restrict__ mix, const float* __restrict__ lam_sg,
@@ -108,10 +120,10 @@ __global__ void bls_step_kernel(
   bool block_live;
   const bool live = step_live(p, minimized, b, block_live);
   if (!block_live) return;
-  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
+  stage_block<DEV>(p, kv, kvt, mix, ox, oy, ow, smem);
   if (!live) return;
-  Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
-                          alpha, grad, traj, vel, work);
+  Lane L = bind_step_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg[b],
+                               lam_jl[b], alpha, grad, traj, vel, work);
   float l = loss[b], r = lr[b];
   const bool stop = bls_step<EXACT>(p, L, trial_plane(p, work), l, r);
   loss[b] = l;
@@ -120,6 +132,7 @@ __global__ void bls_step_kernel(
 }
 
 // K4: one GD inner step for every live lane, in place; lr is read only.
+template <bool DEV>
 __global__ void gd_step_kernel(
     FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
     const float* __restrict__ mix, const float* __restrict__ lam_sg,
@@ -133,10 +146,10 @@ __global__ void gd_step_kernel(
   bool block_live;
   const bool live = step_live(p, minimized, b, block_live);
   if (!block_live) return;
-  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
+  stage_block<DEV>(p, kv, kvt, mix, ox, oy, ow, smem);
   if (!live) return;
-  Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
-                          alpha, grad, traj, vel, work);
+  Lane L = bind_step_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg[b],
+                               lam_jl[b], alpha, grad, traj, vel, work);
   float l = loss[b];
   const bool stop = gd_step(p, L, trial_plane(p, work), l, lr[b]);
   loss[b] = l;
@@ -144,6 +157,7 @@ __global__ void gd_step_kernel(
 }
 
 // K5: loss, gradient and exact (traj, vel) at alpha, for every lane.
+template <bool DEV>
 __global__ void cost_grad_eval_kernel(
     FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
     const float* __restrict__ mix, const float* alpha,
@@ -153,17 +167,19 @@ __global__ void cost_grad_eval_kernel(
     const float* __restrict__ ow, float* loss, float* grad, float* traj,
     float* vel, float* work) {
   extern __shared__ float smem[];
-  stage_block(p, kv, kvt, mix, ox, oy, ow, smem);
+  stage_block<DEV>(p, kv, kvt, mix, ox, oy, ow, smem);
   const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= (size_t)p.B) return;
-  Lane L = bind_step_lane(p, smem, b, start, goal, lam_sg[b], lam_jl[b],
-                          (float*)alpha, grad, traj, vel, work);
+  Lane L = bind_step_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg[b],
+                               lam_jl[b], (float*)alpha, grad, traj, vel,
+                               work);
   forward_planes(p, L, L.alpha, 1.f, false);
   loss[b] = cost_grad_from_traj(p, L, true);
 }
 
 // K6: (traj, vel) = the exact evaluation of alpha, for every lane.  Only
-// kv and mix are staged.
+// kv (unless DEV) and mix are staged.
+template <bool DEV>
 __global__ void forward_eval_kernel(FsParams p,
                                     const float* __restrict__ kv,
                                     const float* __restrict__ mix,
@@ -171,8 +187,10 @@ __global__ void forward_eval_kernel(FsParams p,
                                     float* vel) {
   extern __shared__ float smem[];
   const int T = p.T, BT = blockDim.x, tid = threadIdx.x;
-  for (int i = tid; i < 2 * T * T; i += BT) smem[i] = kv[i];
-  if (tid < NJ * NJ) smem[2 * T * T + tid] = mix[tid];
+  float* s_mix = smem + (DEV ? 0 : 2 * T * T);
+  if constexpr (!DEV)
+    for (int i = tid; i < 2 * T * T; i += BT) smem[i] = kv[i];
+  if (tid < NJ * NJ) s_mix[tid] = mix[tid];
   __syncthreads();
   const size_t b = (size_t)blockIdx.x * BT + tid;
   if (b >= (size_t)p.B) return;
@@ -180,8 +198,8 @@ __global__ void forward_eval_kernel(FsParams p,
   L.b = b;
   L.B = p.B;
   L.T = T;
-  L.kv = smem;
-  L.mix = smem + 2 * T * T;
+  L.kv = DEV ? kv : smem;
+  L.mix = s_mix;
   L.traj = traj;
   L.vel = vel;
   forward_planes(p, L, alpha, 1.f, false);
@@ -198,7 +216,7 @@ static int launch_config(const FsParams& p, int block_b, Kernel kernel,
   return 0;
 }
 
-template <bool EXACT>
+template <bool EXACT, bool DEV>
 static int bls_step_run(FsParams p, int block_b, const float* kv,
                         const float* kvt, const float* mix,
                         const float* lam_sg, const float* lam_jl,
@@ -207,19 +225,21 @@ static int bls_step_run(FsParams p, int block_b, const float* kv,
                         float* grad, float* traj, float* vel, float* loss,
                         float* lr, float* minimized, float* work,
                         void* stream) {
-  const size_t smem = smem_bytes(p, block_b);
+  const size_t smem = smem_bytes(p, block_b, DEV);
   unsigned grid;
-  int err = launch_config(p, block_b, bls_step_kernel<EXACT>, smem, grid);
+  int err = launch_config(p, block_b, bls_step_kernel<EXACT, DEV>, smem, grid);
   if (err) return err;
-  bls_step_kernel<EXACT><<<grid, block_b, smem, (cudaStream_t)stream>>>(
+  bls_step_kernel<EXACT, DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha, grad,
       traj, vel, loss, lr, minimized, work);
   return (int)cudaGetLastError();
 }
 
-// ``exact`` picks the program of the ladder tier (the exact one needs the
-// workspace's trial plane).
-extern "C" int bls_step_launch(FsParams p, int block_b, int exact,
+// The launches: ``dev`` picks the instantiation that reads the basis from
+// device memory (the step plan's "device"; 0: staged), ``exact`` K3's
+// program of the ladder tier (the exact one needs the workspace's trial
+// plane).
+extern "C" int bls_step_launch(FsParams p, int block_b, int dev, int exact,
                                const float* kv, const float* kvt,
                                const float* mix, const float* lam_sg,
                                const float* lam_jl, const float* start,
@@ -228,56 +248,96 @@ extern "C" int bls_step_launch(FsParams p, int block_b, int exact,
                                float* grad, float* traj, float* vel,
                                float* loss, float* lr, float* minimized,
                                float* work, void* stream) {
-  return (exact ? bls_step_run<true> : bls_step_run<false>)(
-      p, block_b, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha,
-      grad, traj, vel, loss, lr, minimized, work, stream);
+  auto run = dev ? (exact ? bls_step_run<true, true> : bls_step_run<false, true>)
+                 : (exact ? bls_step_run<true, false>
+                          : bls_step_run<false, false>);
+  return run(p, block_b, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow,
+             alpha, grad, traj, vel, loss, lr, minimized, work, stream);
 }
 
-extern "C" int gd_step_launch(FsParams p, int block_b, const float* kv,
-                              const float* kvt, const float* mix,
-                              const float* lam_sg, const float* lam_jl,
-                              const float* start, const float* goal,
-                              const float* ox, const float* oy,
-                              const float* ow, float* alpha, float* grad,
-                              float* traj, float* vel, float* loss,
-                              const float* lr, float* minimized, float* work,
-                              void* stream) {
-  const size_t smem = smem_bytes(p, block_b);
+template <bool DEV>
+static int gd_step_run(FsParams p, int block_b, const float* kv,
+                       const float* kvt, const float* mix, const float* lam_sg,
+                       const float* lam_jl, const float* start,
+                       const float* goal, const float* ox, const float* oy,
+                       const float* ow, float* alpha, float* grad, float* traj,
+                       float* vel, float* loss, const float* lr,
+                       float* minimized, float* work, void* stream) {
+  const size_t smem = smem_bytes(p, block_b, DEV);
   unsigned grid;
-  int err = launch_config(p, block_b, gd_step_kernel, smem, grid);
+  int err = launch_config(p, block_b, gd_step_kernel<DEV>, smem, grid);
   if (err) return err;
-  gd_step_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
+  gd_step_kernel<DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha, grad,
       traj, vel, loss, lr, minimized, work);
   return (int)cudaGetLastError();
 }
 
-extern "C" int cost_grad_eval_launch(FsParams p, int block_b, const float* kv,
-                                     const float* kvt, const float* mix,
-                                     const float* alpha, const float* lam_sg,
-                                     const float* lam_jl, const float* start,
-                                     const float* goal, const float* ox,
-                                     const float* oy, const float* ow,
-                                     float* loss, float* grad, float* traj,
-                                     float* vel, float* work, void* stream) {
-  const size_t smem = smem_bytes(p, block_b);
+extern "C" int gd_step_launch(FsParams p, int block_b, int dev,
+                              const float* kv, const float* kvt,
+                              const float* mix, const float* lam_sg,
+                              const float* lam_jl, const float* start,
+                              const float* goal, const float* ox,
+                              const float* oy, const float* ow, float* alpha,
+                              float* grad, float* traj, float* vel,
+                              float* loss, const float* lr, float* minimized,
+                              float* work, void* stream) {
+  return (dev ? gd_step_run<true> : gd_step_run<false>)(
+      p, block_b, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha,
+      grad, traj, vel, loss, lr, minimized, work, stream);
+}
+
+template <bool DEV>
+static int cost_grad_eval_run(FsParams p, int block_b, const float* kv,
+                              const float* kvt, const float* mix,
+                              const float* alpha, const float* lam_sg,
+                              const float* lam_jl, const float* start,
+                              const float* goal, const float* ox,
+                              const float* oy, const float* ow, float* loss,
+                              float* grad, float* traj, float* vel,
+                              float* work, void* stream) {
+  const size_t smem = smem_bytes(p, block_b, DEV);
   unsigned grid;
-  int err = launch_config(p, block_b, cost_grad_eval_kernel, smem, grid);
+  int err = launch_config(p, block_b, cost_grad_eval_kernel<DEV>, smem, grid);
   if (err) return err;
-  cost_grad_eval_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
+  cost_grad_eval_kernel<DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow, loss,
       grad, traj, vel, work);
   return (int)cudaGetLastError();
 }
 
-extern "C" int forward_eval_launch(FsParams p, int block_b, const float* kv,
-                                   const float* mix, const float* alpha,
-                                   float* traj, float* vel, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * p.T * p.T + NJ * NJ);
+extern "C" int cost_grad_eval_launch(FsParams p, int block_b, int dev,
+                                     const float* kv, const float* kvt,
+                                     const float* mix, const float* alpha,
+                                     const float* lam_sg, const float* lam_jl,
+                                     const float* start, const float* goal,
+                                     const float* ox, const float* oy,
+                                     const float* ow, float* loss, float* grad,
+                                     float* traj, float* vel, float* work,
+                                     void* stream) {
+  return (dev ? cost_grad_eval_run<true> : cost_grad_eval_run<false>)(
+      p, block_b, kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow,
+      loss, grad, traj, vel, work, stream);
+}
+
+template <bool DEV>
+static int forward_eval_run(FsParams p, int block_b, const float* kv,
+                            const float* mix, const float* alpha, float* traj,
+                            float* vel, void* stream) {
+  const size_t smem =
+      sizeof(float) * ((DEV ? 0 : (size_t)2 * p.T * p.T) + NJ * NJ);
   unsigned grid;
-  int err = launch_config(p, block_b, forward_eval_kernel, smem, grid);
+  int err = launch_config(p, block_b, forward_eval_kernel<DEV>, smem, grid);
   if (err) return err;
-  forward_eval_kernel<<<grid, block_b, smem, (cudaStream_t)stream>>>(
+  forward_eval_kernel<DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
       p, kv, mix, alpha, traj, vel);
   return (int)cudaGetLastError();
+}
+
+extern "C" int forward_eval_launch(FsParams p, int block_b, int dev,
+                                   const float* kv, const float* mix,
+                                   const float* alpha, float* traj,
+                                   float* vel, void* stream) {
+  return (dev ? forward_eval_run<true> : forward_eval_run<false>)(
+      p, block_b, kv, mix, alpha, traj, vel, stream);
 }

@@ -8,8 +8,9 @@ operator ``kv = [K; K']`` (2T, T) gives both in one product.
 The basis is NOT rebuilt in torch.  The Gram matrix has condition number
 ~1e15, so a different ``linspace``, exp or LU path moves the warm-start
 coefficients ``init_u``/``init_w`` by O(1), and ``mix`` is a draw from JAX's
-PRNG.  The default basis is exported once from the JAX package by
-``tools/export_torch_basis.py`` and committed as
+PRNG.  The basis of the default config at T = 25, 50, 100, 150 and 200 (the
+sizes of benchmarks/problemsize.py) is exported from the JAX package by
+``tools/export_torch_basis.py --sizes ...`` and committed as
 ``irm_motion_planning_tpu_torch/data/basis_T{T}_J{J}.npz``; ``make_basis``
 loads it and refuses any config it was not exported for.
 """
@@ -75,21 +76,22 @@ def make_basis(cfg: PlannerConfig, device=None) -> Basis:
     and without ``device`` it raises RuntimeError).
 
     Raises ValueError when no export matches the config's basis fields;
-    run ``python tools/export_torch_basis.py`` to export one."""
+    run ``python tools/export_torch_basis.py --sizes T`` to export one."""
     device = resolve(device)
     path = export_path(cfg)
     want = {k: getattr(cfg, k) for k in BASIS_KEYS}
     if not os.path.exists(path):
         raise ValueError(
             f"no basis export for {want} ({path} missing); export it with "
-            f"`python {EXPORT_SCRIPT}`"
+            f"`python {EXPORT_SCRIPT} --sizes {cfg.n_timesteps}`"
         )
     with np.load(path) as data:
         have = {k: data[k].item() for k in BASIS_KEYS}
         if have != want:
             raise ValueError(
                 f"basis export {path} was made for {have}, not {want}; "
-                f"export a matching one with `python {EXPORT_SCRIPT}`"
+                f"export a matching one with `python {EXPORT_SCRIPT}` (the "
+                f"default config's fields at each T of --sizes)"
             )
         return basis_from_numpy(data, device=device)
 

@@ -105,18 +105,19 @@ def build() -> str:
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
     signatures: the parameter block and the lanes per block (K3-K6) or per
-    CTA (K1/K2)[, K1/K2's program and the CTAs of their grid][, n_r][, K3's
-    ladder tier], then a c_void_p for every tensor pointer; callers pass the
-    stream last, as a c_void_p."""
+    CTA (K1/K2)[, K1/K2's program, body (resident 0, streamed 1) and the
+    CTAs of their grid][, n_r][, K3's ladder tier][, K3-K6's basis (staged
+    0, device memory 1)], then a c_void_p for every tensor pointer; callers
+    pass the stream last, as a c_void_p."""
     from .fused_solve import _Params
 
     for name, n_int, n_ptr in (
-        ("fused_solve_launch", 2, 16),
-        ("fused_round_launch", 3, 17),
-        ("bls_step_launch", 1, 19),
-        ("gd_step_launch", 0, 19),
-        ("cost_grad_eval_launch", 0, 17),
-        ("forward_eval_launch", 0, 6),
+        ("fused_solve_launch", 3, 16),
+        ("fused_round_launch", 4, 17),
+        ("bls_step_launch", 2, 19),
+        ("gd_step_launch", 1, 19),
+        ("cost_grad_eval_launch", 1, 17),
+        ("forward_eval_launch", 1, 6),
     ):
         if names is None or name in names:
             fn = getattr(lib, name)
@@ -125,7 +126,8 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
                            + [ctypes.c_void_p] * n_ptr)
     lib.fused_launch_shape.restype = ctypes.c_int
     lib.fused_launch_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
     lib.fused_params_layout.restype = ctypes.c_int
     lib.fused_params_layout.argtypes = [ctypes.c_void_p]
     lib.fused_solve_error_string.restype = ctypes.c_char_p

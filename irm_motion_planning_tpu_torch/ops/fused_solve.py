@@ -28,16 +28,20 @@ scalars ``(B,)`` inside and ``(1, B)`` at the public functions, obstacles
 
 The wrappers take the plain version for CPU tensors and launch the CUDA
 kernels (csrc/fused_solve.cu: one warp per lane, the warp body in
-csrc/warp_body.cuh, ``cfg.pallas_block_b`` lanes per CTA as
-:func:`launch_plan` checks, a persistent grid over a lane queue) for CUDA
-tensors; they never fall back.  The plain versions run all lanes in
-lockstep with per-lane masks, so their per-lane results equal the kernels'
-per-lane early exits.
+csrc/warp_body.cuh, in the plan :func:`launch_plan` gives: the resident
+body for T <= 64, the streamed one, whose basis products stream the basis
+from device memory through K7, beyond; a persistent grid over a lane
+queue) for CUDA tensors; they never fall back.  The plain versions run all
+lanes in lockstep with per-lane masks, so their per-lane results equal the
+kernels' per-lane early exits.  K7's plain version is the plain versions'
+own basis products (:func:`forward_planes` and the pull-back in
+:func:`cost_grad_from_traj`), whose rows it computes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -54,11 +58,16 @@ SOLVERS = ("bls", "gd")
 # BLS has one per ladder tier.
 PROGRAMS = ("bls", "gd", "bls_exact")
 # The warp-per-lane kernels (csrc/warp_body.cuh): lanes (warps) per CTA,
-# ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS;
-# two timesteps per thread, so at most WARP_MAX_T timesteps.
+# ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS.
+# The resident body holds two timesteps per thread, so at most WARP_MAX_T
+# timesteps; the streamed body at least one (STREAM_MIN_T).
 DEFAULT_WARPS = 16
 MAX_WARPS = 16
 WARP_MAX_T = 64
+STREAM_MIN_T = 32
+# The launch plans: the resident body (the basis pair in shared memory) or
+# the streamed one (the basis in device memory, streamed by K7).
+PLANS = ("resident", "streamed")
 # Hopper's dynamic shared memory per block (opt-in).
 SMEM_PER_CTA_MAX = 232448
 
@@ -251,8 +260,7 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
 
     # Blend weights: lam_max on the FIRST argmax over T, plus the mean.
     rows = torch.arange(T, device=nt.device)[:, None]
-    cmax = cost_v.max(dim=0, keepdim=True).values
-    first_max = torch.where(cost_v == cmax, rows, T).min(dim=0, keepdim=True).values
+    first_max = first_argmax(cost_v)[None]
     wblend = lam_max * (rows == first_max).to(torch.float32) + (
         (1.0 - lam_max) / T
     )
@@ -296,6 +304,23 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
             acc = acc + pulled[i] * mix[j, i]
         grad.append(acc)
     return loss, torch.stack(grad), px, py
+
+
+def first_argmax(cost_v):
+    """The first timestep of each lane's largest cost (B,): where the blend
+    puts lam_max (a tie goes to the earlier timestep)."""
+    T = cost_v.shape[0]
+    rows = torch.arange(T, device=cost_v.device)[:, None]
+    cmax = cost_v.max(dim=0, keepdim=True).values
+    return torch.where(cost_v == cmax, rows, T).min(dim=0).values
+
+
+def blend_costs(cfg: PlannerConfig, traj, ox, oy, ow):
+    """The obstacle cost per timestep (T, B) at the evaluated ``traj`` (J,
+    T, B) among the obstacles ox/oy/ow (O, B), as the cost pass computes
+    it; :func:`first_argmax` of it is where the blend puts lam_max."""
+    ee_x, ee_y, _, _ = fk_ee(consts(cfg), traj)
+    return obstacle_cost_v(ee_x, ee_y, obs_ctx(ox, oy, ow))
 
 
 def cost_grad_eval(cfg: PlannerConfig, c: Consts, kv, kvt, mix, alpha, start,
@@ -605,59 +630,141 @@ def warps_per_cta(cfg: PlannerConfig) -> int:
     return w
 
 
-def launch_plan(cfg: PlannerConfig, O: int) -> dict:
+def launch_plan(cfg: PlannerConfig, O: int, plan: str = "") -> dict:
     """K1/K2's dynamic shared memory per CTA, by piece, in bytes (mirror of
-    warp_smem_bytes in csrc/warp_body.cuh, which re-checks it): per CTA the
-    basis pair transposed (2 x 2T x T) and mix (padded to 12 floats); per
-    warp the planes alpha, grad, dir_t, dir_v (J x T each), the buffer (8
-    reduction rows of T padded to a multiple of 4, which also holds a
-    product's staged input and the stacked gradient, 2T float4), the
-    obstacle terms (float4 each) and the endpoints (20 floats).  Returns
-    {"warps", "bytes": {piece: bytes}, "total"}.  Raises ValueError for a
-    lanes-per-CTA value the kernels cannot take, NotImplementedError for a
-    T beyond the on-chip design."""
-    warps = warps_per_cta(cfg)
+    warp_smem_bytes in csrc/warp_body.cuh, which re-checks it), in the
+    ``plan`` of PLANS: by default ``"resident"`` for T <= WARP_MAX_T and
+    ``"streamed"`` beyond.
+
+    Resident: per CTA the basis pair transposed (2 x 2T x T) and mix (padded
+    to 12 floats); per warp the planes alpha, grad, dir_t, dir_v (J x T
+    each), the buffer (8 reduction rows of T padded to a multiple of 4,
+    which also holds a product's staged input and the stacked gradient, 2T
+    float4), the obstacle terms (float4 each) and the endpoints (20 floats);
+    ``cfg.pallas_block_b`` warps (0: DEFAULT_WARPS).  Streamed: per CTA only
+    mix; per warp the same pieces and the traj/vel/gx/gy planes ((2J + 2) x
+    T, "state"); the most warps, at most ``cfg.pallas_block_b`` (0:
+    DEFAULT_WARPS), that fit in SMEM_PER_CTA_MAX.
+
+    Returns {"plan", "warps", "bytes": {piece: bytes}, "total"}.  Raises
+    ValueError for a lanes-per-CTA value or plan the kernels cannot take,
+    NotImplementedError when the plan does not fit: the resident one past
+    WARP_MAX_T (the message names the streamed plan), the streamed one when
+    a single warp does not fit (the message names the largest piece)."""
+    want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
+    plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
+    if plan not in PLANS:
+        raise ValueError(f"launch plan {plan!r} is not one of {PLANS}")
     f = 4
     rows = (T + 3) // 4 * 4
-    pieces = {
-        "basis": f * 4 * T * T,
-        "mix": f * 12,
-        "planes": warps * f * 4 * J * T,
-        "buffer": warps * f * 8 * rows,
-        "obstacles": warps * f * 4 * O,
-        "endpoints": warps * f * 20,
+    per_warp = {
+        "planes": f * 4 * J * T,
+        "buffer": f * 8 * rows,
+        "obstacles": f * 4 * O,
+        "endpoints": f * 20,
     }
-    total = sum(pieces.values())
-    if T > WARP_MAX_T or total > SMEM_PER_CTA_MAX:
+    if plan == "resident":
+        if T > WARP_MAX_T:
+            raise NotImplementedError(
+                f"T={T}: the resident plan holds two timesteps per thread "
+                f"(T <= {WARP_MAX_T}) and the basis pair (16 T^2 bytes) in "
+                f"shared memory; the streamed plan runs this T"
+            )
+        pieces = {"basis": f * 4 * T * T, "mix": f * 12,
+                  **{k: want * v for k, v in per_warp.items()}}
+        total = sum(pieces.values())
+        if total > SMEM_PER_CTA_MAX:
+            raise NotImplementedError(
+                f"T={T}: the resident plan needs {total} bytes of shared "
+                f"memory per CTA, more than {SMEM_PER_CTA_MAX}"
+            )
+        return {"plan": plan, "warps": want, "bytes": pieces, "total": total}
+    if T < STREAM_MIN_T:
+        raise ValueError(
+            f"T={T}: the streamed plan needs T >= {STREAM_MIN_T} (every "
+            f"thread of a warp owns a timestep)")
+    per_warp["state"] = f * (2 * J + 2) * T
+    one = sum(per_warp.values())
+    room = SMEM_PER_CTA_MAX - f * 12
+    if one > room:
+        big = max(per_warp, key=per_warp.get)
         raise NotImplementedError(
-            f"T={T}: the fused kernels hold the basis (8 T^2 bytes) and the "
-            f"lane state on chip for T <= {WARP_MAX_T} within "
-            f"{SMEM_PER_CTA_MAX} bytes per CTA (this plan: {total}); a "
-            f"streamed basis for large T is ROADMAP queue 1 #13"
+            f"T={T}: one warp's lane state does not fit in shared memory: "
+            f"{one} bytes per warp, {room} free per CTA; the largest piece "
+            f"is {big} ({per_warp[big]} bytes)"
         )
-    return {"warps": warps, "bytes": pieces, "total": total}
+    warps = min(want, room // one)
+    pieces = {"mix": f * 12, **{k: warps * v for k, v in per_warp.items()}}
+    return {"plan": plan, "warps": warps, "bytes": pieces,
+            "total": sum(pieces.values())}
+
+
+def kernel_plan(cfg: PlannerConfig, O: int):
+    """The launch plan the kernels run for ``cfg`` (:func:`launch_plan`),
+    or None where none fits (the streamed plan's ceiling: one warp's lane
+    state past the shared memory of a CTA); the fleet solver then runs its
+    plain engine."""
+    try:
+        return launch_plan(cfg, O)
+    except NotImplementedError:
+        return None
 
 
 def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
-                 solver: str = "bls") -> dict:
-    """What the card makes of the launch plan of K1 (``kernel=
-    "fused_solve"``) or K2 (``"fused_round"``) for ``solver`` (BLS: in the
-    ladder tier of ``cfg``): CTAs per SM (the CUDA occupancy calculator,
-    registers and shared memory), SMs, shared memory per CTA as the C side
-    computes it, warps per SM.  Needs the card."""
+                 solver: str = "bls", plan: str = "") -> dict:
+    """What the card makes of the launch plan (:func:`launch_plan`) of K1
+    (``kernel="fused_solve"``) or K2 (``"fused_round"``) for ``solver``
+    (BLS: in the ladder tier of ``cfg``): CTAs per SM (the CUDA occupancy
+    calculator, registers and shared memory), SMs, shared memory per CTA as
+    the C side computes it, warps per SM.  Needs the card."""
     from ._build import load_library
 
-    warps = launch_plan(cfg, O)["warps"]
+    lp = launch_plan(cfg, O, plan)
     out = (ctypes.c_int * 3)()
     err = load_library().fused_launch_shape(
-        kernel_params(cfg, O, B), warps,
+        kernel_params(cfg, O, B), lp["warps"],
         {"fused_solve": 0, "fused_round": 1}[kernel],
-        program_index(cfg, solver), out)
+        program_index(cfg, solver), PLANS.index(lp["plan"]), out)
     if err:
         raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
-            "warps_per_sm": out[0] * warps}
+            "warps_per_sm": out[0] * lp["warps"]}
+
+
+_MEMO: dict = {}
+
+
+def memo(name: str, fn, *xs):
+    """``fn(*xs)``, built once for the same tensors: the last result under
+    ``name`` is returned while every tensor of ``xs`` is the one it was built
+    from and unchanged since (the same object at the same version)."""
+    hit = _MEMO.get(name)
+    versions = tuple(x._version for x in xs)
+    if (hit is not None and len(hit[0]) == len(xs)
+            and all(r() is x for r, x in zip(hit[0], xs))
+            and hit[1] == versions):
+        return hit[2]
+    out = fn(*xs)
+    _MEMO[name] = ([weakref.ref(x) for x in xs], versions, out)
+    return out
+
+
+def streamed_basis(kv, kvt):
+    """The basis pair as the streamed body reads it from device memory:
+    each transposed, its rows (the products' output rows) zero-padded to a
+    multiple of 32 (csrc/warp_body.cuh, ws_ld): kv (2T, T) -> (T, 2T
+    padded), kvt (T, 2T) -> (2T, T padded).  Built once per basis pair
+    (:func:`memo`), not at every launch."""
+    def padded_t(m):
+        rows, cols = m.shape
+        out = torch.zeros((cols, (rows + 31) // 32 * 32), dtype=m.dtype,
+                          device=m.device)
+        out[:, :rows] = m.T
+        return out
+
+    return memo("streamed_basis",
+                lambda a, b: (padded_t(a), padded_t(b)), kv, kvt)
 
 
 def program(cfg: PlannerConfig, solver: str) -> str:
@@ -760,7 +867,7 @@ def check_supported(cfg: PlannerConfig) -> None:
     check_precision(cfg)
     if cfg.bls_bf16_ladder:
         raise NotImplementedError(
-            "the bf16 ladder tier is not ported (ROADMAP queue 1 #2, large T)"
+            "the bf16 ladder tier is not ported (ROADMAP queue 2 #1)"
         )
     if cfg.ladder_eval == "linearized" and not cfg.exact_constraint_eval:
         raise NotImplementedError(
@@ -816,8 +923,8 @@ _LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
 
 
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
-                goal, ox, oy, ow, *, solver: str = "bls",
-                ctas: int = 0) -> FusedSolve:
+                goal, ox, oy, ow, *, solver: str = "bls", ctas: int = 0,
+                plan: str = "") -> FusedSolve:
     """The whole penalty-method solve of ``solver`` (``"bls"``, in the ladder
     tier ``cfg.ladder_eval``, or ``"gd"``; GD's round r starts from
     ``gd_lr[min(r, len(gd_lr) - 1)]``) for every lane.
@@ -828,21 +935,23 @@ def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
     per lane, ``cfg.pallas_block_b`` lanes per CTA or DEFAULT_WARPS when it
     is 0, see :func:`launch_plan`) and raise if it cannot be built or
     launched.  ``ctas``: CTAs of the persistent grid (0: every CTA that
-    fits on the card); per-lane results do not depend on it."""
+    fits on the card); ``plan``: the launch plan, one of PLANS (empty: the
+    one :func:`launch_plan` chooses for T).  Per-lane results depend on
+    neither."""
     args = (kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow)
     where = _check_args("fused_solve", cfg, tuple(zip(_LABELS, args)),
                         lambda J, T, O, B: (
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
                             (O, B)), solver_check(solver))
-    warps_per_cta(cfg)
+    launch_plan(cfg, ox.shape[0], plan)
     if where == "cpu":
         return fused_solve_reference(cfg, *args, solver=solver)
     kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
         x.contiguous() for x in args
     )
     alpha = a0.clone()
-    outs = _launch("fused_solve", cfg, solver, alpha, 4, ctas, [],
+    outs = _launch("fused_solve", cfg, solver, plan, alpha, 4, ctas, [],
                    [kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow])
     fused_solve.launches += 1
     return FusedSolve(alpha, *outs)
@@ -853,7 +962,8 @@ fused_solve.launches = 0
 
 def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                 fulfilled, lr0, n_r: int, start, goal, ox, oy, ow, *,
-                solver: str = "bls", ctas: int = 0) -> FusedRound:
+                solver: str = "bls", ctas: int = 0,
+                plan: str = "") -> FusedRound:
     """ONE penalty round of ``solver`` for every lane: round-start fused
     evaluation under the lane's penalties, up to ``n_r`` steps from the
     lane's learning rate ``lr0`` (BLS adapts it from there; GD keeps it),
@@ -865,8 +975,8 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
     the rest as :func:`fused_solve`.  CPU tensors run
     :func:`fused_round_reference`; CUDA tensors launch the kernel (the
     budget is a plain kernel argument: every round shares one build; lanes
-    per CTA and ``ctas`` as :func:`fused_solve`) and raise if it cannot be
-    built or launched."""
+    per CTA, ``ctas`` and ``plan`` as :func:`fused_solve`) and raise if it
+    cannot be built or launched."""
     n_r = int(n_r)
     if n_r < 0:
         raise ValueError(f"fused_round: n_r must be >= 0, got {n_r}")
@@ -878,7 +988,7 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (1, B), (1, B), (J, B), (J, B),
                             (O, B), (O, B), (O, B)), solver_check(solver))
-    warps_per_cta(cfg)
+    launch_plan(cfg, ox.shape[0], plan)
     if where == "cpu":
         return fused_round_reference(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl,
                                      fulfilled, lr0, n_r, start, goal, ox, oy,
@@ -886,7 +996,7 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
     (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal, ox, oy,
      ow) = (x.contiguous() for x in args)
     out_alpha = alpha.clone()
-    outs = _launch("fused_round", cfg, solver, out_alpha, 3, ctas,
+    outs = _launch("fused_round", cfg, solver, plan, out_alpha, 3, ctas,
                    [ctypes.c_int(n_r)],
                    [kv, kvt, mix, lam_sg, lam_jl, fulfilled, lr0, start, goal,
                     ox, oy, ow])
@@ -897,10 +1007,12 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
 fused_round.launches = 0
 
 
-def _launch(name: str, cfg: PlannerConfig, solver: str, alpha, n_out: int,
-            ctas: int, scalars, inputs) -> list:
+def _launch(name: str, cfg: PlannerConfig, solver: str, plan: str, alpha,
+            n_out: int, ctas: int, scalars, inputs) -> list:
     """Launch ``<name>_launch`` of the kernel library on the current stream,
-    the instantiation of ``solver``: the persistent grid (``ctas`` CTAs, 0:
+    the instantiation of ``solver`` in the body of the launch plan
+    (:func:`launch_plan`; the streamed body takes the basis pair as
+    :func:`streamed_basis` gives it): the persistent grid (``ctas`` CTAs, 0:
     all that fit) over a lane queue zeroed here; ``alpha`` (J, T, B) is
     updated in place, ``n_out`` (1, B) outputs are returned.  Raises when
     the launch is refused."""
@@ -912,14 +1024,17 @@ def _launch(name: str, cfg: PlannerConfig, solver: str, alpha, n_out: int,
         raise NotImplementedError("the CUDA kernels are built for J=3 joints")
     if ctas < 0:
         raise ValueError(f"{name}: ctas must be >= 0, got {ctas}")
-    warps = launch_plan(cfg, O)["warps"]
+    lp = launch_plan(cfg, O, plan)
+    streamed = lp["plan"] == "streamed"
+    if streamed:
+        inputs = [*streamed_basis(inputs[0], inputs[1]), *inputs[2:]]
     dev = alpha.device
     outs = [torch.empty((1, B), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
-    launch(name, kernel_params(cfg, O, B), warps,
-           [ctypes.c_int(program_index(cfg, solver)), ctypes.c_int(ctas),
-            *scalars,
+    launch(name, kernel_params(cfg, O, B), lp["warps"],
+           [ctypes.c_int(program_index(cfg, solver)), ctypes.c_int(streamed),
+            ctypes.c_int(ctas), *scalars,
             *inputs, alpha, *outs, queue], dev)
     return outs
 

@@ -15,8 +15,29 @@ multiply-add as two.  Each sine, cosine, division and square root counts
 as ONE operation, and compares, selects and address arithmetic are not
 counted, so the operation side is a lower bound as the byte side is.
 
+Where a kernel streams the basis (T past the resident plans: K1/K2's
+streamed body, K3-K6 with the basis in device memory), the bound stays the
+function's: its inputs read once, the basis among them, and its
+operations.  What the design streams beside that is a diagnostic,
+``Bound.l2_bytes`` and ``Bound.design_l2_ms``: the basis (8 T^2 bytes per
+product) fits in the 50 MB L2 up to T = 2,500, so it comes from L2, not
+HBM; K1/K2 read it once per basis product per lane (one warp per lane),
+K3-K6 once per product per warp of 32 lanes (every lane of a warp reads
+the same word).  Those reads are a cost of the design (a stream shared by
+the warps of a CTA would cut them by the warps per CTA), not of the
+function, so they do not enter ``ms`` or ``by``.
+
 Rates: the published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s
-of HBM3, 67 TFLOP/s fp32 outside the tensor cores (TF32 is not used).
+of HBM3, 67 TFLOP/s fp32 outside the tensor cores (TF32 is not used).  The
+L2 rate of the diagnostic is measured, not published: chip_smoke.py (phase
+17, the K7 line's ``l2_bytes_per_s``) reads an L2-resident 16 MiB buffer two
+ways, timed with CUDA events: torch's copy of it into a second buffer, 200
+copies replayed from one CUDA graph (read and write counted: 4.594 TB/s),
+and one torch reduction over an expanded view that reads it 64 times
+(10.076 TB/s; the SMs may share some of those reads in L1).
+L2_BYTES_PER_S is the larger, so the design's L2 time stays a lower bound
+of what its reads cost: NVIDIA H100 80GB HBM3, 700.00 W (my chip run, PR 7;
+PERF.md).
 """
 
 from __future__ import annotations
@@ -25,15 +46,19 @@ from typing import NamedTuple
 
 BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+L2_BYTES_PER_S = 10.076e12
 F32 = 4
 
 
 class Bound(NamedTuple):
     bytes: float
     ops: float
+    l2_bytes: float = 0.0   # the basis bytes a streamed design reads from L2
 
     @property
     def ms(self) -> float:
+        """The function's bound: its bytes over HBM's rate or its
+        operations over the fp32 rate, the larger."""
         return 1e3 * max(self.bytes / BYTES_PER_S, self.ops / FP32_OPS_PER_S)
 
     @property
@@ -41,8 +66,15 @@ class Bound(NamedTuple):
         return ("bytes" if self.bytes / BYTES_PER_S >= self.ops / FP32_OPS_PER_S
                 else "operations")
 
+    @property
+    def design_l2_ms(self) -> float:
+        """The design's basis reads over the L2 rate: a diagnostic, not
+        part of the bound."""
+        return 1e3 * self.l2_bytes / L2_BYTES_PER_S
+
     def __add__(self, other: "Bound") -> "Bound":
-        return Bound(self.bytes + other.bytes, self.ops + other.ops)
+        return Bound(self.bytes + other.bytes, self.ops + other.ops,
+                     self.l2_bytes + other.l2_bytes)
 
 
 class LaneOps(NamedTuple):
@@ -105,19 +137,34 @@ def _basis_bytes(T: int, J: int) -> float:
     return (4 * T * T + J * J) * F32
 
 
-def forward_eval(B: int, T: int, J: int) -> Bound:
+def product_bytes(T: int) -> float:
+    """The bytes of one basis product's operand: kv (2T, T) or kvt (T, 2T)."""
+    return 2 * T * T * F32
+
+
+def _warp_streamed(products: float, T: int, device_basis: bool) -> float:
+    """K3-K6's L2 bytes (the design's diagnostic): ``products`` per-lane
+    basis products, read once per warp of 32 lanes when the basis is in
+    device memory (none when it is staged)."""
+    return products / 32 * product_bytes(T) if device_basis else 0.0
+
+
+def forward_eval(B: int, T: int, J: int, device_basis: bool = False) -> Bound:
     """K6: alpha in, (traj, vel) out."""
     b = _lane_bytes(T, J, 0)
     return Bound(B * 3 * b["plane"] + (2 * T * T + J * J) * F32,
-                 B * LaneOps.at(T, J, 0).forward)
+                 B * LaneOps.at(T, J, 0).forward,
+                 _warp_streamed(B, T, device_basis))
 
 
-def cost_grad_eval(B: int, T: int, J: int, O: int) -> Bound:
+def cost_grad_eval(B: int, T: int, J: int, O: int,
+                   device_basis: bool = False) -> Bound:
     """K5: alpha, penalties and the scene in; loss, grad, traj, vel out."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     per_lane = b["plane"] + 2 * b["scalar"] + b["scene"] + 3 * b["plane"] + F32
     return Bound(B * per_lane + _basis_bytes(T, J),
-                 B * (n.forward + n.cost + n.loss + n.grad))
+                 B * (n.forward + n.cost + n.loss + n.grad),
+                 _warp_streamed(2 * B, T, device_basis))
 
 
 def _bls_ops(n: LaneOps, ladder_eval: str) -> tuple:
@@ -129,7 +176,8 @@ def _bls_ops(n: LaneOps, ladder_eval: str) -> tuple:
 
 
 def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
-                   ladder_eval: str = "linearized") -> Bound:
+                   ladder_eval: str = "linearized",
+                   device_basis: bool = False) -> Bound:
     """K3 in place, from the plain version's tally on the same inputs (the
     kernel returns no rung count): every lane reads its frozen flag; a live
     lane reads the four state planes, loss, lr, penalties and scene and
@@ -147,10 +195,12 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
             + _basis_bytes(T, J))
     step, rung = _bls_ops(n, ladder_eval)
     ops = steps * step + rungs * rung + pulls * (n.cost + n.loss + n.grad)
-    return Bound(byts, ops)
+    products = (rungs if ladder_eval == "exact" else steps) + pulls
+    return Bound(byts, ops, _warp_streamed(products, T, device_basis))
 
 
-def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
+def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
+                  device_basis: bool = False) -> Bound:
     """K4 in place, from the plain version's tally: a live lane reads alpha,
     grad, loss, lr, penalties and scene and evaluates the trial; an accepted
     trial writes alpha, grad, traj, vel and loss and pays the pull-back; a
@@ -161,12 +211,34 @@ def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict) -> Bound:
     byts = (B * F32 + steps * live_in + acc * (4 * b["plane"] + F32)
             + (steps - acc) * F32 + _basis_bytes(T, J))
     ops = steps * (n.trial + n.forward + n.cost + n.loss) + acc * n.grad
-    return Bound(byts, ops)
+    return Bound(byts, ops, _warp_streamed(steps + acc, T, device_basis))
+
+
+def fused_products(B: int, tally: dict, whole_solve: bool,
+                   solver: str = "bls",
+                   ladder_eval: str = "linearized") -> float:
+    """The basis products (forward evaluations and pull-backs) of K1
+    (``whole_solve``) or K2's rounds, summed over the lanes, from the same
+    work counts as :func:`fused_rounds`: a round-start forward once per
+    lane (K1) or per round (K2) and a pull-back per round; GD a forward per
+    step and a pull-back per accepted step; BLS a pull-back per step that
+    does not stop and, linearized, a direction forward per step and the
+    end-of-round forward, exact, a forward per rung (a step without a
+    passing rung, which re-evaluates, is not counted)."""
+    rounds = _total(tally["rounds"])
+    n = (B if whole_solve else rounds) + rounds
+    if solver == "gd":
+        return n + _total(tally["steps"]) + _total(tally["accepted"])
+    n += _total(tally["pullbacks"])
+    if ladder_eval == "exact":
+        return n + _total(tally["rungs"])
+    return n + rounds + _total(tally["steps"])
 
 
 def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
                  whole_solve: bool, solver: str = "bls",
-                 ladder_eval: str = "linearized") -> Bound:
+                 ladder_eval: str = "linearized",
+                 streamed: bool = False) -> Bound:
     """K1 (``whole_solve``: all rounds) or K2 (one round) of ``solver``,
     from the work counts of the run: each lane reads alpha, its penalties
     and scene and writes alpha and its per-lane results (K1 four, K2 three).
@@ -187,7 +259,11 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
 
     GD (rounds, steps, accepted): no re-evaluation (the carried evaluation
     is exact); each step the trial, its forward and its cost pass with the
-    loss; each accepted step the pull-back."""
+    loss; each accepted step the pull-back.
+
+    ``streamed`` (the streamed body): ``l2_bytes``, the design's
+    diagnostic, holds every basis product (:func:`fused_products`) reading
+    the basis from L2, once per lane."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     n_out = 4 if whole_solve else 3
     per_lane = (2 * b["plane"] + 4 * b["scalar"] + b["scene"]
@@ -208,12 +284,15 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
         ops += ((0 if exact else rounds * n.forward)
                 + steps * step + rungs * rung
                 + pulls * (n.cost + n.grad + (n.loss if exact else 0)))
-    return Bound(B * per_lane + _basis_bytes(T, J), ops)
+    l2 = (fused_products(B, tally, whole_solve, solver, ladder_eval)
+          * product_bytes(T) if streamed else 0.0)
+    return Bound(B * per_lane + _basis_bytes(T, J), ops, l2)
 
 
 def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
                          live, solver: str = "bls",
-                         ladder_eval: str = "linearized") -> Bound:
+                         ladder_eval: str = "linearized",
+                         streamed: bool = False) -> Bound:
     """K2 over a whole solve, one launch per round, from the solve's work
     counts (as :func:`fused_rounds` for K2: the rounds driver runs K1's
     work, each round starting from alpha) and
@@ -222,8 +301,9 @@ def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
     reads alpha, its penalties, its learning rate and its scene and writes
     alpha; each launch reads the basis."""
     b = _lane_bytes(T, J, O)
-    ops = fused_rounds(B, T, J, O, tally, False, solver, ladder_eval).ops
+    rounds = fused_rounds(B, T, J, O, tally, False, solver, ladder_eval,
+                          streamed)
     byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)
-    return Bound(byts, ops)
+    return Bound(byts, rounds.ops, rounds.l2_bytes)

@@ -15,8 +15,9 @@ B)``, per-lane scalars ``(1, B)``, start/goal ``(J, B)``, obstacles ``(O,
 B)``; results as ``PallasStep``/``PallasEval``/``PallasForward``.  CPU
 tensors run the ``*_reference`` plain version beside each wrapper (built
 from ops/fused_solve.py's pieces); CUDA tensors launch the kernel
-(csrc/step_kernels.cu, ``cfg.pallas_block_b`` lanes per block, 128 when 0)
-or raise.
+(csrc/step_kernels.cu, ``cfg.pallas_block_b`` lanes per block, 128 when 0,
+the basis staged in shared memory or read from device memory as
+:func:`step_plan` decides) or raise.
 
 ``out``: where the results go.  For K3/K4 a PallasStep of state tensors;
 passing the input state itself updates it in place (what the solver's
@@ -40,6 +41,32 @@ from . import fused_solve as fs
 # fused kernels K1/K2 read the same field as warps per CTA
 # (fused_solve.DEFAULT_WARPS).
 DEFAULT_BLOCK_B = 128
+
+
+def step_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K3-K6's dynamic shared memory per block, by piece, in bytes (mirror
+    of smem_bytes in csrc/lane_body.cuh): the basis pair (16 T^2 bytes; K6
+    stages kv only) while it fits in fused_solve.SMEM_PER_CTA_MAX beside
+    mix and the block's four obstacle planes (``"basis": "staged"``), else
+    none: the kernels read it from device memory (``"device"``).  Returns
+    {"basis", "bytes": {piece: bytes}, "total"}.  Raises
+    NotImplementedError, naming the obstacle planes, when even those do not
+    fit."""
+    T, J = cfg.n_timesteps, cfg.n_joints
+    bt = cfg.pallas_block_b or DEFAULT_BLOCK_B
+    f = 4
+    pieces = {"basis": f * 4 * T * T, "mix": f * J * J,
+              "obstacles": f * 4 * O * bt}
+    where = "staged"
+    if sum(pieces.values()) > fs.SMEM_PER_CTA_MAX:
+        where, pieces["basis"] = "device", 0
+    total = sum(pieces.values())
+    if total > fs.SMEM_PER_CTA_MAX:
+        raise NotImplementedError(
+            f"the per-step kernels' obstacle planes ({pieces['obstacles']} "
+            f"bytes: {O} obstacles x {bt} lanes per block) do not fit in "
+            f"{fs.SMEM_PER_CTA_MAX} bytes of shared memory per block")
+    return {"basis": where, "bytes": pieces, "total": total}
 
 
 class PallasStep(NamedTuple):
@@ -168,10 +195,14 @@ def _check_work(name: str, work, J, T, B, dev, trial: bool) -> torch.Tensor:
 
 
 def _launch(name: str, cfg: PlannerConfig, O: int, B: int, dev, args):
+    """Launch ``<name>_launch`` in the instantiation of the step plan (the
+    basis staged, or read from device memory)."""
     from ._build import launch
 
+    on_device = step_plan(cfg, O)["basis"] == "device"
     launch(name, fs.kernel_params(cfg, O, B, schedule=False),
-           cfg.pallas_block_b or DEFAULT_BLOCK_B, args, dev)
+           cfg.pallas_block_b or DEFAULT_BLOCK_B,
+           [ctypes.c_int(on_device), *args], dev)
 
 
 def _into(out, res):

@@ -20,7 +20,11 @@ Every tensor carries the scene lane as its LAST axis: alpha and trajectory
   the reference the bench's paired quality gate holds the kernels to.
 
 BLS runs in either Armijo ladder tier (``cfg.ladder_eval``: linearized or
-exact) on every backend.
+exact) on every backend.  The kernel backends run the launch plan of
+ops/fused_solve.py (``launch_plan``: the basis resident in shared memory up
+to T = 64, streamed from device memory beyond); where no plan fits (T past
+about 2,070, where one warp's lane state no longer fits in shared memory),
+``fleet_solve`` warns and runs the ``xla`` engine, as the JAX package does.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
@@ -449,7 +453,9 @@ def fused_args(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                alpha0: Optional[torch.Tensor] = None) -> tuple:
     """The arguments of ops.fused_solve.fused_solve for a leading-batch
     Scenario: cfg, the basis pair and mix, the warm start in the kernel
-    layout (J, T, B), the initial penalties and the lane-trailing scene."""
+    layout (J, T, B), the initial penalties and the lane-trailing scene.
+    The transposed basis is built once per basis (fused_solve.memo), so the
+    streamed body's layout of the pair is too."""
     fsc = to_fleet(scenarios)
     B = scenarios.start.shape[0]
     if alpha0 is None:
@@ -458,7 +464,8 @@ def fused_args(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         a0 = alpha_to_fleet(alpha0)
     dev = a0.device
     return (
-        cfg, basis.kv, basis.kv.T.contiguous(), basis.mix,
+        cfg, basis.kv, fs.memo("kvt", lambda m: m.T.contiguous(), basis.kv),
+        basis.mix,
         a0.movedim(1, 0).contiguous(),         # (T, J, B) -> (J, T, B)
         torch.full((1, B), cfg.lambda_sg_constraint, device=dev),
         torch.full((1, B), cfg.lambda_jl_constraint, device=dev),
@@ -497,14 +504,15 @@ def compaction_order(ful: torch.Tensor, floss: torch.Tensor,
 
 
 def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
-                        solver: str = "bls") -> SolveResult:
+                        solver: str = "bls", plan: str = "") -> SolveResult:
     """The solve of ``solver`` as one fused-round launch per penalty round
     (ops.fused_solve.fused_round), with the penalty bookkeeping between
     launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
     before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).  Each
     round starts every lane from the round's learning rate
     (fused_solve.round_lr: ``bls_lr_start``, or GD's ``gd_lr[min(r, len -
-    1)]``), as the JAX package's rounds driver does.
+    1)]``), as the JAX package's rounds driver does.  ``plan``: K2's
+    launch plan (fused_solve.launch_plan; empty: the default for T).
 
     Why, in the JAX package: a tile of lanes runs until its slowest lane
     freezes, so sorting by round 0's accepted-step count (fulfilled lanes
@@ -540,7 +548,8 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
         lr0 = torch.full((1, B), fs.round_lr(cfg, r, solver),
                          dtype=torch.float32, device=dev)
         out = fs.fused_round(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl, ful,
-                             lr0, n_r, start, goal, ox, oy, ow, solver=solver)
+                             lr0, n_r, start, goal, ox, oy, ow, solver=solver,
+                             plan=plan)
         # Penalty bookkeeping: op for op the whole-solve kernel's.
         was = ful
         now = torch.maximum(was, out.ok)
@@ -678,6 +687,25 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         )
     if backend not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend in ("fused", "pallas") and fs.kernel_plan(
+            cfg, scenarios.obstacles.shape[-2]) is None:
+        # No launch plan fits (even the streamed basis leaves too little
+        # shared memory for one warp): the plain engine runs any size.
+        import warnings
+
+        B = scenarios.start.shape[0]
+        warnings.warn(
+            f"pallas backends infeasible for T={cfg.n_timesteps}, B={B} "
+            f"(shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
+            f"CTA even with the streamed basis); falling back to "
+            f"backend='xla'"
+            + (" — lane_compaction is DROPPED on this path (it is a "
+               "fused-kernel driver feature)" if cfg.lane_compaction
+               else ""),
+            stacklevel=2,
+        )
+        backend = "xla"
+        cfg = cfg.replace(lane_compaction=False)
     if backend == "pallas":
         fs.solver_check(solver)(cfg)
         return _pallas_solve(cfg, basis, scenarios, alpha0, solver)

@@ -2,8 +2,10 @@
 penalty round, for BLS in either ladder tier and GD; csrc/step_kernels.cu:
 the per-step kernels) against their plain PyTorch versions on the same
 card, the rounds driver against the whole-solve kernel, the fused GD and
-exact-ladder kernels against their per-step paths, and the per-step driver
-on the card.  The kernels have no CPU
+exact-ladder kernels against their per-step paths, the per-step driver on
+the card, and large T: the streamed programs of K1/K2 (K7) bit for bit the
+resident ones at T = 50 and, with K3-K6 on a basis in device memory,
+against their plain versions at T = 200.  The kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX, hence ``--noconftest``):
@@ -421,3 +423,107 @@ def test_fused_exact_equals_per_step_exact_on_the_card():
         assert torch.equal(fused.alpha, other.alpha)
         for x, y in zip(fused.stats, other.stats):
             assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------------
+# The streamed body of K1/K2 (K7) and K3-K6 with the basis in device memory.
+# --------------------------------------------------------------------------
+
+PROGRAMS = pytest.mark.parametrize("solver,ladder", [
+    ("bls", "linearized"), ("gd", "linearized"), ("bls", "exact")])
+
+
+@PROGRAMS
+def test_streamed_kernels_equal_resident_at_t50(args, solver, ladder):
+    """At T = 50 both bodies run: K1 and K2 in the streamed plan (the basis
+    streamed from device memory by K7, traj/vel/gx/gy in shared memory)
+    give the resident plan's outputs bit for bit, for every program, also
+    at 4 lanes per CTA and on one CTA."""
+    cfg = args[0].replace(ladder_eval=ladder)
+    a = (cfg, *args[1:])
+    want = tfs.fused_solve(*a, solver=solver, plan="resident")
+    for c, ctas in ((cfg, 0), (cfg.replace(pallas_block_b=4), 1)):
+        got = tfs.fused_solve(c, *a[1:], solver=solver, plan="streamed",
+                              ctas=ctas)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    rargs = _round_args(a, solver=solver)
+    want = tfs.fused_round(*rargs, solver=solver, plan="resident")
+    got = tfs.fused_round(*rargs, solver=solver, plan="streamed")
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def args200():
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(**{**SHORT, "n_timesteps": 200})
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(7), BATCH,
+                               device=dev)
+    return fleet.fused_args(cfg, basis, scns)
+
+
+@PROGRAMS
+def test_streamed_kernels_match_plain_versions_at_t200(args200, solver,
+                                                        ladder):
+    """At T = 200 (the streamed plan: 10 lanes per CTA) K1 and K2 agree with
+    their plain versions (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX), and the
+    first 500 lanes alone give the same lanes bit for bit."""
+    cfg = args200[0].replace(ladder_eval=ladder)
+    a = (cfg, *args200[1:])
+    assert tfs.launch_plan(cfg, 11)["plan"] == "streamed"
+    got = tfs.fused_solve(*a, solver=solver)
+    agree, rel = tfs.lane_agreement(
+        tfs.fused_solve_reference(*a, solver=solver), got)
+    print(f"K1 T=200: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    cut = tfs.fused_solve(cfg, *a[1:4], *(x[..., :500] for x in a[4:]),
+                          solver=solver)
+    for x, y in zip(cut, got):
+        assert torch.equal(x, y[..., :500])
+    rargs = _round_args(a, solver=solver)
+    agree, rel = _masked_agreement(
+        tfs.fused_round_reference(*rargs, solver=solver),
+        tfs.fused_round(*rargs, solver=solver), rargs[7])
+    print(f"K2 T=200: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+
+
+def test_step_kernels_match_plain_versions_at_t200(args200):
+    """At T = 200 the per-step kernels read the basis from device memory
+    (step_plan "device"): K5 and K6 within the evaluation bounds of the
+    resident comparisons, one K3 step (both tiers) and one K4 step with the
+    stop flags and lr equal on CARD_SHORT_AGREEMENT_MIN of the lanes."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args200
+    assert sk.step_plan(cfg, 11)["basis"] == "device"
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ev = sk.cost_grad_eval(cfg, *eargs)
+    ref = sk.cost_grad_eval_reference(cfg, *eargs)
+    assert float(((ev.loss - ref.loss).abs() / ref.loss.abs()).max()) <= 1e-5
+    for x, y in zip(ev[2:], ref[2:]):
+        assert float((x - y).abs().max()) <= 1e-3
+    fw = sk.forward_eval(cfg, kv, mix, a0)
+    for x, y in zip(fw, sk.forward_eval_reference(cfg, kv, mix, a0)):
+        assert float((x - y).abs().max()) <= 1e-3
+    live = torch.zeros_like(lsg)
+    for fn, lr, c in (
+            (sk.bls_inner_step, cfg.bls_lr_start, cfg),
+            (sk.bls_inner_step, cfg.bls_lr_start,
+             cfg.replace(ladder_eval="exact")),
+            (sk.gd_inner_step, cfg.gd_lr[0], cfg)):
+        state = (a0, ev.grad, ev.traj, ev.vel, ev.loss,
+                 torch.full_like(lsg, lr), live)
+        got = fn(c, kv, kvt, mix, *state, lsg, ljl, start, goal, ox, oy, ow)
+        want = (sk.bls_inner_step_reference if fn is sk.bls_inner_step
+                else sk.gd_inner_step_reference)(
+            c, kv, kvt, mix, *state, lsg, ljl, start, goal, ox, oy, ow)
+        same = ((got.minimized == want.minimized)
+                & (got.new_lr == want.new_lr))[0]
+        assert float(same.float().mean()) >= tfs.CARD_SHORT_AGREEMENT_MIN
+        scale = want.new_alpha.abs().amax(dim=(0, 1))
+        rel = ((got.new_alpha - want.new_alpha).abs().amax(dim=(0, 1))
+               / scale)[same]
+        assert float(rel.max()) <= tfs.ALPHA_REL_MAX

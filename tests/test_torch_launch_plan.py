@@ -65,12 +65,18 @@ def test_plan_fits_shared_memory(warps):
 
 @pytest.mark.parametrize("T", [65, 120])
 def test_plan_refuses_large_t(T):
-    """A T beyond the on-chip design (two timesteps per thread; a resident
-    basis of 8 T^2 bytes) raises NotImplementedError naming the roadmap item
-    that streams the basis."""
+    """A T beyond the resident body (two timesteps per thread; a resident
+    basis pair of 16 T^2 bytes) gets the streamed plan: no basis in shared
+    memory, at most the default's warps per CTA, within the limit; the
+    resident plan, asked for at this T, raises NotImplementedError naming
+    the streamed plan."""
     cfg = mt.PlannerConfig(n_timesteps=T, max_obstacles=11)
-    with pytest.raises(NotImplementedError, match="queue 1 #13"):
-        tfs.launch_plan(cfg, 11)
+    plan = tfs.launch_plan(cfg, 11)
+    assert plan["plan"] == "streamed" and "basis" not in plan["bytes"]
+    assert 1 <= plan["warps"] <= tfs.DEFAULT_WARPS
+    assert plan["total"] == sum(plan["bytes"].values()) <= SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="streamed plan"):
+        tfs.launch_plan(cfg, 11, "resident")
 
 
 @pytest.mark.parametrize("bad", [-1, 17, 64, 128])

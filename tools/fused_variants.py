@@ -1,15 +1,17 @@
 """Time compile-time variants of the fused kernels K1/K2 on the card.
 
-    python tools/fused_variants.py NAME=FLAG[,FLAG...] ...
+    python tools/fused_variants.py [--T 50] [--batch N] NAME=FLAG[,FLAG...] ...
 
 Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` once per
 variant with the given ``-D`` flags (each its own ``nvcc``, all started
 together, beside the port's own build), prints each build's ptxas report
-(registers, spills) and its launch shape, then runs K1 of every variant on
-the bench's 1,048,576-lane inputs (the BLS solver on the replicated
-reference scene, then on random scenes, seed 0), twice each, timed with
-CUDA events, and says whether its outputs equal the default build's bit for
-bit.
+(registers, spills) and its launch shape, then runs K1-BLS of every variant
+on the bench's inputs at T, twice each, timed with CUDA events, and says
+whether its outputs equal the default build's bit for bit: at T=50 on
+1,048,576 lanes of the replicated reference scene, then of random scenes
+(seed 0); at another T (a committed basis export) on ``--batch`` (65,536 by
+default) random scenes, in the plan the launch plan gives that T.  Each
+variant runs in turn, the default build before and after.
 
 The flags the warp body reads: ``WB_MIN_CTAS=n`` (CTAs of 16 warps per SM
 that ``__launch_bounds__`` asks registers for; 2 by default),
@@ -19,6 +21,7 @@ Needs a CUDA card.
 """
 
 import argparse
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -60,40 +63,31 @@ def ptxas_lines(log):
             if "registers" in l or "spill" in l or "Compiling entry" in l]
 
 
-def stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def ptrs(*xs):
-    return [ctypes.c_void_p(x.data_ptr()) for x in xs]
-
-
 class Variant:
     def __init__(self, path, warps):
         self.lib = _build.bind(ctypes.CDLL(path), ("fused_solve_launch",))
         self.warps = warps
 
+    @contextlib.contextmanager
+    def loaded(self):
+        """The wrappers launch this build's kernels within the block."""
+        saved = _build._lib
+        _build._lib = self.lib
+        try:
+            yield
+        finally:
+            _build._lib = saved
+
+    def config(self, cfg):
+        return cfg.replace(pallas_block_b=self.warps)
+
     def shape(self, cfg, O, B):
-        out = (ctypes.c_int * 3)()
-        err = self.lib.fused_launch_shape(fs.kernel_params(cfg, O, B),
-                                          self.warps, 0,
-                                          fs.program_index(cfg, "bls"), out)
-        return {"err": err, "ctas_per_sm": out[0], "smem": out[2]}
+        with self.loaded():
+            return fs.launch_shape(self.config(cfg), O, B, "fused_solve")
 
     def solve(self, args):
-        cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
-        B = a0.shape[-1]
-        alpha = a0.clone()
-        outs = [torch.empty((1, B), device=a0.device) for _ in range(4)]
-        queue = torch.zeros(1, dtype=torch.int32, device=a0.device)
-        err = self.lib.fused_solve_launch(
-            fs.kernel_params(cfg, ox.shape[0], B), self.warps,
-            fs.program_index(cfg, "bls"), 0,
-            *ptrs(kv, kvt, mix, lsg, ljl, start, goal, ox, oy, ow, alpha,
-                  *outs, queue), stream())
-        if err:
-            raise RuntimeError(f"variant launch failed: {err}")
-        return fs.FusedSolve(alpha, *outs)
+        with self.loaded():
+            return fs.fused_solve(self.config(args[0]), *args[1:])
 
 
 def compile_(src, flags, out):
@@ -113,6 +107,9 @@ def finish(proc, what):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("variants", nargs="*")
+    ap.add_argument("--T", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="lanes (0: 1,048,576 at T=50, else 65,536)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("fused_variants: no CUDA device", file=sys.stderr)
@@ -147,20 +144,24 @@ def main():
             for n in procs}
     say("built")
 
-    cfg = bench.bench_config()
+    cfg = bench.bench_config(n_timesteps=a.T)
     basis = mt.make_basis(cfg, device=dev)
-    scn0 = mt.reference_scenario(cfg, device=dev)
-    for label, scns in (
-            ("1M replicated", mt.replicate_scenario(scn0, 1048576)),
-            ("1M random", mt.random_scenarios(
-                cfg, torch.Generator().manual_seed(0), 1048576, device=dev))):
+    batch = a.batch or (1048576 if a.T == 50 else 65536)
+    inputs = [(f"{batch} random", mt.random_scenarios(
+        cfg, torch.Generator().manual_seed(0), batch, device=dev))]
+    if a.T == 50:
+        scn0 = mt.reference_scenario(cfg, device=dev)
+        inputs.insert(0, (f"{batch} replicated",
+                          mt.replicate_scenario(scn0, batch)))
+    say(f"T={a.T}: {fs.launch_plan(cfg, cfg.max_obstacles)}")
+    for label, scns in inputs:
         args = fleet.fused_args(cfg, basis, scns)
         ref, ms = timed(lambda: fs.fused_solve(*args))
         say(f"{label}: default build {ms:.1f} ms")
         for name, v in runs.items():
             for _ in range(2):
                 out, ms = timed(lambda: v.solve(args))
-                say(f"{label}: {name} {v.shape(cfg, 11, 1024)} {ms:.1f} ms, "
+                say(f"{label}: {name} {v.shape(cfg, 11, batch)} {ms:.1f} ms, "
                     f"bitwise {same(out, ref)}")
                 del out
         _, ms = timed(lambda: fs.fused_solve(*args))
