@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from irm_motion_planning_tpu_torch/csrc
 (K1, the whole solve, and K2, one penalty round, each for BLS in both
-ladder tiers and for GD; K3/K4, one BLS (both tiers) or GD inner step; K5,
+ladder tiers, in the linearized ladder's ultra and bf16 tiers, and
+for GD; K3/K4, one BLS (both tiers) or GD inner step; K5,
 the fused cost/gradient evaluation; K6, the forward evaluation), holds each
 against its plain PyTorch version, and
 drives the port's paths through them: the main path
@@ -14,13 +15,15 @@ heterogeneous-fleet path (the bench's random-scenes mode: 1,048,576 random
 scenes, one K2 launch per penalty round with lane compaction, gated against
 the plain xla engine), the per-step backend (``--backend pallas``, BLS and
 GD, K3-K6), GD on the fused backend (``--solver gd``, K1 and K2 with the
-GD step) and the exact ladder (``--ladder-eval exact``, K1, K2 and K3 with
-the exact BLS step).  Phases:
+GD step), the exact ladder (``--ladder-eval exact``, K1, K2 and K3 with
+the exact BLS step) and the kernel tiers of K1/K2 (``ultra``, ``bf16``;
+``lean`` runs the linearized program; the bf16 plan past the f32 plans'
+ceiling).  Phases:
 
 1. device: the card's name and power limit, the kernel build; for K1 and
    K2 (one warp per lane, persistent grid), for each program (bls, gd,
-   bls_exact), the registers and spills of each instantiation from the
-   ptxas report (``fused_solve<gd,50,11>``: program, T, O; ``<bls,0,0>``
+   bls_exact and the tiers bls_ultra, bls_bf16), the registers
+   and spills of each instantiation from the ptxas report (``fused_solve<gd,50,11>``: program, T, O; ``<bls,0,0>``
    the generic one), and from the launch plan the shared memory per CTA
    (which must equal the C side's) and the CTAs and warps per SM;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
@@ -131,7 +134,23 @@ the exact BLS step).  Phases:
    timed at 65,536 lanes of the reference scene, and held to plain lane by
    lane on 65,536 random scenes (at most TIE_LANES_MAX lanes per kernel,
    each a tie of the blend's first argmax); the problemsize sweep, fused
-   and xla, K1 launched at every size.
+   and xla, K1 launched at every size;
+18. the kernel tiers of K1/K2 (the linearized ladder's ultra and bf16
+   programs, csrc/fused_tiers.cu; the lean tier runs the linearized
+   program): at T=50 (resident) K1 and K2 with ``lean=True`` bit for bit
+   K1-BLS and K2-BLS, and each program's K1 and K2 against its plain
+   version under phase 2's rule, the ragged batch at every grid shape and
+   the streamed plan bit for bit; at T=200 (streamed; bf16 in the
+   half-width layout) each program's K1 on phase 17's 65,536 random
+   scenes, timed, held to its plain version's converged fraction and
+   obstacle cost, to phantom 0 and to the cost band against phase 17's xla
+   run, its converged fraction against xla printed, and K2 one round
+   against plain; past the f32 plans' ceiling,
+   fleet_solve(backend="fused", bls_bf16_ladder=True) at T=2,200 on 512
+   random scenes (a basis built here, harness_basis) must take the
+   planner's bf16 plan and launch K1 once, and is timed; K1 agrees with the
+   plain version under phase 2's rule; without the opt-in it warns and
+   runs xla.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -145,7 +164,9 @@ solve; at 16,384 lanes K2's ``ms`` is its second reading and
 spills and occupancy, and K1 the main path's peak device memory; under
 ``gd`` the same numbers for their GD instantiations (phases 12-13), under
 ``exact`` K1's, K2's and K3's for the exact ladder (phases 14-16, with
-their lane agreement), and under ``streamed`` those at T=200 (phase 17).
+their lane agreement), under ``streamed`` those at T=200 (phase 17), and
+under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
+18; K1-bf16 also past the f32 plans' ceiling).
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -182,6 +203,11 @@ LARGE_CHECK = 8192
 LARGE_TALLY = 8192
 STEP_BATCH = 16384
 SWEEP_BATCH = 4096
+# Phase 18, the kernel tiers: the tally's lanes at T=200 (scaled, as phase
+# 17's), and past the f32 plans' ceiling the T and batch of the bf16 plan.
+TIER_TALLY = 2048
+TIER_BIG_T = 2200
+TIER_BIG_BATCH = 512
 L2_COPY_BYTES = 16 << 20
 L2_COPIES = 200
 L2_READS = 64
@@ -256,20 +282,21 @@ def main():
         f"{build_s:.1f}s")
     occupancy = {}
     for prog in fs.PROGRAMS:
-        # The program's solver, and BLS's ladder tier.
-        solver = "gd" if prog == "gd" else "bls"
-        bcfg = bench.bench_config(
-            ladder_eval="exact" if prog == "bls_exact" else "linearized")
+        # The program's solver, BLS's ladder tier and the kernel tier.
+        solver, ladder, tier = fs.program_call(prog)
+        bcfg = bench.bench_config(ladder_eval=ladder)
         for name in ("fused_solve", "fused_round"):
-            plan = fs.launch_plan(bcfg, bcfg.max_obstacles)
+            plan = fs.launch_plan(bcfg, bcfg.max_obstacles, prog=prog)
             shape = fs.launch_shape(bcfg, bcfg.max_obstacles, MAIN_BATCH,
-                                    name, solver)
+                                    name, solver, **tier)
             if shape["smem"] != plan["total"]:
                 fail(f"phase 1: {name} launch plan {plan['total']} B of "
                      f"shared memory per CTA, the C side {shape['smem']} B")
             built = {k: v for k, v in ptxas.items()
                      if k.startswith(f"{name}<{prog},")}
-            if len(built) != 3:
+            # The kernel tiers' programs have no specialised instantiation.
+            want = 2 if prog in fs.TIER_PROGRAMS else 3
+            if len(built) != want:
                 fail(f"phase 1: no ptxas report of {name}<{prog},...> "
                      f"(specialised, generic and streamed): {sorted(ptxas)}")
             occupancy[name, prog] = {"ptxas": built, **shape,
@@ -280,12 +307,14 @@ def main():
                 f"memory per CTA {plan['total']} B {plan['bytes']}, "
                 f"{shape['ctas_per_sm']} CTAs and {shape['warps_per_sm']} "
                 f"warps per SM on {shape['sms']} SMs; ptxas {built}")
-            # The streamed plan at large T: plan and C side must agree.
-            for size in (100, 150, 200):
+            # The streamed plan at large T: plan and C side must agree (the
+            # bf16 tier's also past the f32 plans' ceiling, at TIER_BIG_T).
+            for size in (100, 150, 200) + (
+                    (TIER_BIG_T,) if prog == "bls_bf16" else ()):
                 lcfg = bcfg.replace(n_timesteps=size)
-                lplan = fs.launch_plan(lcfg, bcfg.max_obstacles)
+                lplan = fs.launch_plan(lcfg, bcfg.max_obstacles, prog=prog)
                 lshape = fs.launch_shape(lcfg, bcfg.max_obstacles, MAIN_BATCH,
-                                         name, solver)
+                                         name, solver, **tier)
                 if lshape["smem"] != lplan["total"]:
                     fail(f"phase 1: {name} at T={size}: launch plan "
                          f"{lplan['total']} B per CTA, the C side "
@@ -299,6 +328,9 @@ def main():
                     f"{lplan['total']} B per CTA {lplan['bytes']}, "
                     f"{lshape['ctas_per_sm']} CTAs and "
                     f"{lshape['warps_per_sm']} warps per SM")
+    say(f"phase 1 the kernel library (every csrc/*.cu, one nvcc each, in "
+        f"parallel) built in {build_s:.1f}s; the kernel tiers' programs "
+        f"{fs.TIER_PROGRAMS} from csrc/fused_tiers.cu")
     say(f"phase 1 K3-K6 ptxas "
         f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
 
@@ -828,7 +860,9 @@ def main():
                    occupancy)
     exact = exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                          occupancy)
-    large = large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas)
+    large, tier_inputs = large_t_phases(mt, bench, fs, sk, roofline, fleet,
+                                        dev, ptxas)
+    tiers = tier_phases(mt, bench, fs, roofline, fleet, dev, tier_inputs)
     phase_clock(None)
 
     kernels = [
@@ -838,7 +872,8 @@ def main():
                      main_path_peak_gib=main_peak_gib,
                      occupancy=occupancy["fused_solve", "bls"],
                      gd=gd["fused_solve"], exact=exact["fused_solve"],
-                     streamed=large["fused_solve"]),
+                     streamed=large["fused_solve"],
+                     tiers=tiers["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -846,7 +881,8 @@ def main():
                      bound_ms_per_solve_1M_random=k2_rand_bound.ms,
                      occupancy=occupancy["fused_round", "bls"],
                      gd=gd["fused_round"], exact=exact["fused_round"],
-                     streamed=large["fused_round"]),
+                     streamed=large["fused_round"],
+                     tiers=tiers["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"], exact=exact["bls_inner_step"],
@@ -870,7 +906,7 @@ def main():
     print(json.dumps({"kernels": kernels}), flush=True)
     if not all(math.isfinite(x) for e in kernels
                for d in (e, e.get("gd", e), e.get("exact", e),
-                         e.get("streamed", e))
+                         e.get("streamed", e), *e.get("tiers", {}).values())
                for x in (d["ms"], d["plain_ms"], d["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
@@ -1400,7 +1436,9 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
 def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     """Phase 17, large T: the streamed body of K1/K2 (K7) and K3-K6 with
     the basis in device memory.  Returns the "streamed" entries of K1-K6's
-    lines and K7's line in the kernels line."""
+    lines and K7's line in the kernels line, and the inputs phase 18 reuses
+    (the linearized ladder's scenes at T=200 and its paired gate's xla
+    numbers)."""
     from irm_motion_planning_tpu_torch import problemsize
 
     phase_clock(17)
@@ -1438,7 +1476,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     # Streamed against resident at T = 50: K1 in the streamed plan, and the
     # rounds driver over streamed K2 with compaction off and on, each bit
     # for bit resident K1, for every program.
-    for prog in fs.PROGRAMS:
+    for prog in fs.SOLVER_PROGRAMS:
         solver = "gd" if prog == "gd" else "bls"
         cfg = bench.bench_config(
             solver=solver,
@@ -1483,7 +1521,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                                SHORT_BATCH, device=dev)
     args0 = fleet.fused_args(scfg, basis, scns)
     agreement, max_abs = {}, 0.0
-    for prog in fs.PROGRAMS:
+    for prog in fs.SOLVER_PROGRAMS:
         solver = "gd" if prog == "gd" else "bls"
         c = scfg.replace(ladder_eval="exact" if prog == "bls_exact"
                          else "linearized")
@@ -1610,7 +1648,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     # tools/compare_converged.py), by more than the band (2 points at these
     # fractions).  ROADMAP queue 3, fact 5 records it.
     gates_ok = True
-    for prog in fs.PROGRAMS:
+    for prog in fs.SOLVER_PROGRAMS:
         solver = "gd" if prog == "gd" else "bls"
         ladder = "exact" if prog == "bls_exact" else "linearized"
         cfg = bench.bench_config(solver=solver, ladder_eval=ladder,
@@ -1717,6 +1755,14 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound=k2_bound,
             solves_per_s=LARGE_BATCH / best,
             agreement=agreement[prog], launches=launches, k2_launches=rounds)
+        if prog == "bls":
+            # Phase 18 runs the kernel tiers on these scenes and holds them
+            # to this run's xla engine (the paired gate's lanes).
+            out["tier_inputs"] = dict(
+                cfg=cfg, basis=basis, scns=scns, args=args,
+                xla_conv=b["xla_converged_frac"],
+                xla_cost=b["xla_obstacle_cost"], k1_ms=k1_ms,
+                k1_conv=b["check_converged_frac"], plain_conv=p_conv)
         # The per-step path on STEP_BATCH of the scenes: GD's and the exact
         # ladder's equal K1 bit for bit (the same op sequence);
         # the linearized ladder's (no FK carry) is held by its launches.
@@ -1846,7 +1892,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                                solves_per_s=prg[p]["solves_per_s"],
                                t50_streamed_ms=prg[p]["t50_streamed_ms"],
                                t50_resident_ms=prg[p]["t50_resident_ms"])
-                   for p in fs.PROGRAMS}
+                   for p in fs.SOLVER_PROGRAMS}
     entries = {
         "fused_solve": {**k1_programs["bls"], "programs": k1_programs,
                         "ptxas": {k: v for k, v in ptxas.items()
@@ -1857,7 +1903,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             per_solve_lanes=LARGE_BATCH, launches=bls["k2_launches"],
             programs={p: {"ms": prg[p]["k2_ms"],
                           "bound_ms": prg[p]["k2_bound"].ms}
-                      for p in fs.PROGRAMS}),
+                      for p in fs.SOLVER_PROGRAMS}),
         "bls_inner_step": streamed(
             steps["bls"][0], steps["bls"][2], steps["bls"][1],
             steps["bls"][3], lanes=LARGE_BATCH,
@@ -1887,17 +1933,339 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     # bytes each streams per solve.
     entries["k7"] = kernel_entry(
         "streamed_matmul", "warp_body.cuh", 419,
-        sum(prg[p]["launches"] for p in fs.PROGRAMS), max_abs, bls["k1_ms"],
+        sum(prg[p]["launches"] for p in fs.SOLVER_PROGRAMS), max_abs, bls["k1_ms"],
         bls["k1_plain_ms"], bls["k1_bound"],
         measured_as=f"K1-BLS at T={T}, {LARGE_BATCH} random scenes (plain on "
                     f"{LARGE_TALLY}): K7 has no launch of its own",
-        paired_gate_t200={p: prg[p]["gate"] for p in fs.PROGRAMS},
+        paired_gate_t200={p: prg[p]["gate"] for p in fs.SOLVER_PROGRAMS},
         programs={p: {"K1_bytes_per_solve": prg[p]["k1_bound"].l2_bytes,
                       "K2_bytes_per_solve": prg[p]["k2_bound"].l2_bytes}
-                  for p in fs.PROGRAMS},
+                  for p in fs.SOLVER_PROGRAMS},
         bitwise_resident_t50=True, l2_bytes_per_s=l2_rate,
         problem_size_sweep=sweep)
-    return entries
+    return entries, out["tier_inputs"]
+
+
+def harness_basis(mt, T, dev):
+    """A basis at T from the formulas of irm_motion_planning_tpu/models/
+    rkhs.py (make_basis: the Gram pair, the smoothstep and the float32 solve
+    of the warm-start fit), in torch, with mix from the committed T=50
+    export (it depends on the mix seed and J only).  A harness input for T
+    past the committed exports, not the package's make_basis: its warm-start
+    coefficients differ from JAX's by O(1) relative through the ~1e15
+    conditioned solve, with as good a fit, so what runs on it is held to the
+    port's own plain version only."""
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float32)
+    c = 6 * t**5 - 15 * t**4 + 10 * t**3
+    diff = t[None, :] - t[:, None]
+    var = mt.PlannerConfig().rbf_variance
+    km = torch.exp(-(diff**2) / (2 * var**2))
+    dkm = diff / (var**2) * torch.exp(-(diff**2) / (2 * var**2))
+    uw = torch.linalg.solve(km, torch.stack([torch.ones_like(c), c], dim=1))
+    mix = mt.make_basis(mt.PlannerConfig(), device="cpu").mix
+    return mt.Basis(t, c, km, dkm, torch.cat([km, dkm]), mix,
+                    torch.linalg.inv(mix), uw[:, 0].contiguous(),
+                    uw[:, 1].contiguous()).to(dev)
+
+
+def result_agreement(fs, fleet, a, b):
+    """fused_solve.lane_agreement of two SolveResults."""
+    def fused(r):
+        st = r.stats
+        return fs.FusedSolve(r.alpha.movedim(0, -1).movedim(0, 1),
+                             st.final_cost[None].float(),
+                             st.converged[None].float(),
+                             st.outer_iters[None].float(),
+                             st.inner_iters[None].float())
+
+    return fs.lane_agreement(fused(a), fused(b))
+
+
+def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
+    """Phase 18, the kernel tiers of K1/K2 (the linearized ladder's ultra
+    and bf16 programs; csrc/fused_tiers.cu).  (a) T=50, resident: K1 and K2
+    with ``lean=True`` bit for bit K1-BLS and K2-BLS (the lean tier runs
+    the linearized program: fused_solve.program); each program's K1 (1x4
+    steps) and K2 (one round, a quarter of the lanes fulfilled) against its
+    plain version on SHORT_BATCH random scenes under phase 2's rule, the ragged batch at every grid shape bit for bit, and
+    the streamed plan bit for bit the resident one.  (b) T=200, streamed:
+    each program's K1 on phase 17's LARGE_BATCH random scenes (bench
+    schedule), timed, held on the paired gate's LARGE_CHECK lanes to phantom
+    and cost against phase 17's xla engine run and to its plain version's
+    converged fraction (bench.py's band), its converged fraction against
+    xla printed (ROADMAP queue 3, fact 5); K2 one round on SHORT_BATCH
+    scenes against plain.  (c) past the f32 plans' ceiling:
+    fleet_solve(backend="fused", bls_bf16_ladder=True) at T=TIER_BIG_T on
+    TIER_BIG_BATCH random scenes must take the bf16 streamed plan and
+    launch K1, and is timed; K1 agrees with the plain version at 1x4 steps
+    (phase 2's rule; the timed run's agreement is printed); without the
+    opt-in it warns and runs xla.  Returns K1's and K2's "tiers" entries."""
+    phase_clock(18)
+    J, O = 3, 11
+    k1s, k2s = {}, {}
+
+    # (a) T = 50, the resident body.
+    cfg = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
+                           fixed_iters=True, max_obstacles=O)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
+                               SHORT_BATCH, device=dev)
+    args = fleet.fused_args(cfg, basis, scns)
+    rargs = round_args(args, 4, seed=0)
+    lean_is_bls = (
+        all(torch.equal(x, y) for x, y in zip(
+            fs.fused_solve(*args, lean=True), fs.fused_solve(*args)))
+        and all(torch.equal(x, y) for x, y in zip(
+            fs.fused_round(*rargs, lean=True), fs.fused_round(*rargs))))
+    say(f"phase 18 T=50 lean ({SHORT_BATCH} random scenes): K1 and K2 with "
+        f"lean=True bitwise K1-BLS and K2-BLS: {lean_is_bls}")
+    if not lean_is_bls:
+        fail("phase 18: the lean tier is not the linearized program")
+    for prog in fs.TIER_PROGRAMS:
+        _, _, kw = fs.program_call(prog)
+        k = fs.fused_solve(*args, **kw)
+        p = fs.fused_solve_reference(*args, **kw)
+        agree, rel = fs.lane_agreement(p, k)
+        k2 = fs.fused_round(*rargs, **kw)
+        agree2, rel2, abs2 = round_agreement(
+            fs.fused_round_reference(*rargs, **kw), k2, rargs[7])
+        same = ((k.inner_iters == p.inner_iters)
+                & (k.outer_iters == p.outer_iters)
+                & (k.fulfilled == p.fulfilled))[0]
+        max_abs = max(float((k.alpha - p.alpha).abs()[:, :, same].max()),
+                      abs2)
+        streamed = (all(torch.equal(x, y) for x, y in zip(
+                        fs.fused_solve(*args, plan="streamed", **kw), k))
+                    and all(torch.equal(x, y) for x, y in zip(
+                        fs.fused_round(*rargs, plan="streamed", **kw), k2)))
+        cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
+        rcut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x) and x.dim() > 1
+                and x.shape[-1] == SHORT_BATCH else x for x in rargs]
+        ragged = all(
+            all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(
+                fs.fused_solve(cfg.replace(pallas_block_b=w), *args[1:4],
+                               *cut, ctas=c, **kw), k))
+            and all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(
+                fs.fused_round(cfg.replace(pallas_block_b=w), *rcut[1:],
+                               ctas=c, **kw), k2))
+            for w, c in grid_shapes())
+        say(f"phase 18 T=50 {prog} ({SHORT_BATCH} random scenes, resident): "
+            f"K1 at 1x4 steps lane agreement {agree:.4f}, alpha {rel:.3g} of "
+            f"the lane's scale; K2 one round "
+            f"({int((rargs[7] > 0.5).sum())} fulfilled) {agree2:.4f}, "
+            f"{rel2:.3g} (bounds >= {fs.CARD_SHORT_AGREEMENT_MIN}, <= "
+            f"{fs.ALPHA_REL_MAX}); streamed plan bitwise the resident: "
+            f"{streamed}; ragged batch at {grid_shapes()} bitwise: {ragged}")
+        if (min(agree, agree2) < fs.CARD_SHORT_AGREEMENT_MIN
+                or max(rel, rel2) > fs.ALPHA_REL_MAX
+                or not (streamed and ragged)):
+            fail(f"phase 18: {prog} disagrees with its plain version at T=50")
+        k1s[prog] = {"t50": {"lane_agreement": agree, "max_abs_err": max_abs,
+                             "streamed_bitwise": streamed}}
+        k2s[prog] = {"t50": {"lane_agreement": agree2}}
+        del k, p, k2
+    del args, rargs, scns
+
+    # (b) T = 200, the streamed body, on phase 17's scenes.
+    cfg, basis, scns, args = (large[k] for k in ("cfg", "basis", "scns",
+                                                  "args"))
+    T = cfg.n_timesteps
+    sub = (cfg, *args[1:4], *(x[..., :LARGE_TALLY] for x in args[4:]))
+    tsub = (cfg, *args[1:4], *(x[..., :TIER_TALLY] for x in args[4:]))
+    scfg = mt.PlannerConfig(n_timesteps=T, max_outer_iteration=2,
+                            max_inner_iteration=6, fixed_iters=True,
+                            max_obstacles=O)
+    sscns = mt.random_scenarios(scfg, torch.Generator().manual_seed(6),
+                                SHORT_BATCH, device=dev)
+    srargs = round_args(fleet.fused_args(scfg, basis, sscns), 4, seed=0)
+    gates_ok = True
+    for prog in fs.TIER_PROGRAMS:
+        _, _, kw = fs.program_call(prog)
+        fs.fused_solve.launches = 0
+        k1, ms = timed(lambda: fs.fused_solve(*args, **kw))
+        launches = fs.fused_solve.launches
+        gate = bench.gate_against(cfg, basis, scns, fleet.kernel_result(k1),
+                                  LARGE_CHECK, large["xla_conv"],
+                                  large["xla_cost"])
+        b = gate["bands"]
+        p1, plain_ms = timed(lambda: fs.fused_solve_reference(*sub, **kw))
+        k_conv = float((k1.fulfilled[0, :LARGE_TALLY] > 0.5).float().mean())
+        p_conv = float((p1.fulfilled[0] > 0.5).float().mean())
+        band = max(0.02, min(0.15 * max(k_conv, p_conv), 0.05))
+        # The gate's lanes are the plain version's (LARGE_CHECK ==
+        # LARGE_TALLY): the kernel's obstacle cost there against the plain
+        # version's, within the gate's 1% band, for every tier.
+        p_cost = bench.mean_obstacle_cost(
+            cfg, basis, mt.Scenario(*(x[:LARGE_TALLY] for x in scns)),
+            fleet.kernel_result(p1))
+        plain_cost_ok = (abs(b["check_obstacle_cost"] - p_cost)
+                         <= 0.01 * abs(p_cost))
+        xla_cost_ok = (abs(b["check_obstacle_cost"] - b["xla_obstacle_cost"])
+                       <= b["cost"])
+        held = (abs(k_conv - p_conv) <= band and plain_cost_ok
+                and gate["fields"]["phantom_frac"] <= b["phantom"]
+                and xla_cost_ok)
+        conv_ok = (abs(b["check_converged_frac"] - b["xla_converged_frac"])
+                   <= b["converged"])
+        gates_ok = gates_ok and held
+        del p1
+        scale = LARGE_BATCH / TIER_TALLY
+        tally = kernel_counts(
+            {key: v * scale for key, v in plain_tally(
+                fs.fused_solve_reference, *tsub, **kw).items()},
+            float((k1.outer_iters + k1.fulfilled).sum()),
+            float(k1.inner_iters.sum()))
+        bound = roofline.fused_rounds(LARGE_BATCH, T, J, O, tally, True,
+                                      streamed=True, prog=prog)
+        plan = fs.launch_plan(cfg, O, prog=prog)
+        say(f"phase 18 T={T} {prog} K1 ({LARGE_BATCH} random scenes of phase "
+            f"17, bench schedule, {plan['warps']} lanes per CTA, "
+            f"{plan['total']} B per CTA): {ms:.1f} ms "
+            f"({1e3 * ms / LARGE_BATCH:.3f} us per lane; K1-BLS "
+            f"{large['k1_ms']:.1f} ms), {launches} launch; plain version "
+            f"{plain_ms:.1f} ms on {LARGE_TALLY} lanes; bound {bound.ms:.1f} "
+            f"ms by {bound.by} (the design's L2 reads {bound.design_l2_ms:.1f}"
+            f" ms); converged on the gate's {LARGE_CHECK} lanes "
+            f"{b['check_converged_frac']:.4f} against the xla engine's "
+            f"{b['xla_converged_frac']:.4f} (band {b['converged']:.4f}: "
+            f"{'PASS' if conv_ok else 'FAIL'}, printed; K1-BLS "
+            f"{large['k1_conv']:.4f}); against its plain version on the "
+            f"first {LARGE_TALLY}: {k_conv:.4f} vs {p_conv:.4f} (band "
+            f"{band:.4f}); phantom {gate['fields']['phantom_frac']}; obstacle "
+            f"cost {b['check_obstacle_cost']:.5f} vs the plain version's "
+            f"{p_cost:.5f} and the xla engine's {b['xla_obstacle_cost']:.5f} "
+            f"(band {b['cost']:.5f}: {'PASS' if xla_cost_ok else 'FAIL'}): "
+            f"{'PASS' if held else 'FAIL'}")
+        if not (torch.isfinite(k1.alpha).all()
+                and torch.isfinite(k1.final_loss).all()) or launches != 1:
+            fail(f"phase 18: {prog} at T={T}: non-finite output or "
+                 f"{launches} K1 launches")
+        del k1
+        # K2: one round at T = 200 on SHORT_BATCH scenes against plain.
+        fs.fused_round.launches = 0
+        k2, k2_ms = timed(lambda: fs.fused_round(*srargs, **kw))
+        k2_launches = fs.fused_round.launches
+        p2, k2_plain_ms = timed(lambda: fs.fused_round_reference(
+            *srargs, **kw))
+        plain_tally_k2 = plain_tally(fs.fused_round_reference, *srargs, **kw)
+        agree2, rel2, abs2 = round_agreement(p2, k2, srargs[7])
+        k2_bound = roofline.fused_rounds(
+            SHORT_BATCH, T, J, O, kernel_counts(
+                plain_tally_k2, float((srargs[7] < 0.5).sum()),
+                float(k2.inner.sum())), False, streamed=True, prog=prog)
+        say(f"phase 18 T={T} {prog} K2 one round ({SHORT_BATCH} random "
+            f"scenes, {int((srargs[7] > 0.5).sum())} fulfilled): lane "
+            f"agreement {agree2:.4f}, alpha {rel2:.3g} of the lane's scale; "
+            f"{k2_ms:.2f} ms, plain {k2_plain_ms:.1f} ms, bound "
+            f"{k2_bound.ms:.3f} ms by {k2_bound.by}")
+        if agree2 < fs.CARD_SHORT_AGREEMENT_MIN or rel2 > fs.ALPHA_REL_MAX:
+            fail(f"phase 18: {prog} K2 disagrees with its plain version at "
+                 f"T={T}")
+        del k2, p2
+        k1s[prog].update(
+            name=f"fused_solve<{prog}>", launches=launches, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound.ms, bound_by=bound.by,
+            library_ms=None, max_abs_err=k1s[prog]["t50"]["max_abs_err"],
+            T=T, lanes=LARGE_BATCH, plain_lanes=LARGE_TALLY,
+            design_l2_ms=bound.design_l2_ms, plan_bytes=plan["bytes"],
+            warps_per_cta=plan["warps"],
+            converged={"k1": b["check_converged_frac"],
+                       "xla": b["xla_converged_frac"],
+                       "band": b["converged"], "within_band": conv_ok,
+                       "k1_bls": large["k1_conv"],
+                       "plain": [k_conv, p_conv, band]},
+            gate_held=held, phantom=gate["fields"]["phantom_frac"],
+            obstacle_cost={"k1": b["check_obstacle_cost"], "plain": p_cost,
+                           "xla": b["xla_obstacle_cost"], "band": b["cost"],
+                           "xla_within_band": xla_cost_ok})
+        k2s[prog].update(
+            name=f"fused_round<{prog}>", launches=k2_launches, ms=k2_ms,
+            plain_ms=k2_plain_ms, bound_ms=k2_bound.ms, bound_by=k2_bound.by,
+            library_ms=None, max_abs_err=abs2, T=T, lanes=SHORT_BATCH,
+            lane_agreement=agree2)
+        torch.cuda.empty_cache()
+    if not gates_ok:
+        fail(f"phase 18: a kernel tier failed its gate at T={T}")
+    del sscns, srargs
+
+    # (c) Past the f32 plans' ceiling: the planner's bf16 plan through
+    # fleet_solve, on a basis built here (harness_basis).
+    big = mt.PlannerConfig(n_timesteps=TIER_BIG_T, max_outer_iteration=2,
+                           max_inner_iteration=6, fixed_iters=True,
+                           max_obstacles=O, bls_bf16_ladder=True)
+    plan = fs.kernel_plan(big, O)
+    if plan is None or not plan["bf16"] or plan["plan"] != "streamed":
+        fail(f"phase 18: the planner did not choose the bf16 streamed plan at "
+             f"T={TIER_BIG_T}: {plan}")
+    basis = harness_basis(mt, TIER_BIG_T, dev)
+    scns = mt.random_scenarios(big, torch.Generator().manual_seed(8),
+                               TIER_BIG_BATCH, device=dev)
+    fleet.fleet_solve(big, basis, mt.Scenario(*(x[:4] for x in scns)),
+                      backend="fused")
+    fs.fused_solve.launches = 0
+    res, ms = timed(lambda: fleet.fleet_solve(big, basis, scns,
+                                              backend="fused"))
+    launches = fs.fused_solve.launches
+    bargs = fleet.fused_args(big, basis, scns)
+    p, plain_ms = timed(lambda: fs.fused_solve_reference(*bargs, bf16=True))
+    agree_long, rel_long = result_agreement(fs, fleet, fleet.kernel_result(p),
+                                            res)
+    # Held under phase 2's rule (1 round x 4 steps): over 2 x 6 steps a
+    # lane's fp-path chaos at this T parts a few lanes (printed).
+    short = (big.replace(max_outer_iteration=1, max_inner_iteration=4),
+             *bargs[1:])
+    agree, rel = fs.lane_agreement(fs.fused_solve_reference(*short, bf16=True),
+                                   fs.fused_solve(*short, bf16=True))
+    tally = kernel_counts(plain_tally(fs.fused_solve_reference, *bargs,
+                                      bf16=True),
+                          float((res.stats.outer_iters
+                                 + res.stats.converged.int()).sum()),
+                          float(res.stats.inner_iters.sum()))
+    bound = roofline.fused_rounds(TIER_BIG_BATCH, TIER_BIG_T, J, O, tally,
+                                  True, streamed=True, prog="bls_bf16")
+    import warnings
+
+    before = fs.fused_solve.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xla, xla_ms = timed(lambda: fleet.fleet_solve(
+            big.replace(bls_bf16_ladder=False), basis, scns,
+            backend="fused"))
+    warned = any("falling back to backend='xla'" in str(w.message)
+                 for w in caught)
+    finite = bool(torch.isfinite(res.alpha).all()
+                  and torch.isfinite(res.stats.final_cost).all())
+    say(f"phase 18 T={TIER_BIG_T} fleet_solve(backend='fused', "
+        f"bls_bf16_ladder=True) on {TIER_BIG_BATCH} random scenes (2x6 "
+        f"steps; the basis built here, harness_basis): plan {plan['plan']} "
+        f"bf16 {plan['bf16']}, {plan['warps']} lane per CTA, "
+        f"{plan['total']} B per CTA {plan['bytes']}; {launches} K1 launch, "
+        f"{ms:.1f} ms; plain version {plain_ms:.1f} ms; lane agreement "
+        f"{agree_long:.4f} (alpha {rel_long:.3g} of the lane's scale), at "
+        f"1x4 steps {agree:.4f}, {rel:.3g} (bounds >= "
+        f"{fs.CARD_SHORT_AGREEMENT_MIN}, <= {fs.ALPHA_REL_MAX}); bound "
+        f"{bound.ms:.2f} ms by {bound.by} (the design's L2 reads "
+        f"{bound.design_l2_ms:.1f} ms); converged "
+        f"{float(res.stats.converged.float().mean()):.4f} vs the xla "
+        f"engine's {float(xla.stats.converged.float().mean()):.4f}; without "
+        f"the opt-in: warned {warned}, K1 launches "
+        f"{fs.fused_solve.launches - before}, xla {xla_ms:.1f} ms")
+    if (launches != 1 or not finite or agree < fs.CARD_SHORT_AGREEMENT_MIN
+            or rel > fs.ALPHA_REL_MAX or not warned
+            or fs.fused_solve.launches != before):
+        fail(f"phase 18: the bf16 plan at T={TIER_BIG_T} failed")
+    k1s["bls_bf16"]["past_f32_ceiling"] = {
+        "T": TIER_BIG_T, "lanes": TIER_BIG_BATCH, "schedule": "2x6",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms,
+        "bound_by": bound.by, "design_l2_ms": bound.design_l2_ms,
+        "launches": launches, "lane_agreement": agree_long,
+        "lane_agreement_1x4": agree, "alpha_rel": rel,
+        "plan_bytes": plan["bytes"], "xla_ms": xla_ms,
+        "converged": float(res.stats.converged.float().mean()),
+        "xla_converged": float(xla.stats.converged.float().mean())}
+    del basis, scns, res, p, xla, bargs
+    torch.cuda.empty_cache()
+    return {"fused_solve": k1s, "fused_round": k2s}
 
 
 # K3-K6 at T = 200 on LARGE_BATCH random scenes, lane by lane against the

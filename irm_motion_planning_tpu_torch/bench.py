@@ -60,6 +60,7 @@ from . import (
 from .ops.costs import Penalty
 from .ops.scenario import random_scenarios as random_scenarios_fn
 from .solvers import fleet
+from .solvers.common import SolveResult
 
 # The reference's published flagships: 3.12 ms per BLS solve and 7.26 ms
 # per GD solve on a CPU (DevBlog blog-post.html:389-390).
@@ -110,26 +111,43 @@ def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int,
     constraint check, converged fraction and mean UNPENALIZED obstacle cost
     against the engine's.  (The penalized final cost carries each lane's
     final lambda, x10 per escalation, so its mean measures rounds run, not
-    solution quality.)  Returns the JSON fields, ``ok`` and the engine's
-    seconds."""
+    solution quality.)  Returns the JSON fields, ``ok``, the bands and the
+    engine's seconds."""
     dev = res.alpha.device
     sub = Scenario(*(x[:n_check] for x in scns))
-    fsub = fleet.to_fleet(sub)
-    alpha_sub = fleet.alpha_to_fleet(res.alpha[:n_check])
-    conv = res.stats.converged[:n_check]
-    ok_exact = fleet.fleet_constraints(cfg, basis, fsub, alpha_sub)
-    phantom = float((conv & ~ok_exact).float().mean())
     t0 = time.perf_counter()
     ref = fleet.fleet_solve(cfg.replace(lane_compaction=False), basis, sub,
                             solver=solver, backend="xla")
     _sync(dev)
     xla_s = time.perf_counter() - t0
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    pen0 = Penalty(zero, zero)
-    sub_cost = float(fleet.fleet_cost(cfg, basis, fsub, pen0, alpha_sub).mean())
-    ref_cost = float(fleet.fleet_cost(cfg, basis, fsub, pen0,
-                                      fleet.alpha_to_fleet(ref.alpha)).mean())
     ref_conv = float(ref.stats.converged.float().mean())
+    ref_cost = mean_obstacle_cost(cfg, basis, sub, ref)
+    return {**gate_against(cfg, basis, scns, res, n_check, ref_conv,
+                           ref_cost), "xla_s": xla_s}
+
+
+def mean_obstacle_cost(cfg: PlannerConfig, basis, scns, res) -> float:
+    """The mean unpenalized obstacle cost of the solved scenes ``scns``."""
+    zero = torch.zeros((), dtype=torch.float32, device=res.alpha.device)
+    return float(fleet.fleet_cost(cfg, basis, fleet.to_fleet(scns),
+                                  Penalty(zero, zero),
+                                  fleet.alpha_to_fleet(res.alpha)).mean())
+
+
+def gate_against(cfg: PlannerConfig, basis, scns, res, n_check: int,
+                 ref_conv: float, ref_cost: float) -> dict:
+    """The paired gate (:func:`paired_gate`) of the first ``n_check`` lanes
+    of ``res`` against the ``xla`` engine's converged fraction ``ref_conv``
+    and mean unpenalized obstacle cost ``ref_cost`` on the same scenes (a
+    run already made).  Returns the JSON fields, ``ok`` and the bands."""
+    sub = Scenario(*(x[:n_check] for x in scns))
+    head = SolveResult(res.alpha[:n_check],
+                       type(res.stats)(*(x[:n_check] for x in res.stats)))
+    conv = head.stats.converged
+    ok_exact = fleet.fleet_constraints(cfg, basis, fleet.to_fleet(sub),
+                                       fleet.alpha_to_fleet(head.alpha))
+    phantom = float((conv & ~ok_exact).float().mean())
+    sub_cost = mean_obstacle_cost(cfg, basis, sub, head)
     sub_conv = float(conv.float().mean())
     conv_band = max(0.02, min(0.15 * max(ref_conv, sub_conv), 0.05))
     cost_band = 0.01 * max(abs(ref_cost), 1e-6)
@@ -145,7 +163,6 @@ def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int,
             "xla_mean_obstacle_cost": round(ref_cost, 4),
         },
         "ok": bool(ok),
-        "xla_s": xla_s,
         "bands": {"converged": conv_band, "cost": cost_band,
                   "phantom": 2.0 / n_check, "check_converged_frac": sub_conv,
                   "xla_converged_frac": ref_conv,

@@ -18,8 +18,14 @@ GPU is:
   ``1.0f / s``), where the TPU kernel used an approximate reciprocal.
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is
   implemented; the solver raises ``NotImplementedError`` for any other value.
-* ``bls_bf16_ladder`` — the bf16 ladder tier is not ported; ``True`` raises
-  ``NotImplementedError`` in the solver.
+* ``bls_bf16_ladder`` — the opt-in to the bf16 ladder tier's launch plan,
+  as in JAX: past the float32 plans' ceiling (T = 2,073 at 11 obstacles)
+  ``fleet_solve(backend="fused")`` runs BLS with the linearized ladder in
+  the bf16 tier (its ladder planes stored as bfloat16) up to T = 2,636,
+  where without it the plain engine runs; the tier itself is the
+  ``bf16=True`` keyword of ``fused_solve``/``fused_round``.  Under the
+  exact ladder, which has no ladder planes, ``True`` raises
+  ``NotImplementedError``.
 * ``bls_ladder_unroll`` — results do not depend on it (the TPU kernel's
   unrolled rungs are bitwise-neutral); the GPU kernel runs every rung in one
   early-exit loop.

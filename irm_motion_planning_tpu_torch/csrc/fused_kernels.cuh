@@ -1,0 +1,121 @@
+// The kernel templates of K1 (fused_solve_kernel) and K2
+// (fused_round_kernel), shared by the two sources that instantiate them:
+// fused_solve.cu (the programs bls, gd and bls_exact, and the launch entry
+// points) and fused_tiers.cu (the linearized ladder's kernel tiers ultra
+// and bf16), which nvcc compiles in parallel.  Each program is
+// instantiated in one source only.
+
+#pragma once
+
+#include "warp_body.cuh"
+
+// The warp's view of its lane in the body STREAM: the resident body stages
+// the basis pair kv/kvt in shared memory; the streamed body reads kv/kvt,
+// which are then the transposed, padded pair (see SWarp), from device
+// memory, in the half-width layout (HWarp) for the bf16 tier's program.
+template <int SOLVER, bool STREAM>
+static __device__ __forceinline__ auto bind_body(float* smem, int T, int O,
+                                                 const float* kv,
+                                                 const float* kvt,
+                                                 const float* mix) {
+  if constexpr (STREAM && SOLVER == SOLVER_BLS_BF16) {
+    return bind_hwarp(smem, T, O, kv, kvt, mix);
+  } else if constexpr (STREAM) {
+    return bind_swarp(smem, T, O, kv, kvt, mix);
+  } else {
+    stage_cta(T, kv, kvt, mix, smem);
+    return bind_warp(smem, T, O);
+  }
+}
+
+template <int SOLVER, int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+fused_solve_kernel(FsParams p, const float* __restrict__ kv,
+                   const float* __restrict__ kvt,
+                   const float* __restrict__ mix,
+                   const float* __restrict__ lam_sg0,
+                   const float* __restrict__ lam_jl0,
+                   const float* __restrict__ start,
+                   const float* __restrict__ goal,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ ow, float* alpha, float* out_loss,
+                   float* out_ful, float* out_outer, float* out_inner,
+                   int* queue) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  auto w = bind_body<SOLVER, STREAM>(smem, T, O, kv, kvt, mix);
+  for (int b = next_lane(queue, w.lid); b < p.B;
+       b = next_lane(queue, w.lid)) {
+    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg0[b],
+              lam_jl0[b]);
+    bool fulfilled = false;
+    float outer = 0.f, inner = 0.f, floss = INFINITY;
+    for (int r = 0; r < p.rounds && !fulfilled; ++r) {
+      const float lr0 = SOLVER == SOLVER_GD ? p.gd_lr[r] : p.lr_start;
+      fulfilled = warp_round<SOLVER>(p, w, p.sched[r], lr0, floss, inner,
+                                     r > 0);
+      if (!fulfilled) {
+        outer += 1.f;
+        w.lam_sg = w.lam_sg * p.inc;
+        w.lam_jl = w.lam_jl * p.inc;
+      }
+    }
+    store_alpha(p, w, b, alpha);
+    if (w.lid == 0) {
+      out_loss[b] = floss;
+      out_ful[b] = fulfilled ? 1.f : 0.f;
+      out_outer[b] = outer;
+      out_inner[b] = inner;
+    }
+  }
+}
+
+// One round for every lane; alpha is updated in place.  A lane that comes
+// in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
+// (the caller masks both with the round-start flag).
+template <int SOLVER, int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+fused_round_kernel(FsParams p, int n_r, const float* __restrict__ kv,
+                   const float* __restrict__ kvt,
+                   const float* __restrict__ mix,
+                   const float* __restrict__ lam_sg,
+                   const float* __restrict__ lam_jl,
+                   const float* __restrict__ ful,
+                   const float* __restrict__ lr0,
+                   const float* __restrict__ start,
+                   const float* __restrict__ goal,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ ow, float* alpha, float* out_loss,
+                   float* out_ok, float* out_inner, int* queue) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  auto w = bind_body<SOLVER, STREAM>(smem, T, O, kv, kvt, mix);
+  for (int b = next_lane(queue, w.lid); b < p.B;
+       b = next_lane(queue, w.lid)) {
+    if (ful[b] > 0.5f) {
+      if (w.lid == 0) {
+        out_loss[b] = 0.f;
+        out_ok[b] = 1.f;
+        out_inner[b] = 0.f;
+      }
+      continue;
+    }
+    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg[b], lam_jl[b]);
+    float loss, inner = 0.f;
+    const bool ok = warp_round<SOLVER>(p, w, n_r, lr0[b], loss, inner, false);
+    store_alpha(p, w, b, alpha);
+    if (w.lid == 0) {
+      out_loss[b] = loss;
+      out_ok[b] = ok ? 1.f : 0.f;
+      out_inner[b] = inner;
+    }
+  }
+}
+
+// K1's (which = 0) or K2's (which = 1) instantiation of a kernel tier's
+// program (SOLVER_BLS_ULTRA, SOLVER_BLS_BF16) in the body
+// ``streamed`` (resident: the generic instantiation); nullptr for another
+// program.  Defined in fused_tiers.cu.
+const void* tier_kernel_for(int which, int solver, bool streamed);

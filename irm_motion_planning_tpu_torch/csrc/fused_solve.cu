@@ -3,7 +3,7 @@
 //
 // K1, fused_solve_kernel, replaces the TPU kernel program
 // irm_motion_planning_tpu/ops/pallas_step.py: fused_solve /
-// _make_solve_kernel(per_round=False) in its three compilations:
+// _make_solve_kernel(per_round=False) in its compilations:
 //  * solver="bls" with ladder_eval="linearized": the BLS step _bls_step,
 //    the FK carry and the exact end-of-round constraint evaluation;
 //  * solver="bls" with ladder_eval="exact": _bls_step's exact tier (each
@@ -13,9 +13,15 @@
 //  * solver="gd": the GD step _gd_step (the stop test rejects the trial),
 //    round r's learning rate from the gd_lr schedule (gd_lr[min(r, len -
 //    1)], an unrolled select there, FsParams.gd_lr here) and no end-of-round
-//    re-evaluation (GD's carried evaluation is exact).
+//    re-evaluation (GD's carried evaluation is exact);
+//  * the kernel tiers ultra and bf16 of the linearized ladder (the
+//    ultra/bf16 compilations), instantiated in fused_tiers.cu and launched
+//    from here (bls_step in warp_body.cuh says what each computes).  The
+//    lean compilation computes the linearized program's floats here, and
+//    for GD and the exact ladder every tier compiles what these programs
+//    compute (ops/fused_solve.py, program).
 // K2, fused_round_kernel, replaces pallas_step.fused_round /
-// _make_solve_kernel(per_round=True) (round_kernel) in the same three
+// _make_solve_kernel(per_round=True) (round_kernel) in the same
 // compilations: one round, the inner budget n_r and a per-lane learning
 // rate as inputs, the penalty escalation left to the caller (the host
 // driver re-sorts lanes between rounds).  Both compute what the TPU kernels
@@ -29,8 +35,7 @@
 // (T <= 64, the basis pair staged once per CTA) or the streamed one (any T
 // from 32 up, the basis pair read from device memory by K7, the streamed
 // basis contraction that replaces pallas_step's _Body._streamed_matmul).
-// Each of the twelve programs is compiled on its own and none reads a
-// run-time switch.  K1 loops warp_round over the schedule with the x10
+// Each program is compiled on its own and none reads a run-time switch.  K1 loops warp_round over the schedule with the x10
 // penalty escalation in between; K2 runs it once, and a lane that comes in
 // fulfilled passes through.  Sharing the round body is what makes the host
 // rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
@@ -94,7 +99,7 @@
 // thread (__launch_bounds__(512, 1)).
 // wgmma and TMA are for later versions.
 
-#include "warp_body.cuh"
+#include "fused_kernels.cuh"
 
 #include <stddef.h>
 
@@ -103,109 +108,6 @@
 // the same op sequence and results.
 #define WB_SPEC_T 50
 #define WB_SPEC_O 11
-
-// The warp's view of its lane in the body STREAM: the resident body stages
-// the basis pair kv/kvt in shared memory; the streamed body reads kv/kvt,
-// which are then the transposed, padded pair (see SWarp), from device
-// memory.
-template <bool STREAM>
-static __device__ __forceinline__ auto bind_body(float* smem, int T, int O,
-                                                 const float* kv,
-                                                 const float* kvt,
-                                                 const float* mix) {
-  if constexpr (STREAM) {
-    return bind_swarp(smem, T, O, kv, kvt, mix);
-  } else {
-    stage_cta(T, kv, kvt, mix, smem);
-    return bind_warp(smem, T, O);
-  }
-}
-
-template <int SOLVER, int TT, int OO, bool STREAM>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
-fused_solve_kernel(FsParams p, const float* __restrict__ kv,
-                   const float* __restrict__ kvt,
-                   const float* __restrict__ mix,
-                   const float* __restrict__ lam_sg0,
-                   const float* __restrict__ lam_jl0,
-                   const float* __restrict__ start,
-                   const float* __restrict__ goal,
-                   const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ ow, float* alpha, float* out_loss,
-                   float* out_ful, float* out_outer, float* out_inner,
-                   int* queue) {
-  extern __shared__ float4 smem4[];
-  float* smem = (float*)smem4;
-  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  auto w = bind_body<STREAM>(smem, T, O, kv, kvt, mix);
-  for (int b = next_lane(queue, w.lid); b < p.B;
-       b = next_lane(queue, w.lid)) {
-    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg0[b],
-              lam_jl0[b]);
-    bool fulfilled = false;
-    float outer = 0.f, inner = 0.f, floss = INFINITY;
-    for (int r = 0; r < p.rounds && !fulfilled; ++r) {
-      const float lr0 = SOLVER == SOLVER_GD ? p.gd_lr[r] : p.lr_start;
-      fulfilled = warp_round<SOLVER>(p, w, p.sched[r], lr0, floss, inner,
-                                     r > 0);
-      if (!fulfilled) {
-        outer += 1.f;
-        w.lam_sg = w.lam_sg * p.inc;
-        w.lam_jl = w.lam_jl * p.inc;
-      }
-    }
-    store_alpha(p, w, b, alpha);
-    if (w.lid == 0) {
-      out_loss[b] = floss;
-      out_ful[b] = fulfilled ? 1.f : 0.f;
-      out_outer[b] = outer;
-      out_inner[b] = inner;
-    }
-  }
-}
-
-// One round for every lane; alpha is updated in place.  A lane that comes
-// in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
-// (the caller masks both with the round-start flag).
-template <int SOLVER, int TT, int OO, bool STREAM>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
-fused_round_kernel(FsParams p, int n_r, const float* __restrict__ kv,
-                   const float* __restrict__ kvt,
-                   const float* __restrict__ mix,
-                   const float* __restrict__ lam_sg,
-                   const float* __restrict__ lam_jl,
-                   const float* __restrict__ ful,
-                   const float* __restrict__ lr0,
-                   const float* __restrict__ start,
-                   const float* __restrict__ goal,
-                   const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ ow, float* alpha, float* out_loss,
-                   float* out_ok, float* out_inner, int* queue) {
-  extern __shared__ float4 smem4[];
-  float* smem = (float*)smem4;
-  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  auto w = bind_body<STREAM>(smem, T, O, kv, kvt, mix);
-  for (int b = next_lane(queue, w.lid); b < p.B;
-       b = next_lane(queue, w.lid)) {
-    if (ful[b] > 0.5f) {
-      if (w.lid == 0) {
-        out_loss[b] = 0.f;
-        out_ok[b] = 1.f;
-        out_inner[b] = 0.f;
-      }
-      continue;
-    }
-    load_lane(p, w, b, alpha, start, goal, ox, oy, ow, lam_sg[b], lam_jl[b]);
-    float loss, inner = 0.f;
-    const bool ok = warp_round<SOLVER>(p, w, n_r, lr0[b], loss, inner, false);
-    store_alpha(p, w, b, alpha);
-    if (w.lid == 0) {
-      out_loss[b] = loss;
-      out_ok[b] = ok ? 1.f : 0.f;
-      out_inner[b] = inner;
-    }
-  }
-}
 
 static bool specialised(const FsParams& p) {
   return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
@@ -229,15 +131,16 @@ static const void* kernel_of(const FsParams& p, int which, bool streamed) {
 }
 
 // The instantiation of K1 (which = 0) or K2 (which = 1) for the program
-// ``solver`` (SOLVER_BLS, SOLVER_GD or SOLVER_BLS_EXACT) in the body
-// ``streamed`` that runs p; nullptr for another value.
+// ``solver`` (SOLVER_BLS ... SOLVER_BLS_BF16) in the body ``streamed`` that
+// runs p; nullptr for another value.  The kernel tiers' programs have no
+// specialised instantiation (fused_tiers.cu).
 static const void* kernel_for(const FsParams& p, int which, int solver,
                               bool streamed) {
   if (solver == SOLVER_BLS) return kernel_of<SOLVER_BLS>(p, which, streamed);
   if (solver == SOLVER_GD) return kernel_of<SOLVER_GD>(p, which, streamed);
   if (solver == SOLVER_BLS_EXACT)
     return kernel_of<SOLVER_BLS_EXACT>(p, which, streamed);
-  return nullptr;
+  return tier_kernel_for(which, solver, streamed);
 }
 
 // The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` in
@@ -254,7 +157,7 @@ static int launch_shape(const FsParams& p, int warps, int which, int solver,
       (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
       p.rounds > MAX_ROUNDS || (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
-  smem = warp_smem_bytes(p, warps, streamed != 0);
+  smem = warp_smem_bytes(p, warps, streamed != 0, solver == SOLVER_BLS_BF16);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

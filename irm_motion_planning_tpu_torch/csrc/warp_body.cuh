@@ -37,6 +37,17 @@
 // _Body._streamed_matmul (stream_rb > 0), which streams row blocks of the
 // basis from HBM through double-buffered VMEM.
 //
+// The half-width streamed body (struct HWarp), for the bf16 tier's program
+// (SOLVER_BLS_BF16) in the streamed plan: the ladder planes traj, vel,
+// dir_t and dir_v, which hold bfloat16-rounded values in that program, are
+// stored as bfloat16 (4 J T halves in the room of the float32 traj/vel
+// planes, which they hold at the round start and end instead), and no
+// plane holds FK tangents: the gradient pass recomputes FK from the
+// iterate, which it forms per timestep from the half-width planes and the
+// accepted learning rate (the same floats as the cost pass's).  24 bytes
+// per timestep less than SWarp at J = 3, which lifts the ceiling of one
+// warp per CTA from T = 2,072 to T = 2,636 at 11 obstacles.
+//
 // Op order.  Every basis-product row is the sequential fmaf chain over t of
 // the lane body (lane_body.cuh, which K3-K6 are built from), followed by
 // the same mix combine; in the streamed body thread i computes rows
@@ -51,6 +62,8 @@
 // the lane body's own functions.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "lane_body.cuh"
 
@@ -85,16 +98,29 @@ __host__ __device__ __forceinline__ size_t wb_warp_floats(int T, int O) {
 __host__ __device__ __forceinline__ size_t ws_warp_floats(int T, int O) {
   return wb_warp_floats(T, O) + (size_t)(2 * NJ + 2) * T;
 }
+// Half-width streamed (HWarp): alpha, grad (J, T), gx, gy (T,), the ladder
+// planes (4 J T bfloat16 = 2 J T floats, padded to 4 floats), the buffer,
+// obstacles and endpoints.
+__host__ __device__ __forceinline__ int hs_ladder_floats(int T) {
+  return (2 * NJ * T + 3) & ~3;
+}
+__host__ __device__ __forceinline__ size_t hs_warp_floats(int T, int O) {
+  return (size_t)(2 * NJ + 2) * T + hs_ladder_floats(T) +
+         (size_t)WB_ROWS * wb_row_stride(T) + (size_t)4 * O + WB_LANE_FLOATS;
+}
 // The row stride of a transposed basis in device memory: its rows (the
 // product's output rows) padded to a multiple of 32 with zeros, so the 32
 // rows a warp computes at one timestep are one aligned 128-byte line.
 __host__ __device__ __forceinline__ int ws_ld(int rows) {
   return (rows + 31) & ~31;
 }
-static size_t warp_smem_bytes(const FsParams& p, int warps, bool streamed) {
+static size_t warp_smem_bytes(const FsParams& p, int warps, bool streamed,
+                              bool half) {
   if (streamed)
     return sizeof(float) *
-           (WB_MIX_FLOATS + (size_t)warps * ws_warp_floats(p.T, p.O));
+           (WB_MIX_FLOATS +
+            (size_t)warps *
+                (half ? hs_warp_floats(p.T, p.O) : ws_warp_floats(p.T, p.O)));
   return sizeof(float) *
          (wb_basis_floats(p.T) + (size_t)warps * wb_warp_floats(p.T, p.O));
 }
@@ -113,6 +139,9 @@ struct Warp {
   int T, O, RS, lid;
   float lam_sg, lam_jl;
   float traj[WB_SLOTS][NJ], vel[WB_SLOTS][NJ], gx[WB_SLOTS], gy[WB_SLOTS];
+  // An evaluation's cost pass keeps its FK tangents for the gradient pass
+  // (in dir_t/dir_v).
+  static constexpr bool kKeepsFk = true;
 
   // This thread's timestep in slot s: thread i owns t = i and i + 32, so
   // the warp's 32 threads touch 32 neighbouring words of a plane or row.
@@ -138,11 +167,45 @@ struct SWarp {
   float* ends;        // as Warp's
   int T, O, RS, lid, G;
   float lam_sg, lam_jl;
+  static constexpr bool kKeepsFk = true;
 
   __device__ __forceinline__ int tt(int g) const { return lid + 32 * g; }
   __device__ __forceinline__ int ts(int g) const { return min(tt(g), T - 1); }
   __device__ __forceinline__ bool owns(int g) const { return tt(g) < T; }
 };
+
+// The half-width streamed body's view (the bf16 tier's program): SWarp's,
+// with the ladder planes traj_h, vel_h, dir_th, dir_vh (J, T) bfloat16 in
+// the room where traj and vel (J, T) float32 sit at the round start and
+// end.  ``half``: the iterate is the accepted linearized one, formed per
+// timestep as traj_h - lr_acc dir_th (load_point); otherwise traj/vel.
+struct HWarp {
+  const float* kvT;   // device memory, as SWarp's
+  const float* kvtT;
+  const float* mix;   // shared (J, J)
+  float *alpha, *grad;  // (J, T)
+  float *gx, *gy;       // (T,)
+  float *traj, *vel;    // (J, T) float32: the round start's and end's
+  __nv_bfloat16 *traj_h, *vel_h, *dir_th, *dir_vh;  // (J, T), same room
+  float* buf;
+  float4* obs;
+  float* ends;
+  int T, O, RS, lid, G;
+  float lam_sg, lam_jl;
+  float lr_acc;
+  bool half;
+  static constexpr bool kKeepsFk = false;
+
+  __device__ __forceinline__ int tt(int g) const { return lid + 32 * g; }
+  __device__ __forceinline__ int ts(int g) const { return min(tt(g), T - 1); }
+  __device__ __forceinline__ bool owns(int g) const { return tt(g) < T; }
+};
+
+// A float rounded to bfloat16 (nearest even) and back: the values the bf16
+// tier's ladder planes hold (JAX's astype, torch's .to(torch.bfloat16)).
+static __device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // Stage the basis pair (transposed) and mix; every thread of the CTA takes
 // part; one __syncthreads, the CTA's only block-wide barrier.
@@ -216,6 +279,44 @@ static __device__ SWarp bind_swarp(float* smem, int T, int O,
   w.buf = w.gy + T;
   w.obs = (float4*)(w.buf + WB_ROWS * w.RS);
   w.ends = (float*)(w.obs + w.O);
+  return w;
+}
+
+// Stage mix and bind this warp's half-width view (the layout of
+// hs_warp_floats).
+static __device__ HWarp bind_hwarp(float* smem, int T, int O,
+                                   const float* kvT_dev, const float* kvtT_dev,
+                                   const float* __restrict__ mix) {
+  if (threadIdx.x < NJ * NJ) smem[threadIdx.x] = mix[threadIdx.x];
+  __syncthreads();
+  HWarp w;
+  w.T = T;
+  w.O = O;
+  w.RS = wb_row_stride(T);
+  w.lid = threadIdx.x & 31;
+  w.G = (T + 31) >> 5;
+  w.kvT = kvT_dev;
+  w.kvtT = kvtT_dev;
+  w.mix = smem;
+  float* mine = smem + WB_MIX_FLOATS +
+                (size_t)(threadIdx.x >> 5) * hs_warp_floats(T, O);
+  const int plane = NJ * T;
+  w.alpha = mine;
+  w.grad = mine + plane;
+  w.gx = mine + 2 * plane;
+  w.gy = w.gx + T;
+  float* ladder = w.gy + T;
+  w.traj = ladder;
+  w.vel = ladder + plane;
+  w.traj_h = (__nv_bfloat16*)ladder;
+  w.vel_h = w.traj_h + plane;
+  w.dir_th = w.vel_h + plane;
+  w.dir_vh = w.dir_th + plane;
+  w.buf = ladder + hs_ladder_floats(T);
+  w.obs = (float4*)(w.buf + WB_ROWS * w.RS);
+  w.ends = (float*)(w.obs + w.O);
+  w.lr_acc = 0.f;
+  w.half = false;
   return w;
 }
 
@@ -523,7 +624,8 @@ static __device__ __forceinline__ float field(const W& w, float ex,
 }
 
 // Pass A at one timestep (slot or group s) of (tr, ve): FK (its tangents
-// kept for pass B in the direction planes when s is owned), the obstacle
+// kept for pass B in the direction planes when s is owned, in the bodies
+// that keep them: W::kKeepsFk), the obstacle
 // field and its factored gradient into gxo/gyo, and when want_loss the cost
 // rows.  Returns the obstacle cost.
 template <class W>
@@ -534,12 +636,14 @@ static __device__ __forceinline__ float cost_point(const FsParams& p, W& w,
                                                    float& gyo) {
   float px[NJ], py[NJ], ex, ey;
   fk_point(p, tr, px, py, ex, ey);
-  if (w.owns(s)) {  // the FK tangents for pass B, in the free dir planes
-    const int t = w.tt(s);
+  if constexpr (W::kKeepsFk) {
+    if (w.owns(s)) {  // the FK tangents for pass B, in the free dir planes
+      const int t = w.tt(s);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      w.dir_t[j * w.T + t] = px[j];
-      w.dir_v[j * w.T + t] = py[j];
+      for (int j = 0; j < NJ; ++j) {
+        w.dir_t[j * w.T + t] = px[j];
+        w.dir_v[j * w.T + t] = py[j];
+      }
     }
   }
   float h = 0.5f * (ex * ex + ey * ey);
@@ -562,8 +666,9 @@ static __device__ __forceinline__ float cost_point(const FsParams& p, W& w,
 }
 
 // Pass B at timestep t of (tr, ve) with the obstacle gradient (gxs, gys)
-// and the FK tangents in the direction planes: the stacked position (gp)
-// and velocity (gv) gradient rows.
+// and the FK tangents (from the direction planes, or recomputed from tr by
+// the bodies that do not keep them: the same floats): the stacked position
+// (gp) and velocity (gv) gradient rows.
 template <class W>
 static __device__ __forceinline__ void stacked_grad(const FsParams& p,
                                                     const W& w, int t,
@@ -575,10 +680,15 @@ static __device__ __forceinline__ void stacked_grad(const FsParams& p,
   const float* start = w.ends;
   const float* goal = w.ends + NJ;
   float px[NJ], py[NJ];
+  if constexpr (W::kKeepsFk) {
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    px[j] = w.dir_t[j * T + t];
-    py[j] = w.dir_v[j * T + t];
+    for (int j = 0; j < NJ; ++j) {
+      px[j] = w.dir_t[j * T + t];
+      py[j] = w.dir_v[j * T + t];
+    }
+  } else {
+    float ex, ey;
+    fk_point(p, tr, px, py, ex, ey);
   }
   const float wt = p.lam_max * (t == first ? 1.f : 0.f) + p.mean_w;
   const float wgx = wt * gxs;
@@ -734,10 +844,14 @@ static __device__ __forceinline__ void eval_staged(Warp& w) {
 }
 
 // The search direction, hoisted: dir = lambda_reg (traj, vel) + the
-// normalized gradient's forward evaluation, into dir_t/dir_v.
+// normalized gradient's forward evaluation, into dir_t/dir_v.  HALF (the
+// bf16 tier): lambda_reg rounded to bfloat16 (JAX's weak typing on
+// bfloat16 planes) and dir rounded to bfloat16.
+template <bool HALF>
 static __device__ __forceinline__ void direction(const FsParams& p, Warp& w,
                                                  float inv_norm) {
   const int T = w.T;
+  const float lam = HALF ? bf16_round(p.lambda_reg) : p.lambda_reg;
   stage_input(w, w.grad, inv_norm);
   float out[2 * WB_SLOTS][NJ];
   forward_rows(w, out);
@@ -747,16 +861,50 @@ static __device__ __forceinline__ void direction(const FsParams& p, Warp& w,
     const int t = w.tt(s);
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
-      w.dir_t[i * T + t] = p.lambda_reg * w.traj[s][i] + out[s][i];
-      w.dir_v[i * T + t] = p.lambda_reg * w.vel[s][i] + out[WB_SLOTS + s][i];
+      float dt = lam * w.traj[s][i] + out[s][i];
+      float dv = lam * w.vel[s][i] + out[WB_SLOTS + s][i];
+      if constexpr (HALF) {
+        dt = bf16_round(dt);
+        dv = bf16_round(dv);
+      }
+      w.dir_t[i * T + t] = dt;
+      w.dir_v[i * T + t] = dv;
     }
   }
 }
 
+// The ultra and bf16 tiers' step start: (traj, vel) = the exact
+// evaluation of alpha, rounded to bfloat16 when HALF (held as float32 in
+// the registers).
+template <bool HALF>
+static __device__ __forceinline__ void eval_start(Warp& w) {
+  stage_input(w, w.alpha, 1.f);
+  eval_staged(w);
+  if constexpr (HALF) {
+#pragma unroll
+    for (int s = 0; s < WB_SLOTS; ++s)
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        w.traj[s][i] = bf16_round(w.traj[s][i]);
+        w.vel[s][i] = bf16_round(w.vel[s][i]);
+      }
+  }
+}
+
+// The new alpha = a_fac alpha - lr_eff (grad inv_norm), rounded once
+// (fmaf) when FUSED: the ultra and bf16 tiers, which evaluate alpha exactly
+// at each step start (bls_step).
+template <bool FUSED>
+static __device__ __forceinline__ float new_alpha(float a_fac, float alpha,
+                                                  float lr_eff, float ng) {
+  if constexpr (FUSED) return fmaf(a_fac, alpha, -(lr_eff * ng));
+  return a_fac * alpha - lr_eff * ng;
+}
+
 // The accepted BLS step: alpha = a_fac alpha - lr_eff (grad inv_norm) on
-// the own timesteps and, in the linearized ladder, (traj, vel) = x - lr_eff
-// dir.
-template <bool EXACT>
+// the own timesteps (new_alpha) and, in the linearized ladder, (traj, vel)
+// = x - lr_eff dir.
+template <bool EXACT, bool FUSED>
 static __device__ __forceinline__ void accept_step(const FsParams& p, Warp& w,
                                                    float lr_eff,
                                                    float inv_norm) {
@@ -769,7 +917,8 @@ static __device__ __forceinline__ void accept_step(const FsParams& p, Warp& w,
     for (int j = 0; j < NJ; ++j) {
       const int i = j * T + t;
       if (w.owns(s))
-        w.alpha[i] = a_fac * w.alpha[i] - lr_eff * (w.grad[i] * inv_norm);
+        w.alpha[i] = new_alpha<FUSED>(a_fac, w.alpha[i], lr_eff,
+                                      w.grad[i] * inv_norm);
       if constexpr (!EXACT) {
         w.traj[s][j] = w.traj[s][j] - lr_eff * w.dir_t[i];
         w.vel[s][j] = w.vel[s][j] - lr_eff * w.dir_v[i];
@@ -848,13 +997,14 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
 }
 
 // Loss of one ladder rung at learning rate lr.  Linearized: the candidate
-// (traj - lr dir_t, vel - lr dir_v).  EXACT: the candidate alpha
+// (traj - lr dir_t, vel - lr dir_v); BASE: the zero-lr candidate (traj,
+// vel) itself (the bf16 tier's baseline).  EXACT: the candidate alpha
 // (1 - lambda_reg lr) alpha - lr (grad inv_norm), in the operand order of
 // the accepted update, staged as a product input (float4 per timestep, as
 // gd_step stages its trial) and evaluated through kv into the traj/vel
 // registers, which the exact ladder does not read (bls_step re-evaluates
 // them); then the same cost rows and reduction.
-template <bool EXACT>
+template <bool EXACT, bool BASE = false>
 static __device__ __forceinline__ float rung_cost(const FsParams& p, Warp& w,
                                                   float lr, float inv_norm) {
   const int T = w.T;
@@ -870,7 +1020,7 @@ static __device__ __forceinline__ float rung_cost(const FsParams& p, Warp& w,
     float tr[NJ], ve[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      if constexpr (EXACT) {
+      if constexpr (EXACT || BASE) {
         tr[j] = w.traj[s][j];
         ve[j] = w.vel[s][j];
       } else {
@@ -910,8 +1060,8 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
 // the padding's zeros, which the sink drops).  At each t the warp reads one
 // aligned 128-byte line of MT through the read-only cache (__ldg) and one
 // broadcast float4 of the input.
-template <class Sink>
-static __device__ __forceinline__ void k7_product(const SWarp& w,
+template <class SW, class Sink>
+static __device__ __forceinline__ void k7_product(const SW& w,
                                                   const float* MT, int rows,
                                                   int n_t, Sink sink) {
   const int ld = ws_ld(rows), groups = (rows + 31) >> 5;
@@ -948,9 +1098,12 @@ static __device__ __forceinline__ void eval_staged(SWarp& w) {
   });
 }
 
-// The search direction (the resident direction's, through K7).
+// The search direction (the resident direction's, through K7; the bf16
+// tier's program runs the half-width body instead).
+template <bool HALF>
 static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
                                                  float inv_norm) {
+  static_assert(!HALF, "the bf16 tier streams through HWarp");
   const int T = w.T;
   stage_input(w, w.grad, inv_norm);
   k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
@@ -969,8 +1122,16 @@ static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
   });
 }
 
+// The ultra tier's step start (the resident eval_start's).
+template <bool HALF>
+static __device__ __forceinline__ void eval_start(SWarp& w) {
+  static_assert(!HALF, "the bf16 tier streams through HWarp");
+  stage_input(w, w.alpha, 1.f);
+  eval_staged(w);
+}
+
 // The accepted BLS step (the resident accept_step's, on the planes).
-template <bool EXACT>
+template <bool EXACT, bool FUSED>
 static __device__ __forceinline__ void accept_step(const FsParams& p,
                                                    SWarp& w, float lr_eff,
                                                    float inv_norm) {
@@ -982,7 +1143,8 @@ static __device__ __forceinline__ void accept_step(const FsParams& p,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int i = j * T + t;
-      w.alpha[i] = a_fac * w.alpha[i] - lr_eff * (w.grad[i] * inv_norm);
+      w.alpha[i] = new_alpha<FUSED>(a_fac, w.alpha[i], lr_eff,
+                                    w.grad[i] * inv_norm);
       if constexpr (!EXACT) {
         w.traj[i] = w.traj[i] - lr_eff * w.dir_t[i];
         w.vel[i] = w.vel[i] - lr_eff * w.dir_v[i];
@@ -1004,8 +1166,11 @@ static __device__ __forceinline__ void load_point(const SWarp& w, int t,
 // This thread's first argmax over its timesteps (ascending t, so a strict
 // > keeps the first), then the warp's by the shuffle tree, and the loss
 // from the cost rows when want_loss.  Every thread owns group 0 (T >= 32).
+// For both streamed bodies (SWarp, HWarp), as are cost_pass, grad_pass and
+// constraints_ok, which read the iterate through load_point.
+template <class SW>
 static __device__ __forceinline__ float cost_reduce(const FsParams& p,
-                                                    const SWarp& w, float m,
+                                                    const SW& w, float m,
                                                     int f, bool want_loss,
                                                     int& first) {
   argmax_tree(m, f);
@@ -1015,7 +1180,8 @@ static __device__ __forceinline__ float cost_reduce(const FsParams& p,
 }
 
 // Pass A (the resident cost_pass's, from the planes).
-static __device__ __forceinline__ float cost_pass(const FsParams& p, SWarp& w,
+template <class SW>
+static __device__ __forceinline__ float cost_pass(const FsParams& p, SW& w,
                                                   bool want_loss, int& first) {
   __syncwarp();  // the buffer's last readers are done
   float m = 0.f;
@@ -1036,7 +1202,8 @@ static __device__ __forceinline__ float cost_pass(const FsParams& p, SWarp& w,
 }
 
 // Passes B and C (the resident grad_pass's; pass C through K7 over kvt).
-static __device__ __forceinline__ void grad_pass(const FsParams& p, SWarp& w,
+template <class SW>
+static __device__ __forceinline__ void grad_pass(const FsParams& p, SW& w,
                                                  int first) {
   const int T = w.T;
   float4* stack = (float4*)w.buf;
@@ -1064,9 +1231,10 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, SWarp& w,
 
 // Loss of one ladder rung (the resident rung_cost's; the exact candidate's
 // evaluation goes into the traj/vel planes).
-template <bool EXACT>
+template <bool EXACT, bool BASE = false>
 static __device__ __forceinline__ float rung_cost(const FsParams& p, SWarp& w,
                                                   float lr, float inv_norm) {
+  static_assert(!BASE, "the bf16 tier streams through HWarp");
   const int T = w.T;
   if constexpr (EXACT) {
     stage_candidate<SWarp, true>(w, 1.f - p.lambda_reg * lr, lr, inv_norm);
@@ -1098,8 +1266,9 @@ static __device__ __forceinline__ float rung_cost(const FsParams& p, SWarp& w,
 }
 
 // The hard-constraint check on the exact (traj, vel) planes.
+template <class SW>
 static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
-                                                      const SWarp& w) {
+                                                      const SW& w) {
   __syncwarp();
   for (int g = 0; g < w.G; ++g) {
     if (!w.owns(g)) continue;
@@ -1115,6 +1284,151 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
 }
 
 // ---------------------------------------------------------------------------
+// The half-width streamed body (HWarp, the bf16 tier's program): the pieces
+// that read or write the ladder planes.
+// ---------------------------------------------------------------------------
+
+// (traj, vel) = the staged input through kv, float32, into the ladder room
+// (the round start's and end's evaluation).
+static __device__ __forceinline__ void eval_staged(HWarp& w) {
+  const int T = w.T;
+  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
+    if (r >= 2 * T) return;
+    float* out = r < T ? w.traj + r : w.vel + (r - T);
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      float v = a0 * w.mix[0 * NJ + i];
+      v = v + a1 * w.mix[1 * NJ + i];
+      v = v + a2 * w.mix[2 * NJ + i];
+      out[i * T] = v;
+    }
+  });
+  w.half = false;
+}
+
+// The step start: the exact evaluation of alpha, rounded to bfloat16, into
+// traj_h/vel_h.
+template <bool HALF>
+static __device__ __forceinline__ void eval_start(HWarp& w) {
+  static_assert(HALF, "HWarp runs the bf16 tier only");
+  const int T = w.T;
+  stage_input(w, w.alpha, 1.f);
+  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
+    if (r >= 2 * T) return;
+    __nv_bfloat16* out = r < T ? w.traj_h + r : w.vel_h + (r - T);
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      float v = a0 * w.mix[0 * NJ + i];
+      v = v + a1 * w.mix[1 * NJ + i];
+      v = v + a2 * w.mix[2 * NJ + i];
+      out[i * T] = __float2bfloat16_rn(v);
+    }
+  });
+}
+
+// The search direction (the resident direction<true>'s), into dir_th/dir_vh.
+template <bool HALF>
+static __device__ __forceinline__ void direction(const FsParams& p, HWarp& w,
+                                                 float inv_norm) {
+  static_assert(HALF, "HWarp runs the bf16 tier only");
+  const int T = w.T;
+  const float lam = bf16_round(p.lambda_reg);
+  stage_input(w, w.grad, inv_norm);
+  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
+    if (r >= 2 * T) return;
+    const bool pos = r < T;
+    const int t = pos ? r : r - T;
+    const __nv_bfloat16* x = pos ? w.traj_h : w.vel_h;
+    __nv_bfloat16* d = pos ? w.dir_th : w.dir_vh;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      float v = a0 * w.mix[0 * NJ + i];
+      v = v + a1 * w.mix[1 * NJ + i];
+      v = v + a2 * w.mix[2 * NJ + i];
+      d[i * T + t] =
+          __float2bfloat16_rn(lam * __bfloat162float(x[i * T + t]) + v);
+    }
+  });
+}
+
+// The accepted BLS step: alpha on the own timesteps; the iterate is formed
+// per timestep from then on (load_point).
+template <bool EXACT, bool FUSED>
+static __device__ __forceinline__ void accept_step(const FsParams& p,
+                                                   HWarp& w, float lr_eff,
+                                                   float inv_norm) {
+  static_assert(!EXACT && FUSED, "HWarp runs the bf16 tier only");
+  const int T = w.T;
+  const float a_fac = 1.f - p.lambda_reg * lr_eff;
+  for (int g = 0; g < w.G; ++g) {
+    if (!w.owns(g)) continue;
+    const int t = w.tt(g);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int i = j * T + t;
+      w.alpha[i] = new_alpha<FUSED>(a_fac, w.alpha[i], lr_eff,
+                                    w.grad[i] * inv_norm);
+    }
+  }
+  w.lr_acc = lr_eff;
+  w.half = true;
+}
+
+// The iterate at timestep t: the accepted linearized one (traj_h - lr_acc
+// dir_th, in float32, the accept_step of the other bodies) or the float32
+// evaluation.
+static __device__ __forceinline__ void load_point(const HWarp& w, int t,
+                                                  float* tr, float* ve) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int i = j * w.T + t;
+    if (w.half) {
+      tr[j] = __bfloat162float(w.traj_h[i]) -
+              w.lr_acc * __bfloat162float(w.dir_th[i]);
+      ve[j] = __bfloat162float(w.vel_h[i]) -
+              w.lr_acc * __bfloat162float(w.dir_vh[i]);
+    } else {
+      tr[j] = w.traj[i];
+      ve[j] = w.vel[i];
+    }
+  }
+}
+
+// Loss of one ladder rung from the half-width planes (BASE: the zero-lr
+// candidate, the baseline).
+template <bool EXACT, bool BASE = false>
+static __device__ __forceinline__ float rung_cost(const FsParams& p, HWarp& w,
+                                                  float lr, float inv_norm) {
+  static_assert(!EXACT, "HWarp runs the bf16 tier only");
+  const int T = w.T;
+  __syncwarp();  // the buffer's last readers are done
+  float m = 0.f;
+  int f = 0;
+  for (int g = 0; g < w.G; ++g) {
+    if (!w.owns(g)) continue;
+    const int t = w.tt(g);
+    float tr[NJ], ve[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int i = j * T + t;
+      tr[j] = __bfloat162float(w.traj_h[i]);
+      ve[j] = __bfloat162float(w.vel_h[i]);
+      if constexpr (!BASE) {
+        tr[j] = tr[j] - lr * __bfloat162float(w.dir_th[i]);
+        ve[j] = ve[j] - lr * __bfloat162float(w.dir_vh[i]);
+      }
+    }
+    const float cv = rung_point(p, w, g, tr, ve);
+    if (g == 0 || cv > m) {
+      m = cv;
+      f = t;
+    }
+  }
+  int first;
+  return cost_reduce(p, w, m, f, true, first);
+}
+
+// ---------------------------------------------------------------------------
 // The BLS and GD steps and the round, for either body (W = Warp or SWarp).
 // ---------------------------------------------------------------------------
 
@@ -1125,33 +1439,63 @@ static __device__ __forceinline__ void eval_alpha(W& w) {
   eval_staged(w);
 }
 
-// One BLS inner step of a live lane (the lane body's bls_step<EXACT>):
-// normalized direction, the early-exit Armijo ladder (first pass wins), the
-// accepted iterate, and the gradient pulled back at it unless the stop test
-// fired.  Returns stop.
+// The programs of the round body (template argument, never a run-time
+// switch): the index ops/fused_solve.py's PROGRAMS gives each.  BLS has one
+// per ladder tier, and the linearized ladder one per kernel tier that
+// changes its floats (ultra, bf16: pallas_step's ultra/bf16 compilations;
+// its lean compilation is SOLVER_BLS here, see bls_step).
+#define SOLVER_BLS 0
+#define SOLVER_GD 1
+#define SOLVER_BLS_EXACT 2
+#define SOLVER_BLS_ULTRA 3
+#define SOLVER_BLS_BF16 4
+
+// One BLS inner step of a live lane (the lane body's bls_step<EXACT>, and
+// pallas_step's _bls_step in each tier): normalized direction, the
+// early-exit Armijo ladder (first pass wins), the accepted iterate, and the
+// gradient pulled back at it unless the stop test fired.  Returns stop.
 //
-// Linearized (EXACT false): the direction's forward evaluation, the ladder
+// Linearized (SOLVER_BLS): the direction's forward evaluation, the ladder
 // on the linearized trajectory, and the FK carry: the pull-back's cost pass
 // recomputes FK at the accepted candidate, the same floats, and the rung's
-// loss is kept.  EXACT: each rung evaluates its candidate alpha through the
-// basis (rung_cost<true>), and the accepted iterate's (traj, vel) are its
-// exact evaluation: the accepted rung's, left in traj/vel (its staged
-// candidate is the new alpha's floats), or, when no rung passed, alpha's
-// evaluated anew; unless the stop test fires, the cost pass recomputes the
-// loss there.
-template <bool EXACT, class W>
+// loss is kept.  It is also pallas_step's lean tier, which recomputes that
+// loss: the accepted candidate is formed by the rung's own operations, so
+// the recompute would give the rung's floats.  SOLVER_BLS_ULTRA: the loss
+// recomputed in the cost pass (K3's mode), with (traj, vel) first evaluated
+// exactly from alpha, so the linearized drift never builds up, and the new
+// alpha rounded once (new_alpha), as XLA contracts it into an FMA on the
+// CPU: at large T alpha's O(1e4) coefficients round at the step's size, and
+// a second rounding parts the next step start's exact evaluation from the
+// linearized iterate whose loss is its Armijo baseline.  SOLVER_BLS_BF16:
+// ultra with that evaluation and the direction rounded to bfloat16 (HALF)
+// and the Armijo/stop baseline the zero-lr candidate's loss, evaluated like
+// a rung; a stop keeps the accepted rung's loss, as in every program.
+// EXACT: each rung evaluates its candidate alpha through the basis
+// (rung_cost<true>), and the accepted iterate's (traj, vel) are its exact
+// evaluation: the accepted rung's, left in traj/vel (its staged candidate
+// is the new alpha's floats), or, when no rung passed, alpha's evaluated
+// anew; unless the stop test fires, the cost pass recomputes the loss
+// there.
+template <int SOLVER, class W>
 static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
                                                 float& loss, float& lr) {
+  constexpr bool EXACT = SOLVER == SOLVER_BLS_EXACT;
+  constexpr bool HALF = SOLVER == SOLVER_BLS_BF16;
+  constexpr bool ULTRA = HALF || SOLVER == SOLVER_BLS_ULTRA;
+  constexpr bool CARRY = SOLVER == SOLVER_BLS;
+  if constexpr (ULTRA) eval_start<HALF>(w);
   float inv_norm, alpha_norm;
   grad_norms(w, inv_norm, alpha_norm);
-  if constexpr (!EXACT) direction(p, w, inv_norm);
+  if constexpr (!EXACT) direction<HALF>(p, w, inv_norm);
+  float base = loss;
+  if constexpr (HALF) base = rung_cost<false, true>(p, w, 0.f, inv_norm);
 
   bool found = false;
-  float lr_best = 0.f, loss_best = loss, rung = 1.f;
+  float lr_best = 0.f, loss_best = base, rung = 1.f;
   for (int k = 0; k < p.n_bls; ++k) {
     const float lr_r = lr * rung;
     const float closs = rung_cost<EXACT>(p, w, lr_r, inv_norm);
-    const float required = loss - p.bls_alpha * lr_r * alpha_norm;
+    const float required = base - p.bls_alpha * lr_r * alpha_norm;
     if (closs <= required) {  // first pass wins
       found = true;
       lr_best = lr_r;
@@ -1162,19 +1506,19 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
   }
   const float lr_eff = found ? lr_best : 0.f;
   const float new_lr = found ? lr_best * p.beta_plus : lr * p.lr_fail;
-  const bool stop = (loss - loss_best) < p.loss_red;
+  const bool stop = (base - loss_best) < p.loss_red;
 
-  accept_step<EXACT>(p, w, lr_eff, inv_norm);
+  accept_step<EXACT, ULTRA>(p, w, lr_eff, inv_norm);
   if constexpr (EXACT) {
     if (!found) eval_alpha(w);
   }
   float nloss = loss_best;
   if (!stop) {
     int first;
-    if constexpr (EXACT)
-      nloss = cost_pass(p, w, true, first);
-    else
+    if constexpr (CARRY)
       cost_pass(p, w, false, first);
+    else
+      nloss = cost_pass(p, w, true, first);
     grad_pass(p, w, first);
   }
   loss = nloss;
@@ -1206,13 +1550,6 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, W& w,
   return false;
 }
 
-// The programs of the round body (template argument, never a run-time
-// switch): the index ops/fused_solve.py's PROGRAMS gives each.  BLS has one
-// per ladder tier.
-#define SOLVER_BLS 0
-#define SOLVER_GD 1
-#define SOLVER_BLS_EXACT 2
-
 // One penalty round of a live lane under its current penalties (the lane
 // body's round): round-start exact evaluation, loss and gradient; up to n_r
 // steps of SOLVER from learning rate lr0; the exact evaluation at the final
@@ -1223,7 +1560,8 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, W& w,
 // K1), the same values the round-start evaluation would give.
 //
 // The exact evaluation at the end: BLS with the linearized ladder
-// re-evaluates from alpha (its linearized carry drifts).  The exact
+// re-evaluates from alpha in every program (its linearized iterate
+// drifts; the ultra and bf16 tiers carry no evaluation).  The exact
 // ladder's carried (traj, vel) are exact already, and so are GD's, so the
 // JAX kernel skips the re-evaluation for both; here too, except after GD's
 // rejected trial, whose evaluation gd_step left in traj/vel: the carried
@@ -1248,10 +1586,10 @@ static __device__ __forceinline__ bool warp_round(const FsParams& p, W& w,
   } else {
     float lr = lr0;
     for (int k = 0; k < n_r; ++k) {
-      if (bls_step<SOLVER == SOLVER_BLS_EXACT>(p, w, loss, lr)) break;
+      if (bls_step<SOLVER>(p, w, loss, lr)) break;
       inner += 1.f;  // live before the step and after it
     }
-    if constexpr (SOLVER == SOLVER_BLS) eval_alpha(w);
+    if constexpr (SOLVER != SOLVER_BLS_EXACT) eval_alpha(w);
   }
   return constraints_ok(p, w);
 }

@@ -15,7 +15,18 @@ through the basis, the accepted iterate is evaluated exactly with the loss
 recomputed, and the round ends on that evaluation.  A GD step evaluates the
 trial ``(1 - lambda_reg lr) alpha - lr grad`` exactly; the stop test
 rejects it, and the round ends on its carried evaluation, which is already
-exact.  ``fused_solve`` runs
+exact.
+
+The JAX kernel's tiers (``lean``, ``ultra``, ``bf16`` keywords, as
+pallas_step's) give the linearized ladder two more programs: ultra drops
+the FK carry (the loss is recomputed at the accepted iterate) and
+evaluates alpha exactly at every step start, so the linearized drift never
+builds up over a round; bf16 is ultra with the ladder planes (the
+step-start evaluation and the direction) rounded to bfloat16 and the
+Armijo/stop baseline evaluated like a rung, on those planes.  Lean, which
+only drops the FK carry, is the linearized program here (:func:`program`),
+and for GD and the exact ladder the tiers change nothing.
+``fused_solve`` runs
 every round of the whole penalty-method solve in one call, with the x10
 penalty escalation on lanes that still fail (GD's learning rate per round
 from ``gd_lr``); ``fused_round`` runs one round from a per-lane learning
@@ -54,9 +65,12 @@ MAX_ROUNDS = 32
 # The solvers of the fused kernels.
 SOLVERS = ("bls", "gd")
 # Their compiled programs, by the index of their instantiation in
-# csrc/fused_solve.cu (SOLVER_BLS = 0, SOLVER_GD = 1, SOLVER_BLS_EXACT = 2):
-# BLS has one per ladder tier.
-PROGRAMS = ("bls", "gd", "bls_exact")
+# csrc/fused_solve.cu (SOLVER_BLS = 0, SOLVER_GD = 1, SOLVER_BLS_EXACT = 2,
+# SOLVER_BLS_ULTRA = 3, SOLVER_BLS_BF16 = 4): BLS has one per ladder tier,
+# and the linearized ladder one per kernel tier that changes its floats
+# (TIER_PROGRAMS, :func:`program`).
+PROGRAMS = ("bls", "gd", "bls_exact", "bls_ultra", "bls_bf16")
+SOLVER_PROGRAMS, TIER_PROGRAMS = PROGRAMS[:3], PROGRAMS[3:]
 # The warp-per-lane kernels (csrc/warp_body.cuh): lanes (warps) per CTA,
 # ``cfg.pallas_block_b`` or DEFAULT_WARPS when it is 0, at most MAX_WARPS.
 # The resident body holds two timesteps per thread, so at most WARP_MAX_T
@@ -343,30 +357,65 @@ def count_work(tally, key: str, lanes) -> None:
         tally[key] = tally.get(key, 0.0) + lanes.to(torch.float32)
 
 
+def fma(a, b, c):
+    """``a b + c`` in float32 with one rounding, as CUDA's ``fmaf`` (the
+    product is exact in float64; the float64 sum rounds again only where it
+    needs more than 53 bits, a tie at float32 precision after that being
+    rarer than 1 in 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def bf16_round(x):
+    """x rounded to bfloat16 (round to nearest even) and back to float32:
+    the values the bf16 tier's ladder planes hold (JAX's ``astype``)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
              lam_sg, lam_jl, alpha, grad, traj, vel, loss, bls_lr, minimized,
-             px=None, py=None, tally=None):
+             px=None, py=None, tally=None, ultra=False, bf16=False):
     """One BLS inner step for every lane (pallas_step._bls_step) in the
     ladder tier ``cfg.ladder_eval``.  ``minimized`` (B,) bool freezes lanes.
 
     Linearized: each rung's candidate is the linearized trajectory.  With
     ``px``/``py`` given, the accepted rung's FK planes are carried into the
     pull-back and its loss is reused; without them the loss is recomputed at
-    the accepted iterate (the per-step kernel's mode).  Exact: each rung's
-    candidate alpha ``(1 - lambda_reg lr_r) alpha - lr_r n_grad`` goes
-    through the basis; the accepted iterate is evaluated exactly (also when
-    the stop test fires) and, unless it fires, its loss and gradient are
-    recomputed there; no FK carry (``px``/``py`` must be None).  ``tally``:
-    see :func:`count_work`.  Returns (alpha, grad, traj, vel, loss, lr,
-    minimized[, px, py])."""
+    the accepted iterate (the ultra tiers' and the per-step kernel's mode).
+    ``ultra``: (traj, vel) are first evaluated exactly from alpha (the
+    incoming ones are not read).  ``bf16`` (ultra implied): that evaluation
+    and the direction are rounded to bfloat16 (:func:`bf16_round`; the
+    direction's ``lambda_reg x`` term with ``lambda_reg`` in bfloat16, as
+    JAX's weak typing gives it), the rungs and the accepted iterate are
+    formed from them in float32, and the Armijo/stop baseline is the
+    zero-lr candidate evaluated like a rung; a frozen lane keeps its
+    incoming loss.  In the ultra and bf16 tiers the accepted alpha ``a_fac
+    alpha - lr_eff n_grad`` is rounded once (:func:`fma`), as XLA contracts
+    it on the CPU: at large T alpha's coefficients are O(1e4), its rounding
+    is of the step's size, and each step start evaluates it exactly, so a
+    second rounding parts that evaluation from the linearized iterate whose
+    loss is the next Armijo baseline, and stops lanes (PERF.md section 7).
+    Exact: each rung's candidate alpha ``(1 - lambda_reg
+    lr_r) alpha - lr_r n_grad`` goes through the basis; the accepted iterate
+    is evaluated exactly (also when the stop test fires) and, unless it
+    fires, its loss and gradient are recomputed there; no FK carry
+    (``px``/``py`` must be None) and no tier (the tiers change nothing
+    there).  ``tally``: see :func:`count_work`.  Returns (alpha, grad, traj,
+    vel, loss, lr, minimized[, px, py])."""
     n = cfg.max_bls_iteration
     frozen = minimized
     exact = cfg.ladder_eval == "exact"
     carry_fk = px is not None
-    if exact and carry_fk:
-        raise ValueError("the exact ladder has no FK carry")
+    ultra = ultra or bf16
+    if exact and (carry_fk or ultra):
+        raise ValueError("the exact ladder has no FK carry and no tier")
+    if carry_fk and ultra:
+        raise ValueError("the ultra and bf16 tiers have no FK carry")
     count_work(tally, "steps", ~frozen)
 
+    if ultra:
+        traj, vel = forward_planes(kv, mix, alpha)
+        if bf16:
+            traj, vel = bf16_round(traj), bf16_round(vel)
     g2 = (grad * grad).sum(dim=1).sum(dim=0)
     inv_norm = 1.0 / torch.sqrt(g2)
     n_grad = grad * inv_norm
@@ -377,9 +426,18 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
 
     if not exact:
         gtraj, gvel = forward_planes(kv, mix, n_grad)
-        dir_t = cfg.lambda_reg * traj + gtraj
-        dir_v = cfg.lambda_reg * vel + gvel
+        lam = float(bf16_round(torch.tensor(cfg.lambda_reg))) if bf16 \
+            else cfg.lambda_reg
+        dir_t = lam * traj + gtraj
+        dir_v = lam * vel + gvel
+        if bf16:
+            dir_t, dir_v = bf16_round(dir_t), bf16_round(dir_v)
 
+    loss_in = loss
+    if bf16:
+        ee_x, ee_y, _, _ = fk_ee(c, traj)
+        loss = scalar_cost(cfg, c, traj, vel, obstacle_cost_v(ee_x, ee_y, obs),
+                           start, goal, lam_sg, lam_jl)
     found = torch.zeros_like(frozen)
     lr_best = torch.zeros_like(loss)
     loss_best = loss.clone()
@@ -419,7 +477,10 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     count_work(tally, "pullbacks", ~frozen & ~stop)
 
     a_fac = 1.0 - cfg.lambda_reg * lr_eff
-    new_alpha = a_fac * alpha - lr_eff * n_grad
+    if ultra:
+        new_alpha = fma(a_fac, alpha, -(lr_eff * n_grad))
+    else:
+        new_alpha = a_fac * alpha - lr_eff * n_grad
     if exact:
         nt, nv = forward_planes(kv, mix, new_alpha)
     else:
@@ -443,7 +504,7 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         torch.where(frozen | stop, grad, ngrad),
         torch.where(frozen, traj, nt),
         torch.where(frozen, vel, nv),
-        torch.where(frozen, loss, torch.where(stop, loss_best, nloss)),
+        torch.where(frozen, loss_in, torch.where(stop, loss_best, nloss)),
         torch.where(frozen, bls_lr, new_lr),
         minimized | stop,
     )
@@ -499,18 +560,23 @@ def constraints_ok(cfg: PlannerConfig, traj, vel, start, goal):
 
 
 def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-              minimized, lr, n_r, icnt, tally=None, solver="bls"):
+              minimized, lr, n_r, icnt, tally=None, solver="bls", prog=""):
     """Round-start fused evaluation and up to ``n_r`` steps of ``solver``
-    from the per-lane learning rate ``lr`` (B,).  BLS with the linearized
-    ladder (FK carry) then re-evaluates (traj, vel) exactly from the final
-    alpha (its linearized carry drifts); GD's and the exact ladder's carried
-    (traj, vel) are the exact evaluation of alpha already (an accepted
-    iterate's, or the round start's), so re-evaluating would change nothing
-    and, as in the JAX kernel, is skipped.  Shared by both plain versions,
-    as pallas_step's run_inner serves both TPU kernels.  ``tally``: see
-    :func:`count_work`.  Returns (alpha, traj, vel, loss, icnt)."""
-    gd = _solver_is_gd(solver)
-    linearized = not gd and cfg.ladder_eval == "linearized"
+    from the per-lane learning rate ``lr`` (B,), in the program ``prog`` of
+    PROGRAMS (empty: :func:`program` of ``solver``).  The linearized
+    ladder's programs then re-evaluate (traj, vel) exactly from the final
+    alpha (their linearized iterate drifts; the ultra and bf16 tiers carry
+    none); GD's and the exact ladder's carried (traj, vel) are the exact
+    evaluation of alpha already (an accepted iterate's, or the round
+    start's), so re-evaluating would change nothing and, as in the JAX
+    kernel, is skipped.  Shared by both plain versions, as pallas_step's
+    run_inner serves both TPU kernels.  ``tally``: see :func:`count_work`.
+    Returns (alpha, traj, vel, loss, icnt)."""
+    prog = prog or program(cfg, solver)
+    gd = prog == "gd"
+    linearized = prog not in ("gd", "bls_exact")
+    carry_fk = prog == "bls"
+    tier = dict(ultra=prog == "bls_ultra", bf16=prog == "bls_bf16")
     count_work(tally, "rounds", ~minimized)
     loss, grad, traj, vel, px, py = cost_grad_eval(
         cfg, c, kv, kvt, mix, alpha, start, goal, obs, lam_sg, lam_jl
@@ -523,7 +589,7 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
                 cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
                 alpha, grad, traj, vel, loss, lr, minimized, tally=tally,
             )
-        elif linearized:
+        elif carry_fk:
             (alpha, grad, traj, vel, loss, lr, new_min, px, py) = bls_step(
                 cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
                 alpha, grad, traj, vel, loss, lr, minimized, px=px, py=py,
@@ -533,6 +599,7 @@ def run_inner(cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
             alpha, grad, traj, vel, loss, lr, new_min = bls_step(
                 cfg, c, kv, kvt, mix, start, goal, obs, lam_sg, lam_jl,
                 alpha, grad, traj, vel, loss, lr, minimized, tally=tally,
+                **tier,
             )
         # A step counts when the lane was live before it and after it.
         icnt = icnt + (~minimized & ~new_min).to(torch.float32)
@@ -559,9 +626,12 @@ def round_lr(cfg: PlannerConfig, r: int, solver: str) -> float:
 
 def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
                           lam_jl0, start, goal, ox, oy, ow, tally=None,
-                          solver: str = "bls") -> FusedSolve:
+                          solver: str = "bls", lean: bool = False,
+                          ultra: bool = False,
+                          bf16: bool = False) -> FusedSolve:
     """Plain PyTorch version of the fused solve kernel; same arguments and
     outputs as :func:`fused_solve`.  ``tally``: see :func:`count_work`."""
+    prog = program(cfg, solver, lean, ultra, bf16)
     c = consts(cfg)
     obs = obs_ctx(ox, oy, ow)
     inc = float(cfg.lambda_constraint_increase)
@@ -578,7 +648,7 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
         lr0 = torch.full_like(zeros, round_lr(cfg, r, solver))
         alpha, traj, vel, loss, icnt = run_inner(
             cfg, c, kv, kvt, mix, start, goal, obs, alpha, lam_sg, lam_jl,
-            fulfilled, lr0, n_r, icnt, tally, solver,
+            fulfilled, lr0, n_r, icnt, tally, solver, prog,
         )
         now = fulfilled | constraints_ok(cfg, traj, vel, start, goal)
         floss = torch.where(fulfilled, floss, loss)
@@ -592,13 +662,15 @@ def fused_solve_reference(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0,
 
 def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
                           lam_jl, fulfilled, lr0, n_r: int, start, goal, ox,
-                          oy, ow, tally=None,
-                          solver: str = "bls") -> FusedRound:
+                          oy, ow, tally=None, solver: str = "bls",
+                          lean: bool = False, ultra: bool = False,
+                          bf16: bool = False) -> FusedRound:
     """Plain PyTorch version of the fused-round kernel; same arguments and
     outputs as :func:`fused_round`.  Lanes that come in fulfilled start
     minimized (alpha passes through, no step counts) and report loss 0 and
     ok 1, as the TPU kernel's skipped tiles do.  ``tally``: see
     :func:`count_work`."""
+    prog = program(cfg, solver, lean, ultra, bf16)
     c = consts(cfg)
     B = alpha.shape[-1]
     was = fulfilled.reshape(B) > 0.5
@@ -606,7 +678,7 @@ def fused_round_reference(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg,
     alpha, traj, vel, loss, icnt = run_inner(
         cfg, c, kv, kvt, mix, start, goal, obs_ctx(ox, oy, ow), alpha,
         lam_sg.reshape(B), lam_jl.reshape(B), was, lr0.reshape(B), int(n_r),
-        icnt, tally, solver,
+        icnt, tally, solver, prog,
     )
     ok = constraints_ok(cfg, traj, vel, start, goal) | was
     return FusedRound(alpha, torch.where(was, 0.0, loss)[None],
@@ -630,11 +702,12 @@ def warps_per_cta(cfg: PlannerConfig) -> int:
     return w
 
 
-def launch_plan(cfg: PlannerConfig, O: int, plan: str = "") -> dict:
+def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
+                prog: str = "bls") -> dict:
     """K1/K2's dynamic shared memory per CTA, by piece, in bytes (mirror of
     warp_smem_bytes in csrc/warp_body.cuh, which re-checks it), in the
     ``plan`` of PLANS: by default ``"resident"`` for T <= WARP_MAX_T and
-    ``"streamed"`` beyond.
+    ``"streamed"`` beyond, for the program ``prog`` of PROGRAMS.
 
     Resident: per CTA the basis pair transposed (2 x 2T x T) and mix (padded
     to 12 floats); per warp the planes alpha, grad, dir_t, dir_v (J x T
@@ -644,18 +717,30 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "") -> dict:
     ``cfg.pallas_block_b`` warps (0: DEFAULT_WARPS).  Streamed: per CTA only
     mix; per warp the same pieces and the traj/vel/gx/gy planes ((2J + 2) x
     T, "state"); the most warps, at most ``cfg.pallas_block_b`` (0:
-    DEFAULT_WARPS), that fit in SMEM_PER_CTA_MAX.
+    DEFAULT_WARPS), that fit in SMEM_PER_CTA_MAX.  Every program but
+    ``bls_bf16`` has this layout (the ultra tier holds the same planes:
+    there is no FK plane to drop, and the ladder reads traj/vel at every
+    rung).  The streamed plan of ``bls_bf16`` holds the ladder planes
+    (traj, vel, dir_t, dir_v: 4 J T bfloat16, padded to 16 bytes; at the
+    round start and end they hold the float32 traj/vel instead) beside the
+    planes alpha and grad and the state gx/gy, and its gradient pass
+    recomputes FK instead of keeping the tangents: 24 bytes per timestep
+    less at J = 3.  Its resident plan is the float32 one (the rounded
+    values held as float32).
 
-    Returns {"plan", "warps", "bytes": {piece: bytes}, "total"}.  Raises
-    ValueError for a lanes-per-CTA value or plan the kernels cannot take,
-    NotImplementedError when the plan does not fit: the resident one past
-    WARP_MAX_T (the message names the streamed plan), the streamed one when
-    a single warp does not fit (the message names the largest piece)."""
+    Returns {"plan", "warps", "bytes": {piece: bytes}, "total", "bf16": the
+    half-width layout}.  Raises ValueError for a lanes-per-CTA value, plan
+    or program the kernels cannot take, NotImplementedError when the plan
+    does not fit: the resident one past WARP_MAX_T (the message names the
+    streamed plan), the streamed one when a single warp does not fit (the
+    message names the largest piece)."""
     want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
     plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
     if plan not in PLANS:
         raise ValueError(f"launch plan {plan!r} is not one of {PLANS}")
+    if prog not in PROGRAMS:
+        raise ValueError(f"program {prog!r} is not one of {PROGRAMS}")
     f = 4
     rows = (T + 3) // 4 * 4
     per_warp = {
@@ -679,12 +764,19 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "") -> dict:
                 f"T={T}: the resident plan needs {total} bytes of shared "
                 f"memory per CTA, more than {SMEM_PER_CTA_MAX}"
             )
-        return {"plan": plan, "warps": want, "bytes": pieces, "total": total}
+        return {"plan": plan, "warps": want, "bytes": pieces, "total": total,
+                "bf16": False}
     if T < STREAM_MIN_T:
         raise ValueError(
             f"T={T}: the streamed plan needs T >= {STREAM_MIN_T} (every "
             f"thread of a warp owns a timestep)")
-    per_warp["state"] = f * (2 * J + 2) * T
+    half = prog == "bls_bf16"
+    if half:
+        per_warp["planes"] = f * 2 * J * T
+        per_warp["ladder"] = f * ((2 * J * T + 3) // 4 * 4)
+        per_warp["state"] = f * 2 * T
+    else:
+        per_warp["state"] = f * (2 * J + 2) * T
     one = sum(per_warp.values())
     room = SMEM_PER_CTA_MAX - f * 12
     if one > room:
@@ -697,35 +789,50 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "") -> dict:
     warps = min(want, room // one)
     pieces = {"mix": f * 12, **{k: warps * v for k, v in per_warp.items()}}
     return {"plan": plan, "warps": warps, "bytes": pieces,
-            "total": sum(pieces.values())}
+            "total": sum(pieces.values()), "bf16": half}
 
 
-def kernel_plan(cfg: PlannerConfig, O: int):
-    """The launch plan the kernels run for ``cfg`` (:func:`launch_plan`),
-    or None where none fits (the streamed plan's ceiling: one warp's lane
-    state past the shared memory of a CTA); the fleet solver then runs its
-    plain engine."""
+def kernel_plan(cfg: PlannerConfig, O: int, solver: str = "bls"):
+    """The launch plan the kernels run for ``solver`` under ``cfg``
+    (:func:`launch_plan`, of the float32 programs), or None where none
+    fits; the fleet solver then runs its plain engine.  Past the float32
+    plans' ceiling (one warp's lane state past the shared memory of a CTA:
+    T = 2,073 at 11 obstacles), BLS with the linearized ladder and
+    ``cfg.bls_bf16_ladder`` (the opt-in, as JAX's choose_kernel_plan asks
+    for it) gets the ``bls_bf16`` program's streamed plan while it fits (up
+    to T = 2,636 at 11 obstacles); its ``"bf16"`` is then true.  The ultra
+    tier frees no shared memory here, so no plan selects it."""
     try:
         return launch_plan(cfg, O)
     except NotImplementedError:
-        return None
+        pass
+    if (not _solver_is_gd(solver) and cfg.ladder_eval == "linearized"
+            and cfg.bls_bf16_ladder):
+        try:
+            return launch_plan(cfg, O, prog="bls_bf16")
+        except NotImplementedError:
+            pass
+    return None
 
 
 def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
-                 solver: str = "bls", plan: str = "") -> dict:
+                 solver: str = "bls", plan: str = "", **tier) -> dict:
     """What the card makes of the launch plan (:func:`launch_plan`) of K1
     (``kernel="fused_solve"``) or K2 (``"fused_round"``) for ``solver``
-    (BLS: in the ladder tier of ``cfg``): CTAs per SM (the CUDA occupancy
-    calculator, registers and shared memory), SMs, shared memory per CTA as
-    the C side computes it, warps per SM.  Needs the card."""
+    (BLS: in the ladder tier of ``cfg`` and the kernel tier of the
+    ``lean``/``ultra``/``bf16`` keywords, :func:`program`): CTAs per SM (the
+    CUDA occupancy calculator, registers and shared memory), SMs, shared
+    memory per CTA as the C side computes it, warps per SM.  Needs the
+    card."""
     from ._build import load_library
 
-    lp = launch_plan(cfg, O, plan)
+    prog = program(cfg, solver, **tier)
+    lp = launch_plan(cfg, O, plan, prog)
     out = (ctypes.c_int * 3)()
     err = load_library().fused_launch_shape(
         kernel_params(cfg, O, B), lp["warps"],
         {"fused_solve": 0, "fused_round": 1}[kernel],
-        program_index(cfg, solver), PLANS.index(lp["plan"]), out)
+        PROGRAMS.index(prog), PLANS.index(lp["plan"]), out)
     if err:
         raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
@@ -767,17 +874,45 @@ def streamed_basis(kv, kvt):
                 lambda a, b: (padded_t(a), padded_t(b)), kv, kvt)
 
 
-def program(cfg: PlannerConfig, solver: str) -> str:
-    """The compiled program of K1/K2 that runs ``solver`` under ``cfg``:
-    GD's, or BLS's of the ladder tier ``cfg.ladder_eval``."""
+def program(cfg: PlannerConfig, solver: str, lean: bool = False,
+            ultra: bool = False, bf16: bool = False) -> str:
+    """The compiled program of K1/K2 that runs ``solver`` under ``cfg`` in
+    the tier the keywords ask for (pallas_step.fused_solve's ``lean``,
+    ``ultra``, ``bf16``): GD's (the tiers change nothing: GD carries no FK,
+    its trial evaluates from alpha and it holds no ladder planes; JAX's
+    GD-ultra is bitwise its GD); the exact ladder's (lean and ultra change
+    nothing: it carries no FK and its carried evaluation is exact, so JAX's
+    exact-ultra is bitwise its exact; bf16 raises NotImplementedError, as
+    ``cfg.bls_bf16_ladder`` does there); or the linearized ladder's:
+    ``bls_bf16`` (ultra implied), ``bls_ultra`` or ``bls``, which is also
+    the lean tier's (lean recomputes the loss and FK that ``bls`` carries
+    from the accepted rung; the port forms that candidate with the rung's
+    own operations, so the recompute gives the carried floats)."""
     if _solver_is_gd(solver):
         return "gd"
-    return "bls" if cfg.ladder_eval == "linearized" else "bls_exact"
+    if cfg.ladder_eval == "exact":
+        if bf16:
+            raise NotImplementedError(
+                "the bf16 tier quantises the linearized ladder's planes; "
+                "the exact ladder has none")
+        return "bls_exact"
+    if bf16:
+        return "bls_bf16"
+    if ultra:
+        return "bls_ultra"
+    return "bls"
 
 
-def program_index(cfg: PlannerConfig, solver: str) -> int:
-    """The instantiation index in csrc/fused_solve.cu of :func:`program`."""
-    return PROGRAMS.index(program(cfg, solver))
+def program_call(prog: str) -> tuple:
+    """(solver, ladder_eval, tier keywords) that run the program ``prog`` of
+    PROGRAMS (the inverse of :func:`program`)."""
+    if prog not in PROGRAMS:
+        raise ValueError(f"program {prog!r} is not one of {PROGRAMS}")
+    if prog == "gd":
+        return "gd", "linearized", {}
+    if prog == "bls_exact":
+        return "bls", "exact", {}
+    return "bls", "linearized", ({prog[4:]: True} if prog != "bls" else {})
 
 
 class _Params(ctypes.Structure):
@@ -860,14 +995,20 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
 
 
 def check_supported(cfg: PlannerConfig) -> None:
-    """Raise NotImplementedError for the BLS modes this port does not run
-    yet.  Both ladder tiers run.  ``exact_constraint_eval=False`` is a no-op
-    under the exact ladder, whose carried evaluation is exact, as in the
-    JAX kernel; under the linearized ladder it raises."""
+    """Raise NotImplementedError for the BLS modes this port does not run.
+    Both ladder tiers run.  ``bls_bf16_ladder`` (the opt-in to the bf16
+    tier's plan past the f32 plans' ceiling, :func:`kernel_plan`) runs under
+    the linearized ladder and raises under the exact one, which has no
+    ladder planes to quantise (the JAX planner admits it there and then
+    runs the unquantised kernel on a bf16-sized plan).
+    ``exact_constraint_eval=False`` is a no-op under the exact ladder, whose
+    carried evaluation is exact, as in the JAX kernel; under the linearized
+    ladder it raises."""
     check_precision(cfg)
-    if cfg.bls_bf16_ladder:
+    if cfg.bls_bf16_ladder and cfg.ladder_eval == "exact":
         raise NotImplementedError(
-            "the bf16 ladder tier is not ported (ROADMAP queue 2 #1)"
+            "bls_bf16_ladder quantises the linearized ladder's planes; the "
+            "exact ladder has none"
         )
     if cfg.ladder_eval == "linearized" and not cfg.exact_constraint_eval:
         raise NotImplementedError(
@@ -924,10 +1065,13 @@ _LABELS = ("kv", "kvt", "mix", "alpha", "lam_sg", "lam_jl", "start", "goal",
 
 def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
                 goal, ox, oy, ow, *, solver: str = "bls", ctas: int = 0,
-                plan: str = "") -> FusedSolve:
+                plan: str = "", lean: bool = False, ultra: bool = False,
+                bf16: bool = False) -> FusedSolve:
     """The whole penalty-method solve of ``solver`` (``"bls"``, in the ladder
     tier ``cfg.ladder_eval``, or ``"gd"``; GD's round r starts from
-    ``gd_lr[min(r, len(gd_lr) - 1)]``) for every lane.
+    ``gd_lr[min(r, len(gd_lr) - 1)]``) for every lane, in the kernel tier
+    ``lean``/``ultra``/``bf16`` asks for (pallas_step.fused_solve's
+    keywords; :func:`program` says which program runs).
 
     kv (2T, T), kvt (T, 2T), mix (J, J), a0 (J, T, B), lam_sg0/lam_jl0
     (1, B), start/goal (J, B), ox/oy/ow (O, B), all f32.  CPU tensors run
@@ -944,14 +1088,16 @@ def fused_solve(cfg: PlannerConfig, kv, kvt, mix, a0, lam_sg0, lam_jl0, start,
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (J, B), (J, B), (O, B), (O, B),
                             (O, B)), solver_check(solver))
-    launch_plan(cfg, ox.shape[0], plan)
+    prog = program(cfg, solver, lean, ultra, bf16)
+    launch_plan(cfg, ox.shape[0], plan, prog)
     if where == "cpu":
-        return fused_solve_reference(cfg, *args, solver=solver)
+        return fused_solve_reference(cfg, *args, solver=solver, lean=lean,
+                                     ultra=ultra, bf16=bf16)
     kv, kvt, mix, a0, lam_sg0, lam_jl0, start, goal, ox, oy, ow = (
         x.contiguous() for x in args
     )
     alpha = a0.clone()
-    outs = _launch("fused_solve", cfg, solver, plan, alpha, 4, ctas, [],
+    outs = _launch("fused_solve", cfg, prog, plan, alpha, 4, ctas, [],
                    [kv, kvt, mix, lam_sg0, lam_jl0, start, goal, ox, oy, ow])
     fused_solve.launches += 1
     return FusedSolve(alpha, *outs)
@@ -962,9 +1108,11 @@ fused_solve.launches = 0
 
 def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                 fulfilled, lr0, n_r: int, start, goal, ox, oy, ow, *,
-                solver: str = "bls", ctas: int = 0,
-                plan: str = "") -> FusedRound:
-    """ONE penalty round of ``solver`` for every lane: round-start fused
+                solver: str = "bls", ctas: int = 0, plan: str = "",
+                lean: bool = False, ultra: bool = False,
+                bf16: bool = False) -> FusedRound:
+    """ONE penalty round of ``solver`` (in the kernel tier of ``lean``,
+    ``ultra``, ``bf16``, as :func:`fused_solve`) for every lane: round-start fused
     evaluation under the lane's penalties, up to ``n_r`` steps from the
     lane's learning rate ``lr0`` (BLS adapts it from there; GD keeps it),
     the exact evaluation at the final alpha and the constraint check.  The
@@ -988,15 +1136,17 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
                             (2 * T, T), (T, 2 * T), (J, J), (J, T, B),
                             (1, B), (1, B), (1, B), (1, B), (J, B), (J, B),
                             (O, B), (O, B), (O, B)), solver_check(solver))
-    launch_plan(cfg, ox.shape[0], plan)
+    prog = program(cfg, solver, lean, ultra, bf16)
+    launch_plan(cfg, ox.shape[0], plan, prog)
     if where == "cpu":
         return fused_round_reference(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl,
                                      fulfilled, lr0, n_r, start, goal, ox, oy,
-                                     ow, solver=solver)
+                                     ow, solver=solver, lean=lean, ultra=ultra,
+                                     bf16=bf16)
     (kv, kvt, mix, alpha, lam_sg, lam_jl, fulfilled, lr0, start, goal, ox, oy,
      ow) = (x.contiguous() for x in args)
     out_alpha = alpha.clone()
-    outs = _launch("fused_round", cfg, solver, plan, out_alpha, 3, ctas,
+    outs = _launch("fused_round", cfg, prog, plan, out_alpha, 3, ctas,
                    [ctypes.c_int(n_r)],
                    [kv, kvt, mix, lam_sg, lam_jl, fulfilled, lr0, start, goal,
                     ox, oy, ow])
@@ -1007,10 +1157,10 @@ def fused_round(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
 fused_round.launches = 0
 
 
-def _launch(name: str, cfg: PlannerConfig, solver: str, plan: str, alpha,
+def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
             n_out: int, ctas: int, scalars, inputs) -> list:
     """Launch ``<name>_launch`` of the kernel library on the current stream,
-    the instantiation of ``solver`` in the body of the launch plan
+    the instantiation of the program ``prog`` in the body of the launch plan
     (:func:`launch_plan`; the streamed body takes the basis pair as
     :func:`streamed_basis` gives it): the persistent grid (``ctas`` CTAs, 0:
     all that fit) over a lane queue zeroed here; ``alpha`` (J, T, B) is
@@ -1024,7 +1174,7 @@ def _launch(name: str, cfg: PlannerConfig, solver: str, plan: str, alpha,
         raise NotImplementedError("the CUDA kernels are built for J=3 joints")
     if ctas < 0:
         raise ValueError(f"{name}: ctas must be >= 0, got {ctas}")
-    lp = launch_plan(cfg, O, plan)
+    lp = launch_plan(cfg, O, plan, prog)
     streamed = lp["plan"] == "streamed"
     if streamed:
         inputs = [*streamed_basis(inputs[0], inputs[1]), *inputs[2:]]
@@ -1033,7 +1183,7 @@ def _launch(name: str, cfg: PlannerConfig, solver: str, plan: str, alpha,
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     launch(name, kernel_params(cfg, O, B), lp["warps"],
-           [ctypes.c_int(program_index(cfg, solver)), ctypes.c_int(streamed),
+           [ctypes.c_int(PROGRAMS.index(prog)), ctypes.c_int(streamed),
             ctypes.c_int(ctas), *scalars,
             *inputs, alpha, *outs, queue], dev)
     return outs

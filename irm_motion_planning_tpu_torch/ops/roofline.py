@@ -44,6 +44,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+from .fused_solve import TIER_PROGRAMS
+
 BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_BYTES_PER_S = 10.076e12
@@ -216,13 +218,14 @@ def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
 
 def fused_products(B: int, tally: dict, whole_solve: bool,
                    solver: str = "bls",
-                   ladder_eval: str = "linearized") -> float:
+                   ladder_eval: str = "linearized", prog: str = "") -> float:
     """The basis products (forward evaluations and pull-backs) of K1
     (``whole_solve``) or K2's rounds, summed over the lanes, from the same
     work counts as :func:`fused_rounds`: a round-start forward once per
     lane (K1) or per round (K2) and a pull-back per round; GD a forward per
     step and a pull-back per accepted step; BLS a pull-back per step that
-    does not stop and, linearized, a direction forward per step and the
+    does not stop and, linearized, a direction forward per step (the ultra
+    and bf16 programs ``prog`` a step-start forward too) and the
     end-of-round forward, exact, a forward per rung (a step without a
     passing rung, which re-evaluates, is not counted)."""
     rounds = _total(tally["rounds"])
@@ -232,13 +235,15 @@ def fused_products(B: int, tally: dict, whole_solve: bool,
     n += _total(tally["pullbacks"])
     if ladder_eval == "exact":
         return n + _total(tally["rungs"])
-    return n + rounds + _total(tally["steps"])
+    steps = _total(tally["steps"])
+    return (n + rounds + steps
+            + (steps if prog in TIER_PROGRAMS else 0))
 
 
 def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
                  whole_solve: bool, solver: str = "bls",
                  ladder_eval: str = "linearized",
-                 streamed: bool = False) -> Bound:
+                 streamed: bool = False, prog: str = "") -> Bound:
     """K1 (``whole_solve``: all rounds) or K2 (one round) of ``solver``,
     from the work counts of the run: each lane reads alpha, its penalties
     and scene and writes alpha and its per-lane results (K1 four, K2 three).
@@ -255,7 +260,12 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
     (the carried evaluation is exact), each rung's candidate through the
     basis, and the pull-back recomputes the loss at the accepted rung's
     evaluation (a step without a passing rung, which re-evaluates, is not
-    counted).
+    counted).  The linearized ladder's kernel tiers (``prog``, a program
+    of fused_solve.TIER_PROGRAMS): ultra recomputes the loss in the
+    pull-back's cost pass and evaluates alpha exactly at each step's start
+    (J basis products, a forward); bf16 also evaluates the baseline, the
+    zero-lr candidate, as a rung.  Its half-width ladder planes live in
+    shared memory, so the function's bytes do not change.
 
     GD (rounds, steps, accepted): no re-evaluation (the carried evaluation
     is exact); each step the trial, its forward and its cost pass with the
@@ -281,10 +291,15 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
                                ("steps", "rungs", "pullbacks"))
         exact = ladder_eval == "exact"
         step, rung = _bls_ops(n, ladder_eval)
+        recompute = exact or prog in TIER_PROGRAMS
         ops += ((0 if exact else rounds * n.forward)
                 + steps * step + rungs * rung
-                + pulls * (n.cost + n.grad + (n.loss if exact else 0)))
-    l2 = (fused_products(B, tally, whole_solve, solver, ladder_eval)
+                + pulls * (n.cost + n.grad + (n.loss if recompute else 0)))
+        if prog in TIER_PROGRAMS:
+            ops += steps * n.forward
+        if prog == "bls_bf16":
+            ops += steps * rung
+    l2 = (fused_products(B, tally, whole_solve, solver, ladder_eval, prog)
           * product_bytes(T) if streamed else 0.0)
     return Bound(B * per_lane + _basis_bytes(T, J), ops, l2)
 
@@ -292,7 +307,7 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
 def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
                          live, solver: str = "bls",
                          ladder_eval: str = "linearized",
-                         streamed: bool = False) -> Bound:
+                         streamed: bool = False, prog: str = "") -> Bound:
     """K2 over a whole solve, one launch per round, from the solve's work
     counts (as :func:`fused_rounds` for K2: the rounds driver runs K1's
     work, each round starting from alpha) and
@@ -302,7 +317,7 @@ def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
     alpha; each launch reads the basis."""
     b = _lane_bytes(T, J, O)
     rounds = fused_rounds(B, T, J, O, tally, False, solver, ladder_eval,
-                          streamed)
+                          streamed, prog)
     byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)

@@ -22,8 +22,12 @@ Every tensor carries the scene lane as its LAST axis: alpha and trajectory
 BLS runs in either Armijo ladder tier (``cfg.ladder_eval``: linearized or
 exact) on every backend.  The kernel backends run the launch plan of
 ops/fused_solve.py (``launch_plan``: the basis resident in shared memory up
-to T = 64, streamed from device memory beyond); where no plan fits (T past
-about 2,070, where one warp's lane state no longer fits in shared memory),
+to T = 64, streamed from device memory beyond); past the float32 plans'
+ceiling (T = 2,073 at 11 obstacles, where one warp's lane state no longer
+fits in shared memory) BLS with the linearized ladder and
+``cfg.bls_bf16_ladder`` runs the bf16 tier's plan on ``backend="fused"``
+(``kernel_plan``, up to T = 2,636); where no plan fits, or the plan is the
+bf16 tier's and the backend the per-step one (which has no such tier),
 ``fleet_solve`` warns and runs the ``xla`` engine, as the JAX package does.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
@@ -504,7 +508,8 @@ def compaction_order(ful: torch.Tensor, floss: torch.Tensor,
 
 
 def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
-                        solver: str = "bls", plan: str = "") -> SolveResult:
+                        solver: str = "bls", plan: str = "",
+                        **tier) -> SolveResult:
     """The solve of ``solver`` as one fused-round launch per penalty round
     (ops.fused_solve.fused_round), with the penalty bookkeeping between
     launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
@@ -512,7 +517,8 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
     round starts every lane from the round's learning rate
     (fused_solve.round_lr: ``bls_lr_start``, or GD's ``gd_lr[min(r, len -
     1)]``), as the JAX package's rounds driver does.  ``plan``: K2's
-    launch plan (fused_solve.launch_plan; empty: the default for T).
+    launch plan (fused_solve.launch_plan; empty: the default for T);
+    ``tier``: K2's ``lean``/``ultra``/``bf16`` keywords.
 
     Why, in the JAX package: a tile of lanes runs until its slowest lane
     freezes, so sorting by round 0's accepted-step count (fulfilled lanes
@@ -549,7 +555,7 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
                          dtype=torch.float32, device=dev)
         out = fs.fused_round(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl, ful,
                              lr0, n_r, start, goal, ox, oy, ow, solver=solver,
-                             plan=plan)
+                             plan=plan, **tier)
         # Penalty bookkeeping: op for op the whole-solve kernel's.
         was = ful
         now = torch.maximum(was, out.ok)
@@ -669,8 +675,11 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     plain engine, the default, as in the JAX package), ``"fused"`` (the
     whole-solve kernels: one launch per solve, or one per round with
     ``cfg.lane_compaction``) or ``"pallas"`` (the per-step kernels); each
-    runs both solvers and both ladder tiers.  The device of the scenes
-    decides where it runs.  Returns leading-batch results."""
+    runs both solvers and both ladder tiers.  Past the float32 plans'
+    ceiling ``"fused"`` runs the bf16 tier's plan where ``cfg.bls_bf16_ladder``
+    opts in (linearized BLS); it warns and runs ``"xla"`` where no plan
+    fits, and ``"pallas"`` does so for the bf16 plan too.  The device of the
+    scenes decides where it runs.  Returns leading-batch results."""
     if solver not in ("bls", "gd"):
         raise ValueError(f"unknown solver {solver!r}")
     if solver == "bls" and cfg.bls_mode == "sequential":
@@ -687,18 +696,23 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         )
     if backend not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend in ("fused", "pallas") and fs.kernel_plan(
-            cfg, scenarios.obstacles.shape[-2]) is None:
+    plan = (fs.kernel_plan(cfg, scenarios.obstacles.shape[-2], solver)
+            if backend in ("fused", "pallas") else None)
+    if backend in ("fused", "pallas") and (plan is None or (
+            backend == "pallas" and plan["bf16"])):
         # No launch plan fits (even the streamed basis leaves too little
-        # shared memory for one warp): the plain engine runs any size.
+        # shared memory for one warp), or the plan is the bf16 tier's, which
+        # only K1/K2 have: the plain engine runs any size.
         import warnings
 
         B = scenarios.start.shape[0]
+        why = (f"shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
+               f"CTA even with the streamed basis" if plan is None else
+               "the per-step kernels have no bf16 ladder tier; use "
+               "backend='fused' for it")
         warnings.warn(
             f"pallas backends infeasible for T={cfg.n_timesteps}, B={B} "
-            f"(shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
-            f"CTA even with the streamed basis); falling back to "
-            f"backend='xla'"
+            f"({why}); falling back to backend='xla'"
             + (" — lane_compaction is DROPPED on this path (it is a "
                "fused-kernel driver feature)" if cfg.lane_compaction
                else ""),
@@ -730,9 +744,10 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         )
         return SolveResult(alpha=alpha_from_fleet(res.alpha), stats=res.stats)
     args = fused_args(cfg, basis, scenarios, alpha0)
+    tier = {"bf16": plan["bf16"]}
     if cfg.lane_compaction:
-        return _fused_rounds_solve(cfg, args[1:], solver)
-    return kernel_result(fs.fused_solve(*args, solver=solver))
+        return _fused_rounds_solve(cfg, args[1:], solver, **tier)
+    return kernel_result(fs.fused_solve(*args, solver=solver, **tier))
 
 
 def make_fleet_solver(cfg: PlannerConfig, basis: Basis, solver: str = "bls",

@@ -214,8 +214,9 @@ def test_fleet_solve_gd_fused_matches_jax(setup):
 def test_gd_support_check_follows_the_solver(setup):
     """GD ignores the ladder options, as the JAX kernel does: the exact
     ladder and the bf16 tier run it, as its one program.  BLS runs either
-    ladder tier, each its own program, and raises for the bf16 tier.  Both
-    solvers refuse a precision other than full fp32."""
+    ladder tier, each its own program; the bf16 tier runs under the
+    linearized ladder (its own program) and raises under the exact one.
+    Both solvers refuse a precision other than full fp32."""
     _, tcfg, _, _, args = setup
     targs = [_t(x)[..., :2] if _t(x).dim() > 1 and _t(x).shape[-1] == 128
              else _t(x) for x in args]
@@ -227,8 +228,13 @@ def test_gd_support_check_follows_the_solver(setup):
     tfs.fused_solve(exact, *targs)
     assert [tfs.program(c, "bls") for c in (tcfg, exact)] == [
         "bls", "bls_exact"]
+    bf16 = tcfg.replace(bls_bf16_ladder=True)
+    for x, y in zip(tfs.fused_solve(bf16, *targs, bf16=True),
+                    tfs.fused_solve_reference(tcfg, *targs, bf16=True)):
+        assert torch.equal(x, y)
+    assert tfs.program(bf16, "bls", bf16=True) == "bls_bf16"
     with pytest.raises(NotImplementedError):
-        tfs.fused_solve(tcfg.replace(bls_bf16_ladder=True), *targs)
+        tfs.fused_solve(exact.replace(bls_bf16_ladder=True), *targs)
     for solver in ("bls", "gd"):
         with pytest.raises(NotImplementedError):
             tfs.fused_solve(tcfg.replace(matmul_precision="default"), *targs,

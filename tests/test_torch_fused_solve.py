@@ -171,17 +171,41 @@ def test_wrapper_runs_plain_version_on_cpu(setup):
 @pytest.mark.parametrize("kw", [
     # The reference admits the bf16 tier under the exact ladder and then
     # compiles the unquantised kernel on a bf16-sized plan; the port refuses
-    # the bf16 tier under either ladder.
+    # the bf16 tier under the exact ladder, by config and by keyword (the
+    # linearized ladder runs it: test_wrapper_runs_the_bf16_tier).
     dict(ladder_eval="exact", bls_bf16_ladder=True),
     dict(matmul_precision="default"),
-    dict(bls_bf16_ladder=True), dict(exact_constraint_eval=False),
+    dict(ladder_eval="exact", tier=dict(bf16=True)),
+    dict(exact_constraint_eval=False),
 ])
 def test_wrapper_rejects_modes_not_ported(setup, kw):
     jcfg, tcfg, basis, scns = setup
     args = [_t(x) for x in _kernel_args(
         jcfg, basis, jax.tree_util.tree_map(lambda x: x[:2], scns))]
+    kw = dict(kw)
+    tier = kw.pop("tier", {})
     with pytest.raises(NotImplementedError):
-        tfs.fused_solve(tcfg.replace(**kw), *args)
+        tfs.fused_solve(tcfg.replace(**kw), *args, **tier)
+
+
+def test_wrapper_runs_the_bf16_tier(setup):
+    """Under the linearized ladder the bf16 tier runs: ``bf16=True`` is the
+    ``bls_bf16`` program's plain version here, and ``bls_bf16_ladder`` alone
+    changes nothing within the f32 plans (as in JAX, only the planner reads
+    it, past their ceiling: test_torch_tiers.py)."""
+    jcfg, tcfg, basis, scns = setup
+    args = [_t(x) for x in _kernel_args(
+        jcfg, basis, jax.tree_util.tree_map(lambda x: x[:2], scns))]
+    opt_in = tcfg.replace(bls_bf16_ladder=True)
+    for x, y in zip(tfs.fused_solve(opt_in, *args),
+                    tfs.fused_solve_reference(tcfg, *args)):
+        assert torch.equal(x, y)
+    got = tfs.fused_solve(opt_in, *args, bf16=True)
+    for x, y in zip(got, tfs.fused_solve_reference(tcfg, *args, bf16=True)):
+        assert torch.equal(x, y)
+    assert not torch.equal(got.alpha, tfs.fused_solve_reference(
+        tcfg, *args).alpha)
+    assert torch.isfinite(got.alpha).all()
 
 
 def test_wrapper_checks_shapes(setup):

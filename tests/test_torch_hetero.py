@@ -328,8 +328,16 @@ def test_fused_round_wrapper_checks(round_inputs):
         tfs.fused_round(tcfg, *bad, 2, *map(_t, tail))
     with pytest.raises(ValueError, match="n_r"):
         tfs.fused_round(tcfg, *args, -1, *map(_t, tail))
+    # The bf16 tier runs under the linearized ladder (its plain version
+    # here) and raises under the exact one.
+    for x, y in zip(tfs.fused_round(tcfg, *args, 2, *map(_t, tail),
+                                    bf16=True),
+                    tfs.fused_round_reference(tcfg, *args, 2, *map(_t, tail),
+                                              bf16=True)):
+        assert torch.equal(x, y)
     with pytest.raises(NotImplementedError):
-        tfs.fused_round(tcfg.replace(bls_bf16_ladder=True), *args, 2,
+        tfs.fused_round(tcfg.replace(ladder_eval="exact",
+                                     bls_bf16_ladder=True), *args, 2,
                         *map(_t, tail))
     # The exact ladder runs: the plain version of its own program.
     exact = tcfg.replace(ladder_eval="exact")

@@ -5,7 +5,9 @@ card, the rounds driver against the whole-solve kernel, the fused GD and
 exact-ladder kernels against their per-step paths, the per-step driver on
 the card, and large T: the streamed programs of K1/K2 (K7) bit for bit the
 resident ones at T = 50 and, with K3-K6 on a basis in device memory,
-against their plain versions at T = 200.  The kernels have no CPU
+against their plain versions at T = 200; and the kernel tiers of K1/K2
+(lean, ultra, bf16) against their plain versions at T = 50 and 200.  The
+kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX, hence ``--noconftest``):
@@ -527,3 +529,43 @@ def test_step_kernels_match_plain_versions_at_t200(args200):
         rel = ((got.new_alpha - want.new_alpha).abs().amax(dim=(0, 1))
                / scale)[same]
         assert float(rel.max()) <= tfs.ALPHA_REL_MAX
+
+
+# --------------------------------------------------------------------------
+# The kernel tiers of K1/K2 (the linearized ladder's lean, ultra and bf16
+# tiers; lean runs the linearized program, fused_solve.program).
+# --------------------------------------------------------------------------
+
+TIERS = pytest.mark.parametrize("tier", ["lean", "ultra", "bf16"])
+
+
+@TIERS
+@pytest.mark.parametrize("T", [50, 200])
+def test_tier_programs_match_plain_versions(args, args200, tier, T):
+    """Each tier's K1 and K2 program against its plain version at T = 50
+    (the resident body) and T = 200 (the streamed one; bf16's in the
+    half-width layout), within the bounds chip_smoke.py holds the programs
+    to (CARD_SHORT_AGREEMENT_MIN, ALPHA_REL_MAX); at T = 50 the streamed
+    plan gives the resident plan's outputs bit for bit."""
+    a = args if T == 50 else args200
+    kw = {tier: True}
+    prog = tfs.program(a[0], "bls", **kw)
+    assert tfs.launch_plan(a[0], 11, prog=prog)["plan"] == (
+        "resident" if T == 50 else "streamed")
+    got = tfs.fused_solve(*a, **kw)
+    agree, rel = tfs.lane_agreement(tfs.fused_solve_reference(*a, **kw), got)
+    print(f"K1 {tier} T={T}: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    rargs = _round_args(a)
+    got2 = tfs.fused_round(*rargs, **kw)
+    agree, rel = _masked_agreement(tfs.fused_round_reference(*rargs, **kw),
+                                   got2, rargs[7])
+    print(f"K2 {tier} T={T}: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
+    assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
+    assert rel <= tfs.ALPHA_REL_MAX
+    if T == 50:
+        for x, y in zip(tfs.fused_solve(*a, plan="streamed", **kw), got):
+            assert torch.equal(x, y)
+        for x, y in zip(tfs.fused_round(*rargs, plan="streamed", **kw), got2):
+            assert torch.equal(x, y)

@@ -131,9 +131,11 @@ def test_bench_schedule_on_plain_path():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    # The bf16 ladder tier is not ported on the fused kernels (BLS; GD
-    # ignores the ladder options).
-    (dict(backend="fused", cfg=dict(bls_bf16_ladder=True)),
+    # The bf16 ladder tier quantises the linearized ladder's planes: under
+    # the exact ladder the fused kernels refuse it (BLS; GD ignores the
+    # ladder options).
+    (dict(backend="fused", cfg=dict(ladder_eval="exact",
+                                    bls_bf16_ladder=True)),
      NotImplementedError),
     # Under the linearized ladder the port always checks constraints on the
     # exact evaluation, on every kernel path.

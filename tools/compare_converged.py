@@ -1,15 +1,24 @@
 """Converged fractions of the four BLS engines on the same random scenes.
 
     JAX_PLATFORMS=cpu python tools/compare_converged.py [--T 200] \\
-        [--scenes 512] [--chunk 64] [--ladder-eval linearized] [--seed 0]
+        [--scenes 512] [--chunk 64] [--ladder-eval linearized] [--seed 0] \\
+        [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings]
 
 On the CPU, with the bench's BLS schedule (REFERENCE_INNER_SCHEDULE_BLS,
 ``max_obstacles=11``) at T (a committed basis export) and the port's random
 scenes of ``--seed``: the JAX package's fused kernel (interpreted, in chunks of
 ``--chunk`` lanes, ``recip_newton=True``) and its xla engine, and the
-port's fused backend (the plain K1) and xla engine.  Prints the converged
-count of each, per chunk and in all.  bench.py's paired gate holds a fused
-run's converged fraction within max(0.02, min(0.15 max(conv), 0.05)) of
+port's fused backend (the plain K1) and xla engine; with ``--tiers`` also
+JAX's fused kernel and the port's plain K1 in the linearized ladder's
+kernel tiers (lean, ultra, bf16); ``--port-only`` leaves the JAX engines
+out; ``--two-roundings`` also runs the port's plain K1 in the ultra and
+bf16 tiers with the accepted alpha rounded twice (``a_fac alpha`` rounded,
+then the step subtracted), as the linearized program forms it, where the
+tiers round it once (fused_solve.fma; PERF.md section 7).  Prints the
+converged count of each per chunk, and in all the converged fraction, the
+mean accepted steps and the mean unpenalized obstacle cost (the paired
+gate's cost, bench.mean_obstacle_cost).  bench.py's paired gate holds a
+fused run's converged fraction within max(0.02, min(0.15 max(conv), 0.05)) of
 the xla engine's.
 """
 
@@ -28,10 +37,22 @@ sys.path.insert(0, ROOT)
 import jax.numpy as jnp  # noqa: E402
 
 import irm_motion_planning_tpu as mp  # noqa: E402
+from irm_motion_planning_tpu.ops import pallas_step as ps  # noqa: E402
 from irm_motion_planning_tpu.solvers import fleet as jfleet  # noqa: E402
 import irm_motion_planning_tpu_torch as mt  # noqa: E402
 from irm_motion_planning_tpu_torch import bench  # noqa: E402
+from irm_motion_planning_tpu_torch.ops import fused_solve as tfs  # noqa: E402
 from irm_motion_planning_tpu_torch.solvers import fleet as tfleet  # noqa: E402
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _two_roundings(a, b, c):
+    """``a b + c`` in float32 with the product rounded first (what
+    fused_solve.fma rounds once)."""
+    return a * b + c
 
 
 def main(argv=None) -> int:
@@ -41,6 +62,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--ladder-eval", default="linearized")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiers", nargs="?", const="lean,ultra,bf16", default="")
+    ap.add_argument("--port-only", action="store_true")
+    ap.add_argument("--two-roundings", action="store_true")
     a = ap.parse_args(argv)
     cfg = bench.bench_config(n_timesteps=a.T, ladder_eval=a.ladder_eval)
     jcfg = mp.PlannerConfig(
@@ -52,26 +76,67 @@ def main(argv=None) -> int:
     tb = mt.make_basis(cfg, device="cpu")
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(a.seed),
                                a.scenes, device="cpu")
-    names = ("JAX fused", "JAX xla", "port fused", "port xla")
-    total = np.zeros(4, dtype=int)
+    names = ["JAX fused", "JAX xla", "port fused", "port xla"]
+    tiers = tuple(t for t in a.tiers.split(",") if t)
+    twice = tuple(t for t in tiers if t != "lean") if a.two_roundings else ()
+    names = (names[2 * a.port_only:]
+             + [f"JAX fused {t}" for t in tiers if not a.port_only]
+             + [f"port fused {t}" for t in tiers]
+             + [f"port fused {t} two roundings" for t in twice])
+    total = np.zeros(len(names), dtype=int)
+    steps = np.zeros(len(names))
+    costs = np.zeros(len(names))
     for lo in range(0, a.scenes, a.chunk):
         sub = mt.Scenario(*(x[lo:lo + a.chunk] for x in scns))
         js = mp.Scenario(*(jnp.asarray(x.numpy()) for x in sub))
-        runs = (
+        runs = [] if a.port_only else [
             jfleet.fleet_solve(jcfg, jb, js, backend="fused", interpret=True),
             jfleet.fleet_solve(jcfg, jb, js, backend="xla"),
-            tfleet.fleet_solve(cfg, tb, sub, backend="fused"),
-            tfleet.fleet_solve(cfg, tb, sub, backend="xla"),
-        )
+        ]
+        runs += [tfleet.fleet_solve(cfg, tb, sub, backend="fused"),
+                 tfleet.fleet_solve(cfg, tb, sub, backend="xla")]
+        if tiers and not a.port_only:
+            fsc = jfleet.to_fleet(js)
+            n = fsc.start.shape[-1]
+            ka = (jb.kv, jb.kv.T, jb.mix,
+                  jnp.moveaxis(jfleet.fleet_init_alpha(jcfg, jb, fsc), 1, 0),
+                  jnp.full((1, n), jcfg.lambda_sg_constraint, jnp.float32),
+                  jnp.full((1, n), jcfg.lambda_jl_constraint, jnp.float32),
+                  fsc.start, fsc.goal, fsc.obstacles[:, 0, :],
+                  fsc.obstacles[:, 1, :], fsc.obstacle_weight)
+            for t in tiers:
+                r = ps.fused_solve(jcfg, *ka, solver="bls", block_b=n,
+                                   interpret=True, lean=True,
+                                   ultra=t != "lean", bf16=t == "bf16")
+                runs.append(tfleet.SolveResult(
+                    _t(r.alpha).permute(2, 1, 0), tfleet.SolveStats(
+                    _t(r.outer_iters[0]), _t(r.inner_iters[0]),
+                    _t(r.fulfilled[0] > 0.5), _t(r.final_loss[0]))))
+        runs += [tfleet.kernel_result(tfs.fused_solve(
+            *tfleet.fused_args(cfg, tb, sub), **{t: True})) for t in tiers]
+        fma = tfs.fma
+        tfs.fma = _two_roundings
+        try:
+            runs += [tfleet.kernel_result(tfs.fused_solve(
+                *tfleet.fused_args(cfg, tb, sub), **{t: True}))
+                for t in twice]
+        finally:
+            tfs.fma = fma
         counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
         total += counts
+        steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
+        costs += [len(sub.start) * bench.mean_obstacle_cost(
+            cfg, tb, sub, tfleet.SolveResult(
+                r.alpha if torch.is_tensor(r.alpha) else _t(r.alpha), None))
+            for r in runs]
         print(f"scenes {lo}-{lo + a.chunk - 1}: "
               + ", ".join(f"{n} {c}" for n, c in zip(names, counts)),
               flush=True)
     print(f"T={a.T} {a.ladder_eval}, {a.scenes} scenes of seed {a.seed}, "
-          f"converged: "
-          + ", ".join(f"{n} {c} ({c / a.scenes:.4f})"
-                      for n, c in zip(names, total)))
+          f"converged (fraction; mean accepted steps; mean obstacle cost): "
+          + ", ".join(f"{n} {c} ({c / a.scenes:.4f}; {st / a.scenes:.1f}; "
+                      f"{co / a.scenes:.5f})"
+                      for n, c, st, co in zip(names, total, steps, costs)))
     return 0
 
 

@@ -2,8 +2,8 @@
 
     python tools/fused_variants.py [--T 50] [--batch N] NAME=FLAG[,FLAG...] ...
 
-Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` once per
-variant with the given ``-D`` flags (each its own ``nvcc``, all started
+Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` (with
+``fused_tiers.cu``, whose kernel tiers it launches) once per variant with the given ``-D`` flags (each its own ``nvcc``, all started
 together, beside the port's own build), prints each build's ptxas report
 (registers, spills) and its launch shape, then runs K1-BLS of every variant
 on the bench's inputs at T, twice each, timed with CUDA events, and says
@@ -90,10 +90,10 @@ class Variant:
             return fs.fused_solve(self.config(args[0]), *args[1:])
 
 
-def compile_(src, flags, out):
+def compile_(srcs, flags, out):
     return subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *flags, "-o", out,
-         src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         *srcs], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def finish(proc, what):
@@ -120,7 +120,8 @@ def main():
                          text=True).stdout.strip(), flush=True)
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_build.CSRC, "fused_solve.cu")
+    srcs = [os.path.join(_build.CSRC, f)
+            for f in ("fused_solve.cu", "fused_tiers.cu")]
     procs, warps = {}, {}
     for spec in a.variants:
         name, flags = spec.split("=", 1)
@@ -128,7 +129,8 @@ def main():
         warps[name] = next((int(f.split("=")[1]) for f in flags
                             if f.startswith("-DWB_MAX_WARPS=")),
                            fs.DEFAULT_WARPS)
-        procs[name] = compile_(src, flags, os.path.join(out_dir, name + ".so"))
+        procs[name] = compile_(srcs, flags,
+                               os.path.join(out_dir, name + ".so"))
     try:
         for name, proc in procs.items():
             finish(proc, name)

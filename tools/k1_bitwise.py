@@ -1,0 +1,73 @@
+"""Hold the fused kernels of two checkouts to each other bit for bit.
+
+    python tools/k1_bitwise.py dump OUT.pt      # from a checkout's root
+    python tools/k1_bitwise.py compare A.pt B.pt
+
+``dump`` builds the kernels of the checkout it runs in (the package is
+imported from the current directory) and saves, for each program of the
+solvers and ladders (bls, gd, bls_exact), K1's whole solve at the bench
+schedule and K2's one round (a quarter of the lanes fulfilled) on 16,384
+random scenes (seed 5) at T=50 (the resident body, its specialised
+instantiation) and on 1,024 random scenes at T=200 (the streamed body).
+``compare`` says for each whether every output field is equal bit for bit,
+and exits non-zero if one is not.  Two checkouts on one card: dump in
+each, then compare.  Needs a CUDA card for ``dump``.
+"""
+
+import os
+import sys
+
+import torch
+
+PROGRAMS = ("bls", "gd", "bls_exact")
+
+
+def dump(out):
+    sys.path.insert(0, os.getcwd())
+    import irm_motion_planning_tpu_torch as mt
+    from irm_motion_planning_tpu_torch import bench
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+    from irm_motion_planning_tpu_torch.solvers import fleet
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    for T, batch in ((50, 16384), (200, 1024)):
+        for prog in PROGRAMS:
+            solver = "gd" if prog == "gd" else "bls"
+            cfg = bench.bench_config(
+                solver=solver, n_timesteps=T,
+                ladder_eval="exact" if prog == "bls_exact" else "linearized")
+            basis = mt.make_basis(cfg, device=dev)
+            scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
+                                       batch, device=dev)
+            args = fleet.fused_args(cfg, basis, scns)
+            k1 = fs.fused_solve(*args, solver=solver)
+            g = torch.Generator().manual_seed(0)
+            ful = (torch.rand((1, batch), generator=g) < 0.25).float().to(dev)
+            lr0 = torch.full_like(ful, fs.round_lr(cfg, 0, solver))
+            k2 = fs.fused_round(*args[:7], ful, lr0, 4, *args[7:],
+                                solver=solver)
+            res[f"K1 {prog} T={T}"] = [x.cpu() for x in k1]
+            res[f"K2 {prog} T={T}"] = [x.cpu() for x in k2]
+    torch.save(res, out)
+    print(f"dumped {sorted(res)} to {out}")
+
+
+def compare(a, b):
+    x, y = torch.load(a), torch.load(b)
+    ok = sorted(x) == sorted(y)
+    for key in sorted(x):
+        same = key in y and all(torch.equal(p, q) for p, q in zip(x[key],
+                                                                  y[key]))
+        ok = ok and same
+        print(f"{key}: bitwise equal {same}")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["dump"] and len(sys.argv) == 3:
+        dump(sys.argv[2])
+    elif sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
+        sys.exit(compare(sys.argv[2], sys.argv[3]))
+    else:
+        sys.exit(__doc__)
