@@ -25,7 +25,9 @@ ceiling).  Phases:
    bls_exact and the tiers bls_ultra, bls_bf16), the registers
    and spills of each instantiation from the ptxas report (``fused_solve<gd,50,11>``: program, T, O; ``<bls,0,0>``
    the generic one), and from the launch plan the shared memory per CTA
-   (which must equal the C side's) and the CTAs and warps per SM;
+   (which must equal the C side's) and the CTAs and warps per SM; K4's
+   plan (K1-GD's, at T=50 and T=200) and K6's tile, each against the C
+   side;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
    steps, lane agreement and alpha error on agreeing lanes; then the first
    1,000 of those lanes at 4, 8 and 16 lanes (warps) per CTA and on a
@@ -65,19 +67,23 @@ ceiling).  Phases:
    scenes, scaled to the batch;
 8. K5 and K6 against their plain versions: 1,024 random scenes (penalties
    x1/x10/x100), then the first 1,000 of them at 64/128/256 lanes per
-   block, bit for bit the full batch's lanes; each timed at 1,048,576 lanes
-   on the main path's inputs, K6 beside one torch.einsum of the same
-   product, and held to the plain version there too;
+   block, bit for bit the full batch's lanes; K6 bit for bit K5's traj/vel
+   on the same alpha, and on 1,000 and 999 lanes (16- and 4-byte copies)
+   bit for bit the full batch's; each timed at 1,048,576 lanes on the main
+   path's inputs, K6 beside one torch.einsum of the same product and as a
+   share of its bound, and held to the plain version (K6 to K5) there too;
 9. K3 and K4 against their plain versions, one step from K5's state on the
    same 1,024 scenes, a quarter of the lanes frozen (bitwise unchanged),
    four learning rates: agreement of the stop flags and lr, and on the
    agreeing lanes every other field (alpha, loss, grad, traj, vel), the
-   ragged block-size check; each timed at 1,048,576 lanes from K5's state
+   ragged block-size check (K4 at 1, 2, 5, 10 and 16 lanes per CTA); each
+   timed at 1,048,576 lanes from K5's state
    on the main path's inputs and held to the plain version there too;
 10. the BLS per-step path (bench --backend pallas): the replicated scene at
    1,048,576 lanes (solves/s, launch counts, every lane equal to lane 0,
-   the phase-4 gate and the strict verdict; K3, K5 and K6 time per solve),
-   then 1,048,576 random scenes with the paired xla gate on 32,768 lanes;
+   the phase-4 gate and the strict verdict; K3, K5 and K6 time per solve;
+   peak device memory), then 1,048,576 random scenes with the paired xla
+   gate on 32,768 lanes;
 11. the GD per-step path (bench --solver gd --backend pallas): the same,
    gated against REFERENCE_FINAL_COST["gd"] with endpoint < 0.05 (bench's
    strict 0.042 printed), and the paired gate against the GD xla engine;
@@ -124,7 +130,8 @@ ceiling).  Phases:
    basis in device memory): the L2 rate; streamed K1 and the rounds driver
    over streamed K2 bit for bit resident K1 at T=50 for each program; at
    T=200 K1 and K2 against plain with the ragged batch, K3-K6 against
-   plain with their ragged batch; 65,536 random scenes per program (one K1
+   plain with their ragged batch (K6 bit for bit K5); 65,536 random scenes
+   per program (one K1
    launch per solve, the paired xla gate on 8,192 lanes, which holds the
    linearized ladder to its phantom and cost bands; K1's converged
    fraction against its plain version's on those lanes within bench.py's
@@ -157,7 +164,8 @@ both per-step paths: the BLS path's, and ``launches_by_path``), its
 largest error against the plain version, its time, the plain version's
 (timed without the work tally), its bound (ops/roofline.py, from this
 run's inputs and the plain versions' tallies of the data-dependent work,
-each from an untimed call) and, for K6, one PyTorch call's time.  K1 and
+each from an untimed call) and, for K6, one PyTorch call's time and its
+share of the bound; K4 and K6 their registers and spills.  K1 and
 K2 also carry their time and bound at 1,048,576 random scenes (K2 per
 solve; at 16,384 lanes K2's ``ms`` is its second reading and
 ``ms_first_reading`` and ``ms_warm_up`` the two before), their registers,
@@ -187,6 +195,7 @@ import torch
 MAIN_BATCH = 1048576
 SHORT_BATCH = 1024
 RAGGED_BATCH = 1000
+ODD_BATCH = 999
 FULL_BATCH = 16384
 CHECK_LANES = 32768
 TALLY_LANES = 65536
@@ -333,6 +342,39 @@ def main():
         f"{fs.TIER_PROGRAMS} from csrc/fused_tiers.cu")
     say(f"phase 1 K3-K6 ptxas "
         f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
+    # K4 (one warp per lane, K1-GD's plan) and K6 (the tiled product): the
+    # plan and the C side must agree.
+    occupancy["gd_inner_step"] = {}
+    for size in (50, LARGE_T):
+        gcfg = bench.bench_config(solver="gd", n_timesteps=size)
+        for bt in (0, 64):
+            gplan = sk.gd_step_plan(gcfg.replace(pallas_block_b=bt), 11)
+            gshape = sk.gd_step_shape(gcfg.replace(pallas_block_b=bt), 11,
+                                      MAIN_BATCH)
+            if gshape["smem"] != gplan["total"]:
+                fail(f"phase 1: gd_inner_step at T={size}, pallas_block_b "
+                     f"{bt}: plan {gplan['total']} B per CTA, the C side "
+                     f"{gshape['smem']} B")
+            occupancy["gd_inner_step"][f"T{size}, pallas_block_b {bt}"] = {
+                **gshape, "plan": gplan["plan"], "warps_per_cta": gplan["warps"],
+                "smem_bytes": gplan["bytes"]}
+            say(f"phase 1 gd_inner_step (K4) at T={size}, pallas_block_b "
+                f"{bt}: {gplan['plan']} plan, {gplan['warps']} lanes (warps) "
+                f"per CTA, {gplan['total']} B per CTA {gplan['bytes']}, "
+                f"{gshape['ctas_per_sm']} CTAs and {gshape['warps_per_sm']} "
+                f"warps per SM")
+    fplan = sk.forward_plan(bench.bench_config())
+    fshape = sk.forward_eval_shape()
+    if (fshape["rows"], fshape["lanes"], fshape["tk"], fshape["threads"],
+            fshape["smem"]) != (fplan["rows"], fplan["lanes"], fplan["tk"],
+                                fplan["threads"], fplan["total"]):
+        fail(f"phase 1: forward_eval's tile {fplan} differs from the C side's "
+             f"{fshape}")
+    occupancy["forward_eval"] = {**fshape, "smem_bytes": fplan["bytes"]}
+    say(f"phase 1 forward_eval (K6) tile: {fplan['rows']} rows x "
+        f"{fplan['lanes']} lanes per CTA, {fplan['tk']} timesteps per stage, "
+        f"{fplan['threads']} threads, {fplan['total']} B of shared memory "
+        f"{fplan['bytes']}, {fshape['ctas_per_sm']} CTAs per SM")
 
     def random_args(cfg, batch, seed):
         basis = mt.make_basis(cfg, device=dev)
@@ -667,20 +709,19 @@ def main():
         f"{k6_abs_err:.3g} abs (bound {EVAL_BOUNDS['planes']})")
     if not (eval_ok(k5_err) and k6_abs_err <= EVAL_BOUNDS["planes"]):
         fail("phase 8: K5 or K6 disagrees with its plain version")
+    k6_vs_k5(fk, ek, 8, SHORT_BATCH)
     cut = [x[..., :RAGGED_BATCH] if x.shape[-1] == SHORT_BATCH else x
            for x in eargs]
     for bt in (64, 128, 256):
         cb = cfg.replace(pallas_block_b=bt)
         er = sk.cost_grad_eval(cb, *cut)
-        fr = sk.forward_eval(cb, kv, mix, cut[3])
         torch.cuda.synchronize()
-        if not (all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(er, ek))
-                and all(torch.equal(x, y[..., :RAGGED_BATCH])
-                        for x, y in zip(fr, fk))):
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(er, ek)):
             fail(f"phase 8: {RAGGED_BATCH} lanes at {bt} lanes per block "
                  f"differ from the same lanes of the {SHORT_BATCH}-lane run")
+    k6_ragged(sk, cfg, kv, mix, a0, fk, 8)
     say(f"phase 8 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
-        f"block): K5 and K6 bitwise equal to the full batch's lanes")
+        f"block): K5 bitwise equal to the full batch's lanes")
 
     # The main path's inputs at full width: the replicated reference scene
     # at the warm start, under the bench's config.
@@ -692,7 +733,7 @@ def main():
     mkv, mkvt, mmix, ma0, mlsg, mljl = margs[:6]
     mtail = margs[4:]
     meargs = (mkv, mkvt, mmix, ma0, *mtail)
-    work = sk.workspace(J, T, MAIN_BATCH, dev, trial=True)
+    work = sk.workspace(J, T, MAIN_BATCH, dev)
     mev = sk.PallasEval(torch.empty_like(mlsg),
                         *(torch.empty_like(ma0) for _ in range(3)))
     k5_ms = best_ms(lambda: sk.cost_grad_eval(mcfg, *meargs, out=mev,
@@ -715,7 +756,9 @@ def main():
         f"{TIMED_LAUNCHES}): K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.1f} ms, "
         f"bound {k5_bound.ms:.3f} ms by {k5_bound.by}); K6 {k6_ms:.3f} ms "
         f"(plain {k6_plain_ms:.1f} ms, one torch.einsum {k6_lib_ms:.3f} ms, "
-        f"bound {k6_bound.ms:.3f} ms by {k6_bound.by})")
+        f"bound {k6_bound.ms:.3f} ms by {k6_bound.by}: "
+        f"{k6_bound.ms / k6_ms:.3f} of it)")
+    k6_vs_k5(k6_out, mev, 8, MAIN_BATCH)
     say(f"phase 8 at {MAIN_BATCH} lanes against plain: K5 loss "
         f"{k5_full_err['loss']:.3g} relative, grad {k5_full_err['grad']:.3g} "
         f"of the lane's scale, traj/vel {k5_full_err['planes']:.3g} abs; K6 "
@@ -753,15 +796,17 @@ def main():
         step_abs_err[name] = err["abs"]
         cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x)
                and x.shape[-1] == SHORT_BATCH else x for x in sargs]
-        for bt in (64, 128, 256):
+        for bt in step_blocks(name):
             kr = fn(cfg.replace(pallas_block_b=bt), *cut)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                        for x, y in zip(kr, k)):
-                fail(f"phase 9: {name}, {RAGGED_BATCH} lanes at {bt} lanes "
+                fail(f"phase 9: {name}, {RAGGED_BATCH} lanes at {bt} threads "
                      f"per block differ from the full batch's")
-    say(f"phase 9 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
-        f"block): K3 and K4 bitwise equal to the full batch's lanes")
+    say(f"phase 9 ragged batch ({RAGGED_BATCH} lanes): K3 at "
+        f"{step_blocks('bls')} threads (lanes) per block, K4 at "
+        f"{[sk.gd_step_plan(cfg.replace(pallas_block_b=bt), 11)['warps'] for bt in step_blocks('gd')]}"
+        f" lanes (warps) per CTA, bitwise equal to the full batch's lanes")
     del ek, fk, ep, fp, args, rargs, eargs, cut
 
     # Each step kernel at full width from K5's state (mev) on the main
@@ -774,7 +819,8 @@ def main():
         fn, ref = step_fns(sk, name)
         state0 = (ma0, *mev[1:], mev.loss, lr, mlive)
         ms, step_plain_ms, tally, agree, err = full_width_step(
-            fn, ref, mcfg, (mkv, mkvt, mmix), state0, mtail, work)
+            fn, ref, mcfg, (mkv, mkvt, mmix), state0, mtail,
+            work if name == "bls" else None)
         bound = (roofline.bls_inner_step if name == "bls"
                  else roofline.gd_inner_step)(MAIN_BATCH, T, J, O, tally)
         step_time[name] = (ms, step_plain_ms, bound)
@@ -800,9 +846,12 @@ def main():
                                             else [])
         for n in names:
             getattr(sk, n).launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         with KernelTimer(sk, *names) as timer:
             out = bench.run_bench(batch=MAIN_BATCH, repeats=2, solver=solver,
                                   backend="pallas")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launches = {n: getattr(sk, n).launches for n in names}
         res, timing = out["result"], out["timing"]
         solves = 1 + len(timing["times_s"])
@@ -818,7 +867,10 @@ def main():
             f"{launches}; kernel ms per solve "
             f"{ {n: round(v, 1) for n, v in per_solve.items()} }; avg_cost "
             f"{out['avg_cost']} max_cost {out['max_cost']} endpoint_err "
-            f"{out['endpoint_err']}; {out['device']}, {out['power_limit']}")
+            f"{out['endpoint_err']}; peak device memory {peak_gib:.3f} GiB "
+            f"(K5's workspace {(2 * J + 2) * T * MAIN_BATCH * 4 / 2**30:.3f} "
+            f"GiB of it); "
+            f"{out['device']}, {out['power_limit']}")
         say(f"phase {phase} strict bench.py verdict (endpoint < {strict} and "
             f"costs within 2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
         if min(launches.values()) < 1:
@@ -854,7 +906,7 @@ def main():
                  f"failed")
         del het
         torch.cuda.empty_cache()
-        paths[solver] = (launches, per_solve)
+        paths[solver] = (launches, per_solve, peak_gib)
 
     gd = gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                    occupancy)
@@ -889,7 +941,11 @@ def main():
                      streamed=large["bls_inner_step"]),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
-                     *step_time["gd"], streamed=large["gd_inner_step"]),
+                     *step_time["gd"], streamed=large["gd_inner_step"],
+                     ptxas={k: v for k, v in ptxas.items()
+                            if k.startswith("gd_step")},
+                     occupancy=occupancy["gd_inner_step"],
+                     path_peak_gib=paths["gd"][2]),
         # K5 runs on both per-step paths: ``launches`` is the BLS path's
         # count, the GD path's stands beside it.
         kernel_entry("cost_grad_eval", "step_kernels.cu", 1821,
@@ -900,7 +956,11 @@ def main():
         kernel_entry("forward_eval", "step_kernels.cu", 1767,
                      paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
                      k6_plain_ms, k6_bound, library_ms=k6_lib_ms,
-                     streamed=large["forward_eval"]),
+                     streamed=large["forward_eval"],
+                     ptxas={k: v for k, v in ptxas.items()
+                            if k.startswith("forward_eval")},
+                     occupancy=occupancy["forward_eval"],
+                     fraction_of_bound=k6_bound.ms / k6_ms),
         large["k7"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1583,6 +1643,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     fk = sk.forward_eval(scfg, kv, mix, a0)
     k5_err = eval_errors(ek, sk.cost_grad_eval_reference(scfg, *eargs))
     k6_err = planes_error(fk, sk.forward_eval_reference(scfg, kv, mix, a0))
+    k6_vs_k5(fk, ek, 17, SHORT_BATCH)
+    k6_ragged(sk, scfg, kv, mix, a0, fk, 17)
     gd_lrs = torch.tensor(scfg.gd_lr[:4])[
         torch.randint(0, 4, (1, SHORT_BATCH),
                       generator=torch.Generator().manual_seed(1))].to(dev)
@@ -1601,24 +1663,21 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                  f"version at T={T}: {step_summary(agree, err)}")
         cut = [x[..., :RAGGED_BATCH] if torch.is_tensor(x)
                and x.shape[-1] == SHORT_BATCH else x for x in sargs]
-        for bt in (64, 128, 256):
+        for bt in step_blocks("gd" if name == "gd" else "bls"):
             kr = fn(c.replace(pallas_block_b=bt), *cut)
             if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                        for x, y in zip(kr, ks)):
-                fail(f"phase 17: {name} step at T={T}, {bt} lanes per block "
-                     f"differs from the full batch's")
+                fail(f"phase 17: {name} step at T={T}, {bt} threads per "
+                     f"block differs from the full batch's")
     ecut = [x[..., :RAGGED_BATCH] if x.shape[-1] == SHORT_BATCH else x
             for x in eargs]
     for bt in (64, 128, 256):
         cb = scfg.replace(pallas_block_b=bt)
         er = sk.cost_grad_eval(cb, *ecut)
-        fr = sk.forward_eval(cb, kv, mix, ecut[3])
-        if not (all(torch.equal(x, y[..., :RAGGED_BATCH])
-                    for x, y in zip(er, ek))
-                and all(torch.equal(x, y[..., :RAGGED_BATCH])
-                        for x, y in zip(fr, fk))):
-            fail(f"phase 17: K5/K6 at T={T}, {bt} lanes per block differ "
-                 f"from the full batch's")
+        if not all(torch.equal(x, y[..., :RAGGED_BATCH])
+                   for x, y in zip(er, ek)):
+            fail(f"phase 17: K5 at T={T}, {bt} lanes per block differs from "
+                 f"the full batch's")
     say(f"phase 17 K3-K6 at T={T} (basis in device memory) against plain "
         f"({SHORT_BATCH} random scenes): K5 loss {k5_err['loss']:.3g}, grad "
         f"{k5_err['grad']:.3g}, traj/vel {k5_err['planes']:.3g}; K6 "
@@ -1821,7 +1880,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = fleet.fused_args(
         cfg, basis, scns)
     eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
-    work = sk.workspace(J, T, LARGE_BATCH, dev, trial=True)
+    work = sk.workspace(J, T, LARGE_BATCH, dev)
     ev = sk.PallasEval(torch.empty_like(lsg),
                        *(torch.empty_like(a0) for _ in range(3)))
     k5_ms = best_ms(lambda: sk.cost_grad_eval(cfg, *eargs, out=ev, work=work))
@@ -1830,6 +1889,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     k6_ms = best_ms(lambda: sk.forward_eval(cfg, kv, mix, a0, out=k6_out))
     _, k6_plain = timed(lambda: sk.forward_eval_reference(cfg, kv, mix, a0))
     k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
+    k6_vs_k5(k6_out, ev, 17, LARGE_BATCH)
     steps = {}
     for name, lr in (("bls", torch.full_like(lsg, cfg.bls_lr_start)),
                      ("gd", torch.full_like(lsg, cfg.gd_lr[0]))):
@@ -1837,19 +1897,20 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         ms, plain_ms, tally, agree, err = full_width_step(
             fn, ref, cfg, (kv, kvt, mix),
             (a0, *ev[1:], ev.loss, lr, torch.zeros_like(lsg)),
-            (lsg, ljl, start, goal, ox, oy, ow), work)
+            (lsg, ljl, start, goal, ox, oy, ow),
+            work if name == "bls" else None)
         bound = (roofline.bls_inner_step(LARGE_BATCH, T, J, O, tally,
                                          device_basis=True)
                  if name == "bls" else
                  roofline.gd_inner_step(LARGE_BATCH, T, J, O, tally,
-                                        device_basis=True))
+                                        streamed=True))
         if not step_ok(agree, err):
             fail(f"phase 17: the {name} step disagrees with its plain "
                  f"version at T={T}, {LARGE_BATCH} lanes: "
                  f"{step_summary(agree, err)}")
         steps[name] = (ms, plain_ms, bound, agree)
     k5_bound = roofline.cost_grad_eval(LARGE_BATCH, T, J, O, device_basis=True)
-    k6_bound = roofline.forward_eval(LARGE_BATCH, T, J, device_basis=True)
+    k6_bound = roofline.forward_eval(LARGE_BATCH, T, J)
     say(f"phase 17 T={T} per-step kernels at {LARGE_BATCH} lanes (reference "
         f"scene, round 0, step 0): K3 {steps['bls'][0]:.3f} ms (plain {steps['bls'][1]:.1f}, "
         f"bound {steps['bls'][2].ms:.3f} by {steps['bls'][2].by}); K4 "
@@ -1857,7 +1918,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         f"{steps['gd'][2].ms:.3f} by {steps['gd'][2].by}); K5 {k5_ms:.3f} ms "
         f"(plain {k5_plain:.1f}, bound {k5_bound.ms:.3f} by {k5_bound.by}); "
         f"K6 {k6_ms:.3f} ms (plain {k6_plain:.1f}, one torch.einsum "
-        f"{k6_lib:.3f}, bound {k6_bound.ms:.3f} by {k6_bound.by})")
+        f"{k6_lib:.3f}, bound {k6_bound.ms:.3f} by {k6_bound.by}: "
+        f"{k6_bound.ms / k6_ms:.3f} of it)")
     del work, ev, k6_out, eargs, scns
     torch.cuda.empty_cache()
     ties = random_step_kernels(mt, fs, sk, fleet, cfg, basis, dev)
@@ -1920,7 +1982,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         "forward_eval": streamed(
             k6_ms, k6_bound, k6_plain, None, lanes=LARGE_BATCH,
             launches=step_launches["forward_eval"], max_abs_err=k6_err,
-            library_ms=k6_lib),
+            library_ms=k6_lib, fraction_of_bound=k6_bound.ms / k6_ms),
     }
     entries["bls_inner_step"]["random"] = {
         "bls": ties["bls"], "bls_exact": ties["bls_exact"]}
@@ -2421,6 +2483,7 @@ def random_step_kernels(mt, fs, sk, fleet, cfg, basis, dev):
     hold("cost_grad_eval", cfg, ek, sk.cost_grad_eval_reference(cfg, *eargs),
          sk.cost_grad_eval_reference, eargs, tuple)
     fk6 = sk.forward_eval(cfg, kv, mix, a0)
+    k6_vs_k5(fk6, ek, 17, LARGE_BATCH)
     k6_err = planes_error(fk6, sk.forward_eval_reference(cfg, kv, mix, a0))
     say(f"phase 17 T={T} forward_eval on {LARGE_BATCH} random scenes against "
         f"plain: traj/vel {k6_err:.3g} abs (bound {EVAL_BOUNDS['planes']})")
@@ -2641,7 +2704,9 @@ def ptxas_report(log):
     fused_round<program,T,O> (program bls, gd or bls_exact; <program,0,0>:
     the generic instantiation; <program,0,0,streamed>: the streamed body);
     K3 as bls_step<tier,basis> (tier 0 linearized, 1 exact; basis 0 staged,
-    1 in device memory), K4-K6 as <basis>."""
+    1 in device memory), K5 as <basis>, K4 as gd_step<T,O,body> (body 0
+    resident, 1 streamed; <0,0,...> the generic one), K6 as
+    forward_eval<vec> (1: 16-byte copies)."""
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
 
     out, name = {}, None
@@ -2871,13 +2936,21 @@ def step_summary(agree, err):
             f"error {err['abs']:.3g}")
 
 
+def step_blocks(name):
+    """``pallas_block_b`` values of the ragged checks: K3's threads (lanes)
+    per block; K4's threads per CTA, one warp per lane: 1, 2, 5, 10 and 16
+    lanes per CTA (the streamed plan at T=200 takes at most 10)."""
+    return (64, 128, 256) if name == "bls" else (32, 64, 160, 320, 512)
+
+
 def full_width_step(fn, ref, cfg, head, state0, tail, work):
     """A step kernel ``fn`` (K3 or K4) at full width from ``state0``: the
     least CUDA-event time of TIMED_LAUNCHES launches, each from a copy of
     state0, in place; then its plain version ``ref`` on the same inputs, a
     first call with the work tally (for the comparison with the last
     launch's state and the bound) and a timed one without it.  Returns (ms,
-    plain_ms, tally, lane agreement, errors) (see :func:`step_errors`)."""
+    plain_ms, tally, lane agreement, errors) (see :func:`step_errors`).
+    ``work``: K3's workspace (None for K4, which takes none)."""
     from irm_motion_planning_tpu_torch.ops import step_kernels as sk
 
     state = sk.PallasStep(*(x.clone() for x in state0))
@@ -2888,7 +2961,8 @@ def full_width_step(fn, ref, cfg, head, state0, tail, work):
         start_ev = torch.cuda.Event(enable_timing=True)
         end_ev = torch.cuda.Event(enable_timing=True)
         start_ev.record()
-        fn(cfg, *head, *state, *tail, out=state, work=work)
+        fn(cfg, *head, *state, *tail, out=state,
+           **({} if work is None else {"work": work}))
         end_ev.record()
         return start_ev, end_ev
 
@@ -2903,6 +2977,29 @@ def full_width_step(fn, ref, cfg, head, state0, tail, work):
     agree, err = step_errors(plain(tally=tally), state)
     _, plain_ms = timed(plain)
     return ms, plain_ms, tally, agree, err
+
+
+def k6_vs_k5(fk, ek, phase, lanes):
+    """K6's (traj, vel) must be K5's on the same alpha bit for bit: both run
+    the lane body's chains (K6 as a tiled product)."""
+    if not (torch.equal(fk.traj, ek.traj) and torch.equal(fk.vel, ek.vel)):
+        fail(f"phase {phase}: K6 differs from K5's traj/vel on the same "
+             f"alpha ({lanes} lanes)")
+    say(f"phase {phase} K6 bitwise equal to K5's traj/vel on the same alpha "
+        f"({lanes} lanes)")
+
+
+def k6_ragged(sk, cfg, kv, mix, a0, fk, phase):
+    """K6 on the first RAGGED_BATCH lanes (16-byte copies) and the first
+    ODD_BATCH (4-byte copies, B not a multiple of 4) of ``a0``: bit for bit
+    the same lanes of the full batch's ``fk``."""
+    for n in (RAGGED_BATCH, ODD_BATCH):
+        got = sk.forward_eval(cfg, kv, mix, a0[..., :n].contiguous())
+        if not all(torch.equal(x, y[..., :n]) for x, y in zip(got, fk)):
+            fail(f"phase {phase}: K6 on {n} lanes differs from the same lanes "
+                 f"of the full batch")
+    say(f"phase {phase} K6 ragged batch ({RAGGED_BATCH} and {ODD_BATCH} lanes: "
+        f"16-byte and 4-byte copies) bitwise equal to the full batch's lanes")
 
 
 def best_ms(fn, reps=TIMED_LAUNCHES):

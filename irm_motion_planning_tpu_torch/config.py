@@ -11,9 +11,10 @@ GPU is:
 * ``pallas_block_b`` — for the fused kernels (K1/K2, one warp per lane):
   lanes (warps) per CTA, 1..16, 0 picks the default (16); past T = 64 (the
   streamed plan) at most as many as fit in shared memory; for the per-step
-  kernels (K3-K6, one thread per lane): lanes (threads) per block, a
-  multiple of 32, 0 picks the default (128).  Per-lane results do not
-  depend on it.
+  kernels: threads per block, a multiple of 32, 0 picks the default (128):
+  K3 and K5 run a lane per thread, K4 a lane per warp (pallas_block_b / 32
+  lanes per CTA, 1..16; 0 picks 16), K6's tile does not depend on it.
+  Per-lane results do not depend on it.
 * ``recip_newton`` — no effect: the CUDA kernel divides exactly (IEEE
   ``1.0f / s``), where the TPU kernel used an approximate reciprocal.
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is

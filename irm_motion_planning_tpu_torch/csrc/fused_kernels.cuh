@@ -3,7 +3,8 @@
 // fused_solve.cu (the programs bls, gd and bls_exact, and the launch entry
 // points) and fused_tiers.cu (the linearized ladder's kernel tiers ultra
 // and bf16), which nvcc compiles in parallel.  Each program is
-// instantiated in one source only.
+// instantiated in one source only.  step_kernels.cu binds K4's warps with
+// bind_body (the GD program's body).
 
 #pragma once
 

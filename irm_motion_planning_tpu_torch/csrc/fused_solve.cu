@@ -39,11 +39,12 @@
 // penalty escalation in between; K2 runs it once, and a lane that comes in
 // fulfilled passes through.  Sharing the round body is what makes the host
 // rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
-// does for the two TPU kernels.  The per-step kernels K3-K6
+// does for the two TPU kernels.  The per-step kernels K3 and K5
 // (step_kernels.cu) are built from the one-thread-per-lane lane body
-// (lane_body.cuh); the warp body runs the same op sequence, so a lane's
-// result does not depend on which body ran it: K1-GD gives the per-step GD
-// path's (K5 once per round, then K4 per step) results.
+// (lane_body.cuh) and K4 from this warp body; both bodies run the same op
+// sequence, so a lane's result does not depend on which body ran it: K1-GD
+// gives the per-step GD path's (K5 once per round, then K4 per step)
+// results.
 //
 // What bounds K1 and K2 on this card: operations.  ops/roofline.py counts
 // the work of the run (rounds, steps, ladder rungs, accepted trials,
@@ -102,16 +103,6 @@
 #include "fused_kernels.cuh"
 
 #include <stddef.h>
-
-// The specialised instantiation: the bench's T and obstacle slots.  Other
-// shapes run the generic one (TT = OO = 0: T and O read at run time), with
-// the same op sequence and results.
-#define WB_SPEC_T 50
-#define WB_SPEC_O 11
-
-static bool specialised(const FsParams& p) {
-  return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
-}
 
 // K1's and K2's instantiations of one program: streamed (generic), or
 // resident, specialised or generic.

@@ -1,5 +1,5 @@
-// The lane body of the per-step kernels K3-K6 (step_kernels.cu): one thread
-// runs one lane (one scene), with the lane's state planes in device memory,
+// The lane body of the per-step kernels K3 and K5 (step_kernels.cu): one
+// thread runs one lane (one scene), with the lane's state planes in device memory,
 // lanes trailing ((J, T, B): neighbouring threads read neighbouring
 // addresses), and mix and the block's obstacle terms in shared memory.  The
 // basis pair is staged in shared memory too while it fits (16 T^2 bytes
@@ -8,10 +8,12 @@
 // read the same word at the same (row, t): one broadcast from L1.  Which of
 // the two is a template argument (DEV) of the kernels; the op order is the
 // same, so are the results.  A step or an evaluation is the same op sequence in every
-// per-step kernel, as pallas_step's _Body serves the TPU kernels.  The fused
-// kernels K1/K2 (fused_solve.cu) are built from the warp body
-// (warp_body.cuh), which runs this body's op sequence (bls_step and gd_step)
-// one warp per lane and takes FsParams, fk_point and cost_total from here.
+// kernel, as pallas_step's _Body serves the TPU kernels.  The fused kernels
+// K1/K2 (fused_solve.cu) and K4 (step_kernels.cu) are built from the warp
+// body (warp_body.cuh), which runs this body's op sequence (its bls_step;
+// and the GD step, the trial evaluated and its gradient pulled back) one
+// warp per lane and takes FsParams, fk_point and cost_total from here; K6
+// runs forward_planes' chains as a tiled product.
 //
 // Built with -fmad=false: separate multiplies and adds round as they do in
 // the plain PyTorch version; the basis products use explicit fmaf.  Every
@@ -376,12 +378,13 @@ static __device__ float cost_grad_from_traj(const FsParams& p, const Lane& L,
 //
 // Linearized (EXACT false): the direction's forward evaluation into
 // dir_t/dir_v and the ladder on the linearized trajectory.  EXACT: each
-// rung's candidate alpha (1 - lambda_reg lr) alpha - lr (grad inv_norm), in
-// the operand order of the accepted update, goes into ``trial`` ((J, T, B)
-// scratch) and its exact evaluation into dir_t/dir_v, which this tier does
-// not use otherwise; the accepted iterate's (traj, vel) are the accepted
-// rung's evaluation (the same floats as the new alpha's), or, when no rung
-// passed, alpha's evaluated anew.
+// rung's candidate alpha (1 - lambda_reg lr) alpha - lr (grad inv_norm),
+// rounded once (fmaf) as the accepted update is, goes into ``trial`` ((J,
+// T, B) scratch) and its exact evaluation into dir_t/dir_v, which this tier
+// does not use otherwise; the accepted iterate's (traj, vel) are the
+// accepted rung's evaluation (the same floats as the new alpha's), or, when
+// no rung passed, alpha's evaluated anew.  The linearized ladder's new
+// alpha rounds twice, as K1's carry program's does (warp_body.cuh).
 template <bool EXACT>
 static __device__ bool bls_step(const FsParams& p, const Lane& L, float* trial,
                                 float& loss, float& lr) {
@@ -416,7 +419,8 @@ static __device__ bool bls_step(const FsParams& p, const Lane& L, float* trial,
       for (int j = 0; j < NJ; ++j)
         for (int t = 0; t < T; ++t) {
           const size_t i = L.at(j, t);
-          trial[i] = a_fac * L.alpha[i] - lr_r * (L.grad[i] * inv_norm);
+          trial[i] =
+              fmaf(a_fac, L.alpha[i], -(lr_r * (L.grad[i] * inv_norm)));
         }
       Lane E = L;  // the rung's evaluation lives in the direction planes
       E.traj = L.dir_t;
@@ -443,7 +447,9 @@ static __device__ bool bls_step(const FsParams& p, const Lane& L, float* trial,
   for (int j = 0; j < NJ; ++j)
     for (int t = 0; t < T; ++t) {
       const size_t i = L.at(j, t);
-      L.alpha[i] = a_fac * L.alpha[i] - lr_eff * (L.grad[i] * inv_norm);
+      const float ng = L.grad[i] * inv_norm;
+      L.alpha[i] = EXACT ? fmaf(a_fac, L.alpha[i], -(lr_eff * ng))
+                         : a_fac * L.alpha[i] - lr_eff * ng;
       if constexpr (EXACT) {
         if (found) {
           L.traj[i] = L.dir_t[i];
@@ -460,39 +466,6 @@ static __device__ bool bls_step(const FsParams& p, const Lane& L, float* trial,
   loss = stop ? loss_best : cost_grad_from_traj(p, L, true);
   lr = new_lr;
   return stop;
-}
-
-// One GD inner step of a live lane (pallas_step._gd_step): the trial
-// (1 - lambda_reg lr) alpha - lr grad into ``trial`` ((J, T, B) scratch),
-// its exact evaluation into dir_t/dir_v and its loss; the stop test REJECTS
-// the trial, so the state planes (alpha, grad, traj, vel) and ``loss``
-// change only when it does not fire.  Returns stop.
-static __device__ bool gd_step(const FsParams& p, const Lane& L, float* trial,
-                               float& loss, float lr) {
-  const int T = L.T;
-  const float a_fac = 1.f - p.lambda_reg * lr;
-  for (int j = 0; j < NJ; ++j)
-    for (int t = 0; t < T; ++t) {
-      const size_t i = L.at(j, t);
-      trial[i] = a_fac * L.alpha[i] - lr * L.grad[i];
-    }
-  Lane E = L;  // the trial's evaluation lives in the direction planes
-  E.traj = L.dir_t;
-  E.vel = L.dir_v;
-  forward_planes(p, E, trial, 1.f, false);
-  int first;
-  const float nloss = cost_pass(p, E, true, first);
-  if ((loss - nloss) < p.loss_red) return true;
-  for (int j = 0; j < NJ; ++j)
-    for (int t = 0; t < T; ++t) {
-      const size_t i = L.at(j, t);
-      L.alpha[i] = trial[i];
-      L.traj[i] = E.traj[i];
-      L.vel[i] = E.vel[i];
-    }
-  grad_pass(p, L, first);  // overwrites dir_t/dir_v, copied out above
-  loss = nloss;
-  return false;
 }
 
 static __device__ bool constraints_ok(const FsParams& p, const Lane& L) {

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of the port.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``fused_solve.cu``: the whole-solve
-and the per-round kernels, from ``warp_body.cuh``; ``step_kernels.cu``: the
-per-step kernels, from ``lane_body.cuh``), one
+and the per-round kernels, from ``warp_body.cuh``; ``fused_tiers.cu``: their
+kernel tiers; ``step_kernels.cu``: the per-step kernels, K3 and K5 from
+``lane_body.cuh``, K4 from ``warp_body.cuh``, K6 a tiled product), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface under ``build/`` at the repository
 root.  The library is named by the hash of every source and header
@@ -104,20 +105,22 @@ def build() -> str:
 
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
-    signatures: the parameter block and the lanes per block (K3-K6) or per
-    CTA (K1/K2)[, K1/K2's program, body (resident 0, streamed 1) and the
-    CTAs of their grid][, n_r][, K3's ladder tier][, K3-K6's basis (staged
-    0, device memory 1)], then a c_void_p for every tensor pointer; callers
-    pass the stream last, as a c_void_p."""
+    signatures: the parameter block and the lanes per block (K3, K5), per
+    CTA (K1/K2, K4) or the threads per block (K6)[, K1/K2's program, body
+    (resident 0, streamed 1) and the CTAs of their grid][, n_r][, K3's
+    ladder tier][, K3/K5's basis (staged 0, device memory 1)][, K4's body]
+    [, K6's 16-byte copies and its basis' padded rows], then a c_void_p
+    for every tensor pointer; callers pass the stream last, as a
+    c_void_p."""
     from .fused_solve import _Params
 
     for name, n_int, n_ptr in (
         ("fused_solve_launch", 3, 16),
         ("fused_round_launch", 4, 17),
         ("bls_step_launch", 2, 19),
-        ("gd_step_launch", 1, 19),
+        ("gd_step_launch", 1, 18),
         ("cost_grad_eval_launch", 1, 17),
-        ("forward_eval_launch", 1, 6),
+        ("forward_eval_launch", 2, 6),
     ):
         if names is None or name in names:
             fn = getattr(lib, name)
@@ -128,6 +131,12 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     lib.fused_launch_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p]
+    if names is None:  # the whole library: step_kernels.cu's shapes too
+        lib.gd_step_shape.restype = ctypes.c_int
+        lib.gd_step_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+        lib.forward_eval_shape.restype = ctypes.c_int
+        lib.forward_eval_shape.argtypes = [ctypes.c_void_p]
     lib.fused_params_layout.restype = ctypes.c_int
     lib.fused_params_layout.argtypes = [ctypes.c_void_p]
     lib.fused_solve_error_string.restype = ctypes.c_char_p

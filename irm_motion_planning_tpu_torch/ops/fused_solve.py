@@ -365,6 +365,21 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def chain_sum(x):
+    """The sum over the leading axis as one sequential chain, ((0 + x_0) +
+    x_1) + ..., the order of the kernels' sums."""
+    s = torch.zeros_like(x[0])
+    for xi in x:
+        s = s + xi
+    return s
+
+
+def two_roundings(a, b, c):
+    """``a b + c`` in float32 with the product rounded first, then the sum:
+    the linearized carry program's accepted alpha (:func:`bls_step`)."""
+    return a * b + c
+
+
 def bf16_round(x):
     """x rounded to bfloat16 (round to nearest even) and back to float32:
     the values the bf16 tier's ladder planes hold (JAX's ``astype``)."""
@@ -388,19 +403,22 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     JAX's weak typing gives it), the rungs and the accepted iterate are
     formed from them in float32, and the Armijo/stop baseline is the
     zero-lr candidate evaluated like a rung; a frozen lane keeps its
-    incoming loss.  In the ultra and bf16 tiers the accepted alpha ``a_fac
-    alpha - lr_eff n_grad`` is rounded once (:func:`fma`), as XLA contracts
-    it on the CPU: at large T alpha's coefficients are O(1e4), its rounding
-    is of the step's size, and each step start evaluates it exactly, so a
-    second rounding parts that evaluation from the linearized iterate whose
-    loss is the next Armijo baseline, and stops lanes (PERF.md section 7).
-    Exact: each rung's candidate alpha ``(1 - lambda_reg
-    lr_r) alpha - lr_r n_grad`` goes through the basis; the accepted iterate
-    is evaluated exactly (also when the stop test fires) and, unless it
-    fires, its loss and gradient are recomputed there; no FK carry
-    (``px``/``py`` must be None) and no tier (the tiers change nothing
-    there).  ``tally``: see :func:`count_work`.  Returns (alpha, grad, traj,
-    vel, loss, lr, minimized[, px, py])."""
+    incoming loss.  The accepted alpha ``a_fac alpha - lr_eff n_grad`` is
+    rounded once (:func:`fma`), as XLA contracts it on the CPU, in the
+    ultra and bf16 tiers and the exact ladder: at large T alpha's
+    coefficients are O(1e4) and their rounding is of the step's size (in
+    the ultra tiers each step start evaluates it exactly, so a second
+    rounding parts that evaluation from the linearized iterate whose loss is
+    the next Armijo baseline, and stops lanes).  The linearized ladder's
+    carry program rounds it twice (:func:`two_roundings`): once, it moves
+    bench.py's reference scene past its strict endpoint gate (PERF.md
+    section 7).  Exact: each rung's candidate alpha ``(1 - lambda_reg
+    lr_r) alpha - lr_r n_grad``, rounded once, goes through the basis; the
+    accepted iterate is evaluated exactly (also when the stop test fires)
+    and, unless it fires, its loss and gradient are recomputed there; no FK
+    carry (``px``/``py`` must be None) and no tier (the tiers change
+    nothing there).  ``tally``: see :func:`count_work`.  Returns (alpha,
+    grad, traj, vel, loss, lr, minimized[, px, py])."""
     n = cfg.max_bls_iteration
     frozen = minimized
     exact = cfg.ladder_eval == "exact"
@@ -416,13 +434,17 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         traj, vel = forward_planes(kv, mix, alpha)
         if bf16:
             traj, vel = bf16_round(traj), bf16_round(vel)
-    g2 = (grad * grad).sum(dim=1).sum(dim=0)
+    # The direction's scalars as the kernels chain them (per joint over t,
+    # then over the joints): a reduction in another order moves 1/|grad| by
+    # an ulp, which at T=200 moves an O(1e4) coefficient of the new alpha by
+    # one, and the exact evaluation turns that into 4e-3 on traj.
+    g2 = chain_sum(chain_sum((grad * grad).transpose(0, 1)))
     inv_norm = 1.0 / torch.sqrt(g2)
     n_grad = grad * inv_norm
     # Reference quirk (optimizer_BLS.py:86): the sum over ALL (J, J) entries
     # of grad^T n_grad, i.e. sum_t rowsum(grad)_t rowsum(n_grad)_t.
-    gsum = grad.sum(dim=0)
-    alpha_norm = (gsum * (gsum * inv_norm)).sum(dim=0)
+    gsum = chain_sum(grad)
+    alpha_norm = chain_sum(gsum * (gsum * inv_norm))
 
     if not exact:
         gtraj, gvel = forward_planes(kv, mix, n_grad)
@@ -452,7 +474,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         count_work(tally, "rungs", ~found & ~frozen)
         if exact:
             cand_t, cand_v = forward_planes(
-                kv, mix, (1.0 - cfg.lambda_reg * lr_r) * alpha - lr_r * n_grad)
+                kv, mix, fma(1.0 - cfg.lambda_reg * lr_r, alpha,
+                             -(lr_r * n_grad)))
         else:
             cand_t = traj - lr_r * dir_t
             cand_v = vel - lr_r * dir_v
@@ -476,11 +499,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     stop = (loss - loss_best) < cfg.loop_loss_reduction
     count_work(tally, "pullbacks", ~frozen & ~stop)
 
-    a_fac = 1.0 - cfg.lambda_reg * lr_eff
-    if ultra:
-        new_alpha = fma(a_fac, alpha, -(lr_eff * n_grad))
-    else:
-        new_alpha = a_fac * alpha - lr_eff * n_grad
+    new_alpha = (fma if ultra or exact else two_roundings)(
+        1.0 - cfg.lambda_reg * lr_eff, alpha, -(lr_eff * n_grad))
     if exact:
         nt, nv = forward_planes(kv, mix, new_alpha)
     else:
@@ -517,14 +537,14 @@ def gd_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
             lam_sg, lam_jl, alpha, grad, traj, vel, loss, lr, minimized,
             tally=None):
     """One GD inner step for every lane (pallas_step._gd_step): the trial
-    ``(1 - lambda_reg lr) alpha - lr grad``, the fused evaluation at it, and
+    ``(1 - lambda_reg lr) alpha - lr grad`` (rounded once, :func:`fma`, as
+    XLA contracts it on the CPU), the fused evaluation at it, and
     the stop test, which REJECTS the trial (alpha, grad, traj, vel and loss
     keep their incoming values).  ``lr`` (B,) passes through; ``minimized``
     (B,) bool freezes lanes.  ``tally``: see :func:`count_work`.  Returns (alpha,
     grad, traj, vel, loss, lr, minimized)."""
     frozen = minimized
-    a_fac = 1.0 - cfg.lambda_reg * lr
-    trial = a_fac * alpha - lr * grad
+    trial = fma(1.0 - cfg.lambda_reg * lr, alpha, -(lr * grad))
     nloss, ngrad, nt, nv, _, _ = cost_grad_eval(
         cfg, c, kv, kvt, mix, trial, start, goal, obs, lam_sg, lam_jl
     )

@@ -15,17 +15,18 @@ multiply-add as two.  Each sine, cosine, division and square root counts
 as ONE operation, and compares, selects and address arithmetic are not
 counted, so the operation side is a lower bound as the byte side is.
 
-Where a kernel streams the basis (T past the resident plans: K1/K2's
-streamed body, K3-K6 with the basis in device memory), the bound stays the
-function's: its inputs read once, the basis among them, and its
-operations.  What the design streams beside that is a diagnostic,
+Where a kernel streams the basis (T past the resident plans: K1/K2's and
+K4's streamed body, K3/K5 with the basis in device memory; K6 always), the
+bound stays the function's: its inputs read once, the basis among them,
+and its operations.  What the design streams beside that is a diagnostic,
 ``Bound.l2_bytes`` and ``Bound.design_l2_ms``: the basis (8 T^2 bytes per
 product) fits in the 50 MB L2 up to T = 2,500, so it comes from L2, not
-HBM; K1/K2 read it once per basis product per lane (one warp per lane),
-K3-K6 once per product per warp of 32 lanes (every lane of a warp reads
-the same word).  Those reads are a cost of the design (a stream shared by
-the warps of a CTA would cut them by the warps per CTA), not of the
-function, so they do not enter ``ms`` or ``by``.
+HBM; K1/K2 and K4 read it once per basis product per lane (one warp per
+lane), K3/K5 once per product per warp of 32 lanes (every lane of a warp
+reads the same word), K6 once per tile of 64 lanes.  Those reads are a
+cost of the design (a stream shared by the warps of a CTA would cut them
+by the warps per CTA), not of the function, so they do not enter ``ms``
+or ``by``.
 
 Rates: the published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s
 of HBM3, 67 TFLOP/s fp32 outside the tensor cores (TF32 is not used).  The
@@ -45,6 +46,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from .fused_solve import TIER_PROGRAMS
+from .step_kernels import K6_LANES
 
 BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -81,10 +83,10 @@ class Bound(NamedTuple):
 
 class LaneOps(NamedTuple):
     """Operations per lane of the pieces of a lane's work at T timesteps, J
-    joints and O obstacle slots.  The per-step kernels K3-K6 run them as the
-    lane body (csrc/lane_body.cuh, one thread per lane), the fused kernels
-    K1/K2 as the warp body (csrc/warp_body.cuh, one warp per lane); both
-    run the same op sequence, so the counts serve both."""
+    joints and O obstacle slots.  K3 and K5 run them as the lane body
+    (csrc/lane_body.cuh, one thread per lane), K1/K2 and K4 as the warp
+    body (csrc/warp_body.cuh, one warp per lane), K6 as a tiled product;
+    all run the same op sequence, so the counts serve each."""
 
     forward: int      # forward_planes: kv products and the mix combine
     rung: int         # rung_cost: candidate, FK, obstacle field, cost sums
@@ -145,18 +147,19 @@ def product_bytes(T: int) -> float:
 
 
 def _warp_streamed(products: float, T: int, device_basis: bool) -> float:
-    """K3-K6's L2 bytes (the design's diagnostic): ``products`` per-lane
-    basis products, read once per warp of 32 lanes when the basis is in
-    device memory (none when it is staged)."""
+    """K3's and K5's L2 bytes (the design's diagnostic): ``products``
+    per-lane basis products, read once per warp of 32 lanes when the basis
+    is in device memory (none when it is staged)."""
     return products / 32 * product_bytes(T) if device_basis else 0.0
 
 
-def forward_eval(B: int, T: int, J: int, device_basis: bool = False) -> Bound:
-    """K6: alpha in, (traj, vel) out."""
+def forward_eval(B: int, T: int, J: int) -> Bound:
+    """K6: alpha in, (traj, vel) out; the design reads the basis once per
+    tile of K6_LANES lanes (step_kernels.forward_plan)."""
     b = _lane_bytes(T, J, 0)
     return Bound(B * 3 * b["plane"] + (2 * T * T + J * J) * F32,
                  B * LaneOps.at(T, J, 0).forward,
-                 _warp_streamed(B, T, device_basis))
+                 -(-B // K6_LANES) * product_bytes(T))
 
 
 def cost_grad_eval(B: int, T: int, J: int, O: int,
@@ -202,18 +205,20 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
 
 
 def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
-                  device_basis: bool = False) -> Bound:
+                  streamed: bool = False) -> Bound:
     """K4 in place, from the plain version's tally: a live lane reads alpha,
     grad, loss, lr, penalties and scene and evaluates the trial; an accepted
     trial writes alpha, grad, traj, vel and loss and pays the pull-back; a
-    stop writes the flag."""
+    stop writes the flag.  ``streamed``: the warp body streams the basis,
+    once per product and lane (K1's streamed body)."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     steps, acc = _total(tally["steps"]), _total(tally["accepted"])
     live_in = 2 * b["plane"] + 4 * b["scalar"] + b["scene"]
     byts = (B * F32 + steps * live_in + acc * (4 * b["plane"] + F32)
             + (steps - acc) * F32 + _basis_bytes(T, J))
     ops = steps * (n.trial + n.forward + n.cost + n.loss) + acc * n.grad
-    return Bound(byts, ops, _warp_streamed(steps + acc, T, device_basis))
+    return Bound(byts, ops,
+                 (steps + acc) * product_bytes(T) if streamed else 0.0)
 
 
 def fused_products(B: int, tally: dict, whole_solve: bool,

@@ -15,16 +15,21 @@ B)``, per-lane scalars ``(1, B)``, start/goal ``(J, B)``, obstacles ``(O,
 B)``; results as ``PallasStep``/``PallasEval``/``PallasForward``.  CPU
 tensors run the ``*_reference`` plain version beside each wrapper (built
 from ops/fused_solve.py's pieces); CUDA tensors launch the kernel
-(csrc/step_kernels.cu, ``cfg.pallas_block_b`` lanes per block, 128 when 0,
-the basis staged in shared memory or read from device memory as
-:func:`step_plan` decides) or raise.
+(csrc/step_kernels.cu) or raise.  ``cfg.pallas_block_b`` is threads per
+block (128 when 0): K3 and K5 run one thread per lane, the basis staged in
+shared memory or read from device memory as :func:`step_plan` decides; K4
+runs one warp per lane, ``pallas_block_b / 32`` lanes per CTA
+(fused_solve.DEFAULT_WARPS when 0) in K1-GD's launch plan
+(:func:`gd_step_plan`); K6 is a tiled product whose tile does not depend
+on it (:func:`forward_plan`).
 
 ``out``: where the results go.  For K3/K4 a PallasStep of state tensors;
 passing the input state itself updates it in place (what the solver's
 driver does: the kernels write each lane's column where it lies).  Without
-``out`` the inputs are left as they are.  ``work``: the kernels' workspace
-(:func:`workspace`), allocated by the caller once per solve; without it a
-call allocates its own.
+``out`` the inputs are left as they are.  ``work``: the workspace of K3
+and K5 (:func:`workspace`), allocated by the caller once per solve;
+without it a call allocates its own.  K4 and K6 take none: K4 keeps the
+trial, its evaluation and the gradient rows on chip.
 """
 
 from __future__ import annotations
@@ -37,16 +42,16 @@ import torch
 from ..config import PlannerConfig
 from . import fused_solve as fs
 
-# Lanes (threads) per block of K3-K6 when ``cfg.pallas_block_b`` is 0.  The
-# fused kernels K1/K2 read the same field as warps per CTA
-# (fused_solve.DEFAULT_WARPS).
+# Threads per block of K3 and K5 (a lane each) when ``cfg.pallas_block_b``
+# is 0.  K4 and the fused kernels K1/K2 run a lane per warp, and 0 gives
+# them fused_solve.DEFAULT_WARPS warps per CTA.
 DEFAULT_BLOCK_B = 128
 
 
 def step_plan(cfg: PlannerConfig, O: int) -> dict:
-    """K3-K6's dynamic shared memory per block, by piece, in bytes (mirror
-    of smem_bytes in csrc/lane_body.cuh): the basis pair (16 T^2 bytes; K6
-    stages kv only) while it fits in fused_solve.SMEM_PER_CTA_MAX beside
+    """K3's and K5's dynamic shared memory per block, by piece, in bytes
+    (mirror of smem_bytes in csrc/lane_body.cuh): the basis pair (16 T^2
+    bytes) while it fits in fused_solve.SMEM_PER_CTA_MAX beside
     mix and the block's four obstacle planes (``"basis": "staged"``), else
     none: the kernels read it from device memory (``"device"``).  Returns
     {"basis", "bytes": {piece: bytes}, "total"}.  Raises
@@ -67,6 +72,93 @@ def step_plan(cfg: PlannerConfig, O: int) -> dict:
             f"bytes: {O} obstacles x {bt} lanes per block) do not fit in "
             f"{fs.SMEM_PER_CTA_MAX} bytes of shared memory per block")
     return {"basis": where, "bytes": pieces, "total": total}
+
+
+def gd_step_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K4's launch plan: one warp per lane, ``cfg.pallas_block_b / 32``
+    lanes per CTA (fused_solve.DEFAULT_WARPS when it is 0), in K1-GD's plan
+    (fused_solve.launch_plan of the ``gd`` program: the resident body up to
+    T = 64, the streamed one beyond, which takes as many of those lanes as
+    fit), with its shared memory per CTA by piece.  Raises ValueError for a
+    ``pallas_block_b`` that is not 32-512 threads in whole warps (or 0),
+    NotImplementedError where no plan fits (fleet_solve then runs xla)."""
+    bt = cfg.pallas_block_b
+    if bt and not (bt % 32 == 0 and 1 <= bt // 32 <= fs.MAX_WARPS):
+        raise ValueError(
+            f"gd_inner_step runs one warp per lane: pallas_block_b must be "
+            f"32-{32 * fs.MAX_WARPS} threads in whole warps (0: "
+            f"{fs.DEFAULT_WARPS} warps), got {bt}")
+    return fs.launch_plan(cfg.replace(pallas_block_b=bt // 32), O, prog="gd")
+
+
+def gd_step_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
+    """What the card makes of K4's plan (:func:`gd_step_plan`): CTAs per SM
+    (the occupancy calculator), SMs, shared memory per CTA as the C side
+    computes it (gd_step_shape in csrc/step_kernels.cu), warps per SM.
+    Needs the card."""
+    from ._build import load_library
+
+    lp = gd_step_plan(cfg, O)
+    out = (ctypes.c_int * 3)()
+    err = load_library().gd_step_shape(
+        fs.kernel_params(cfg, O, B, schedule=False), lp["warps"],
+        fs.PLANS.index(lp["plan"]), out)
+    if err:
+        raise RuntimeError(f"gd_inner_step: launch shape refused (CUDA error "
+                           f"{err})")
+    return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
+            "warps_per_sm": out[0] * lp["warps"]}
+
+
+# K6's tile (csrc/step_kernels.cu, K6_*): output rows of kv and lanes per
+# CTA, timesteps per stage, threads; two stages.
+K6_ROWS, K6_LANES, K6_TK, K6_THREADS, K6_STAGES = 64, 64, 10, 256, 2
+
+
+def forward_plan(cfg: PlannerConfig) -> dict:
+    """K6's tile: a CTA computes K6_ROWS of the 2T output rows of kv for
+    K6_LANES consecutive lanes and all J joints, staging K6_TK timesteps of
+    the transposed basis and of alpha per stage, K6_STAGES stages (static
+    shared memory, mirror of K6Tiles); the grid is ``row_tiles`` x the lane
+    tiles, row tiles fastest.  Returns {"rows", "lanes", "tk", "threads",
+    "stages", "row_tiles", "lda" (the transposed basis' padded row count),
+    "bytes": {piece: bytes}, "total"}."""
+    T, J = cfg.n_timesteps, cfg.n_joints
+    row_tiles = -(-2 * T // K6_ROWS)
+    f = 4
+    pieces = {"basis": f * K6_STAGES * K6_TK * K6_ROWS,
+              "alpha": f * K6_STAGES * J * K6_TK * K6_LANES}
+    return {"rows": K6_ROWS, "lanes": K6_LANES, "tk": K6_TK,
+            "threads": K6_THREADS, "stages": K6_STAGES,
+            "row_tiles": row_tiles, "lda": row_tiles * K6_ROWS,
+            "bytes": pieces, "total": sum(pieces.values())}
+
+
+def forward_eval_shape() -> dict:
+    """K6's tile as the library was compiled (forward_eval_shape in
+    csrc/step_kernels.cu): rows, lanes, timesteps per stage, threads,
+    shared memory per CTA, and the CTAs that fit on one SM.  Needs the
+    card."""
+    from ._build import load_library
+
+    out = (ctypes.c_int * 6)()
+    err = load_library().forward_eval_shape(out)
+    if err:
+        raise RuntimeError(f"forward_eval: shape refused (CUDA error {err})")
+    return dict(zip(("rows", "lanes", "tk", "threads", "smem", "ctas_per_sm"),
+                    out))
+
+
+def forward_basis(kv, lda: int):
+    """kv (2T, T) as K6 reads it: transposed, (T, lda), its 2T rows padded
+    with zeros to ``lda`` (forward_plan's); built once per basis
+    (fused_solve.memo)."""
+    def build(m):
+        out = torch.zeros((m.shape[1], lda), dtype=m.dtype, device=m.device)
+        out[:, :m.shape[0]] = m.T
+        return out
+
+    return fs.memo("forward_basis", build, kv)
 
 
 class PallasStep(NamedTuple):
@@ -92,10 +184,10 @@ class PallasForward(NamedTuple):
 
 
 def workspace(J: int, T: int, B: int, device, trial: bool = False):
-    """The per-step kernels' scratch planes, (2J + 2, T, B): the direction
+    """The scratch planes of K3 and K5, (2J + 2, T, B): the direction
     planes dir_t, dir_v and the obstacle-gradient planes gx, gy; with
-    ``trial`` also a trial alpha (GD's trial, the exact ladder's rung
-    candidate), (3J + 2, T, B).  The larger size serves every kernel."""
+    ``trial`` also a trial alpha (the exact ladder's rung candidate), (3J +
+    2, T, B).  The larger size serves both kernels."""
     planes = (3 if trial else 2) * J + 2
     return torch.empty((planes, T, B), dtype=torch.float32, device=device)
 
@@ -215,6 +307,20 @@ def _into(out, res):
     return out
 
 
+def _gd_launch(cfg: PlannerConfig, O: int, B: int, dev, kv, kvt, mix, tail,
+               state) -> None:
+    """Launch K4 in its plan (:func:`gd_step_plan`; the streamed body takes
+    the basis pair as fused_solve.streamed_basis gives it)."""
+    from ._build import launch
+
+    lp = gd_step_plan(cfg, O)
+    streamed = lp["plan"] == "streamed"
+    if streamed:
+        kv, kvt = fs.streamed_basis(kv, kvt)
+    launch("gd_step", fs.kernel_params(cfg, O, B, schedule=False), lp["warps"],
+           [ctypes.c_int(int(streamed)), kv, kvt, mix, *tail, *state], dev)
+
+
 def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
           reference, wrapper) -> PallasStep:
     supported = fs.solver_check("gd" if gd else "bls")
@@ -236,16 +342,17 @@ def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
             if o.data_ptr() != x.data_ptr():
                 o.copy_(x)
     dev = args[3].device
-    # The BLS step's instantiation (a kernel template argument): the ladder
-    # tier; the exact ladder stages its rung candidates in the trial plane.
-    exact = not gd and cfg.ladder_eval == "exact"
-    work = _check_work(name, work, J, T, B, dev, gd or exact)
-    kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow = (
-        x.contiguous() for x in args[:3] + args[10:])
-    _launch(name, cfg, ox.shape[0], B, dev,
-            ([] if gd else [ctypes.c_int(int(exact))])
-            + [kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, *out,
-               work])
+    kv, kvt, mix, *tail = (x.contiguous() for x in args[:3] + args[10:])
+    if gd:
+        _gd_launch(cfg, tail[-1].shape[0], B, dev, kv, kvt, mix, tail, out)
+    else:
+        # The BLS step's instantiation (a kernel template argument): the
+        # ladder tier; the exact ladder stages its rung candidates in the
+        # trial plane.
+        exact = cfg.ladder_eval == "exact"
+        work = _check_work(name, work, J, T, B, dev, exact)
+        _launch(name, cfg, tail[-1].shape[0], B, dev,
+                [ctypes.c_int(int(exact)), kv, kvt, mix, *tail, *out, work])
     wrapper.launches += 1
     return out
 
@@ -269,14 +376,14 @@ bls_inner_step.launches = 0
 
 def gd_inner_step(cfg: PlannerConfig, kv, kvt, mix, alpha, grad, traj, vel,
                   loss, lr, minimized, lam_sg, lam_jl, start, goal, ox, oy,
-                  ow, out: Optional[PallasStep] = None,
-                  work: Optional[torch.Tensor] = None) -> PallasStep:
-    """One GD inner step for every lane (K4).  On stop the trial is
-    rejected; ``lr`` passes through; frozen lanes pass through.  The traj
-    and vel it returns are exact evaluations at the returned alpha."""
+                  ow, out: Optional[PallasStep] = None) -> PallasStep:
+    """One GD inner step for every lane (K4: one warp per lane, in the plan
+    of :func:`gd_step_plan`).  On stop the trial is rejected; ``lr`` passes
+    through; frozen lanes pass through.  The traj and vel it returns are
+    exact evaluations at the returned alpha.  It needs no workspace."""
     args = (kv, kvt, mix, alpha, grad, traj, vel, loss, lr, minimized,
             lam_sg, lam_jl, start, goal, ox, oy, ow)
-    return _step("gd_step", cfg, args, out, work, True,
+    return _step("gd_step", cfg, args, out, None, True,
                  gd_inner_step_reference, gd_inner_step)
 
 
@@ -319,9 +426,10 @@ cost_grad_eval.launches = 0
 
 def forward_eval(cfg: PlannerConfig, kv, mix, alpha,
                  out: Optional[PallasForward] = None) -> PallasForward:
-    """Exact (traj, vel) of alpha for every lane (K6): the op sequence of
-    the kernels' in-kernel re-evaluation.  Used by the per-step backend for
-    the end-of-round exact constraint check."""
+    """Exact (traj, vel) of alpha for every lane (K6, the tiled product of
+    :func:`forward_plan`): the floats of the kernels' in-kernel
+    re-evaluation.  Used by the per-step backend for the end-of-round exact
+    constraint check."""
     args = (kv, mix, alpha)
     where = fs._check_args("forward_eval", cfg,
                            tuple(zip(("kv", "mix", "alpha"), args)),
@@ -335,11 +443,20 @@ def forward_eval(cfg: PlannerConfig, kv, mix, alpha,
     J, T, B = alpha.shape
     if J != 3:
         raise NotImplementedError("the CUDA kernels are built for J=3 joints")
+    from ._build import launch
+
     dev = alpha.device
     if out is None:
         out = PallasForward(torch.empty_like(alpha), torch.empty_like(alpha))
-    _launch("forward_eval", cfg, 0, B, dev,
-            [*(x.contiguous() for x in args), *out])
+    plan = forward_plan(cfg)
+    kvT = forward_basis(kv.contiguous(), plan["lda"])
+    alpha = alpha.contiguous()
+    # 16-byte copies and stores where every row of a plane is 16-byte
+    # aligned.
+    vec = B % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (alpha, *out))
+    launch("forward_eval", fs.kernel_params(cfg, 0, B, schedule=False),
+           plan["threads"], [ctypes.c_int(int(vec)), ctypes.c_int(plan["lda"]),
+                             kvT, mix.contiguous(), alpha, *out], dev)
     forward_eval.launches += 1
     return out
 

@@ -316,7 +316,11 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
     ill-conditioned parametrization, above the margin of small-lr rungs and
     the 1e-3 stop threshold, and flips near-threshold decisions (in the JAX
     package it took the converged fraction from the reference's 53% to
-    77% on 256 random scenes)."""
+    77% on 256 random scenes).  The accepted alpha and the exact ladder's
+    candidates ``a_fac alpha - lr n_grad`` are rounded once
+    (fused_solve.fma), as XLA forms them on the CPU: at T=200 the
+    coefficients are O(1e4) and two roundings part from JAX's engine by
+    more than bench.py's converged band (PERF.md section 7)."""
     n = cfg.max_bls_iteration
     dev = basis.kv.device
     # float32 powers of beta_minus, as jnp.power computes them (exact for
@@ -340,9 +344,9 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
             cand_traj = a_fac * s.traj[:, :, None] - lrs_b * gtraj[:, :, None]
             cand_vel = a_fac * s.vel[:, :, None] - lrs_b * gvel[:, :, None]
         else:
-            cand_traj, cand_vel = fleet_evaluate(
-                cfg, basis, a_fac * s.alpha[:, :, None]
-                - lrs_b * n_grad[:, :, None])                   # (T, J, n+1, B)
+            cand_traj, cand_vel = fleet_evaluate(       # (T, J, n+1, B)
+                cfg, basis, fs.fma(a_fac, s.alpha[:, :, None],
+                                   -(lrs_b * n_grad[:, :, None])))
         cand_loss = fleet_cost_from_traj(cfg, scn, penalty, cand_traj,
                                          cand_vel)                  # (n+1, B)
         del cand_traj, cand_vel
@@ -353,7 +357,8 @@ def make_bls_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
         j = ok.to(torch.uint8).argmax(0)[None]       # first passing rung
         lr_sel = torch.gather(lrs, 0, j)[0]
         lr_eff = torch.where(any_ok, lr_sel, 0.0)    # rejected: no step
-        new_alpha = (1.0 - cfg.lambda_reg * lr_eff) * s.alpha - lr_eff * n_grad
+        new_alpha = fs.fma(1.0 - cfg.lambda_reg * lr_eff, s.alpha,
+                           -(lr_eff * n_grad))
         sel_loss = torch.gather(cand_loss[:n], 0, j)[0]
         new_loss = torch.where(any_ok, sel_loss, base_loss)
         new_lr = torch.where(any_ok, lr_sel * cfg.bls_beta_plus,
@@ -410,7 +415,8 @@ def make_gd_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
     184-194), in :func:`run_dual_loop`'s factory form.  The learning rate is
     per lane, ``gd_lr[clip(outer_iter)]`` (lanes can sit at different
     penalty rounds, ref: optimizer_GD.py:209); the stop test REJECTS the
-    step; minimized and budget-exhausted lanes freeze."""
+    step; minimized and budget-exhausted lanes freeze.  The trial is
+    rounded once (fused_solve.fma), as XLA forms it."""
     dev = basis.kv.device
     lr_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
     last = len(cfg.gd_lr) - 1
@@ -420,7 +426,8 @@ def make_gd_inner(cfg: PlannerConfig, basis: Basis, scn: Scenario):
         bound = inner_loop_bound(cfg, round_idx)
 
         def raw_step(s: GdInner, penalty: Penalty) -> GdInner:
-            new_alpha = (1.0 - cfg.lambda_reg * lr) * s.alpha - lr * s.grad
+            new_alpha = fs.fma(1.0 - cfg.lambda_reg * lr, s.alpha,
+                               -(lr * s.grad))
             new_loss, new_grad = fleet_cost_and_grad(cfg, basis, scn, penalty,
                                                      new_alpha)
             stop = s.loss - new_loss < cfg.loop_loss_reduction
@@ -586,7 +593,8 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     fulfilled in an earlier round enter minimized, so they pass through.
 
     The state lives in kernel layout (J, T, B) in buffers allocated once per
-    solve, with the workspace; the step kernels update it in place.  A step
+    solve, with the workspace of K5 and K3 (K4 needs none: its trial and
+    scratch stay on chip); the step kernels update it in place.  A step
     counts where the lane was live before it and after it.  Frozen lanes
     pass through unchanged, so the driver stops launching steps once no
     lane of the round is live (one host check per step) and stops the rounds
@@ -603,7 +611,11 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     gd_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
     inc = float(cfg.lambda_constraint_increase)
     alpha = a0.clone()
-    work = sk.workspace(J, T, B, dev, trial=gd or cfg.ladder_eval == "exact")
+    # K5's workspace, with K3-exact's trial plane; K4 keeps its scratch on
+    # chip.
+    work = sk.workspace(J, T, B, dev,
+                        trial=not gd and cfg.ladder_eval == "exact")
+    step_work = {} if gd else {"work": work}
     ev = sk.PallasEval(torch.empty((1, B), dtype=torch.float32, device=dev),
                        *(torch.empty_like(alpha) for _ in range(3)))
     fulfilled = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -630,7 +642,7 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
             if not bool(live.any()):
                 break
             getattr(sk, step)(cfg, kv, kvt, mix, *state, *lanes, out=state,
-                              work=work)
+                              **step_work)
             iters += (live & (state.minimized[0] < 0.5)).to(torch.int32)
         traj, vel = state.new_traj, state.new_vel
         if exact_cc:
@@ -696,7 +708,12 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         )
     if backend not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    plan = (fs.kernel_plan(cfg, scenarios.obstacles.shape[-2], solver)
+    # The plans' ceiling (one lane's state per CTA) does not depend on the
+    # lanes per CTA; for the per-step kernels pallas_block_b is threads per
+    # block, which K1's plan would read as warps.
+    plan = (fs.kernel_plan(cfg if backend == "fused"
+                           else cfg.replace(pallas_block_b=0),
+                           scenarios.obstacles.shape[-2], solver)
             if backend in ("fused", "pallas") else None)
     if backend in ("fused", "pallas") and (plan is None or (
             backend == "pallas" and plan["bf16"])):

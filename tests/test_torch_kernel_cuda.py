@@ -531,6 +531,38 @@ def test_step_kernels_match_plain_versions_at_t200(args200):
         assert float(rel.max()) <= tfs.ALPHA_REL_MAX
 
 
+@pytest.mark.parametrize("which", ["args", "args200"])
+def test_forward_eval_is_cost_grad_evals_evaluation(request, which):
+    """K6 (the tiled product) gives K5's traj and vel on the same alpha bit
+    for bit, at T = 50 and T = 200, on 1,000 lanes (16-byte copies) and on
+    999 (4-byte copies, B not a multiple of 4)."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = (
+        request.getfixturevalue(which))
+    for n in (BATCH, BATCH - 1):
+        cut = [x[..., :n].contiguous() for x in (a0, lsg, ljl, start, goal,
+                                                  ox, oy, ow)]
+        ev = sk.cost_grad_eval(cfg, kv, kvt, mix, *cut)
+        fw = sk.forward_eval(cfg, kv, mix, cut[0])
+        assert torch.equal(fw.traj, ev.traj) and torch.equal(fw.vel, ev.vel)
+
+
+@pytest.mark.parametrize("threads", [32, 160, 512])
+def test_gd_step_lanes_do_not_depend_on_lanes_per_cta(args200, threads):
+    """K4 at T = 200 (the streamed body) at 1, 5 and 10 lanes (warps) per
+    CTA gives the default's outputs bit for bit."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args200
+    ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox,
+                           oy, ow)
+    state = (a0, ev.grad, ev.traj, ev.vel, ev.loss,
+             torch.full_like(lsg, cfg.gd_lr[0]), torch.zeros_like(lsg))
+    tail = (lsg, ljl, start, goal, ox, oy, ow)
+    want = sk.gd_inner_step(cfg, kv, kvt, mix, *state, *tail)
+    got = sk.gd_inner_step(cfg.replace(pallas_block_b=threads), kv, kvt, mix,
+                           *state, *tail)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 # --------------------------------------------------------------------------
 # The kernel tiers of K1/K2 (the linearized ladder's lean, ultra and bf16
 # tiers; lean runs the linearized program, fused_solve.program).

@@ -143,3 +143,103 @@ def test_fused_round_cpu_runs_plain_version(args):
     assert torch.equal(got.alpha[..., 1], rargs[4][..., 1])
     assert float(got.ok[0, 1]) == 1.0 and float(got.inner[0, 1]) == 0.0
     assert tfs.fused_round.launches == before
+
+
+# --------------------------------------------------------------------------
+# K4 (one warp per lane, K1-GD's plan) and K6 (the tiled product).
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T,threads,warps,plan", [
+    (50, 0, 16, "resident"), (50, 32, 1, "resident"), (50, 64, 2, "resident"),
+    (50, 160, 5, "resident"), (50, 512, 16, "resident"),
+    (200, 0, 10, "streamed"), (200, 64, 2, "streamed"),
+    (200, 320, 10, "streamed"), (200, 512, 10, "streamed")])
+def test_gd_step_plan_is_k1_gds(T, threads, warps, plan):
+    """K4's lanes per CTA are ``pallas_block_b / 32`` (one warp per lane;
+    the default 16), in K1-GD's launch plan: the resident body at T = 50,
+    the streamed one at T = 200, which takes as many of them as fit (10).
+    The plan reports the shared memory per CTA by piece, K1-GD's own, and
+    fits a CTA."""
+    cfg = mt.PlannerConfig(n_timesteps=T, pallas_block_b=threads,
+                           max_obstacles=11)
+    got = sk.gd_step_plan(cfg, 11)
+    want = tfs.launch_plan(cfg.replace(pallas_block_b=threads // 32), 11,
+                           prog="gd")
+    assert (got["warps"], got["plan"]) == (warps, plan)
+    assert got == want
+    assert got["total"] == sum(got["bytes"].values()) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("threads", [48, 544, 1024])
+def test_gd_step_plan_refuses_partial_warps(args, threads):
+    """A ``pallas_block_b`` that is not whole warps, or more than 16 of
+    them, is refused before anything runs, on the CPU too."""
+    cfg = args[0].replace(pallas_block_b=threads)
+    with pytest.raises(ValueError, match="one warp per lane"):
+        sk.gd_step_plan(cfg, 11)
+
+
+@pytest.mark.parametrize("T,row_tiles", [(25, 1), (50, 2), (200, 7)])
+def test_forward_plan_reports_its_tile(T, row_tiles):
+    """K6's tile: 64 of the 2T output rows by 64 lanes per CTA, 10
+    timesteps per stage in two stages, 256 threads, its static shared
+    memory by piece (the transposed basis' and alpha's stages: 5,120 and
+    15,360 B); the basis' rows padded to the row tiles."""
+    plan = sk.forward_plan(mt.PlannerConfig(n_timesteps=T))
+    assert (plan["rows"], plan["lanes"], plan["tk"], plan["threads"],
+            plan["stages"]) == (64, 64, 10, 256, 2)
+    assert plan["row_tiles"] == row_tiles and plan["lda"] == 64 * row_tiles
+    assert plan["bytes"] == {"basis": 5120, "alpha": 15360}
+    assert plan["total"] == 20480
+
+
+def test_forward_basis_is_the_padded_transpose():
+    """K6 reads kv transposed, its 2T rows zero-padded to the plan's lda,
+    built once per basis."""
+    cfg = mt.PlannerConfig()
+    kv = mt.make_basis(cfg, device="cpu").kv
+    lda = sk.forward_plan(cfg)["lda"]
+    got = sk.forward_basis(kv, lda)
+    assert got.shape == (50, lda)
+    assert torch.equal(got[:, :100], kv.T)
+    assert not got[:, 100:].any()
+    assert sk.forward_basis(kv, lda) is got
+
+
+@pytest.mark.parametrize("solver", ["bls", "gd"])
+def test_per_step_backend_takes_threads_per_block(solver):
+    """fleet_solve(backend="pallas") reads ``pallas_block_b`` as threads per
+    block (K4: whole warps), not as K1's lanes per CTA: 128 runs and gives
+    the default's result."""
+    cfg = mt.PlannerConfig(**SHORT)
+    basis = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(2), 2,
+                               device="cpu")
+    want = fleet.fleet_solve(cfg, basis, scns, solver=solver,
+                             backend="pallas")
+    got = fleet.fleet_solve(cfg.replace(pallas_block_b=128), basis, scns,
+                            solver=solver, backend="pallas")
+    assert torch.equal(got.alpha, want.alpha)
+
+
+@pytest.mark.parametrize("solver,ladder,trial", [
+    ("gd", "linearized", False), ("bls", "linearized", False),
+    ("bls", "exact", True)])
+def test_per_step_driver_workspace(monkeypatch, solver, ladder, trial):
+    """The per-step driver allocates K5's workspace, with the trial plane
+    only for K3's exact ladder: K4 keeps its trial on chip."""
+    made = []
+    workspace = sk.workspace
+
+    def spy(*a, **kw):
+        made.append(kw.get("trial", False))
+        return workspace(*a, **kw)
+
+    monkeypatch.setattr(sk, "workspace", spy)
+    cfg = mt.PlannerConfig(ladder_eval=ladder, **SHORT)
+    basis = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(2), 2,
+                               device="cpu")
+    fleet.fleet_solve(cfg, basis, scns, solver=solver, backend="pallas")
+    assert made == [trial]

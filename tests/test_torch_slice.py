@@ -114,7 +114,7 @@ def test_bench_schedule_on_plain_path():
     max_obstacles=11) on the reference scene at B=8 through the port's
     plain path, with bench.py's cost gate and the loose endpoint bound
     (whether the endpoint lands under 0.01 depends on the fp path).
-    Measured: avg 1.6477, max 2.1965, endpoint 0.0094."""
+    Measured: avg 1.6477, max 2.1965, endpoint 0.0095."""
     out = bench.run_bench(batch=8, repeats=1, device="cpu")
     res = out["result"]
     print(f"bench schedule, plain path: avg {out['avg_cost']} max "

@@ -191,20 +191,21 @@ def test_one_step_reference_matches_jax(setup, step_inputs, moderate, solver,
     evaluation of the same alpha, with a quarter of the lanes frozen,
     penalties x1/x10/x100 and mixed learning rates.  Frozen lanes pass
     through bit for bit on both sides; lr and the stop flags are equal on
-    every lane.  From the warm start the two sides' GD trials (O(1e4)
-    coefficients) differ by an ulp, which the forward product's cancellation
-    turns into 2e-3 on traj and 2e-2 on vel, and from there into the loss
-    and gradient.  Measured on the live lanes:
+    every lane.  From the warm start the GD trial's O(1e4) coefficients
+    would part by an ulp under two roundings, which the forward product's
+    cancellation turns into 2e-3 on traj; both sides round it once (an
+    FMA), and the trials are equal.  Measured on the live lanes:
 
     - moderate, BLS (no lane stops): alpha 1.2e-7, traj 2.2e-7, vel 1.1e-6,
       loss 2.4e-6, gradient within 1e-4 on every lane;
-    - moderate, GD (27 of 98 stop): alpha 1.2e-7, traj 2.4e-7, vel 1.9e-6,
+    - moderate, GD (27 of 98 stop): alpha 0, traj 2.4e-7, vel 9.5e-7,
       loss 2.4e-6, gradient within 1e-4 on every lane;
     - warm start, BLS (3 stop): alpha 1.2e-7, traj 1.2e-7, vel 4.8e-7, loss
       6.3e-6, gradient within 1e-4 on 97 of 98 lanes (one at 1.4e-2: a
       near tie);
-    - warm start, GD (46 stop): alpha 1.1e-7, traj 2.1e-3, vel 1.7e-2, loss
-      3.5e-4, gradient within 1e-4 on 0.79 of the lanes."""
+    - warm start, GD (46 stop): alpha 0, traj 2.4e-7, vel 2.4e-7, loss
+      6.2e-6, gradient within 1e-4 on every lane (two roundings: traj
+      2.1e-3, vel 1.7e-2, loss 3.5e-4, 0.79 of the lanes)."""
     jcfg, tcfg, _, _ = setup
     d = step_inputs
     if start == "warm start":
@@ -403,8 +404,9 @@ def test_bench_cpu_rehearsal(capsys, flags, metric):
     reference scene at B=2 over the solver's full schedule, under the
     solver's own gate (avg/max within 2% of REFERENCE_FINAL_COST[solver];
     endpoint < 0.01 for BLS, < 0.042 for GD).  Measured: BLS per-step avg
-    1.6477, max 2.1965, endpoint 0.0094; GD avg 1.6723, max 2.2147,
-    endpoint 0.0351 on both backends."""
+    1.6477, max 2.1965, endpoint 0.0095; GD avg 1.6667, max 2.2034,
+    endpoint 0.0326 on both backends (GD's trial rounded once, as XLA
+    forms it)."""
     rc = bench.main(["--device", "cpu", "--batch", "2", "--repeats", "1",
                      *flags])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

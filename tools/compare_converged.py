@@ -1,20 +1,27 @@
-"""Converged fractions of the four BLS engines on the same random scenes.
+"""Converged fractions of the four engines on the same random scenes.
 
     JAX_PLATFORMS=cpu python tools/compare_converged.py [--T 200] \\
-        [--scenes 512] [--chunk 64] [--ladder-eval linearized] [--seed 0] \\
-        [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings]
+        [--scenes 512] [--chunk 64] [--solver bls] \\
+        [--ladder-eval linearized] [--seed 0] \\
+        [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
+        [--one-rounding]
 
-On the CPU, with the bench's BLS schedule (REFERENCE_INNER_SCHEDULE_BLS,
-``max_obstacles=11``) at T (a committed basis export) and the port's random
-scenes of ``--seed``: the JAX package's fused kernel (interpreted, in chunks of
-``--chunk`` lanes, ``recip_newton=True``) and its xla engine, and the
-port's fused backend (the plain K1) and xla engine; with ``--tiers`` also
-JAX's fused kernel and the port's plain K1 in the linearized ladder's
-kernel tiers (lean, ultra, bf16); ``--port-only`` leaves the JAX engines
-out; ``--two-roundings`` also runs the port's plain K1 in the ultra and
-bf16 tiers with the accepted alpha rounded twice (``a_fac alpha`` rounded,
-then the step subtracted), as the linearized program forms it, where the
-tiers round it once (fused_solve.fma; PERF.md section 7).  Prints the
+On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
+tier ``--ladder-eval``, or GD; ``max_obstacles=11``) at T (a committed
+basis export) and the port's random scenes of ``--seed``: the JAX
+package's fused kernel (interpreted, in chunks of ``--chunk`` lanes,
+``recip_newton=True``) and its xla engine, and the port's fused backend
+(the plain K1) and xla engine; with ``--tiers`` also JAX's fused kernel
+and the port's plain K1 in the linearized ladder's kernel tiers (lean,
+ultra, bf16); ``--port-only`` leaves the JAX engines out;
+``--two-roundings`` also runs each of the port's engines with every
+update the port forms with one rounding (fused_solve.fma, as XLA forms it
+on the CPU: the accepted alpha ``a_fac alpha - lr g`` of the xla engine and
+of every fused program but the linearized carry program, GD's trial, the
+exact ladder's rung candidates) rounded twice instead (``a_fac alpha``
+rounded, then the step subtracted: fused_solve.two_roundings);
+``--one-rounding`` runs them with every update rounded once, the carry
+program's accepted alpha too (PERF.md section 7).  Prints the
 converged count of each per chunk, and in all the converged fraction, the
 mean accepted steps and the mean unpenalized obstacle cost (the paired
 gate's cost, bench.mean_obstacle_cost).  bench.py's paired gate holds a
@@ -49,24 +56,23 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-def _two_roundings(a, b, c):
-    """``a b + c`` in float32 with the product rounded first (what
-    fused_solve.fma rounds once)."""
-    return a * b + c
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--T", type=int, default=200)
     ap.add_argument("--scenes", type=int, default=512)
     ap.add_argument("--chunk", type=int, default=64)
+    ap.add_argument("--solver", default="bls", choices=("bls", "gd"))
     ap.add_argument("--ladder-eval", default="linearized")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiers", nargs="?", const="lean,ultra,bf16", default="")
     ap.add_argument("--port-only", action="store_true")
     ap.add_argument("--two-roundings", action="store_true")
+    ap.add_argument("--one-rounding", action="store_true")
     a = ap.parse_args(argv)
-    cfg = bench.bench_config(n_timesteps=a.T, ladder_eval=a.ladder_eval)
+    if a.solver == "gd" and a.tiers:
+        ap.error("the kernel tiers are programs of BLS")
+    cfg = bench.bench_config(solver=a.solver, n_timesteps=a.T,
+                             ladder_eval=a.ladder_eval)
     jcfg = mp.PlannerConfig(
         n_timesteps=a.T, bls_mode="ladder", fixed_iters=True,
         inner_schedule=cfg.inner_schedule,
@@ -78,11 +84,19 @@ def main(argv=None) -> int:
                                a.scenes, device="cpu")
     names = ["JAX fused", "JAX xla", "port fused", "port xla"]
     tiers = tuple(t for t in a.tiers.split(",") if t)
-    twice = tuple(t for t in tiers if t != "lean") if a.two_roundings else ()
+    # The port's engines again with fused_solve's update arithmetic
+    # replaced: (label, the function replaced, its replacement, tiers).
+    variants = [v for v, on in (
+        (("two roundings", "fma", tfs.two_roundings,
+          ("",) + tuple(t for t in tiers if t != "lean")), a.two_roundings),
+        (("one rounding", "two_roundings", tfs.fma, ("",)), a.one_rounding))
+        if on]
     names = (names[2 * a.port_only:]
              + [f"JAX fused {t}" for t in tiers if not a.port_only]
              + [f"port fused {t}" for t in tiers]
-             + [f"port fused {t} two roundings" for t in twice])
+             + [f"port {e}{' ' + t if t else ''} {label}"
+                for label, _, _, ts in variants for t in ts
+                for e in (("fused", "xla") if not t else ("fused",))])
     total = np.zeros(len(names), dtype=int)
     steps = np.zeros(len(names))
     costs = np.zeros(len(names))
@@ -90,11 +104,19 @@ def main(argv=None) -> int:
         sub = mt.Scenario(*(x[lo:lo + a.chunk] for x in scns))
         js = mp.Scenario(*(jnp.asarray(x.numpy()) for x in sub))
         runs = [] if a.port_only else [
-            jfleet.fleet_solve(jcfg, jb, js, backend="fused", interpret=True),
-            jfleet.fleet_solve(jcfg, jb, js, backend="xla"),
+            jfleet.fleet_solve(jcfg, jb, js, solver=a.solver, backend="fused",
+                               interpret=True),
+            jfleet.fleet_solve(jcfg, jb, js, solver=a.solver, backend="xla"),
         ]
-        runs += [tfleet.fleet_solve(cfg, tb, sub, backend="fused"),
-                 tfleet.fleet_solve(cfg, tb, sub, backend="xla")]
+
+        def port(t):
+            if t:
+                return tfleet.kernel_result(tfs.fused_solve(
+                    *tfleet.fused_args(cfg, tb, sub), **{t: True}))
+            return [tfleet.fleet_solve(cfg, tb, sub, solver=a.solver,
+                                       backend=e) for e in ("fused", "xla")]
+
+        runs += port("")
         if tiers and not a.port_only:
             fsc = jfleet.to_fleet(js)
             n = fsc.start.shape[-1]
@@ -112,16 +134,15 @@ def main(argv=None) -> int:
                     _t(r.alpha).permute(2, 1, 0), tfleet.SolveStats(
                     _t(r.outer_iters[0]), _t(r.inner_iters[0]),
                     _t(r.fulfilled[0] > 0.5), _t(r.final_loss[0]))))
-        runs += [tfleet.kernel_result(tfs.fused_solve(
-            *tfleet.fused_args(cfg, tb, sub), **{t: True})) for t in tiers]
-        fma = tfs.fma
-        tfs.fma = _two_roundings
-        try:
-            runs += [tfleet.kernel_result(tfs.fused_solve(
-                *tfleet.fused_args(cfg, tb, sub), **{t: True}))
-                for t in twice]
-        finally:
-            tfs.fma = fma
+        runs += [port(t) for t in tiers]
+        for _, name, repl, ts in variants:
+            orig = getattr(tfs, name)
+            setattr(tfs, name, repl)
+            try:
+                for t in ts:
+                    runs += port(t) if not t else [port(t)]
+            finally:
+                setattr(tfs, name, orig)
         counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
         total += counts
         steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
@@ -132,7 +153,8 @@ def main(argv=None) -> int:
         print(f"scenes {lo}-{lo + a.chunk - 1}: "
               + ", ".join(f"{n} {c}" for n, c in zip(names, counts)),
               flush=True)
-    print(f"T={a.T} {a.ladder_eval}, {a.scenes} scenes of seed {a.seed}, "
+    what = "gd" if a.solver == "gd" else a.ladder_eval
+    print(f"T={a.T} {what}, {a.scenes} scenes of seed {a.seed}, "
           f"converged (fraction; mean accepted steps; mean obstacle cost): "
           + ", ".join(f"{n} {c} ({c / a.scenes:.4f}; {st / a.scenes:.1f}; "
                       f"{co / a.scenes:.5f})"

@@ -1,4 +1,4 @@
-"""Hold the fused kernels of two checkouts to each other bit for bit.
+"""Hold the kernels of two checkouts to each other bit for bit.
 
     python tools/k1_bitwise.py dump OUT.pt      # from a checkout's root
     python tools/k1_bitwise.py compare A.pt B.pt
@@ -8,7 +8,10 @@ imported from the current directory) and saves, for each program of the
 solvers and ladders (bls, gd, bls_exact), K1's whole solve at the bench
 schedule and K2's one round (a quarter of the lanes fulfilled) on 16,384
 random scenes (seed 5) at T=50 (the resident body, its specialised
-instantiation) and on 1,024 random scenes at T=200 (the streamed body).
+instantiation) and on 1,024 random scenes at T=200 (the streamed body);
+and on the same scenes the per-step kernels: K5's evaluation and K6's
+forward evaluation at the warm start, and from K5's state one step of K3
+(both ladder tiers) and of K4 (a quarter of the lanes frozen).
 ``compare`` says for each whether every output field is equal bit for bit,
 and exits non-zero if one is not.  Two checkouts on one card: dump in
 each, then compare.  Needs a CUDA card for ``dump``.
@@ -27,6 +30,7 @@ def dump(out):
     import irm_motion_planning_tpu_torch as mt
     from irm_motion_planning_tpu_torch import bench
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+    from irm_motion_planning_tpu_torch.ops import step_kernels as sk
     from irm_motion_planning_tpu_torch.solvers import fleet
 
     dev = torch.device("cuda", 0)
@@ -49,6 +53,19 @@ def dump(out):
                                 solver=solver)
             res[f"K1 {prog} T={T}"] = [x.cpu() for x in k1]
             res[f"K2 {prog} T={T}"] = [x.cpu() for x in k2]
+            _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+            lanes = (lsg, ljl, start, goal, ox, oy, ow)
+            if prog == "bls":
+                res[f"K5 T={T}"] = [x.cpu() for x in sk.cost_grad_eval(
+                    cfg, kv, kvt, mix, a0, *lanes)]
+                res[f"K6 T={T}"] = [x.cpu() for x in sk.forward_eval(
+                    cfg, kv, mix, a0)]
+            ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, *lanes)
+            step = sk.gd_inner_step if prog == "gd" else sk.bls_inner_step
+            lr = torch.full_like(lsg, fs.round_lr(cfg, 0, solver))
+            res[f"{'K4' if prog == 'gd' else 'K3'} {prog} T={T}"] = [
+                x.cpu() for x in step(cfg, kv, kvt, mix, a0, *ev[1:], ev.loss,
+                                      lr, ful, *lanes)]
     torch.save(res, out)
     print(f"dumped {sorted(res)} to {out}")
 
