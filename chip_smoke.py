@@ -126,11 +126,17 @@ ceiling).  Phases:
    bounds there; and, for information, the certify statistics
    (irm_motion_planning_tpu_torch/certify.py) of the card's exact tier on
    the 2,048 scenes of certify_oracle_cpu2048.npz;
-17. large T (the streamed body of K1/K2, which runs K7, and K3-K6 with the
-   basis in device memory): the L2 rate; streamed K1 and the rounds driver
-   over streamed K2 bit for bit resident K1 at T=50 for each program; at
-   T=200 K1 and K2 against plain with the ragged batch, K3-K6 against
-   plain with their ragged batch (K6 bit for bit K5); 65,536 random scenes
+17. large T (the streamed body of K1/K2, whose CTA runs a tile of lanes
+   in lockstep and each basis product through K7, the CTA-cooperative
+   basis stream, and K3-K6 with the basis in device memory): the L2 rate;
+   streamed K1 and the rounds driver over streamed K2 bit for bit resident
+   K1 at T=50 for each program; at T=200 K1 and K2 against plain with the
+   ragged batch at tiles of 1, 2, 3, half, one fewer than and the plan's
+   lanes and on one CTA (1,000 lanes leave ragged last tiles), K2's
+   fulfilled lanes passed through in their tiles; K7 alone (one forward
+   product at 65,536 lanes) bit for bit K6 and timed beside one
+   torch.matmul; K3-K6 against plain with their ragged batch (K6 bit for
+   bit K5); 65,536 random scenes
    per program (one K1
    launch per solve, the paired xla gate on 8,192 lanes, which holds the
    linearized ladder to its phantom and cost bands; K1's converged
@@ -174,7 +180,11 @@ spills and occupancy, and K1 the main path's peak device memory; under
 ``exact`` K1's, K2's and K3's for the exact ladder (phases 14-16, with
 their lane agreement), under ``streamed`` those at T=200 (phase 17), and
 under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
-18; K1-bf16 also past the f32 plans' ceiling).
+18; K1-bf16 also past the f32 plans' ceiling).  K7's line carries K1-BLS
+at T=200 (the kernel it runs in) and K7 alone: ``ms_per_product``,
+``matmul_ms`` (one torch.matmul of the same product), ``plain_ms_per_product``,
+``l2_bytes_per_product`` (the design's: each row block once per tile) and
+the plan's lanes, warps and ring.
 
 Any failed phase exits non-zero.  It imports nothing of JAX.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -312,7 +322,8 @@ def main():
                                      "warps_per_cta": plan["warps"],
                                      "smem_bytes": plan["bytes"]}
             say(f"phase 1 {name} (K{1 if name == 'fused_solve' else 2}, "
-                f"{prog}): {plan['warps']} lanes (warps) per CTA, shared "
+                f"{prog}): {plan['lanes']} lanes per CTA, {plan['warps']} "
+                f"warps, shared "
                 f"memory per CTA {plan['total']} B {plan['bytes']}, "
                 f"{shape['ctas_per_sm']} CTAs and {shape['warps_per_sm']} "
                 f"warps per SM on {shape['sms']} SMs; ptxas {built}")
@@ -330,10 +341,17 @@ def main():
                          f"{lshape['smem']} B")
                 occupancy[name, prog][f"T{size}"] = {
                     **lshape, "plan": lplan["plan"],
+                    "lanes_per_cta": lplan["lanes"],
                     "warps_per_cta": lplan["warps"],
-                    "smem_bytes": lplan["bytes"]}
+                    "smem_bytes": lplan["bytes"],
+                    "k7_ring": lplan.get("ring")}
+                if lshape["warps_per_cta"] != lplan["warps"]:
+                    fail(f"phase 1: {name} at T={size}: launch plan "
+                         f"{lplan['warps']} warps per CTA, the C side "
+                         f"{lshape['warps_per_cta']}")
                 say(f"phase 1 {name} ({prog}) at T={size}: {lplan['plan']} "
-                    f"plan, {lplan['warps']} lanes per CTA, "
+                    f"plan, {lplan['lanes']} lanes and {lplan['warps']} warps "
+                    f"per CTA, K7 ring {lplan.get('ring')}, "
                     f"{lplan['total']} B per CTA {lplan['bytes']}, "
                     f"{lshape['ctas_per_sm']} CTAs and "
                     f"{lshape['warps_per_sm']} warps per SM")
@@ -359,8 +377,8 @@ def main():
                 **gshape, "plan": gplan["plan"], "warps_per_cta": gplan["warps"],
                 "smem_bytes": gplan["bytes"]}
             say(f"phase 1 gd_inner_step (K4) at T={size}, pallas_block_b "
-                f"{bt}: {gplan['plan']} plan, {gplan['warps']} lanes (warps) "
-                f"per CTA, {gplan['total']} B per CTA {gplan['bytes']}, "
+                f"{bt}: {gplan['plan']} plan, {gplan['lanes']} lanes and "
+                f"{gplan['warps']} warps per CTA, {gplan['total']} B per CTA {gplan['bytes']}, "
                 f"{gshape['ctas_per_sm']} CTAs and {gshape['warps_per_sm']} "
                 f"warps per SM")
     fplan = sk.forward_plan(bench.bench_config())
@@ -1575,7 +1593,10 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                             max_inner_iteration=6, fixed_iters=True,
                             max_obstacles=O)
     plan = fs.launch_plan(scfg, O)
-    shapes = sorted({1, 2, plan["warps"] // 2, plan["warps"]})
+    # Tiles of 1-3 lanes, half the plan's, one fewer and the plan's: 1,000
+    # lanes leave the last tile ragged at 3 and 7 (the plan's 8 - 1).
+    lanes = plan["lanes"]
+    shapes = sorted({1, 2, 3, lanes // 2, lanes - 1, lanes})
     basis = mt.make_basis(scfg, device=dev)
     scns = mt.random_scenarios(scfg, torch.Generator().manual_seed(6),
                                SHORT_BATCH, device=dev)
@@ -1601,14 +1622,22 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             fs.fused_round_reference(*rargs, solver=solver), k2, ful)
         max_abs = max(max_abs, abs2)
         agreement[prog] = min(agree, agree2)
+        # The fulfilled lanes are masked in their tiles: each passes
+        # through, alpha bit for bit, no step, loss 0 and ok 1.
+        passed = ful[0] > 0.5
+        through = (torch.equal(k2.alpha[..., passed], rargs[4][..., passed])
+                   and bool((k2.inner[0, passed] == 0).all())
+                   and bool((k2.loss[0, passed] == 0).all())
+                   and bool((k2.ok[0, passed] == 1).all()))
         say(f"phase 17 T={T} {prog} against plain ({SHORT_BATCH} random "
-            f"scenes, {plan['warps']} lanes per CTA): K1 at 2x6 steps lane "
+            f"scenes, {lanes} lanes per CTA): K1 at 2x6 steps lane "
             f"agreement {agree:.4f}, alpha {rel:.3g} of the lane's scale; K2 "
-            f"one round ({int((ful > 0.5).sum())} fulfilled) {agree2:.4f}, "
+            f"one round ({int(passed.sum())} fulfilled, passed through in "
+            f"their tiles: {through}) {agree2:.4f}, "
             f"{rel2:.3g} (bounds >= {fs.CARD_SHORT_AGREEMENT_MIN}, <= "
             f"{fs.ALPHA_REL_MAX})")
         if (min(agree, agree2) < fs.CARD_SHORT_AGREEMENT_MIN
-                or max(rel, rel2) > fs.ALPHA_REL_MAX):
+                or max(rel, rel2) > fs.ALPHA_REL_MAX or not through):
             fail(f"phase 17: streamed {prog} disagrees with its plain "
                  f"version at T={T}")
         cut = [x[..., :RAGGED_BATCH] for x in args[4:]]
@@ -1774,8 +1803,10 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                 fs.fused_solve_reference, *sub, solver=solver).items()},
             float((k1.outer_iters + k1.fulfilled).sum()),
             float(k1.inner_iters.sum()), solver)
+        tile = fs.launch_plan(cfg, O, prog=prog)["lanes"]
         k1_bound = roofline.fused_rounds(LARGE_BATCH, T, J, O, tally, True,
-                                         solver, ladder, streamed=True)
+                                         solver, ladder, streamed=True,
+                                         lanes_per_cta=tile)
         with KernelTimer(fs, "fused_round") as timer:
             got = fleet._fused_rounds_solve(cfg.replace(lane_compaction=True),
                                             args[1:], solver)
@@ -1788,7 +1819,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         live = [float((rounds_run > r).sum()) for r in range(rounds)]
         k2_bound = roofline.fused_round_launches(LARGE_BATCH, T, J, O, tally,
                                                  live, solver, ladder,
-                                                 streamed=True)
+                                                 streamed=True,
+                                                 lanes_per_cta=tile)
         say(f"phase 17 T={T} {prog} K1 alone {k1_ms:.1f} ms "
             f"({1e3 * k1_ms / LARGE_BATCH:.3f} us per lane), plain version "
             f"{plain_ms:.1f} ms on {LARGE_TALLY} lanes; bound {k1_bound.ms:.1f} "
@@ -1890,6 +1922,35 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     _, k6_plain = timed(lambda: sk.forward_eval_reference(cfg, kv, mix, a0))
     k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
     k6_vs_k5(k6_out, ev, 17, LARGE_BATCH)
+    # K7 alone (fused_solve.k7_forward): the forward product the streamed
+    # programs run, on the plan's tiles of lanes, bit for bit K6 on the same
+    # alpha; its time per product beside one torch.matmul of the same
+    # (2T x T) by (T x J B) product (TF32 off) and the plain version, and
+    # the design's L2 reads: the basis rows of each row block, once per tile.
+    k7_out = fs.k7_forward(cfg, kv, kvt, mix, a0)
+    k7_same = (torch.equal(k7_out[0], k6_out.traj)
+               and torch.equal(k7_out[1], k6_out.vel))
+    k7_ms = best_ms(lambda: fs.k7_forward(cfg, kv, kvt, mix, a0))
+    _, k7_plain = timed(lambda: fs.forward_planes(kv, mix, a0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = a0.permute(1, 0, 2).reshape(T, J * LARGE_BATCH)
+    k7_mm = best_ms(lambda: torch.matmul(kv, flat))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    kplan = fs.launch_plan(cfg, O)
+    rb = kplan["ring"]["kv"]["row_block"]
+    k7_l2 = (-(-LARGE_BATCH // kplan["lanes"]) * -(-2 * T // rb) * rb * T
+             * 4)
+    say(f"phase 17 K7 alone at T={T}, {LARGE_BATCH} lanes (one forward "
+        f"product, {kplan['lanes']} lanes per CTA, row block {rb}, "
+        f"{kplan['ring']['kv']['stage_t']} timesteps per stage): "
+        f"{k7_ms:.3f} ms, bitwise K6 {k7_same}; K6 {k6_ms:.3f} ms; one "
+        f"torch.matmul {k7_mm:.3f} ms; plain {k7_plain:.1f} ms; the design's "
+        f"L2 reads {k7_l2 / 1e9:.3f} GB ({k7_l2 / LARGE_BATCH / 1e3:.1f} KB "
+        f"per lane)")
+    if not k7_same:
+        fail(f"phase 17: K7 alone differs from K6 at T={T}")
+    del k7_out, flat
     steps = {}
     for name, lr in (("bls", torch.full_like(lsg, cfg.bls_lr_start)),
                      ("gd", torch.full_like(lsg, cfg.gd_lr[0]))):
@@ -1902,8 +1963,9 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         bound = (roofline.bls_inner_step(LARGE_BATCH, T, J, O, tally,
                                          device_basis=True)
                  if name == "bls" else
-                 roofline.gd_inner_step(LARGE_BATCH, T, J, O, tally,
-                                        streamed=True))
+                 roofline.gd_inner_step(
+                     LARGE_BATCH, T, J, O, tally, streamed=True,
+                     lanes_per_cta=sk.gd_step_plan(cfg, O)["lanes"]))
         if not step_ok(agree, err):
             fail(f"phase 17: the {name} step disagrees with its plain "
                  f"version at T={T}, {LARGE_BATCH} lanes: "
@@ -2004,7 +2066,12 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                       "K2_bytes_per_solve": prg[p]["k2_bound"].l2_bytes}
                   for p in fs.SOLVER_PROGRAMS},
         bitwise_resident_t50=True, l2_bytes_per_s=l2_rate,
-        problem_size_sweep=sweep)
+        problem_size_sweep=sweep, lanes_per_cta=kplan["lanes"],
+        warps_per_cta=kplan["warps"], ring=kplan["ring"],
+        ms_per_product=k7_ms, matmul_ms=k7_mm,
+        l2_bytes_per_product=k7_l2, plain_ms_per_product=k7_plain,
+        product_bound_ms=k6_bound.ms, product_bitwise_k6=k7_same,
+        product_lanes=LARGE_BATCH)
     return entries, out["tier_inputs"]
 
 
@@ -2177,11 +2244,12 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
                 fs.fused_solve_reference, *tsub, **kw).items()},
             float((k1.outer_iters + k1.fulfilled).sum()),
             float(k1.inner_iters.sum()))
-        bound = roofline.fused_rounds(LARGE_BATCH, T, J, O, tally, True,
-                                      streamed=True, prog=prog)
         plan = fs.launch_plan(cfg, O, prog=prog)
+        bound = roofline.fused_rounds(LARGE_BATCH, T, J, O, tally, True,
+                                      streamed=True, prog=prog,
+                                      lanes_per_cta=plan["lanes"])
         say(f"phase 18 T={T} {prog} K1 ({LARGE_BATCH} random scenes of phase "
-            f"17, bench schedule, {plan['warps']} lanes per CTA, "
+            f"17, bench schedule, {plan['lanes']} lanes per CTA, "
             f"{plan['total']} B per CTA): {ms:.1f} ms "
             f"({1e3 * ms / LARGE_BATCH:.3f} us per lane; K1-BLS "
             f"{large['k1_ms']:.1f} ms), {launches} launch; plain version "
@@ -2214,7 +2282,8 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
         k2_bound = roofline.fused_rounds(
             SHORT_BATCH, T, J, O, kernel_counts(
                 plain_tally_k2, float((srargs[7] < 0.5).sum()),
-                float(k2.inner.sum())), False, streamed=True, prog=prog)
+                float(k2.inner.sum())), False, streamed=True, prog=prog,
+            lanes_per_cta=plan["lanes"])
         say(f"phase 18 T={T} {prog} K2 one round ({SHORT_BATCH} random "
             f"scenes, {int((srargs[7] > 0.5).sum())} fulfilled): lane "
             f"agreement {agree2:.4f}, alpha {rel2:.3g} of the lane's scale; "
@@ -2300,7 +2369,8 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
     say(f"phase 18 T={TIER_BIG_T} fleet_solve(backend='fused', "
         f"bls_bf16_ladder=True) on {TIER_BIG_BATCH} random scenes (2x6 "
         f"steps; the basis built here, harness_basis): plan {plan['plan']} "
-        f"bf16 {plan['bf16']}, {plan['warps']} lane per CTA, "
+        f"bf16 {plan['bf16']}, {plan['lanes']} lane per CTA (its "
+        f"{plan['warps'] - 1} warps compute its products), "
         f"{plan['total']} B per CTA {plan['bytes']}; {launches} K1 launch, "
         f"{ms:.1f} ms; plain version {plain_ms:.1f} ms; lane agreement "
         f"{agree_long:.4f} (alpha {rel_long:.3g} of the lane's scale), at "

@@ -10,7 +10,8 @@ GPU is:
 
 * ``pallas_block_b`` — for the fused kernels (K1/K2, one warp per lane):
   lanes (warps) per CTA, 1..16, 0 picks the default (16); past T = 64 (the
-  streamed plan) at most as many as fit in shared memory; for the per-step
+  streamed plan, a CTA of 16 warps on a tile of lanes) at most 15 and as
+  many as leave K7's ring 48 KB of shared memory; for the per-step
   kernels: threads per block, a multiple of 32, 0 picks the default (128):
   K3 and K5 run a lane per thread, K4 a lane per warp (pallas_block_b / 32
   lanes per CTA, 1..16; 0 picks 16), K6's tile does not depend on it.

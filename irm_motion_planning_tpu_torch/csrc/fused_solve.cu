@@ -92,13 +92,16 @@
 //    bytes a thread, which costs less than halving the warps in flight
 //    (tools/fused_variants.py measures both; PERF.md).
 // The streamed programs (T > 64) keep the lane state on chip and stream the
-// basis: each basis product reads 8 T^2 bytes per lane, from L2 (the basis
-// at T = 2,000 is 32 MB, within the 50 MB L2), so their bound is the larger
-// of the same operations and those bytes over the L2 rate
-// (ops/roofline.py).  Their CTA holds as many warps as fit in shared memory
-// (launch_plan: 10 at T = 200), one CTA per SM, at most 128 registers a
-// thread (__launch_bounds__(512, 1)).
-// wgmma and TMA are for later versions.
+// basis from L2 (the basis at T = 2,000 is 32 MB, within the 50 MB L2).  A
+// CTA of WB_STREAM_WARPS warps runs a tile of lanes, one warp each, in
+// lockstep: the most lanes (at most 15) that leave K7's ring 48 KB of
+// shared memory (launch_plan: 8 at T = 200); each basis product reads the
+// basis (8 T^2 bytes) once for the whole tile through K7's ring of TMA bulk
+// copies, computed by every warp but the ring's producer (warp_body.cuh);
+// one CTA per SM, at most 128 registers a thread (__launch_bounds__(512,
+// 1)).  The function's bound is the operations' (ops/roofline.py); the
+// design's L2 reads are a diagnostic beside it.  The basis contractions
+// stay fp32 chains (no wgmma: TF32 would change the results).
 
 #include "fused_kernels.cuh"
 
@@ -136,19 +139,23 @@ static const void* kernel_for(const FsParams& p, int which, int solver,
 
 // The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` in
 // the body ``streamed`` (0: resident, 1: streamed; launch_plan's "plan") at
-// ``warps`` lanes per CTA: the dynamic shared memory per CTA, the CTAs that
-// fit on one SM and the SM count.  Refuses what the kernels cannot take:
-// the resident body past WB_MAX_T timesteps, the streamed one below 32 (a
-// thread owns at least one timestep).
-static int launch_shape(const FsParams& p, int warps, int which, int solver,
-                        int streamed, const void*& kernel, size_t& smem,
-                        int& per_sm, int& sms) {
+// ``lanes`` lanes per CTA: the warps per CTA (the resident body one per
+// lane, the streamed one WB_STREAM_WARPS), the dynamic shared memory per
+// CTA, the CTAs that fit on one SM and the SM count.  Refuses what the
+// kernels cannot take: the resident body past WB_MAX_T timesteps, the
+// streamed one below 32 (a thread owns at least one timestep) or past
+// WB_STREAM_WARPS - 1 lanes.
+static int launch_shape(const FsParams& p, int lanes, int which, int solver,
+                        int streamed, const void*& kernel, int& warps,
+                        size_t& smem, int& per_sm, int& sms) {
   kernel = kernel_for(p, which, solver, streamed != 0);
-  if (!kernel || warps < 1 || warps > WB_MAX_WARPS || p.T < 1 ||
+  warps = streamed ? WB_STREAM_WARPS : lanes;
+  if (!kernel || lanes < 1 || lanes > warps - (streamed ? 1 : 0) ||
+      warps > WB_MAX_WARPS || p.T < 1 ||
       (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
       p.rounds > MAX_ROUNDS || (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
-  smem = warp_smem_bytes(p, warps, streamed != 0, solver == SOLVER_BLS_BF16);
+  smem = warp_smem_bytes(p, lanes, streamed != 0, solver == SOLVER_BLS_BF16);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -169,24 +176,25 @@ static int launch_shape(const FsParams& p, int warps, int which, int solver,
 
 // The persistent grid: ``ctas`` CTAs when > 0, else every CTA that fits on
 // the card; never more than the lanes need.
-static unsigned grid_size(const FsParams& p, int warps, int ctas, int per_sm,
+static unsigned grid_size(const FsParams& p, int lanes, int ctas, int per_sm,
                           int sms) {
-  const long long need = ((long long)p.B + warps - 1) / warps;
+  const long long need = ((long long)p.B + lanes - 1) / lanes;
   const long long full = ctas > 0 ? ctas : (long long)per_sm * sms;
   return (unsigned)(full < need ? full : need);
 }
 
-extern "C" int fused_launch_shape(FsParams p, int warps, int which,
+extern "C" int fused_launch_shape(FsParams p, int lanes, int which,
                                   int solver, int streamed, int* out) {
   const void* kernel;
   size_t smem;
-  int per_sm, sms;
-  const int err = launch_shape(p, warps, which, solver, streamed, kernel,
-                               smem, per_sm, sms);
+  int warps, per_sm, sms;
+  const int err = launch_shape(p, lanes, which, solver, streamed, kernel,
+                               warps, smem, per_sm, sms);
   if (err) return err;
   out[0] = per_sm;
   out[1] = sms;
   out[2] = (int)smem;
+  out[3] = warps;
   return 0;
 }
 
@@ -199,7 +207,7 @@ extern "C" int fused_params_layout(int* out) {
   return 0;
 }
 
-extern "C" int fused_solve_launch(FsParams p, int warps, int solver,
+extern "C" int fused_solve_launch(FsParams p, int lanes, int solver,
                                   int streamed, int ctas, const float* kv,
                                   const float* kvt,
                                   const float* mix, const float* lam_sg0,
@@ -212,21 +220,21 @@ extern "C" int fused_solve_launch(FsParams p, int warps, int solver,
                                   void* stream) {
   const void* kernel;
   size_t smem;
-  int per_sm, sms;
-  const int err =
-      launch_shape(p, warps, 0, solver, streamed, kernel, smem, per_sm, sms);
+  int warps, per_sm, sms;
+  const int err = launch_shape(p, lanes, 0, solver, streamed, kernel, warps,
+                               smem, per_sm, sms);
   if (err) return err;
   if (ctas < 0) return (int)cudaErrorInvalidValue;
-  void* args[] = {&p,     &kv,   &kvt,  &mix,   &lam_sg0,  &lam_jl0,
-                  &start, &goal, &ox,   &oy,    &ow,       &alpha,
+  void* args[] = {&p,     &lanes, &kv,   &kvt,  &mix,   &lam_sg0,  &lam_jl0,
+                  &start, &goal,  &ox,   &oy,   &ow,    &alpha,
                   &out_loss, &out_ful, &out_outer, &out_inner, &queue};
   return (int)cudaLaunchKernel(kernel,
-                               dim3(grid_size(p, warps, ctas, per_sm, sms)),
+                               dim3(grid_size(p, lanes, ctas, per_sm, sms)),
                                dim3(32 * warps), args, smem,
                                (cudaStream_t)stream);
 }
 
-extern "C" int fused_round_launch(FsParams p, int warps, int solver,
+extern "C" int fused_round_launch(FsParams p, int lanes, int solver,
                                   int streamed, int ctas, int n_r,
                                   const float* kv, const float* kvt,
                                   const float* mix, const float* lam_sg,
@@ -238,16 +246,83 @@ extern "C" int fused_round_launch(FsParams p, int warps, int solver,
                                   float* out_inner, int* queue, void* stream) {
   const void* kernel;
   size_t smem;
-  int per_sm, sms;
-  const int err =
-      launch_shape(p, warps, 1, solver, streamed, kernel, smem, per_sm, sms);
+  int warps, per_sm, sms;
+  const int err = launch_shape(p, lanes, 1, solver, streamed, kernel, warps,
+                               smem, per_sm, sms);
   if (err) return err;
   if (ctas < 0 || n_r < 0) return (int)cudaErrorInvalidValue;
-  void* args[] = {&p,     &n_r,   &kv,   &kvt, &mix, &lam_sg,   &lam_jl,
-                  &ful,   &lr0,   &start, &goal, &ox, &oy,      &ow,
+  void* args[] = {&p,     &lanes, &n_r,   &kv,   &kvt, &mix, &lam_sg,
+                  &lam_jl, &ful,  &lr0,   &start, &goal, &ox, &oy,    &ow,
                   &alpha, &out_loss, &out_ok, &out_inner, &queue};
   return (int)cudaLaunchKernel(kernel,
-                               dim3(grid_size(p, warps, ctas, per_sm, sms)),
+                               dim3(grid_size(p, lanes, ctas, per_sm, sms)),
+                               dim3(32 * warps), args, smem,
+                               (cudaStream_t)stream);
+}
+
+// K7 alone, for measurement and its check: (traj, vel) = kv @ alpha with the
+// mix combine, for every lane (alpha, traj, vel (J, T, B)), through the
+// streamed body's product (eval_staged, k7_product) on tiles of ``lanes``
+// lanes, as K1's and K2's streamed programs run it; kvT is kv as
+// fused_solve.streamed_basis gives it.  A tile's alpha comes in, and its
+// traj/vel go out, a row of ``lanes`` consecutive words at a time.  Bit for
+// bit K6's forward_eval (the same chains and mix combine).
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, 1)
+k7_forward_kernel(FsParams p, int lanes, const float* __restrict__ kvT,
+                  const float* __restrict__ mix, const float* alpha,
+                  float* traj, float* vel, int* queue) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  SWarp w = bind_swarp(smem, p.T, p.O, lanes, kvT, kvT, mix);
+  const int T = p.T, rows = NJ * T;
+  const size_t B = p.B;
+  float* region0 = w.alpha - (size_t)w.lane * w.stride;
+  const int traj_at = (int)(w.traj - w.alpha), vel_at = (int)(w.vel - w.alpha);
+  for (int b0 = next_tile(w, queue); b0 < p.B; b0 = next_tile(w, queue)) {
+    const int n = min(lanes, p.B - b0);
+    for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+      const int row = i / n, l = i - row * n;
+      region0[(size_t)l * w.stride + row] = alpha[(size_t)row * B + b0 + l];
+    }
+    __syncthreads();
+    const bool on = w.sub == 0 && w.lane < n;
+    if (on) stage_input(w, w.alpha, 1.f);
+    eval_staged(w, on);
+    for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+      const int row = i / n, l = i - row * n;
+      const float* r = region0 + (size_t)l * w.stride;
+      traj[(size_t)row * B + b0 + l] = r[traj_at + row];
+      vel[(size_t)row * B + b0 + l] = r[vel_at + row];
+    }
+  }
+}
+
+// K7 alone at ``lanes`` lanes per CTA (the streamed plan's): every CTA that
+// fits, never more than the tiles.
+extern "C" int k7_forward_launch(FsParams p, int lanes, const float* kvT,
+                                 const float* mix, const float* alpha,
+                                 float* traj, float* vel, int* queue,
+                                 void* stream) {
+  const int warps = WB_STREAM_WARPS;
+  if (lanes < 1 || lanes >= warps || p.T < 32 || p.B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_smem_bytes(p, lanes, true, false);
+  const void* kernel = (const void*)k7_forward_kernel;
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * warps, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p, &lanes, &kvT, &mix, &alpha, &traj, &vel, &queue};
+  return (int)cudaLaunchKernel(kernel,
+                               dim3(grid_size(p, lanes, 0, per_sm, sms)),
                                dim3(32 * warps), args, smem,
                                (cudaStream_t)stream);
 }

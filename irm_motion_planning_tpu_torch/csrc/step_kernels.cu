@@ -197,7 +197,7 @@ static __device__ __forceinline__ TileMap tile_map(const Warp& w, int wid) {
           (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
 }
 static __device__ __forceinline__ TileMap tile_map(const SWarp& w, int wid) {
-  const size_t stride = ws_warp_floats(w.T, w.O);
+  const size_t stride = w.stride;
   return {w.alpha - wid * stride, stride, (int)(w.grad - w.alpha),
           (int)(w.traj - w.alpha), (int)(w.vel - w.alpha),
           (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
@@ -206,10 +206,12 @@ static __device__ __forceinline__ TileMap tile_map(const SWarp& w, int wid) {
 // K4: one GD inner step for every live lane, in place; lr is read only.
 // TT/OO: the specialised resident instantiation (0: T and O at run time);
 // STREAM: the streamed body (the transposed, padded basis pair in device
-// memory, fused_solve.streamed_basis).  W = blockDim.x / 32 lanes per tile.
+// memory, fused_solve.streamed_basis; the tile's lanes in lockstep, their
+// products one K7 product each).  W = ``lanes`` lanes per tile, one warp
+// each (the streamed CTA's other warps help with the products).
 template <int TT, int OO, bool STREAM>
 __global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
-gd_step_kernel(FsParams p, const float* __restrict__ kv,
+gd_step_kernel(FsParams p, int lanes, const float* __restrict__ kv,
                const float* __restrict__ kvt, const float* __restrict__ mix,
                const float* __restrict__ lam_sg,
                const float* __restrict__ lam_jl,
@@ -221,18 +223,20 @@ gd_step_kernel(FsParams p, const float* __restrict__ kv,
   extern __shared__ float4 smem4[];
   float* smem = (float*)smem4;
   const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  const int W = blockDim.x >> 5, wid = threadIdx.x >> 5;
+  const int W = lanes, wid = threadIdx.x >> 5;
   const size_t B = p.B;
-  auto w = bind_body<SOLVER_GD, STREAM>(smem, T, O, kv, kvt, mix);
-  const TileMap m = tile_map(w, wid);
+  auto w = bind_body<SOLVER_GD, STREAM>(smem, T, O, W, kv, kvt, mix);
+  int own = wid;  // the warp's lane in the tile (a helper's view: lane 0's)
+  if constexpr (STREAM) own = w.lane;
+  const TileMap m = tile_map(w, own);
   const int rows = NJ * T;
   const size_t tiles = (B + W - 1) / W;
   for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t b0 = tile * W, b = b0 + wid;
-    const bool live = b < B && !(minimized[b] > 0.5f);
+    const bool live = wid < W && b < B && !(minimized[b] > 0.5f);
     // The whole-tile skip; the barrier also ends the previous tile's store.
     if (!__syncthreads_or(live)) continue;
-    if (w.lid == 0) w.ends[WB_OUTCOME] = live ? 1.f : 0.f;
+    if (wid < W && w.lid == 0) w.ends[WB_OUTCOME] = live ? 1.f : 0.f;
     __syncthreads();
     // The live lanes' alpha and grad rows, obstacle terms and endpoints,
     // each row W consecutive words of device memory.
@@ -262,7 +266,23 @@ gd_step_kernel(FsParams p, const float* __restrict__ kv,
       r[m.ends + NJ + j] = goal[g];
     }
     __syncthreads();
-    if (live) {
+    if constexpr (STREAM) {
+      float l = 0.f;
+      if (live) {
+        w.lam_sg = lam_sg[b];
+        w.lam_jl = lam_jl[b];
+        l = loss[b];
+      }
+      const bool stop = ls_gd_step(p, w, l, live ? lr[b] : 0.f, live);
+      if (live) {
+        __syncwarp();
+        if (w.lid == 0) {
+          w.ends[WB_OUTCOME] = stop ? 0.f : 2.f;
+          if (!stop) loss[b] = l;
+          minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
+        }
+      }
+    } else if (live) {
       w.lam_sg = lam_sg[b];
       w.lam_jl = lam_jl[b];
       float l = loss[b];
@@ -298,18 +318,21 @@ static const void* gd_kernel_of(const FsParams& p, bool streamed) {
   return (const void*)gd_step_kernel<0, 0, false>;
 }
 
-// K4's launch shape at ``warps`` lanes per CTA in the body ``streamed``
-// (launch_plan of K1-GD): the kernel, its dynamic shared memory (the warp
-// body's plan), the CTAs that fit on one SM and the SM count.
-static int gd_shape(const FsParams& p, int warps, int streamed,
-                    const void*& kernel, size_t& smem, int& per_sm,
-                    int& sms) {
-  if (warps < 1 || warps > WB_MAX_WARPS || p.T < 1 ||
+// K4's launch shape at ``lanes`` lanes per CTA in the body ``streamed``
+// (launch_plan of K1-GD): the kernel, its warps per CTA (one per lane;
+// streamed: WB_STREAM_WARPS), its dynamic shared memory (the warp body's
+// plan), the CTAs that fit on one SM and the SM count.
+static int gd_shape(const FsParams& p, int lanes, int streamed,
+                    const void*& kernel, int& warps, size_t& smem,
+                    int& per_sm, int& sms) {
+  warps = streamed ? WB_STREAM_WARPS : lanes;
+  if (lanes < 1 || lanes > warps - (streamed ? 1 : 0) ||
+      warps > WB_MAX_WARPS || p.T < 1 ||
       (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
       (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
   kernel = gd_kernel_of(p, streamed != 0);
-  smem = warp_smem_bytes(p, warps, streamed != 0, false);
+  smem = warp_smem_bytes(p, lanes, streamed != 0, false);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -328,11 +351,12 @@ static int gd_shape(const FsParams& p, int warps, int streamed,
   return per_sm < 1 ? (int)cudaErrorInvalidValue : 0;
 }
 
-extern "C" int gd_step_shape(FsParams p, int warps, int streamed, int* out) {
+extern "C" int gd_step_shape(FsParams p, int lanes, int streamed, int* out) {
   const void* kernel;
   size_t smem;
-  int per_sm, sms;
-  const int err = gd_shape(p, warps, streamed, kernel, smem, per_sm, sms);
+  int warps, per_sm, sms;
+  const int err =
+      gd_shape(p, lanes, streamed, kernel, warps, smem, per_sm, sms);
   if (err) return err;
   out[0] = per_sm;
   out[1] = sms;
@@ -340,10 +364,10 @@ extern "C" int gd_step_shape(FsParams p, int warps, int streamed, int* out) {
   return 0;
 }
 
-// K4 at ``warps`` lanes (warps) per CTA, in the body ``streamed`` (then kv
-// and kvt are the transposed, padded pair), on the persistent grid: every
-// CTA that fits, never more than the tiles.
-extern "C" int gd_step_launch(FsParams p, int warps, int streamed,
+// K4 at ``lanes`` lanes per CTA, in the body ``streamed`` (then kv and kvt
+// are the transposed, blocked pair), on the persistent grid: every CTA that
+// fits, never more than the tiles.
+extern "C" int gd_step_launch(FsParams p, int lanes, int streamed,
                               const float* kv, const float* kvt,
                               const float* mix, const float* lam_sg,
                               const float* lam_jl, const float* start,
@@ -354,14 +378,15 @@ extern "C" int gd_step_launch(FsParams p, int warps, int streamed,
                               void* stream) {
   const void* kernel;
   size_t smem;
-  int per_sm, sms;
-  const int err = gd_shape(p, warps, streamed, kernel, smem, per_sm, sms);
+  int warps, per_sm, sms;
+  const int err =
+      gd_shape(p, lanes, streamed, kernel, warps, smem, per_sm, sms);
   if (err) return err;
-  const long long tiles = ((long long)p.B + warps - 1) / warps;
+  const long long tiles = ((long long)p.B + lanes - 1) / lanes;
   const long long full = (long long)per_sm * sms;
-  void* args[] = {&p,     &kv,    &kvt,  &mix,   &lam_sg, &lam_jl, &start,
-                  &goal,  &ox,    &oy,   &ow,    &alpha,  &grad,   &traj,
-                  &vel,   &loss,  &lr,   &minimized};
+  void* args[] = {&p,    &lanes, &kv,    &kvt,  &mix,  &lam_sg, &lam_jl,
+                  &start, &goal, &ox,    &oy,   &ow,    &alpha, &grad,
+                  &traj, &vel,  &loss,  &lr,    &minimized};
   return (int)cudaLaunchKernel(kernel, dim3((unsigned)(full < tiles ? full
                                                                     : tiles)),
                                dim3(32 * warps), args, smem,

@@ -25,17 +25,28 @@
 // The streamed body (struct SWarp, any T >= 32), for the T whose basis
 // pair (16 T^2 bytes) does not fit in shared memory beside the lane state.
 // The basis stays in device memory (in L2: 640 KB at T = 200), transposed
-// and zero-padded to 32 columns by the wrapper, and each basis product
-// streams it through K7 (k7_product): for each timestep, the warp's 32
-// threads read one aligned 128-byte line of 32 output rows with __ldg; no
-// CTA-wide barrier, since the warps of a CTA run different lanes at
-// different rungs.  (A version that double-buffered tiles of 32 timesteps
-// x 32 rows per warp in shared memory with cp.async was 18% slower at
-// T = 200 and held 8 KB per warp: PERF.md.)  traj, vel, gx and gy move
-// from registers into per-warp shared-memory planes; everything else is
-// laid out as in the resident body.  This replaces pallas_step's
-// _Body._streamed_matmul (stream_rb > 0), which streams row blocks of the
-// basis from HBM through double-buffered VMEM.
+// and cut into row blocks by the wrapper, and a CTA runs a TILE of L
+// lanes, one warp per lane, in lockstep: the loops over rounds, steps and
+// (exact ladder) rungs are CTA-uniform, each taking the most trips any live
+// lane of the tile needs, and a lane that is done (fulfilled, stopped, past
+// its passing rung, or past the batch's end) is masked: it arrives at every
+// barrier and computes and writes nothing.  The call sites of the basis
+// products are fixed by the program, so every warp reaches the same
+// products in the same order, and each product is K7 (k7_product): ONE
+// product for the whole tile, (rows x T) times (T x J L), whose basis
+// tiles come into shared memory once per CTA (a ring of WB_K7_STAGES
+// stages filled by TMA bulk copies from a producer warp, mbarrier
+// full/empty signals; the ring lives in the CTA's room beside the tile's
+// gx/gy planes, which no lane holds across a product).  The CTA has
+// WB_STREAM_WARPS warps: the tile's lanes' (at most 15), helpers, and the
+// producer last; every warp but the producer computes the products, each
+// thread a register block of WB_K7_ROWS rows x WB_K7_LANES lanes x J
+// accumulators (one lane alone: WB_K7_SOLO_ROWS rows), so each basis word
+// read from shared memory feeds every lane of its block.  traj, vel, gx and gy live in shared-memory planes;
+// everything else is laid out as in the resident body.  This replaces
+// pallas_step's _Body._streamed_matmul (stream_rb > 0), which streams row
+// blocks of the basis through double-buffered VMEM once per tile of lanes.
+// A lane's elementwise passes run on its own warp.
 //
 // The half-width streamed body (struct HWarp), for the bf16 tier's program
 // (SOLVER_BLS_BF16) in the streamed plan: the ladder planes traj, vel,
@@ -50,9 +61,9 @@
 //
 // Op order.  Every basis-product row is the sequential fmaf chain over t of
 // the lane body (lane_body.cuh, which K3 and K5 are built from), followed by
-// the same mix combine; in the streamed body thread i computes rows
-// r = 32 g + i, each one whole chain over t across the tiles (no split over
-// t).  Every sum over t (the cost sums, the gradient norm, alpha_norm) and
+// the same mix combine; in the streamed body each (row, lane) output is one
+// thread's whole chain over t across the ring's tiles, taken in t order
+// (no split over t).  Every sum over t (the cost sums, the gradient norm, alpha_norm) and
 // the constraint extrema are the lane body's sequential chains, each run by
 // one thread over a row the owners wrote and broadcast with __shfl_sync;
 // the blend's first argmax is a shuffle tree, which rounds nothing.  Each
@@ -79,6 +90,16 @@
 #define WB_LANE_FLOATS 20          // start, goal, t0, tN, v0, vN (+2 pad)
 #define WB_MIX_FLOATS 12           // mix (J x J), padded to 16 bytes
 #define WB_OUTCOME (6 * NJ)        // K4: a lane's step outcome (ends' pad)
+#define WB_K7_ON (6 * NJ + 1)      // K7: the lane takes the product (ends' pad)
+#define WB_CTA_FLOATS 32           // streamed: mix (12) and the control block
+#define WB_CTL_FLOATS 20           // full[2], empty[2] mbarriers, tile base
+#define WB_SMEM_MAX 232448         // shared memory a CTA may take (bytes)
+#define WB_STREAM_WARPS 16         // warps of a streamed CTA (the last: K7's producer)
+#define WB_K7_STAGES 2             // the K7 ring's stages
+#define WB_K7_LANES 2              // lanes in a K7 thread's register block
+#define WB_K7_ROWS 4               // rows in a K7 thread's register block
+#define WB_K7_SOLO_ROWS 2          // the same where one lane fills the CTA
+#define WB_RING_CAP 16384          // the most floats of the K7 ring
 #define FULL_MASK 0xffffffffu
 
 // The specialised instantiation of the resident body's kernels (K1, K2,
@@ -105,36 +126,66 @@ __host__ __device__ __forceinline__ size_t wb_warp_floats(int T, int O) {
   return (size_t)4 * NJ * T + (size_t)WB_ROWS * wb_row_stride(T) +
          (size_t)4 * O + WB_LANE_FLOATS;
 }
-// Streamed: the resident body's per-warp pieces and the traj/vel/gx/gy
-// planes ((2J + 2) T); per CTA only mix.
-__host__ __device__ __forceinline__ size_t ws_warp_floats(int T, int O) {
-  return wb_warp_floats(T, O) + (size_t)(2 * NJ + 2) * T;
+// Streamed: a lane's region holds the planes alpha, grad, dir_t, dir_v,
+// traj and vel (6 J T, padded to 4 floats), the buffer, the obstacle terms
+// and the endpoints; its gx/gy planes (2 T) sit in the CTA's gx/gy room
+// beside the other lanes' (the K7 ring's room).
+__host__ __device__ __forceinline__ size_t ws_lane_floats(int T, int O) {
+  return (size_t)((6 * NJ * T + 3) & ~3) + (size_t)WB_ROWS * wb_row_stride(T) +
+         (size_t)4 * O + WB_LANE_FLOATS;
 }
-// Half-width streamed (HWarp): alpha, grad (J, T), gx, gy (T,), the ladder
-// planes (4 J T bfloat16 = 2 J T floats, padded to 4 floats), the buffer,
-// obstacles and endpoints.
-__host__ __device__ __forceinline__ int hs_ladder_floats(int T) {
-  return (2 * NJ * T + 3) & ~3;
+// Half-width streamed (HWarp): alpha, grad (J, T) and the ladder planes (4
+// J T bfloat16 = 2 J T floats), the buffer, obstacles and endpoints.
+__host__ __device__ __forceinline__ size_t hs_lane_floats(int T, int O) {
+  return (size_t)4 * NJ * T + (size_t)WB_ROWS * wb_row_stride(T) +
+         (size_t)4 * O + WB_LANE_FLOATS;
 }
-__host__ __device__ __forceinline__ size_t hs_warp_floats(int T, int O) {
-  return (size_t)(2 * NJ + 2) * T + hs_ladder_floats(T) +
-         (size_t)WB_ROWS * wb_row_stride(T) + (size_t)4 * O + WB_LANE_FLOATS;
+// The K7 geometry (mirror of k7_geometry in ops/fused_solve.py).  A CTA of
+// the streamed plan runs a tile of L lanes (at most WB_STREAM_WARPS - 1),
+// one warp each; its other warps help with the products, and its last
+// warp is the ring's producer.  The consumers' 32 (WB_STREAM_WARPS - 1)
+// threads split each product into lane blocks of WB_K7_LANES lanes and,
+// within a block, rows: each thread computes k7_rows consecutive rows for
+// every lane of its block (WB_K7_SOLO_ROWS for one lane alone: its
+// products take several passes, and fewer rows a pass leave fewer
+// threads idle in the last).
+__host__ __device__ __forceinline__ int k7_lane_blocks(int L) {
+  return (L + WB_K7_LANES - 1) / WB_K7_LANES;
 }
-// The row stride of a transposed basis in device memory: its rows (the
-// product's output rows) padded to a multiple of 32 with zeros, so the 32
-// rows a warp computes at one timestep are one aligned 128-byte line.
-__host__ __device__ __forceinline__ int ws_ld(int rows) {
-  return (rows + 31) & ~31;
+__host__ __device__ __forceinline__ int k7_rows(int L) {
+  return L == 1 ? WB_K7_SOLO_ROWS : WB_K7_ROWS;
 }
-static size_t warp_smem_bytes(const FsParams& p, int warps, bool streamed,
+// The rows of one pass (a row block of the basis in device memory): what a
+// lane block's threads cover, at most the rows (padded to a multiple of 4).
+__host__ __device__ __forceinline__ int k7_row_block(int rows, int L) {
+  const int per =
+      k7_rows(L) * (32 * (WB_STREAM_WARPS - 1) / k7_lane_blocks(L));
+  const int need = (rows + 3) & ~3;
+  return per < need ? per : need;
+}
+// The CTA's room (floats, a multiple of 4): the tile's gx/gy planes, which
+// no lane holds across a product, and the K7 ring, which takes the whole
+// room during a product: the shared memory the lanes leave, at most
+// WB_RING_CAP floats, at least the planes.
+__host__ __device__ __forceinline__ size_t ws_room_floats(int T, int O, int L,
+                                                          bool half) {
+  const size_t lane = half ? hs_lane_floats(T, O) : ws_lane_floats(T, O);
+  const size_t used = WB_CTA_FLOATS + (size_t)L * lane;
+  const size_t left = WB_SMEM_MAX / 4 > used ? WB_SMEM_MAX / 4 - used : 0;
+  const size_t room = (left < WB_RING_CAP ? left : WB_RING_CAP) & ~(size_t)3;
+  const size_t planes = ((size_t)2 * T * L + 3) & ~(size_t)3;
+  return room > planes ? room : planes;
+}
+// The dynamic shared memory of a CTA of ``lanes`` lanes.
+static size_t warp_smem_bytes(const FsParams& p, int lanes, bool streamed,
                               bool half) {
   if (streamed)
     return sizeof(float) *
-           (WB_MIX_FLOATS +
-            (size_t)warps *
-                (half ? hs_warp_floats(p.T, p.O) : ws_warp_floats(p.T, p.O)));
+           (WB_CTA_FLOATS + ws_room_floats(p.T, p.O, lanes, half) +
+            (size_t)lanes *
+                (half ? hs_lane_floats(p.T, p.O) : ws_lane_floats(p.T, p.O)));
   return sizeof(float) *
-         (wb_basis_floats(p.T) + (size_t)warps * wb_warp_floats(p.T, p.O));
+         (wb_basis_floats(p.T) + (size_t)lanes * wb_warp_floats(p.T, p.O));
 }
 
 // One warp's view of its lane in the resident body: per-CTA basis, the
@@ -164,16 +215,31 @@ struct Warp {
   __device__ __forceinline__ bool owns(int s) const { return tt(s) < T; }
 };
 
+// What every view of the streamed bodies shares: the tile (L lanes, W warps,
+// this warp's lane; ``sub`` 0 for a lane's own warp, 1 for a helper or the
+// producer, whose view is lane 0's), the CTA's control block (the K7 ring's
+// mbarriers, the tile's first lane) and the room.
+struct Tile {
+  int L, W, lane, sub;
+  unsigned long long* full;   // WB_K7_STAGES mbarriers: a stage is loaded
+  unsigned long long* empty;  // WB_K7_STAGES mbarriers: a stage is read
+  int* base;                  // the tile's first lane
+  float* room;                // the tile's gx/gy planes; the K7 ring
+  size_t room_floats;         // ws_room_floats
+  size_t stride;              // floats between two lanes' regions
+  unsigned seq;               // ring stages used so far (every thread)
+};
+
 // The streamed body's view: the transposed basis pair in device memory,
-// and every plane (traj, vel, gx, gy too) in per-warp shared memory.
-// Thread i owns t = i + 32 g for the G = ceil(T / 32) groups g.
-struct SWarp {
-  const float* kvT;   // device memory (T, ws_ld(2T)): kv transposed
-  const float* kvtT;  // device memory (2T, ws_ld(T)): kvt transposed
+// and every plane (traj, vel, gx, gy too) in shared memory.  Thread i owns
+// t = i + 32 g for the G = ceil(T / 32) groups g.
+struct SWarp : Tile {
+  const float* kvT;   // device memory: kv transposed, in row blocks (K7)
+  const float* kvtT;  // device memory: kvt transposed, in row blocks
   const float* mix;   // shared (J, J)
   float *alpha, *grad, *dir_t, *dir_v;  // (J, T), [j * T + t]
   float *traj, *vel;  // (J, T)
-  float *gx, *gy;     // (T,)
+  float *gx, *gy;     // (T,), in the room
   float* buf;         // WB_ROWS rows of RS, or 2T float4
   float4* obs;        // (O,)
   float* ends;        // as Warp's
@@ -184,6 +250,23 @@ struct SWarp {
   __device__ __forceinline__ int tt(int g) const { return lid + 32 * g; }
   __device__ __forceinline__ int ts(int g) const { return min(tt(g), T - 1); }
   __device__ __forceinline__ bool owns(int g) const { return tt(g) < T; }
+  // Lane l's view of the tile's planes (the K7 sinks write through it).
+  __device__ __forceinline__ SWarp at(int l) const {
+    SWarp v = *this;
+    const ptrdiff_t d = (ptrdiff_t)(l - lane) * (ptrdiff_t)stride;
+    v.alpha += d;
+    v.grad += d;
+    v.dir_t += d;
+    v.dir_v += d;
+    v.traj += d;
+    v.vel += d;
+    v.buf += d;
+    v.ends += d;
+    v.gx += (ptrdiff_t)(l - lane) * 2 * T;
+    v.gy = v.gx + T;
+    v.lane = l;
+    return v;
+  }
 };
 
 // The half-width streamed body's view (the bf16 tier's program): SWarp's,
@@ -191,12 +274,12 @@ struct SWarp {
 // the room where traj and vel (J, T) float32 sit at the round start and
 // end.  ``half``: the iterate is the accepted linearized one, formed per
 // timestep as traj_h - lr_acc dir_th (load_point); otherwise traj/vel.
-struct HWarp {
+struct HWarp : Tile {
   const float* kvT;   // device memory, as SWarp's
   const float* kvtT;
   const float* mix;   // shared (J, J)
   float *alpha, *grad;  // (J, T)
-  float *gx, *gy;       // (T,)
+  float *gx, *gy;       // (T,), in the room
   float *traj, *vel;    // (J, T) float32: the round start's and end's
   __nv_bfloat16 *traj_h, *vel_h, *dir_th, *dir_vh;  // (J, T), same room
   float* buf;
@@ -211,6 +294,24 @@ struct HWarp {
   __device__ __forceinline__ int tt(int g) const { return lid + 32 * g; }
   __device__ __forceinline__ int ts(int g) const { return min(tt(g), T - 1); }
   __device__ __forceinline__ bool owns(int g) const { return tt(g) < T; }
+  __device__ __forceinline__ HWarp at(int l) const {
+    HWarp v = *this;
+    const ptrdiff_t d = (ptrdiff_t)(l - lane) * (ptrdiff_t)stride;
+    v.alpha += d;
+    v.grad += d;
+    v.traj += d;
+    v.vel += d;
+    v.traj_h += 2 * d;
+    v.vel_h += 2 * d;
+    v.dir_th += 2 * d;
+    v.dir_vh += 2 * d;
+    v.buf += d;
+    v.ends += d;
+    v.gx += (ptrdiff_t)(l - lane) * 2 * T;
+    v.gy = v.gx + T;
+    v.lane = l;
+    return v;
+  }
 };
 
 // A float rounded to bfloat16 (nearest even) and back: the values the bf16
@@ -261,14 +362,90 @@ static __device__ __forceinline__ Warp bind_warp(float* smem, int T, int O) {
   return w;
 }
 
-// Stage mix (the streamed body's only per-CTA piece) and bind this warp's
-// view of the transposed basis kvT_dev / kvtT_dev in device memory.
-static __device__ SWarp bind_swarp(float* smem, int T, int O,
-                                   const float* kvT_dev, const float* kvtT_dev,
+// The mbarrier and bulk-copy operations of the K7 ring (PTX; sm_90).
+static __device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+static __device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                                 unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+static __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+static __device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the phase of parity ``parity`` to complete (a fresh barrier
+// counts the phase before its first as complete, parity 1).  A protocol
+// fault traps after some seconds instead of holding the card.
+static __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                                 unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+// One bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, counted on ``bar``.
+static __device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                                 unsigned bytes,
+                                                 unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The streamed bodies' CTA pieces (mix, the control block, the room) and
+// this warp's lane (warp i < lanes runs lane i).  Stages mix, initializes
+// the ring's mbarriers; one __syncthreads.
+template <class SW>
+static __device__ float* bind_tile(SW& w, float* smem, int T, int O,
+                                   int lanes, bool half, const float* kvT_dev,
+                                   const float* kvtT_dev,
                                    const float* __restrict__ mix) {
+  const int W = blockDim.x >> 5, wid = threadIdx.x >> 5;
+  w.L = lanes;
+  w.W = W;
+  w.sub = wid < lanes ? 0 : 1;
+  w.lane = wid < lanes ? wid : 0;
+  w.full = (unsigned long long*)(smem + WB_MIX_FLOATS);
+  w.empty = w.full + WB_K7_STAGES;
+  w.base = (int*)(w.empty + WB_K7_STAGES);
+  w.room = smem + WB_CTA_FLOATS;
+  w.room_floats = ws_room_floats(T, O, lanes, half);
+  w.seq = 0;
   if (threadIdx.x < NJ * NJ) smem[threadIdx.x] = mix[threadIdx.x];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WB_K7_STAGES; ++i) {
+      mbar_init(w.full + i, 1);
+      mbar_init(w.empty + i, W - 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  SWarp w;
   w.T = T;
   w.O = O;
   w.RS = wb_row_stride(T);
@@ -277,8 +454,21 @@ static __device__ SWarp bind_swarp(float* smem, int T, int O,
   w.kvT = kvT_dev;
   w.kvtT = kvtT_dev;
   w.mix = smem;
-  float* mine = smem + WB_MIX_FLOATS +
-                (size_t)(threadIdx.x >> 5) * ws_warp_floats(T, O);
+  w.gx = w.room + (size_t)w.lane * 2 * T;
+  w.gy = w.gx + T;
+  return w.room + w.room_floats;
+}
+
+// Bind this warp's view of its lane in the streamed body (lane regions
+// after the room, each ws_lane_floats).
+static __device__ SWarp bind_swarp(float* smem, int T, int O, int lanes,
+                                   const float* kvT_dev, const float* kvtT_dev,
+                                   const float* __restrict__ mix) {
+  SWarp w;
+  float* regions =
+      bind_tile(w, smem, T, O, lanes, false, kvT_dev, kvtT_dev, mix);
+  w.stride = ws_lane_floats(T, O);
+  float* mine = regions + (size_t)w.lane * w.stride;
   const int plane = NJ * T;
   w.alpha = mine;
   w.grad = mine + plane;
@@ -286,50 +476,47 @@ static __device__ SWarp bind_swarp(float* smem, int T, int O,
   w.dir_v = mine + 3 * plane;
   w.traj = mine + 4 * plane;
   w.vel = mine + 5 * plane;
-  w.gx = mine + 6 * plane;
-  w.gy = w.gx + T;
-  w.buf = w.gy + T;
+  w.buf = mine + ((6 * plane + 3) & ~3);
   w.obs = (float4*)(w.buf + WB_ROWS * w.RS);
   w.ends = (float*)(w.obs + w.O);
   return w;
 }
 
-// Stage mix and bind this warp's half-width view (the layout of
-// hs_warp_floats).
-static __device__ HWarp bind_hwarp(float* smem, int T, int O,
+// Bind this warp's half-width view (the layout of hs_lane_floats).
+static __device__ HWarp bind_hwarp(float* smem, int T, int O, int lanes,
                                    const float* kvT_dev, const float* kvtT_dev,
                                    const float* __restrict__ mix) {
-  if (threadIdx.x < NJ * NJ) smem[threadIdx.x] = mix[threadIdx.x];
-  __syncthreads();
   HWarp w;
-  w.T = T;
-  w.O = O;
-  w.RS = wb_row_stride(T);
-  w.lid = threadIdx.x & 31;
-  w.G = (T + 31) >> 5;
-  w.kvT = kvT_dev;
-  w.kvtT = kvtT_dev;
-  w.mix = smem;
-  float* mine = smem + WB_MIX_FLOATS +
-                (size_t)(threadIdx.x >> 5) * hs_warp_floats(T, O);
+  float* regions =
+      bind_tile(w, smem, T, O, lanes, true, kvT_dev, kvtT_dev, mix);
+  w.stride = hs_lane_floats(T, O);
+  float* mine = regions + (size_t)w.lane * w.stride;
   const int plane = NJ * T;
   w.alpha = mine;
   w.grad = mine + plane;
-  w.gx = mine + 2 * plane;
-  w.gy = w.gx + T;
-  float* ladder = w.gy + T;
+  float* ladder = mine + 2 * plane;
   w.traj = ladder;
   w.vel = ladder + plane;
   w.traj_h = (__nv_bfloat16*)ladder;
   w.vel_h = w.traj_h + plane;
   w.dir_th = w.vel_h + plane;
   w.dir_vh = w.dir_th + plane;
-  w.buf = ladder + hs_ladder_floats(T);
+  w.buf = ladder + 2 * plane;
   w.obs = (float4*)(w.buf + WB_ROWS * w.RS);
   w.ends = (float*)(w.obs + w.O);
   w.lr_acc = 0.f;
   w.half = false;
   return w;
+}
+
+// The tile's first lane, drawn from the device queue by the CTA (all
+// threads receive it).
+template <class SW>
+static __device__ __forceinline__ int next_tile(const SW& w, int* queue) {
+  __syncthreads();  // the previous tile's readers of the base are done
+  if (threadIdx.x == 0) *w.base = atomicAdd(queue, w.L);
+  __syncthreads();
+  return *w.base;
 }
 
 // The warp's next lane from the device queue (lane 0 draws, all receive).
@@ -1063,85 +1250,212 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
 }
 
 // ---------------------------------------------------------------------------
-// The streamed body and K7, its basis product.
+// The streamed bodies and K7, their basis product.
 // ---------------------------------------------------------------------------
 
-// K7: rows [0, rows) of M @ in, with M (rows, n_t) given transposed in
-// device memory (MT[t * ws_ld(rows) + r] = M[r][t]) and in the buffer's
-// n_t staged float4 (one per t, J joints).  Thread lid computes the rows
-// r = 32 g + lid, each one sequential fmaf chain over t = 0 .. n_t - 1 per
-// joint, and hands it to sink(r, acc0, acc1, acc2) (rows past ``rows`` too:
-// the padding's zeros, which the sink drops).  At each t the warp reads one
-// aligned 128-byte line of MT through the read-only cache (__ldg) and one
-// broadcast float4 of the input.
-template <class SW, class Sink>
-static __device__ __forceinline__ void k7_product(const SW& w,
-                                                  const float* MT, int rows,
-                                                  int n_t, Sink sink) {
-  const int ld = ws_ld(rows), groups = (rows + 31) >> 5;
-  const float4* in = (const float4*)w.buf;
-  __syncwarp();  // the staged input is visible
-  for (int g = 0; g < groups; ++g) {
-    const float* col = MT + 32 * g + w.lid;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int t = 0; t < n_t; ++t) {
-      const float4 a = in[t];
-      const float kk = __ldg(col + (size_t)t * ld);
-      a0 = fmaf(kk, a.x, a0);
-      a1 = fmaf(kk, a.y, a1);
-      a2 = fmaf(kk, a.z, a2);
-    }
-    sink(32 * g + w.lid, a0, a1, a2);
-  }
-  __syncwarp();  // the sink's rows are visible to their owners
+// Whether a lane of block b (lanes b LB ..) takes the product.
+template <class SW>
+static __device__ __forceinline__ bool k7_block_on(const SW& w, int b,
+                                                   int LB) {
+  bool on = false;
+  for (int i = 0; i < LB && b * LB + i < w.L; ++i)
+    on = on || w.at(b * LB + i).ends[WB_K7_ON] != 0.f;
+  return on;
 }
 
-// (traj, vel) = the staged input through kv, into the traj/vel planes.
-static __device__ __forceinline__ void eval_staged(SWarp& w) {
-  const int T = w.T;
-  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
-    if (r >= 2 * T) return;
-    float* out = r < T ? w.traj + r : w.vel + (r - T);
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = a0 * w.mix[0 * NJ + i];
-      v = v + a1 * w.mix[1 * NJ + i];
-      v = v + a2 * w.mix[2 * NJ + i];
-      out[i * T] = v;
+// K7: rows [0, rows) of M @ in for every lane of the tile that takes the
+// product (``on``: this warp's lane does), with M (rows, n_t) given
+// transposed in device memory in row blocks of R = k7_row_block(rows, L)
+// rows (MT[(blk n_t + t) R + r] = M[blk R + r][t], the rows zero-padded to
+// a whole block: fused_solve.streamed_basis) and each lane's input in its
+// buffer, n_t staged float4 (one per t, J joints).  Every thread of the CTA
+// calls it, at the same call sites in the same order; it does nothing when
+// no lane of the tile takes the product.
+//
+// The ring: the room holds WB_K7_STAGES stages of st = room / (stages R)
+// timesteps of a row block, taken block by block in t order, each stage one
+// TMA bulk copy issued by the producer warp (the CTA's last) once every
+// consumer warp has released the stage's slot (empty mbarrier); the
+// consumers wait for its bytes (full mbarrier).  Consumer thread c takes
+// lane block c / (R / RT) and the RT = k7_rows(L) consecutive rows
+// RT (c mod R / RT) of each row block, for the block's lanes (a lane past
+// the tile reads its block's first lane's input and keeps nothing; a block
+// whose lanes all sit the product out computes nothing).  Each timestep RT
+// floats of the stage and a float4 of each lane's input: each output one
+// sequential fmaf chain over t per joint (the resident body's, bit for
+// bit), handed to sink(view of the lane, r, acc0, acc1, acc2) for the lanes
+// that take the product.
+template <int RT, int LB, class SW, class Sink>
+static __device__ __forceinline__ void k7_run(SW& w, const float* MT,
+                                              int rows, int n_t, Sink& sink) {
+  constexpr int S = WB_K7_STAGES;
+  const int L = w.L, C = w.W - 1;
+  const int R = k7_row_block(rows, L), st = (int)(w.room_floats / (S * R));
+  const int nblk = (rows + R - 1) / R, ntile = (n_t + st - 1) / st;
+  const int uses = nblk * ntile;
+  if ((int)(threadIdx.x >> 5) == C) {  // the producer
+    if (w.lid == 0) {
+      for (int u = 0; u < uses; ++u) {
+        const unsigned g = w.seq + (unsigned)u, slot = g % S;
+        mbar_wait(w.empty + slot, ((g / S) & 1u) ^ 1u);
+        const int blk = u / ntile, t0 = (u - blk * ntile) * st;
+        const unsigned bytes = (unsigned)(min(st, n_t - t0) * R) * 4u;
+        mbar_expect(w.full + slot, bytes);
+        bulk_load(w.room + (size_t)slot * R * st,
+                  MT + ((size_t)blk * n_t + t0) * R, bytes, w.full + slot);
+      }
     }
-  });
+    return;
+  }
+  const int units = R / RT, c = threadIdx.x;
+  const int lb = c / units, q = RT * (c - lb * units);
+  // A lane block none of whose lanes takes the product computes nothing.
+  const bool act = lb < k7_lane_blocks(L) && k7_block_on(w, lb, LB);
+  const int l0 = act ? lb * LB : 0;
+  const ptrdiff_t lane4 = (ptrdiff_t)(w.stride / 4);  // float4 per region
+  const float4* in[LB];
+#pragma unroll
+  for (int i = 0; i < LB; ++i)
+    in[i] = (const float4*)w.buf +
+            (ptrdiff_t)((l0 + i < L ? l0 + i : l0) - w.lane) * lane4;
+  float acc[RT][LB][NJ];
+  for (int u = 0; u < uses; ++u) {
+    const int blk = u / ntile, tile = u - blk * ntile;
+    const unsigned g = w.seq + (unsigned)u, slot = g % S;
+    if (tile == 0) {
+#pragma unroll
+      for (int h = 0; h < RT; ++h)
+#pragma unroll
+        for (int i = 0; i < LB; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[h][i][j] = 0.f;
+    }
+    mbar_wait(w.full + slot, (g / S) & 1u);
+    const int t0 = tile * st, nt = min(st, n_t - t0);
+    if (act && blk * R + q < rows) {
+      const float* stg = w.room + (size_t)slot * R * st + q;
+#pragma unroll 4
+      for (int k = 0; k < nt; ++k) {
+        float kk[RT];
+        if constexpr (RT == 4) {
+          const float4 k4 = *(const float4*)(stg + (size_t)k * R);
+          kk[0] = k4.x;
+          kk[1] = k4.y;
+          kk[2] = k4.z;
+          kk[3] = k4.w;
+        } else {
+          const float2 k2 = *(const float2*)(stg + (size_t)k * R);
+          kk[0] = k2.x;
+          kk[1] = k2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const float4 a = in[i][t0 + k];
+#pragma unroll
+          for (int h = 0; h < RT; ++h) {
+            acc[h][i][0] = fmaf(kk[h], a.x, acc[h][i][0]);
+            acc[h][i][1] = fmaf(kk[h], a.y, acc[h][i][1]);
+            acc[h][i][2] = fmaf(kk[h], a.z, acc[h][i][2]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (w.lid == 0) mbar_arrive(w.empty + slot);
+    if (tile == ntile - 1 && act) {
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        if (l0 + i >= L) break;
+        const SW v = w.at(l0 + i);
+        if (v.ends[WB_K7_ON] == 0.f) continue;
+#pragma unroll
+        for (int h = 0; h < RT; ++h) {
+          const int r = blk * R + q + h;
+          if (r < rows) sink(v, r, acc[h][i][0], acc[h][i][1], acc[h][i][2]);
+        }
+      }
+    }
+  }
+}
+
+template <class SW, class Sink>
+static __device__ void k7_product(SW& w, const float* MT, int rows, int n_t,
+                                  bool on, Sink sink) {
+  if (w.sub == 0 && w.lid == 0) w.ends[WB_K7_ON] = on ? 1.f : 0.f;
+  // The room's planes were last written through the generic proxy; the
+  // ring's bulk copies write it through the async proxy.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  if (!__syncthreads_or(on)) return;  // the inputs and flags are visible
+  const int L = w.L;
+  if (L == 1)
+    k7_run<WB_K7_SOLO_ROWS, 1>(w, MT, rows, n_t, sink);
+  else
+    k7_run<WB_K7_ROWS, WB_K7_LANES>(w, MT, rows, n_t, sink);
+  const int R = k7_row_block(rows, L);
+  const int st = (int)(w.room_floats / (WB_K7_STAGES * R));
+  w.seq += (unsigned)(((rows + R - 1) / R) * ((n_t + st - 1) / st));
+  __syncthreads();  // the sinks' rows are visible; the room is free again
+}
+
+// The mix combine of one product row's J chains: out_i = sum_j a_j mix[j, i]
+// (forward, TRANS false) or sum_j a_j mix[i, j] (pull-back, TRANS true).
+template <bool TRANS>
+static __device__ __forceinline__ float mixed(const float* mix, int i,
+                                              float a0, float a1, float a2) {
+  float v = a0 * mix[TRANS ? i * NJ + 0 : 0 * NJ + i];
+  v = v + a1 * mix[TRANS ? i * NJ + 1 : 1 * NJ + i];
+  v = v + a2 * mix[TRANS ? i * NJ + 2 : 2 * NJ + i];
+  return v;
+}
+
+// (traj, vel) = the staged input through kv, into the traj/vel planes of
+// the lanes that take it.
+static __device__ __forceinline__ void eval_staged(SWarp& w, bool on) {
+  const int T = w.T;
+  k7_product(w, w.kvT, 2 * T, T, on,
+             [&](const SWarp& v, int r, float a0, float a1, float a2) {
+               if (r >= 2 * T) return;
+               float* out = r < T ? v.traj + r : v.vel + (r - T);
+#pragma unroll
+               for (int i = 0; i < NJ; ++i)
+                 out[i * T] = mixed<false>(v.mix, i, a0, a1, a2);
+             });
 }
 
 // The search direction (the resident direction's, through K7; the bf16
 // tier's program runs the half-width body instead).
 template <bool HALF>
 static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
-                                                 float inv_norm) {
+                                                 float inv_norm, bool on) {
   static_assert(!HALF, "the bf16 tier streams through HWarp");
   const int T = w.T;
-  stage_input(w, w.grad, inv_norm);
-  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
-    if (r >= 2 * T) return;
-    const bool pos = r < T;
-    const int t = pos ? r : r - T;
-    const float* x = pos ? w.traj : w.vel;
-    float* d = pos ? w.dir_t : w.dir_v;
+  if (on) stage_input(w, w.grad, inv_norm);
+  k7_product(w, w.kvT, 2 * T, T, on,
+             [&](const SWarp& v, int r, float a0, float a1, float a2) {
+               if (r >= 2 * T) return;
+               const bool pos = r < T;
+               const int t = pos ? r : r - T;
+               const float* x = pos ? v.traj : v.vel;
+               float* d = pos ? v.dir_t : v.dir_v;
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = a0 * w.mix[0 * NJ + i];
-      v = v + a1 * w.mix[1 * NJ + i];
-      v = v + a2 * w.mix[2 * NJ + i];
-      d[i * T + t] = p.lambda_reg * x[i * T + t] + v;
-    }
-  });
+               for (int i = 0; i < NJ; ++i)
+                 d[i * T + t] = p.lambda_reg * x[i * T + t] +
+                                mixed<false>(v.mix, i, a0, a1, a2);
+             });
+}
+
+// (traj, vel) = the exact evaluation of alpha, for the lanes that take it.
+template <class SW>
+static __device__ __forceinline__ void eval_alpha(SW& w, bool on) {
+  if (on) stage_input(w, w.alpha, 1.f);
+  eval_staged(w, on);
 }
 
 // The ultra tier's step start (the resident eval_start's).
 template <bool HALF>
-static __device__ __forceinline__ void eval_start(SWarp& w) {
+static __device__ __forceinline__ void eval_start(SWarp& w, bool on) {
   static_assert(!HALF, "the bf16 tier streams through HWarp");
-  stage_input(w, w.alpha, 1.f);
-  eval_staged(w);
+  eval_alpha(w, on);
 }
 
 // The accepted BLS step (the resident accept_step's, on the planes).
@@ -1215,44 +1529,48 @@ static __device__ __forceinline__ float cost_pass(const FsParams& p, SW& w,
   return cost_reduce(p, w, m, f, want_loss, first);
 }
 
-// Passes B and C (the resident grad_pass's; pass C through K7 over kvt).
+// Passes B and C (the resident grad_pass's; pass C through K7 over kvt) for
+// the lanes that take them.
 template <class SW>
 static __device__ __forceinline__ void grad_pass(const FsParams& p, SW& w,
-                                                 int first) {
+                                                 int first, bool on) {
   const int T = w.T;
-  float4* stack = (float4*)w.buf;
-  __syncwarp();
-  for (int g = 0; g < w.G; ++g) {
-    if (!w.owns(g)) continue;
-    const int t = w.tt(g);
-    float tr[NJ], ve[NJ], gp[NJ], gv[NJ];
-    load_point(w, t, tr, ve);
-    stacked_grad(p, w, t, first, tr, ve, w.gx[t], w.gy[t], gp, gv);
-    stack[t] = make_float4(gp[0], gp[1], gp[2], 0.f);
-    stack[T + t] = make_float4(gv[0], gv[1], gv[2], 0.f);
-  }
-  k7_product(w, w.kvtT, T, 2 * T, [&](int r, float a0, float a1, float a2) {
-    if (r >= T) return;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float v = a0 * w.mix[j * NJ + 0];
-      v = v + a1 * w.mix[j * NJ + 1];
-      v = v + a2 * w.mix[j * NJ + 2];
-      w.grad[j * T + r] = v;
+  if (on) {
+    float4* stack = (float4*)w.buf;
+    __syncwarp();
+    for (int g = 0; g < w.G; ++g) {
+      if (!w.owns(g)) continue;
+      const int t = w.tt(g);
+      float tr[NJ], ve[NJ], gp[NJ], gv[NJ];
+      load_point(w, t, tr, ve);
+      stacked_grad(p, w, t, first, tr, ve, w.gx[t], w.gy[t], gp, gv);
+      stack[t] = make_float4(gp[0], gp[1], gp[2], 0.f);
+      stack[T + t] = make_float4(gv[0], gv[1], gv[2], 0.f);
     }
-  });
+  }
+  k7_product(w, w.kvtT, T, 2 * T, on,
+             [&](const SW& v, int r, float a0, float a1, float a2) {
+               if (r >= T) return;
+#pragma unroll
+               for (int j = 0; j < NJ; ++j)
+                 v.grad[j * T + r] = mixed<true>(v.mix, j, a0, a1, a2);
+             });
 }
 
 // Loss of one ladder rung (the resident rung_cost's; the exact candidate's
-// evaluation goes into the traj/vel planes).
+// evaluation goes into the traj/vel planes, a product: ``on``, this lane
+// takes it, and every warp of the tile calls the exact rung).
 template <bool EXACT, bool BASE = false>
 static __device__ __forceinline__ float rung_cost(const FsParams& p, SWarp& w,
-                                                  float lr, float inv_norm) {
+                                                  float lr, float inv_norm,
+                                                  bool on = true) {
   static_assert(!BASE, "the bf16 tier streams through HWarp");
   const int T = w.T;
   if constexpr (EXACT) {
-    stage_candidate<SWarp, true>(w, 1.f - p.lambda_reg * lr, lr, inv_norm);
-    eval_staged(w);
+    if (on) stage_candidate<SWarp, true>(w, 1.f - p.lambda_reg * lr, lr,
+                                         inv_norm);
+    eval_staged(w, on);
+    if (!on) return 0.f;
   }
   __syncwarp();  // the product's reads of the buffer are done
   float m = 0.f;
@@ -1304,65 +1622,58 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
 
 // (traj, vel) = the staged input through kv, float32, into the ladder room
 // (the round start's and end's evaluation).
-static __device__ __forceinline__ void eval_staged(HWarp& w) {
+static __device__ __forceinline__ void eval_staged(HWarp& w, bool on) {
   const int T = w.T;
-  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
-    if (r >= 2 * T) return;
-    float* out = r < T ? w.traj + r : w.vel + (r - T);
+  k7_product(w, w.kvT, 2 * T, T, on,
+             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+               if (r >= 2 * T) return;
+               float* out = r < T ? v.traj + r : v.vel + (r - T);
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = a0 * w.mix[0 * NJ + i];
-      v = v + a1 * w.mix[1 * NJ + i];
-      v = v + a2 * w.mix[2 * NJ + i];
-      out[i * T] = v;
-    }
-  });
-  w.half = false;
+               for (int i = 0; i < NJ; ++i)
+                 out[i * T] = mixed<false>(v.mix, i, a0, a1, a2);
+             });
+  if (on) w.half = false;
 }
 
 // The step start: the exact evaluation of alpha, rounded to bfloat16, into
 // traj_h/vel_h.
 template <bool HALF>
-static __device__ __forceinline__ void eval_start(HWarp& w) {
+static __device__ __forceinline__ void eval_start(HWarp& w, bool on) {
   static_assert(HALF, "HWarp runs the bf16 tier only");
   const int T = w.T;
-  stage_input(w, w.alpha, 1.f);
-  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
-    if (r >= 2 * T) return;
-    __nv_bfloat16* out = r < T ? w.traj_h + r : w.vel_h + (r - T);
+  if (on) stage_input(w, w.alpha, 1.f);
+  k7_product(w, w.kvT, 2 * T, T, on,
+             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+               if (r >= 2 * T) return;
+               __nv_bfloat16* out = r < T ? v.traj_h + r : v.vel_h + (r - T);
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = a0 * w.mix[0 * NJ + i];
-      v = v + a1 * w.mix[1 * NJ + i];
-      v = v + a2 * w.mix[2 * NJ + i];
-      out[i * T] = __float2bfloat16_rn(v);
-    }
-  });
+               for (int i = 0; i < NJ; ++i)
+                 out[i * T] =
+                     __float2bfloat16_rn(mixed<false>(v.mix, i, a0, a1, a2));
+             });
 }
 
 // The search direction (the resident direction<true>'s), into dir_th/dir_vh.
 template <bool HALF>
 static __device__ __forceinline__ void direction(const FsParams& p, HWarp& w,
-                                                 float inv_norm) {
+                                                 float inv_norm, bool on) {
   static_assert(HALF, "HWarp runs the bf16 tier only");
   const int T = w.T;
   const float lam = bf16_round(p.lambda_reg);
-  stage_input(w, w.grad, inv_norm);
-  k7_product(w, w.kvT, 2 * T, T, [&](int r, float a0, float a1, float a2) {
-    if (r >= 2 * T) return;
-    const bool pos = r < T;
-    const int t = pos ? r : r - T;
-    const __nv_bfloat16* x = pos ? w.traj_h : w.vel_h;
-    __nv_bfloat16* d = pos ? w.dir_th : w.dir_vh;
+  if (on) stage_input(w, w.grad, inv_norm);
+  k7_product(w, w.kvT, 2 * T, T, on,
+             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+               if (r >= 2 * T) return;
+               const bool pos = r < T;
+               const int t = pos ? r : r - T;
+               const __nv_bfloat16* x = pos ? v.traj_h : v.vel_h;
+               __nv_bfloat16* d = pos ? v.dir_th : v.dir_vh;
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = a0 * w.mix[0 * NJ + i];
-      v = v + a1 * w.mix[1 * NJ + i];
-      v = v + a2 * w.mix[2 * NJ + i];
-      d[i * T + t] =
-          __float2bfloat16_rn(lam * __bfloat162float(x[i * T + t]) + v);
-    }
-  });
+               for (int i = 0; i < NJ; ++i)
+                 d[i * T + t] = __float2bfloat16_rn(
+                     lam * __bfloat162float(x[i * T + t]) +
+                     mixed<false>(v.mix, i, a0, a1, a2));
+             });
 }
 
 // The accepted BLS step: alpha on the own timesteps; the iterate is formed
@@ -1443,12 +1754,12 @@ static __device__ __forceinline__ float rung_cost(const FsParams& p, HWarp& w,
 }
 
 // ---------------------------------------------------------------------------
-// The BLS and GD steps and the round, for either body (W = Warp or SWarp).
+// The BLS and GD steps and the round of the resident body (W = Warp); the
+// streamed bodies run them in lockstep (below).
 // ---------------------------------------------------------------------------
 
 // (traj, vel) = the exact evaluation of alpha.
-template <class W>
-static __device__ __forceinline__ void eval_alpha(W& w) {
+static __device__ __forceinline__ void eval_alpha(Warp& w) {
   stage_input(w, w.alpha, 1.f);
   eval_staged(w);
 }
@@ -1608,4 +1919,158 @@ static __device__ __forceinline__ bool warp_round(const FsParams& p, W& w,
     if constexpr (SOLVER != SOLVER_BLS_EXACT) eval_alpha(w);
   }
   return constraints_ok(p, w);
+}
+
+// ---------------------------------------------------------------------------
+// The streamed bodies' steps and round, in lockstep over the CTA's tile.
+// ---------------------------------------------------------------------------
+//
+// The resident bls_step, gd_step and warp_round, op for op, for a tile of
+// lanes in lockstep: ``live`` says whether this warp's lane takes part (a
+// lane that is done, and every warp but a lane's first, does not).  Every
+// warp reaches every basis product (an evaluation, a direction, a
+// pull-back) at the same call site, with ``on`` saying whether its lane
+// takes it; the pieces without a product run under the lane's own flag.
+// The loops take the most trips any live lane of the tile needs
+// (__syncthreads_or), and a lane leaves them as the resident body's break
+// would.
+
+template <int SOLVER, class SW>
+static __device__ __forceinline__ bool ls_bls_step(const FsParams& p, SW& w,
+                                                   float& loss, float& lr,
+                                                   bool live) {
+  constexpr bool EXACT = SOLVER == SOLVER_BLS_EXACT;
+  constexpr bool HALF = SOLVER == SOLVER_BLS_BF16;
+  constexpr bool ULTRA = HALF || SOLVER == SOLVER_BLS_ULTRA;
+  constexpr bool CARRY = SOLVER == SOLVER_BLS;
+  if constexpr (ULTRA) eval_start<HALF>(w, live);
+  float inv_norm = 0.f, alpha_norm = 0.f;
+  if (live) grad_norms(w, inv_norm, alpha_norm);
+  if constexpr (!EXACT) direction<HALF>(p, w, inv_norm, live);
+  float base = loss;
+  if constexpr (HALF) {
+    if (live) base = rung_cost<false, true>(p, w, 0.f, inv_norm);
+  }
+
+  bool found = false;
+  float lr_best = 0.f, loss_best = base, rung = 1.f;
+  if constexpr (EXACT) {
+    // Each rung evaluates its candidate through the basis: the tile's
+    // lanes climb the ladder together until each has its first pass.
+    bool want = live;
+    for (int k = 0; k < p.n_bls; ++k) {
+      if (!__syncthreads_or(want)) break;
+      const float lr_r = lr * rung;
+      const float closs = rung_cost<true>(p, w, lr_r, inv_norm, want);
+      if (want) {
+        const float required = base - p.bls_alpha * lr_r * alpha_norm;
+        if (closs <= required) {  // first pass wins
+          found = true;
+          lr_best = lr_r;
+          loss_best = closs;
+          want = false;
+        } else {
+          rung = rung * p.beta_minus;
+        }
+      }
+    }
+  } else if (live) {
+    for (int k = 0; k < p.n_bls; ++k) {
+      const float lr_r = lr * rung;
+      const float closs = rung_cost<false>(p, w, lr_r, inv_norm);
+      const float required = base - p.bls_alpha * lr_r * alpha_norm;
+      if (closs <= required) {  // first pass wins
+        found = true;
+        lr_best = lr_r;
+        loss_best = closs;
+        break;
+      }
+      rung = rung * p.beta_minus;
+    }
+  }
+  const float lr_eff = found ? lr_best : 0.f;
+  const float new_lr = found ? lr_best * p.beta_plus : lr * p.lr_fail;
+  const bool stop = (base - loss_best) < p.loss_red;
+
+  if (live) accept_step<EXACT, !CARRY>(p, w, lr_eff, inv_norm);
+  if constexpr (EXACT) eval_alpha(w, live && !found);
+  float nloss = loss_best;
+  const bool pull = live && !stop;
+  int first = 0;
+  if (pull) {
+    if constexpr (CARRY)
+      cost_pass(p, w, false, first);
+    else
+      nloss = cost_pass(p, w, true, first);
+  }
+  grad_pass(p, w, first, pull);
+  if (live) {
+    loss = nloss;
+    lr = new_lr;
+  }
+  return stop;
+}
+
+template <class SW>
+static __device__ __forceinline__ bool ls_gd_step(const FsParams& p, SW& w,
+                                                  float& loss, float lr,
+                                                  bool live) {
+  const float a_fac = 1.f - p.lambda_reg * lr;
+  if (live) stage_candidate<SW, false>(w, a_fac, lr, 1.f);
+  eval_staged(w, live);
+  int first = 0;
+  float nloss = 0.f;
+  bool stop = true;
+  if (live) {
+    nloss = cost_pass(p, w, true, first);
+    stop = (loss - nloss) < p.loss_red;
+    if (!stop) accept_trial(w, a_fac, lr);
+  }
+  grad_pass(p, w, first, live && !stop);
+  if (live && !stop) loss = nloss;
+  return stop;
+}
+
+// The round (warp_round's), for the tile; returns whether this lane's
+// constraints hold (false for a lane that does not take part).
+template <int SOLVER, class SW>
+static __device__ __forceinline__ bool ls_round(const FsParams& p, SW& w,
+                                                int n_r, float lr0,
+                                                float& loss, float& inner,
+                                                bool evaluated, bool live) {
+  eval_alpha(w, live && !evaluated);
+  int first = 0;
+  if (live) loss = cost_pass(p, w, true, first);
+  grad_pass(p, w, first, live);
+  if constexpr (SOLVER == SOLVER_GD) {
+    bool go = live, rejected = false;
+    for (int k = 0; k < n_r; ++k) {
+      if (!__syncthreads_or(go)) break;
+      const bool stop = ls_gd_step(p, w, loss, lr0, go);
+      if (go) {
+        if (stop) {
+          rejected = true;
+          go = false;
+        } else {
+          inner += 1.f;  // live before the step and after it
+        }
+      }
+    }
+    eval_alpha(w, rejected);
+  } else {
+    float lr = lr0;
+    bool go = live;
+    for (int k = 0; k < n_r; ++k) {
+      if (!__syncthreads_or(go)) break;
+      const bool stop = ls_bls_step<SOLVER>(p, w, loss, lr, go);
+      if (go) {
+        if (stop)
+          go = false;
+        else
+          inner += 1.f;  // live before the step and after it
+      }
+    }
+    if constexpr (SOLVER != SOLVER_BLS_EXACT) eval_alpha(w, live);
+  }
+  return live && constraints_ok(p, w);
 }

@@ -106,7 +106,7 @@ def build() -> str:
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
     signatures: the parameter block and the lanes per block (K3, K5), per
-    CTA (K1/K2, K4) or the threads per block (K6)[, K1/K2's program, body
+    CTA (K1/K2, K4, K7) or the threads per block (K6)[, K1/K2's program, body
     (resident 0, streamed 1) and the CTAs of their grid][, n_r][, K3's
     ladder tier][, K3/K5's basis (staged 0, device memory 1)][, K4's body]
     [, K6's 16-byte copies and its basis' padded rows], then a c_void_p
@@ -121,6 +121,7 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
         ("gd_step_launch", 1, 18),
         ("cost_grad_eval_launch", 1, 17),
         ("forward_eval_launch", 2, 6),
+        ("k7_forward_launch", 0, 6),
     ):
         if names is None or name in names:
             fn = getattr(lib, name)

@@ -40,9 +40,10 @@ scalars ``(B,)`` inside and ``(1, B)`` at the public functions, obstacles
 The wrappers take the plain version for CPU tensors and launch the CUDA
 kernels (csrc/fused_solve.cu: one warp per lane, the warp body in
 csrc/warp_body.cuh, in the plan :func:`launch_plan` gives: the resident
-body for T <= 64, the streamed one, whose basis products stream the basis
-from device memory through K7, beyond; a persistent grid over a lane
-queue) for CUDA tensors; they never fall back.  The plain versions run all
+body for T <= 64, the streamed one beyond, whose CTA runs a tile of lanes
+in lockstep and streams the basis from device memory through K7 once per
+tile and product; a persistent grid over a lane queue) for CUDA tensors;
+they never fall back.  The plain versions run all
 lanes in lockstep with per-lane masks, so their per-lane results equal the
 kernels' per-lane early exits.  K7's plain version is the plain versions'
 own basis products (:func:`forward_planes` and the pull-back in
@@ -380,6 +381,23 @@ def two_roundings(a, b, c):
     return a * b + c
 
 
+def carry_direction(lam, x, g):
+    """The linearized ladder's direction ``lam x + g``, the product rounded
+    first, then the sum, as every kernel forms it (PERF.md section 7 has
+    why the carry program keeps its expressions rounded twice)."""
+    return lam * x + g
+
+
+def rung_point(x, lr, d):
+    """A rung's linearized candidate ``x - lr d``, rounded twice."""
+    return x - lr * d
+
+
+def accepted_point(x, lr, d):
+    """The accepted linearized iterate ``x - lr d``, rounded twice."""
+    return x - lr * d
+
+
 def bf16_round(x):
     """x rounded to bfloat16 (round to nearest even) and back to float32:
     the values the bf16 tier's ladder planes hold (JAX's ``astype``)."""
@@ -450,8 +468,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         gtraj, gvel = forward_planes(kv, mix, n_grad)
         lam = float(bf16_round(torch.tensor(cfg.lambda_reg))) if bf16 \
             else cfg.lambda_reg
-        dir_t = lam * traj + gtraj
-        dir_v = lam * vel + gvel
+        dir_t = carry_direction(lam, traj, gtraj)
+        dir_v = carry_direction(lam, vel, gvel)
         if bf16:
             dir_t, dir_v = bf16_round(dir_t), bf16_round(dir_v)
 
@@ -477,8 +495,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
                 kv, mix, fma(1.0 - cfg.lambda_reg * lr_r, alpha,
                              -(lr_r * n_grad)))
         else:
-            cand_t = traj - lr_r * dir_t
-            cand_v = vel - lr_r * dir_v
+            cand_t = rung_point(traj, lr_r, dir_t)
+            cand_v = rung_point(vel, lr_r, dir_v)
         ee_x, ee_y, rpx, rpy = fk_ee(c, cand_t)
         cost_v = obstacle_cost_v(ee_x, ee_y, obs)
         closs = scalar_cost(cfg, c, cand_t, cand_v, cost_v, start, goal,
@@ -504,8 +522,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     if exact:
         nt, nv = forward_planes(kv, mix, new_alpha)
     else:
-        nt = traj - lr_eff * dir_t
-        nv = vel - lr_eff * dir_v
+        nt = accepted_point(traj, lr_eff, dir_t)
+        nv = accepted_point(vel, lr_eff, dir_v)
     if carry_fk:
         nloss, npx, npy = loss_best, cpx, cpy
         _, ngrad, _, _ = cost_grad_from_traj(
@@ -722,6 +740,57 @@ def warps_per_cta(cfg: PlannerConfig) -> int:
     return w
 
 
+# The streamed plan (csrc/warp_body.cuh): its CTA's warps (the tile's lanes,
+# one warp each, helpers, and K7's producer last), K7's ring stages, the
+# lanes and rows of a K7 thread's register block, the most floats of the
+# ring, the ring the plan keeps when it can (the lanes per CTA give way to
+# it), and the CTA's pieces besides the room (mix, 12 floats, and the
+# control block: the ring's mbarriers and the tile base).
+STREAM_WARPS = 16
+K7_STAGES = 2
+K7_LANES = 2
+K7_ROWS = 4
+K7_SOLO_ROWS = 2
+RING_CAP = 16384
+RING_MIN_BYTES = 48 * 1024
+CTA_BYTES = 4 * (12 + 20)
+
+
+def k7_row_block(rows: int, lanes: int) -> int:
+    """K7's rows per pass (a row block of the basis in device memory) for a
+    product of ``rows`` output rows on a tile of ``lanes`` lanes (mirror of
+    k7_row_block): the consumer warps' threads split the lanes into blocks
+    of K7_LANES and each block's rows among them, K7_ROWS consecutive rows
+    a thread (K7_SOLO_ROWS for one lane alone); at most the rows, padded to
+    a multiple of 4."""
+    blocks = -(-lanes // K7_LANES)
+    units = 32 * (STREAM_WARPS - 1) // blocks
+    per = K7_SOLO_ROWS if lanes == 1 else K7_ROWS
+    return min(per * units, -(-rows // 4) * 4)
+
+
+def room_floats(T: int, lanes: int, lane_floats: int) -> int:
+    """The CTA's room (mirror of ws_room_floats): the shared memory the
+    lanes leave, at most RING_CAP floats, at least the tile's gx/gy planes
+    (floats, a multiple of 4)."""
+    left = max(SMEM_PER_CTA_MAX // 4 - CTA_BYTES // 4 - lanes * lane_floats, 0)
+    return max(min(left, RING_CAP) & ~3, -(-2 * T * lanes // 4) * 4)
+
+
+def k7_geometry(T: int, lanes: int, room: int) -> dict:
+    """K7's ring in a room of ``room`` floats for a tile of ``lanes`` lanes
+    at T: the lane blocks; for each basis product, kv (2T rows, T
+    timesteps) and kvt (T rows, 2T timesteps), the rows of a row block, the
+    passes (row blocks) and the timesteps per ring stage (room / (K7_STAGES
+    row block)); the ring's bytes (the whole room)."""
+    out = {"lane_blocks": -(-lanes // K7_LANES), "ring_bytes": 4 * room}
+    for name, rows in (("kv", 2 * T), ("kvt", T)):
+        rb = k7_row_block(rows, lanes)
+        out[name] = {"row_block": rb, "passes": -(-rows // rb),
+                     "stage_t": room // (K7_STAGES * rb)}
+    return out
+
+
 def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
                 prog: str = "bls") -> dict:
     """K1/K2's dynamic shared memory per CTA, by piece, in bytes (mirror of
@@ -730,30 +799,39 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     ``"streamed"`` beyond, for the program ``prog`` of PROGRAMS.
 
     Resident: per CTA the basis pair transposed (2 x 2T x T) and mix (padded
-    to 12 floats); per warp the planes alpha, grad, dir_t, dir_v (J x T
-    each), the buffer (8 reduction rows of T padded to a multiple of 4,
-    which also holds a product's staged input and the stacked gradient, 2T
-    float4), the obstacle terms (float4 each) and the endpoints (20 floats);
-    ``cfg.pallas_block_b`` warps (0: DEFAULT_WARPS).  Streamed: per CTA only
-    mix; per warp the same pieces and the traj/vel/gx/gy planes ((2J + 2) x
-    T, "state"); the most warps, at most ``cfg.pallas_block_b`` (0:
-    DEFAULT_WARPS), that fit in SMEM_PER_CTA_MAX.  Every program but
-    ``bls_bf16`` has this layout (the ultra tier holds the same planes:
-    there is no FK plane to drop, and the ladder reads traj/vel at every
-    rung).  The streamed plan of ``bls_bf16`` holds the ladder planes
-    (traj, vel, dir_t, dir_v: 4 J T bfloat16, padded to 16 bytes; at the
-    round start and end they hold the float32 traj/vel instead) beside the
-    planes alpha and grad and the state gx/gy, and its gradient pass
-    recomputes FK instead of keeping the tangents: 24 bytes per timestep
-    less at J = 3.  Its resident plan is the float32 one (the rounded
-    values held as float32).
+    to 12 floats); per warp (one per lane) the planes alpha, grad, dir_t,
+    dir_v (J x T each), the buffer (8 reduction rows of T padded to a
+    multiple of 4, which also holds a product's staged input and the stacked
+    gradient, 2T float4), the obstacle terms (float4 each) and the endpoints
+    (20 floats); ``cfg.pallas_block_b`` lanes (0: DEFAULT_WARPS).
 
-    Returns {"plan", "warps", "bytes": {piece: bytes}, "total", "bf16": the
-    half-width layout}.  Raises ValueError for a lanes-per-CTA value, plan
-    or program the kernels cannot take, NotImplementedError when the plan
-    does not fit: the resident one past WARP_MAX_T (the message names the
-    streamed plan), the streamed one when a single warp does not fit (the
-    message names the largest piece)."""
+    Streamed: a CTA of STREAM_WARPS warps runs a tile of lanes in lockstep,
+    one warp each; its other warps help with the basis products and its
+    last is K7's producer.  Per CTA mix and the control block (K7's
+    mbarriers, the tile's first lane: "control") and the room (the tile's
+    gx/gy planes, 2T each, which the K7 ring takes whole during a product:
+    :func:`room_floats`, :func:`k7_geometry`, "ring" in the result); per
+    lane the same pieces as the resident plan's and the traj/vel planes
+    ("state", padded so the six planes end on 16 bytes).  The lanes: the
+    most, at most ``cfg.pallas_block_b`` (0: DEFAULT_WARPS) and
+    STREAM_WARPS - 1, that leave the ring RING_MIN_BYTES and run each
+    product in one pass of K7's threads, else the most that fit.  Every program but ``bls_bf16`` has this layout (the ultra
+    tier holds the same planes: there is no FK plane to drop, and the
+    ladder reads traj/vel at every rung).  The streamed plan of
+    ``bls_bf16`` holds the ladder planes (traj, vel, dir_t, dir_v: 4 J T
+    bfloat16; at the round start and end they hold the float32 traj/vel
+    instead) beside the planes alpha and grad and no state plane, and its
+    gradient pass recomputes FK instead of keeping the tangents: 24 bytes
+    per timestep less at J = 3.  Its resident plan is the float32 one (the
+    rounded values held as float32).
+
+    Returns {"plan", "lanes": lanes per CTA, "warps": the CTA's warps,
+    "bytes": {piece: bytes}, "total", "ring": the K7 ring (streamed),
+    "bf16": the half-width layout}.  Raises ValueError for a lanes-per-CTA
+    value, plan or program the kernels cannot take, NotImplementedError
+    when the plan does not fit: the resident one past WARP_MAX_T (the
+    message names the streamed plan), the streamed one when a single lane
+    does not fit (the message names the largest piece)."""
     want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
     plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
@@ -784,32 +862,50 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
                 f"T={T}: the resident plan needs {total} bytes of shared "
                 f"memory per CTA, more than {SMEM_PER_CTA_MAX}"
             )
-        return {"plan": plan, "warps": want, "bytes": pieces, "total": total,
-                "bf16": False}
+        return {"plan": plan, "lanes": want, "warps": want, "bytes": pieces,
+                "total": total, "bf16": False}
     if T < STREAM_MIN_T:
         raise ValueError(
             f"T={T}: the streamed plan needs T >= {STREAM_MIN_T} (every "
             f"thread of a warp owns a timestep)")
     half = prog == "bls_bf16"
+    per_lane = dict(per_warp)
     if half:
-        per_warp["planes"] = f * 2 * J * T
-        per_warp["ladder"] = f * ((2 * J * T + 3) // 4 * 4)
-        per_warp["state"] = f * 2 * T
+        per_lane["planes"] = f * 2 * J * T
+        per_lane["ladder"] = f * 2 * J * T
     else:
-        per_warp["state"] = f * (2 * J + 2) * T
-    one = sum(per_warp.values())
-    room = SMEM_PER_CTA_MAX - f * 12
-    if one > room:
-        big = max(per_warp, key=per_warp.get)
+        per_lane["state"] = f * ((6 * J * T + 3) // 4 * 4 - 4 * J * T)
+    one = sum(per_lane.values())
+
+    def layout(lanes):
+        room = room_floats(T, lanes, one // f)
+        pieces = {"mix": f * 12, "control": f * 20, "room": f * room,
+                  **{k: lanes * v for k, v in per_lane.items()}}
+        ring = k7_geometry(T, lanes, room)
+        fits = (sum(pieces.values()) <= SMEM_PER_CTA_MAX
+                and min(ring["kv"]["stage_t"], ring["kvt"]["stage_t"]) >= 1)
+        return pieces, ring, fits
+
+    fit = [n for n in range(1, min(want, STREAM_WARPS - 1) + 1)
+           if layout(n)[2]]
+    if not fit:
+        big = max(per_lane, key=per_lane.get)
         raise NotImplementedError(
-            f"T={T}: one warp's lane state does not fit in shared memory: "
-            f"{one} bytes per warp, {room} free per CTA; the largest piece "
-            f"is {big} ({per_warp[big]} bytes)"
+            f"T={T}: one lane's state does not fit in shared memory: "
+            f"{one + f * 2 * T} bytes per lane, "
+            f"{SMEM_PER_CTA_MAX - CTA_BYTES} free per CTA; the largest piece "
+            f"is {big} ({per_lane[big]} bytes)"
         )
-    warps = min(want, room // one)
-    pieces = {"mix": f * 12, **{k: warps * v for k, v in per_warp.items()}}
-    return {"plan": plan, "warps": warps, "bytes": pieces,
-            "total": sum(pieces.values()), "bf16": half}
+    def roomy(n):
+        ring = layout(n)[1]
+        return (ring["ring_bytes"] >= RING_MIN_BYTES
+                and ring["kv"]["passes"] == ring["kvt"]["passes"] == 1)
+
+    lanes = max([n for n in fit if roomy(n)] or fit)
+    pieces, ring, _ = layout(lanes)
+    return {"plan": plan, "lanes": lanes, "warps": STREAM_WARPS,
+            "bytes": pieces, "total": sum(pieces.values()), "ring": ring,
+            "bf16": half}
 
 
 def kernel_plan(cfg: PlannerConfig, O: int, solver: str = "bls"):
@@ -842,21 +938,21 @@ def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
     (BLS: in the ladder tier of ``cfg`` and the kernel tier of the
     ``lean``/``ultra``/``bf16`` keywords, :func:`program`): CTAs per SM (the
     CUDA occupancy calculator, registers and shared memory), SMs, shared
-    memory per CTA as the C side computes it, warps per SM.  Needs the
-    card."""
+    memory per CTA and warps per CTA as the C side computes them, warps per
+    SM.  Needs the card."""
     from ._build import load_library
 
     prog = program(cfg, solver, **tier)
     lp = launch_plan(cfg, O, plan, prog)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = load_library().fused_launch_shape(
-        kernel_params(cfg, O, B), lp["warps"],
+        kernel_params(cfg, O, B), lp["lanes"],
         {"fused_solve": 0, "fused_round": 1}[kernel],
         PROGRAMS.index(prog), PLANS.index(lp["plan"]), out)
     if err:
         raise RuntimeError(f"{kernel}: launch shape refused (CUDA error {err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
-            "warps_per_sm": out[0] * lp["warps"]}
+            "warps_per_cta": out[3], "warps_per_sm": out[0] * out[3]}
 
 
 _MEMO: dict = {}
@@ -877,21 +973,53 @@ def memo(name: str, fn, *xs):
     return out
 
 
-def streamed_basis(kv, kvt):
-    """The basis pair as the streamed body reads it from device memory:
-    each transposed, its rows (the products' output rows) zero-padded to a
-    multiple of 32 (csrc/warp_body.cuh, ws_ld): kv (2T, T) -> (T, 2T
-    padded), kvt (T, 2T) -> (2T, T padded).  Built once per basis pair
-    (:func:`memo`), not at every launch."""
-    def padded_t(m):
-        rows, cols = m.shape
-        out = torch.zeros((cols, (rows + 31) // 32 * 32), dtype=m.dtype,
-                          device=m.device)
-        out[:, :rows] = m.T
-        return out
+def streamed_basis(kv, kvt, ring: dict):
+    """The basis pair as the streamed body's K7 reads it from device
+    memory, for the launch plan's ``ring`` (:func:`k7_geometry`): each
+    matrix transposed and cut into blocks of its row-block rows, block
+    after block, each block's rows contiguous per timestep and zero-padded
+    to a whole block: M (rows, n_t) -> (blocks, n_t, row block), kv (2T, T)
+    and kvt (T, 2T), so one ring stage (a run of timesteps of one block) is
+    one contiguous copy (csrc/warp_body.cuh, k7_product).  Built once per
+    basis pair and row blocks (:func:`memo`), not at every launch."""
+    def blocked(m, rb):
+        rows, n_t = m.shape
+        blocks = -(-rows // rb)
+        out = torch.zeros((blocks * rb, n_t), dtype=m.dtype, device=m.device)
+        out[:rows] = m
+        return out.reshape(blocks, rb, n_t).transpose(1, 2).contiguous()
 
-    return memo("streamed_basis",
-                lambda a, b: (padded_t(a), padded_t(b)), kv, kvt)
+    rb, rbt = ring["kv"]["row_block"], ring["kvt"]["row_block"]
+    return memo(f"streamed_basis_{rb}_{rbt}",
+                lambda a, b: (blocked(a, rb), blocked(b, rbt)), kv, kvt)
+
+
+def k7_forward(cfg: PlannerConfig, kv, kvt, mix, alpha):
+    """K7 alone: (traj, vel) = the forward evaluation of alpha (J, T, B),
+    ``kv @ alpha_j`` with the mix combine, each (J, T, B), through the
+    streamed body's product on the streamed launch plan's tiles of lanes
+    (csrc/fused_solve.cu, k7_forward_kernel): the product K1/K2 run at
+    T > 64, on its own for measurement.  Bit for bit K6's evaluation
+    (step_kernels.forward_eval).  On the CPU: the plain version,
+    :func:`forward_planes`."""
+    if alpha.device.type != "cuda":
+        return forward_planes(kv, mix, alpha)
+    from ._build import launch
+
+    J, T, B = alpha.shape
+    O = cfg.max_obstacles
+    lp = launch_plan(cfg, O, "streamed")
+    kvT, _ = streamed_basis(kv, kvt, lp["ring"])
+    traj = torch.empty_like(alpha)
+    vel = torch.empty_like(alpha)
+    queue = torch.zeros(1, dtype=torch.int32, device=alpha.device)
+    launch("k7_forward", kernel_params(cfg, O, B), lp["lanes"],
+           [kvT, mix, alpha.contiguous(), traj, vel, queue], alpha.device)
+    k7_forward.launches += 1
+    return traj, vel
+
+
+k7_forward.launches = 0
 
 
 def program(cfg: PlannerConfig, solver: str, lean: bool = False,
@@ -1182,7 +1310,7 @@ def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
     """Launch ``<name>_launch`` of the kernel library on the current stream,
     the instantiation of the program ``prog`` in the body of the launch plan
     (:func:`launch_plan`; the streamed body takes the basis pair as
-    :func:`streamed_basis` gives it): the persistent grid (``ctas`` CTAs, 0:
+    :func:`streamed_basis` gives it for the plan's ring): the persistent grid (``ctas`` CTAs, 0:
     all that fit) over a lane queue zeroed here; ``alpha`` (J, T, B) is
     updated in place, ``n_out`` (1, B) outputs are returned.  Raises when
     the launch is refused."""
@@ -1197,12 +1325,13 @@ def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
     lp = launch_plan(cfg, O, plan, prog)
     streamed = lp["plan"] == "streamed"
     if streamed:
-        inputs = [*streamed_basis(inputs[0], inputs[1]), *inputs[2:]]
+        inputs = [*streamed_basis(inputs[0], inputs[1], lp["ring"]),
+                  *inputs[2:]]
     dev = alpha.device
     outs = [torch.empty((1, B), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
-    launch(name, kernel_params(cfg, O, B), lp["warps"],
+    launch(name, kernel_params(cfg, O, B), lp["lanes"],
            [ctypes.c_int(PROGRAMS.index(prog)), ctypes.c_int(streamed),
             ctypes.c_int(ctas), *scalars,
             *inputs, alpha, *outs, queue], dev)

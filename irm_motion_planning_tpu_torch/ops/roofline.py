@@ -21,12 +21,13 @@ bound stays the function's: its inputs read once, the basis among them,
 and its operations.  What the design streams beside that is a diagnostic,
 ``Bound.l2_bytes`` and ``Bound.design_l2_ms``: the basis (8 T^2 bytes per
 product) fits in the 50 MB L2 up to T = 2,500, so it comes from L2, not
-HBM; K1/K2 and K4 read it once per basis product per lane (one warp per
-lane), K3/K5 once per product per warp of 32 lanes (every lane of a warp
-reads the same word), K6 once per tile of 64 lanes.  Those reads are a
-cost of the design (a stream shared by the warps of a CTA would cut them
-by the warps per CTA), not of the function, so they do not enter ``ms``
-or ``by``.
+HBM; K1/K2 and K4 read it once per basis product per tile of lanes (K7: a
+CTA's lanes run in lockstep and share each product's stream, so the reads
+per lane fall by the lanes per CTA; counted here from the lanes' products,
+the fewest the tiles can run), K3/K5 once per product per warp of 32
+lanes (every lane of a warp reads the same word), K6 once per tile of 64
+lanes.  Those reads are a cost of the design, not of the function, so they
+do not enter ``ms`` or ``by``.
 
 Rates: the published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s
 of HBM3, 67 TFLOP/s fp32 outside the tensor cores (TF32 is not used).  The
@@ -205,20 +206,21 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
 
 
 def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
-                  streamed: bool = False) -> Bound:
+                  streamed: bool = False, lanes_per_cta: int = 1) -> Bound:
     """K4 in place, from the plain version's tally: a live lane reads alpha,
     grad, loss, lr, penalties and scene and evaluates the trial; an accepted
     trial writes alpha, grad, traj, vel and loss and pays the pull-back; a
     stop writes the flag.  ``streamed``: the warp body streams the basis,
-    once per product and lane (K1's streamed body)."""
+    once per product and tile of ``lanes_per_cta`` lanes (K1's streamed
+    body, K7)."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     steps, acc = _total(tally["steps"]), _total(tally["accepted"])
     live_in = 2 * b["plane"] + 4 * b["scalar"] + b["scene"]
     byts = (B * F32 + steps * live_in + acc * (4 * b["plane"] + F32)
             + (steps - acc) * F32 + _basis_bytes(T, J))
     ops = steps * (n.trial + n.forward + n.cost + n.loss) + acc * n.grad
-    return Bound(byts, ops,
-                 (steps + acc) * product_bytes(T) if streamed else 0.0)
+    return Bound(byts, ops, (steps + acc) * product_bytes(T) / lanes_per_cta
+                 if streamed else 0.0)
 
 
 def fused_products(B: int, tally: dict, whole_solve: bool,
@@ -248,7 +250,8 @@ def fused_products(B: int, tally: dict, whole_solve: bool,
 def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
                  whole_solve: bool, solver: str = "bls",
                  ladder_eval: str = "linearized",
-                 streamed: bool = False, prog: str = "") -> Bound:
+                 streamed: bool = False, prog: str = "",
+                 lanes_per_cta: int = 1) -> Bound:
     """K1 (``whole_solve``: all rounds) or K2 (one round) of ``solver``,
     from the work counts of the run: each lane reads alpha, its penalties
     and scene and writes alpha and its per-lane results (K1 four, K2 three).
@@ -278,7 +281,8 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
 
     ``streamed`` (the streamed body): ``l2_bytes``, the design's
     diagnostic, holds every basis product (:func:`fused_products`) reading
-    the basis from L2, once per lane."""
+    the basis from L2 once per tile of ``lanes_per_cta`` lanes (K7, the
+    launch plan's "lanes")."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     n_out = 4 if whole_solve else 3
     per_lane = (2 * b["plane"] + 4 * b["scalar"] + b["scene"]
@@ -305,14 +309,15 @@ def fused_rounds(B: int, T: int, J: int, O: int, tally: dict,
         if prog == "bls_bf16":
             ops += steps * rung
     l2 = (fused_products(B, tally, whole_solve, solver, ladder_eval, prog)
-          * product_bytes(T) if streamed else 0.0)
+          * product_bytes(T) / lanes_per_cta if streamed else 0.0)
     return Bound(B * per_lane + _basis_bytes(T, J), ops, l2)
 
 
 def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
                          live, solver: str = "bls",
                          ladder_eval: str = "linearized",
-                         streamed: bool = False, prog: str = "") -> Bound:
+                         streamed: bool = False, prog: str = "",
+                         lanes_per_cta: int = 1) -> Bound:
     """K2 over a whole solve, one launch per round, from the solve's work
     counts (as :func:`fused_rounds` for K2: the rounds driver runs K1's
     work, each round starting from alpha) and
@@ -322,7 +327,7 @@ def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
     alpha; each launch reads the basis."""
     b = _lane_bytes(T, J, O)
     rounds = fused_rounds(B, T, J, O, tally, False, solver, ladder_eval,
-                          streamed, prog)
+                          streamed, prog, lanes_per_cta)
     byts = sum(B * 4 * b["scalar"] + n * (2 * b["plane"] + 3 * b["scalar"]
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)

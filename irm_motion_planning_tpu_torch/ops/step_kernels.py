@@ -79,7 +79,8 @@ def gd_step_plan(cfg: PlannerConfig, O: int) -> dict:
     lanes per CTA (fused_solve.DEFAULT_WARPS when it is 0), in K1-GD's plan
     (fused_solve.launch_plan of the ``gd`` program: the resident body up to
     T = 64, the streamed one beyond, which takes as many of those lanes as
-    fit), with its shared memory per CTA by piece.  Raises ValueError for a
+    fit, one warp each, in a CTA of fused_solve.STREAM_WARPS warps), with
+    its shared memory per CTA by piece.  Raises ValueError for a
     ``pallas_block_b`` that is not 32-512 threads in whole warps (or 0),
     NotImplementedError where no plan fits (fleet_solve then runs xla)."""
     bt = cfg.pallas_block_b
@@ -101,7 +102,7 @@ def gd_step_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
     lp = gd_step_plan(cfg, O)
     out = (ctypes.c_int * 3)()
     err = load_library().gd_step_shape(
-        fs.kernel_params(cfg, O, B, schedule=False), lp["warps"],
+        fs.kernel_params(cfg, O, B, schedule=False), lp["lanes"],
         fs.PLANS.index(lp["plan"]), out)
     if err:
         raise RuntimeError(f"gd_inner_step: launch shape refused (CUDA error "
@@ -310,14 +311,15 @@ def _into(out, res):
 def _gd_launch(cfg: PlannerConfig, O: int, B: int, dev, kv, kvt, mix, tail,
                state) -> None:
     """Launch K4 in its plan (:func:`gd_step_plan`; the streamed body takes
-    the basis pair as fused_solve.streamed_basis gives it)."""
+    the basis pair as fused_solve.streamed_basis gives it for the plan's
+    ring)."""
     from ._build import launch
 
     lp = gd_step_plan(cfg, O)
     streamed = lp["plan"] == "streamed"
     if streamed:
-        kv, kvt = fs.streamed_basis(kv, kvt)
-    launch("gd_step", fs.kernel_params(cfg, O, B, schedule=False), lp["warps"],
+        kv, kvt = fs.streamed_basis(kv, kvt, lp["ring"])
+    launch("gd_step", fs.kernel_params(cfg, O, B, schedule=False), lp["lanes"],
            [ctypes.c_int(int(streamed)), kv, kvt, mix, *tail, *state], dev)
 
 

@@ -85,7 +85,8 @@ def run_size(T: int, batch: int, repeats: int, solver: str, backend: str,
         "compile_s": round(compile_s, 1),
         "launches": {k.__name__: k.launches - before[k.__name__]
                      for k in KERNELS[backend]},
-        "plan": plan and {"plan": plan["plan"], "warps": plan["warps"],
+        "plan": plan and {"plan": plan["plan"], "lanes": plan["lanes"],
+                          "warps": plan["warps"],
                           "smem_bytes": plan["total"]},
     }
 

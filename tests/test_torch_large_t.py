@@ -230,31 +230,47 @@ def test_fused_solve_at_t72_matches_jax_streamed(t72, program, stream_rb):
 
 
 def test_streamed_plan_pieces_and_warps():
-    """Streamed at T = 65, 72, 100, 200 and 1,000: per CTA only mix; per
-    warp the resident body's pieces and the traj/vel/gx/gy planes; the
-    pieces sum to the total, which fits; the warps per CTA do not grow with
-    T (16 up to T = 100, 10 at T = 200, 2 at T = 1,000)."""
-    warps = []
+    """Streamed at T = 65, 72, 100, 200 and 1,000: per CTA mix, the control
+    block and the room (the tile's gx/gy planes, 2T floats each, and the
+    K7 ring, which takes the shared memory the lanes leave, at most 64 KB);
+    per lane the resident body's pieces and the traj/vel planes (padded so
+    the six planes end on 16 bytes); the pieces sum to the total, which
+    fits; STREAM_WARPS warps per CTA; the lanes per CTA, one warp each, do
+    not grow with T: the most (at most 15) that leave the ring 48 KB and
+    run each basis product in one pass of K7's threads (15 up to T = 100, 8
+    at T = 200), else the most that fit (2 at T = 1,000)."""
+    lanes = []
     for T in (65, 72, 100, 200, 1000):
         plan = tfs.launch_plan(mt.PlannerConfig(n_timesteps=T), 11)
-        w = plan["warps"]
+        w = plan["lanes"]
         rows = (T + 3) // 4 * 4
         assert plan["plan"] == "streamed"
-        assert plan["bytes"] == {
-            "mix": 48, "planes": w * 4 * 12 * T, "buffer": w * 4 * 8 * rows,
+        assert plan["warps"] == tfs.STREAM_WARPS == 16
+        per_lane = {
+            "planes": w * 4 * 12 * T, "buffer": w * 4 * 8 * rows,
             "obstacles": w * 4 * 44, "endpoints": w * 80,
-            "state": w * 4 * 8 * T,
+            "state": w * 4 * ((18 * T + 3) // 4 * 4 - 12 * T),
         }
+        left = SMEM_LIMIT - 128 - sum(per_lane.values())
+        room = max(min(left, 65536) // 16 * 16, -(-2 * T * w // 4) * 16)
+        assert plan["bytes"] == {"mix": 48, "control": 80, "room": room,
+                                 **per_lane}
         assert plan["total"] == sum(plan["bytes"].values()) <= SMEM_LIMIT
-        # One more warp would not fit (or the default's 16 is reached).
-        per_warp = (plan["total"] - 48) // w
-        assert w == tfs.DEFAULT_WARPS or plan["total"] + per_warp > SMEM_LIMIT
-        warps.append(w)
-    assert warps == sorted(warps, reverse=True)
-    assert warps[2] == 16 and warps[3] == 10 and warps[4] == 2
-    # pallas_block_b caps the warps of a streamed CTA.
+        assert plan["ring"]["ring_bytes"] == room
+        if T <= 200:
+            assert room >= 48 * 1024
+            assert plan["ring"]["kv"]["passes"] == 1
+        lanes.append(w)
+    assert lanes == sorted(lanes, reverse=True)
+    assert lanes[2] == 15 and lanes[3] == 8 and lanes[4] == 2
+    # One more lane at T = 200 would leave the ring less than 48 KB and
+    # take the forward product in two passes.
+    one = 18 * 200 + 8 * 200 + 44 + 20
+    assert 4 * tfs.room_floats(200, 9, one) < 48 * 1024
+    assert tfs.k7_row_block(400, 9) < 400
+    # pallas_block_b caps the lanes of a streamed CTA.
     assert tfs.launch_plan(mt.PlannerConfig(n_timesteps=200,
-                                            pallas_block_b=4), 11)["warps"] == 4
+                                            pallas_block_b=4), 11)["lanes"] == 4
 
 
 @pytest.mark.parametrize("T", [50, 64])
@@ -273,10 +289,12 @@ def test_resident_plan_below_65(T):
 
 def test_plans_refuse_what_they_cannot_hold():
     """Past the streamed plan's ceiling (T = 2,073 at 11 obstacles) one
-    warp's lane state does not fit: NotImplementedError naming the largest
+    lane's state does not fit: NotImplementedError naming the largest
     piece; the resident plan, asked for past T = 64, names the streamed
-    plan; the streamed one below T = 32 raises ValueError."""
-    assert tfs.launch_plan(mt.PlannerConfig(n_timesteps=2072), 11)["warps"] == 1
+    plan; the streamed one below T = 32 raises ValueError.  At the ceiling
+    one lane fills the CTA, whose other warps help with its products."""
+    top = tfs.launch_plan(mt.PlannerConfig(n_timesteps=2072), 11)
+    assert (top["lanes"], top["warps"]) == (1, tfs.STREAM_WARPS)
     with pytest.raises(NotImplementedError, match="largest piece is planes"):
         tfs.launch_plan(mt.PlannerConfig(n_timesteps=2073), 11)
     assert tfs.kernel_plan(mt.PlannerConfig(n_timesteps=2073), 11) is None
@@ -303,14 +321,19 @@ def test_step_kernels_plan():
 
 
 def test_streamed_basis_layout():
-    """The streamed body's basis: each matrix transposed, its rows padded
-    with zeros to a multiple of 32 (one aligned 128-byte line per tile
-    row)."""
+    """The streamed body's basis (K7): each matrix transposed and cut into
+    blocks of the ring's row-block rows, block after block, each block's
+    rows contiguous per timestep and zero-padded to a whole block, so one
+    ring stage is one contiguous copy."""
     kv = torch.arange(2 * 72 * 72, dtype=torch.float32).reshape(144, 72)
-    kvT, kvtT = tfs.streamed_basis(kv, kv.T.contiguous())
-    assert kvT.shape == (72, 160) and kvtT.shape == (144, 96)
-    assert torch.equal(kvT[:, :144], kv.T) and not kvT[:, 144:].any()
-    assert torch.equal(kvtT[:, :72], kv) and not kvtT[:, 72:].any()
+    ring = {"kv": {"row_block": 64}, "kvt": {"row_block": 64}}
+    kvT, kvtT = tfs.streamed_basis(kv, kv.T.contiguous(), ring)
+    assert kvT.shape == (3, 72, 64) and kvtT.shape == (2, 144, 64)
+    flat = kvT.transpose(1, 2).reshape(192, 72)
+    assert torch.equal(flat[:144], kv) and not flat[144:].any()
+    flat = kvtT.transpose(1, 2).reshape(128, 144)
+    assert torch.equal(flat[:72], kv.T) and not flat[72:].any()
+    assert torch.equal(kvT[1, 5], kv[64:128, 5])
 
 
 def test_streamed_basis_is_built_once_per_basis():
@@ -322,14 +345,16 @@ def test_streamed_basis_is_built_once_per_basis():
                                device="cpu")
     a1, a2 = (tfleet.fused_args(cfg, basis, scns) for _ in range(2))
     assert a1[2] is a2[2] and torch.equal(a1[2], basis.kv.T)
-    first = tfs.streamed_basis(a1[1], a1[2])
-    again = tfs.streamed_basis(a2[1], a2[2])
+    ring = tfs.launch_plan(cfg, 11)["ring"]
+    assert ring["kv"]["row_block"] == 200
+    first = tfs.streamed_basis(a1[1], a1[2], ring)
+    again = tfs.streamed_basis(a2[1], a2[2], ring)
     assert all(x is y for x, y in zip(first, again))
     kv = basis.kv.clone()
-    before = tfs.streamed_basis(kv, a1[2])
+    before = tfs.streamed_basis(kv, a1[2], ring)
     kv.mul_(2.0)
-    after = tfs.streamed_basis(kv, a1[2])
-    assert torch.equal(after[0][:, :200], kv.T)
+    after = tfs.streamed_basis(kv, a1[2], ring)
+    assert torch.equal(after[0][0, :, :200], kv.T)
     assert not torch.equal(before[0], after[0])
 
 

@@ -150,15 +150,16 @@ def test_fused_round_cpu_runs_plain_version(args):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("T,threads,warps,plan", [
+@pytest.mark.parametrize("T,threads,lanes,plan", [
     (50, 0, 16, "resident"), (50, 32, 1, "resident"), (50, 64, 2, "resident"),
     (50, 160, 5, "resident"), (50, 512, 16, "resident"),
-    (200, 0, 10, "streamed"), (200, 64, 2, "streamed"),
-    (200, 320, 10, "streamed"), (200, 512, 10, "streamed")])
-def test_gd_step_plan_is_k1_gds(T, threads, warps, plan):
+    (200, 0, 8, "streamed"), (200, 64, 2, "streamed"),
+    (200, 320, 8, "streamed"), (200, 512, 8, "streamed")])
+def test_gd_step_plan_is_k1_gds(T, threads, lanes, plan):
     """K4's lanes per CTA are ``pallas_block_b / 32`` (one warp per lane;
     the default 16), in K1-GD's launch plan: the resident body at T = 50,
-    the streamed one at T = 200, which takes as many of them as fit (10).
+    the streamed one at T = 200, which takes as many of them as leave its
+    K7 ring 48 KB (8; its CTA has fused_solve.STREAM_WARPS warps).
     The plan reports the shared memory per CTA by piece, K1-GD's own, and
     fits a CTA."""
     cfg = mt.PlannerConfig(n_timesteps=T, pallas_block_b=threads,
@@ -166,7 +167,7 @@ def test_gd_step_plan_is_k1_gds(T, threads, warps, plan):
     got = sk.gd_step_plan(cfg, 11)
     want = tfs.launch_plan(cfg.replace(pallas_block_b=threads // 32), 11,
                            prog="gd")
-    assert (got["warps"], got["plan"]) == (warps, plan)
+    assert (got["lanes"], got["plan"]) == (lanes, plan)
     assert got == want
     assert got["total"] == sum(got["bytes"].values()) <= SMEM_LIMIT
 

@@ -17,6 +17,13 @@ sides and counts the coefficients of alpha equal bit for bit on the lanes
 that moved and took the same step: at least ONE_ROUNDING_MIN of them.
 Measured 1.0 on every engine below with one rounding; 0.750-0.757 with two
 (the rounding the port had before), which fails the bound.
+
+The carry program's other expressions (the direction ``lambda_reg x + g``,
+a rung's candidate and the accepted iterate ``x - lr d``) are held to JAX's
+fused kernel plane by plane in test_carry_program_contractions: XLA
+contracts the accepted alpha and the accepted iterate into FMAs; the port
+keeps both rounded twice (PERF.md section 7 has the endpoint readings that
+decide it).
 """
 
 import jax
@@ -210,6 +217,101 @@ def test_fma_rounds_once_and_two_roundings_twice():
     np.testing.assert_array_equal(once, exact)
     np.testing.assert_array_equal(twice, a * b + c)
     assert 0.1 < float((once != twice).mean()) < 0.5
+
+
+# The carry program's expressions that XLA may contract, each with the
+# fused_solve helper that forms it and its one-rounding replacement
+# (tools/compare_converged.py --contract runs whole solves with them).
+CONTRACTIONS = {
+    "dir": ("carry_direction",
+            lambda lam, x, g: tfs.fma(torch.tensor(lam, dtype=torch.float32),
+                                      x, g)),
+    "cand": ("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
+    "nt": ("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
+    "alpha": ("two_roundings", tfs.fma),
+}
+
+
+@pytest.fixture(scope="module")
+def carry_step(scenes, step_state):
+    """One linearized BLS step of JAX's fused kernel
+    (pallas_step.bls_inner_step interpreted, recip_newton=True, the
+    streamed basis) from JAX's evaluation of the warm start, learning rate
+    0.2; and JAX's forward evaluation of the port's normalized gradient (the
+    direction's basis product, fed to the port so that only the
+    elementwise expressions can part)."""
+    jcfg = scenes[0]
+    d = step_state
+    lr = np.full((1, B), 0.2, np.float32)
+    frozen = np.zeros((1, B), np.float32)
+    want = [np.asarray(x) for x in ps.bls_inner_step(
+        jcfg, *d["basis"], *d["state"], lr, frozen, d["lsg"], d["ljl"],
+        *d["lanes"], block_b=B, stream_rb=40, interpret=True)]
+    g = _t(d["state"][1])
+    g2 = tfs.chain_sum(tfs.chain_sum((g * g).transpose(0, 1)))
+    ng = (g * (1.0 / torch.sqrt(g2))).numpy()
+    gfe = [_t(x) for x in ps.forward_eval(jcfg, d["basis"][0], d["basis"][2],
+                                          ng, block_b=B, stream_rb=40,
+                                          interpret=True)]
+    return want, gfe, lr
+
+
+def _carry_shares(monkeypatch, step_state, carry_step, keys):
+    """The port's plain carry step (fused_solve.bls_step, linearized, the
+    FK carry off) with the expressions ``keys`` rounded once: the share of
+    lanes with JAX's learning rate, and on those lanes the bitwise share of
+    alpha, traj and vel after the step."""
+    want, gfe, lr = carry_step
+    d = step_state
+    with monkeypatch.context() as m:
+        for k in keys:
+            m.setattr(tfs, *CONTRACTIONS[k])
+        m.setattr(tfs, "forward_planes", lambda kv, mix, planes: gfe)
+        cfg = mt.PlannerConfig(**ONE_STEP)
+        alpha, grad, traj, vel, loss = map(_t, d["state"])
+        kv, kvt, mix = map(_t, d["basis"])
+        start, goal, ox, oy, ow = map(_t, d["lanes"])
+        out = tfs.bls_step(cfg, tfs.consts(cfg), kv, kvt, mix, start, goal,
+                           tfs.obs_ctx(ox, oy, ow), _t(d["lsg"][0]),
+                           _t(d["ljl"][0]), alpha, grad, traj, vel, loss[0],
+                           _t(lr[0]), torch.zeros(B, dtype=torch.bool))
+    got = [x.numpy() for x in out]
+    same = got[5] == want[5][0]
+    return float(same.mean()), {
+        name: float((got[i] == want[i])[..., same].mean())
+        for name, i in (("alpha", 0), ("traj", 2), ("vel", 3))}
+
+
+def test_carry_program_contractions(monkeypatch, step_state, carry_step):
+    """Which expressions of the linearized carry program XLA contracts into
+    FMAs: one step at T = 200 of the port's plain carry program (as
+    shipped, and with each candidate rounded once) against JAX's fused
+    kernel from the same state, every lane taking JAX's learning rate.
+    Measured (16 random scenes): as shipped alpha 0.750, traj 0.895, vel
+    0.680 of the coefficients bit for bit JAX's; the accepted alpha rounded
+    once makes alpha 1.0; the accepted iterate ``x - lr d`` rounded once
+    lifts traj to 0.911 and vel to 0.746 (the rest are the direction's
+    planes, whose norm the two sides sum in different orders); the
+    direction ``lambda_reg x + g`` (lambda_reg = 1e-4) and the rungs'
+    candidates change none of them.  The port keeps all of them rounded
+    twice: with the accepted alpha once the reference scene ends past the
+    strict endpoint gate (test_carry_program_rounds_twice)."""
+    lanes, shipped = _carry_shares(monkeypatch, step_state, carry_step, ())
+    assert lanes == 1.0
+    assert 0.6 < shipped["alpha"] < 0.9
+    for keys in (("dir",), ("cand",), ("dir", "cand")):
+        assert _carry_shares(monkeypatch, step_state, carry_step,
+                             keys) == (1.0, shipped), keys
+    _, alpha_once = _carry_shares(monkeypatch, step_state, carry_step,
+                                  ("alpha",))
+    assert alpha_once["alpha"] >= ONE_ROUNDING_MIN
+    assert (alpha_once["traj"], alpha_once["vel"]) == (shipped["traj"],
+                                                       shipped["vel"])
+    _, nt_once = _carry_shares(monkeypatch, step_state, carry_step, ("nt",))
+    assert nt_once["alpha"] == shipped["alpha"]
+    assert nt_once["traj"] > shipped["traj"] and nt_once["vel"] > shipped["vel"]
+    print(f"carry step bitwise JAX's: shipped {shipped}, alpha once "
+          f"{alpha_once}, iterate once {nt_once}")
 
 
 def test_carry_program_rounds_twice(monkeypatch):

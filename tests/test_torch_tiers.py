@@ -267,7 +267,7 @@ def test_planner_selects_the_bf16_plan_only_past_the_f32_ceiling():
         cfg = on.replace(n_timesteps=T)
         plan = tfs.kernel_plan(cfg, 11)
         assert plan["bf16"] and plan["plan"] == "streamed"
-        assert plan["warps"] == 1
+        assert (plan["lanes"], plan["warps"]) == (1, tfs.STREAM_WARPS)
         assert tfs.kernel_plan(cfg, 11, "gd") is None
         assert tfs.kernel_plan(cfg.replace(ladder_eval="exact"), 11) is None
         assert tfs.kernel_plan(cfg.replace(bls_bf16_ladder=False), 11) is None

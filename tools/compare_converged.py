@@ -4,7 +4,7 @@
         [--scenes 512] [--chunk 64] [--solver bls] \\
         [--ladder-eval linearized] [--seed 0] \\
         [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
-        [--one-rounding]
+        [--one-rounding] [--contract dir,cand,nt,alpha] [--endpoint]
 
 On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
 tier ``--ladder-eval``, or GD; ``max_obstacles=11``) at T (a committed
@@ -21,7 +21,17 @@ of every fused program but the linearized carry program, GD's trial, the
 exact ladder's rung candidates) rounded twice instead (``a_fac alpha``
 rounded, then the step subtracted: fused_solve.two_roundings);
 ``--one-rounding`` runs them with every update rounded once, the carry
-program's accepted alpha too (PERF.md section 7).  Prints the
+program's accepted alpha too (PERF.md section 7); ``--contract`` runs the
+port's fused engine with the named expressions of the linearized carry
+program rounded once, as XLA contracts them into FMAs on the CPU (``dir``
+the direction ``lambda_reg x + g``, fused_solve.carry_direction; ``cand``
+a rung's candidate ``x - lr d``, rung_point; ``nt`` the accepted iterate,
+accepted_point; ``alpha`` the accepted alpha, two_roundings), each set a
+comma list and the sets separated by ``/``; with ``--endpoint`` only the
+bench's reference scene is solved instead (bench.run_bench on the CPU,
+batch 2, the main path's plain version), as shipped and under each
+``--contract`` set, and its endpoint error and strict verdict printed.
+Prints the
 converged count of each per chunk, and in all the converged fraction, the
 mean accepted steps and the mean unpenalized obstacle cost (the paired
 gate's cost, bench.mean_obstacle_cost).  bench.py's paired gate holds a
@@ -56,6 +66,18 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
+# The carry program's expressions XLA may contract, each with the
+# fused_solve helper that forms it and its one-rounding replacement.
+CONTRACTED = {
+    "dir": ("carry_direction",
+            lambda lam, x, g: tfs.fma(torch.tensor(lam, dtype=torch.float32),
+                                      x, g)),
+    "cand": ("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
+    "nt": ("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
+    "alpha": ("two_roundings", tfs.fma),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--T", type=int, default=200)
@@ -68,6 +90,8 @@ def main(argv=None) -> int:
     ap.add_argument("--port-only", action="store_true")
     ap.add_argument("--two-roundings", action="store_true")
     ap.add_argument("--one-rounding", action="store_true")
+    ap.add_argument("--contract", default="")
+    ap.add_argument("--endpoint", action="store_true")
     a = ap.parse_args(argv)
     if a.solver == "gd" and a.tiers:
         ap.error("the kernel tiers are programs of BLS")
@@ -91,12 +115,35 @@ def main(argv=None) -> int:
           ("",) + tuple(t for t in tiers if t != "lean")), a.two_roundings),
         (("one rounding", "two_roundings", tfs.fma, ("",)), a.one_rounding))
         if on]
+    contracts = [tuple(k for k in c.split(",") if k)
+                 for c in a.contract.split("/") if c]
+    for keys in contracts:
+        if not set(keys) <= set(CONTRACTED):
+            ap.error(f"--contract takes {sorted(CONTRACTED)}, got {keys}")
+    if a.endpoint:
+        for keys in [()] + contracts:
+            saved = {CONTRACTED[k][0]: getattr(tfs, CONTRACTED[k][0])
+                     for k in keys}
+            for k in keys:
+                setattr(tfs, *CONTRACTED[k])
+            try:
+                r = bench.run_bench(batch=2, repeats=1, device="cpu")
+            finally:
+                for name, fn in saved.items():
+                    setattr(tfs, name, fn)
+            print(f"reference scene, contract {'+'.join(keys) or 'none'}: "
+                  f"endpoint {r['endpoint_err']}, avg/max cost "
+                  f"{r['avg_cost']}/{r['max_cost']}, strict gate "
+                  f"{'PASS' if r['quality_ok'] else 'FAIL'}", flush=True)
+        return 0
     names = (names[2 * a.port_only:]
              + [f"JAX fused {t}" for t in tiers if not a.port_only]
              + [f"port fused {t}" for t in tiers]
              + [f"port {e}{' ' + t if t else ''} {label}"
                 for label, _, _, ts in variants for t in ts
-                for e in (("fused", "xla") if not t else ("fused",))])
+                for e in (("fused", "xla") if not t else ("fused",))]
+             + [f"port fused contract {'+'.join(k) or 'none'}"
+                for k in contracts])
     total = np.zeros(len(names), dtype=int)
     steps = np.zeros(len(names))
     costs = np.zeros(len(names))
@@ -143,6 +190,16 @@ def main(argv=None) -> int:
                     runs += port(t) if not t else [port(t)]
             finally:
                 setattr(tfs, name, orig)
+        for keys in contracts:
+            orig = {CONTRACTED[k][0]: getattr(tfs, CONTRACTED[k][0])
+                    for k in keys}
+            for k in keys:
+                setattr(tfs, *CONTRACTED[k])
+            try:
+                runs.append(port("")[0])
+            finally:
+                for name, fn in orig.items():
+                    setattr(tfs, name, fn)
         counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
         total += counts
         steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
