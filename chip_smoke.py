@@ -25,9 +25,10 @@ ceiling).  Phases:
    bls_exact and the tiers bls_ultra, bls_bf16), the registers
    and spills of each instantiation from the ptxas report (``fused_solve<gd,50,11>``: program, T, O; ``<bls,0,0>``
    the generic one), and from the launch plan the shared memory per CTA
-   (which must equal the C side's) and the CTAs and warps per SM; K4's
-   plan (K1-GD's, at T=50 and T=200) and K6's tile, each against the C
-   side;
+   (which must equal the C side's) and the CTAs and warps per SM; the
+   plans of K3 (both ladder tiers), K4 and K5 (K1's for their program, at
+   T = 50, 100, 150 and 200, 16 and 2 lanes per CTA) and K6's tile, each
+   against the C side;
 2. K1 against plain, short horizon: 1,024 random scenes, 1 round x 4
    steps, lane agreement and alpha error on agreeing lanes; then the first
    1,000 of those lanes at 4, 8 and 16 lanes (warps) per CTA and on a
@@ -66,8 +67,9 @@ ceiling).  Phases:
    K1's own counts and the plain version's tally on the first 65,536 of the
    scenes, scaled to the batch;
 8. K5 and K6 against their plain versions: 1,024 random scenes (penalties
-   x1/x10/x100), then the first 1,000 of them at 64/128/256 lanes per
-   block, bit for bit the full batch's lanes; K6 bit for bit K5's traj/vel
+   x1/x10/x100), then the first 1,000 of them at 64/128/256 threads (K5:
+   2/4/8 lanes per CTA), bit for bit the full batch's lanes; K6 bit for bit
+   K5's traj/vel
    on the same alpha, and on 1,000 and 999 lanes (16- and 4-byte copies)
    bit for bit the full batch's; each timed at 1,048,576 lanes on the main
    path's inputs, K6 beside one torch.einsum of the same product and as a
@@ -76,14 +78,16 @@ ceiling).  Phases:
    same 1,024 scenes, a quarter of the lanes frozen (bitwise unchanged),
    four learning rates: agreement of the stop flags and lr, and on the
    agreeing lanes every other field (alpha, loss, grad, traj, vel), the
-   ragged block-size check (K4 at 1, 2, 5, 10 and 16 lanes per CTA); each
+   ragged batch bitwise (K3 at 2, 4 and 8 lanes per CTA, K4 at 1, 2, 5, 10
+   and 16); each
    timed at 1,048,576 lanes from K5's state
    on the main path's inputs and held to the plain version there too;
 10. the BLS per-step path (bench --backend pallas): the replicated scene at
    1,048,576 lanes (solves/s, launch counts, every lane equal to lane 0,
    the phase-4 gate and the strict verdict; K3, K5 and K6 time per solve;
    peak device memory), then 1,048,576 random scenes with the paired xla
-   gate on 32,768 lanes;
+   gate on 32,768 lanes, and K1-BLS on 16,384 random scenes bit for bit
+   the per-step BLS path (K5 + K3 + K6);
 11. the GD per-step path (bench --solver gd --backend pallas): the same,
    gated against REFERENCE_FINAL_COST["gd"] with endpoint < 0.05 (bench's
    strict 0.042 printed), and the paired gate against the GD xla engine;
@@ -111,7 +115,7 @@ ceiling).  Phases:
    4/8/16 lanes per CTA and on one CTA, bit for bit the full batch's lanes;
 15. K3-exact against its plain version, one step from K5's state on the
    same 1,024 scenes (a quarter frozen, bitwise unchanged), the ragged
-   batch at 64/128/256 threads per block bitwise, and at 1,048,576 lanes on
+   batch at 2/4/8 lanes per CTA bitwise, and at 1,048,576 lanes on
    the main path's inputs (timed, held to plain, bound);
 16. the exact paths: K1-exact against the per-step exact path (K5 + K3-exact,
    no K6 launch) on 16,384 random scenes at the bench schedule, bit for
@@ -126,9 +130,9 @@ ceiling).  Phases:
    bounds there; and, for information, the certify statistics
    (irm_motion_planning_tpu_torch/certify.py) of the card's exact tier on
    the 2,048 scenes of certify_oracle_cpu2048.npz;
-17. large T (the streamed body of K1/K2, whose CTA runs a tile of lanes
-   in lockstep and each basis product through K7, the CTA-cooperative
-   basis stream, and K3-K6 with the basis in device memory): the L2 rate;
+17. large T (the streamed body of K1/K2 and of K3-K5, whose CTA runs a
+   tile of lanes in lockstep and each basis product through K7, the
+   CTA-cooperative basis stream; K6 tiled): the L2 rate;
    streamed K1 and the rounds driver over streamed K2 bit for bit resident
    K1 at T=50 for each program; at T=200 K1 and K2 against plain with the
    ragged batch at tiles of 1, 2, 3, half, one fewer than and the plan's
@@ -142,8 +146,8 @@ ceiling).  Phases:
    linearized ladder to its phantom and cost bands; K1's converged
    fraction against its plain version's on those lanes within bench.py's
    band, every program; K1's bound, the function's, beside the design's
-   basis reads from L2; the rounds driver bitwise; the GD and exact
-   per-step paths bitwise); the linearized per-step path's launches; K3-K6
+   basis reads from L2; the rounds driver bitwise; the per-step path of
+   every program bitwise); the linearized per-step path's launches; K3-K6
    timed at 65,536 lanes of the reference scene, and held to plain lane by
    lane on 65,536 random scenes (at most TIE_LANES_MAX lanes per kernel,
    each a tie of the blend's first argmax); the problemsize sweep, fused
@@ -171,7 +175,8 @@ largest error against the plain version, its time, the plain version's
 (timed without the work tally), its bound (ops/roofline.py, from this
 run's inputs and the plain versions' tallies of the data-dependent work,
 each from an untimed call) and, for K6, one PyTorch call's time and its
-share of the bound; K4 and K6 their registers and spills.  K1 and
+share of the bound; K3-K6 their registers and spills, K3-K5 their plans'
+occupancy.  K1 and
 K2 also carry their time and bound at 1,048,576 random scenes (K2 per
 solve; at 16,384 lanes K2's ``ms`` is its second reading and
 ``ms_first_reading`` and ``ms_warm_up`` the two before), their registers,
@@ -360,27 +365,42 @@ def main():
         f"{fs.TIER_PROGRAMS} from csrc/fused_tiers.cu")
     say(f"phase 1 K3-K6 ptxas "
         f"{ {k: v for k, v in ptxas.items() if not k.startswith('fused')} }")
-    # K4 (one warp per lane, K1-GD's plan) and K6 (the tiled product): the
-    # plan and the C side must agree.
-    occupancy["gd_inner_step"] = {}
-    for size in (50, LARGE_T):
-        gcfg = bench.bench_config(solver="gd", n_timesteps=size)
-        for bt in (0, 64):
-            gplan = sk.gd_step_plan(gcfg.replace(pallas_block_b=bt), 11)
-            gshape = sk.gd_step_shape(gcfg.replace(pallas_block_b=bt), 11,
-                                      MAIN_BATCH)
-            if gshape["smem"] != gplan["total"]:
-                fail(f"phase 1: gd_inner_step at T={size}, pallas_block_b "
-                     f"{bt}: plan {gplan['total']} B per CTA, the C side "
-                     f"{gshape['smem']} B")
-            occupancy["gd_inner_step"][f"T{size}, pallas_block_b {bt}"] = {
-                **gshape, "plan": gplan["plan"], "warps_per_cta": gplan["warps"],
-                "smem_bytes": gplan["bytes"]}
-            say(f"phase 1 gd_inner_step (K4) at T={size}, pallas_block_b "
-                f"{bt}: {gplan['plan']} plan, {gplan['lanes']} lanes and "
-                f"{gplan['warps']} warps per CTA, {gplan['total']} B per CTA {gplan['bytes']}, "
-                f"{gshape['ctas_per_sm']} CTAs and {gshape['warps_per_sm']} "
-                f"warps per SM")
+    # K3 (each ladder tier), K4 and K5 (one warp per lane, K1's plan for
+    # their program: the specialised, generic and streamed instantiations
+    # each) and K6 (the tiled product): the plan and the C side must agree.
+    for prefix in ("bls_step<bls,", "bls_step<bls_exact,", "gd_step<",
+                   "cost_grad_eval<"):
+        if len([k for k in ptxas if k.startswith(prefix)]) != 3:
+            fail(f"phase 1: no ptxas report of {prefix}...> (specialised, "
+                 f"generic and streamed): {sorted(ptxas)}")
+    for name, key, solver, ladder in (
+            ("bls_inner_step", "bls_inner_step", "bls", "linearized"),
+            ("bls_inner_step", "bls_inner_step_exact", "bls", "exact"),
+            ("gd_inner_step", "gd_inner_step", "gd", "linearized"),
+            ("cost_grad_eval", "cost_grad_eval", "bls", "linearized")):
+        plan_of = getattr(sk, name.replace("_inner", "") + "_plan")
+        shape_of = getattr(sk, name.replace("_inner", "") + "_shape")
+        occupancy[key] = {}
+        for size in (50, 100, 150, LARGE_T):
+            scfg = bench.bench_config(solver=solver, ladder_eval=ladder,
+                                      n_timesteps=size)
+            for bt in (0, 64):
+                c = scfg.replace(pallas_block_b=bt)
+                splan, sshape = plan_of(c, 11), shape_of(c, 11, MAIN_BATCH)
+                if sshape["smem"] != splan["total"]:
+                    fail(f"phase 1: {key} at T={size}, pallas_block_b {bt}: "
+                         f"plan {splan['total']} B per CTA, the C side "
+                         f"{sshape['smem']} B")
+                occupancy[key][f"T{size}, pallas_block_b {bt}"] = {
+                    **sshape, "plan": splan["plan"],
+                    "lanes_per_cta": splan["lanes"],
+                    "warps_per_cta": splan["warps"],
+                    "smem_bytes": splan["bytes"]}
+                say(f"phase 1 {key} at T={size}, pallas_block_b {bt}: "
+                    f"{splan['plan']} plan, {splan['lanes']} lanes and "
+                    f"{splan['warps']} warps per CTA, {splan['total']} B per "
+                    f"CTA, {sshape['ctas_per_sm']} CTAs and "
+                    f"{sshape['warps_per_sm']} warps per SM")
     fplan = sk.forward_plan(bench.bench_config())
     fshape = sk.forward_eval_shape()
     if (fshape["rows"], fshape["lanes"], fshape["tk"], fshape["threads"],
@@ -735,11 +755,11 @@ def main():
         er = sk.cost_grad_eval(cb, *cut)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(er, ek)):
-            fail(f"phase 8: {RAGGED_BATCH} lanes at {bt} lanes per block "
+            fail(f"phase 8: {RAGGED_BATCH} lanes at {bt} threads per CTA "
                  f"differ from the same lanes of the {SHORT_BATCH}-lane run")
     k6_ragged(sk, cfg, kv, mix, a0, fk, 8)
-    say(f"phase 8 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
-        f"block): K5 bitwise equal to the full batch's lanes")
+    say(f"phase 8 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 threads: "
+        f"2/4/8 lanes per CTA): K5 bitwise equal to the full batch's lanes")
 
     # The main path's inputs at full width: the replicated reference scene
     # at the warm start, under the bench's config.
@@ -751,11 +771,9 @@ def main():
     mkv, mkvt, mmix, ma0, mlsg, mljl = margs[:6]
     mtail = margs[4:]
     meargs = (mkv, mkvt, mmix, ma0, *mtail)
-    work = sk.workspace(J, T, MAIN_BATCH, dev)
     mev = sk.PallasEval(torch.empty_like(mlsg),
                         *(torch.empty_like(ma0) for _ in range(3)))
-    k5_ms = best_ms(lambda: sk.cost_grad_eval(mcfg, *meargs, out=mev,
-                                              work=work))
+    k5_ms = best_ms(lambda: sk.cost_grad_eval(mcfg, *meargs, out=mev))
     k6_out = sk.PallasForward(torch.empty_like(ma0), torch.empty_like(ma0))
     k6_ms = best_ms(lambda: sk.forward_eval(mcfg, mkv, mmix, ma0, out=k6_out))
     k6_lib_ms = best_ms(lambda: torch.einsum("st,jtb,ji->isb", mkv, ma0, mmix))
@@ -820,10 +838,11 @@ def main():
             if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                        for x, y in zip(kr, k)):
                 fail(f"phase 9: {name}, {RAGGED_BATCH} lanes at {bt} threads "
-                     f"per block differ from the full batch's")
+                     f"per CTA differ from the full batch's")
     say(f"phase 9 ragged batch ({RAGGED_BATCH} lanes): K3 at "
-        f"{step_blocks('bls')} threads (lanes) per block, K4 at "
-        f"{[sk.gd_step_plan(cfg.replace(pallas_block_b=bt), 11)['warps'] for bt in step_blocks('gd')]}"
+        f"{[sk.bls_step_plan(cfg.replace(pallas_block_b=bt), 11)['lanes'] for bt in step_blocks('bls')]}"
+        f", K4 at "
+        f"{[sk.gd_step_plan(cfg.replace(pallas_block_b=bt), 11)['lanes'] for bt in step_blocks('gd')]}"
         f" lanes (warps) per CTA, bitwise equal to the full batch's lanes")
     del ek, fk, ep, fp, args, rargs, eargs, cut
 
@@ -837,8 +856,7 @@ def main():
         fn, ref = step_fns(sk, name)
         state0 = (ma0, *mev[1:], mev.loss, lr, mlive)
         ms, step_plain_ms, tally, agree, err = full_width_step(
-            fn, ref, mcfg, (mkv, mkvt, mmix), state0, mtail,
-            work if name == "bls" else None)
+            fn, ref, mcfg, (mkv, mkvt, mmix), state0, mtail)
         bound = (roofline.bls_inner_step if name == "bls"
                  else roofline.gd_inner_step)(MAIN_BATCH, T, J, O, tally)
         step_time[name] = (ms, step_plain_ms, bound)
@@ -852,7 +870,7 @@ def main():
                  f"at {MAIN_BATCH} lanes")
         step_abs_err[name] = max(step_abs_err[name], err["abs"])
         del state0, tally
-    del mev, k6_out, work, margs, meargs, mtail, ma0
+    del mev, k6_out, margs, meargs, mtail, ma0
     torch.cuda.empty_cache()
 
     # -- phases 10 and 11: the per-step paths --------------------------------
@@ -885,9 +903,7 @@ def main():
             f"{launches}; kernel ms per solve "
             f"{ {n: round(v, 1) for n, v in per_solve.items()} }; avg_cost "
             f"{out['avg_cost']} max_cost {out['max_cost']} endpoint_err "
-            f"{out['endpoint_err']}; peak device memory {peak_gib:.3f} GiB "
-            f"(K5's workspace {(2 * J + 2) * T * MAIN_BATCH * 4 / 2**30:.3f} "
-            f"GiB of it); "
+            f"{out['endpoint_err']}; peak device memory {peak_gib:.3f} GiB; "
             f"{out['device']}, {out['power_limit']}")
         say(f"phase {phase} strict bench.py verdict (endpoint < {strict} and "
             f"costs within 2%): {'PASS' if out['quality_ok'] else 'FAIL'}")
@@ -923,6 +939,24 @@ def main():
             fail(f"phase {phase}: the {solver} per-step paired xla gate "
                  f"failed")
         del het
+        if solver == "bls":
+            # K1-BLS against the per-step BLS path (K5 per round, K3 per
+            # step, K6 per round) on FULL_BATCH random scenes at the bench's
+            # schedule: the same carry program, bit for bit (phase 13 holds
+            # GD's, phase 16 the exact ladder's).
+            rcfg = bench.bench_config()
+            rbasis, rscns, rargs = random_args(rcfg, FULL_BATCH, 1)
+            want = fleet.kernel_result(fs.fused_solve(*rargs))
+            n3 = sk.bls_inner_step.launches
+            got = fleet.fleet_solve(rcfg, rbasis, rscns, backend="pallas")
+            bitwise = same_result(got, want)
+            say(f"phase 10 K1-BLS against the per-step BLS path (K5 + K3 + "
+                f"K6) on {FULL_BATCH} random scenes: bitwise equal {bitwise} "
+                f"({sk.bls_inner_step.launches - n3} K3 launches); converged "
+                f"{float(want.stats.converged.float().mean()):.4f}")
+            if not bitwise:
+                fail("phase 10: K1-BLS and the per-step BLS path differ")
+            del want, got, rargs, rscns
         torch.cuda.empty_cache()
         paths[solver] = (launches, per_solve, peak_gib)
 
@@ -956,7 +990,13 @@ def main():
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"], exact=exact["bls_inner_step"],
-                     streamed=large["bls_inner_step"]),
+                     streamed=large["bls_inner_step"],
+                     ptxas={k: v for k, v in ptxas.items()
+                            if k.startswith("bls_step")},
+                     occupancy={
+                         "linearized": occupancy["bls_inner_step"],
+                         "exact": occupancy["bls_inner_step_exact"]},
+                     path_peak_gib=paths["bls"][2]),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
                      *step_time["gd"], streamed=large["gd_inner_step"],
@@ -970,7 +1010,10 @@ def main():
                      paths["bls"][0]["cost_grad_eval"], k5_abs_err, k5_ms,
                      k5_plain_ms, k5_bound, launches_by_path={
                          s: paths[s][0]["cost_grad_eval"] for s in paths},
-                     streamed=large["cost_grad_eval"]),
+                     streamed=large["cost_grad_eval"],
+                     ptxas={k: v for k, v in ptxas.items()
+                            if k.startswith("cost_grad_eval")},
+                     occupancy=occupancy["cost_grad_eval"]),
         kernel_entry("forward_eval", "step_kernels.cu", 1767,
                      paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
                      k6_plain_ms, k6_bound, library_ms=k6_lib_ms,
@@ -1311,10 +1354,11 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         kr = sk.bls_inner_step(scfg.replace(pallas_block_b=bt), *scut)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y[..., :RAGGED_BATCH]) for x, y in zip(kr, ks)):
-            fail(f"phase 15: K3-exact, {RAGGED_BATCH} lanes at {bt} lanes per "
-                 f"block differ from the full batch's")
-    say(f"phase 15 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 lanes per "
-        f"block): K3-exact bitwise equal to the full batch's lanes")
+            fail(f"phase 15: K3-exact, {RAGGED_BATCH} lanes at {bt} threads "
+                 f"per CTA differ from the full batch's")
+    say(f"phase 15 ragged batch ({RAGGED_BATCH} lanes at 64/128/256 threads: "
+        f"2/4/8 lanes per CTA): K3-exact bitwise equal to the full batch's "
+        f"lanes")
     del k, p, k2, p2, ks, ev, args, rargs, sargs, cut, rcut, scut
 
     # K3-exact at full width from K5's state on the main path's inputs
@@ -1325,13 +1369,12 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
                              mt.replicate_scenario(scn0, MAIN_BATCH))[1:]
     mkv, mkvt, mmix, ma0, mlsg = margs[:5]
     mtail = margs[4:]
-    work = sk.workspace(J, T, MAIN_BATCH, dev, trial=True)
-    mev = sk.cost_grad_eval(cfg, mkv, mkvt, mmix, ma0, *mtail, work=work)
+    mev = sk.cost_grad_eval(cfg, mkv, mkvt, mmix, ma0, *mtail)
     state0 = (ma0, *mev[1:], mev.loss, torch.full_like(mlsg, cfg.bls_lr_start),
               torch.zeros_like(mlsg))
     k3_ms, k3_plain_ms, tally, agree, err = full_width_step(
         sk.bls_inner_step, sk.bls_inner_step_reference, cfg,
-        (mkv, mkvt, mmix), state0, mtail, work)
+        (mkv, mkvt, mmix), state0, mtail)
     k3_bound = roofline.bls_inner_step(MAIN_BATCH, T, J, O, tally, "exact")
     say(f"phase 15 K3-exact at {MAIN_BATCH} lanes (main path's inputs, round "
         f"0 step 0, best of {TIMED_LAUNCHES}): {k3_ms:.3f} ms, plain "
@@ -1342,7 +1385,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
         fail(f"phase 15: K3-exact disagrees with its plain version at "
              f"{MAIN_BATCH} lanes")
     k3_abs_err = max(k3_abs_err, err["abs"])
-    del mev, state0, work, margs, mtail, ma0, tally
+    del mev, state0, margs, mtail, ma0, tally
     torch.cuda.empty_cache()
 
     # -- phase 16: the exact paths --------------------------------------------
@@ -1660,10 +1703,13 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         f"lanes per CTA and on one CTA): K1 and K2 bitwise equal to the full "
         f"batch's lanes, every program")
 
-    # K3-K6 at T = 200 (the basis in device memory) against plain at 1,024
-    # lanes, the ragged batch at 64/128/256 threads per block bitwise.
-    if sk.step_plan(scfg, O)["basis"] != "device":
-        fail(f"phase 17: the step plan stages the basis at T={T}")
+    # K3-K6 at T = 200 (K3-K5 in the streamed body) against plain at 1,024
+    # lanes, the ragged batch at 64/128/256 threads (2/4/8 lanes per CTA)
+    # bitwise.
+    if not all(plan(scfg, O)["plan"] == "streamed" for plan in (
+            sk.bls_step_plan, sk.gd_step_plan, sk.cost_grad_eval_plan)):
+        fail(f"phase 17: a per-step kernel's plan is not the streamed one at "
+             f"T={T}")
     _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args0
     rargs = round_args(args0, 4, seed=0)
     lsg, ljl, ful, lr0 = rargs[5:9]
@@ -1697,7 +1743,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                        for x, y in zip(kr, ks)):
                 fail(f"phase 17: {name} step at T={T}, {bt} threads per "
-                     f"block differs from the full batch's")
+                     f"CTA differs from the full batch's")
     ecut = [x[..., :RAGGED_BATCH] if x.shape[-1] == SHORT_BATCH else x
             for x in eargs]
     for bt in (64, 128, 256):
@@ -1705,15 +1751,16 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         er = sk.cost_grad_eval(cb, *ecut)
         if not all(torch.equal(x, y[..., :RAGGED_BATCH])
                    for x, y in zip(er, ek)):
-            fail(f"phase 17: K5 at T={T}, {bt} lanes per block differs from "
+            fail(f"phase 17: K5 at T={T}, {bt} threads per CTA differs from "
                  f"the full batch's")
-    say(f"phase 17 K3-K6 at T={T} (basis in device memory) against plain "
+    say(f"phase 17 K3-K6 at T={T} (K3-K5 streamed) against plain "
         f"({SHORT_BATCH} random scenes): K5 loss {k5_err['loss']:.3g}, grad "
         f"{k5_err['grad']:.3g}, traj/vel {k5_err['planes']:.3g}; K6 "
         f"{k6_err:.3g} (bounds {EVAL_BOUNDS}); "
         + "; ".join(f"{n} step {step_summary(*e)}" for n, e in
                     step_err.items())
-        + "; ragged batch at 64/128/256 threads bitwise")
+        + "; ragged batch at 64/128/256 threads (2/4/8 lanes per CTA; K4 "
+          "also 1/5/10/16) bitwise")
     if not (eval_ok(k5_err) and k6_err <= EVAL_BOUNDS["planes"]):
         fail(f"phase 17: K5 or K6 disagrees with its plain version at T={T}")
     step_abs = {n: e[1]["abs"] for n, e in step_err.items()}
@@ -1854,68 +1901,58 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                 xla_conv=b["xla_converged_frac"],
                 xla_cost=b["xla_obstacle_cost"], k1_ms=k1_ms,
                 k1_conv=b["check_converged_frac"], plain_conv=p_conv)
-        # The per-step path on STEP_BATCH of the scenes: GD's and the exact
-        # ladder's equal K1 bit for bit (the same op sequence);
-        # the linearized ladder's (no FK carry) is held by its launches.
-        if prog != "bls":
-            n = STEP_BATCH
-            scns_n = mt.Scenario(*(x[:n] for x in scns))
-            names = ["cost_grad_eval",
-                     "gd_inner_step" if prog == "gd" else "bls_inner_step"]
-            for nm in names:
-                getattr(sk, nm).launches = 0
-            with KernelTimer(sk, *names) as st:
-                step = fleet.fleet_solve(cfg, basis, scns_n, solver=solver,
-                                         backend="pallas")
-            k1n = fs.fused_solve(*fleet.fused_args(cfg, basis, scns_n),
-                                 solver=solver)
-            same = same_result(step, fleet.kernel_result(k1n))
-            counts = {nm: getattr(sk, nm).launches for nm in names}
-            say(f"phase 17 T={T} {prog} per-step path on {n} of the scenes: "
-                f"launches {counts}, kernel ms "
-                f"{ {nm: round(st.total_ms(nm), 1) for nm in names} }; "
-                f"bitwise equal to K1: {same}")
-            if not same or min(counts.values()) < 1:
-                fail(f"phase 17: the {prog} per-step path at T={T} differs "
-                     f"from K1 or launched nothing")
-            out["programs"][prog]["step"] = {
-                nm: (counts[nm], st.total_ms(nm)) for nm in names}
-            del step, k1n
+        # The per-step path on STEP_BATCH of the scenes equals K1 bit for
+        # bit in every program (the same op sequence: the linearized
+        # ladder's recomputed loss is the accepted rung's); the linearized
+        # one's launches and kernel times go to the kernels line.
+        n = STEP_BATCH
+        scns_n = mt.Scenario(*(x[:n] for x in scns))
+        names = (["cost_grad_eval",
+                  "gd_inner_step" if prog == "gd" else "bls_inner_step"]
+                 + (["forward_eval"] if prog == "bls" else []))
+        for nm in names:
+            getattr(sk, nm).launches = 0
+        with KernelTimer(sk, *names) as st:
+            step = fleet.fleet_solve(cfg, basis, scns_n, solver=solver,
+                                     backend="pallas")
+        k1n = fs.fused_solve(*fleet.fused_args(cfg, basis, scns_n),
+                             solver=solver)
+        same = same_result(step, fleet.kernel_result(k1n))
+        counts = {nm: getattr(sk, nm).launches for nm in names}
+        say(f"phase 17 T={T} {prog} per-step path on {n} of the scenes: "
+            f"launches {counts}, kernel ms "
+            f"{ {nm: round(st.total_ms(nm), 1) for nm in names} }; "
+            f"bitwise equal to K1: {same}")
+        if not same or min(counts.values()) < 1:
+            fail(f"phase 17: the {prog} per-step path at T={T} differs "
+                 f"from K1 or launched nothing")
+        out["programs"][prog]["step"] = {
+            nm: (counts[nm], st.total_ms(nm)) for nm in names}
+        del step, k1n
         del k1, want, got, args, scns
         torch.cuda.empty_cache()
     if not gates_ok:
         fail(f"phase 17: a paired xla gate failed at T={T}")
 
-    # The linearized per-step path at T = 200 (K5, K3, K6) with its launch
-    # counts; then each per-step kernel timed at LARGE_BATCH lanes on the
-    # main path's inputs at T = 200 (the reference scene replicated, at the
-    # warm start, round 0 step 0), as phase 9 times them at T = 50, and held
-    # to its plain version there.
+    # The linearized per-step path at T = 200 (K5, K3, K6): its launch
+    # counts and kernel times from the run above; then each per-step kernel
+    # timed at LARGE_BATCH lanes on the main path's inputs at T = 200 (the
+    # reference scene replicated, at the warm start, round 0 step 0), as
+    # phase 9 times them at T = 50, and held to its plain version there.
     cfg = bench.bench_config(n_timesteps=T)
     basis = mt.make_basis(cfg, device=dev)
-    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(0),
-                               STEP_BATCH, device=dev)
-    names = ["bls_inner_step", "cost_grad_eval", "forward_eval"]
-    for nm in names:
-        getattr(sk, nm).launches = 0
-    with KernelTimer(sk, *names) as st:
-        fleet.fleet_solve(cfg, basis, scns, backend="pallas")
-    step_launches = {nm: getattr(sk, nm).launches for nm in names}
-    step_ms = {nm: st.total_ms(nm) for nm in names}
-    say(f"phase 17 T={T} bls per-step path on {STEP_BATCH} random scenes: "
-        f"launches {step_launches}, kernel ms "
-        f"{ {nm: round(v, 1) for nm, v in step_ms.items()} }")
-    if min(step_launches.values()) < 1:
-        fail(f"phase 17: the per-step path at T={T} skipped a kernel")
+    step_launches = {nm: c for nm, (c, _) in
+                     out["programs"]["bls"]["step"].items()}
+    step_ms = {nm: ms for nm, (_, ms) in
+               out["programs"]["bls"]["step"].items()}
     scns = mt.replicate_scenario(mt.reference_scenario(cfg, device=dev),
                                  LARGE_BATCH)
     _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = fleet.fused_args(
         cfg, basis, scns)
     eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
-    work = sk.workspace(J, T, LARGE_BATCH, dev)
     ev = sk.PallasEval(torch.empty_like(lsg),
                        *(torch.empty_like(a0) for _ in range(3)))
-    k5_ms = best_ms(lambda: sk.cost_grad_eval(cfg, *eargs, out=ev, work=work))
+    k5_ms = best_ms(lambda: sk.cost_grad_eval(cfg, *eargs, out=ev))
     _, k5_plain = timed(lambda: sk.cost_grad_eval_reference(cfg, *eargs))
     k6_out = sk.PallasForward(torch.empty_like(a0), torch.empty_like(a0))
     k6_ms = best_ms(lambda: sk.forward_eval(cfg, kv, mix, a0, out=k6_out))
@@ -1958,10 +1995,10 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         ms, plain_ms, tally, agree, err = full_width_step(
             fn, ref, cfg, (kv, kvt, mix),
             (a0, *ev[1:], ev.loss, lr, torch.zeros_like(lsg)),
-            (lsg, ljl, start, goal, ox, oy, ow),
-            work if name == "bls" else None)
-        bound = (roofline.bls_inner_step(LARGE_BATCH, T, J, O, tally,
-                                         device_basis=True)
+            (lsg, ljl, start, goal, ox, oy, ow))
+        bound = (roofline.bls_inner_step(
+                     LARGE_BATCH, T, J, O, tally, streamed=True,
+                     lanes_per_cta=sk.bls_step_plan(cfg, O)["lanes"])
                  if name == "bls" else
                  roofline.gd_inner_step(
                      LARGE_BATCH, T, J, O, tally, streamed=True,
@@ -1971,7 +2008,9 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                  f"version at T={T}, {LARGE_BATCH} lanes: "
                  f"{step_summary(agree, err)}")
         steps[name] = (ms, plain_ms, bound, agree)
-    k5_bound = roofline.cost_grad_eval(LARGE_BATCH, T, J, O, device_basis=True)
+    k5_bound = roofline.cost_grad_eval(
+        LARGE_BATCH, T, J, O, streamed=True,
+        lanes_per_cta=sk.cost_grad_eval_plan(cfg, O)["lanes"])
     k6_bound = roofline.forward_eval(LARGE_BATCH, T, J)
     say(f"phase 17 T={T} per-step kernels at {LARGE_BATCH} lanes (reference "
         f"scene, round 0, step 0): K3 {steps['bls'][0]:.3f} ms (plain {steps['bls'][1]:.1f}, "
@@ -1982,7 +2021,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         f"K6 {k6_ms:.3f} ms (plain {k6_plain:.1f}, one torch.einsum "
         f"{k6_lib:.3f}, bound {k6_bound.ms:.3f} by {k6_bound.by}: "
         f"{k6_bound.ms / k6_ms:.3f} of it)")
-    del work, ev, k6_out, eargs, scns
+    del ev, k6_out, eargs, scns
     torch.cuda.empty_cache()
     ties = random_step_kernels(mt, fs, sk, fleet, cfg, basis, dev)
 
@@ -2771,12 +2810,11 @@ def grid_shapes():
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads, stack}} from nvcc's
     ptxas report; K1/K2 as fused_solve<program,T,O> /
-    fused_round<program,T,O> (program bls, gd or bls_exact; <program,0,0>:
-    the generic instantiation; <program,0,0,streamed>: the streamed body);
-    K3 as bls_step<tier,basis> (tier 0 linearized, 1 exact; basis 0 staged,
-    1 in device memory), K5 as <basis>, K4 as gd_step<T,O,body> (body 0
-    resident, 1 streamed; <0,0,...> the generic one), K6 as
-    forward_eval<vec> (1: 16-byte copies)."""
+    fused_round<program,T,O> and K3 as bls_step<program,T,O> (program bls,
+    gd or bls_exact; <program,0,0>: the generic instantiation;
+    <program,0,0,streamed>: the streamed body); K4 as gd_step<T,O,body> and
+    K5 as cost_grad_eval<T,O,body> (body 0 resident, 1 streamed; <0,0,...>
+    the generic one), K6 as forward_eval<vec> (1: 16-byte copies)."""
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
 
     out, name = {}, None
@@ -2787,7 +2825,8 @@ def ptxas_report(log):
             name = m.group(1)
             if m.group(2) is not None:
                 targs = re.findall(r"L[ib](\d+)E", m.group(2))
-                if name.startswith("fused_") and len(targs) == 4:
+                if (name.startswith("fused_") or name == "bls_step") and len(
+                        targs) == 4:
                     targs[0] = fs.PROGRAMS[int(targs[0])]
                     targs = targs[:3] + (["streamed"] if targs[3] == "1"
                                          else [])
@@ -3007,20 +3046,19 @@ def step_summary(agree, err):
 
 
 def step_blocks(name):
-    """``pallas_block_b`` values of the ragged checks: K3's threads (lanes)
-    per block; K4's threads per CTA, one warp per lane: 1, 2, 5, 10 and 16
-    lanes per CTA (the streamed plan at T=200 takes at most 10)."""
+    """``pallas_block_b`` values of the ragged checks, threads per CTA, one
+    warp per lane: K3 at 2, 4 and 8 lanes per CTA, K4 at 1, 2, 5, 10 and
+    16 (the streamed plan at T=200 takes at most 8)."""
     return (64, 128, 256) if name == "bls" else (32, 64, 160, 320, 512)
 
 
-def full_width_step(fn, ref, cfg, head, state0, tail, work):
+def full_width_step(fn, ref, cfg, head, state0, tail):
     """A step kernel ``fn`` (K3 or K4) at full width from ``state0``: the
     least CUDA-event time of TIMED_LAUNCHES launches, each from a copy of
     state0, in place; then its plain version ``ref`` on the same inputs, a
     first call with the work tally (for the comparison with the last
     launch's state and the bound) and a timed one without it.  Returns (ms,
-    plain_ms, tally, lane agreement, errors) (see :func:`step_errors`).
-    ``work``: K3's workspace (None for K4, which takes none)."""
+    plain_ms, tally, lane agreement, errors) (see :func:`step_errors`)."""
     from irm_motion_planning_tpu_torch.ops import step_kernels as sk
 
     state = sk.PallasStep(*(x.clone() for x in state0))
@@ -3031,8 +3069,7 @@ def full_width_step(fn, ref, cfg, head, state0, tail, work):
         start_ev = torch.cuda.Event(enable_timing=True)
         end_ev = torch.cuda.Event(enable_timing=True)
         start_ev.record()
-        fn(cfg, *head, *state, *tail, out=state,
-           **({} if work is None else {"work": work}))
+        fn(cfg, *head, *state, *tail, out=state)
         end_ev.record()
         return start_ev, end_ev
 
@@ -3051,7 +3088,7 @@ def full_width_step(fn, ref, cfg, head, state0, tail, work):
 
 def k6_vs_k5(fk, ek, phase, lanes):
     """K6's (traj, vel) must be K5's on the same alpha bit for bit: both run
-    the lane body's chains (K6 as a tiled product)."""
+    the warp body's chains (K6 as a tiled product)."""
     if not (torch.equal(fk.traj, ek.traj) and torch.equal(fk.vel, ek.vel)):
         fail(f"phase {phase}: K6 differs from K5's traj/vel on the same "
              f"alpha ({lanes} lanes)")

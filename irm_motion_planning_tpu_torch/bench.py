@@ -297,7 +297,8 @@ def main(argv=None) -> int:
                         "solvers")
     p.add_argument("--block-b", type=int, default=0,
                    help="fused backend: lanes (warps) per CTA, 1-16 (0: 16); "
-                        "pallas backend: lanes (threads) per block (0: 128)")
+                        "pallas backend: threads per CTA, one warp per lane, "
+                        "32-512 in whole warps (0: 512)")
     p.add_argument("--max-obstacles", type=int, default=11)
     p.add_argument("--quality-tol", type=float, default=0.02)
     p.add_argument("--random-scenarios", action="store_true",

@@ -12,10 +12,10 @@ GPU is:
   lanes (warps) per CTA, 1..16, 0 picks the default (16); past T = 64 (the
   streamed plan, a CTA of 16 warps on a tile of lanes) at most 15 and as
   many as leave K7's ring 48 KB of shared memory; for the per-step
-  kernels: threads per block, a multiple of 32, 0 picks the default (128):
-  K3 and K5 run a lane per thread, K4 a lane per warp (pallas_block_b / 32
-  lanes per CTA, 1..16; 0 picks 16), K6's tile does not depend on it.
-  Per-lane results do not depend on it.
+  kernels: threads per CTA in whole warps, 32-512, 0 picks the default (16
+  warps): K3, K4 and K5 run a lane per warp (pallas_block_b / 32 lanes per
+  CTA, in K1's plan), K6's tile does not depend on it.  Per-lane results
+  do not depend on it.
 * ``recip_newton`` — no effect: the CUDA kernel divides exactly (IEEE
   ``1.0f / s``), where the TPU kernel used an approximate reciprocal.
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is

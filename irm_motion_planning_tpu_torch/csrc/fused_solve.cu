@@ -39,12 +39,10 @@
 // penalty escalation in between; K2 runs it once, and a lane that comes in
 // fulfilled passes through.  Sharing the round body is what makes the host
 // rounds driver over K2 equal K1 bit for bit, as pallas_step's run_inner
-// does for the two TPU kernels.  The per-step kernels K3 and K5
-// (step_kernels.cu) are built from the one-thread-per-lane lane body
-// (lane_body.cuh) and K4 from this warp body; both bodies run the same op
-// sequence, so a lane's result does not depend on which body ran it: K1-GD
-// gives the per-step GD path's (K5 once per round, then K4 per step)
-// results.
+// does for the two TPU kernels.  The per-step kernels K3, K4 and K5
+// (step_kernels.cu) are built from this warp body too, so a lane's result
+// does not depend on which kernel ran it: K1 gives the per-step path's (K5
+// once per round, then K3 or K4 per step) results in every program.
 //
 // What bounds K1 and K2 on this card: operations.  ops/roofline.py counts
 // the work of the run (rounds, steps, ladder rungs, accepted trials,
@@ -68,7 +66,7 @@
 //    launch's tail is one lane long, not one block of lanes;
 //  * the basis products read the transposed basis in shared memory (32
 //    neighbouring words per warp load) and a broadcast float4 of the staged
-//    input; the sums over t are the lane body's sequential chains, run by
+//    input; the sums over t are sequential chains, run by
 //    one thread each, up to 7 at once, so the results stay bit for bit (a
 //    build with shuffle-tree sums instead was at most 2% faster); the first
 //    argmax is a shuffle tree, exact;

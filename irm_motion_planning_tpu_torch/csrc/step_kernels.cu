@@ -8,9 +8,8 @@
 // They replace, in irm_motion_planning_tpu/ops/pallas_step.py:
 //  * K3 bls_step_kernel: bls_inner_step / _make_step_kernel -> _bls_step
 //    without the FK carry (the loss is recomputed at the accepted iterate),
-//    in its two compilations, one per ladder tier: linearized
-//    (bls_step_kernel<false>) and exact (<true>: each rung's candidate alpha
-//    through the basis, from the workspace's trial plane);
+//    in its two compilations, one per ladder tier: the programs SOLVER_BLS
+//    (linearized) and SOLVER_BLS_EXACT of the warp body;
 //  * K4 gd_step_kernel: gd_inner_step / _make_gd_step_kernel -> _gd_step
 //    (the stop test rejects the trial; lr passes through);
 //  * K5 cost_grad_eval_kernel: cost_grad_eval / _make_eval_kernel ->
@@ -18,47 +17,42 @@
 //  * K6 forward_eval_kernel: forward_eval / _make_forward_kernel ->
 //    _Body.forward_planes.
 // Each computes what its TPU kernel computes, lane by lane; a lane's result
-// does not depend on which kernel or body ran it (same op sequence).
+// does not depend on which kernel ran it (same op sequence).
 //
-// K3 and K5 run the lane body (lane_body.cuh): ONE THREAD PER LANE, mix and
-// the block's obstacle terms staged in shared memory, the state planes in
-// device memory with lanes trailing.  The basis pair is staged too while it
-// fits in shared memory beside them; beyond (the step plan of
-// ops/step_kernels.py: T past about 110 at 128 lanes per block), each
-// kernel's DEV instantiation reads it from device memory, where a warp's 32
-// lanes read the same word at once (one L1 broadcast).
-//
-// K4 runs the warp body of K1/K2 (warp_body.cuh, its gd_step): ONE WARP PER
-// LANE, the lane's state on chip for the step, in the plan of K1-GD (the
-// resident body for T <= 64, the streamed one, through K7, beyond).  A CTA
-// takes a tile of consecutive lanes, one warp each, and moves their planes
-// between device memory and the warps' shared memory together, so that a
-// load or store of a plane row is W consecutive words (lanes trailing); it
-// reads alpha, grad and the scene, and writes alpha, grad, traj, vel, loss
-// and the stop flag.  The trial, its evaluation's scratch and the gradient
-// pass's rows never leave the chip.  The grid is persistent (the CTAs that
-// fit, from the occupancy calculator), each CTA walking tiles, so the
-// resident body stages the basis once per CTA.
+// K3, K4 and K5 run the warp body of K1/K2 (warp_body.cuh: bls_step,
+// gd_step, and the round start's evaluation eval_alpha, cost_pass and
+// grad_pass): ONE WARP PER LANE, the lane's state on chip for the launch,
+// in the launch plan of K1 (ops/fused_solve.py launch_plan: the resident
+// body for T <= 64, the streamed one, through K7, beyond).  A CTA takes a
+// tile of consecutive lanes, one warp each, and moves their planes between
+// device memory and the warps' shared memory together, so that a load or
+// store of a plane row is W consecutive words (lanes trailing).  K3 reads
+// alpha, grad, traj and vel (the exact ladder: alpha and grad), loss, lr
+// and the scene and writes the four planes, loss, lr and the stop flag; K4
+// reads alpha, grad, loss and the scene and writes the planes and loss of
+// an accepted trial; K5 reads alpha and the scene and writes loss, grad,
+// traj and vel.  The direction planes, the ladder's candidates, a trial's
+// evaluation and the gradient pass's rows never leave the chip, so none
+// takes a workspace.  The grid is persistent (the CTAs that fit, from the
+// occupancy calculator), each CTA walking tiles, so the resident body
+// stages the basis once per CTA.
 //
 // K6 is a register-tiled float32 product: a CTA owns K6_BM output rows of
 // kv (of the 2T) by K6_BN consecutive lanes, all J joints; tiles of the
 // transposed basis and of alpha go through shared memory in two stages
 // (cp.async); each thread holds K6_TM rows x K6_TN lanes x J accumulators.
-// Each output element is still the lane body's sequential fmaf chain over
-// t = 0 .. T-1 (the tiles come in order of t and nothing splits the sum),
-// followed by its mix combine, so K6 gives forward_planes' floats bit for
-// bit.  The row tile is the fastest grid index: the CTAs of one lane tile
-// run together and read its alpha from device memory once, then from L2.
+// Each output element is still one sequential fmaf chain over t = 0 .. T-1
+// (the tiles come in order of t and nothing splits the sum), followed by
+// its mix combine, so K6 gives the warp body's evaluation (K5's traj and
+// vel) bit for bit.  The row tile is the fastest grid index: the CTAs of
+// one lane tile run together and read its alpha from device memory once,
+// then from L2.
 //
 // State in place.  K3 and K4 update alpha, grad, traj, vel, loss, lr (K3)
-// and the minimized flag where they lie; each lane's columns are read and
-// written by its own thread (K3) or warp (K4, through its CTA's tile).  A
-// frozen lane (minimized > 0.5) is not touched at all, which is the TPU
-// kernels' pass-through; a block or tile whose lanes are all frozen skips
-// all work (the TPU kernel's whole-tile skip).  The workspace of K3 and K5
-// (dir_t, dir_v (J, T, B), gx, gy (T, B), and for the exact K3 the trial
-// alpha (J, T, B)) is allocated by the caller once per solve; K4 and K6
-// take none.
+// and the minimized flag where they lie, each lane's columns through its
+// own warp's region of the tile.  A frozen lane (minimized > 0.5) is not
+// touched at all, which is the TPU kernels' pass-through; a tile whose
+// lanes are all frozen skips all work (the TPU kernel's whole-tile skip).
 //
 // What bounds them on this card (bounds from the shapes in PERF.md):
 //  * K6 moves alpha in and (traj, vel) out, 3 x 600 B per lane at T=50,
@@ -72,95 +66,24 @@
 //    per lane) around one to several evaluations (K3: the direction's
 //    forward product, each ladder rung, the pull-back; K4: the trial's
 //    forward, the evaluation, the pull-back): bound by operations too, by
-//    the ladder's rung count for K3.  K3's workspace traffic (the direction
-//    planes read by every rung) is the design's extra cost; K4 has none.
-//  * With the basis in device memory (K3/K5 DEV), every basis product reads
-//    8 T^2 bytes per warp of 32 lanes from L2 (ops/roofline.py); K4's
-//    streamed body reads them per lane, as K1's does.
-// wgmma and TMA are for later versions.
+//    the ladder's rung count for K3.
+//  * The warp body keeps everything between the loads and the stores on
+//    chip (K1's design); the streamed body reads the basis from L2 once per
+//    product and tile of lanes (K7), as K1's does.
+// wgmma is for later versions.
 
 #include "fused_kernels.cuh"
 
 #include <limits.h>
 
-// This thread's view of lane b for the per-step kernels: the staged shared
-// memory, the lane's endpoints and penalties, the state planes and the
-// workspace [dir_t, dir_v (J, T, B); gx, gy (T, B)].
-template <bool DEV>
-static __device__ Lane bind_step_lane(const FsParams& p, float* smem, size_t b,
-                                      const float* kv, const float* kvt,
-                                      const float* __restrict__ start,
-                                      const float* __restrict__ goal,
-                                      float lam_sg, float lam_jl, float* alpha,
-                                      float* grad, float* traj, float* vel,
-                                      float* work) {
-  Lane L = bind_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg, lam_jl,
-                          alpha, work);
-  const size_t plane = (size_t)NJ * p.T * p.B;
-  L.grad = grad;
-  L.traj = traj;
-  L.vel = vel;
-  L.dir_t = work;
-  L.dir_v = work + plane;
-  L.gx = work + 2 * plane;
-  L.gy = L.gx + (size_t)p.T * p.B;
-  return L;
-}
-
-// Whether lane b runs this step; every thread of the block must call it.
-// False for the whole block (all lanes frozen or past B) lets the block
-// return before it stages.
-__device__ __forceinline__ bool step_live(const FsParams& p,
-                                          const float* minimized, size_t b,
-                                          bool& block_live) {
-  const bool live = b < (size_t)p.B && !(minimized[b] > 0.5f);
-  block_live = __syncthreads_or(live) != 0;
-  return live;
-}
-
-// The trial plane of the workspace [dir_t, dir_v (J, T, B); gx, gy (T, B);
-// trial (J, T, B)].
-static __device__ __forceinline__ float* trial_plane(const FsParams& p,
-                                                     float* work) {
-  return work + 2 * (size_t)NJ * p.T * p.B + 2 * (size_t)p.T * p.B;
-}
-
-// K3: one BLS inner step for every live lane, in place, in the ladder tier
-// EXACT (a template argument: two programs, no run-time switch), with the
-// basis staged or, DEV, in device memory.
-template <bool EXACT, bool DEV>
-__global__ void bls_step_kernel(
-    FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
-    const float* __restrict__ mix, const float* __restrict__ lam_sg,
-    const float* __restrict__ lam_jl, const float* __restrict__ start,
-    const float* __restrict__ goal, const float* __restrict__ ox,
-    const float* __restrict__ oy, const float* __restrict__ ow, float* alpha,
-    float* grad, float* traj, float* vel, float* loss, float* lr,
-    float* minimized, float* work) {
-  extern __shared__ float smem[];
-  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  bool block_live;
-  const bool live = step_live(p, minimized, b, block_live);
-  if (!block_live) return;
-  stage_block<DEV>(p, kv, kvt, mix, ox, oy, ow, smem);
-  if (!live) return;
-  Lane L = bind_step_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg[b],
-                               lam_jl[b], alpha, grad, traj, vel, work);
-  float l = loss[b], r = lr[b];
-  const bool stop = bls_step<EXACT>(p, L, trial_plane(p, work), l, r);
-  loss[b] = l;
-  lr[b] = r;
-  minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
-}
-
 // ---------------------------------------------------------------------------
-// K4: the warp body's GD step on a tile of lanes.
+// K3, K4 and K5: the warp body on tiles of lanes.
 // ---------------------------------------------------------------------------
 
 // Where the pieces of lane l's per-warp region lie (l = 0 .. W-1, the
 // tile's lanes; offsets in floats from the region's start, which is its
-// alpha plane), from the own warp's view: K4's loads and stores write and
-// read every warp's region of the tile.
+// alpha plane), from the own warp's view: the tile's loads and stores write
+// and read every warp's region of the tile.
 struct TileMap {
   float* base;    // lane 0's region
   size_t stride;  // floats per region
@@ -171,10 +94,39 @@ struct TileMap {
   }
 };
 
-// The accepted trial's evaluation for the tile's store, and the map: the
-// resident body holds traj/vel in registers, which go into the direction
-// planes (free once the gradient pass has read the FK tangents there); the
-// streamed body holds them in its traj/vel planes already.
+// The resident body holds traj/vel in registers, which the tile moves
+// through the direction planes (free at a step's start and, once the
+// gradient pass has read the FK tangents there, at its end); the streamed
+// body holds them in its traj/vel planes.
+static __device__ __forceinline__ TileMap tile_map(const Warp& w, int wid) {
+  const size_t stride = wb_warp_floats(w.T, w.O);
+  return {w.alpha - wid * stride, stride, (int)(w.grad - w.alpha),
+          (int)(w.dir_t - w.alpha), (int)(w.dir_v - w.alpha),
+          (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
+}
+static __device__ __forceinline__ TileMap tile_map(const SWarp& w, int wid) {
+  const size_t stride = w.stride;
+  return {w.alpha - wid * stride, stride, (int)(w.grad - w.alpha),
+          (int)(w.traj - w.alpha), (int)(w.vel - w.alpha),
+          (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
+}
+
+// (traj, vel) from the tile's load into the resident body's registers (the
+// slots past T hold copies of t = T - 1, as an evaluation leaves them).
+static __device__ __forceinline__ void take_eval(Warp& w) {
+#pragma unroll
+  for (int s = 0; s < WB_SLOTS; ++s) {
+    const int t = w.ts(s);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      w.traj[s][j] = w.dir_t[j * w.T + t];
+      w.vel[s][j] = w.dir_v[j * w.T + t];
+    }
+  }
+}
+static __device__ __forceinline__ void take_eval(SWarp&) {}
+
+// (traj, vel) from the resident body's registers for the tile's store.
 static __device__ __forceinline__ void keep_eval(Warp& w) {
   __syncwarp();  // the gradient pass's reads of the tangents are done
 #pragma unroll
@@ -190,25 +142,162 @@ static __device__ __forceinline__ void keep_eval(Warp& w) {
 }
 static __device__ __forceinline__ void keep_eval(SWarp&) {}
 
-static __device__ __forceinline__ TileMap tile_map(const Warp& w, int wid) {
-  const size_t stride = wb_warp_floats(w.T, w.O);
-  return {w.alpha - wid * stride, stride, (int)(w.grad - w.alpha),
-          (int)(w.dir_t - w.alpha), (int)(w.dir_v - w.alpha),
-          (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
-}
-static __device__ __forceinline__ TileMap tile_map(const SWarp& w, int wid) {
-  const size_t stride = w.stride;
-  return {w.alpha - wid * stride, stride, (int)(w.grad - w.alpha),
-          (int)(w.traj - w.alpha), (int)(w.vel - w.alpha),
-          (int)((float*)w.obs - w.alpha), (int)(w.ends - w.alpha)};
+// A lane's outcome in its region's ends[WB_OUTCOME]: 0 the lane sits the
+// launch out, 1 it takes part, 2 its results are stored.
+#define TILE_OUT 0.f
+#define TILE_IN 1.f
+#define TILE_STORE 2.f
+
+// Rows [0, rows) of the N planes src[k] (lanes trailing) into offset off[k]
+// of the regions of the tile's lanes that take part; each row is W
+// consecutive words of device memory.
+template <int N>
+static __device__ __forceinline__ void tile_load(const TileMap& m, int W,
+                                                 int rows, size_t B,
+                                                 size_t b0, const int* off,
+                                                 const float* const* src) {
+  for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
+    const int row = i / W, l = i - row * W;
+    float* r = m.region(l);
+    if (r[m.ends + WB_OUTCOME] == TILE_OUT) continue;
+    const size_t g = (size_t)row * B + b0 + l;
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[off[k] + row] = src[k][g];
+  }
 }
 
-// K4: one GD inner step for every live lane, in place; lr is read only.
-// TT/OO: the specialised resident instantiation (0: T and O at run time);
-// STREAM: the streamed body (the transposed, padded basis pair in device
-// memory, fused_solve.streamed_basis; the tile's lanes in lockstep, their
-// products one K7 product each).  W = ``lanes`` lanes per tile, one warp
-// each (the streamed CTA's other warps help with the products).
+// The same rows back from the regions of the lanes whose results are
+// stored.
+template <int N>
+static __device__ __forceinline__ void tile_store(const TileMap& m, int W,
+                                                  int rows, size_t B,
+                                                  size_t b0, const int* off,
+                                                  float* const* dst) {
+  for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
+    const int row = i / W, l = i - row * W;
+    const float* r = m.region(l);
+    if (r[m.ends + WB_OUTCOME] != TILE_STORE) continue;
+    const size_t g = (size_t)row * B + b0 + l;
+#pragma unroll
+    for (int k = 0; k < N; ++k) dst[k][g] = r[off[k] + row];
+  }
+}
+
+// The scene of the tile's lanes that take part: the obstacle terms (ox,
+// oy, q_o = 0.5 + 0.5 |o|^2, 0.8 w_o) and the endpoints.
+static __device__ __forceinline__ void tile_load_scene(
+    const TileMap& m, int W, int O, size_t B, size_t b0,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ ow, const float* __restrict__ start,
+    const float* __restrict__ goal) {
+  for (int i = threadIdx.x; i < O * W; i += blockDim.x) {
+    const int o = i / W, l = i - o * W;
+    float* r = m.region(l);
+    if (r[m.ends + WB_OUTCOME] == TILE_OUT) continue;
+    const size_t g = (size_t)o * B + b0 + l;
+    const float x = ox[g], y = oy[g], wt = ow[g];
+    ((float4*)(r + m.obs))[o] =
+        make_float4(x, y, 0.5f + 0.5f * (x * x + y * y), 0.8f * wt);
+  }
+  for (int i = threadIdx.x; i < NJ * W; i += blockDim.x) {
+    const int j = i / W, l = i - j * W;
+    float* r = m.region(l);
+    if (r[m.ends + WB_OUTCOME] == TILE_OUT) continue;
+    const size_t g = (size_t)j * B + b0 + l;
+    r[m.ends + j] = start[g];
+    r[m.ends + NJ + j] = goal[g];
+  }
+}
+
+// Mark this warp's lane of the tile (every thread of the CTA calls it);
+// returns whether any lane of the tile takes part.  The barrier also ends
+// the previous tile's store.
+template <class W>
+static __device__ __forceinline__ bool tile_begin(W& w, int lanes, bool in) {
+  if (!__syncthreads_or(in)) return false;
+  if ((int)(threadIdx.x >> 5) < lanes && w.lid == 0)
+    w.ends[WB_OUTCOME] = in ? TILE_IN : TILE_OUT;
+  __syncthreads();
+  return true;
+}
+
+// K3: one BLS inner step for every live lane, in place, in the program
+// PROGRAM (SOLVER_BLS: the linearized ladder, whose recomputed loss is the
+// accepted rung's, bls_step; SOLVER_BLS_EXACT: the exact ladder).  Each
+// live lane's alpha, grad, traj, vel, loss and lr are stored: the stop test
+// does not reject the step (alpha, traj and vel move, grad is kept).
+// In K3, K4 and K5: TT/OO the specialised resident instantiation (0: T and
+// O at run time); STREAM the streamed body (the transposed, blocked basis
+// pair in device memory, fused_solve.streamed_basis; the tile's lanes in
+// lockstep, their products one K7 product each); W = ``lanes`` lanes per
+// tile, one warp each (the streamed CTA's other warps help with the
+// products and view lane 0).
+template <int PROGRAM, int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+bls_step_kernel(FsParams p, int lanes, const float* __restrict__ kv,
+                const float* __restrict__ kvt, const float* __restrict__ mix,
+                const float* __restrict__ lam_sg,
+                const float* __restrict__ lam_jl,
+                const float* __restrict__ start,
+                const float* __restrict__ goal, const float* __restrict__ ox,
+                const float* __restrict__ oy, const float* __restrict__ ow,
+                float* alpha, float* grad, float* traj, float* vel,
+                float* loss, float* lr, float* minimized) {
+  // The exact ladder evaluates each rung's candidate: it never reads the
+  // incoming (traj, vel).
+  constexpr bool EXACT = PROGRAM == SOLVER_BLS_EXACT;
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  const int W = lanes, wid = threadIdx.x >> 5;
+  const size_t B = p.B;
+  auto w = bind_body<PROGRAM, STREAM>(smem, T, O, W, kv, kvt, mix);
+  int own = wid;
+  if constexpr (STREAM) own = w.lane;
+  const TileMap m = tile_map(w, own);
+  const int rows = NJ * T;
+  const int off[] = {0, m.grad, m.traj, m.vel};
+  const float* const in[] = {alpha, grad, traj, vel};
+  float* const out[] = {alpha, grad, traj, vel};
+  const size_t tiles = (B + W - 1) / W;
+  for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t b0 = tile * W, b = b0 + wid;
+    const bool live = wid < W && b < B && !(minimized[b] > 0.5f);
+    if (!tile_begin(w, W, live)) continue;  // the whole-tile skip
+    tile_load<EXACT ? 2 : 4>(m, W, rows, B, b0, off, in);
+    tile_load_scene(m, W, O, B, b0, ox, oy, ow, start, goal);
+    __syncthreads();
+    float l = 0.f, r = 0.f;
+    if (live) {
+      w.lam_sg = lam_sg[b];
+      w.lam_jl = lam_jl[b];
+      l = loss[b];
+      r = lr[b];
+    }
+    bool stop = false;
+    if constexpr (STREAM) {
+      stop = ls_bls_step<PROGRAM>(p, w, l, r, live);
+    } else if (live) {
+      if constexpr (!EXACT) take_eval(w);
+      stop = bls_step<PROGRAM>(p, w, l, r);
+      keep_eval(w);
+    }
+    if (live) {
+      __syncwarp();
+      if (w.lid == 0) {
+        w.ends[WB_OUTCOME] = TILE_STORE;
+        loss[b] = l;
+        lr[b] = r;
+        minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
+      }
+    }
+    __syncthreads();
+    tile_store<4>(m, W, rows, B, b0, off, out);
+  }
+}
+
+// K4: one GD inner step for every live lane, in place; lr is read only.  A
+// stop rejects the trial: only the stop flag is written.
 template <int TT, int OO, bool STREAM>
 __global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
 gd_step_kernel(FsParams p, int lanes, const float* __restrict__ kv,
@@ -226,112 +315,182 @@ gd_step_kernel(FsParams p, int lanes, const float* __restrict__ kv,
   const int W = lanes, wid = threadIdx.x >> 5;
   const size_t B = p.B;
   auto w = bind_body<SOLVER_GD, STREAM>(smem, T, O, W, kv, kvt, mix);
-  int own = wid;  // the warp's lane in the tile (a helper's view: lane 0's)
+  int own = wid;
   if constexpr (STREAM) own = w.lane;
   const TileMap m = tile_map(w, own);
   const int rows = NJ * T;
+  const int off[] = {0, m.grad, m.traj, m.vel};
+  const float* const in[] = {alpha, grad};
+  float* const out[] = {alpha, grad, traj, vel};
   const size_t tiles = (B + W - 1) / W;
   for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t b0 = tile * W, b = b0 + wid;
     const bool live = wid < W && b < B && !(minimized[b] > 0.5f);
-    // The whole-tile skip; the barrier also ends the previous tile's store.
-    if (!__syncthreads_or(live)) continue;
-    if (wid < W && w.lid == 0) w.ends[WB_OUTCOME] = live ? 1.f : 0.f;
+    if (!tile_begin(w, W, live)) continue;  // the whole-tile skip
+    tile_load<2>(m, W, rows, B, b0, off, in);
+    tile_load_scene(m, W, O, B, b0, ox, oy, ow, start, goal);
     __syncthreads();
-    // The live lanes' alpha and grad rows, obstacle terms and endpoints,
-    // each row W consecutive words of device memory.
-    for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
-      const int row = i / W, l = i - row * W;
-      float* r = m.region(l);
-      if (r[m.ends + WB_OUTCOME] == 0.f) continue;
-      const size_t g = (size_t)row * B + b0 + l;
-      r[row] = alpha[g];
-      r[m.grad + row] = grad[g];
-    }
-    for (int i = threadIdx.x; i < O * W; i += blockDim.x) {
-      const int o = i / W, l = i - o * W;
-      float* r = m.region(l);
-      if (r[m.ends + WB_OUTCOME] == 0.f) continue;
-      const size_t g = (size_t)o * B + b0 + l;
-      const float x = ox[g], y = oy[g], wt = ow[g];
-      ((float4*)(r + m.obs))[o] =
-          make_float4(x, y, 0.5f + 0.5f * (x * x + y * y), 0.8f * wt);
-    }
-    for (int i = threadIdx.x; i < NJ * W; i += blockDim.x) {
-      const int j = i / W, l = i - j * W;
-      float* r = m.region(l);
-      if (r[m.ends + WB_OUTCOME] == 0.f) continue;
-      const size_t g = (size_t)j * B + b0 + l;
-      r[m.ends + j] = start[g];
-      r[m.ends + NJ + j] = goal[g];
-    }
-    __syncthreads();
-    if constexpr (STREAM) {
-      float l = 0.f;
-      if (live) {
-        w.lam_sg = lam_sg[b];
-        w.lam_jl = lam_jl[b];
-        l = loss[b];
-      }
-      const bool stop = ls_gd_step(p, w, l, live ? lr[b] : 0.f, live);
-      if (live) {
-        __syncwarp();
-        if (w.lid == 0) {
-          w.ends[WB_OUTCOME] = stop ? 0.f : 2.f;
-          if (!stop) loss[b] = l;
-          minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
-        }
-      }
-    } else if (live) {
+    float l = 0.f;
+    if (live) {
       w.lam_sg = lam_sg[b];
       w.lam_jl = lam_jl[b];
-      float l = loss[b];
-      const bool stop = gd_step(p, w, l, lr[b]);
+      l = loss[b];
+    }
+    bool stop = true;
+    if constexpr (STREAM) {
+      stop = ls_gd_step(p, w, l, live ? lr[b] : 0.f, live);
+    } else if (live) {
+      stop = gd_step(p, w, l, lr[b]);
       if (!stop) keep_eval(w);
+    }
+    if (live) {
       __syncwarp();
       if (w.lid == 0) {
-        w.ends[WB_OUTCOME] = stop ? 0.f : 2.f;
+        w.ends[WB_OUTCOME] = stop ? TILE_OUT : TILE_STORE;
         if (!stop) loss[b] = l;
         minimized[b] = fmaxf(minimized[b], stop ? 1.f : 0.f);
       }
     }
     __syncthreads();
-    // The accepted lanes' new alpha, grad, traj and vel rows.
-    for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
-      const int row = i / W, l = i - row * W;
-      const float* r = m.region(l);
-      if (r[m.ends + WB_OUTCOME] != 2.f) continue;
-      const size_t g = (size_t)row * B + b0 + l;
-      alpha[g] = r[row];
-      grad[g] = r[m.grad + row];
-      traj[g] = r[m.traj + row];
-      vel[g] = r[m.vel + row];
-    }
+    tile_store<4>(m, W, rows, B, b0, off, out);
   }
 }
 
-// K4's instantiation for p in the body ``streamed``.
-static const void* gd_kernel_of(const FsParams& p, bool streamed) {
-  if (streamed) return (const void*)gd_step_kernel<0, 0, true>;
-  if (specialised(p))
-    return (const void*)gd_step_kernel<WB_SPEC_T, WB_SPEC_O, false>;
-  return (const void*)gd_step_kernel<0, 0, false>;
+// K5: loss, gradient and exact (traj, vel) at alpha for every lane: the
+// warp body's round-start evaluation (eval_alpha, the cost pass with the
+// loss, the gradient pass), in the plan of the BLS program.
+template <int TT, int OO, bool STREAM>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+cost_grad_eval_kernel(FsParams p, int lanes, const float* __restrict__ kv,
+                      const float* __restrict__ kvt,
+                      const float* __restrict__ mix,
+                      const float* __restrict__ alpha,
+                      const float* __restrict__ lam_sg,
+                      const float* __restrict__ lam_jl,
+                      const float* __restrict__ start,
+                      const float* __restrict__ goal,
+                      const float* __restrict__ ox,
+                      const float* __restrict__ oy,
+                      const float* __restrict__ ow, float* loss, float* grad,
+                      float* traj, float* vel) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int T = TT ? TT : p.T, O = TT ? OO : p.O;
+  const int W = lanes, wid = threadIdx.x >> 5;
+  const size_t B = p.B;
+  auto w = bind_body<SOLVER_BLS, STREAM>(smem, T, O, W, kv, kvt, mix);
+  int own = wid;
+  if constexpr (STREAM) own = w.lane;
+  const TileMap m = tile_map(w, own);
+  const int rows = NJ * T;
+  const int in_off[] = {0};
+  const float* const in[] = {alpha};
+  const int out_off[] = {m.grad, m.traj, m.vel};
+  float* const out[] = {grad, traj, vel};
+  const size_t tiles = (B + W - 1) / W;
+  for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t b0 = tile * W, b = b0 + wid;
+    const bool live = wid < W && b < B;
+    tile_begin(w, W, live);
+    tile_load<1>(m, W, rows, B, b0, in_off, in);
+    tile_load_scene(m, W, O, B, b0, ox, oy, ow, start, goal);
+    __syncthreads();
+    if (live) {
+      w.lam_sg = lam_sg[b];
+      w.lam_jl = lam_jl[b];
+    }
+    float l = 0.f;
+    if constexpr (STREAM) {
+      eval_alpha(w, live);
+      int first = 0;
+      if (live) l = cost_pass(p, w, true, first);
+      grad_pass(p, w, first, live);
+    } else if (live) {
+      eval_alpha(w);
+      int first;
+      l = cost_pass(p, w, true, first);
+      grad_pass(p, w, first);
+      keep_eval(w);
+    }
+    if (live) {
+      __syncwarp();
+      if (w.lid == 0) {
+        w.ends[WB_OUTCOME] = TILE_STORE;
+        loss[b] = l;
+      }
+    }
+    __syncthreads();
+    tile_store<3>(m, W, rows, B, b0, out_off, out);
+  }
 }
 
-// K4's launch shape at ``lanes`` lanes per CTA in the body ``streamed``
-// (launch_plan of K1-GD): the kernel, its warps per CTA (one per lane;
-// streamed: WB_STREAM_WARPS), its dynamic shared memory (the warp body's
-// plan), the CTAs that fit on one SM and the SM count.
-static int gd_shape(const FsParams& p, int lanes, int streamed,
-                    const void*& kernel, int& warps, size_t& smem,
-                    int& per_sm, int& sms) {
+// The per-step kernels of the warp body, by the index the wrappers pass
+// (ops/step_kernels.py STEP_KERNELS): K3 in the linearized and the exact
+// ladder, K4, K5.
+#define STEP_BLS 0
+#define STEP_BLS_EXACT 1
+#define STEP_GD 2
+#define STEP_EVAL 3
+
+template <int PROGRAM>
+struct BlsStep {
+  template <int TT, int OO, bool S>
+  static const void* of() {
+    return (const void*)bls_step_kernel<PROGRAM, TT, OO, S>;
+  }
+};
+struct GdStep {
+  template <int TT, int OO, bool S>
+  static const void* of() {
+    return (const void*)gd_step_kernel<TT, OO, S>;
+  }
+};
+struct EvalStep {
+  template <int TT, int OO, bool S>
+  static const void* of() {
+    return (const void*)cost_grad_eval_kernel<TT, OO, S>;
+  }
+};
+
+// K's instantiation for p in the body ``streamed``.
+template <class K>
+static const void* step_instance(const FsParams& p, bool streamed) {
+  if (streamed) return K::template of<0, 0, true>();
+  if (specialised(p)) return K::template of<WB_SPEC_T, WB_SPEC_O, false>();
+  return K::template of<0, 0, false>();
+}
+
+static const void* step_kernel_of(int kernel, const FsParams& p,
+                                  bool streamed) {
+  switch (kernel) {
+    case STEP_BLS:
+      return step_instance<BlsStep<SOLVER_BLS>>(p, streamed);
+    case STEP_BLS_EXACT:
+      return step_instance<BlsStep<SOLVER_BLS_EXACT>>(p, streamed);
+    case STEP_GD:
+      return step_instance<GdStep>(p, streamed);
+    case STEP_EVAL:
+      return step_instance<EvalStep>(p, streamed);
+  }
+  return nullptr;
+}
+
+// A per-step kernel's launch shape at ``lanes`` lanes per CTA in the body
+// ``streamed`` (launch_plan of K1 in its program): the kernel, its warps
+// per CTA (one per lane; streamed: WB_STREAM_WARPS), its dynamic shared
+// memory (the warp body's plan), the CTAs that fit on one SM and the SM
+// count.
+static int step_shape(const FsParams& p, int which, int lanes, int streamed,
+                      const void*& kernel, int& warps, size_t& smem,
+                      int& per_sm, int& sms) {
   warps = streamed ? WB_STREAM_WARPS : lanes;
   if (lanes < 1 || lanes > warps - (streamed ? 1 : 0) ||
       warps > WB_MAX_WARPS || p.T < 1 ||
       (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
       (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
-  kernel = gd_kernel_of(p, streamed != 0);
+  kernel = step_kernel_of(which, p, streamed != 0);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   smem = warp_smem_bytes(p, lanes, streamed != 0, false);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
@@ -351,12 +510,15 @@ static int gd_shape(const FsParams& p, int lanes, int streamed,
   return per_sm < 1 ? (int)cudaErrorInvalidValue : 0;
 }
 
-extern "C" int gd_step_shape(FsParams p, int lanes, int streamed, int* out) {
+// The CTAs that fit on one SM, the SM count and the shared memory per CTA
+// of the per-step kernel ``which`` (STEP_*) at ``lanes`` lanes per CTA.
+extern "C" int step_kernel_shape(FsParams p, int which, int lanes,
+                                 int streamed, int* out) {
   const void* kernel;
   size_t smem;
   int warps, per_sm, sms;
   const int err =
-      gd_shape(p, lanes, streamed, kernel, warps, smem, per_sm, sms);
+      step_shape(p, which, lanes, streamed, kernel, warps, smem, per_sm, sms);
   if (err) return err;
   out[0] = per_sm;
   out[1] = sms;
@@ -364,9 +526,45 @@ extern "C" int gd_step_shape(FsParams p, int lanes, int streamed, int* out) {
   return 0;
 }
 
-// K4 at ``lanes`` lanes per CTA, in the body ``streamed`` (then kv and kvt
-// are the transposed, blocked pair), on the persistent grid: every CTA that
-// fits, never more than the tiles.
+// Launch the per-step kernel ``which`` with its arguments ``args`` (p and
+// lanes first) on the persistent grid: every CTA that fits, never more
+// than the tiles.
+static int step_launch(const FsParams& p, int which, int lanes, int streamed,
+                       void** args, void* stream) {
+  const void* kernel;
+  size_t smem;
+  int warps, per_sm, sms;
+  const int err =
+      step_shape(p, which, lanes, streamed, kernel, warps, smem, per_sm, sms);
+  if (err) return err;
+  const long long tiles = ((long long)p.B + lanes - 1) / lanes;
+  const long long full = (long long)per_sm * sms;
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)(full < tiles ? full
+                                                                    : tiles)),
+                               dim3(32 * warps), args, smem,
+                               (cudaStream_t)stream);
+}
+
+// K3 at ``lanes`` lanes per CTA, in the body ``streamed`` (then kv and kvt
+// are the transposed, blocked pair), in the ladder tier ``exact``.
+extern "C" int bls_step_launch(FsParams p, int lanes, int streamed, int exact,
+                               const float* kv, const float* kvt,
+                               const float* mix, const float* lam_sg,
+                               const float* lam_jl, const float* start,
+                               const float* goal, const float* ox,
+                               const float* oy, const float* ow, float* alpha,
+                               float* grad, float* traj, float* vel,
+                               float* loss, float* lr, float* minimized,
+                               void* stream) {
+  if (exact != 0 && exact != 1) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p,    &lanes, &kv,    &kvt,  &mix,  &lam_sg, &lam_jl,
+                  &start, &goal, &ox,    &oy,   &ow,    &alpha, &grad,
+                  &traj, &vel,  &loss,  &lr,    &minimized};
+  return step_launch(p, exact ? STEP_BLS_EXACT : STEP_BLS, lanes, streamed,
+                     args, stream);
+}
+
+// K4, likewise.
 extern "C" int gd_step_launch(FsParams p, int lanes, int streamed,
                               const float* kv, const float* kvt,
                               const float* mix, const float* lam_sg,
@@ -376,42 +574,25 @@ extern "C" int gd_step_launch(FsParams p, int lanes, int streamed,
                               float* grad, float* traj, float* vel,
                               float* loss, const float* lr, float* minimized,
                               void* stream) {
-  const void* kernel;
-  size_t smem;
-  int warps, per_sm, sms;
-  const int err =
-      gd_shape(p, lanes, streamed, kernel, warps, smem, per_sm, sms);
-  if (err) return err;
-  const long long tiles = ((long long)p.B + lanes - 1) / lanes;
-  const long long full = (long long)per_sm * sms;
   void* args[] = {&p,    &lanes, &kv,    &kvt,  &mix,  &lam_sg, &lam_jl,
                   &start, &goal, &ox,    &oy,   &ow,    &alpha, &grad,
                   &traj, &vel,  &loss,  &lr,    &minimized};
-  return (int)cudaLaunchKernel(kernel, dim3((unsigned)(full < tiles ? full
-                                                                    : tiles)),
-                               dim3(32 * warps), args, smem,
-                               (cudaStream_t)stream);
+  return step_launch(p, STEP_GD, lanes, streamed, args, stream);
 }
 
-// K5: loss, gradient and exact (traj, vel) at alpha, for every lane.
-template <bool DEV>
-__global__ void cost_grad_eval_kernel(
-    FsParams p, const float* __restrict__ kv, const float* __restrict__ kvt,
-    const float* __restrict__ mix, const float* alpha,
-    const float* __restrict__ lam_sg, const float* __restrict__ lam_jl,
-    const float* __restrict__ start, const float* __restrict__ goal,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ ow, float* loss, float* grad, float* traj,
-    float* vel, float* work) {
-  extern __shared__ float smem[];
-  stage_block<DEV>(p, kv, kvt, mix, ox, oy, ow, smem);
-  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= (size_t)p.B) return;
-  Lane L = bind_step_lane<DEV>(p, smem, b, kv, kvt, start, goal, lam_sg[b],
-                               lam_jl[b], (float*)alpha, grad, traj, vel,
-                               work);
-  forward_planes(p, L, L.alpha, 1.f, false);
-  loss[b] = cost_grad_from_traj(p, L, true);
+// K5, likewise.
+extern "C" int cost_grad_eval_launch(FsParams p, int lanes, int streamed,
+                                     const float* kv, const float* kvt,
+                                     const float* mix, const float* alpha,
+                                     const float* lam_sg, const float* lam_jl,
+                                     const float* start, const float* goal,
+                                     const float* ox, const float* oy,
+                                     const float* ow, float* loss, float* grad,
+                                     float* traj, float* vel, void* stream) {
+  void* args[] = {&p,     &lanes, &kv, &kvt, &mix, &alpha, &lam_sg, &lam_jl,
+                  &start, &goal,  &ox, &oy,  &ow,  &loss,  &grad,   &traj,
+                  &vel};
+  return step_launch(p, STEP_EVAL, lanes, streamed, args, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -628,87 +809,4 @@ extern "C" int forward_eval_launch(FsParams p, int threads, int vec, int lda,
                                  (cudaStream_t)stream>>>(p, kvT, lda, mix,
                                                          alpha, traj, vel);
   return (int)cudaGetLastError();
-}
-
-template <typename Kernel>
-static int launch_config(const FsParams& p, int block_b, Kernel kernel,
-                         size_t smem, unsigned& grid) {
-  if (bad_launch(p, block_b)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  grid = (unsigned)((p.B + block_b - 1) / block_b);
-  return 0;
-}
-
-template <bool EXACT, bool DEV>
-static int bls_step_run(FsParams p, int block_b, const float* kv,
-                        const float* kvt, const float* mix,
-                        const float* lam_sg, const float* lam_jl,
-                        const float* start, const float* goal, const float* ox,
-                        const float* oy, const float* ow, float* alpha,
-                        float* grad, float* traj, float* vel, float* loss,
-                        float* lr, float* minimized, float* work,
-                        void* stream) {
-  const size_t smem = smem_bytes(p, block_b, DEV);
-  unsigned grid;
-  int err = launch_config(p, block_b, bls_step_kernel<EXACT, DEV>, smem, grid);
-  if (err) return err;
-  bls_step_kernel<EXACT, DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
-      p, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow, alpha, grad,
-      traj, vel, loss, lr, minimized, work);
-  return (int)cudaGetLastError();
-}
-
-// The launches of K3 and K5: ``dev`` picks the instantiation that reads the
-// basis from device memory (the step plan's "device"; 0: staged), ``exact``
-// K3's program of the ladder tier (the exact one needs the workspace's
-// trial plane).
-extern "C" int bls_step_launch(FsParams p, int block_b, int dev, int exact,
-                               const float* kv, const float* kvt,
-                               const float* mix, const float* lam_sg,
-                               const float* lam_jl, const float* start,
-                               const float* goal, const float* ox,
-                               const float* oy, const float* ow, float* alpha,
-                               float* grad, float* traj, float* vel,
-                               float* loss, float* lr, float* minimized,
-                               float* work, void* stream) {
-  auto run = dev ? (exact ? bls_step_run<true, true> : bls_step_run<false, true>)
-                 : (exact ? bls_step_run<true, false>
-                          : bls_step_run<false, false>);
-  return run(p, block_b, kv, kvt, mix, lam_sg, lam_jl, start, goal, ox, oy, ow,
-             alpha, grad, traj, vel, loss, lr, minimized, work, stream);
-}
-
-template <bool DEV>
-static int cost_grad_eval_run(FsParams p, int block_b, const float* kv,
-                              const float* kvt, const float* mix,
-                              const float* alpha, const float* lam_sg,
-                              const float* lam_jl, const float* start,
-                              const float* goal, const float* ox,
-                              const float* oy, const float* ow, float* loss,
-                              float* grad, float* traj, float* vel,
-                              float* work, void* stream) {
-  const size_t smem = smem_bytes(p, block_b, DEV);
-  unsigned grid;
-  int err = launch_config(p, block_b, cost_grad_eval_kernel<DEV>, smem, grid);
-  if (err) return err;
-  cost_grad_eval_kernel<DEV><<<grid, block_b, smem, (cudaStream_t)stream>>>(
-      p, kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow, loss,
-      grad, traj, vel, work);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cost_grad_eval_launch(FsParams p, int block_b, int dev,
-                                     const float* kv, const float* kvt,
-                                     const float* mix, const float* alpha,
-                                     const float* lam_sg, const float* lam_jl,
-                                     const float* start, const float* goal,
-                                     const float* ox, const float* oy,
-                                     const float* ow, float* loss, float* grad,
-                                     float* traj, float* vel, float* work,
-                                     void* stream) {
-  return (dev ? cost_grad_eval_run<true> : cost_grad_eval_run<false>)(
-      p, block_b, kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow,
-      loss, grad, traj, vel, work, stream);
 }

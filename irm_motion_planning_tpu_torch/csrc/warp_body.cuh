@@ -59,18 +59,18 @@
 // per timestep less than SWarp at J = 3, which lifts the ceiling of one
 // warp per CTA from T = 2,072 to T = 2,636 at 11 obstacles.
 //
-// Op order.  Every basis-product row is the sequential fmaf chain over t of
-// the lane body (lane_body.cuh, which K3 and K5 are built from), followed by
-// the same mix combine; in the streamed body each (row, lane) output is one
-// thread's whole chain over t across the ring's tiles, taken in t order
-// (no split over t).  Every sum over t (the cost sums, the gradient norm, alpha_norm) and
-// the constraint extrema are the lane body's sequential chains, each run by
-// one thread over a row the owners wrote and broadcast with __shfl_sync;
-// the blend's first argmax is a shuffle tree, which rounds nothing.  Each
-// lane therefore runs the lane body's op sequence (its bls_step or
-// gd_step) in either body, and K1/K2 give the one-thread-per-lane kernels'
-// results bit for bit, streamed or resident.  FK and the penalized loss are
-// the lane body's own functions.
+// Op order.  Every basis-product row is one sequential fmaf chain over t,
+// followed by the mix combine; in the streamed body each (row, lane) output
+// is one thread's whole chain over t across the ring's tiles, taken in t
+// order (no split over t), and K6 (step_kernels.cu) computes the same
+// chains as a tiled product.  Every sum over t (the cost sums, the gradient
+// norm, alpha_norm) and the constraint extrema are sequential chains, each
+// run by one thread over a row the owners wrote and broadcast with
+// __shfl_sync; the blend's first argmax is a shuffle tree, which rounds
+// nothing.  Each lane therefore runs one op sequence (its bls_step or
+// gd_step) in either body, and its floats do not depend on which kernel
+// runs its steps (K1/K2, or the per-step K3, K4 and K5), streamed or
+// resident.  FK and the penalized loss come from lane_body.cuh.
 
 #pragma once
 
@@ -563,7 +563,7 @@ static __device__ __forceinline__ void store_alpha(const FsParams& p,
 // Reductions: sequential chains over rows of the buffer.
 // ---------------------------------------------------------------------------
 
-// Each of the first n threads runs the lane body's chain over row ``lid``:
+// Each of the first n threads runs the sequential chain over row ``lid``:
 // sum = ((0 + x_0) + x_1) + ...  With WB_TREE_SUMS (a phase-ablated build
 // for measurement, not bitwise: tools/fused_variants.py)
 // every thread takes part in a shuffle tree per row instead.
@@ -600,7 +600,7 @@ static __device__ __forceinline__ float chains(const W& w, int n) {
 
 // The shuffle tree of the first argmax over the threads' (value, first t):
 // the larger value wins, a tie goes to the smaller t.  For inputs without
-// NaN this is the lane body's sequential `t == 0 || cv > cmax` result
+// NaN this is the sequential `t == 0 || cv > cmax` scan's result
 // exactly (a max rounds nothing).
 static __device__ __forceinline__ void argmax_tree(float& m, int& f) {
 #pragma unroll
@@ -637,7 +637,7 @@ static __device__ __forceinline__ void put_row(const W& w, int k, int s,
   if (w.owns(s)) w.buf[k * w.RS + w.tt(s)] = x;
 }
 
-// The masked limit losses of one timestep (the lane body's cost_add terms).
+// The masked limit losses of one timestep (scalar_cost's terms).
 static __device__ __forceinline__ void limit_terms(const FsParams& p,
                                                    const float* tr,
                                                    const float* ve, float* pl,
@@ -681,8 +681,8 @@ static __device__ __forceinline__ void put_cost_rows(const FsParams& p,
   }
 }
 
-// The penalized loss from the cost rows (the lane body's cost_total, on
-// every thread from the same broadcast values: the result is warp-uniform).
+// The penalized loss from the cost rows (cost_total, on every thread from
+// the same broadcast values: the result is warp-uniform).
 template <class W>
 static __device__ __forceinline__ float rows_loss(const FsParams& p,
                                                   const W& w, float cmax,
@@ -697,16 +697,9 @@ static __device__ __forceinline__ float rows_loss(const FsParams& p,
     a.psum[j] = __shfl_sync(FULL_MASK, sum, 1 + j);
     a.vsum[j] = __shfl_sync(FULL_MASK, sum, 1 + NJ + j);
   }
-  Lane L;
   const float* e = w.ends;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    L.start[j] = e[j];
-    L.goal[j] = e[NJ + j];
-  }
-  L.lam_sg = w.lam_sg;
-  L.lam_jl = w.lam_jl;
-  return cost_total(p, L, a, e + 2 * NJ, e + 3 * NJ, e + 4 * NJ, e + 5 * NJ);
+  return cost_total(p, a, e, e + NJ, w.lam_sg, w.lam_jl, e + 2 * NJ,
+                    e + 3 * NJ, e + 4 * NJ, e + 5 * NJ);
 }
 
 // The reduction of the cost rows: the blend's first argmax and, when
@@ -723,7 +716,7 @@ static __device__ __forceinline__ float cost_reduce(const FsParams& p,
 }
 
 // The hard-constraint check from rows 0..2J-1 of the buffer (traj, then
-// vel): the lane body's constraints_ok, its extrema chains run by thread 0.
+// vel): the plain constraints_ok's, its extrema chains run by thread 0.
 template <class W>
 static __device__ __forceinline__ bool rows_ok(const FsParams& p,
                                                const W& w) {
@@ -809,7 +802,7 @@ static __device__ __forceinline__ void stage_candidate(const W& w, float a_fac,
   __syncwarp();
 }
 
-// Obstacle field at one end-effector point (the lane body's obstacle_point).
+// Obstacle field at one end-effector point.
 template <class W>
 static __device__ __forceinline__ float field(const W& w, float ex,
                                               float ey) {
@@ -1775,18 +1768,20 @@ static __device__ __forceinline__ void eval_alpha(Warp& w) {
 #define SOLVER_BLS_ULTRA 3
 #define SOLVER_BLS_BF16 4
 
-// One BLS inner step of a live lane (the lane body's bls_step<EXACT>, and
-// pallas_step's _bls_step in each tier): normalized direction, the
+// One BLS inner step of a live lane (pallas_step's _bls_step in each tier;
+// K1/K2's steps and K3's, step_kernels.cu): normalized direction, the
 // early-exit Armijo ladder (first pass wins), the accepted iterate, and the
 // gradient pulled back at it unless the stop test fired.  Returns stop.
 //
 // Linearized (SOLVER_BLS): the direction's forward evaluation, the ladder
 // on the linearized trajectory, and the FK carry: the pull-back's cost pass
 // recomputes FK at the accepted candidate, the same floats, and the rung's
-// loss is kept.  It is also pallas_step's lean tier, which recomputes that
-// loss: the accepted candidate is formed by the rung's own operations, so
-// the recompute would give the rung's floats.  SOLVER_BLS_ULTRA: the loss
-// recomputed in the cost pass (K3's mode), with (traj, vel) first evaluated
+// loss is kept.  It is also pallas_step's lean tier and its per-step
+// kernel bls_inner_step (K3), which recompute that loss: the accepted
+// candidate is formed by the rung's own operations, so the recompute would
+// give the rung's floats (tests/test_torch_step.py holds the plain versions
+// to it).  SOLVER_BLS_ULTRA: the loss
+// recomputed in the cost pass, with (traj, vel) first evaluated
 // exactly from alpha, so the linearized drift never builds up, and the new
 // alpha rounded once (new_alpha), as XLA contracts it into an FMA on the
 // CPU: at large T alpha's O(1e4) coefficients round at the step's size, and
@@ -1877,10 +1872,10 @@ static __device__ __forceinline__ bool gd_step(const FsParams& p, W& w,
   return false;
 }
 
-// One penalty round of a live lane under its current penalties (the lane
-// body's round): round-start exact evaluation, loss and gradient; up to n_r
-// steps of SOLVER from learning rate lr0; the exact evaluation at the final
-// alpha and the constraint check.  Returns whether the constraints hold;
+// One penalty round of a live lane under its current penalties
+// (pallas_step's run_inner): round-start exact evaluation, loss and
+// gradient; up to n_r steps of SOLVER from learning rate lr0; the exact
+// evaluation at the final alpha and the constraint check.  Returns whether the constraints hold;
 // the round's final loss goes to ``loss`` and each step after which the
 // lane is still live adds one to ``inner``.  ``evaluated``: traj and vel
 // already hold the exact evaluation of alpha (the previous round's end, in

@@ -2,8 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``fused_solve.cu``: the whole-solve
 and the per-round kernels, from ``warp_body.cuh``; ``fused_tiers.cu``: their
-kernel tiers; ``step_kernels.cu``: the per-step kernels, K3 and K5 from
-``lane_body.cuh``, K4 from ``warp_body.cuh``, K6 a tiled product), one
+kernel tiers; ``step_kernels.cu``: the per-step kernels, K3, K4 and K5
+from ``warp_body.cuh``, K6 a tiled product), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface under ``build/`` at the repository
 root.  The library is named by the hash of every source and header
@@ -105,21 +105,20 @@ def build() -> str:
 
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
-    signatures: the parameter block and the lanes per block (K3, K5), per
-    CTA (K1/K2, K4, K7) or the threads per block (K6)[, K1/K2's program, body
-    (resident 0, streamed 1) and the CTAs of their grid][, n_r][, K3's
-    ladder tier][, K3/K5's basis (staged 0, device memory 1)][, K4's body]
-    [, K6's 16-byte copies and its basis' padded rows], then a c_void_p
-    for every tensor pointer; callers pass the stream last, as a
+    signatures: the parameter block and the lanes per CTA (K1-K5, K7) or
+    the threads per block (K6)[, K1/K2's program, body (resident 0,
+    streamed 1) and the CTAs of their grid][, n_r][, K3-K5's body][, K3's
+    ladder tier][, K6's 16-byte copies and its basis' padded rows], then a
+    c_void_p for every tensor pointer; callers pass the stream last, as a
     c_void_p."""
     from .fused_solve import _Params
 
     for name, n_int, n_ptr in (
         ("fused_solve_launch", 3, 16),
         ("fused_round_launch", 4, 17),
-        ("bls_step_launch", 2, 19),
+        ("bls_step_launch", 2, 18),
         ("gd_step_launch", 1, 18),
-        ("cost_grad_eval_launch", 1, 17),
+        ("cost_grad_eval_launch", 1, 16),
         ("forward_eval_launch", 2, 6),
         ("k7_forward_launch", 0, 6),
     ):
@@ -133,9 +132,10 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p]
     if names is None:  # the whole library: step_kernels.cu's shapes too
-        lib.gd_step_shape.restype = ctypes.c_int
-        lib.gd_step_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_void_p]
+        lib.step_kernel_shape.restype = ctypes.c_int
+        lib.step_kernel_shape.argtypes = [_Params, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p]
         lib.forward_eval_shape.restype = ctypes.c_int
         lib.forward_eval_shape.argtypes = [ctypes.c_void_p]
     lib.fused_params_layout.restype = ctypes.c_int
@@ -182,9 +182,9 @@ def load_library() -> ctypes.CDLL:
 
 def launch(name: str, params, block_b: int, args, device) -> None:
     """Call ``<name>_launch`` of the library with the parameter block, the
-    lanes per block or CTA and ``args`` (ctypes ints as they are, tensors as their
-    data pointers) on the current stream of ``device``.  Raises when the
-    launch is refused."""
+    lanes per CTA (K6: threads per block) and ``args`` (ctypes ints as they
+    are, tensors as their data pointers) on the current stream of
+    ``device``.  Raises when the launch is refused."""
     lib = load_library()
     ptrs = [a if isinstance(a, ctypes.c_int) else ctypes.c_void_p(a.data_ptr())
             for a in args]

@@ -153,10 +153,7 @@ def forward_planes(kv, mix, planes):
     raw = torch.matmul(kv, planes)                      # (J, 2T, B)
     out = []
     for i in range(J):
-        acc = raw[0] * mix[0, i]
-        for j in range(1, J):
-            acc = acc + raw[j] * mix[j, i]
-        out.append(acc)
+        out.append(mix_combine([(raw[j], mix[j, i]) for j in range(J)]))
     out = torch.stack(out)
     return out[:, :T], out[:, T:]
 
@@ -187,11 +184,11 @@ def obstacle_cost_v(ee_x, ee_y, obs):
     """Obstacle field in dot-product form: 0.5 |ee - o|^2 + 0.5 =
     (h + q_o) - (ox ee_x + oy ee_y), h = 0.5 |ee|^2.  (T, B) -> (T, B)."""
     ox, oy, q, ow8 = obs
-    h = 0.5 * (ee_x * ee_x + ee_y * ee_y)
+    h = field_h(ee_x, ee_y)
     acc = torch.zeros_like(ee_x)
     for o in range(ox.shape[0]):
-        s = (h + q[o]) - (ox[o] * ee_x + oy[o] * ee_y)
-        acc = acc + ow8[o] * (1.0 / s)
+        s = field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y)
+        acc = field_add(acc, ow8[o], recip(s))
     return acc
 
 
@@ -201,7 +198,8 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
     per-timestep obstacle cost."""
     T, J = traj.shape[1], traj.shape[0]
     lam_max = cfg.lambda_max_cost
-    toc = lam_max * cost_v.max(dim=0).values + ((1.0 - lam_max) / T) * cost_v.sum(0)
+    toc = sum_pair(lam_max, cost_v.max(dim=0).values, (1.0 - lam_max) / T,
+                   cost_v.sum(0))
     sgpc = torch.zeros_like(toc)
     sgvc = torch.zeros_like(toc)
     jpc = torch.zeros_like(toc)
@@ -209,10 +207,10 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
     for j in range(J):
         ds = traj[j, 0] - start[j]
         dg = traj[j, T - 1] - goal[j]
-        sgpc = sgpc + 0.5 * (ds * ds + dg * dg)
+        sgpc = sum_add(sgpc, 0.5, sum_pair(ds, ds, dg, dg))
         vs = vel[j, 0]
         vg = vel[j, T - 1]
-        sgvc = sgvc + 0.5 * (vs * vs + vg * vg)
+        sgvc = sum_add(sgvc, 0.5, sum_pair(vs, vs, vg, vg))
         zp = (traj[j] - c.mean_jp) * c.inv_std_jp_h
         pl_ = zp * zp
         zv = vel[j] * c.inv_vmax_h
@@ -220,9 +218,9 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
         if cfg.constraint_violating_dependant_loss:
             pl_ = torch.where(_pos_mask(cfg, traj[j]), pl_, 0.0)
             vl_ = torch.where(_vel_mask(cfg, vel[j]), vl_, 0.0)
-        jpc = jpc + pl_.sum(0) * c.inv_T
-        jvc = jvc + vl_.sum(0) * c.inv_T
-    return toc + lam_sg * (sgpc + sgvc) + lam_jl * (jpc + jvc)
+        jpc = sum_add(jpc, pl_.sum(0), c.inv_T)
+        jvc = sum_add(jvc, vl_.sum(0), c.inv_T)
+    return sum_add(sum_add(toc, lam_sg, sgpc + sgvc), lam_jl, jpc + jvc)
 
 
 def _pos_mask(cfg, x):
@@ -256,14 +254,14 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
 
     # grad of the field = sum_o c_o (ee - o), c_o = -0.8 w_o / s_o^2, kept as
     # the factored sums csum = sum c_o and co{x,y} = sum c_o o.
-    h = 0.5 * (ee_x * ee_x + ee_y * ee_y)
+    h = field_h(ee_x, ee_y)
     cost_v = torch.zeros_like(ee_x)
     csum = torch.zeros_like(ee_x)
     cox = torch.zeros_like(ee_x)
     coy = torch.zeros_like(ee_x)
     for o in range(ox.shape[0]):
-        s = (h + q[o]) - (ox[o] * ee_x + oy[o] * ee_y)
-        inv = 1.0 / s
+        s = field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y)
+        inv = recip(s)
         winv = ow8[o] * inv
         cost_v = cost_v + winv
         coef = winv * inv
@@ -314,10 +312,7 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
     pulled = torch.matmul(kvt, torch.stack(stacked))   # (J, T, B)
     grad = []
     for j in range(J):
-        acc = pulled[0] * mix[j, 0]
-        for i in range(1, J):
-            acc = acc + pulled[i] * mix[j, i]
-        grad.append(acc)
+        grad.append(mix_combine([(pulled[i], mix[j, i]) for i in range(J)]))
     return loss, torch.stack(grad), px, py
 
 
@@ -396,6 +391,52 @@ def rung_point(x, lr, d):
 def accepted_point(x, lr, d):
     """The accepted linearized iterate ``x - lr d``, rounded twice."""
     return x - lr * d
+
+
+# The sums of the evaluation, each formed as every kernel forms it: the
+# product rounded, then the sum (PERF.md section 7 measures which of them
+# XLA contracts into FMAs; tools/compare_converged.py --contract swaps
+# their one-rounding forms in).
+
+
+def mix_combine(terms):
+    """The mix combine of one product row, ``sum_j x_j m_j`` over the
+    (x_j, m_j) of ``terms`` in order, each product rounded, then added to
+    the running sum (the forward product's rows and the pull-back's)."""
+    acc = terms[0][0] * terms[0][1]
+    for x, m in terms[1:]:
+        acc = acc + x * m
+    return acc
+
+
+def recip(s):
+    """The obstacle field's ``1 / s``, correctly rounded."""
+    return 1.0 / s
+
+
+def field_h(ex, ey):
+    """The obstacle field's ``h = 0.5 (ex ex + ey ey)``."""
+    return 0.5 * (ex * ex + ey * ey)
+
+
+def field_dist(h, q, ox, ex, oy, ey):
+    """The obstacle field's ``s = (h + q) - (ox ex + oy ey)``."""
+    return (h + q) - (ox * ex + oy * ey)
+
+
+def field_add(acc, w, r):
+    """A term of the obstacle field, ``acc + w r`` (r = 1 / s)."""
+    return acc + w * r
+
+
+def sum_pair(a, b, c, d):
+    """A cost sum's ``a b + c d``."""
+    return a * b + c * d
+
+
+def sum_add(acc, a, b):
+    """A cost sum's ``acc + a b``."""
+    return acc + a * b
 
 
 def bf16_round(x):

@@ -15,19 +15,18 @@ multiply-add as two.  Each sine, cosine, division and square root counts
 as ONE operation, and compares, selects and address arithmetic are not
 counted, so the operation side is a lower bound as the byte side is.
 
-Where a kernel streams the basis (T past the resident plans: K1/K2's and
-K4's streamed body, K3/K5 with the basis in device memory; K6 always), the
-bound stays the function's: its inputs read once, the basis among them,
-and its operations.  What the design streams beside that is a diagnostic,
-``Bound.l2_bytes`` and ``Bound.design_l2_ms``: the basis (8 T^2 bytes per
-product) fits in the 50 MB L2 up to T = 2,500, so it comes from L2, not
-HBM; K1/K2 and K4 read it once per basis product per tile of lanes (K7: a
-CTA's lanes run in lockstep and share each product's stream, so the reads
-per lane fall by the lanes per CTA; counted here from the lanes' products,
-the fewest the tiles can run), K3/K5 once per product per warp of 32
-lanes (every lane of a warp reads the same word), K6 once per tile of 64
-lanes.  Those reads are a cost of the design, not of the function, so they
-do not enter ``ms`` or ``by``.
+Where a kernel streams the basis (T past the resident plans: the streamed
+body of K1/K2 and of K3-K5; K6 always), the bound stays the function's:
+its inputs read once, the basis among them, and its operations.  What the
+design streams beside that is a diagnostic, ``Bound.l2_bytes`` and
+``Bound.design_l2_ms``: the basis (8 T^2 bytes per product) fits in the 50
+MB L2 up to T = 2,500, so it comes from L2, not HBM; the streamed body
+reads it once per basis product per tile of lanes (K7: a CTA's lanes run
+in lockstep and share each product's stream, so the reads per lane fall by
+the lanes per CTA; counted here from the lanes' products, the fewest the
+tiles can run), K6 once per tile of 64 lanes.  The resident body stages
+the basis once per CTA (none counted).  Those reads are a cost of the
+design, not of the function, so they do not enter ``ms`` or ``by``.
 
 Rates: the published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s
 of HBM3, 67 TFLOP/s fp32 outside the tensor cores (TF32 is not used).  The
@@ -84,10 +83,9 @@ class Bound(NamedTuple):
 
 class LaneOps(NamedTuple):
     """Operations per lane of the pieces of a lane's work at T timesteps, J
-    joints and O obstacle slots.  K3 and K5 run them as the lane body
-    (csrc/lane_body.cuh, one thread per lane), K1/K2 and K4 as the warp
-    body (csrc/warp_body.cuh, one warp per lane), K6 as a tiled product;
-    all run the same op sequence, so the counts serve each."""
+    joints and O obstacle slots.  K1-K5 run them as the warp body
+    (csrc/warp_body.cuh, one warp per lane), K6 as a tiled product; all run
+    the same op sequence, so the counts serve each."""
 
     forward: int      # forward_planes: kv products and the mix combine
     rung: int         # rung_cost: candidate, FK, obstacle field, cost sums
@@ -147,11 +145,12 @@ def product_bytes(T: int) -> float:
     return 2 * T * T * F32
 
 
-def _warp_streamed(products: float, T: int, device_basis: bool) -> float:
-    """K3's and K5's L2 bytes (the design's diagnostic): ``products``
-    per-lane basis products, read once per warp of 32 lanes when the basis
-    is in device memory (none when it is staged)."""
-    return products / 32 * product_bytes(T) if device_basis else 0.0
+def _streamed(products: float, T: int, streamed: bool,
+              lanes_per_cta: int) -> float:
+    """The streamed body's L2 bytes (the design's diagnostic): ``products``
+    per-lane basis products, each read once per tile of ``lanes_per_cta``
+    lanes (K7); none in the resident body, which stages the basis."""
+    return products * product_bytes(T) / lanes_per_cta if streamed else 0.0
 
 
 def forward_eval(B: int, T: int, J: int) -> Bound:
@@ -163,14 +162,17 @@ def forward_eval(B: int, T: int, J: int) -> Bound:
                  -(-B // K6_LANES) * product_bytes(T))
 
 
-def cost_grad_eval(B: int, T: int, J: int, O: int,
-                   device_basis: bool = False) -> Bound:
-    """K5: alpha, penalties and the scene in; loss, grad, traj, vel out."""
+def cost_grad_eval(B: int, T: int, J: int, O: int, streamed: bool = False,
+                   lanes_per_cta: int = 1) -> Bound:
+    """K5: alpha, penalties and the scene in; loss, grad, traj, vel out.
+    ``streamed``: the warp body streams the basis (a forward and a
+    pull-back per lane), once per product and tile of ``lanes_per_cta``
+    lanes."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     per_lane = b["plane"] + 2 * b["scalar"] + b["scene"] + 3 * b["plane"] + F32
     return Bound(B * per_lane + _basis_bytes(T, J),
                  B * (n.forward + n.cost + n.loss + n.grad),
-                 _warp_streamed(2 * B, T, device_basis))
+                 _streamed(2 * B, T, streamed, lanes_per_cta))
 
 
 def _bls_ops(n: LaneOps, ladder_eval: str) -> tuple:
@@ -182,8 +184,8 @@ def _bls_ops(n: LaneOps, ladder_eval: str) -> tuple:
 
 
 def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
-                   ladder_eval: str = "linearized",
-                   device_basis: bool = False) -> Bound:
+                   ladder_eval: str = "linearized", streamed: bool = False,
+                   lanes_per_cta: int = 1) -> Bound:
     """K3 in place, from the plain version's tally on the same inputs (the
     kernel returns no rung count): every lane reads its frozen flag; a live
     lane reads the four state planes, loss, lr, penalties and scene and
@@ -191,7 +193,9 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
     with the loss.  Exact ladder: each rung evaluates its candidate through
     the basis, and the accepted rung's evaluation is the new iterate's (no
     further forward: the step without a passing rung, which re-evaluates,
-    is not counted)."""
+    is not counted).  ``streamed``: as :func:`cost_grad_eval`'s, for the
+    step's products (the direction's forward or the exact rungs', and the
+    pull-back)."""
     b, n = _lane_bytes(T, J, O), LaneOps.at(T, J, O)
     steps, rungs, pulls = (_total(tally[k]) for k in
                            ("steps", "rungs", "pullbacks"))
@@ -202,7 +206,7 @@ def bls_inner_step(B: int, T: int, J: int, O: int, tally: dict,
     step, rung = _bls_ops(n, ladder_eval)
     ops = steps * step + rungs * rung + pulls * (n.cost + n.loss + n.grad)
     products = (rungs if ladder_eval == "exact" else steps) + pulls
-    return Bound(byts, ops, _warp_streamed(products, T, device_basis))
+    return Bound(byts, ops, _streamed(products, T, streamed, lanes_per_cta))
 
 
 def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
@@ -219,8 +223,7 @@ def gd_inner_step(B: int, T: int, J: int, O: int, tally: dict,
     byts = (B * F32 + steps * live_in + acc * (4 * b["plane"] + F32)
             + (steps - acc) * F32 + _basis_bytes(T, J))
     ops = steps * (n.trial + n.forward + n.cost + n.loss) + acc * n.grad
-    return Bound(byts, ops, (steps + acc) * product_bytes(T) / lanes_per_cta
-                 if streamed else 0.0)
+    return Bound(byts, ops, _streamed(steps + acc, T, streamed, lanes_per_cta))
 
 
 def fused_products(B: int, tally: dict, whole_solve: bool,

@@ -15,21 +15,19 @@ B)``, per-lane scalars ``(1, B)``, start/goal ``(J, B)``, obstacles ``(O,
 B)``; results as ``PallasStep``/``PallasEval``/``PallasForward``.  CPU
 tensors run the ``*_reference`` plain version beside each wrapper (built
 from ops/fused_solve.py's pieces); CUDA tensors launch the kernel
-(csrc/step_kernels.cu) or raise.  ``cfg.pallas_block_b`` is threads per
-block (128 when 0): K3 and K5 run one thread per lane, the basis staged in
-shared memory or read from device memory as :func:`step_plan` decides; K4
-runs one warp per lane, ``pallas_block_b / 32`` lanes per CTA
-(fused_solve.DEFAULT_WARPS when 0) in K1-GD's launch plan
-(:func:`gd_step_plan`); K6 is a tiled product whose tile does not depend
-on it (:func:`forward_plan`).
+(csrc/step_kernels.cu) or raise.  K3, K4 and K5 run the warp body of K1/K2,
+one warp per lane, ``cfg.pallas_block_b / 32`` lanes per CTA
+(fused_solve.DEFAULT_WARPS when it is 0) in K1's launch plan for their
+program (:func:`bls_step_plan`, :func:`gd_step_plan`,
+:func:`cost_grad_eval_plan`: the resident body up to T = 64, the streamed
+one beyond); K6 is a tiled product whose tile does not depend on it
+(:func:`forward_plan`).  None takes a workspace: what a step or an
+evaluation computes between its loads and its stores stays on chip.
 
 ``out``: where the results go.  For K3/K4 a PallasStep of state tensors;
 passing the input state itself updates it in place (what the solver's
 driver does: the kernels write each lane's column where it lies).  Without
-``out`` the inputs are left as they are.  ``work``: the workspace of K3
-and K5 (:func:`workspace`), allocated by the caller once per solve;
-without it a call allocates its own.  K4 and K6 take none: K4 keeps the
-trial, its evaluation and the gradient rows on chip.
+``out`` the inputs are left as they are.
 """
 
 from __future__ import annotations
@@ -42,73 +40,81 @@ import torch
 from ..config import PlannerConfig
 from . import fused_solve as fs
 
-# Threads per block of K3 and K5 (a lane each) when ``cfg.pallas_block_b``
-# is 0.  K4 and the fused kernels K1/K2 run a lane per warp, and 0 gives
-# them fused_solve.DEFAULT_WARPS warps per CTA.
-DEFAULT_BLOCK_B = 128
+# The per-step kernels of the warp body, in the order of their index in
+# csrc/step_kernels.cu (STEP_BLS = 0, STEP_BLS_EXACT = 1, STEP_GD = 2,
+# STEP_EVAL = 3): K3 in each ladder tier, K4, K5.
+STEP_KERNELS = ("bls_step", "bls_step_exact", "gd_step", "cost_grad_eval")
 
 
-def step_plan(cfg: PlannerConfig, O: int) -> dict:
-    """K3's and K5's dynamic shared memory per block, by piece, in bytes
-    (mirror of smem_bytes in csrc/lane_body.cuh): the basis pair (16 T^2
-    bytes) while it fits in fused_solve.SMEM_PER_CTA_MAX beside
-    mix and the block's four obstacle planes (``"basis": "staged"``), else
-    none: the kernels read it from device memory (``"device"``).  Returns
-    {"basis", "bytes": {piece: bytes}, "total"}.  Raises
-    NotImplementedError, naming the obstacle planes, when even those do not
-    fit."""
-    T, J = cfg.n_timesteps, cfg.n_joints
-    bt = cfg.pallas_block_b or DEFAULT_BLOCK_B
-    f = 4
-    pieces = {"basis": f * 4 * T * T, "mix": f * J * J,
-              "obstacles": f * 4 * O * bt}
-    where = "staged"
-    if sum(pieces.values()) > fs.SMEM_PER_CTA_MAX:
-        where, pieces["basis"] = "device", 0
-    total = sum(pieces.values())
-    if total > fs.SMEM_PER_CTA_MAX:
-        raise NotImplementedError(
-            f"the per-step kernels' obstacle planes ({pieces['obstacles']} "
-            f"bytes: {O} obstacles x {bt} lanes per block) do not fit in "
-            f"{fs.SMEM_PER_CTA_MAX} bytes of shared memory per block")
-    return {"basis": where, "bytes": pieces, "total": total}
-
-
-def gd_step_plan(cfg: PlannerConfig, O: int) -> dict:
-    """K4's launch plan: one warp per lane, ``cfg.pallas_block_b / 32``
-    lanes per CTA (fused_solve.DEFAULT_WARPS when it is 0), in K1-GD's plan
-    (fused_solve.launch_plan of the ``gd`` program: the resident body up to
-    T = 64, the streamed one beyond, which takes as many of those lanes as
-    fit, one warp each, in a CTA of fused_solve.STREAM_WARPS warps), with
-    its shared memory per CTA by piece.  Raises ValueError for a
-    ``pallas_block_b`` that is not 32-512 threads in whole warps (or 0),
-    NotImplementedError where no plan fits (fleet_solve then runs xla)."""
+def _warp_plan(name: str, cfg: PlannerConfig, O: int, prog: str) -> dict:
     bt = cfg.pallas_block_b
     if bt and not (bt % 32 == 0 and 1 <= bt // 32 <= fs.MAX_WARPS):
         raise ValueError(
-            f"gd_inner_step runs one warp per lane: pallas_block_b must be "
+            f"{name} runs one warp per lane: pallas_block_b must be "
             f"32-{32 * fs.MAX_WARPS} threads in whole warps (0: "
             f"{fs.DEFAULT_WARPS} warps), got {bt}")
-    return fs.launch_plan(cfg.replace(pallas_block_b=bt // 32), O, prog="gd")
+    return fs.launch_plan(cfg.replace(pallas_block_b=bt // 32), O, prog=prog)
 
 
-def gd_step_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
-    """What the card makes of K4's plan (:func:`gd_step_plan`): CTAs per SM
-    (the occupancy calculator), SMs, shared memory per CTA as the C side
-    computes it (gd_step_shape in csrc/step_kernels.cu), warps per SM.
-    Needs the card."""
+def bls_step_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K3's launch plan: one warp per lane, ``cfg.pallas_block_b / 32``
+    lanes per CTA (fused_solve.DEFAULT_WARPS when it is 0), in K1's plan
+    for the program of the ladder tier ``cfg.ladder_eval``
+    (fused_solve.launch_plan of ``bls`` or ``bls_exact``: the resident body
+    up to T = 64, the streamed one beyond, which takes as many of those
+    lanes as fit, one warp each, in a CTA of fused_solve.STREAM_WARPS
+    warps), with its shared memory per CTA by piece.  Raises ValueError for
+    a ``pallas_block_b`` that is not 32-512 threads in whole warps (or 0),
+    NotImplementedError where no plan fits (fleet_solve then runs xla)."""
+    return _warp_plan("bls_inner_step", cfg, O,
+                      "bls_exact" if cfg.ladder_eval == "exact" else "bls")
+
+
+def gd_step_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K4's launch plan: as :func:`bls_step_plan`, in K1-GD's plan."""
+    return _warp_plan("gd_inner_step", cfg, O, "gd")
+
+
+def cost_grad_eval_plan(cfg: PlannerConfig, O: int) -> dict:
+    """K5's launch plan: as :func:`bls_step_plan`, in K1-BLS's plan (the
+    same on both per-step paths)."""
+    return _warp_plan("cost_grad_eval", cfg, O, "bls")
+
+
+def _step_shape(kernel: str, lp: dict, cfg: PlannerConfig, O: int,
+                B: int) -> dict:
     from ._build import load_library
 
-    lp = gd_step_plan(cfg, O)
     out = (ctypes.c_int * 3)()
-    err = load_library().gd_step_shape(
-        fs.kernel_params(cfg, O, B, schedule=False), lp["lanes"],
-        fs.PLANS.index(lp["plan"]), out)
+    err = load_library().step_kernel_shape(
+        fs.kernel_params(cfg, O, B, schedule=False),
+        STEP_KERNELS.index(kernel), lp["lanes"], fs.PLANS.index(lp["plan"]),
+        out)
     if err:
-        raise RuntimeError(f"gd_inner_step: launch shape refused (CUDA error "
+        raise RuntimeError(f"{kernel}: launch shape refused (CUDA error "
                            f"{err})")
     return {"ctas_per_sm": out[0], "sms": out[1], "smem": out[2],
             "warps_per_sm": out[0] * lp["warps"]}
+
+
+def bls_step_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
+    """What the card makes of K3's plan (:func:`bls_step_plan`) in the
+    ladder tier of ``cfg``: CTAs per SM (the occupancy calculator), SMs,
+    shared memory per CTA as the C side computes it (step_kernel_shape in
+    csrc/step_kernels.cu), warps per SM.  Needs the card."""
+    return _step_shape("bls_step_exact" if cfg.ladder_eval == "exact"
+                       else "bls_step", bls_step_plan(cfg, O), cfg, O, B)
+
+
+def gd_step_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
+    """The same for K4 (:func:`gd_step_plan`)."""
+    return _step_shape("gd_step", gd_step_plan(cfg, O), cfg, O, B)
+
+
+def cost_grad_eval_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
+    """The same for K5 (:func:`cost_grad_eval_plan`)."""
+    return _step_shape("cost_grad_eval", cost_grad_eval_plan(cfg, O), cfg,
+                       O, B)
 
 
 # K6's tile (csrc/step_kernels.cu, K6_*): output rows of kv and lanes per
@@ -182,15 +188,6 @@ class PallasEval(NamedTuple):
 class PallasForward(NamedTuple):
     traj: torch.Tensor       # (J, T, B)
     vel: torch.Tensor
-
-
-def workspace(J: int, T: int, B: int, device, trial: bool = False):
-    """The scratch planes of K3 and K5, (2J + 2, T, B): the direction
-    planes dir_t, dir_v and the obstacle-gradient planes gx, gy; with
-    ``trial`` also a trial alpha (the exact ladder's rung candidate), (3J +
-    2, T, B).  The larger size serves both kernels."""
-    planes = (3 if trial else 2) * J + 2
-    return torch.empty((planes, T, B), dtype=torch.float32, device=device)
 
 
 _STEP_LABELS = ("kv", "kvt", "mix", "alpha", "grad", "traj", "vel", "loss",
@@ -275,29 +272,6 @@ def _check_out(name: str, out, like) -> None:
                              f"of the result's shape on the inputs' device")
 
 
-def _check_work(name: str, work, J, T, B, dev, trial: bool) -> torch.Tensor:
-    if work is None:
-        return workspace(J, T, B, dev, trial)
-    need = (3 if trial else 2) * J + 2
-    if (work.dim() != 3 or work.shape[0] < need or tuple(work.shape[1:]) != (T, B)
-            or work.dtype != torch.float32 or work.device != dev
-            or not work.is_contiguous()):
-        raise ValueError(f"{name}: work must be contiguous float32 "
-                         f"(>= {need}, {T}, {B}) on {dev}")
-    return work
-
-
-def _launch(name: str, cfg: PlannerConfig, O: int, B: int, dev, args):
-    """Launch ``<name>_launch`` in the instantiation of the step plan (the
-    basis staged, or read from device memory)."""
-    from ._build import launch
-
-    on_device = step_plan(cfg, O)["basis"] == "device"
-    launch(name, fs.kernel_params(cfg, O, B, schedule=False),
-           cfg.pallas_block_b or DEFAULT_BLOCK_B,
-           [ctypes.c_int(on_device), *args], dev)
-
-
 def _into(out, res):
     """The plain version's results ``res``, copied into ``out`` when the
     caller gave it."""
@@ -308,23 +282,22 @@ def _into(out, res):
     return out
 
 
-def _gd_launch(cfg: PlannerConfig, O: int, B: int, dev, kv, kvt, mix, tail,
-               state) -> None:
-    """Launch K4 in its plan (:func:`gd_step_plan`; the streamed body takes
-    the basis pair as fused_solve.streamed_basis gives it for the plan's
-    ring)."""
+def _warp_launch(name: str, lp: dict, cfg: PlannerConfig, O: int, B: int,
+                 dev, kv, kvt, ints, args) -> None:
+    """Launch ``<name>_launch``, a kernel of the warp body, in its launch
+    plan ``lp`` (the streamed body takes the basis pair as
+    fused_solve.streamed_basis gives it for the plan's ring)."""
     from ._build import launch
 
-    lp = gd_step_plan(cfg, O)
     streamed = lp["plan"] == "streamed"
     if streamed:
         kv, kvt = fs.streamed_basis(kv, kvt, lp["ring"])
-    launch("gd_step", fs.kernel_params(cfg, O, B, schedule=False), lp["lanes"],
-           [ctypes.c_int(int(streamed)), kv, kvt, mix, *tail, *state], dev)
+    launch(name, fs.kernel_params(cfg, O, B, schedule=False), lp["lanes"],
+           [ctypes.c_int(int(streamed)), *ints, kv, kvt, *args], dev)
 
 
-def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
-          reference, wrapper) -> PallasStep:
+def _step(name: str, cfg: PlannerConfig, args, out, gd: bool, reference,
+          wrapper) -> PallasStep:
     supported = fs.solver_check("gd" if gd else "bls")
     where = fs._check_args(name, cfg, tuple(zip(_STEP_LABELS, args)),
                            _step_shapes, supported)
@@ -343,34 +316,32 @@ def _step(name: str, cfg: PlannerConfig, args, out, work, gd: bool,
         for o, x in zip(out, state):
             if o.data_ptr() != x.data_ptr():
                 o.copy_(x)
-    dev = args[3].device
     kv, kvt, mix, *tail = (x.contiguous() for x in args[:3] + args[10:])
+    O = tail[-1].shape[0]
     if gd:
-        _gd_launch(cfg, tail[-1].shape[0], B, dev, kv, kvt, mix, tail, out)
+        lp, ints = gd_step_plan(cfg, O), []
     else:
-        # The BLS step's instantiation (a kernel template argument): the
-        # ladder tier; the exact ladder stages its rung candidates in the
-        # trial plane.
-        exact = cfg.ladder_eval == "exact"
-        work = _check_work(name, work, J, T, B, dev, exact)
-        _launch(name, cfg, tail[-1].shape[0], B, dev,
-                [ctypes.c_int(int(exact)), kv, kvt, mix, *tail, *out, work])
+        # The BLS step's program (a kernel template argument): the ladder
+        # tier.
+        lp = bls_step_plan(cfg, O)
+        ints = [ctypes.c_int(int(cfg.ladder_eval == "exact"))]
+    _warp_launch(name, lp, cfg, O, B, args[3].device, kv, kvt, ints,
+                 [mix, *tail, *out])
     wrapper.launches += 1
     return out
 
 
 def bls_inner_step(cfg: PlannerConfig, kv, kvt, mix, alpha, grad, traj, vel,
                    loss, bls_lr, minimized, lam_sg, lam_jl, start, goal, ox,
-                   oy, ow, out: Optional[PallasStep] = None,
-                   work: Optional[torch.Tensor] = None) -> PallasStep:
-    """One BLS inner step for every lane (K3), in the ladder tier
-    ``cfg.ladder_eval``.  Lanes with ``minimized > 0.5`` pass through
-    unchanged.  The Armijo baseline is the carried ``loss``.  ``work``
-    needs the trial plane (:func:`workspace`) in the exact tier."""
+                   oy, ow, out: Optional[PallasStep] = None) -> PallasStep:
+    """One BLS inner step for every lane (K3: one warp per lane, in the plan
+    of :func:`bls_step_plan`), in the ladder tier ``cfg.ladder_eval``.
+    Lanes with ``minimized > 0.5`` pass through unchanged.  The Armijo
+    baseline is the carried ``loss``."""
     args = (kv, kvt, mix, alpha, grad, traj, vel, loss, bls_lr, minimized,
             lam_sg, lam_jl, start, goal, ox, oy, ow)
-    return _step("bls_step", cfg, args, out, work, False,
-                 bls_inner_step_reference, bls_inner_step)
+    return _step("bls_step", cfg, args, out, False, bls_inner_step_reference,
+                 bls_inner_step)
 
 
 bls_inner_step.launches = 0
@@ -382,21 +353,22 @@ def gd_inner_step(cfg: PlannerConfig, kv, kvt, mix, alpha, grad, traj, vel,
     """One GD inner step for every lane (K4: one warp per lane, in the plan
     of :func:`gd_step_plan`).  On stop the trial is rejected; ``lr`` passes
     through; frozen lanes pass through.  The traj and vel it returns are
-    exact evaluations at the returned alpha.  It needs no workspace."""
+    exact evaluations at the returned alpha."""
     args = (kv, kvt, mix, alpha, grad, traj, vel, loss, lr, minimized,
             lam_sg, lam_jl, start, goal, ox, oy, ow)
-    return _step("gd_step", cfg, args, out, None, True,
-                 gd_inner_step_reference, gd_inner_step)
+    return _step("gd_step", cfg, args, out, True, gd_inner_step_reference,
+                 gd_inner_step)
 
 
 gd_inner_step.launches = 0
 
 
 def cost_grad_eval(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
-                   start, goal, ox, oy, ow, out: Optional[PallasEval] = None,
-                   work: Optional[torch.Tensor] = None) -> PallasEval:
+                   start, goal, ox, oy, ow,
+                   out: Optional[PallasEval] = None) -> PallasEval:
     """Fused loss, gradient and exact evaluation at alpha for every lane
-    (K5); ``out`` (a PallasEval) may be given to receive the results."""
+    (K5: one warp per lane, in the plan of :func:`cost_grad_eval_plan`);
+    ``out`` (a PallasEval) may be given to receive the results."""
     args = (kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow)
     where = fs._check_args("cost_grad_eval", cfg, tuple(zip(fs._LABELS, args)),
                            lambda J, T, O, B: (
@@ -416,9 +388,10 @@ def cost_grad_eval(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
     if out is None:
         out = PallasEval(*(torch.empty(s, dtype=torch.float32, device=dev)
                            for s in ((1, B), (J, T, B), (J, T, B), (J, T, B))))
-    work = _check_work("cost_grad_eval", work, J, T, B, dev, False)
-    args = [x.contiguous() for x in args]
-    _launch("cost_grad_eval", cfg, ox.shape[0], B, dev, [*args, *out, work])
+    kv, kvt, *rest = (x.contiguous() for x in args)
+    O = ox.shape[0]
+    _warp_launch("cost_grad_eval", cost_grad_eval_plan(cfg, O), cfg, O, B,
+                 dev, kv, kvt, [], [*rest, *out])
     cost_grad_eval.launches += 1
     return out
 

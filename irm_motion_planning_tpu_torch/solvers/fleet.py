@@ -593,8 +593,8 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     fulfilled in an earlier round enter minimized, so they pass through.
 
     The state lives in kernel layout (J, T, B) in buffers allocated once per
-    solve, with the workspace of K5 and K3 (K4 needs none: its trial and
-    scratch stay on chip); the step kernels update it in place.  A step
+    solve (the kernels take no workspace: their scratch stays on chip); the
+    step kernels update it in place.  A step
     counts where the lane was live before it and after it.  Frozen lanes
     pass through unchanged, so the driver stops launching steps once no
     lane of the round is live (one host check per step) and stops the rounds
@@ -602,7 +602,7 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     lanes, up to ``sum(schedule)`` steps and one K5 (and K6) per round."""
     (kv, kvt, mix, a0, lam_sg, lam_jl, start, goal, ox, oy,
      ow) = fused_args(cfg, basis, scenarios, alpha0)[1:]
-    J, T, B = a0.shape
+    B = a0.shape[-1]
     dev = a0.device
     gd = solver == "gd"
     step = "gd_inner_step" if gd else "bls_inner_step"
@@ -611,11 +611,6 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     gd_schedule = torch.tensor(cfg.gd_lr, dtype=torch.float32, device=dev)
     inc = float(cfg.lambda_constraint_increase)
     alpha = a0.clone()
-    # K5's workspace, with K3-exact's trial plane; K4 keeps its scratch on
-    # chip.
-    work = sk.workspace(J, T, B, dev,
-                        trial=not gd and cfg.ladder_eval == "exact")
-    step_work = {} if gd else {"work": work}
     ev = sk.PallasEval(torch.empty((1, B), dtype=torch.float32, device=dev),
                        *(torch.empty_like(alpha) for _ in range(3)))
     fulfilled = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -627,7 +622,7 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     def inner_round(round_idx):
         """One penalty round; returns (traj, vel, iters, loss)."""
         bound = inner_loop_bound(cfg, round_idx)
-        sk.cost_grad_eval(cfg, kv, kvt, mix, alpha, *lanes, out=ev, work=work)
+        sk.cost_grad_eval(cfg, kv, kvt, mix, alpha, *lanes, out=ev)
         if gd:
             lr = gd_schedule[torch.clip(outer_iter, 0, len(cfg.gd_lr) - 1)
                              .long()][None]
@@ -641,8 +636,7 @@ def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
             live = state.minimized[0] < 0.5
             if not bool(live.any()):
                 break
-            getattr(sk, step)(cfg, kv, kvt, mix, *state, *lanes, out=state,
-                              **step_work)
+            getattr(sk, step)(cfg, kv, kvt, mix, *state, *lanes, out=state)
             iters += (live & (state.minimized[0] < 0.5)).to(torch.int32)
         traj, vel = state.new_traj, state.new_vel
         if exact_cc:
@@ -710,7 +704,7 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
         raise ValueError(f"unknown backend {backend!r}")
     # The plans' ceiling (one lane's state per CTA) does not depend on the
     # lanes per CTA; for the per-step kernels pallas_block_b is threads per
-    # block, which K1's plan would read as warps.
+    # CTA, which K1's plan would read as warps.
     plan = (fs.kernel_plan(cfg if backend == "fused"
                            else cfg.replace(pallas_block_b=0),
                            scenarios.obstacles.shape[-2], solver)

@@ -4,8 +4,9 @@ the per-step kernels) against their plain PyTorch versions on the same
 card, the rounds driver against the whole-solve kernel, the fused GD and
 exact-ladder kernels against their per-step paths, the per-step driver on
 the card, and large T: the streamed programs of K1/K2 (K7) bit for bit the
-resident ones at T = 50 and, with K3-K6 on a basis in device memory,
-against their plain versions at T = 200; and the kernel tiers of K1/K2
+resident ones at T = 50 and, with K3-K6 in the streamed body (K3-K5) or
+tiled (K6), against their plain versions at T = 200; and the kernel tiers
+of K1/K2
 (lean, ultra, bf16) against their plain versions at T = 50 and 200.  The
 kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
@@ -36,8 +37,9 @@ def card():
 
 SHORT = dict(max_outer_iteration=1, max_inner_iteration=4, fixed_iters=True,
              max_obstacles=11)
-# Not a multiple of 64, 128 or 256: the per-step kernels' last block is
-# partly masked; the fused kernels' warps draw lanes from a queue until 1,000.
+# Not a multiple of 3, 16, 64 or 256: the per-step kernels' last tile and
+# K6's last block are partly masked; the fused kernels' warps draw lanes from
+# a queue until 1,000.
 BATCH = 1000
 
 
@@ -204,10 +206,9 @@ def test_rounds_driver_equals_whole_solve_kernel(compact, solver):
 
 
 def test_fused_gd_equals_per_step_gd_on_the_card():
-    """K1-GD runs the warp form of the lane body's GD op sequence, and the
-    per-step GD path (K5 once per round, K4 per step) runs the lane body:
-    on 4,096 random scenes at 3 rounds (48/8/4 steps) every output field
-    is equal bit for bit."""
+    """K1-GD and the per-step GD path (K5 once per round, K4 per step) run
+    the warp body's GD step: on 4,096 random scenes at 3 rounds (48/8/4
+    steps) every output field is equal bit for bit."""
     dev = torch.device("cuda", 0)
     cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
                            max_inner_iteration=48, fixed_iters=True,
@@ -254,7 +255,7 @@ def _assert_eval_close(got, want):
 
 def test_eval_kernels_match_plain_versions(args):
     """K5 and K6 against their plain versions (phase 8's bounds), and bit
-    for bit the same at 64 and 256 lanes per block."""
+    for bit the same at 64 and 256 threads (K5: 2 and 8 lanes per CTA)."""
     cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
     eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
     n5, n6 = sk.cost_grad_eval.launches, sk.forward_eval.launches
@@ -282,9 +283,9 @@ def test_step_kernels_match_plain_versions(step_args, solver):
     unchanged, stop flags and lr in agreement with the plain version on
     CARD_SHORT_AGREEMENT_MIN of the lanes, and on those lanes alpha within
     ALPHA_REL_MAX and the loss, gradient, traj and vel within the bounds of
-    the evaluation kernels; bit for bit the same at 64 and 256 lanes per
-    block, and in place (``out`` = the input state) the same as into fresh
-    tensors."""
+    the evaluation kernels; bit for bit the same at 64 and 256 threads (2
+    and 8 lanes per CTA), and in place (``out`` = the input state) the same
+    as into fresh tensors."""
     cfg, head, tail, lrs = step_args
     if solver == "bls_exact":
         cfg, solver = cfg.replace(ladder_eval="exact"), "bls"
@@ -324,7 +325,7 @@ def test_step_kernels_match_plain_versions(step_args, solver):
 def _plain(ref):
     """A step or evaluation wrapper that runs the plain version on the card
     and honours ``out`` as the wrapper does."""
-    def run(cfg, *args, out=None, work=None):
+    def run(cfg, *args, out=None):
         res = ref(cfg, *args)
         if out is None:
             return res
@@ -403,11 +404,10 @@ def test_exact_kernels_match_plain_versions(args):
 
 
 def test_fused_exact_equals_per_step_exact_on_the_card():
-    """K1-exact runs the warp form of the lane body's exact BLS step, and
-    the per-step exact path (K5 once per round, K3-exact per step, no K6)
-    runs the lane body: on 4,096 random scenes at 3 rounds (48/8/4 steps)
-    every output field is equal bit for bit; so is the rounds driver over
-    K2-exact with lane compaction."""
+    """K1-exact and the per-step exact path (K5 once per round, K3-exact
+    per step, no K6) run the warp body's exact BLS step: on 4,096 random
+    scenes at 3 rounds (48/8/4 steps) every output field is equal bit for
+    bit; so is the rounds driver over K2-exact with lane compaction."""
     dev = torch.device("cuda", 0)
     cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
                            max_inner_iteration=48, fixed_iters=True,
@@ -495,12 +495,13 @@ def test_streamed_kernels_match_plain_versions_at_t200(args200, solver,
 
 
 def test_step_kernels_match_plain_versions_at_t200(args200):
-    """At T = 200 the per-step kernels read the basis from device memory
-    (step_plan "device"): K5 and K6 within the evaluation bounds of the
-    resident comparisons, one K3 step (both tiers) and one K4 step with the
-    stop flags and lr equal on CARD_SHORT_AGREEMENT_MIN of the lanes."""
+    """At T = 200 K3-K5 run the streamed body (the basis from device memory
+    through K7): K5 and K6 within the evaluation bounds of the resident
+    comparisons, one K3 step (both tiers) and one K4 step with the stop
+    flags and lr equal on CARD_SHORT_AGREEMENT_MIN of the lanes."""
     cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args200
-    assert sk.step_plan(cfg, 11)["basis"] == "device"
+    assert all(plan(cfg, 11)["plan"] == "streamed" for plan in (
+        sk.bls_step_plan, sk.gd_step_plan, sk.cost_grad_eval_plan))
     eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
     ev = sk.cost_grad_eval(cfg, *eargs)
     ref = sk.cost_grad_eval_reference(cfg, *eargs)
@@ -560,6 +561,63 @@ def test_gd_step_lanes_do_not_depend_on_lanes_per_cta(args200, threads):
     got = sk.gd_inner_step(cfg.replace(pallas_block_b=threads), kv, kvt, mix,
                            *state, *tail)
     for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["bls", "bls_exact", "cost_grad_eval"])
+@pytest.mark.parametrize("T", [50, 200])
+@pytest.mark.parametrize("threads", [32, 96, 160, 512])
+def test_bls_step_and_eval_lanes_do_not_depend_on_lanes_per_cta(
+        args, args200, kernel, T, threads):
+    """K3 (both ladder tiers) and K5 at T = 50 (the resident body) and T =
+    200 (the streamed body) at 1, 3, 5 and 16 lanes (warps) per CTA (the
+    streamed plan takes at most 8 at T = 200) give the default's outputs
+    bit for bit; a quarter of K3's lanes frozen."""
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = (
+        args if T == 50 else args200)
+    if kernel == "bls_exact":
+        cfg = cfg.replace(ladder_eval="exact")
+    eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
+    ev = sk.cost_grad_eval(cfg, *eargs)
+    if kernel == "cost_grad_eval":
+        got = sk.cost_grad_eval(cfg.replace(pallas_block_b=threads), *eargs)
+        for x, y in zip(got, ev):
+            assert torch.equal(x, y)
+        return
+    frozen = (torch.arange(a0.shape[-1], device=a0.device) % 4 == 1)
+    state = (a0, ev.grad, ev.traj, ev.vel, ev.loss,
+             torch.full_like(lsg, cfg.bls_lr_start),
+             frozen.to(torch.float32)[None])
+    tail = (lsg, ljl, start, goal, ox, oy, ow)
+    want = sk.bls_inner_step(cfg, kv, kvt, mix, *state, *tail)
+    got = sk.bls_inner_step(cfg.replace(pallas_block_b=threads), kv, kvt,
+                            mix, *state, *tail)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for x, y in zip(got, state):
+        assert torch.equal(x[..., frozen], y[..., frozen])
+
+
+@pytest.mark.parametrize("T", [50, 200])
+def test_fused_bls_equals_per_step_bls_on_the_card(T):
+    """K1-BLS and the linearized per-step path (K5 once per round, K3 per
+    step, K6 before the constraint check) run the warp body's carry
+    program, whose recomputed loss (K3's) is the rung's: on 4,096 random
+    scenes at 3 rounds (48/8/4 steps) every output field is equal bit for
+    bit, at T = 50 and in the streamed body at T = 200."""
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(max_outer_iteration=3, inner_schedule=(48, 8, 4),
+                           max_inner_iteration=48, fixed_iters=True,
+                           max_obstacles=11, n_timesteps=T)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(8), 4096,
+                               device=dev)
+    fused = fleet.fleet_solve(cfg, basis, scns, backend="fused")
+    n3 = sk.bls_inner_step.launches
+    step = fleet.fleet_solve(cfg, basis, scns, backend="pallas")
+    assert sk.bls_inner_step.launches > n3
+    assert torch.equal(fused.alpha, step.alpha)
+    for x, y in zip(fused.stats, step.stats):
         assert torch.equal(x, y)
 
 

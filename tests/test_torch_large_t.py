@@ -304,20 +304,29 @@ def test_plans_refuse_what_they_cannot_hold():
         tfs.launch_plan(mt.PlannerConfig(n_timesteps=25), 11, "streamed")
 
 
-def test_step_kernels_plan():
-    """K3-K6 stage the basis pair while 16 T^2 bytes fit beside mix and
-    the block's obstacle planes (T = 50, 100 at 128 lanes per block) and
-    read it from device memory beyond (T = 150, 200); past what even the
-    obstacle planes need, the plan names them."""
-    for T, where in ((50, "staged"), (100, "staged"), (150, "device"),
-                     (200, "device")):
-        plan = sk.step_plan(mt.PlannerConfig(n_timesteps=T), 11)
-        assert plan["basis"] == where
-        assert plan["total"] == sum(plan["bytes"].values()) <= SMEM_LIMIT
-        assert plan["bytes"]["basis"] == (16 * T * T if where == "staged"
-                                          else 0)
-    with pytest.raises(NotImplementedError, match="obstacle planes"):
-        sk.step_plan(mt.PlannerConfig(pallas_block_b=1024), 20)
+@pytest.mark.parametrize("kernel,prog", [
+    ("bls_step_plan", "bls"), ("bls_step_plan", "bls_exact"),
+    ("cost_grad_eval_plan", "bls")])
+@pytest.mark.parametrize("T,threads,lanes,plan", [
+    (50, 0, 16, "resident"), (50, 64, 2, "resident"),
+    (50, 256, 8, "resident"), (100, 0, 15, "streamed"),
+    (100, 128, 4, "streamed"), (200, 0, 8, "streamed"),
+    (200, 64, 2, "streamed"), (200, 512, 8, "streamed")])
+def test_step_kernels_plan(kernel, prog, T, threads, lanes, plan):
+    """K3's and K5's lanes per CTA are ``pallas_block_b / 32`` (one warp
+    per lane; the default 16) in K1's launch plan for their program (K3:
+    the ladder tier's, K5: BLS's): the resident body at T = 50, the
+    streamed one from T = 100, which takes as many of them as leave its K7
+    ring 48 KB (15 at T = 100, 8 at T = 200).  The plan is K1's own, by
+    piece, and fits a CTA; K5's is the same on both per-step paths."""
+    cfg = mt.PlannerConfig(n_timesteps=T, pallas_block_b=threads,
+                           ladder_eval="exact" if prog == "bls_exact"
+                           else "linearized")
+    got = getattr(sk, kernel)(cfg, 11)
+    assert (got["lanes"], got["plan"]) == (lanes, plan)
+    assert got == tfs.launch_plan(cfg.replace(pallas_block_b=threads // 32),
+                                  11, prog=prog)
+    assert got["total"] == sum(got["bytes"].values()) <= SMEM_LIMIT
 
 
 def test_streamed_basis_layout():

@@ -96,8 +96,9 @@ def test_fused_kernels_refuse_bad_lanes_per_cta(args, kernel, bad):
 
 @pytest.mark.parametrize("threads", [64, 128, 256])
 def test_step_kernels_keep_threads_per_block(args, threads):
-    """K3-K6 keep the meaning "threads = lanes per block": 64, 128 and 256
-    run (the plain versions, on the CPU) and give the default's results."""
+    """K3-K6 read ``pallas_block_b`` as threads (K3-K5: one warp per lane,
+    2, 4 and 8 lanes per CTA): 64, 128 and 256 run (the plain versions, on
+    the CPU) and give the default's results."""
     cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
     c = cfg.replace(pallas_block_b=threads)
     eargs = (kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow)
@@ -172,6 +173,18 @@ def test_gd_step_plan_is_k1_gds(T, threads, lanes, plan):
     assert got["total"] == sum(got["bytes"].values()) <= SMEM_LIMIT
 
 
+@pytest.mark.parametrize("plan", ["bls_step_plan", "cost_grad_eval_plan"])
+@pytest.mark.parametrize("ladder", ["linearized", "exact"])
+@pytest.mark.parametrize("threads", [48, 544, 1024])
+def test_bls_step_plan_refuses_partial_warps(args, plan, ladder, threads):
+    """K3's and K5's plans refuse a ``pallas_block_b`` that is not whole
+    warps, or more than 16 of them, as K4's does, on the CPU too; so does
+    the per-step backend before it runs anything."""
+    cfg = args[0].replace(pallas_block_b=threads, ladder_eval=ladder)
+    with pytest.raises(ValueError, match="one warp per lane"):
+        getattr(sk, plan)(cfg, 11)
+
+
 @pytest.mark.parametrize("threads", [48, 544, 1024])
 def test_gd_step_plan_refuses_partial_warps(args, threads):
     """A ``pallas_block_b`` that is not whole warps, or more than 16 of
@@ -211,8 +224,8 @@ def test_forward_basis_is_the_padded_transpose():
 @pytest.mark.parametrize("solver", ["bls", "gd"])
 def test_per_step_backend_takes_threads_per_block(solver):
     """fleet_solve(backend="pallas") reads ``pallas_block_b`` as threads per
-    block (K4: whole warps), not as K1's lanes per CTA: 128 runs and gives
-    the default's result."""
+    CTA (K3, K4, K5: whole warps, one per lane), not as K1's lanes per
+    CTA: 128 runs and gives the default's result."""
     cfg = mt.PlannerConfig(**SHORT)
     basis = mt.make_basis(cfg, device="cpu")
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(2), 2,
@@ -224,23 +237,26 @@ def test_per_step_backend_takes_threads_per_block(solver):
     assert torch.equal(got.alpha, want.alpha)
 
 
-@pytest.mark.parametrize("solver,ladder,trial", [
-    ("gd", "linearized", False), ("bls", "linearized", False),
-    ("bls", "exact", True)])
-def test_per_step_driver_workspace(monkeypatch, solver, ladder, trial):
-    """The per-step driver allocates K5's workspace, with the trial plane
-    only for K3's exact ladder: K4 keeps its trial on chip."""
-    made = []
-    workspace = sk.workspace
+@pytest.mark.parametrize("solver,ladder", [
+    ("gd", "linearized"), ("bls", "linearized"), ("bls", "exact")])
+def test_per_step_driver_takes_no_workspace(monkeypatch, solver, ladder):
+    """The per-step driver allocates no workspace: K3, K4 and K5 keep their
+    scratch on chip, so each launch takes its inputs and ``out`` (the
+    driver's state) and nothing else, and step_kernels has no workspace to
+    give."""
+    calls = []
+    for name in ("bls_inner_step", "gd_inner_step", "cost_grad_eval"):
+        def spy(*a, _fn=getattr(sk, name), _name=name, **kw):
+            calls.append((_name, sorted(kw)))
+            return _fn(*a, **kw)
 
-    def spy(*a, **kw):
-        made.append(kw.get("trial", False))
-        return workspace(*a, **kw)
-
-    monkeypatch.setattr(sk, "workspace", spy)
+        monkeypatch.setattr(sk, name, spy)
     cfg = mt.PlannerConfig(ladder_eval=ladder, **SHORT)
     basis = mt.make_basis(cfg, device="cpu")
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(2), 2,
                                device="cpu")
     fleet.fleet_solve(cfg, basis, scns, solver=solver, backend="pallas")
-    assert made == [trial]
+    step = "gd_inner_step" if solver == "gd" else "bls_inner_step"
+    assert {name for name, _ in calls} == {step, "cost_grad_eval"}
+    assert all(kw == ["out"] for _, kw in calls)
+    assert not hasattr(sk, "workspace")

@@ -219,17 +219,47 @@ def test_fma_rounds_once_and_two_roundings_twice():
     assert 0.1 < float((once != twice).mean()) < 0.5
 
 
-# The carry program's expressions that XLA may contract, each with the
-# fused_solve helper that forms it and its one-rounding replacement
-# (tools/compare_converged.py --contract runs whole solves with them).
+def _f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _mix_once(terms):
+    """The mix combine as XLA contracts it: fma(x0, m0, x1 m1), then each
+    later term fused into the sum."""
+    (x0, m0), (x1, m1) = terms[:2]
+    acc = tfs.fma(x0, m0, x1 * m1)
+    for x, m in terms[2:]:
+        acc = tfs.fma(x, m, acc)
+    return acc
+
+
+# The carry program's expressions that XLA may contract, each a list of the
+# fused_solve helpers that form them with their one-rounding replacements
+# (a b + c d as fma(a, b, c d), acc + a b as fma(a, b, acc); the same table
+# as tools/compare_converged.py's, which runs whole solves with them).
 CONTRACTIONS = {
-    "dir": ("carry_direction",
-            lambda lam, x, g: tfs.fma(torch.tensor(lam, dtype=torch.float32),
-                                      x, g)),
-    "cand": ("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
-    "nt": ("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
-    "alpha": ("two_roundings", tfs.fma),
+    "dir": [("carry_direction",
+             lambda lam, x, g: tfs.fma(_f32(lam), x, g))],
+    "cand": [("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
+    "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
+    "alpha": [("two_roundings", tfs.fma)],
+    "mix": [("mix_combine", _mix_once)],
+    "field": [("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
+              ("field_dist", lambda h, q, ox, ex, oy, ey:
+               (h + q) - tfs.fma(ox, ex, oy * ey)),
+              ("field_add", lambda acc, w, r: tfs.fma(w, r, acc))],
+    "sums": [("sum_pair", lambda a, b, c, d:
+              tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
+             ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
 }
+
+
+def _contract(m, keys):
+    """Round the expressions ``keys`` of CONTRACTIONS once (``m``: a
+    monkeypatch context)."""
+    for k in keys:
+        for name, fn in CONTRACTIONS[k]:
+            m.setattr(tfs, name, fn)
 
 
 @pytest.fixture(scope="module")
@@ -264,8 +294,7 @@ def _carry_shares(monkeypatch, step_state, carry_step, keys):
     want, gfe, lr = carry_step
     d = step_state
     with monkeypatch.context() as m:
-        for k in keys:
-            m.setattr(tfs, *CONTRACTIONS[k])
+        _contract(m, keys)
         m.setattr(tfs, "forward_planes", lambda kv, mix, planes: gfe)
         cfg = mt.PlannerConfig(**ONE_STEP)
         alpha, grad, traj, vel, loss = map(_t, d["state"])
@@ -293,13 +322,17 @@ def test_carry_program_contractions(monkeypatch, step_state, carry_step):
     lifts traj to 0.911 and vel to 0.746 (the rest are the direction's
     planes, whose norm the two sides sum in different orders); the
     direction ``lambda_reg x + g`` (lambda_reg = 1e-4) and the rungs'
-    candidates change none of them.  The port keeps all of them rounded
-    twice: with the accepted alpha once the reference scene ends past the
-    strict endpoint gate (test_carry_program_rounds_twice)."""
+    candidates change none of them, nor do the evaluation's sums (the mix
+    combine, the obstacle field, the cost sums: the step's direction
+    product is JAX's here, and its rungs pick JAX's learning rate either
+    way; test_evaluation_contractions measures them).  The port keeps all
+    of them rounded twice: with the accepted alpha once the reference scene
+    ends past the strict endpoint gate (test_carry_program_rounds_twice)."""
     lanes, shipped = _carry_shares(monkeypatch, step_state, carry_step, ())
     assert lanes == 1.0
     assert 0.6 < shipped["alpha"] < 0.9
-    for keys in (("dir",), ("cand",), ("dir", "cand")):
+    for keys in (("dir",), ("cand",), ("dir", "cand"), ("mix",), ("field",),
+                 ("sums",), ("mix", "field", "sums")):
         assert _carry_shares(monkeypatch, step_state, carry_step,
                              keys) == (1.0, shipped), keys
     _, alpha_once = _carry_shares(monkeypatch, step_state, carry_step,
@@ -312,6 +345,86 @@ def test_carry_program_contractions(monkeypatch, step_state, carry_step):
     assert nt_once["traj"] > shipped["traj"] and nt_once["vel"] > shipped["vel"]
     print(f"carry step bitwise JAX's: shipped {shipped}, alpha once "
           f"{alpha_once}, iterate once {nt_once}")
+
+
+def _jax_recip(s):
+    """JAX's interpreted kernel reciprocal under recip_newton: 1 / s of s
+    rounded to bfloat16 (pl.reciprocal(approx=True) as interpret mode runs
+    it; XLA keeps the quotient in float32), refined by one Newton step whose
+    ``2 - s r`` XLA contracts into an FMA."""
+    r = 1.0 / s.to(torch.bfloat16).float()
+    return r * tfs.fma(-s, r, _f32(2.0))
+
+
+def _eval_shares(monkeypatch, scenes, keys, weight=1.0, lam=None,
+                 recip=None):
+    """JAX's fused evaluation (pallas_step.cost_grad_eval interpreted, the
+    streamed basis) and the port's plain one (fused_solve.cost_grad_eval)
+    with the expressions ``keys`` rounded once, on the T = 200 scenes at an
+    alpha whose basis products are exact in any order (one coefficient
+    +-2^k per joint and lane, so a product row is a basis entry scaled):
+    the bitwise shares of loss (lanes) and traj.  ``weight`` scales the
+    obstacle weights, ``lam`` replaces both penalties, ``recip`` the port's
+    reciprocal."""
+    jcfg, jb, scns, fsc, _ = scenes
+    rng = np.random.default_rng(3)
+    alpha = np.zeros((3, T, B), np.float32)
+    for j in range(3):
+        alpha[j, rng.integers(0, T, B), np.arange(B)] = (
+            rng.choice([-1.0, 1.0], B) * 2.0 ** rng.integers(-3, 4, B))
+    pen = [np.full((1, B), v, np.float32) for v in (
+        (jcfg.lambda_sg_constraint, jcfg.lambda_jl_constraint)
+        if lam is None else (lam, lam))]
+    kv, kvt, mix = (np.asarray(x) for x in (jb.kv, jb.kv.T, jb.mix))
+    lanes = [np.asarray(x) for x in (
+        fsc.start, fsc.goal, fsc.obstacles[:, 0, :], fsc.obstacles[:, 1, :],
+        fsc.obstacle_weight * weight)]
+    want = [np.asarray(x) for x in ps.cost_grad_eval(
+        jcfg, kv, kvt, mix, alpha, *pen, *lanes, block_b=B, stream_rb=40,
+        interpret=True)]
+    cfg = mt.PlannerConfig(**ONE_STEP)
+    with monkeypatch.context() as m:
+        _contract(m, keys)
+        if recip is not None:
+            m.setattr(tfs, "recip", recip)
+        got = tfs.cost_grad_eval(
+            cfg, tfs.consts(cfg), *map(_t, (kv, kvt, mix, alpha)),
+            _t(lanes[0]), _t(lanes[1]), tfs.obs_ctx(*map(_t, lanes[2:])),
+            _t(pen[0][0]), _t(pen[1][0]))
+    return (float((got[0].numpy() == want[0][0]).mean()),
+            float((got[2].numpy() == want[2]).mean()))
+
+
+def test_evaluation_contractions(monkeypatch, scenes):
+    """Which sums of the fused evaluation XLA contracts into FMAs, one site
+    at a time, against JAX's interpreted kernel at T = 200 (16 random
+    scenes, an alpha whose basis products are exact: _eval_shares).  The
+    mix combine: traj 0.82 of the coefficients bit for bit as shipped, 1.0
+    rounded as fma(x2, m2, fma(x0, m0, x1 m1)).  The cost sums (the obstacle
+    weights zeroed, so the field is 0; the mix combine contracted): the
+    loss of 0.75 of the lanes bit for bit as shipped, 1.0 with the sums
+    contracted.  The obstacle field (the penalties zeroed, JAX's reciprocal
+    mirrored, _jax_recip): 0.50 shipped, 0.56 contracted; no form tried
+    gives JAX's loss on every lane, so the field stays unresolved.  The
+    port's reciprocal is 1 / s correctly rounded, which JAX's kernel never
+    gives; the port keeps all of these rounded twice (PERF.md section 7
+    has the endpoint and T = 200 readings of each set)."""
+    _, traj = _eval_shares(monkeypatch, scenes, ())
+    _, traj_once = _eval_shares(monkeypatch, scenes, ("mix",))
+    assert traj < 0.9 and traj_once == 1.0
+    sums = _eval_shares(monkeypatch, scenes, ("mix",), weight=0.0)[0]
+    sums_once = _eval_shares(monkeypatch, scenes, ("mix", "sums"),
+                             weight=0.0)[0]
+    assert sums < 0.95 and sums_once == 1.0
+    field = _eval_shares(monkeypatch, scenes, ("mix", "sums"), lam=0.0,
+                         recip=_jax_recip)[0]
+    field_once = _eval_shares(monkeypatch, scenes, ("mix", "sums", "field"),
+                              lam=0.0, recip=_jax_recip)[0]
+    assert max(field, field_once) < ONE_ROUNDING_MIN
+    print(f"evaluation bitwise JAX's: traj {traj} shipped, {traj_once} with "
+          f"the mix combine once; loss without the field {sums} shipped, "
+          f"{sums_once} with the cost sums once; loss of the field alone "
+          f"{field} shipped, {field_once} with it once")
 
 
 def test_carry_program_rounds_twice(monkeypatch):

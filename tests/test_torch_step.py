@@ -469,3 +469,59 @@ def test_roofline_counts_the_k6_example():
         n.cost + n.loss + n.grad)
     assert roofline.gd_inner_step(4, 50, 3, 11, tally).ops > 0
     assert roofline.fused_rounds(4, 50, 3, 11, tally, True).ops > k3.ops
+
+
+@pytest.mark.parametrize("ladder", ["linearized", "exact"])
+def test_plain_k3_step_is_k1s_step(setup, step_inputs, ladder):
+    """The plain K3 step (bls_inner_step_reference: no FK carry, the loss
+    recomputed at the accepted iterate) gives the plain K1/K2 step's floats
+    on the same state bit for bit, in both ladder tiers: fused_solve.
+    bls_step as run_inner calls it (the linearized ladder with the FK
+    carry, which keeps the accepted rung's loss).  The accepted candidate is
+    formed by the rung's own operations, so the recompute gives the rung's
+    floats; on the card K3 therefore runs K1's program of the warp body
+    (csrc/step_kernels.cu)."""
+    _, tcfg, _, _ = setup
+    cfg = tcfg.replace(ladder_eval=ladder)
+    d = step_inputs
+    kv, kvt, mix = map(_t, d["basis"])
+    loss, grad, traj, vel = map(_t, d["ev"])
+    alpha, lsg, ljl, frozen, lr = map(_t, (d["a0"], d["lsg"], d["ljl"],
+                                           d["frozen"], d["bls_lr"]))
+    start, goal, ox, oy, ow = map(_t, d["lanes"])
+    k3 = sk.bls_inner_step_reference(cfg, kv, kvt, mix, alpha, grad, traj,
+                                     vel, loss, lr, frozen, lsg, ljl, start,
+                                     goal, ox, oy, ow)
+    c = tfs.consts(cfg)
+    carry = {}
+    if ladder == "linearized":
+        _, _, px, py = tfs.fk_ee(c, traj)
+        carry = dict(px=px, py=py)
+    live = frozen[0] < 0.5
+    k1 = tfs.bls_step(cfg, c, kv, kvt, mix, start, goal,
+                      tfs.obs_ctx(ox, oy, ow), lsg[0], ljl[0], alpha, grad,
+                      traj, vel, loss[0], lr[0], ~live, **carry)
+    pulled = live & ~k1[6]
+    assert int(pulled.sum()) >= B // 4
+    new_min = torch.where(live, k1[6].to(torch.float32), frozen[0])
+    for x, y in zip(k3, (*k1[:4], k1[4][None], k1[5][None], new_min[None])):
+        assert torch.equal(x, y)
+
+
+def test_per_step_bls_path_equals_fused_bls():
+    """The linearized ladder's plain per-step path (backend="pallas" on the
+    CPU: K5 at each round start, K3 per step, K6 before the constraint
+    check) equals the plain K1 bit for bit, every count too, as the exact
+    ladder's (test_torch_exact.py) and GD's (test_torch_fused_gd.py) do;
+    chip_smoke.py holds the kernels to the same."""
+    cfg = mt.PlannerConfig(max_outer_iteration=3, max_inner_iteration=8,
+                           fixed_iters=True, max_obstacles=11)
+    basis = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(1), 64,
+                               device="cpu")
+    want = tfleet.fleet_solve(cfg, basis, scns, backend="fused")
+    got = tfleet.fleet_solve(cfg, basis, scns, backend="pallas")
+    assert 0 < float(want.stats.converged.float().mean()) < 1
+    assert torch.equal(got.alpha, want.alpha)
+    for x, y in zip(got.stats, want.stats):
+        assert torch.equal(x, y)

@@ -4,7 +4,8 @@
         [--scenes 512] [--chunk 64] [--solver bls] \\
         [--ladder-eval linearized] [--seed 0] \\
         [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
-        [--one-rounding] [--contract dir,cand,nt,alpha] [--endpoint]
+        [--one-rounding] [--contract dir,cand,nt,alpha,mix,field,sums] \\
+        [--endpoint]
 
 On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
 tier ``--ladder-eval``, or GD; ``max_obstacles=11``) at T (a committed
@@ -26,7 +27,10 @@ port's fused engine with the named expressions of the linearized carry
 program rounded once, as XLA contracts them into FMAs on the CPU (``dir``
 the direction ``lambda_reg x + g``, fused_solve.carry_direction; ``cand``
 a rung's candidate ``x - lr d``, rung_point; ``nt`` the accepted iterate,
-accepted_point; ``alpha`` the accepted alpha, two_roundings), each set a
+accepted_point; ``alpha`` the accepted alpha, two_roundings; ``mix`` the
+mix combine of the forward and pull-back products, mix_combine; ``field``
+the obstacle field's h, s and sum, field_h/field_dist/field_add; ``sums``
+the cost sums of scalar_cost, sum_pair/sum_add), each set a
 comma list and the sets separated by ``/``; with ``--endpoint`` only the
 bench's reference scene is solved instead (bench.run_bench on the CPU,
 batch 2, the main path's plain version), as shipped and under each
@@ -66,16 +70,56 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-# The carry program's expressions XLA may contract, each with the
-# fused_solve helper that forms it and its one-rounding replacement.
+def _f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _mix_once(terms):
+    """The mix combine as XLA contracts it: fma(x0, m0, x1 m1), then each
+    later term fused into the sum."""
+    (x0, m0), (x1, m1) = terms[:2]
+    acc = tfs.fma(x0, m0, x1 * m1)
+    for x, m in terms[2:]:
+        acc = tfs.fma(x, m, acc)
+    return acc
+
+
+# The carry program's expressions XLA may contract, each a list of the
+# fused_solve helpers that form them with their one-rounding replacements
+# (a b + c d as fma(a, b, c d), acc + a b as fma(a, b, acc): the forms
+# XLA gives on the CPU, PERF.md section 7).
 CONTRACTED = {
-    "dir": ("carry_direction",
-            lambda lam, x, g: tfs.fma(torch.tensor(lam, dtype=torch.float32),
-                                      x, g)),
-    "cand": ("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
-    "nt": ("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x)),
-    "alpha": ("two_roundings", tfs.fma),
+    "dir": [("carry_direction",
+             lambda lam, x, g: tfs.fma(_f32(lam), x, g))],
+    "cand": [("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
+    "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
+    "alpha": [("two_roundings", tfs.fma)],
+    "mix": [("mix_combine", _mix_once)],
+    "field": [("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
+              ("field_dist", lambda h, q, ox, ex, oy, ey:
+               (h + q) - tfs.fma(ox, ex, oy * ey)),
+              ("field_add", lambda acc, w, r: tfs.fma(w, r, acc))],
+    "sums": [("sum_pair", lambda a, b, c, d:
+              tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
+             ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
 }
+
+
+class contracted:
+    """The context in which the expressions ``keys`` of CONTRACTED are
+    rounded once."""
+
+    def __init__(self, keys):
+        self.swaps = [pair for k in keys for pair in CONTRACTED[k]]
+
+    def __enter__(self):
+        self.saved = [(name, getattr(tfs, name)) for name, _ in self.swaps]
+        for name, fn in self.swaps:
+            setattr(tfs, name, fn)
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(tfs, name, fn)
 
 
 def main(argv=None) -> int:
@@ -122,15 +166,8 @@ def main(argv=None) -> int:
             ap.error(f"--contract takes {sorted(CONTRACTED)}, got {keys}")
     if a.endpoint:
         for keys in [()] + contracts:
-            saved = {CONTRACTED[k][0]: getattr(tfs, CONTRACTED[k][0])
-                     for k in keys}
-            for k in keys:
-                setattr(tfs, *CONTRACTED[k])
-            try:
+            with contracted(keys):
                 r = bench.run_bench(batch=2, repeats=1, device="cpu")
-            finally:
-                for name, fn in saved.items():
-                    setattr(tfs, name, fn)
             print(f"reference scene, contract {'+'.join(keys) or 'none'}: "
                   f"endpoint {r['endpoint_err']}, avg/max cost "
                   f"{r['avg_cost']}/{r['max_cost']}, strict gate "
@@ -191,15 +228,8 @@ def main(argv=None) -> int:
             finally:
                 setattr(tfs, name, orig)
         for keys in contracts:
-            orig = {CONTRACTED[k][0]: getattr(tfs, CONTRACTED[k][0])
-                    for k in keys}
-            for k in keys:
-                setattr(tfs, *CONTRACTED[k])
-            try:
+            with contracted(keys):
                 runs.append(port("")[0])
-            finally:
-                for name, fn in orig.items():
-                    setattr(tfs, name, fn)
         counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
         total += counts
         steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
