@@ -167,7 +167,24 @@ ceiling).  Phases:
    random scenes (a basis built here, harness_basis) must take the
    planner's bf16 plan and launch K1 once, and is timed; K1 agrees with the
    plain version under phase 2's rule; without the opt-in it warns and
-   runs xla.
+   runs xla;
+19. the entry points above the fleet engine: ``init_alpha``'s fit of the
+   smoothstep line on the card (cuSOLVER) beside the CPU's (at most
+   INIT_FIT_MAX); the CLI in this process (``cli.main``): the single-scene
+   default (sequential BLS, plain PyTorch on the card) and GD, each with
+   its ms per solve, the bench's 2% gate and endpoint < 0.05 (the goldens'
+   0.1% verdict printed), the plain loop's series file, and ``--batch
+   65536 --engine fleet --backend fused`` (K1 launched, its instantiation
+   printed); replan_bench's protocol on K1 (``Replanner(engine="fleet",
+   backend="fused")``, 100 ticks of drifting obstacles, 2 rounds x 25
+   steps, early exit): one scene padded to 128 lanes and a fleet of 256,
+   ms per tick (median, p99) and Hz, one K1 launch per tick, every padded
+   lane bit for bit lane 0, every tick within 1% of the plain version on
+   lane 0's inputs (avg/max cost), the rollout bit for bit the tick loop,
+   and no rebuild of the kernel library across the ticks; and ``bench
+   --engine vmap --random-scenarios`` at 65,536 scenes (solves/s, peak
+   device memory, the paired gate on 8,192 lanes: phantom and cost bands
+   required, the converged band printed, ROADMAP fact 8).
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -185,7 +202,8 @@ spills and occupancy, and K1 the main path's peak device memory; under
 ``exact`` K1's, K2's and K3's for the exact ladder (phases 14-16, with
 their lane agreement), under ``streamed`` those at T=200 (phase 17), and
 under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
-18; K1-bf16 also past the f32 plans' ceiling).  K7's line carries K1-BLS
+18; K1-bf16 also past the f32 plans' ceiling), and under ``entry_points``
+phase 19's numbers.  K7's line carries K1-BLS
 at T=200 (the kernel it runs in) and K7 alone: ``ms_per_product``,
 ``matmul_ms`` (one torch.matmul of the same product), ``plain_ms_per_product``,
 ``l2_bytes_per_product`` (the design's: each row block once per tile) and
@@ -967,6 +985,7 @@ def main():
     large, tier_inputs = large_t_phases(mt, bench, fs, sk, roofline, fleet,
                                         dev, ptxas)
     tiers = tier_phases(mt, bench, fs, roofline, fleet, dev, tier_inputs)
+    entry = entry_point_phases(mt, fs, fleet, dev)
     phase_clock(None)
 
     kernels = [
@@ -977,7 +996,7 @@ def main():
                      occupancy=occupancy["fused_solve", "bls"],
                      gd=gd["fused_solve"], exact=exact["fused_solve"],
                      streamed=large["fused_solve"],
-                     tiers=tiers["fused_solve"]),
+                     tiers=tiers["fused_solve"], entry_points=entry),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -1034,6 +1053,307 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# Phase 19, the entry points above the fleet engine: the CLI's batch on
+# the fused backend, the replanner's ticks and fleet, the vmap engine's
+# batch and the paired check's lanes of its bench run.
+CLI_BATCH = 65536
+REPLAN_TICKS = 100
+REPLAN_FLEET = 256
+VMAP_BATCH = 65536
+VMAP_CHECK = 8192
+INIT_FIT_MAX = 1e-2
+
+
+def k1_instantiation(fs, cfg, O):
+    """The name of the K1 instantiation a launch at cfg with O obstacle
+    slots runs (csrc/fused_solve.cu kernel_of, warp_body.cuh specialised)."""
+    src = open(os.path.join(os.path.dirname(fs.__file__), "..", "csrc",
+                            "warp_body.cuh")).read()
+    spec_t = int(re.search(r"#define WB_SPEC_T (\d+)", src).group(1))
+    spec_o = int(re.search(r"#define WB_SPEC_O (\d+)", src).group(1))
+    prog = fs.program(cfg, "bls", False, False, False)
+    if fs.launch_plan(cfg, O, prog=prog)["plan"] == "streamed":
+        return f"fused_solve<{prog},0,0,streamed>"
+    if (cfg.n_timesteps, O) == (spec_t, spec_o):
+        return f"fused_solve<{prog},{spec_t},{spec_o}>"
+    return f"fused_solve<{prog},0,0>"
+
+
+def run_cli(cli, args):
+    """cli.main(args) in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_report(text):
+    """The CLI's printed report: ms of the timed solve, avg/max cost and the
+    endpoint error (the larger of the start and goal errors)."""
+    ms = float(re.search(r"took ([0-9.e+-]+) ms", text).group(1))
+    m = re.search(r"result cost: \( avg ([0-9.e+-]+) , max ([0-9.e+-]+) \)",
+                  text)
+    errs = [float(re.search(rf"{k}: ([0-9.e+-]+)", text).group(1))
+            for k in ("start_pos_err", "goal_pos_err")]
+    return ms, float(m.group(1)), float(m.group(2)), max(errs)
+
+
+def entry_point_phases(mt, fs, fleet, dev):
+    """Phase 19: the entry points above the fleet engine:
+    init_alpha's fit on the card, the CLI (single scene BLS and GD, the
+    plain loop with its series, a 65,536-scene batch on the fused backend),
+    the replanner on K1 (replan_bench's protocol, single scene and a fleet
+    of 256) and the bench's vmap engine at 65,536 random scenes.  Returns
+    the numbers for K1's kernels-line entry."""
+    import tempfile
+
+    from irm_motion_planning_tpu_torch import bench, cli, replan_bench
+    from irm_motion_planning_tpu_torch.ops import _build
+
+    phase_clock(19)
+    out = {}
+    # (a) init_alpha: the smoothstep line fitted through the ~1e15-
+    # conditioned Gram matrix, on the card (cuSOLVER) and on the CPU
+    # (LAPACK), held by the trajectory it evaluates to.
+    cfg = mt.PlannerConfig()
+    fit, alphas = {}, {}
+    for where in ("cuda", "cpu"):
+        basis = mt.make_basis(cfg, device=where)
+        scn = mt.reference_scenario(cfg, device=where)
+        a = mt.init_alpha(cfg, basis, scn.start, scn.goal)
+        line = scn.start + (scn.goal - scn.start) * basis.c[:, None]
+        fit[where] = float((mt.evaluate(cfg, basis, a)[0] - line).abs().max())
+        alphas[where] = a.cpu()
+    alpha_gap = float((alphas["cuda"] - alphas["cpu"]).abs().max())
+    say(f"phase 19 init_alpha line fit max|evaluate(init_alpha) - line|: "
+        f"card {fit['cuda']:.3e}, CPU {fit['cpu']:.3e} (JAX's LU 4.6e-3, "
+        f"rank-2 3.3e-3; bound {INIT_FIT_MAX}); alpha card vs CPU max abs "
+        f"{alpha_gap:.4g} of {float(alphas['cpu'].abs().max()):.4g}")
+    if not fit["cuda"] <= INIT_FIT_MAX:
+        fail(f"phase 19: init_alpha's fit on the card {fit['cuda']:.3e} "
+             f"over {INIT_FIT_MAX}")
+    out["init_alpha_fit"] = fit
+
+    # (b) the CLI's single-scene default (sequential BLS, plain PyTorch on
+    # the card), GD, and the plain loop with its series file.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out["cli"] = {}
+    for name, extra in (("bls", []), ("gd", ["--optimizer-name", "gd"]),
+                        ("plain_gd", ["--optimizer-name", "gd", "--jit-loop",
+                                      "false", "--extended-vis", "true",
+                                      "--max-outer-iteration", "2",
+                                      "--max-inner-iteration", "50"])):
+        files = ["--output", os.path.join(tmp, f"{name}.txt"),
+                 "--series-output", os.path.join(tmp, f"{name}_series.txt")]
+        rc, text, err = run_cli(cli, extra + files)
+        if rc != 0:
+            fail(f"phase 19: cli {' '.join(extra)} exited {rc}: {err[-500:]}")
+        ms, avg, mx, ep = cli_report(text)
+        traj = np.loadtxt(os.path.join(tmp, f"{name}.txt"))
+        if traj.shape != (cfg.n_timesteps, cfg.n_joints) or not np.isfinite(
+                traj).all():
+            fail(f"phase 19: cli {name} wrote a trajectory of shape "
+                 f"{traj.shape}")
+        if name == "plain_gd":
+            series = np.loadtxt(os.path.join(tmp, f"{name}_series.txt"))
+            if series.ndim != 2 or series.shape[1] != traj.size or not (
+                    series[-1].reshape(traj.shape) == traj).all():
+                fail("phase 19: the plain loop's series file does not end "
+                     "at its trajectory")
+            say(f"phase 19 cli --jit-loop false (GD, 2 x 50): {ms:.1f} ms, "
+                f"{series.shape[0]} trajectories in the series file")
+            out["cli"][name] = {"ms": ms, "series": series.shape[0]}
+            continue
+        ref_avg, ref_max = mt.REFERENCE_FINAL_COST[name]
+        strict = avg <= ref_avg * 1.001 and mx <= ref_max * 1.001
+        say(f"phase 19 cli {name} single scene on the card: {ms:.1f} ms per "
+            f"solve; avg/max {avg:.5f}/{mx:.5f} ({100 * (avg / ref_avg - 1):+.3f}"
+            f"%/{100 * (mx / ref_max - 1):+.3f}% over the reference's), "
+            f"endpoint {ep:.4f}; the goldens' 0.1% gate "
+            f"{'PASS' if strict else 'FAIL'} (ROADMAP queue 3), the bench's "
+            f"2% and endpoint < 0.05 required")
+        if not (avg <= ref_avg * 1.02 and mx <= ref_max * 1.02 and ep < 0.05):
+            fail(f"phase 19: cli {name} outside the bench's reference-scene "
+                 f"gate")
+        out["cli"][name] = {"ms": ms, "avg_cost": avg, "max_cost": mx,
+                            "endpoint_err": ep, "strict_0.1pct": strict}
+
+    # (c) the CLI's batch on the fleet engine's fused backend: K1 (the
+    # CLI's default config: early exit, 16 obstacle slots).
+    fs.fused_solve.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rc, text, err = run_cli(cli, [
+        "--batch", str(CLI_BATCH), "--engine", "fleet", "--backend", "fused",
+        "--output", os.path.join(tmp, "batch.txt")])
+    launches = fs.fused_solve.launches
+    if rc != 0:
+        fail(f"phase 19: cli --batch exited {rc}: {err[-500:]}")
+    ms, avg, mx, ep = cli_report(text)
+    summary = re.search(r"batch \d+: .*", text).group(0)
+    inst = k1_instantiation(fs, cfg, cfg.max_obstacles)
+    say(f"phase 19 cli --batch {CLI_BATCH} --engine fleet --backend fused: "
+        f"{ms:.1f} ms per solve ({CLI_BATCH / ms * 1e3:.1f} solves/s), K1 "
+        f"launches {launches} ({inst}), {summary}; lane 0 avg/max "
+        f"{avg:.5f}/{mx:.5f} endpoint {ep:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if launches < 1:
+        fail("phase 19: the CLI's fused batch did not launch K1")
+    if not (math.isfinite(avg) and math.isfinite(mx) and ep < 0.05):
+        fail("phase 19: the CLI's fused batch output not finite or its "
+             "endpoint over 0.05")
+    out["cli"]["batch_fused"] = {"lanes": CLI_BATCH, "ms": ms,
+                                 "launches": launches, "instantiation": inst}
+
+    # (d) replan_bench's protocol on K1: 100 warm-started ticks of the
+    # drifting reference scene, one scene (padded to 128 lanes) and a fleet
+    # of 256; every tick's result held to the plain version on the same
+    # inputs; the rollout bit for bit the tick loop; the library built once.
+    rcfg = replan_bench.bench_config()
+    scn1 = mt.reference_scenario(rcfg, device=dev)
+    lib = _build.load_library()
+    real_build, builds = _build.build, []
+    _build.build = lambda: builds.append(1) or real_build()
+    out["replan"] = {}
+    try:
+        for mode, batched, scn in (
+                ("single", False, scn1),
+                ("fleet", True, mt.replicate_scenario(scn1, REPLAN_FLEET))):
+            rp = replan_bench.make_replanner(rcfg, batched, "fleet", "fused",
+                                             dev)
+            tcfg, basis = rp.tick_cfg, rp.basis
+            rp.plan(replan_bench.drift_obstacles(scn, 0))
+            torch.cuda.synchronize()
+            fs.fused_solve.launches = 0
+            tick_s, costs, loop, plain_gap = [], [], [], 0.0
+            for k in range(1, REPLAN_TICKS + 1):
+                tick = replan_bench.drift_obstacles(scn, k)
+                alpha0 = rp._alpha
+                t0 = time.perf_counter()
+                res = rp.plan(tick)
+                torch.cuda.synchronize()
+                tick_s.append(time.perf_counter() - t0)
+                costs.append(float(res.stats.final_cost.float().mean()))
+                loop.append(res)
+                lanes = rp.last_padded if not batched else res
+                if not lanes_match_lane0((lanes.alpha, *lanes.stats), 0):
+                    fail(f"phase 19: replan {mode} tick {k}: the padded "
+                         f"lanes differ from lane 0")
+                # The plain version of the tick's kernel on lane 0's inputs.
+                one = mt.Scenario(*((x[:1] if batched else x[None])
+                                    for x in tick))
+                a1 = alpha0[:1] if batched else alpha0[None]
+                p = fleet.kernel_result(fs.fused_solve_reference(
+                    *fleet.fused_args(tcfg, basis, one, a1)))
+                s0 = mt.Scenario(*(x[0] for x in one))
+                kq = mt.solution_quality(tcfg, basis, s0, lanes.alpha[0])
+                pq = mt.solution_quality(tcfg, basis, s0, p.alpha[0])
+                gap = max(abs(float(pq[q]) - float(kq[q])) / float(kq[q])
+                          for q in ("avg_cost", "max_cost"))
+                plain_gap = max(plain_gap, gap)
+                if not gap <= 0.01:
+                    fail(f"phase 19: replan {mode} tick {k}: the plain "
+                         f"version's avg/max cost {gap:.2e} from the "
+                         f"kernel's")
+            launches = fs.fused_solve.launches
+            summ = replan_bench.summary(tick_s, costs)
+            if launches != REPLAN_TICKS:
+                fail(f"phase 19: replan {mode}: {launches} K1 launches in "
+                     f"{REPLAN_TICKS} ticks")
+            # The rollout: a second replanner, the same warm-up tick, then
+            # the ticks in one plan_rollout call.
+            rp2 = replan_bench.make_replanner(rcfg, batched, "fleet", "fused",
+                                              dev)
+            rp2.plan(replan_bench.drift_obstacles(scn, 0))
+            torch.cuda.synchronize()
+            ticks = replan_bench.stack_ticks(scn, REPLAN_TICKS)
+            t0 = time.perf_counter()
+            final, stats = rp2.plan_rollout(ticks)
+            torch.cuda.synchronize()
+            roll_s = time.perf_counter() - t0
+            if not (torch.equal(final, loop[-1].alpha) and all(
+                    torch.equal(f[k], g) for k, r in enumerate(loop)
+                    for f, g in zip(stats, r.stats))):
+                fail(f"phase 19: replan {mode}: the rollout differs from the "
+                     f"tick loop")
+            entry = {**summ, "launches": launches,
+                     "rollout_hz": REPLAN_TICKS / roll_s,
+                     "rollout_tick_ms": 1e3 * roll_s / REPLAN_TICKS,
+                     "plain_max_cost_gap": plain_gap,
+                     "lanes": tick_lanes(batched, scn),
+                     "instantiation": k1_instantiation(fs, tcfg,
+                                                       tcfg.max_obstacles)}
+            out["replan"][mode] = entry
+            say(f"phase 19 replan {mode} ({entry['lanes']} lanes, "
+                f"{entry['instantiation']}, early exit, 2 x 25): "
+                f"{summ['value']:.1f} Hz, ms per tick median "
+                f"{summ['tick_ms_median']:.3f} p99 {summ['tick_ms_p99']:.3f} "
+                f"mean {summ['tick_ms']:.3f} slowest {summ['tick_ms_max']:.3f} "
+                f"(tick {summ['slowest_tick']}); rollout "
+                f"{entry['rollout_hz']:.1f}"
+                f" Hz ({entry['rollout_tick_ms']:.3f} ms per tick), bit for "
+                f"bit the tick loop; K1 launches {launches} in "
+                f"{REPLAN_TICKS} ticks; padded lanes bit for bit lane 0; "
+                f"plain version's avg/max within {plain_gap:.2e}; mean tick "
+                f"cost {summ['mean_tick_cost']:.4f}")
+    finally:
+        _build.build = real_build
+    if builds or _build.load_library() is not lib:
+        fail(f"phase 19: the kernel library was built again during the "
+             f"ticks ({len(builds)} builds)")
+    say("phase 19 the kernel library was built once (phase 1), none during "
+        "the ticks")
+
+    # (e) the bench's vmap engine: the single-scene solver lane by lane
+    # (plain PyTorch) at 65,536 random scenes, the bench schedule, with
+    # the bench's paired gate.  Its phantom and cost bands are required;
+    # its converged band is printed: the converged fraction of the
+    # single-scene ladder (each rung through the basis) against the fleet
+    # engine's is an fp-path-family property the reference has too (JAX's
+    # vmap engine 0.402 against its fleet xla 0.523 on 256 random scenes on
+    # the CPU; ROADMAP queue 3, fact 8).
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vb = bench.run_bench(batch=VMAP_BATCH, repeats=1, random_scenarios=True,
+                         engine="vmap", quality_check_lanes=VMAP_CHECK)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    best = min(vb["timing"]["times_s"])
+    bands = vb["gate"]["bands"]
+    phantom_ok = vb["phantom_frac"] <= bands["phantom"]
+    cost_ok = abs(bands["check_obstacle_cost"] - bands["xla_obstacle_cost"]
+                  ) <= bands["cost"]
+    conv_ok = abs(bands["check_converged_frac"] - bands["xla_converged_frac"]
+                  ) <= bands["converged"]
+    say(f"phase 19 bench --engine vmap --random-scenarios at {VMAP_BATCH}: "
+        f"{VMAP_BATCH / best:.1f} solves/s ({best:.2f} s per solve, first "
+        f"{vb['timing']['first_s']:.2f} s), peak device memory {peak:.3f} "
+        f"GiB; paired gate on {VMAP_CHECK} lanes (the xla engine "
+        f"{vb['timing']['xla_s']:.1f} s): phantom {vb['phantom_frac']} "
+        f"{'PASS' if phantom_ok else 'FAIL'}, obstacle cost "
+        f"{vb['mean_obstacle_cost']} against {vb['xla_mean_obstacle_cost']} "
+        f"{'PASS' if cost_ok else 'FAIL'}, converged {vb['converged_frac']} "
+        f"against {vb['xla_converged_frac']} (band "
+        f"{bands['converged']:.3f}) {'PASS' if conv_ok else 'FAIL'} "
+        f"(printed, fact 8)")
+    if not (math.isfinite(vb["mean_final_cost"]) and phantom_ok and cost_ok):
+        fail("phase 19: the vmap engine fails the bench's phantom or cost "
+             "band")
+    out["vmap"] = {"lanes": VMAP_BATCH, "solves_per_sec": VMAP_BATCH / best,
+                   "peak_gib": peak, "converged": vb["converged_frac"],
+                   "xla_converged": vb["xla_converged_frac"],
+                   "converged_band_ok": conv_ok}
+    return out
+
+
+def tick_lanes(batched, scn):
+    """Lanes one tick launches K1 on: the fleet's, or one scene padded."""
+    from irm_motion_planning_tpu_torch.solvers.replan import PAD_LANES
+
+    return int(scn.start.shape[0]) if batched else PAD_LANES
 
 
 def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,

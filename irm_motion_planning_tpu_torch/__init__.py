@@ -20,7 +20,9 @@ from .config import (  # noqa: E402
     REFERENCE_INNER_SCHEDULE_BLS,
     REFERENCE_INNER_SCHEDULE_GD,
 )
-from .models.rkhs import Basis, basis_from_numpy, make_basis, evaluate  # noqa: E402
+from .models.rkhs import (  # noqa: E402
+    Basis, basis_from_numpy, make_basis, evaluate, evaluate_at, init_alpha,
+)
 from .ops.scenario import (  # noqa: E402
     Scenario,
     make_scenario,
@@ -32,6 +34,8 @@ from .ops.costs import (  # noqa: E402
     Penalty,
     initial_penalty,
     total_cost,
+    total_cost_grad,
+    cost_and_grad,
     constraints_fulfilled,
     constraint_report,
     solution_quality,

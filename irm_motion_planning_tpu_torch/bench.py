@@ -6,12 +6,16 @@ quality gates.
     python -m irm_motion_planning_tpu_torch.bench --solver gd [--random-scenarios]
     python -m irm_motion_planning_tpu_torch.bench --solver gd --backend pallas
     python -m irm_motion_planning_tpu_torch.bench --ladder-eval exact [--random-scenarios]
+    python -m irm_motion_planning_tpu_torch.bench --engine vmap [--inner N]
 
-Protocol (the repository's bench.py, fleet engine): ``--solver`` BLS (the
+Protocol (the repository's bench.py): ``--engine`` fleet (the default:
+lanes trailing, on ``--backend``) or vmap (the single-scene solver lane by
+lane, solvers/batched.py; plain PyTorch, no kernel); ``--solver`` BLS (the
 default, with the ladder tier ``--ladder-eval``: linearized, the default, or
 exact) or GD at its fixed per-round schedule
-(REFERENCE_INNER_SCHEDULE_BLS or _GD; GD's learning rates follow the
-``gd_lr`` schedule), ``max_obstacles=11``, 1,048,576 lanes, on
+(REFERENCE_INNER_SCHEDULE_BLS or _GD, or ``--inner`` steps in every
+round; GD's learning rates follow the ``gd_lr`` schedule),
+``max_obstacles=11``, 1,048,576 lanes, on
 ``--backend`` fused (the whole-solve kernels, K1 or per round K2, for
 either solver; the default), pallas (the per-step kernels) or xla (the
 plain engine).  The first run (which builds the kernels) is excluded; each
@@ -29,7 +33,8 @@ counts.
   default on the fused backend (one kernel launch per penalty round, lanes
   re-sorted after round 0).  The gate is bench.py's paired one: the first
   ``--quality-check-lanes`` scenes are solved again by the plain ``xla``
-  engine with the same solver (skipped when the measured backend is xla);
+  engine with the same solver (skipped when the measured run is the
+  fleet engine's xla backend itself);
   the measured run must have no phantom convergence (converged but failing
   the exact constraint check; <= 2 lanes of boundary wobble), a converged
   fraction within max(0.02, min(0.15 max(conv), 0.05)) of the engine's and
@@ -59,7 +64,7 @@ from . import (
 )
 from .ops.costs import Penalty
 from .ops.scenario import random_scenarios as random_scenarios_fn
-from .solvers import fleet
+from .solvers import batched, fleet
 from .solvers.common import SolveResult
 
 # The reference's published flagships: 3.12 ms per BLS solve and 7.26 ms
@@ -88,13 +93,19 @@ def gpu_name_and_power_limit():
 
 def bench_config(max_obstacles: int = 11, block_b: int = 0,
                  solver: str = "bls", ladder_eval: str = "linearized",
-                 n_timesteps: int = 50) -> PlannerConfig:
-    sched = SCHEDULES[solver]
+                 n_timesteps: int = 50,
+                 inner: Optional[int] = None) -> PlannerConfig:
+    """The bench's config: the solver's per-round schedule, or ``inner``
+    steps in every round (JAX bench.py --inner)."""
+    if inner is not None:
+        sched_kw = dict(max_inner_iteration=inner)
+    else:
+        sched = SCHEDULES[solver]
+        sched_kw = dict(inner_schedule=sched, max_inner_iteration=max(sched))
     return PlannerConfig(
-        bls_mode="ladder", fixed_iters=True, inner_schedule=sched,
-        max_inner_iteration=max(sched), max_obstacles=max_obstacles,
+        bls_mode="ladder", fixed_iters=True, max_obstacles=max_obstacles,
         pallas_block_b=block_b, ladder_eval=ladder_eval,
-        n_timesteps=n_timesteps,
+        n_timesteps=n_timesteps, **sched_kw,
     )
 
 
@@ -176,13 +187,19 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
               seed: int = 0, quality_check_lanes: int = 32768,
               lane_compaction: Optional[bool] = None, solver: str = "bls",
               backend: str = "fused", ladder_eval: str = "linearized",
-              n_timesteps: int = 50) -> dict:
+              n_timesteps: int = 50, engine: str = "fleet",
+              inner: Optional[int] = None) -> dict:
     """Run the protocol; returns the JSON fields plus ``timing`` (seconds
     of the first run, of each timed run and of the paired check's engine),
     ``gate`` (the paired gate's bands, random mode) and ``result`` (the
     solve).  ``n_timesteps``: T (the committed basis exports: 25, 50, 100,
     150, 200); the replicated mode's gate holds the reference's T = 50
-    costs, so other T run in random mode."""
+    costs, so other T run in random mode.  ``engine``: ``"fleet"`` on
+    ``backend``, or ``"vmap"`` (solvers/batched.py, plain PyTorch; the
+    backend is not used); ``inner``: uniform inner steps per round in place
+    of the schedule."""
+    if engine not in ("fleet", "vmap"):
+        raise ValueError(f"unknown engine {engine!r}")
     if n_timesteps != 50 and not random_scenarios:
         raise ValueError("the replicated-scene gate is the reference's at "
                          "T = 50; other T run with random scenes")
@@ -190,9 +207,11 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark runs on a GPU")
     if lane_compaction is None:
-        lane_compaction = random_scenarios and backend == "fused"
+        lane_compaction = (random_scenarios and backend == "fused"
+                           and engine == "fleet")
     cfg = bench_config(max_obstacles, block_b, solver, ladder_eval,
-                       n_timesteps).replace(lane_compaction=lane_compaction)
+                       n_timesteps, inner).replace(
+                           lane_compaction=lane_compaction)
     basis = make_basis(cfg, device=dev)
     if random_scenarios:
         scns = random_scenarios_fn(cfg, torch.Generator().manual_seed(seed),
@@ -200,7 +219,11 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
     else:
         scn0 = reference_scenario(cfg, device=dev)
         scns = replicate_scenario(scn0, batch)
-    run = fleet.make_fleet_solver(cfg, basis, solver=solver, backend=backend)
+    if engine == "vmap":
+        run = batched.make_batched_solver(cfg, basis, solver=solver)
+    else:
+        run = fleet.make_fleet_solver(cfg, basis, solver=solver,
+                                      backend=backend)
 
     def run_to_completion():
         out = run(scns)
@@ -228,7 +251,7 @@ def run_bench(batch: int = 1048576, repeats: int = 5, block_b: int = 0,
             "mean_final_cost": round(mean_cost, 4),
         }
         n_check = min(batch, quality_check_lanes)
-        if n_check and backend != "xla":
+        if n_check and (backend != "xla" or engine == "vmap"):
             gate = paired_gate(cfg, basis, scns, warm, n_check, solver)
             quality_ok = quality_ok and gate["ok"]
             quality.update(gate["fields"])
@@ -285,6 +308,13 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=1048576)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--solver", choices=["bls", "gd"], default="bls")
+    p.add_argument("--engine", choices=["fleet", "vmap"], default="fleet",
+                   help="fleet = lanes trailing, the kernels of --backend; "
+                        "vmap = the single-scene solver lane by lane (plain "
+                        "PyTorch)")
+    p.add_argument("--inner", type=int, default=None,
+                   help="UNIFORM fixed inner steps per penalty round in "
+                        "place of the per-round schedule")
     p.add_argument("--ladder-eval", choices=["linearized", "exact"],
                    default="linearized",
                    help="BLS: Armijo candidates on the linearized trajectory "
@@ -323,7 +353,8 @@ def main(argv=None) -> int:
                     args.max_obstacles, args.quality_tol, args.device,
                     args.random_scenarios, args.seed,
                     args.quality_check_lanes, args.lane_compaction,
-                    args.solver, args.backend, args.ladder_eval)
+                    args.solver, args.backend, args.ladder_eval,
+                    engine=args.engine, inner=args.inner)
     timing = out.pop("timing")
     out.pop("result")
     out.pop("gate")

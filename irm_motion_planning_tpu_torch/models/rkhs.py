@@ -25,6 +25,7 @@ import torch
 
 from ..config import PlannerConfig
 from ..device import resolve
+from .lanes import basis_matmul, lane_matmul
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 EXPORT_SCRIPT = "tools/export_torch_basis.py"
@@ -99,6 +100,43 @@ def make_basis(cfg: PlannerConfig, device=None) -> Basis:
 def evaluate(cfg: PlannerConfig, basis: Basis,
              alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trajectory and velocity at the support timesteps, ``(kv @ alpha) @
-    mix`` left-associated like the reference.  alpha (T, J) -> two (T, J)."""
-    both = (basis.kv @ alpha) @ basis.mix
-    return both[: cfg.n_timesteps], both[cfg.n_timesteps:]
+    mix`` left-associated like the reference.  alpha (..., T, J) -> two
+    (..., T, J)."""
+    both = lane_matmul(basis_matmul(basis.kv, alpha), basis.mix)
+    T = cfg.n_timesteps
+    return both[..., :T, :], both[..., T:, :]
+
+
+def evaluate_position(cfg: PlannerConfig, basis: Basis,
+                      alpha: torch.Tensor) -> torch.Tensor:
+    """Trajectory positions only, ``(km @ alpha) @ mix``: (..., T, J)."""
+    return lane_matmul(basis_matmul(basis.km, alpha), basis.mix)
+
+
+def evaluate_at(cfg: PlannerConfig, basis: Basis, alpha: torch.Tensor,
+                ts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trajectory and its velocity at arbitrary query times ``ts``
+    (Q,) in [0, 1]: the cross Gram matrix between the query and support
+    times applied to the same coefficients (the reference's ``eval_any``,
+    ref: trajectory.py:68-70).  alpha (T, J) -> two (Q, J)."""
+    var = cfg.rbf_variance
+    diff = basis.t[None, :] - ts[:, None]          # t_support - t_query
+    kq = torch.exp(-(diff ** 2) / (2 * var ** 2))
+    dkq = diff / (var ** 2) * kq
+    return (lane_matmul(kq @ alpha, basis.mix),
+            lane_matmul(dkq @ alpha, basis.mix))
+
+
+def init_alpha(cfg: PlannerConfig, basis: Basis, start: torch.Tensor,
+               goal: torch.Tensor) -> torch.Tensor:
+    """Warm-start coefficients: the least-squares fit of the quintic
+    smoothstep line from start to goal (ref: trajectory.py:73-78), ``solve(
+    km, line @ mix_inv)``, as the JAX package writes it.  start, goal
+    (..., J) -> alpha (..., T, J).
+
+    The Gram matrix is conditioned near 1e15, so alpha depends on the
+    factorization (LAPACK's LU on the CPU, cuSOLVER's on the card) by far
+    more than rounding; the trajectory it evaluates to stays on the line
+    (tests/test_torch_grads.py holds the fit against JAX's)."""
+    line = start[..., None, :] + (goal - start)[..., None, :] * basis.c[:, None]
+    return torch.linalg.solve(basis.km, lane_matmul(line, basis.mix_inv))

@@ -177,7 +177,7 @@ def fk_ee(c: Consts, traj):
 
 def obs_ctx(ox, oy, ow):
     """Loop-invariant obstacle terms: q_o = 0.5 + 0.5 |o|^2 and 0.8 w_o."""
-    return ox, oy, 0.5 + 0.5 * (ox * ox + oy * oy), 0.8 * ow
+    return ox, oy, field_q(ox, oy), 0.8 * ow
 
 
 def obstacle_cost_v(ee_x, ee_y, obs):
@@ -185,11 +185,9 @@ def obstacle_cost_v(ee_x, ee_y, obs):
     (h + q_o) - (ox ee_x + oy ee_y), h = 0.5 |ee|^2.  (T, B) -> (T, B)."""
     ox, oy, q, ow8 = obs
     h = field_h(ee_x, ee_y)
-    acc = torch.zeros_like(ee_x)
-    for o in range(ox.shape[0]):
-        s = field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y)
-        acc = field_add(acc, ow8[o], recip(s))
-    return acc
+    return field_sum([
+        (ow8[o], recip(field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y)))
+        for o in range(ox.shape[0])])
 
 
 def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
@@ -255,21 +253,17 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
     # grad of the field = sum_o c_o (ee - o), c_o = -0.8 w_o / s_o^2, kept as
     # the factored sums csum = sum c_o and co{x,y} = sum c_o o.
     h = field_h(ee_x, ee_y)
-    cost_v = torch.zeros_like(ee_x)
-    csum = torch.zeros_like(ee_x)
-    cox = torch.zeros_like(ee_x)
-    coy = torch.zeros_like(ee_x)
-    for o in range(ox.shape[0]):
-        s = field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y)
-        inv = recip(s)
-        winv = ow8[o] * inv
-        cost_v = cost_v + winv
-        coef = winv * inv
-        csum = csum + coef
-        cox = cox + coef * ox[o]
-        coy = coy + coef * oy[o]
-    gx = cox - ee_x * csum
-    gy = coy - ee_y * csum
+    inv = [recip(field_dist(h, q[o], ox[o], ee_x, oy[o], ee_y))
+           for o in range(ox.shape[0])]
+    winv = [ow8[o] * r for o, r in enumerate(inv)]
+    coef = [w * r for w, r in zip(winv, inv)]
+    cost_v = field_sum([(ow8[o], r) for o, r in enumerate(inv)])
+    csum = field_acc(list(zip(winv, inv)))
+    cox = field_acc([(cf, ox[o]) for o, cf in enumerate(coef)])
+    coy = field_acc([(cf, oy[o]) for o, cf in enumerate(coef)])
+    del inv, winv, coef
+    gx = field_grad(cox, ee_x, csum)
+    gy = field_grad(coy, ee_y, csum)
 
     # Blend weights: lam_max on the FIRST argmax over T, plus the mean.
     rows = torch.arange(T, device=nt.device)[:, None]
@@ -414,6 +408,11 @@ def recip(s):
     return 1.0 / s
 
 
+def field_q(ox, oy):
+    """The obstacle field's ``q_o = 0.5 + 0.5 (ox ox + oy oy)``."""
+    return 0.5 + 0.5 * (ox * ox + oy * oy)
+
+
 def field_h(ex, ey):
     """The obstacle field's ``h = 0.5 (ex ex + ey ey)``."""
     return 0.5 * (ex * ex + ey * ey)
@@ -424,9 +423,31 @@ def field_dist(h, q, ox, ex, oy, ey):
     return (h + q) - (ox * ex + oy * ey)
 
 
-def field_add(acc, w, r):
-    """A term of the obstacle field, ``acc + w r`` (r = 1 / s)."""
-    return acc + w * r
+def _chain(terms):
+    """``sum_o a_o b_o`` over the (a_o, b_o) of ``terms`` in order, from 0,
+    each product rounded, then added to the running sum."""
+    acc = torch.zeros_like(terms[0][1])
+    for a, b in terms:
+        acc = acc + a * b
+    return acc
+
+
+def field_sum(terms):
+    """The obstacle field ``sum_o w_o r_o`` over (0.8 w_o, r_o = 1 / s_o):
+    the cost per timestep, in the forward pass and the gradient's."""
+    return _chain(terms)
+
+
+def field_acc(terms):
+    """A gradient accumulator of the field: ``csum = sum_o (w_o r_o) r_o``
+    over (w_o r_o, r_o), or ``co = sum_o c_o o`` over (c_o, o), c_o = w_o
+    r_o^2."""
+    return _chain(terms)
+
+
+def field_grad(co, e, csum):
+    """The field's gradient ``co - e csum`` (ee - o weighted and summed)."""
+    return co - e * csum
 
 
 def sum_pair(a, b, c, d):

@@ -49,7 +49,20 @@ def freeze_when(done: torch.Tensor, state, new_state):
     return torch.where(done, state, new_state)
 
 
-def run_inner_loop(cfg: PlannerConfig, state, bound: int, step: Callable):
+def freeze_leading(done: torch.Tensor, state, new_state):
+    """:func:`freeze_when` for state with the lanes LEADING, (B, ...): the
+    (B,) mask is viewed with one unit axis per trailing axis of each field.
+    (Broadcast against the last axis instead, a (B, T, J) field would be
+    frozen by timestep or joint, silently so when B equals J.)"""
+    if isinstance(state, tuple):
+        return type(state)(*(freeze_leading(done, o, n)
+                             for o, n in zip(state, new_state)))
+    mask = done.reshape(done.shape + (1,) * (state.dim() - done.dim()))
+    return torch.where(mask, state, new_state)
+
+
+def run_inner_loop(cfg: PlannerConfig, state, bound: int, step: Callable,
+                   freeze: Callable = freeze_when):
     """The plain engines' inner descent loop: ``state = step(state)`` for
     every lane at once, ``bound`` times (``fixed_iters``) or without end,
     with minimized AND budget-exhausted lanes frozen (see
@@ -61,7 +74,7 @@ def run_inner_loop(cfg: PlannerConfig, state, bound: int, step: Callable):
         done = state.minimized | (state.inner_iter >= cfg.max_inner_iteration)
         if bool(done.all()):
             break
-        state = freeze_when(done, state, step(state))
+        state = freeze(done, state, step(state))
         k += 1
     return state
 
@@ -93,7 +106,8 @@ InnerFactory = Callable[[torch.Tensor, Optional[int]], Callable]
 def outer_step(cfg: PlannerConfig, state: OuterState,
                inner_fn_for_outer: InnerFactory,
                constraints_fn: Callable[[torch.Tensor], torch.Tensor],
-               round_idx: Optional[int] = None) -> OuterState:
+               round_idx: Optional[int] = None,
+               freeze: Callable = freeze_when) -> OuterState:
     """One penalty round for every lane, with fulfilled AND budget-exhausted
     lanes frozen.  The exhaustion term is load-bearing: without it a
     lockstep loop that runs while any lane is active gives a capped lane
@@ -118,16 +132,18 @@ def outer_step(cfg: PlannerConfig, state: OuterState,
         final_loss=loss,
     )
     done = state.fulfilled | (state.outer_iter >= cfg.max_outer_iteration)
-    return freeze_when(done, state, new)
+    return freeze(done, state, new)
 
 
 def run_dual_loop(cfg: PlannerConfig, alpha0: torch.Tensor,
                   inner_fn_for_outer: InnerFactory,
                   constraints_fn: Callable[[torch.Tensor], torch.Tensor],
-                  penalty0: Penalty) -> SolveResult:
-    """Penalty-method dual loop over lanes-trailing state (ref:
-    optimizer_BLS.py:183-211).  ``penalty0`` fields are (B,); the result's
-    alpha keeps alpha0's layout."""
+                  penalty0: Penalty,
+                  freeze: Callable = freeze_when) -> SolveResult:
+    """Penalty-method dual loop (ref: optimizer_BLS.py:183-211) over
+    lanes-trailing state, or lanes-leading with ``freeze=freeze_leading``.
+    ``penalty0`` fields are (B,); the result's alpha keeps alpha0's
+    layout."""
     lane = torch.zeros_like(penalty0.lambda_sg)
     state = OuterState(
         fulfilled=lane.to(torch.bool),
@@ -140,12 +156,12 @@ def run_dual_loop(cfg: PlannerConfig, alpha0: torch.Tensor,
     if cfg.fixed_iters:
         for r in range(cfg.max_outer_iteration):
             state = outer_step(cfg, state, inner_fn_for_outer,
-                               constraints_fn, r)
+                               constraints_fn, r, freeze)
     else:
         while bool(((state.outer_iter < cfg.max_outer_iteration)
                     & ~state.fulfilled).any()):
             state = outer_step(cfg, state, inner_fn_for_outer,
-                               constraints_fn)
+                               constraints_fn, freeze=freeze)
     return SolveResult(
         alpha=state.alpha,
         stats=SolveStats(

@@ -244,10 +244,13 @@ CONTRACTIONS = {
     "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
     "alpha": [("two_roundings", tfs.fma)],
     "mix": [("mix_combine", _mix_once)],
-    "field": [("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
+    "field": [("field_q", lambda ox, oy: 0.5 + 0.5 * tfs.fma(ox, ox, oy * oy)),
+              ("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
               ("field_dist", lambda h, q, ox, ex, oy, ey:
                (h + q) - tfs.fma(ox, ex, oy * ey)),
-              ("field_add", lambda acc, w, r: tfs.fma(w, r, acc))],
+              ("field_sum", _mix_once),
+              ("field_acc", _mix_once),
+              ("field_grad", lambda co, e, csum: tfs.fma(-e, csum, co))],
     "sums": [("sum_pair", lambda a, b, c, d:
               tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
              ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
@@ -404,11 +407,13 @@ def test_evaluation_contractions(monkeypatch, scenes):
     weights zeroed, so the field is 0; the mix combine contracted): the
     loss of 0.75 of the lanes bit for bit as shipped, 1.0 with the sums
     contracted.  The obstacle field (the penalties zeroed, JAX's reciprocal
-    mirrored, _jax_recip): 0.50 shipped, 0.56 contracted; no form tried
-    gives JAX's loss on every lane, so the field stays unresolved.  The
-    port's reciprocal is 1 / s correctly rounded, which JAX's kernel never
-    gives; the port keeps all of these rounded twice (PERF.md section 7
-    has the endpoint and T = 200 readings of each set)."""
+    mirrored, _jax_recip): 0.50 shipped, 0.69 with every plane of the field
+    contracted, each of which is JAX's bit for bit alone
+    (test_field_contractions); the loss still parts on the rest by what is
+    no contraction: the FK's sin and cos, and the order of the sum over T.
+    The port's reciprocal is 1 / s correctly rounded, which JAX's kernel
+    never gives; the port keeps all of these rounded twice (PERF.md section
+    7 has the endpoint and T = 200 readings of each set)."""
     _, traj = _eval_shares(monkeypatch, scenes, ())
     _, traj_once = _eval_shares(monkeypatch, scenes, ("mix",))
     assert traj < 0.9 and traj_once == 1.0
@@ -425,6 +430,125 @@ def test_evaluation_contractions(monkeypatch, scenes):
           f"the mix combine once; loss without the field {sums} shipped, "
           f"{sums_once} with the cost sums once; loss of the field alone "
           f"{field} shipped, {field_once} with it once")
+
+
+FIELD_PLANES = ("q", "h", "s", "sum", "cv", "csum", "cox", "coy", "gx", "gy")
+
+
+def _jax_field_planes(jcfg, ex, ey, ox, oy, ow):
+    """The obstacle field of JAX's kernel (pallas_step._Body, interpreted,
+    recip_newton) at given end-effector planes ex, ey (T, B) among the
+    obstacles ox, oy, ow (O, B): the planes of FIELD_PLANES, each as the
+    kernel forms it (the forward field and the gradient's cost_v are the
+    same expression; s is obstacle 0's)."""
+    from jax.experimental import pallas as pl
+
+    (T, Bn), O = ex.shape, ox.shape[0]
+    body = ps._Body(jcfg, T, jcfg.n_joints, O, Bn)
+
+    def kernel(ex_ref, ey_ref, ox_ref, oy_ref, ow_ref, q_ref, h_ref, s_ref,
+               sum_ref, cv_ref, csum_ref, cox_ref, coy_ref, gx_ref, gy_ref):
+        ee_x, ee_y = ex_ref[:], ey_ref[:]
+        obs = body.obs_ctx(ox_ref[:], oy_ref[:], ow_ref[:])
+        sum_ref[:] = body.obstacle_cost_v(ee_x, ee_y, obs)
+        oxx, oyy, q, ow8 = obs
+        q_ref[:] = q
+        # The gradient's accumulators, as _Body.cost_grad_from_traj forms
+        # them (pallas_step.py:608-623).
+        h = 0.5 * (ee_x * ee_x + ee_y * ee_y)
+        h_ref[:] = h
+        s_ref[:] = (h + q[0:1]) - (oxx[0:1] * ee_x + oyy[0:1] * ee_y)
+        zero = jnp.zeros((T, Bn), jnp.float32)
+        cost_v, csum, cox, coy = zero, zero, zero, zero
+        for o in range(O):
+            s = (h + q[o:o + 1]) - (oxx[o:o + 1] * ee_x + oyy[o:o + 1] * ee_y)
+            inv = body.recip(s)
+            winv = ow8[o:o + 1] * inv
+            cost_v = cost_v + winv
+            coef = winv * inv
+            csum = csum + coef
+            cox = cox + coef * oxx[o:o + 1]
+            coy = coy + coef * oyy[o:o + 1]
+        cv_ref[:], csum_ref[:], cox_ref[:], coy_ref[:] = cost_v, csum, cox, coy
+        gx_ref[:] = cox - ee_x * csum
+        gy_ref[:] = coy - ee_y * csum
+
+    plane = jax.ShapeDtypeStruct((T, Bn), jnp.float32)
+    shapes = [jax.ShapeDtypeStruct((O, Bn), jnp.float32)] + [plane] * 9
+    outs = pl.pallas_call(kernel, out_shape=shapes, interpret=True)(
+        ex, ey, ox, oy, ow)
+    return dict(zip(FIELD_PLANES, (np.asarray(x) for x in outs)))
+
+
+def _port_field_planes(want, ex, ey, ox, oy, ow):
+    """The port's plain field (fused_solve's helpers as they stand) fed,
+    plane by plane, JAX's own inputs of the plane (its q, h and the
+    accumulators' terms at JAX's s), so that each plane is compared
+    alone."""
+    ex, ey, ox, oy, ow = map(_t, (ex, ey, ox, oy, ow))
+    q, h = _t(want["q"]), _t(want["h"])
+    ow8 = 0.8 * ow
+    inv = [tfs.recip(tfs.field_dist(h, q[o], ox[o], ex, oy[o], ey))
+           for o in range(ox.shape[0])]
+    winv = [ow8[o] * r for o, r in enumerate(inv)]
+    coef = [w * r for w, r in zip(winv, inv)]
+    cox = tfs.field_acc([(c, ox[o]) for o, c in enumerate(coef)])
+    coy = tfs.field_acc([(c, oy[o]) for o, c in enumerate(coef)])
+    terms = list(zip(winv, inv))
+    csum = tfs.field_acc(terms)
+    got = {
+        "q": tfs.field_q(ox, oy), "h": tfs.field_h(ex, ey),
+        "s": tfs.field_dist(h, q[0], ox[0], ex, oy[0], ey),
+        "sum": tfs.field_sum([(ow8[o], r) for o, r in enumerate(inv)]),
+        "cv": tfs.field_sum([(ow8[o], r) for o, r in enumerate(inv)]),
+        "csum": csum, "cox": cox, "coy": coy,
+        "gx": tfs.field_grad(_t(want["cox"]), ex, _t(want["csum"])),
+        "gy": tfs.field_grad(_t(want["coy"]), ey, _t(want["csum"])),
+    }
+    # The first pair the other way round: fma(a1, b1, a0 b0).
+    got["csum_10"] = tfs.field_acc([terms[1], terms[0]] + terms[2:])
+    return {k: float((v.numpy() == want[k.split("_")[0]]).mean())
+            for k, v in got.items()}
+
+
+def test_field_contractions(monkeypatch, scenes):
+    """The obstacle field's planes, one at a time, against JAX's
+    interpreted kernel (16 random scenes at T = 200, the end effector of
+    the warm start's trajectory jittered; the port given JAX's
+    reciprocal, _jax_recip, and each plane JAX's own inputs).  XLA
+    contracts every one of them: q_o = 0.5 + 0.5 fma(ox, ox, oy oy); h and
+    s as test_evaluation_contractions found; the field's sum over the
+    obstacles and the accumulator co{x,y} as fma(a0, b0, a1 b1) and then
+    each term fused into the sum; csum the same, but which product of its
+    first pair XLA fuses depends on the fusion around it (this kernel
+    fuses the first; one that also returns obstacle 0's reciprocal fuses
+    the second, fma(a1, b1, a0 b0), and either order leaves the other 0.97
+    of the plane JAX's); g{x,y} = fma(-e, csum, co).
+    With all of them (CONTRACTIONS["field"]) every plane is JAX's bit for
+    bit; as shipped none is.  What still parts the evaluation's loss from
+    JAX's (test_evaluation_contractions) is no contraction: XLA's sin and
+    cos differ from torch's on about 5% of arguments (the FK), and its sum
+    over T adds in another order."""
+    jcfg, jb, scns, fsc, a0 = scenes
+    traj = np.asarray(jfleet.fleet_evaluate(jcfg, jb, a0)[0])
+    traj = traj + np.random.default_rng(0).normal(
+        0.0, 0.3, traj.shape).astype(np.float32)
+    ang = np.cumsum(traj, axis=1)
+    link = np.asarray(jcfg.link_length, np.float32)[None, :, None]
+    ex = (np.cos(ang) * link).sum(1).astype(np.float32)
+    ey = (np.sin(ang) * link).sum(1).astype(np.float32)
+    ox, oy, ow = (np.asarray(x) for x in (
+        fsc.obstacles[:, 0, :], fsc.obstacles[:, 1, :], fsc.obstacle_weight))
+    want = _jax_field_planes(jcfg, ex, ey, ox, oy, ow)
+    with monkeypatch.context() as m:
+        m.setattr(tfs, "recip", _jax_recip)
+        shipped = _port_field_planes(want, ex, ey, ox, oy, ow)
+        _contract(m, ("field",))
+        once = _port_field_planes(want, ex, ey, ox, oy, ow)
+    print(f"field planes bitwise JAX's: shipped {shipped}, contracted {once}")
+    assert max(once.pop("csum"), once.pop("csum_10")) == 1.0
+    assert once == {k: 1.0 for k in FIELD_PLANES if k != "csum"}
+    assert all(v < 1.0 for v in shipped.values())
 
 
 def test_carry_program_rounds_twice(monkeypatch):

@@ -29,7 +29,9 @@ the direction ``lambda_reg x + g``, fused_solve.carry_direction; ``cand``
 a rung's candidate ``x - lr d``, rung_point; ``nt`` the accepted iterate,
 accepted_point; ``alpha`` the accepted alpha, two_roundings; ``mix`` the
 mix combine of the forward and pull-back products, mix_combine; ``field``
-the obstacle field's h, s and sum, field_h/field_dist/field_add; ``sums``
+the obstacle field's q, h, s, its sum over the obstacles and the
+gradient's accumulators, field_q/field_h/field_dist/field_sum/
+field_acc/field_grad; ``sums``
 the cost sums of scalar_cost, sum_pair/sum_add), each set a
 comma list and the sets separated by ``/``; with ``--endpoint`` only the
 bench's reference scene is solved instead (bench.run_bench on the CPU,
@@ -95,10 +97,13 @@ CONTRACTED = {
     "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
     "alpha": [("two_roundings", tfs.fma)],
     "mix": [("mix_combine", _mix_once)],
-    "field": [("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
+    "field": [("field_q", lambda ox, oy: 0.5 + 0.5 * tfs.fma(ox, ox, oy * oy)),
+              ("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
               ("field_dist", lambda h, q, ox, ex, oy, ey:
                (h + q) - tfs.fma(ox, ex, oy * ey)),
-              ("field_add", lambda acc, w, r: tfs.fma(w, r, acc))],
+              ("field_sum", _mix_once),
+              ("field_acc", _mix_once),
+              ("field_grad", lambda co, e, csum: tfs.fma(-e, csum, co))],
     "sums": [("sum_pair", lambda a, b, c, d:
               tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
              ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
