@@ -184,7 +184,22 @@ ceiling).  Phases:
    and no rebuild of the kernel library across the ticks; and ``bench
    --engine vmap --random-scenarios`` at 65,536 scenes (solves/s, peak
    device memory, the paired gate on 8,192 lanes: phantom and cost bands
-   required, the converged band printed, ROADMAP fact 8).
+   required, the converged band printed, ROADMAP fact 8);
+20. the sharded path (irm_motion_planning_tpu_torch/parallel): a one-rank
+   NCCL group (``initialize_distributed`` on 127.0.0.1) runs
+   ``make_shard_map_solver(engine="fleet", backend="fused")`` on the main
+   path's 1,048,576 replicated lanes (K1 launched; alpha and stats bit for
+   bit phase 4's; the reduced statistics, on the card, against
+   ``batch_summary``; solves/s beside phase 4's); two fresh processes of
+   this script (``shard-worker``) share the card under an explicit gloo
+   group, 524,288 of those lanes each (bit for bit phase 4's, the same
+   statistics on both ranks, their combined solves/s), then 16,384 random
+   scenes (2 x 8,192) on ``pallas`` and ``xla``, each rank's shard bit for
+   bit the same shard solved locally here; NCCL asked for two ranks on the
+   one card must raise; ``scaling.py --backend fused --repeats 2`` in one
+   process and with ``--spawn 2`` (both JSON lines printed); and the
+   visualization's ``cost_grid`` on the card against the CPU, without
+   matplotlib.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -203,7 +218,7 @@ spills and occupancy, and K1 the main path's peak device memory; under
 their lane agreement), under ``streamed`` those at T=200 (phase 17), and
 under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
 18; K1-bf16 also past the f32 plans' ceiling), and under ``entry_points``
-phase 19's numbers.  K7's line carries K1-BLS
+phase 19's numbers, under ``sharded`` phase 20's.  K7's line carries K1-BLS
 at T=200 (the kernel it runs in) and K7 alone: ``ms_per_product``,
 ``matmul_ms`` (one torch.matmul of the same product), ``plain_ms_per_product``,
 ``l2_bytes_per_product`` (the design's: each row block once per tile) and
@@ -551,6 +566,8 @@ def main():
     if not lanes_match_lane0((res.alpha, *res.stats), 0):
         fail("phase 4: the main path's lanes differ from lane 0")
     alpha0 = res.alpha[0].clone()
+    stats0 = tuple(x[0].clone() for x in res.stats)
+    main_sps = MAIN_BATCH / best
 
     # The kernel and its plain version on the main path's inputs.
     del out, res
@@ -986,6 +1003,7 @@ def main():
                                         dev, ptxas)
     tiers = tier_phases(mt, bench, fs, roofline, fleet, dev, tier_inputs)
     entry = entry_point_phases(mt, fs, fleet, dev)
+    shards = sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps)
     phase_clock(None)
 
     kernels = [
@@ -996,7 +1014,8 @@ def main():
                      occupancy=occupancy["fused_solve", "bls"],
                      gd=gd["fused_solve"], exact=exact["fused_solve"],
                      streamed=large["fused_solve"],
-                     tiers=tiers["fused_solve"], entry_points=entry),
+                     tiers=tiers["fused_solve"], entry_points=entry,
+                     sharded=shards),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -1346,6 +1365,368 @@ def entry_point_phases(mt, fs, fleet, dev):
                    "peak_gib": peak, "converged": vb["converged_frac"],
                    "xla_converged": vb["xla_converged_frac"],
                    "converged_band_ok": conv_ok}
+    return out
+
+
+# Phase 20, the sharded path: the two-process run's ranks, the random
+# scenes of its per-shard check, the timed repeats of a solve and of the
+# statistics' reduction alone, the ranks' timeout (all of them together),
+# the tolerance of the reduced means against torch's (a float32 sum over
+# the shards divided by n against torch.mean's scaled sum) and of the cost
+# grid on the card against the CPU (float32, sums in another order).
+SHARD_RANKS = 2
+SHARD_RANDOM = 16384
+SHARD_RANDOM_CASES = ("pallas", "xla", "fused-compaction")
+SHARD_REPEATS = 2
+SHARD_STATS_REPEATS = 5
+SHARD_TIMEOUT = 300
+STATS_MEAN_RTOL = 1e-5
+GRID_RTOL = 1e-6
+
+
+def shard_case(cfg, case):
+    """The backend and config of a random-scenes case of phase 20:
+    ``fused-compaction`` is the fused backend with lane compaction (K2 per
+    penalty round)."""
+    return case.split("-")[0], cfg.replace(
+        lane_compaction=case.endswith("compaction"))
+
+
+def spawn_ranks(mode, outdir, n=SHARD_RANKS):
+    """n fresh interpreters of this script as the ranks of one group
+    (``shard-worker``, through ``distributed.run_local_ranks``); each
+    writes its findings to outdir.  Returns their (exit code, stderr
+    tail); ranks still running after SHARD_TIMEOUT are killed."""
+    from irm_motion_planning_tpu_torch.parallel import distributed as dist
+
+    port = dist.free_port()
+    ranks = dist.run_local_ranks(
+        [[sys.executable, os.path.abspath(__file__), "shard-worker", mode,
+          str(i), str(n), str(port), outdir] for i in range(n)],
+        timeout=SHARD_TIMEOUT)
+    for _, out, _ in ranks:
+        sys.stdout.write(out)
+    return [(rc, err[-2000:]) for rc, _, err in ranks]
+
+
+def stats_floats(stats):
+    return {k: float(v) for k, v in stats.items()}
+
+
+def timed_sharded(run, scns, barrier=None):
+    """Best wall time of SHARD_REPEATS runs after a warm-up, each ended by
+    a synchronize and a host read of the reduced statistics; with
+    ``barrier`` the ranks start each run together."""
+    res, stats = run(scns)
+    times = []
+    for _ in range(SHARD_REPEATS):
+        if barrier:
+            barrier()
+        t0 = time.perf_counter()
+        res, stats = run(scns)
+        torch.cuda.synchronize()
+        float(stats["n_total"])
+        times.append(time.perf_counter() - t0)
+    return res, stats, times
+
+
+def timed_stats(sharded, mesh, parts, barrier=None):
+    """Best wall time (ms) of SHARD_STATS_REPEATS reductions of the fleet
+    statistics of solved shards (``sharded.fleet_stats``: the per-shard
+    sums and max, the all_reduce SUM and MAX over the group, a host read),
+    after one untimed; with ``barrier`` the ranks start each together."""
+    times = []
+    for _ in range(SHARD_STATS_REPEATS + 1):
+        torch.cuda.synchronize()
+        if barrier:
+            barrier()
+        t0 = time.perf_counter()
+        float(sharded.fleet_stats(mesh, parts)["n_total"])
+        times.append(time.perf_counter() - t0)
+    return 1e3 * min(times[1:])
+
+
+def shard_worker(argv):
+    """One rank of phase 20's gloo group on the card (``python3
+    chip_smoke.py shard-worker MODE RANK N PORT OUTDIR``).
+
+    ``shards``: its half of the main path's replicated lanes on the fused
+    backend (K1), timed in step with the other rank, every lane held to
+    phase 4's lane 0 (alpha and stats, bit for bit), and the statistics'
+    reduction timed alone; then its half of SHARD_RANDOM random scenes in
+    each of SHARD_RANDOM_CASES, the shard's results and its kernels'
+    launches written for the parent's per-shard check.  ``nccl-dup``: NCCL
+    asked for two ranks on the one card must raise, naming it."""
+    import irm_motion_planning_tpu_torch as mt
+    from irm_motion_planning_tpu_torch import bench
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+    from irm_motion_planning_tpu_torch.ops import step_kernels as sk
+    from irm_motion_planning_tpu_torch.parallel import distributed as dist
+    from irm_motion_planning_tpu_torch.parallel import mesh as meshlib
+    from irm_motion_planning_tpu_torch.parallel import sharded
+
+    mode, rank, n, port, outdir = argv[0], int(argv[1]), int(argv[2]), \
+        argv[3], argv[4]
+    coord = f"127.0.0.1:{port}"
+    if mode == "nccl-dup":
+        try:
+            dist.initialize_distributed(coord, n, rank,
+                                        initialization_timeout=60)
+        except RuntimeError as e:
+            print(f"rank {rank}: {e}", flush=True)
+            return 0 if "two ranks on one GPU" in str(e) else 1
+        print(f"rank {rank}: NCCL formed a group of {n} ranks on one card",
+              flush=True)
+        return 1
+    import torch.distributed as tdist
+
+    dist.initialize_distributed(coord, n, rank, initialization_timeout=120,
+                                backend="gloo")
+    ref = torch.load(os.path.join(outdir, "ref.pt"))
+    mesh = meshlib.make_mesh()
+    cfg = bench.bench_config()
+    basis = mt.make_basis(cfg)
+    sl = dist.local_batch_slice(MAIN_BATCH)
+    local = mt.replicate_scenario(mt.reference_scenario(cfg),
+                                  sl.stop - sl.start)
+    scns = dist.global_scenarios_from_local(mesh, local)
+    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet",
+                                        backend="fused")
+    fs.fused_solve.launches = 0
+    res, stats, times = timed_sharded(run, scns, tdist.barrier)
+    launches = fs.fused_solve.launches
+    part = res.parts[0]
+    a0 = ref["alpha0"].to(part.alpha.device)
+    bits = torch.equal(part.alpha, a0.expand_as(part.alpha)) and all(
+        torch.equal(x, x0.to(x.device).expand_as(x))
+        for x, x0 in zip(part.stats, ref["stats0"]))
+    out = {"fused": {"stats": stats_floats(stats), "times": times,
+                     "launches": launches, "bitwise_phase4": bits,
+                     "offsets": res.offsets, "stats_device": str(
+                         stats["n_total"].device),
+                     "stats_ms": timed_stats(sharded, mesh, res.parts,
+                                             tdist.barrier)}}
+    del res, part, scns, local
+    rscns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
+                                SHARD_RANDOM)
+    rsl = dist.local_batch_slice(SHARD_RANDOM)
+    sh = dist.global_scenarios_from_local(
+        mesh, mt.Scenario(*(x[rsl] for x in rscns)))
+    for case in SHARD_RANDOM_CASES:
+        backend, ccfg = shard_case(cfg, case)
+        counters = ((fs.fused_solve, fs.fused_round) if backend == "fused"
+                    else (sk.bls_inner_step, sk.cost_grad_eval,
+                          sk.forward_eval))
+        for k in counters:
+            k.launches = 0
+        res, stats = sharded.make_shard_map_solver(
+            ccfg, basis, mesh, engine="fleet", backend=backend)(sh)
+        out[case] = {
+            "stats": stats_floats(stats), "offsets": res.offsets,
+            "parts": [(p.alpha.cpu(), tuple(x.cpu() for x in p.stats))
+                      for p in res.parts],
+            "launches": {k.__name__: k.launches for k in counters}}
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    tdist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps):
+    """Phase 20: the sharded path (parallel/) on the card.  (a) A one-rank
+    NCCL group drives make_shard_map_solver(engine="fleet",
+    backend="fused") on the main path's lanes: alpha bit for bit phase 4's,
+    the reduced statistics against batch_summary, solves/s beside phase
+    4's.  (b) Two fresh processes under an explicit gloo group share the
+    card, half the lanes each: bit for bit phase 4's, equal statistics on
+    both ranks, their combined solves/s; and SHARD_RANDOM random scenes on
+    pallas, xla and fused with lane compaction (K2), each rank's shards bit
+    for bit the per-shard local solve.  In (a) and (b) the statistics'
+    reduction is also timed alone.  NCCL asked for two ranks on the card
+    raises.  (c) scaling.py
+    on the fused backend, one process and --spawn 2.  (d) The cost grid of
+    the visualization on the card against the CPU, with no matplotlib.
+    Returns the numbers for K1's kernels-line entry (K2's launches under
+    ``random_launches``)."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from irm_motion_planning_tpu_torch import bench
+    from irm_motion_planning_tpu_torch.parallel import distributed as dist
+    from irm_motion_planning_tpu_torch.parallel import mesh as meshlib
+    from irm_motion_planning_tpu_torch.parallel import sharded
+    from irm_motion_planning_tpu_torch.solvers import batched
+
+    phase_clock(20)
+    out = {}
+    # (a) one rank, NCCL.
+    if not dist.initialize_distributed(f"127.0.0.1:{dist.free_port()}", 1, 0,
+                                       initialization_timeout=120):
+        fail("phase 20: initialize_distributed formed no group")
+    if tdist.get_backend() != "nccl":
+        fail(f"phase 20: the one-rank group runs {tdist.get_backend()}, not "
+             f"nccl")
+    cfg = bench.bench_config()
+    basis = mt.make_basis(cfg, device=dev)
+    mesh = meshlib.make_mesh()
+    scns = meshlib.shard_batch(mesh, mt.replicate_scenario(
+        mt.reference_scenario(cfg, device=dev), MAIN_BATCH))
+    run = sharded.make_shard_map_solver(cfg, basis, mesh, engine="fleet",
+                                        backend="fused")
+    fs.fused_solve.launches = 0
+    res, stats, times = timed_sharded(run, scns)
+    launches = fs.fused_solve.launches
+    stats_ms = timed_stats(sharded, mesh, res.parts)
+    part = res.parts[0]
+    bits = torch.equal(part.alpha, alpha0.expand_as(part.alpha)) and all(
+        torch.equal(x, x0.expand_as(x)) for x, x0 in zip(part.stats, stats0))
+    summary = batched.batch_summary(part)
+    st = stats_floats(stats)
+    want = {"n_total": float(summary["n"]),
+            **{k: float(summary[k]) for k in sharded.STATS_KEYS[1:]}}
+    stats_ok = all(
+        st[k] == want[k] if k in ("n_total", "converged_fraction",
+                                  "max_final_cost")
+        else abs(st[k] - want[k]) <= STATS_MEAN_RTOL * abs(want[k])
+        for k in sharded.STATS_KEYS)
+    sps = MAIN_BATCH / min(times)
+    say(f"phase 20 one-rank NCCL group (backend {tdist.get_backend()}): "
+        f"make_shard_map_solver(fleet, fused) on {MAIN_BATCH} replicated "
+        f"lanes: {sps:.1f} solves/s (phase 4: {main_sps:.1f}, ratio "
+        f"{sps / main_sps:.4f}; best of {[round(t, 4) for t in times]} s), "
+        f"K1 launches {launches}; the statistics' reduction alone "
+        f"{stats_ms:.4f} ms (best of {SHARD_STATS_REPEATS}); alpha and stats bit for bit phase 4's "
+        f"{bits}; statistics on {stats['n_total'].device} {st} against "
+        f"batch_summary {want} (means within {STATS_MEAN_RTOL:g}): "
+        f"{'PASS' if stats_ok else 'FAIL'}")
+    if launches < 1:
+        fail("phase 20: the sharded main path did not launch K1")
+    if not bits:
+        fail("phase 20: the one-rank sharded run differs from phase 4's K1 "
+             "result")
+    if not stats_ok or stats["n_total"].device.type != "cuda":
+        fail("phase 20: the NCCL group's statistics differ from "
+             "batch_summary or left the card")
+    out.update(launches=launches, solves_per_sec=sps,
+               main_path_solves_per_sec=main_sps, stats=st,
+               stats_reduction_ms=stats_ms)
+    tdist.destroy_process_group()
+    del res, part, scns, run
+    torch.cuda.empty_cache()
+
+    # (b) two processes on the card under gloo.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    torch.save({"alpha0": alpha0.cpu(),
+                "stats0": tuple(x.cpu() for x in stats0)},
+               os.path.join(tmp, "ref.pt"))
+    for rc, err in spawn_ranks("shards", tmp):
+        if rc != 0:
+            fail(f"phase 20: a gloo rank exited {rc}: {err}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{i}.pt"))
+             for i in range(SHARD_RANKS)]
+    f0, f1 = ranks[0]["fused"], ranks[1]["fused"]
+    wall = [max(t) for t in zip(f0["times"], f1["times"])]
+    two_sps = MAIN_BATCH / min(wall)
+    say(f"phase 20 {SHARD_RANKS} processes on the card, explicit gloo, "
+        f"{MAIN_BATCH // SHARD_RANKS} lanes each (fused): combined "
+        f"{two_sps:.1f} solves/s ({two_sps / sps:.4f} of one process; "
+        f"slower rank per run {[round(t, 4) for t in wall]} s), K1 launches "
+        f"per rank {[r['fused']['launches'] for r in ranks]}, offsets "
+        f"{[r['fused']['offsets'] for r in ranks]}, statistics on "
+        f"{f0['stats_device']}, their reduction alone per rank "
+        f"{[round(r['fused']['stats_ms'], 4) for r in ranks]} ms; every lane bit for bit phase 4's "
+        f"{[r['fused']['bitwise_phase4'] for r in ranks]}; statistics equal "
+        f"on both ranks {f0['stats'] == f1['stats']} and to the one-rank "
+        f"run's {f0['stats'] == st}")
+    if not all(r["fused"]["bitwise_phase4"] and r["fused"]["launches"] >= 1
+               for r in ranks):
+        fail("phase 20: a gloo rank's lanes differ from phase 4's, or it did "
+             "not launch K1")
+    if not (f0["stats"] == f1["stats"] and f0["stats"]["n_total"] ==
+            MAIN_BATCH):
+        fail("phase 20: the ranks' statistics differ")
+    out.update(two_process_solves_per_sec=two_sps,
+               two_process_launches=[r["fused"]["launches"] for r in ranks],
+               two_process_stats_reduction_ms=[r["fused"]["stats_ms"]
+                                               for r in ranks])
+    # The random scenes: each rank's shard against the same shard solved
+    # locally in this process.
+    rcfg = bench.bench_config()
+    rscns = mt.random_scenarios(rcfg, torch.Generator().manual_seed(5),
+                                SHARD_RANDOM, device=dev)
+    must_launch = {"pallas": ("bls_inner_step", "cost_grad_eval",
+                              "forward_eval"),
+                   "xla": (), "fused-compaction": ("fused_round",)}
+    for case in SHARD_RANDOM_CASES:
+        backend, ccfg = shard_case(rcfg, case)
+        got = [(o, p) for r in ranks
+               for o, p in zip(r[case]["offsets"], r[case]["parts"])]
+        per = SHARD_RANDOM // len(got)
+        same = True
+        for o, (alpha, stats_p) in got:
+            want_p = fleet.fleet_solve(ccfg, basis, mt.Scenario(
+                *(x[o:o + per] for x in rscns)), backend=backend)
+            same = same and torch.equal(alpha, want_p.alpha.cpu()) and all(
+                torch.equal(x, y.cpu()) for x, y in zip(stats_p,
+                                                          want_p.stats))
+        equal = ranks[0][case]["stats"] == ranks[1][case]["stats"]
+        say(f"phase 20 {SHARD_RANDOM} random scenes ({SHARD_RANKS} x {per}) "
+            f"on {case}: each rank's shard bit for bit the per-shard "
+            f"local solve {same}; statistics equal on both ranks {equal} "
+            f"{ranks[0][case]['stats']}; launches per rank "
+            f"{[r[case]['launches'] for r in ranks]}")
+        if not (same and equal):
+            fail(f"phase 20: the {case} shards differ from the per-shard "
+                 f"local solve, or the ranks' statistics differ")
+        if any(r[case]["launches"][k] < 1 for r in ranks
+               for k in must_launch[case]):
+            fail(f"phase 20: a rank's {case} path did not launch "
+                 f"{', '.join(must_launch[case])}")
+    out["random_launches"] = {case: [r[case]["launches"] for r in ranks]
+                              for case in SHARD_RANDOM_CASES}
+    for rc, err in spawn_ranks("nccl-dup", tmp):
+        if rc != 0:
+            fail(f"phase 20: NCCL with two ranks on one card did not raise "
+                 f"as it should (exit {rc}): {err}")
+    say("phase 20 NCCL asked for two ranks on the one card: both ranks "
+        "raised, naming the shared card")
+
+    # (c) the scaling launcher, one process and two spawned.
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    out["scaling"] = []
+    for extra in ([], ["--spawn", "2"]):
+        cmd = [sys.executable, "-m", "irm_motion_planning_tpu_torch.scaling",
+               "--backend", "fused", "--repeats", "2"] + extra
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=SHARD_TIMEOUT)
+        if proc.returncode != 0:
+            fail(f"phase 20: {' '.join(cmd[2:])} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        sweep = json.loads(line)
+        say(f"phase 20 scaling.py {' '.join(cmd[3:])}: {line}")
+        if sweep["metric"] != "scaling_sweep" or not all(
+                math.isfinite(p["solves_per_sec"]) for p in sweep["points"]):
+            fail("phase 20: scaling.py printed no sweep")
+        out["scaling"].append(sweep)
+
+    # (d) the visualization's cost grid on the card, without matplotlib.
+    from irm_motion_planning_tpu_torch.visualization import plots
+
+    scn = mt.reference_scenario(mt.PlannerConfig(), device=dev)
+    _, _, card = plots.cost_grid(scn)
+    _, _, cpu = plots.cost_grid(scn, device="cpu")
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    say(f"phase 20 visualization.plots.cost_grid (81 x 81) on the card "
+        f"against the CPU: {err:.3g} of the largest cost (bound "
+        f"{GRID_RTOL:g}); matplotlib imported "
+        f"{'matplotlib' in sys.modules}")
+    if not (err <= GRID_RTOL and np.isfinite(card).all()):
+        fail("phase 20: the cost grid on the card differs from the CPU's")
+    if "matplotlib" in sys.modules:
+        fail("phase 20: the cost grid imported matplotlib")
+    out["cost_grid_rel_err"] = err
     return out
 
 
@@ -3455,4 +3836,6 @@ def kernel_entry(name, source, line, launches, max_abs_err, ms, plain_ms,
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["shard-worker"]:
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

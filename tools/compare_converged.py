@@ -5,7 +5,7 @@
         [--ladder-eval linearized] [--seed 0] \\
         [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
         [--one-rounding] [--contract dir,cand,nt,alpha,mix,field,sums] \\
-        [--endpoint]
+        [--endpoint] [--xla-only] [--rounds R] [--float64]
 
 On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
 tier ``--ladder-eval``, or GD; ``max_obstacles=11``) at T (a committed
@@ -37,6 +37,16 @@ comma list and the sets separated by ``/``; with ``--endpoint`` only the
 bench's reference scene is solved instead (bench.run_bench on the CPU,
 batch 2, the main path's plain version), as shipped and under each
 ``--contract`` set, and its endpoint error and strict verdict printed.
+``--xla-only`` runs the two xla engines alone (JAX's and the port's, as
+shipped: the accepted alpha rounded once); with it ``--rounds R`` cuts
+the schedule to its first R penalty rounds; ``--float64`` runs those two
+engines in float64 on the same scenes and the same basis (the float32
+export widened; JAX with x64 on and its explicit float32 constants read as
+float64, the port's one-rounding helper as a float64 multiply-add), which
+separates the semantics from the fp path (ROADMAP queue 3, fact 4).  It
+does so by patching the process's globals (``jnp.float32``, the port's
+``fma`` and ``robot.link_lengths``, torch's default dtype), so it runs
+alone, in a process of its own, as this command does.
 Prints the
 converged count of each per chunk, and in all the converged fraction, the
 mean accepted steps and the mean unpenalized obstacle cost (the paired
@@ -127,6 +137,66 @@ class contracted:
             setattr(tfs, name, fn)
 
 
+def xla_engines(a) -> int:
+    """``--xla-only`` / ``--float64``: JAX's xla engine and the port's on
+    the same scenes, in float32 as shipped or both in float64."""
+    import jax
+
+    cfg = bench.bench_config(solver=a.solver, n_timesteps=a.T,
+                             ladder_eval=a.ladder_eval)
+    if a.rounds:
+        cfg = cfg.replace(max_outer_iteration=a.rounds,
+                          inner_schedule=cfg.inner_schedule[:a.rounds])
+    jcfg = mp.PlannerConfig(
+        n_timesteps=a.T, bls_mode="ladder", fixed_iters=True,
+        inner_schedule=cfg.inner_schedule,
+        max_outer_iteration=cfg.max_outer_iteration,
+        max_inner_iteration=cfg.max_inner_iteration, max_obstacles=11,
+        ladder_eval=a.ladder_eval)
+    jb = mp.make_basis(jcfg)
+    tb = mt.make_basis(cfg, device="cpu")
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(a.seed),
+                               a.scenes, device="cpu")
+    if a.float64:
+        # The float32 basis and scenes widened, so both engines solve the
+        # same problem; then every float32 constant of either engine is a
+        # float64 one.
+        jax.config.update("jax_enable_x64", True)
+        jb = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), jb)
+        jnp.float32 = jnp.float64
+        torch.set_default_dtype(torch.float64)
+        tb = mt.Basis(*(x.double() for x in tb))
+        scns = mt.Scenario(*(x.double() for x in scns))
+        tfs.fma = lambda x, y, z: x * y + z
+        tfleet.robot.link_lengths = lambda c, device=None: torch.tensor(
+            c.link_length, dtype=torch.float64, device=device)
+    names = ("JAX xla", "port xla")
+    total, steps = np.zeros(2, dtype=int), np.zeros(2)
+    for lo in range(0, a.scenes, a.chunk):
+        sub = mt.Scenario(*(x[lo:lo + a.chunk] for x in scns))
+        js = mp.Scenario(*(jnp.asarray(x.numpy()) for x in sub))
+        runs = [jfleet.fleet_solve(jcfg, jb, js, solver=a.solver,
+                                   backend="xla"),
+                tfleet.fleet_solve(cfg, tb, sub, solver=a.solver,
+                                   backend="xla")]
+        if a.float64 and {str(r.alpha.dtype).split(".")[-1]
+                          for r in runs} != {"float64"}:
+            raise RuntimeError("--float64: an engine returned float32")
+        counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
+        total += counts
+        steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
+        print(f"scenes {lo}-{lo + a.chunk - 1}: "
+              + ", ".join(f"{n} {c}" for n, c in zip(names, counts)),
+              flush=True)
+    print(f"T={a.T} {a.solver} {a.ladder_eval}, "
+          f"{'float64' if a.float64 else 'float32'}, "
+          f"{cfg.max_outer_iteration} rounds, {a.scenes} scenes of seed "
+          f"{a.seed}, converged (fraction; mean accepted steps): "
+          + ", ".join(f"{n} {c} ({c / a.scenes:.4f}; {st / a.scenes:.2f})"
+                      for n, c, st in zip(names, total, steps)))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--T", type=int, default=200)
@@ -141,7 +211,14 @@ def main(argv=None) -> int:
     ap.add_argument("--one-rounding", action="store_true")
     ap.add_argument("--contract", default="")
     ap.add_argument("--endpoint", action="store_true")
+    ap.add_argument("--xla-only", action="store_true")
+    ap.add_argument("--rounds", type=int, default=0)
+    ap.add_argument("--float64", action="store_true")
     a = ap.parse_args(argv)
+    if a.rounds and not (a.float64 or a.xla_only):
+        ap.error("--rounds cuts the schedule of --xla-only or --float64 only")
+    if a.float64 or a.xla_only:
+        return xla_engines(a)
     if a.solver == "gd" and a.tiers:
         ap.error("the kernel tiers are programs of BLS")
     cfg = bench.bench_config(solver=a.solver, n_timesteps=a.T,
