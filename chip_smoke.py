@@ -164,7 +164,7 @@ ceiling).  Phases:
    run, its converged fraction against xla printed, and K2 one round
    against plain; past the f32 plans' ceiling,
    fleet_solve(backend="fused", bls_bf16_ladder=True) at T=2,200 on 512
-   random scenes (a basis built here, harness_basis) must take the
+   random scenes (the basis make_basis builds at that T, timed) must take the
    planner's bf16 plan and launch K1 once, and is timed; K1 agrees with the
    plain version under phase 2's rule; without the opt-in it warns and
    runs xla;
@@ -199,7 +199,26 @@ ceiling).  Phases:
    one card must raise; ``scaling.py --backend fused --repeats 2`` in one
    process and with ``--spawn 2`` (both JSON lines printed); and the
    visualization's ``cost_grid`` on the card against the CPU, without
-   matplotlib.
+   matplotlib;
+21. any arm (K1-K7 built for other joint counts J; the libraries of J = 5
+   and 7 build in the background from phase 1, their seconds and ptxas
+   registers and spills printed): ``build_basis`` at (T=72, J=5) must give
+   the sha256 tests/test_torch_basis_build.py pins (its CPU seconds at
+   T = 50, 200 printed); on JAX's 5-link test arm at T=50, 1,048,576 random
+   scenes through ``fleet_solve(backend="fused")`` (one K1 launch; solves/s,
+   K1's time and bound) with the paired xla gate on 32,768 lanes
+   (required), then with compaction (ten K2 launches, bit for bit K1), for
+   BLS and GD; each kernel against its plain version on 65,536 random
+   scenes (K1 and K2 at 1 round x 4 steps, K2-ultra and K2-bf16 one round,
+   K3-K6 one step: >= 0.99; K6 bit for bit K5), the 999-lane ragged batch
+   and three lanes alone bit for bit, the full schedule on 16,384 scenes (>=
+   0.87) and the per-step paths there bit for bit K1; at T=200 (the
+   streamed plan) 65,536 random scenes per program through K1 (converged
+   within bench.py's band of the plain version's on 8,192 lanes; the
+   paired gate required for exact and GD, printed for the linearized
+   ladder) and K7 alone (bit for bit K6, beside one torch.matmul); the
+   7-link arm at T=50: K1 against plain on 65,536 lanes and the paired
+   gate; the CLI with ``--n-joints 5`` on the card.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -218,7 +237,10 @@ spills and occupancy, and K1 the main path's peak device memory; under
 their lane agreement), under ``streamed`` those at T=200 (phase 17), and
 under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
 18; K1-bf16 also past the f32 plans' ceiling), and under ``entry_points``
-phase 19's numbers, under ``sharded`` phase 20's.  K7's line carries K1-BLS
+phase 19's numbers, under ``sharded`` phase 20's; every kernel under
+``joints`` phase 21's by J (launches, ms, bound, ptxas registers and
+spills, lane agreement), K1 also the built basis' digest and the libraries'
+build seconds.  K7's line carries K1-BLS
 at T=200 (the kernel it runs in) and K7 alone: ``ms_per_product``,
 ``matmul_ms`` (one torch.matmul of the same product), ``plain_ms_per_product``,
 ``l2_bytes_per_product`` (the design's: each row block once per tile) and
@@ -333,7 +355,9 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_report((_build.build_info or {}).get("log", ""))
+    # Phase 21's libraries (J = 5, 7) build while phases 2-20 run.
+    joint_builds = start_joint_builds(_build)
+    ptxas = ptxas_report(_build.builds.get(3, {}).get("log", ""))
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
         f"{build_s:.1f}s")
@@ -1004,7 +1028,15 @@ def main():
     tiers = tier_phases(mt, bench, fs, roofline, fleet, dev, tier_inputs)
     entry = entry_point_phases(mt, fs, fleet, dev)
     shards = sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps)
+    joints = joints_phase(mt, bench, fs, sk, roofline, fleet, dev,
+                          joint_builds)
     phase_clock(None)
+
+    def at_j(*names):
+        """Phase 21's entries of the kernel ``names`` (its programs), by
+        J."""
+        return {J: {n: joints[n][J] for n in names if J in joints.get(n, {})}
+                for J in sorted({J for n in names for J in joints.get(n, {})})}
 
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
@@ -1015,7 +1047,10 @@ def main():
                      gd=gd["fused_solve"], exact=exact["fused_solve"],
                      streamed=large["fused_solve"],
                      tiers=tiers["fused_solve"], entry_points=entry,
-                     sharded=shards),
+                     sharded=shards,
+                     joints=at_j("fused_solve", "fused_solve_gd",
+                                 "fused_solve_exact"),
+                     built_basis=joints["basis"], builds=joints["build"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -1024,7 +1059,8 @@ def main():
                      occupancy=occupancy["fused_round", "bls"],
                      gd=gd["fused_round"], exact=exact["fused_round"],
                      streamed=large["fused_round"],
-                     tiers=tiers["fused_round"]),
+                     tiers=tiers["fused_round"],
+                     joints=at_j("fused_round", "fused_round_gd")),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"], exact=exact["bls_inner_step"],
@@ -1034,14 +1070,16 @@ def main():
                      occupancy={
                          "linearized": occupancy["bls_inner_step"],
                          "exact": occupancy["bls_inner_step_exact"]},
-                     path_peak_gib=paths["bls"][2]),
+                     path_peak_gib=paths["bls"][2],
+                     joints=at_j("bls_inner_step")),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
                      *step_time["gd"], streamed=large["gd_inner_step"],
                      ptxas={k: v for k, v in ptxas.items()
                             if k.startswith("gd_step")},
                      occupancy=occupancy["gd_inner_step"],
-                     path_peak_gib=paths["gd"][2]),
+                     path_peak_gib=paths["gd"][2],
+                     joints=at_j("gd_inner_step")),
         # K5 runs on both per-step paths: ``launches`` is the BLS path's
         # count, the GD path's stands beside it.
         kernel_entry("cost_grad_eval", "step_kernels.cu", 1821,
@@ -1051,7 +1089,8 @@ def main():
                      streamed=large["cost_grad_eval"],
                      ptxas={k: v for k, v in ptxas.items()
                             if k.startswith("cost_grad_eval")},
-                     occupancy=occupancy["cost_grad_eval"]),
+                     occupancy=occupancy["cost_grad_eval"],
+                     joints=at_j("cost_grad_eval")),
         kernel_entry("forward_eval", "step_kernels.cu", 1767,
                      paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
                      k6_plain_ms, k6_bound, library_ms=k6_lib_ms,
@@ -1059,8 +1098,9 @@ def main():
                      ptxas={k: v for k, v in ptxas.items()
                             if k.startswith("forward_eval")},
                      occupancy=occupancy["forward_eval"],
-                     fraction_of_bound=k6_bound.ms / k6_ms),
-        large["k7"],
+                     fraction_of_bound=k6_bound.ms / k6_ms,
+                     joints=at_j("forward_eval")),
+        {**large["k7"], "joints": at_j("k7")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if not all(math.isfinite(x) for e in kernels
@@ -1236,7 +1276,7 @@ def entry_point_phases(mt, fs, fleet, dev):
     scn1 = mt.reference_scenario(rcfg, device=dev)
     lib = _build.load_library()
     real_build, builds = _build.build, []
-    _build.build = lambda: builds.append(1) or real_build()
+    _build.build = lambda *a, **k: builds.append(1) or real_build(*a, **k)
     out["replan"] = {}
     try:
         for mode, batched, scn in (
@@ -1727,6 +1767,487 @@ def sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps):
     if "matplotlib" in sys.modules:
         fail("phase 20: the cost grid imported matplotlib")
     out["cost_grid_rel_err"] = err
+    return out
+
+
+# Phase 21, any arm: the joint counts beside the reference arm's three,
+# JAX's own 5-link test arm (tests/test_basis.py) and a 7-link arm.  The
+# batches: J=5's main path at full width and its paired check; the kernels
+# against their plain versions; the full schedule against plain (cut from
+# JOINT_LANES for the phase's time); the lanes solved alone; T=200's batch
+# and the lanes of its paired check and plain comparison (cut from 8,192
+# for the phase's time: the exact ladder's plain version and xla engine at
+# T=200 take tens of seconds there); the tally's lanes.  The built basis'
+# digest at (T=72, J=5), pinned by tests/test_torch_basis_build.py.
+JOINT_ARMS = {5: (1.0, 0.8, 0.6, 0.4, 0.2),
+              7: (1.0, 0.9, 0.8, 0.6, 0.4, 0.3, 0.2)}
+JOINT_MAIN = 1048576
+JOINT_CHECK = 32768
+JOINT_TALLY = 8192
+JOINT_LANES = 65536
+JOINT_FULL = 16384
+JOINT_ALONE = (0, 500, 998)
+JOINT_LARGE = 65536
+JOINT_LARGE_CHECK = 4096
+JOINT7_CHECK = 8192
+BASIS_T72_J5_SHA256 = (
+    "c98422d34367636aa58151c0971106be7493d96e935f7726aecddf4221b68a63")
+
+
+def start_joint_builds(_build):
+    """Build the kernel libraries of JOINT_ARMS' joint counts (one nvcc per
+    source, all started together) in threads, while phases 2-20 run;
+    returns (threads, errors by J, start time).  The threads are not
+    daemons: the interpreter waits for them (and their nvcc processes)
+    before it exits, whatever phase ends the run."""
+    import threading
+
+    errors = {}
+
+    def run(J):
+        try:
+            _build.build(J)
+        except Exception as e:  # noqa: BLE001 -- reported in phase 21
+            errors[J] = e
+
+    threads = [threading.Thread(target=run, args=(J,)) for J in JOINT_ARMS]
+    for t in threads:
+        t.start()
+    return threads, errors, time.perf_counter()
+
+
+def arm_config(cfg, J):
+    return cfg.replace(n_joints=J, link_length=JOINT_ARMS[J])
+
+
+def joint_ptxas(report):
+    """The ptxas lines of a J library by phase 21's kernel entries: K1/K2
+    per program (``fused_solve`` and ``fused_round`` the linearized
+    ladder's with its kernel tiers), K3-K6, K7 alone."""
+    def of(*prefixes):
+        return {k: v for k, v in report.items() if k.startswith(prefixes)}
+
+    tiers = tuple(f"{k}<{p}," for k in ("fused_solve", "fused_round")
+                  for p in ("bls", "bls_ultra", "bls_bf16"))
+    return {"fused_solve": of(*tiers[:3]), "fused_round": of(*tiers[3:]),
+            "fused_solve_gd": of("fused_solve<gd,"),
+            "fused_round_gd": of("fused_round<gd,"),
+            "fused_solve_exact": of("fused_solve<bls_exact,"),
+            "bls_inner_step": of("bls_step<"),
+            "gd_inner_step": of("gd_step<"),
+            "cost_grad_eval": of("cost_grad_eval<"),
+            "forward_eval": of("forward_eval<"), "k7": of("k7_forward")}
+
+
+def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
+    """Phase 21: K1-K7 at J = 5 and 7 (the libraries built in the
+    background since phase 1), the built basis and the CLI at J = 5.
+    Returns {kernel: {J: entry}} for the kernels line."""
+    import hashlib
+
+    from irm_motion_planning_tpu_torch import cli
+    from irm_motion_planning_tpu_torch.models import rkhs
+    from irm_motion_planning_tpu_torch.ops import _build
+
+    phase_clock(21)
+    threads, errors, t_start = builds
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"phase 21: the kernel build failed: {errors}")
+    for J in JOINT_ARMS:
+        _build.load_library(J)
+    info = {J: _build.builds.get(J, {}) for J in JOINT_ARMS}
+    ptx = {J: joint_ptxas(ptxas_report(info[J].get("log", "")))
+           for J in JOINT_ARMS}
+    say(f"phase 21 the J={'/'.join(map(str, JOINT_ARMS))} libraries: built "
+        f"in {[round(info[J].get('seconds', 0.0), 1) for J in JOINT_ARMS]} s "
+        f"each, in the background from phase 1 ({t0 - t_start:.1f} s ago); "
+        f"waited {time.perf_counter() - t0:.1f} s here")
+    for J in JOINT_ARMS:
+        say(f"phase 21 J={J} ptxas {ptx[J]}")
+    O = 11
+    out = {}
+
+    def put(name, J, **kw):
+        out.setdefault(name, {}).setdefault(str(J), {}).update(kw)
+
+    # (a) The built basis: one config, one basis, on this machine's CPU as
+    # on the CPU of the test that pins the digest; its cost.
+    c72 = arm_config(mt.PlannerConfig(n_timesteps=72), 5)
+    h = hashlib.sha256()
+    for x in rkhs.build_basis(c72, device="cpu"):
+        h.update(np.ascontiguousarray(x.numpy(), np.float32).tobytes())
+    build_s = {}
+    for T in (50, 200):
+        t1 = time.perf_counter()
+        rkhs._build(mt.PlannerConfig(n_timesteps=T))
+        build_s[T] = time.perf_counter() - t1
+    say(f"phase 21 build_basis at (T=72, J=5): sha256 {h.hexdigest()} "
+        f"(pinned {BASIS_T72_J5_SHA256}); CPU seconds at T=50 "
+        f"{build_s[50]:.3f}, T=200 {build_s[200]:.3f}")
+    if h.hexdigest() != BASIS_T72_J5_SHA256:
+        fail("phase 21: build_basis gives other bits on this machine")
+
+    # (b) J=5, T=50: the main path at full width, fleet_solve on the fused
+    # backend (one K1 launch), its paired xla gate, and with compaction (K2,
+    # a launch per round), bit for bit; BLS and GD.
+    cfg5 = arm_config(bench.bench_config(), 5)
+    basis5 = mt.make_basis(cfg5, device=dev)
+    scns = mt.random_scenarios(cfg5, torch.Generator().manual_seed(0),
+                               JOINT_MAIN, device=dev)
+    gates_ok = True
+    for solver in ("bls", "gd"):
+        c = arm_config(bench.bench_config(solver=solver), 5)
+        rounds = len(fs.inner_schedule(c))
+        fleet.fleet_solve(c, basis5, mt.Scenario(*(x[:4096] for x in scns)),
+                          solver=solver, backend="fused")
+        fs.fused_solve.launches = fs.fused_round.launches = 0
+        with KernelTimer(fs, "fused_solve") as timer:
+            res, ms = timed(lambda: fleet.fleet_solve(
+                c, basis5, scns, solver=solver, backend="fused"))
+        k1_n, k1_ms = fs.fused_solve.launches, timer.total_ms()
+        if k1_n != 1 or fs.fused_round.launches != 0:
+            fail(f"phase 21: the J=5 main path ({solver}) launched K1 {k1_n}, "
+                 f"K2 {fs.fused_round.launches} times")
+        gate = bench.paired_gate(c, basis5, scns, res, JOINT_CHECK, solver)
+        b = gate["bands"]
+        fs.fused_solve.launches = fs.fused_round.launches = 0
+        with KernelTimer(fs, "fused_round") as t2:
+            res2 = fleet.fleet_solve(c.replace(lane_compaction=True), basis5,
+                                     scns, solver=solver, backend="fused")
+        k2_n, k2_ms = fs.fused_round.launches, t2.total_ms()
+        same = same_result(res, res2)
+        del res2
+        args = fleet.fused_args(c, basis5, scns)
+        sub = plain_tally(fs.fused_solve_reference, c, *args[1:4],
+                          *(x[..., :JOINT_TALLY] for x in args[4:]),
+                          solver=solver)
+        scale = JOINT_MAIN / JOINT_TALLY
+        ran = res.stats.outer_iters + res.stats.converged.int()
+        tally = kernel_counts({k: v * scale for k, v in sub.items()},
+                              float(ran.sum()),
+                              float(res.stats.inner_iters.sum()), solver)
+        b1 = roofline.fused_rounds(JOINT_MAIN, 50, 5, O, tally, True, solver)
+        live = [float((ran > r).sum()) for r in range(rounds)]
+        b2 = roofline.fused_round_launches(JOINT_MAIN, 50, 5, O, tally, live,
+                                           solver)
+        say(f"phase 21 J=5 main path ({solver}, {JOINT_MAIN} random scenes, "
+            f"fleet_solve fused): {JOINT_MAIN / ms * 1e3:.1f} solves/s "
+            f"({ms:.1f} ms), {k1_n} K1 launch {k1_ms:.1f} ms (bound "
+            f"{b1.ms:.1f} ms by {b1.by}, {k1_ms / b1.ms:.2f}x); converged "
+            f"{float(res.stats.converged.float().mean()):.4f}; paired xla "
+            f"gate on {JOINT_CHECK} lanes: converged "
+            f"{b['check_converged_frac']:.4f} vs {b['xla_converged_frac']:.4f}"
+            f" (band {b['converged']:.4f}), obstacle cost "
+            f"{b['check_obstacle_cost']:.5f} vs {b['xla_obstacle_cost']:.5f} "
+            f"(band {b['cost']:.5f}), phantom {gate['fields']['phantom_frac']}"
+            f" (bound {b['phantom']:.2e}): "
+            f"{'PASS' if gate['ok'] else 'FAIL'}; with compaction {k2_n} K2 "
+            f"launches, {k2_ms:.1f} ms per solve (bound {b2.ms:.1f}), bit for "
+            f"bit K1's: {same}")
+        gates_ok = gates_ok and gate["ok"]
+        if k2_n != rounds or not same:
+            fail(f"phase 21: the J=5 rounds driver ({solver}) launched K2 "
+                 f"{k2_n} times or differs from K1")
+        if not torch.isfinite(res.alpha).all():
+            fail("phase 21: non-finite alpha on the J=5 main path")
+        k1 = "fused_solve" if solver == "bls" else "fused_solve_gd"
+        k2 = "fused_round" if solver == "bls" else "fused_round_gd"
+        put(k1, 5, launches=k1_n, ms=k1_ms, bound_ms=b1.ms, bound_by=b1.by,
+            lanes=JOINT_MAIN, solves_per_sec=JOINT_MAIN / ms * 1e3,
+            gate_ok=gate["ok"])
+        put(k2, 5, launches=k2_n, ms_per_solve=k2_ms, bound_ms=b2.ms,
+            bound_by=b2.by, lanes=JOINT_MAIN)
+        del res, args
+        torch.cuda.empty_cache()
+    del scns
+    if not gates_ok:
+        fail("phase 21: the J=5 paired xla gate failed")
+
+    # (c) J=5, T=50: each kernel against its plain version on JOINT_LANES
+    # random scenes: K1/K2 at 1 round x 4 steps, K3-K6 one step, the
+    # tiers' round; the ragged batch and lanes alone bit for bit; the full
+    # schedule on JOINT_FULL lanes; the per-step paths once each.
+    short = arm_config(mt.PlannerConfig(
+        max_outer_iteration=1, max_inner_iteration=4, fixed_iters=True,
+        max_obstacles=O), 5)
+    scn = mt.random_scenarios(short, torch.Generator().manual_seed(1),
+                              JOINT_LANES, device=dev)
+    args = fleet.fused_args(short, basis5, scn)
+    for solver in ("bls", "gd"):
+        k = fs.fused_solve(*args, solver=solver)
+        p, p_ms = timed(lambda: fs.fused_solve_reference(*args, solver=solver))
+        agree, rel = fs.lane_agreement(p, k)
+        say(f"phase 21 J=5 K1-{solver} against plain ({JOINT_LANES} lanes, "
+            f"1x4 steps): lane agreement {agree:.4f}, alpha {rel:.3g} of the "
+            f"lane's scale; plain {p_ms:.1f} ms")
+        if agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX:
+            fail(f"phase 21: J=5 K1-{solver} disagrees with its plain version")
+        put("fused_solve" if solver == "bls" else "fused_solve_gd", 5,
+            lane_agreement_short=agree, max_abs_err=float(
+                (k.alpha - p.alpha).abs().max()))
+        if solver == "bls":
+            kbls = k
+    cut = [x[..., :ODD_BATCH] for x in args[4:]]
+    if not all(torch.equal(x, y[..., :ODD_BATCH]) for x, y in zip(
+            fs.fused_solve(short, *args[1:4], *cut), kbls)):
+        fail(f"phase 21: J=5 K1 on {ODD_BATCH} lanes differs from the same "
+             f"lanes of the {JOINT_LANES}-lane run")
+    for i in JOINT_ALONE:
+        one = fs.fused_solve(short, *args[1:4],
+                             *(x[..., i:i + 1] for x in args[4:]))
+        if not all(torch.equal(x, y[..., i:i + 1]) for x, y in zip(one, kbls)):
+            fail(f"phase 21: J=5 K1 on lane {i} alone differs from the batch")
+    say(f"phase 21 J=5 K1 on {ODD_BATCH} lanes and on lanes {JOINT_ALONE} "
+        f"alone: bit for bit the {JOINT_LANES}-lane run's lanes")
+    rargs = round_args(args, 4, 0)
+    for tier in ("", "ultra", "bf16"):
+        kw = {tier: True} if tier else {}
+        k2 = fs.fused_round(*rargs, **kw)
+        p2 = fs.fused_round_reference(*rargs, **kw)
+        agree, rel, abs2 = round_agreement(p2, k2, rargs[7])
+        say(f"phase 21 J=5 K2{'-' + tier if tier else ''} one round against "
+            f"plain ({JOINT_LANES} lanes, n_r 4, a quarter fulfilled): lane "
+            f"agreement {agree:.4f}, alpha {rel:.3g} of the lane's scale")
+        if agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX:
+            fail(f"phase 21: J=5 K2 {tier or 'bls'} disagrees with plain")
+        put("fused_round", 5, **{f"lane_agreement_{tier or 'bls'}": agree})
+    _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+    lanes = (lsg, ljl, start, goal, ox, oy, ow)
+    ev = sk.cost_grad_eval(short, kv, kvt, mix, a0, *lanes)
+    evp, k5_plain = timed(lambda: sk.cost_grad_eval_reference(
+        short, kv, kvt, mix, a0, *lanes))
+    err5 = eval_errors(ev, evp)
+    k5_ms = best_ms(lambda: sk.cost_grad_eval(short, kv, kvt, mix, a0, *lanes))
+    b5 = roofline.cost_grad_eval(JOINT_LANES, 50, 5, O)
+    f6 = sk.forward_eval(short, kv, mix, a0)
+    k6_same = torch.equal(f6.traj, ev.traj) and torch.equal(f6.vel, ev.vel)
+    k6_ms = best_ms(lambda: sk.forward_eval(short, kv, mix, a0))
+    _, k6_plain = timed(lambda: sk.forward_eval_reference(short, kv, mix, a0))
+    b6 = roofline.forward_eval(JOINT_LANES, 50, 5)
+    say(f"phase 21 J=5 K5 against plain ({JOINT_LANES} lanes): {err5}, "
+        f"{k5_ms:.3f} ms (bound {b5.ms:.3f} by {b5.by}), plain "
+        f"{k5_plain:.1f} ms; K6 bit for bit K5's traj/vel {k6_same}, "
+        f"{k6_ms:.3f} ms (bound {b6.ms:.3f} by {b6.by}), plain "
+        f"{k6_plain:.1f} ms")
+    if not eval_ok(err5) or not k6_same:
+        fail("phase 21: J=5 K5/K6 differ from their plain versions")
+    put("cost_grad_eval", 5, ms=k5_ms, bound_ms=b5.ms, bound_by=b5.by,
+        plain_ms=k5_plain, max_abs_err=err5["abs"], lanes=JOINT_LANES)
+    put("forward_eval", 5, ms=k6_ms, bound_ms=b6.ms, bound_by=b6.by,
+        plain_ms=k6_plain, max_abs_err=0.0, lanes=JOINT_LANES)
+    ful = rargs[7]
+    for name, key in (("bls", "bls_inner_step"), ("gd", "gd_inner_step")):
+        fn, ref = step_fns(sk, name)
+        lr = torch.full_like(lsg, fs.round_lr(short, 0, name))
+        state0 = sk.PallasStep(a0, ev.grad, ev.traj, ev.vel, ev.loss, lr, ful)
+        ms, plain_ms, tally, agree, err = full_width_step(
+            fn, ref, short, (kv, kvt, mix), state0, lanes)
+        bound = (roofline.bls_inner_step if name == "bls"
+                 else roofline.gd_inner_step)(JOINT_LANES, 50, 5, O, tally)
+        say(f"phase 21 J=5 {key} one step ({JOINT_LANES} lanes, a quarter "
+            f"frozen): {step_summary(agree, err)}; {ms:.3f} ms (bound "
+            f"{bound.ms:.3f} by {bound.by}), plain {plain_ms:.1f} ms")
+        if not step_ok(agree, err):
+            fail(f"phase 21: J=5 {key} disagrees with its plain version")
+        put(key, 5, ms=ms, bound_ms=bound.ms, bound_by=bound.by,
+            plain_ms=plain_ms, max_abs_err=err["abs"], lane_agreement=agree,
+            lanes=JOINT_LANES)
+    del args, rargs, ev, evp, f6, scn, kbls
+    torch.cuda.empty_cache()
+    # The full schedule, and the per-step paths bit for bit K1.
+    scn = mt.random_scenarios(cfg5, torch.Generator().manual_seed(2),
+                              JOINT_FULL, device=dev)
+    for solver in ("bls", "gd"):
+        c = arm_config(bench.bench_config(solver=solver), 5)
+        fargs = fleet.fused_args(c, basis5, scn)
+        k = fs.fused_solve(*fargs, solver=solver)
+        p = fs.fused_solve_reference(*fargs, solver=solver)
+        agree, rel = fs.lane_agreement(p, k)
+        counts = {n: getattr(sk, n).launches for n in (
+            "bls_inner_step", "gd_inner_step", "cost_grad_eval",
+            "forward_eval")}
+        for n in counts:
+            getattr(sk, n).launches = 0
+        per_step = fleet.fleet_solve(c, basis5, scn, solver=solver,
+                                     backend="pallas")
+        ran = {n: getattr(sk, n).launches for n in counts}
+        same = same_result(per_step, fleet.kernel_result(k))
+        say(f"phase 21 J=5 {solver} full schedule ({JOINT_FULL} random "
+            f"scenes): K1 against plain lane agreement {agree:.4f} (bound >= "
+            f"{fs.CARD_FULL_AGREEMENT_MIN}); the per-step path (launches "
+            f"{ran}) bit for bit K1: {same}")
+        want = {"cost_grad_eval": 1, "forward_eval": 1 if solver == "bls"
+                else 0, "bls_inner_step": 1 if solver == "bls" else 0,
+                "gd_inner_step": 1 if solver == "gd" else 0}
+        if (agree < fs.CARD_FULL_AGREEMENT_MIN or not same
+                or any(bool(ran[n]) != bool(w) for n, w in want.items())):
+            fail(f"phase 21: J=5 {solver} full schedule or per-step path")
+        for n in ran:
+            if ran[n]:
+                put(n, 5, **{f"launches_{solver}_path": ran[n]})
+        put("fused_solve" if solver == "bls" else "fused_solve_gd", 5,
+            lane_agreement_full=agree)
+    del scn, fargs, k, p, per_step
+    torch.cuda.empty_cache()
+
+    # (d) J=5, T=200: the streamed plan (K7) on JOINT_LARGE random scenes,
+    # K1 per program against plain and the xla engine; K7 alone.
+    T = LARGE_T
+    c200 = arm_config(bench.bench_config(n_timesteps=T), 5)
+    basis200 = mt.make_basis(c200, device=dev)
+    scn = mt.random_scenarios(c200, torch.Generator().manual_seed(0),
+                              JOINT_LARGE, device=dev)
+    head = mt.Scenario(*(x[:JOINT_LARGE_CHECK] for x in scn))
+    for prog in ("bls", "bls_exact", "gd"):
+        solver, ladder, _ = fs.program_call(prog)
+        c = arm_config(bench.bench_config(solver=solver, ladder_eval=ladder,
+                                          n_timesteps=T), 5)
+        fs.fused_solve.launches = 0
+        with KernelTimer(fs, "fused_solve") as timer:
+            res = fleet.fleet_solve(c, basis200, scn, solver=solver,
+                                    backend="fused")
+        n1, ms = fs.fused_solve.launches, timer.total_ms()
+        gate = bench.paired_gate(c, basis200, scn, res, JOINT_LARGE_CHECK,
+                                 solver)
+        hargs = fleet.fused_args(c, basis200, head)
+        tally = {}
+        p = fs.fused_solve_reference(*hargs, solver=solver, tally=tally)
+        k_conv = float(res.stats.converged[:JOINT_LARGE_CHECK].float().mean())
+        p_conv = float(p.fulfilled.mean())
+        band = max(0.02, min(0.15 * max(k_conv, p_conv), 0.05))
+        scale = JOINT_LARGE / JOINT_LARGE_CHECK
+        ran = res.stats.outer_iters + res.stats.converged.int()
+        lp = fs.launch_plan(c, O, prog=prog)
+        bound = roofline.fused_rounds(
+            JOINT_LARGE, T, 5, O,
+            kernel_counts({k: v * scale for k, v in tally.items()},
+                          float(ran.sum()), float(res.stats.inner_iters.sum()),
+                          solver), True, solver, ladder, streamed=True,
+            lanes_per_cta=lp["lanes"])
+        b = gate["bands"]
+        say(f"phase 21 J=5 T={T} K1-{prog} ({JOINT_LARGE} random scenes, "
+            f"{lp['lanes']} lanes per CTA): {n1} launch, {ms:.1f} ms (bound "
+            f"{bound.ms:.1f} by {bound.by}, the design's L2 reads "
+            f"{bound.design_l2_ms:.1f} ms); converged {k_conv:.4f} vs plain "
+            f"{p_conv:.4f} (band {band:.4f}) on {JOINT_LARGE_CHECK} lanes; "
+            f"paired xla gate: converged {b['check_converged_frac']:.4f} vs "
+            f"{b['xla_converged_frac']:.4f} (band {b['converged']:.4f}), cost"
+            f" {b['check_obstacle_cost']:.5f} vs {b['xla_obstacle_cost']:.5f}"
+            f", phantom {gate['fields']['phantom_frac']}: "
+            f"{'PASS' if gate['ok'] else 'FAIL'}"
+            f"{' (printed only: fact 5)' if prog == 'bls' else ''}")
+        if (n1 != 1 or abs(k_conv - p_conv) > band
+                or not torch.isfinite(res.alpha).all()
+                or (prog != "bls" and not gate["ok"])):
+            fail(f"phase 21: J=5 T={T} K1-{prog} failed its checks")
+        put({"bls": "fused_solve", "gd": "fused_solve_gd",
+             "bls_exact": "fused_solve_exact"}[prog], 5,
+            **{f"T{T}": {"launches": n1, "ms": ms, "bound_ms": bound.ms,
+                         "bound_by": bound.by, "lanes": JOINT_LARGE,
+                         "gate_ok": gate["ok"]}})
+        if prog == "bls":
+            k7_launches = n1
+        del res, p, hargs
+    # K7 alone: one forward product, bit for bit K6, beside torch.matmul.
+    _, kv, kvt, mix, a0, *_ = fleet.fused_args(c200, basis200, scn)
+    t7 = fs.k7_forward(c200, kv, kvt, mix, a0)
+    f6 = sk.forward_eval(c200, kv, mix, a0)
+    k7_same = torch.equal(t7[0], f6.traj) and torch.equal(t7[1], f6.vel)
+    k7_ms = best_ms(lambda: fs.k7_forward(c200, kv, kvt, mix, a0))
+    _, k7_plain = timed(lambda: fs.forward_planes(kv, mix, a0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = a0.permute(1, 0, 2).reshape(T, 5 * JOINT_LARGE)
+    k7_mm = best_ms(lambda: torch.matmul(kv, flat))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    b7 = roofline.forward_eval(JOINT_LARGE, T, 5)
+    say(f"phase 21 J=5 K7 alone at T={T} ({JOINT_LARGE} lanes, "
+        f"{fs.launch_plan(c200, O)['lanes']} lanes per CTA): {k7_ms:.3f} ms "
+        f"per forward product, bit for bit K6 {k7_same}; one torch.matmul "
+        f"(TF32 off) {k7_mm:.3f} ms; plain {k7_plain:.1f} ms; bound "
+        f"{b7.ms:.3f} ms by {b7.by}")
+    if not k7_same:
+        fail("phase 21: J=5 K7 differs from K6")
+    put("k7", 5, launches=k7_launches, ms_per_product=k7_ms, ms=k7_ms,
+        bound_ms=b7.ms, bound_by=b7.by, plain_ms=k7_plain, library_ms=k7_mm,
+        max_abs_err=0.0, lanes=JOINT_LARGE)
+    del scn, head, a0, flat, t7, f6
+    torch.cuda.empty_cache()
+
+    # (e) J=7, T=50: K1-BLS against plain, and the paired gate.
+    short7 = arm_config(short, 7)
+    cfg7 = arm_config(bench.bench_config(), 7)
+    basis7 = mt.make_basis(cfg7, device=dev)
+    scn = mt.random_scenarios(cfg7, torch.Generator().manual_seed(0),
+                              JOINT_LANES, device=dev)
+    args = fleet.fused_args(short7, basis7, scn)
+    k, k_ms = timed(lambda: fs.fused_solve(*args))
+    p, p_ms = timed(lambda: fs.fused_solve_reference(*args))
+    agree, rel = fs.lane_agreement(p, k)
+    fs.fused_solve.launches = 0
+    with KernelTimer(fs, "fused_solve") as timer:
+        res = fleet.fleet_solve(cfg7, basis7, scn, backend="fused")
+    n1, ms = fs.fused_solve.launches, timer.total_ms()
+    gate = bench.paired_gate(cfg7, basis7, scn, res, JOINT7_CHECK)
+    sub = plain_tally(fs.fused_solve_reference, cfg7,
+                      *(x[..., :JOINT_TALLY] if i >= 3 else x for i, x in
+                        enumerate(fleet.fused_args(cfg7, basis7, scn)[1:])))
+    ran = res.stats.outer_iters + res.stats.converged.int()
+    b1 = roofline.fused_rounds(
+        JOINT_LANES, 50, 7, O,
+        kernel_counts({kk: v * JOINT_LANES / JOINT_TALLY
+                       for kk, v in sub.items()},
+                      float(ran.sum()), float(res.stats.inner_iters.sum())),
+        True)
+    b = gate["bands"]
+    say(f"phase 21 J=7 K1-BLS against plain ({JOINT_LANES} lanes, 1x4 "
+        f"steps): lane agreement {agree:.4f}, alpha {rel:.3g}; kernel "
+        f"{k_ms:.1f} ms, plain {p_ms:.1f} ms; the full schedule through "
+        f"fleet_solve: {n1} K1 launch, {ms:.1f} ms (bound {b1.ms:.1f} by "
+        f"{b1.by}), converged {float(res.stats.converged.float().mean()):.4f}"
+        f"; paired xla gate on {JOINT7_CHECK} lanes: converged "
+        f"{b['check_converged_frac']:.4f} vs {b['xla_converged_frac']:.4f} "
+        f"(band {b['converged']:.4f}), cost {b['check_obstacle_cost']:.5f} "
+        f"vs {b['xla_obstacle_cost']:.5f}, phantom "
+        f"{gate['fields']['phantom_frac']}: {'PASS' if gate['ok'] else 'FAIL'}")
+    if (agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX
+            or n1 != 1 or not gate["ok"]):
+        fail("phase 21: J=7 K1 failed its checks")
+    put("fused_solve", 7, launches=n1, ms=ms, bound_ms=b1.ms, bound_by=b1.by,
+        lanes=JOINT_LANES, plain_ms_short=p_ms, lane_agreement_short=agree,
+        max_abs_err=float((k.alpha - p.alpha).abs().max()),
+        gate_ok=gate["ok"])
+    del scn, args, k, p, res
+    torch.cuda.empty_cache()
+
+    # (f) The CLI on the card with JAX's 5-link arm.
+    fs.fused_solve.launches = 0
+    rc, text, err = run_cli(cli, [
+        "--n-joints", "5", "--link-length",
+        *map(str, JOINT_ARMS[5]), "--batch", "65536", "--engine", "fleet",
+        "--backend", "fused", "--random-scenarios", "true"])
+    n_cli = fs.fused_solve.launches
+    summary = re.search(r"batch \d+: converged [^\n]*", text)
+    say(f"phase 21 CLI --n-joints 5 --batch 65536 --engine fleet --backend "
+        f"fused --random-scenarios true: exit {rc}, {n_cli} K1 launches; "
+        f"{summary.group(0) if summary else text[-300:]}")
+    if rc != 0 or n_cli < 1:
+        fail(f"phase 21: the J=5 CLI failed (exit {rc}): {err[-2000:]}")
+
+    for J in JOINT_ARMS:
+        for name, lines in ptx[J].items():
+            # The kernels line keeps the largest registers and spill stores
+            # over the kernel's instantiations (each printed above).
+            put(name, J, registers=max(
+                (v.get("registers", 0) for v in lines.values()), default=None),
+                spill_stores=max((v.get("spill_stores", 0)
+                                  for v in lines.values()), default=None))
+        put("build", J, seconds=info[J].get("seconds"))
+    out["basis"] = {"sha256_T72_J5": h.hexdigest(),
+                    "build_seconds": {str(k): v for k, v in build_s.items()}}
     return out
 
 
@@ -2815,28 +3336,6 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     return entries, out["tier_inputs"]
 
 
-def harness_basis(mt, T, dev):
-    """A basis at T from the formulas of irm_motion_planning_tpu/models/
-    rkhs.py (make_basis: the Gram pair, the smoothstep and the float32 solve
-    of the warm-start fit), in torch, with mix from the committed T=50
-    export (it depends on the mix seed and J only).  A harness input for T
-    past the committed exports, not the package's make_basis: its warm-start
-    coefficients differ from JAX's by O(1) relative through the ~1e15
-    conditioned solve, with as good a fit, so what runs on it is held to the
-    port's own plain version only."""
-    t = torch.linspace(0.0, 1.0, T, dtype=torch.float32)
-    c = 6 * t**5 - 15 * t**4 + 10 * t**3
-    diff = t[None, :] - t[:, None]
-    var = mt.PlannerConfig().rbf_variance
-    km = torch.exp(-(diff**2) / (2 * var**2))
-    dkm = diff / (var**2) * torch.exp(-(diff**2) / (2 * var**2))
-    uw = torch.linalg.solve(km, torch.stack([torch.ones_like(c), c], dim=1))
-    mix = mt.make_basis(mt.PlannerConfig(), device="cpu").mix
-    return mt.Basis(t, c, km, dkm, torch.cat([km, dkm]), mix,
-                    torch.linalg.inv(mix), uw[:, 0].contiguous(),
-                    uw[:, 1].contiguous()).to(dev)
-
-
 def result_agreement(fs, fleet, a, b):
     """fused_solve.lane_agreement of two SolveResults."""
     def fused(r):
@@ -3060,7 +3559,8 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
     del sscns, srargs
 
     # (c) Past the f32 plans' ceiling: the planner's bf16 plan through
-    # fleet_solve, on a basis built here (harness_basis).
+    # fleet_solve, on the basis the port builds (make_basis: no export at
+    # this T, so build_basis; its CPU seconds printed).
     big = mt.PlannerConfig(n_timesteps=TIER_BIG_T, max_outer_iteration=2,
                            max_inner_iteration=6, fixed_iters=True,
                            max_obstacles=O, bls_bf16_ladder=True)
@@ -3068,7 +3568,9 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
     if plan is None or not plan["bf16"] or plan["plan"] != "streamed":
         fail(f"phase 18: the planner did not choose the bf16 streamed plan at "
              f"T={TIER_BIG_T}: {plan}")
-    basis = harness_basis(mt, TIER_BIG_T, dev)
+    t_basis = time.perf_counter()
+    basis = mt.make_basis(big, device=dev)
+    basis_s = time.perf_counter() - t_basis
     scns = mt.random_scenarios(big, torch.Generator().manual_seed(8),
                                TIER_BIG_BATCH, device=dev)
     fleet.fleet_solve(big, basis, mt.Scenario(*(x[:4] for x in scns)),
@@ -3108,7 +3610,8 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
                   and torch.isfinite(res.stats.final_cost).all())
     say(f"phase 18 T={TIER_BIG_T} fleet_solve(backend='fused', "
         f"bls_bf16_ladder=True) on {TIER_BIG_BATCH} random scenes (2x6 "
-        f"steps; the basis built here, harness_basis): plan {plan['plan']} "
+        f"steps; make_basis built the basis in {basis_s:.2f} s): plan "
+        f"{plan['plan']} "
         f"bf16 {plan['bf16']}, {plan['lanes']} lane per CTA (its "
         f"{plan['warps'] - 1} warps compute its products), "
         f"{plan['total']} B per CTA {plan['bytes']}; {launches} K1 launch, "

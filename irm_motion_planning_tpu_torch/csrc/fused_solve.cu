@@ -106,18 +106,20 @@
 #include <stddef.h>
 
 // K1's and K2's instantiations of one program: streamed (generic), or
-// resident, specialised or generic.
+// resident, specialised (J = 3 only: the bench's arm) or generic.
 template <int SOLVER>
 static const void* kernel_of(const FsParams& p, int which, bool streamed) {
   if (streamed)
     return which == 0 ? (const void*)fused_solve_kernel<SOLVER, 0, 0, true>
                       : (const void*)fused_round_kernel<SOLVER, 0, 0, true>;
+#if NJ == 3
   if (specialised(p))
     return which == 0
                ? (const void*)
                      fused_solve_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O, false>
                : (const void*)
                      fused_round_kernel<SOLVER, WB_SPEC_T, WB_SPEC_O, false>;
+#endif
   return which == 0 ? (const void*)fused_solve_kernel<SOLVER, 0, 0, false>
                     : (const void*)fused_round_kernel<SOLVER, 0, 0, false>;
 }

@@ -8,6 +8,10 @@
 // Built with -fmad=false: separate multiplies and adds round as they do in
 // the plain PyTorch version; the basis products use explicit fmaf.  Every
 // function here is static or inline: each kernel source gets its own copy.
+//
+// NJ, the arm's joint count J, is a compile-time constant: ops/_build.py
+// builds one library per J (-DNJ=<J>), 1 <= J <= 15 (a reduction's 2 J + 1
+// cost rows are chained by the first threads of a warp).
 
 #pragma once
 
@@ -15,8 +19,12 @@
 #include <math.h>
 #include <stddef.h>
 
+#ifndef NJ
 #define NJ 3
+#endif
 #define MAX_ROUNDS 32
+
+static_assert(NJ >= 1 && NJ <= 15, "the kernels take 1 <= J <= 15 joints");
 
 // Mirror of _Params in ops/fused_solve.py (same order, all 4-byte fields;
 // fused_params_layout in fused_solve.cu reports its size and the offset of
@@ -25,7 +33,7 @@
 struct FsParams {
   int T, O, B, rounds, n_bls, masked;
   int sched[MAX_ROUNDS];
-  float link[3];
+  float link[NJ];
   float mean_jp, inv_std_jp_h, inv_vmax_h, inv_T, inv_std2_T, inv_vmax2_T;
   float lam_max, mean_w, pos_hi, pos_lo, vel_hi;
   float lambda_reg, bls_alpha, beta_plus, beta_minus, lr_fail, lr_start;

@@ -456,7 +456,9 @@ struct EvalStep {
 template <class K>
 static const void* step_instance(const FsParams& p, bool streamed) {
   if (streamed) return K::template of<0, 0, true>();
+#if NJ == 3
   if (specialised(p)) return K::template of<WB_SPEC_T, WB_SPEC_O, false>();
+#endif
   return K::template of<0, 0, false>();
 }
 
@@ -601,12 +603,18 @@ extern "C" int cost_grad_eval_launch(FsParams p, int lanes, int streamed,
 
 // The tile (mirror of forward_plan in ops/step_kernels.py): K6_BM output
 // rows of kv by K6_BN lanes per CTA, K6_TK timesteps per stage, two stages;
-// each thread K6_TM rows by K6_TN lanes, all J joints.
+// each thread K6_TM rows by K6_TN lanes, all J joints: K6_TM K6_TN J
+// accumulators: 16 J at J <= 4 (48 at J = 3), 8 J beyond (half the lanes).
 #define K6_BM 64
-#define K6_BN 64
 #define K6_TK 10
 #define K6_TM 4
+#if NJ <= 4
+#define K6_BN 64
 #define K6_TN 4
+#else
+#define K6_BN 32
+#define K6_TN 2
+#endif
 #define K6_THREADS ((K6_BM / K6_TM) * (K6_BN / K6_TN))
 
 struct K6Tiles {
@@ -684,11 +692,17 @@ static __device__ __forceinline__ void k6_fma(const K6Tiles& sm, int s, int n,
     float x[NJ][K6_TN];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float4 x4 = *(const float4*)&sm.x[s][j][t][tx * K6_TN];
-      x[j][0] = x4.x;
-      x[j][1] = x4.y;
-      x[j][2] = x4.z;
-      x[j][3] = x4.w;
+      if constexpr (K6_TN == 4) {
+        const float4 x4 = *(const float4*)&sm.x[s][j][t][tx * K6_TN];
+        x[j][0] = x4.x;
+        x[j][1] = x4.y;
+        x[j][2] = x4.z;
+        x[j][3] = x4.w;
+      } else {
+        const float2 x2 = *(const float2*)&sm.x[s][j][t][tx * K6_TN];
+        x[j][0] = x2.x;
+        x[j][1] = x2.y;
+      }
     }
 #pragma unroll
     for (int m = 0; m < K6_TM; ++m)
@@ -753,16 +767,13 @@ forward_eval_kernel(FsParams p, const float* __restrict__ kvT, int lda,
     for (int i = 0; i < NJ; ++i) {
       float v[K6_TN];
 #pragma unroll
-      for (int q = 0; q < K6_TN; ++q) {
-        float x = acc[m][q][0] * mx[0 * NJ + i];
-        x = x + acc[m][q][1] * mx[1 * NJ + i];
-        x = x + acc[m][q][2] * mx[2 * NJ + i];
-        v[q] = x;
-      }
+      for (int q = 0; q < K6_TN; ++q) v[q] = mixed<false>(mx, i, acc[m][q]);
       float* out = r < T ? traj + ((size_t)i * T + r) * B
                          : vel + ((size_t)i * T + r - T) * B;
-      if constexpr (VEC) {
+      if constexpr (VEC && K6_TN == 4) {
         if (b < B) *(float4*)(out + b) = make_float4(v[0], v[1], v[2], v[3]);
+      } else if constexpr (VEC) {
+        if (b < B) *(float2*)(out + b) = make_float2(v[0], v[1]);
       } else {
 #pragma unroll
         for (int q = 0; q < K6_TN; ++q)

@@ -14,13 +14,13 @@
 // alpha, grad, dir_t and dir_v (J, T) (each thread touches only its own
 // timesteps of them; between an evaluation's passes the direction planes
 // hold its FK tangents), one buffer that holds in turn the staged input of
-// a basis product (float4 per timestep: one broadcast load gives all J
-// joints), the stacked gradient of the pull-back, or the rows of a
-// reduction, the lane's obstacle terms (float4 per obstacle: ox, oy,
-// q_o = 0.5 + 0.5 |o|^2, 0.8 w_o) and the lane's endpoints.  Per CTA, the
-// basis pair transposed: kvT[t][r] = kv[r][t] and kvtT[t2][r] = kvt[r][t2],
-// so the 32 output rows a warp computes at once are 32 neighbouring words
-// (no bank conflicts), and mix.
+// a basis product (WB_JS floats per timestep, the J joints padded to whole
+// float4: one broadcast load gives four joints), the stacked gradient of
+// the pull-back, or the rows of a reduction, the lane's obstacle terms
+// (float4 per obstacle: ox, oy, q_o = 0.5 + 0.5 |o|^2, 0.8 w_o) and the
+// lane's endpoints.  Per CTA, the basis pair transposed: kvT[t][r] =
+// kv[r][t] and kvtT[t2][r] = kvt[r][t2], so the 32 output rows a warp
+// computes at once are 32 neighbouring words (no bank conflicts), and mix.
 //
 // The streamed body (struct SWarp, any T >= 32), for the T whose basis
 // pair (16 T^2 bytes) does not fit in shared memory beside the lane state.
@@ -78,26 +78,41 @@
 
 #include "lane_body.cuh"
 
+// The layouts follow the joint count NJ (lane_body.cuh); the numbers in
+// the comments are J = 3's.  Mirrored by launch_plan in ops/fused_solve.py.
 #define WB_SLOTS 2                 // timesteps per thread (resident body)
 #define WB_MAX_T (32 * WB_SLOTS)
 #ifndef WB_MAX_WARPS
 #define WB_MAX_WARPS 16            // warps (lanes in flight) per CTA
 #endif
 #ifndef WB_MIN_CTAS
+#if NJ <= 3
 #define WB_MIN_CTAS 2              // CTAs of WB_MAX_WARPS per SM: <= 64 regs
+#else
+#define WB_MIN_CTAS 1              // J > 3: one CTA per SM fits, <= 128 regs
 #endif
-#define WB_ROWS 8                  // reduction rows in the buffer
-#define WB_LANE_FLOATS 20          // start, goal, t0, tN, v0, vN (+2 pad)
-#define WB_MIX_FLOATS 12           // mix (J x J), padded to 16 bytes
+#endif
+#define WB_JS ((NJ + 3) & ~3)      // floats per timestep of a staged input (4)
+#define WB_J4 (WB_JS / 4)          // float4 per timestep of a staged input (1)
+// Reduction rows in the buffer: the 2 J + 1 cost rows, and room for the
+// stacked gradient (2 T timesteps of WB_JS floats): 8.
+#define WB_ROWS (2 * NJ + 1 > 2 * WB_JS ? 2 * NJ + 1 : 2 * WB_JS)
+// start, goal, t0, tN, v0, vN (6 J) and two pad slots, to 16 bytes (20)
+#define WB_LANE_FLOATS ((6 * NJ + 2 + 3) & ~3)
+#define WB_MIX_FLOATS ((NJ * NJ + 3) & ~3)  // mix (J x J), to 16 bytes (12)
 #define WB_OUTCOME (6 * NJ)        // K4: a lane's step outcome (ends' pad)
 #define WB_K7_ON (6 * NJ + 1)      // K7: the lane takes the product (ends' pad)
-#define WB_CTA_FLOATS 32           // streamed: mix (12) and the control block
 #define WB_CTL_FLOATS 20           // full[2], empty[2] mbarriers, tile base
+#define WB_CTA_FLOATS (WB_MIX_FLOATS + WB_CTL_FLOATS)  // streamed: mix, control (32)
 #define WB_SMEM_MAX 232448         // shared memory a CTA may take (bytes)
 #define WB_STREAM_WARPS 16         // warps of a streamed CTA (the last: K7's producer)
 #define WB_K7_STAGES 2             // the K7 ring's stages
 #define WB_K7_LANES 2              // lanes in a K7 thread's register block
+#if NJ <= 4
 #define WB_K7_ROWS 4               // rows in a K7 thread's register block
+#else
+#define WB_K7_ROWS 2               // J > 4: 2 x 2 x J accumulators
+#endif
 #define WB_K7_SOLO_ROWS 2          // the same where one lane fills the CTA
 #define WB_RING_CAP 16384          // the most floats of the K7 ring
 #define FULL_MASK 0xffffffffu
@@ -110,7 +125,48 @@
 #define WB_SPEC_O 11
 
 static inline bool specialised(const FsParams& p) {
+#if NJ == 3
   return p.T == WB_SPEC_T && p.O == WB_SPEC_O;
+#else
+  return false;  // the specialised instantiations are J = 3's only
+#endif
+}
+
+// The mix combine of one product row's J chains a[0..J-1]: out_i = sum_j
+// a_j mix[j, i] (forward, TRANS false) or sum_j a_j mix[i, j] (pull-back,
+// TRANS true), summed in order of j.
+template <bool TRANS>
+static __device__ __forceinline__ float mixed(const float* mix, int i,
+                                              const float* a) {
+  float v = a[0] * mix[TRANS ? i * NJ : i];
+#pragma unroll
+  for (int j = 1; j < NJ; ++j)
+    v = v + a[j] * mix[TRANS ? i * NJ + j : j * NJ + i];
+  return v;
+}
+
+// A staged product input: timestep t's J values (float4 loads; the pad
+// joints are zero) and the store of J values with the pad.
+static __device__ __forceinline__ void load_staged(const float4* in, int t,
+                                                   float* a) {
+#pragma unroll
+  for (int q = 0; q < WB_J4; ++q) {
+    const float4 v = in[t * WB_J4 + q];
+    a[4 * q] = v.x;
+    a[4 * q + 1] = v.y;
+    a[4 * q + 2] = v.z;
+    a[4 * q + 3] = v.w;
+  }
+}
+static __device__ __forceinline__ void store_staged(float4* in, int t,
+                                                    const float* c) {
+#pragma unroll
+  for (int q = 0; q < WB_J4; ++q) {
+    const int j = 4 * q;
+    in[t * WB_J4 + q] =
+        make_float4(c[j], j + 1 < NJ ? c[j + 1] : 0.f,
+                    j + 2 < NJ ? c[j + 2] : 0.f, j + 3 < NJ ? c[j + 3] : 0.f);
+  }
 }
 
 // The shared-memory plans (floats); mirror of launch_plan in
@@ -196,7 +252,7 @@ struct Warp {
   const float* kvtT;  // (2T, T)
   const float* mix;   // (J, J)
   float *alpha, *grad, *dir_t, *dir_v;  // (J, T), [j * T + t]
-  float* buf;         // WB_ROWS rows of RS, or 2T float4
+  float* buf;         // WB_ROWS rows of RS, or 2T staged timesteps
   float4* obs;        // (O,)
   float* ends;        // start[J], goal[J], t0[J], tN[J], v0[J], vN[J]
   int T, O, RS, lid;
@@ -240,7 +296,7 @@ struct SWarp : Tile {
   float *alpha, *grad, *dir_t, *dir_v;  // (J, T), [j * T + t]
   float *traj, *vel;  // (J, T)
   float *gx, *gy;     // (T,), in the room
-  float* buf;         // WB_ROWS rows of RS, or 2T float4
+  float* buf;         // WB_ROWS rows of RS, or 2T staged timesteps
   float4* obs;        // (O,)
   float* ends;        // as Warp's
   int T, O, RS, lid, G;
@@ -334,7 +390,8 @@ static __device__ void stage_cta(int T, const float* __restrict__ kv,
     const int r2 = i / R2, t2 = i - r2 * R2;  // kvt (T, 2T)
     kvtT[t2 * T + r2] = kvt[i];
   }
-  if (threadIdx.x < NJ * NJ) smem[2 * n + threadIdx.x] = mix[threadIdx.x];
+  for (int i = threadIdx.x; i < NJ * NJ; i += blockDim.x)
+    smem[2 * n + i] = mix[i];
   __syncthreads();
 }
 
@@ -437,7 +494,7 @@ static __device__ float* bind_tile(SW& w, float* smem, int T, int O,
   w.room = smem + WB_CTA_FLOATS;
   w.room_floats = ws_room_floats(T, O, lanes, half);
   w.seq = 0;
-  if (threadIdx.x < NJ * NJ) smem[threadIdx.x] = mix[threadIdx.x];
+  for (int i = threadIdx.x; i < NJ * NJ; i += blockDim.x) smem[i] = mix[i];
   if (threadIdx.x == 0) {
     for (int i = 0; i < WB_K7_STAGES; ++i) {
       mbar_init(w.full + i, 1);
@@ -757,7 +814,7 @@ static __device__ __forceinline__ bool rows_ok(const FsParams& p,
 // ---------------------------------------------------------------------------
 
 // Stage src (J, T) * scale (per-warp plane, own timesteps) into the buffer
-// as float4 per timestep.
+// as a product input (store_staged).
 template <class W>
 static __device__ __forceinline__ void stage_input(const W& w,
                                                    const float* src,
@@ -768,15 +825,17 @@ static __device__ __forceinline__ void stage_input(const W& w,
   for (int s = 0; s < w.G; ++s) {
     if (!w.owns(s)) continue;
     const int t = w.tt(s);
-    in[t] = make_float4(src[t] * scale, src[w.T + t] * scale,
-                        src[2 * w.T + t] * scale, 0.f);
+    float c[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) c[j] = src[j * w.T + t] * scale;
+    store_staged(in, t, c);
   }
   __syncwarp();
 }
 
 // Stage the candidate alpha (1 - lambda_reg lr) alpha - lr (grad scale) of
-// the own timesteps into the buffer as a product input (float4 per
-// timestep), rounded once (fmaf, as XLA contracts it on the CPU): the exact
+// the own timesteps into the buffer as a product input (store_staged),
+// rounded once (fmaf, as XLA contracts it on the CPU): the exact
 // ladder's rung (scale inv_norm: the normalized direction) and GD's trial
 // (scale 1: the raw gradient, multiplied by nothing, as the plain gd_step
 // computes it).
@@ -797,7 +856,7 @@ static __device__ __forceinline__ void stage_candidate(const W& w, float a_fac,
       const float g = SCALED ? w.grad[j * T + t] * scale : w.grad[j * T + t];
       c[j] = fmaf(a_fac, w.alpha[j * T + t], -(lr * g));
     }
-    in[t] = make_float4(c[0], c[1], c[2], 0.f);
+    store_staged(in, t, c);
   }
   __syncwarp();
 }
@@ -1003,25 +1062,20 @@ static __device__ __forceinline__ void forward_rows(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
   for (int t = 0; t < T; ++t) {
-    const float4 a = in[t];
+    float a[WB_JS];
+    load_staged(in, t, a);
     const float* k = w.kvT + t * R2;
 #pragma unroll
     for (int r = 0; r < 2 * WB_SLOTS; ++r) {
       const float kk = k[row[r]];
-      acc[r][0] = fmaf(kk, a.x, acc[r][0]);
-      acc[r][1] = fmaf(kk, a.y, acc[r][1]);
-      acc[r][2] = fmaf(kk, a.z, acc[r][2]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[r][j] = fmaf(kk, a[j], acc[r][j]);
     }
   }
 #pragma unroll
   for (int r = 0; r < 2 * WB_SLOTS; ++r)
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      float v = acc[r][0] * w.mix[0 * NJ + i];
-      v = v + acc[r][1] * w.mix[1 * NJ + i];
-      v = v + acc[r][2] * w.mix[2 * NJ + i];
-      out[r][i] = v;
-    }
+    for (int i = 0; i < NJ; ++i) out[r][i] = mixed<false>(w.mix, i, acc[r]);
 }
 
 // (traj, vel) = the staged input through kv, into this thread's registers.
@@ -1136,7 +1190,7 @@ static __device__ __forceinline__ float cost_pass(const FsParams& p, Warp& w,
   return cost_reduce(p, w, cvs, want_loss, first);
 }
 
-// Passes B and C: the stacked position/velocity gradient (float4 rows of
+// Passes B and C: the stacked position/velocity gradient (staged rows of
 // the buffer, positions then velocities), then the pull-back through kvt
 // and the mix^T combine, into grad.
 static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
@@ -1151,8 +1205,8 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
     stacked_grad(p, w, t, first, w.traj[s], w.vel[s], w.gx[s], w.gy[s], gp,
                  gv);
     if (w.owns(s)) {
-      stack[t] = make_float4(gp[0], gp[1], gp[2], 0.f);
-      stack[T + t] = make_float4(gv[0], gv[1], gv[2], 0.f);
+      store_staged(stack, t, gp);
+      store_staged(stack, T + t, gv);
     }
   }
   __syncwarp();
@@ -1167,26 +1221,22 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
     for (int i = 0; i < NJ; ++i) acc[s][i] = 0.f;
   }
   for (int t2 = 0; t2 < 2 * T; ++t2) {
-    const float4 g = stack[t2];
+    float g[WB_JS];
+    load_staged(stack, t2, g);
     const float* k = w.kvtT + t2 * T;
 #pragma unroll
     for (int s = 0; s < WB_SLOTS; ++s) {
       const float kk = k[row[s]];
-      acc[s][0] = fmaf(kk, g.x, acc[s][0]);
-      acc[s][1] = fmaf(kk, g.y, acc[s][1]);
-      acc[s][2] = fmaf(kk, g.z, acc[s][2]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[s][j] = fmaf(kk, g[j], acc[s][j]);
     }
   }
 #pragma unroll
   for (int s = 0; s < WB_SLOTS; ++s) {
     if (!w.owns(s)) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float v = acc[s][0] * w.mix[j * NJ + 0];
-      v = v + acc[s][1] * w.mix[j * NJ + 1];
-      v = v + acc[s][2] * w.mix[j * NJ + 2];
-      w.grad[j * T + row[s]] = v;
-    }
+    for (int j = 0; j < NJ; ++j)
+      w.grad[j * T + row[s]] = mixed<true>(w.mix, j, acc[s]);
   }
 }
 
@@ -1194,8 +1244,8 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, Warp& w,
 // (traj - lr dir_t, vel - lr dir_v); BASE: the zero-lr candidate (traj,
 // vel) itself (the bf16 tier's baseline).  EXACT: the candidate alpha
 // (1 - lambda_reg lr) alpha - lr (grad inv_norm), in the operand order of
-// the accepted update, staged as a product input (float4 per timestep, as
-// gd_step stages its trial) and evaluated through kv into the traj/vel
+// the accepted update, staged as a product input (as gd_step stages its
+// trial) and evaluated through kv into the traj/vel
 // registers, which the exact ladder does not read (bls_step re-evaluates
 // them); then the same cost rows and reduction.
 template <bool EXACT, bool BASE = false>
@@ -1261,7 +1311,7 @@ static __device__ __forceinline__ bool k7_block_on(const SW& w, int b,
 // transposed in device memory in row blocks of R = k7_row_block(rows, L)
 // rows (MT[(blk n_t + t) R + r] = M[blk R + r][t], the rows zero-padded to
 // a whole block: fused_solve.streamed_basis) and each lane's input in its
-// buffer, n_t staged float4 (one per t, J joints).  Every thread of the CTA
+// buffer, n_t staged timesteps (store_staged).  Every thread of the CTA
 // calls it, at the same call sites in the same order; it does nothing when
 // no lane of the tile takes the product.
 //
@@ -1274,10 +1324,10 @@ static __device__ __forceinline__ bool k7_block_on(const SW& w, int b,
 // RT (c mod R / RT) of each row block, for the block's lanes (a lane past
 // the tile reads its block's first lane's input and keeps nothing; a block
 // whose lanes all sit the product out computes nothing).  Each timestep RT
-// floats of the stage and a float4 of each lane's input: each output one
-// sequential fmaf chain over t per joint (the resident body's, bit for
-// bit), handed to sink(view of the lane, r, acc0, acc1, acc2) for the lanes
-// that take the product.
+// floats of the stage and the staged timestep of each lane's input: each
+// output one sequential fmaf chain over t per joint (the resident body's,
+// bit for bit), handed to sink(view of the lane, r, acc) (acc: its J
+// chains) for the lanes that take the product.
 template <int RT, int LB, class SW, class Sink>
 static __device__ __forceinline__ void k7_run(SW& w, const float* MT,
                                               int rows, int n_t, Sink& sink) {
@@ -1343,13 +1393,13 @@ static __device__ __forceinline__ void k7_run(SW& w, const float* MT,
         }
 #pragma unroll
         for (int i = 0; i < LB; ++i) {
-          const float4 a = in[i][t0 + k];
+          float a[WB_JS];
+          load_staged(in[i], t0 + k, a);
 #pragma unroll
-          for (int h = 0; h < RT; ++h) {
-            acc[h][i][0] = fmaf(kk[h], a.x, acc[h][i][0]);
-            acc[h][i][1] = fmaf(kk[h], a.y, acc[h][i][1]);
-            acc[h][i][2] = fmaf(kk[h], a.z, acc[h][i][2]);
-          }
+          for (int h = 0; h < RT; ++h)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              acc[h][i][j] = fmaf(kk[h], a[j], acc[h][i][j]);
         }
       }
     }
@@ -1364,7 +1414,7 @@ static __device__ __forceinline__ void k7_run(SW& w, const float* MT,
 #pragma unroll
         for (int h = 0; h < RT; ++h) {
           const int r = blk * R + q + h;
-          if (r < rows) sink(v, r, acc[h][i][0], acc[h][i][1], acc[h][i][2]);
+          if (r < rows) sink(v, r, acc[h][i]);
         }
       }
     }
@@ -1390,28 +1440,17 @@ static __device__ void k7_product(SW& w, const float* MT, int rows, int n_t,
   __syncthreads();  // the sinks' rows are visible; the room is free again
 }
 
-// The mix combine of one product row's J chains: out_i = sum_j a_j mix[j, i]
-// (forward, TRANS false) or sum_j a_j mix[i, j] (pull-back, TRANS true).
-template <bool TRANS>
-static __device__ __forceinline__ float mixed(const float* mix, int i,
-                                              float a0, float a1, float a2) {
-  float v = a0 * mix[TRANS ? i * NJ + 0 : 0 * NJ + i];
-  v = v + a1 * mix[TRANS ? i * NJ + 1 : 1 * NJ + i];
-  v = v + a2 * mix[TRANS ? i * NJ + 2 : 2 * NJ + i];
-  return v;
-}
-
 // (traj, vel) = the staged input through kv, into the traj/vel planes of
 // the lanes that take it.
 static __device__ __forceinline__ void eval_staged(SWarp& w, bool on) {
   const int T = w.T;
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const SWarp& v, int r, float a0, float a1, float a2) {
+             [&](const SWarp& v, int r, const float* a) {
                if (r >= 2 * T) return;
                float* out = r < T ? v.traj + r : v.vel + (r - T);
 #pragma unroll
                for (int i = 0; i < NJ; ++i)
-                 out[i * T] = mixed<false>(v.mix, i, a0, a1, a2);
+                 out[i * T] = mixed<false>(v.mix, i, a);
              });
 }
 
@@ -1424,7 +1463,7 @@ static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
   const int T = w.T;
   if (on) stage_input(w, w.grad, inv_norm);
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const SWarp& v, int r, float a0, float a1, float a2) {
+             [&](const SWarp& v, int r, const float* a) {
                if (r >= 2 * T) return;
                const bool pos = r < T;
                const int t = pos ? r : r - T;
@@ -1433,7 +1472,7 @@ static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
 #pragma unroll
                for (int i = 0; i < NJ; ++i)
                  d[i * T + t] = p.lambda_reg * x[i * T + t] +
-                                mixed<false>(v.mix, i, a0, a1, a2);
+                                mixed<false>(v.mix, i, a);
              });
 }
 
@@ -1537,16 +1576,16 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, SW& w,
       float tr[NJ], ve[NJ], gp[NJ], gv[NJ];
       load_point(w, t, tr, ve);
       stacked_grad(p, w, t, first, tr, ve, w.gx[t], w.gy[t], gp, gv);
-      stack[t] = make_float4(gp[0], gp[1], gp[2], 0.f);
-      stack[T + t] = make_float4(gv[0], gv[1], gv[2], 0.f);
+      store_staged(stack, t, gp);
+      store_staged(stack, T + t, gv);
     }
   }
   k7_product(w, w.kvtT, T, 2 * T, on,
-             [&](const SW& v, int r, float a0, float a1, float a2) {
+             [&](const SW& v, int r, const float* a) {
                if (r >= T) return;
 #pragma unroll
                for (int j = 0; j < NJ; ++j)
-                 v.grad[j * T + r] = mixed<true>(v.mix, j, a0, a1, a2);
+                 v.grad[j * T + r] = mixed<true>(v.mix, j, a);
              });
 }
 
@@ -1618,12 +1657,12 @@ static __device__ __forceinline__ bool constraints_ok(const FsParams& p,
 static __device__ __forceinline__ void eval_staged(HWarp& w, bool on) {
   const int T = w.T;
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+             [&](const HWarp& v, int r, const float* a) {
                if (r >= 2 * T) return;
                float* out = r < T ? v.traj + r : v.vel + (r - T);
 #pragma unroll
                for (int i = 0; i < NJ; ++i)
-                 out[i * T] = mixed<false>(v.mix, i, a0, a1, a2);
+                 out[i * T] = mixed<false>(v.mix, i, a);
              });
   if (on) w.half = false;
 }
@@ -1636,13 +1675,13 @@ static __device__ __forceinline__ void eval_start(HWarp& w, bool on) {
   const int T = w.T;
   if (on) stage_input(w, w.alpha, 1.f);
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+             [&](const HWarp& v, int r, const float* a) {
                if (r >= 2 * T) return;
                __nv_bfloat16* out = r < T ? v.traj_h + r : v.vel_h + (r - T);
 #pragma unroll
                for (int i = 0; i < NJ; ++i)
                  out[i * T] =
-                     __float2bfloat16_rn(mixed<false>(v.mix, i, a0, a1, a2));
+                     __float2bfloat16_rn(mixed<false>(v.mix, i, a));
              });
 }
 
@@ -1655,7 +1694,7 @@ static __device__ __forceinline__ void direction(const FsParams& p, HWarp& w,
   const float lam = bf16_round(p.lambda_reg);
   if (on) stage_input(w, w.grad, inv_norm);
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const HWarp& v, int r, float a0, float a1, float a2) {
+             [&](const HWarp& v, int r, const float* a) {
                if (r >= 2 * T) return;
                const bool pos = r < T;
                const int t = pos ? r : r - T;
@@ -1665,7 +1704,7 @@ static __device__ __forceinline__ void direction(const FsParams& p, HWarp& w,
                for (int i = 0; i < NJ; ++i)
                  d[i * T + t] = __float2bfloat16_rn(
                      lam * __bfloat162float(x[i * T + t]) +
-                     mixed<false>(v.mix, i, a0, a1, a2));
+                     mixed<false>(v.mix, i, a));
              });
 }
 

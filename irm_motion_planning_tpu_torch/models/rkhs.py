@@ -5,14 +5,23 @@ timesteps, ``alpha`` the (T, J) coefficients and ``M`` the (J, J) mixing
 matrix; velocities come from the derivative Gram matrix.  The stacked
 operator ``kv = [K; K']`` (2T, T) gives both in one product.
 
-The basis is NOT rebuilt in torch.  The Gram matrix has condition number
-~1e15, so a different ``linspace``, exp or LU path moves the warm-start
-coefficients ``init_u``/``init_w`` by O(1), and ``mix`` is a draw from JAX's
-PRNG.  The basis of the default config at T = 25, 50, 100, 150 and 200 (the
-sizes of benchmarks/problemsize.py) is exported from the JAX package by
-``tools/export_torch_basis.py --sizes ...`` and committed as
-``irm_motion_planning_tpu_torch/data/basis_T{T}_J{J}.npz``; ``make_basis``
-loads it and refuses any config it was not exported for.
+Where the basis comes from (``make_basis``).  The JAX package's basis of
+the default config at T = 25, 50, 100, 150 and 200 (J = 3) is committed as
+``irm_motion_planning_tpu_torch/data/basis_T{T}_J{J}.npz``
+(``tools/export_torch_basis.py``); ``make_basis`` loads it when an export
+matches every field of ``BASIS_KEYS``, so those configs run on JAX's bits.
+Every other config is built here by ``build_basis``, op for op as the JAX
+package's make_basis in float32, with ``mix`` drawn by a numpy port of
+JAX's PRNG (``threefry``) and the warm-start coefficients ``init_u`` /
+``init_w`` from a float32 LU with partial pivoting written out pivot by
+pivot (no BLAS, no LAPACK).  The Gram matrix has condition number ~1e15,
+so another LU path would move ``init_u``/``init_w`` by O(1); this one is
+plain IEEE float32 arithmetic, each product and difference rounded once,
+so one config gives the same bits on every machine (the CPU here and the
+card's host).  The float32 solve is the implicit regularisation JAX's
+make_basis relies on (a float64 fit gives huge-norm coefficients whose
+float32 evaluation is garbage); the built basis fits the warm-start line
+as well as JAX's (tests/test_torch_basis_build.py).
 """
 
 from __future__ import annotations
@@ -25,10 +34,10 @@ import torch
 
 from ..config import PlannerConfig
 from ..device import resolve
+from . import threefry
 from .lanes import basis_matmul, lane_matmul
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
-EXPORT_SCRIPT = "tools/export_torch_basis.py"
 # Config fields the basis depends on; the export records them.
 BASIS_KEYS = ("n_timesteps", "rbf_variance", "mix_scale", "mix_seed", "n_joints")
 
@@ -71,30 +80,110 @@ def export_path(cfg: PlannerConfig) -> str:
     )
 
 
-def make_basis(cfg: PlannerConfig, device=None) -> Basis:
-    """Load the committed basis export for ``cfg`` onto ``device``: the
-    card by default (``device="cpu"`` for the CPU; without a CUDA device
-    and without ``device`` it raises RuntimeError).
-
-    Raises ValueError when no export matches the config's basis fields;
-    run ``python tools/export_torch_basis.py --sizes T`` to export one."""
-    device = resolve(device)
+def _export(cfg: PlannerConfig):
+    """The committed export's arrays when one matches every field of
+    BASIS_KEYS, else None."""
     path = export_path(cfg)
-    want = {k: getattr(cfg, k) for k in BASIS_KEYS}
     if not os.path.exists(path):
-        raise ValueError(
-            f"no basis export for {want} ({path} missing); export it with "
-            f"`python {EXPORT_SCRIPT} --sizes {cfg.n_timesteps}`"
-        )
+        return None
     with np.load(path) as data:
-        have = {k: data[k].item() for k in BASIS_KEYS}
-        if have != want:
-            raise ValueError(
-                f"basis export {path} was made for {have}, not {want}; "
-                f"export a matching one with `python {EXPORT_SCRIPT}` (the "
-                f"default config's fields at each T of --sizes)"
-            )
-        return basis_from_numpy(data, device=device)
+        if any(data[k].item() != getattr(cfg, k) for k in BASIS_KEYS):
+            return None
+        return {name: data[name] for name in Basis._fields}
+
+
+def make_basis(cfg: PlannerConfig, device=None) -> Basis:
+    """The RKHS basis of ``cfg`` on ``device``: the card by default
+    (``device="cpu"`` for the CPU; without a CUDA device and without
+    ``device`` it raises RuntimeError).  The committed export where one
+    matches every field of BASIS_KEYS (JAX's own bits), else
+    :func:`build_basis`."""
+    device = resolve(device)
+    arrays = _export(cfg)
+    if arrays is None:
+        return build_basis(cfg, device=device)
+    return basis_from_numpy(arrays, device=device)
+
+
+def _lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^-1 b`` for float32 ``a`` (n, n) and ``b`` (n, k) on the CPU: LU
+    with partial pivoting (the first row of the largest magnitude, as
+    LAPACK's getrf picks it), one pivot at a time: the column of
+    multipliers by division, then the trailing rows minus multiplier times
+    pivot row, the product and the difference each rounded once; then the
+    two triangular solves column by column.  Plain IEEE float32 operations
+    only, so the bits depend on nothing but the inputs."""
+    a = a.clone()
+    b = b.clone()
+    n = a.shape[0]
+    for k in range(n):
+        p = k + int(torch.argmax(a[k:, k].abs()))
+        if p != k:
+            a[[k, p]] = a[[p, k]]
+            b[[k, p]] = b[[p, k]]
+        mult = a[k + 1:, k] / a[k, k]
+        a[k + 1:, k] = mult
+        a[k + 1:, k + 1:] -= mult[:, None] * a[k, k + 1:][None, :]
+    for j in range(n - 1):                      # L y = P b (unit diagonal)
+        b[j + 1:] -= a[j + 1:, j, None] * b[j][None, :]
+    for j in range(n - 1, -1, -1):              # U x = y
+        b[j] = b[j] / a[j, j]
+        b[:j] -= a[:j, j, None] * b[j][None, :]
+    return b
+
+
+_BUILT: dict = {}
+
+
+def build_basis(cfg: PlannerConfig, device=None) -> Basis:
+    """Build the basis of ``cfg`` on the CPU, op for op as the JAX package's
+    make_basis (irm_motion_planning_tpu/models/rkhs.py) in float32, then
+    move it to ``device`` (the card by default; ``device="cpu"`` for the
+    CPU).
+
+    ``t``: i (1 / (T - 1)) (JAX's linspace as XLA compiles it); ``c``, ``km``, ``dkm``, ``kv``:
+    the same float32 operations in the same order, ``rbf_variance`` a
+    Python float (weak-typed, as JAX's note asks), exp correctly rounded
+    (JAX's XLA exp may differ by an ulp); ``mix = I + mix_scale *
+    normal(PRNGKey(mix_seed), (J, J))`` (:mod:`threefry`); ``mix_inv`` and
+    ``init_u``/``init_w`` = ``km^-1 [1, c]`` by :func:`_lu_solve`.  The
+    same config gives the same bits on any machine.  One build per config
+    per process."""
+    device = resolve(device)
+    key = tuple(getattr(cfg, k) for k in BASIS_KEYS)
+    if key not in _BUILT:
+        _BUILT[key] = _build(cfg)
+    return Basis(*(x.to(device) for x in _BUILT[key]))
+
+
+def _build(cfg: PlannerConfig) -> Basis:
+    f32 = np.float32
+    T, J = cfg.n_timesteps, cfg.n_joints
+    # JAX's linspace: i * (1 / (T - 1)) (XLA turns the division by the
+    # constant into a product with its reciprocal), the last point 1.
+    t = (np.arange(T, dtype=f32) * (f32(1) / f32(max(T - 1, 1)))).astype(f32)
+    if T > 1:
+        t[-1] = f32(1.0)
+    t2 = t * t
+    t4 = t2 * t2
+    c = (f32(6) * (t * t4) - f32(15) * t4) + f32(10) * (t * t2)
+    diff = t[None, :] - t[:, None]
+    var = cfg.rbf_variance
+    arg = -(diff * diff) / f32(2 * var**2)
+    e = np.exp(arg.astype(np.float64)).astype(f32)
+    km = e
+    dkm = (diff / f32(var**2)) * e
+    kv = np.concatenate((km, dkm), axis=0)
+    mix = np.eye(J, dtype=f32) + f32(cfg.mix_scale) * threefry.normal(
+        cfg.mix_seed, (J, J))
+    tm = torch.from_numpy(mix)
+    mix_inv = _lu_solve(tm, torch.eye(J, dtype=torch.float32))
+    uw = _lu_solve(torch.from_numpy(km),
+                   torch.from_numpy(np.stack([np.ones_like(c), c], axis=1)))
+    out = [torch.from_numpy(np.ascontiguousarray(x))
+           for x in (t, c, km, dkm, kv)]
+    return Basis(*out, tm, mix_inv, uw[:, 0].contiguous(),
+                 uw[:, 1].contiguous())
 
 
 def evaluate(cfg: PlannerConfig, basis: Basis,

@@ -6,12 +6,18 @@ kernel tiers; ``step_kernels.cu``: the per-step kernels, K3, K4 and K5
 from ``warp_body.cuh``, K6 a tiled product), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface under ``build/`` at the repository
-root.  The library is named by the hash of every source and header
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt; ``ctypes``
-loads it at first use.  Target: ``sm_90a`` (Hopper).  No
-``--use_fast_math``, and no contraction of separate multiplies and adds into
-FMAs (``-fmad=false``): the elementwise arithmetic rounds as the plain
-PyTorch version's does; the basis products use explicit ``fmaf``.
+root.  One library per joint count J: the kernels take J from ``-DNJ=<J>``
+(every layout and register block follows it; 1 <= J <=
+fused_solve.MAX_JOINTS), the library of a J is built at the first launch
+at that J, and the loaded libraries are kept by J.  J = 3, the reference
+arm, also instantiates the kernels specialised to the bench's T and
+obstacle slots; other J build only the generic instantiations.  A library
+is named by the hash of J, every source and header (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt; ``ctypes`` loads it at first
+use.  Target: ``sm_90a`` (Hopper).  No ``--use_fast_math``, and no
+contraction of separate multiplies and adds into FMAs (``-fmad=false``):
+the elementwise arithmetic rounds as the plain PyTorch version's does; the
+basis products use explicit ``fmaf``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -38,10 +45,12 @@ NVCC_FLAGS = ARCH + [
 ]
 
 _lock = threading.Lock()
-_lib = None
-# What the last build did: seconds, and nvcc's output (ptxas register and
-# shared-memory report); None while nothing was built in this process.
-build_info = None
+# The loaded libraries, by J.
+_libs: dict = {}
+# What each build in this process did, by J: seconds, and nvcc's output
+# (ptxas register and shared-memory report); no entry for a library that
+# was built before.
+builds: dict = {}
 
 
 def sources() -> list:
@@ -58,12 +67,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _check_joints(J: int) -> int:
+    from .fused_solve import MAX_JOINTS
+
+    J = int(J)
+    if not 1 <= J <= MAX_JOINTS:
+        raise NotImplementedError(
+            f"the CUDA kernels take 1 <= J <= {MAX_JOINTS} joints, not {J}")
+    return J
+
+
+def flags(J: int = 3) -> list:
+    """nvcc's flags for the library of J joints."""
+    return NVCC_FLAGS + [f"-DNJ={_check_joints(J)}"]
+
+
+def library_path(J: int = 3) -> str:
+    digest = hashlib.sha256(" ".join(flags(J)).encode())
     for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR,
+                        f"kernels_J{J}_{digest.hexdigest()[:16]}.so")
 
 
 def _check(proc, what: str) -> str:
@@ -74,10 +99,11 @@ def _check(proc, what: str) -> str:
     return (out + err).strip()
 
 
-def build() -> str:
-    """Compile the kernel library if it is not built yet; return its path."""
-    global build_info
-    out = library_path()
+def build(J: int = 3) -> str:
+    """Compile the kernel library of J joints if it is not built yet;
+    return its path.  Prints the build's seconds (stderr); raises
+    RuntimeError when nvcc fails."""
+    out = library_path(J)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -89,7 +115,7 @@ def build() -> str:
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                [nvcc, *flags(J), "-c", "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         logs = [_check(proc, os.path.basename(src)) for src, proc in procs]
         lib = os.path.join(tmp, "kernels.so")
@@ -98,20 +124,25 @@ def build() -> str:
                                 stderr=subprocess.PIPE, text=True)
         logs.append(_check(link, "the link"))
         os.replace(lib, out)
-    build_info = {"seconds": time.perf_counter() - t0,
-                  "log": "\n".join(x for x in logs if x)}
+    info = {"seconds": time.perf_counter() - t0,
+            "log": "\n".join(x for x in logs if x)}
+    builds[J] = info
+    print(f"[kernels] built the J={J} library in {info['seconds']:.1f}s",
+          file=sys.stderr, flush=True)
     return out
 
 
-def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+def bind(lib: ctypes.CDLL, names=None, J: int = 3) -> ctypes.CDLL:
     """Give ``lib``'s entry points (all, or those in ``names``) their C
     signatures: the parameter block and the lanes per CTA (K1-K5, K7) or
     the threads per block (K6)[, K1/K2's program, body (resident 0,
     streamed 1) and the CTAs of their grid][, n_r][, K3-K5's body][, K3's
     ladder tier][, K6's 16-byte copies and its basis' padded rows], then a
     c_void_p for every tensor pointer; callers pass the stream last, as a
-    c_void_p."""
-    from .fused_solve import _Params
+    c_void_p.  ``J``: the library's joint count (its parameter block)."""
+    from .fused_solve import params_type
+
+    _Params = params_type(J)
 
     for name, n_int, n_ptr in (
         ("fused_solve_launch", 3, 16),
@@ -145,47 +176,51 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     return lib
 
 
-def params_layout() -> tuple:
-    """(size, offset of the last field) of the ctypes mirror _Params, as
-    the C side's fused_params_layout reports them for struct FsParams."""
-    from .fused_solve import _Params
+def params_layout(J: int = 3) -> tuple:
+    """(size, offset of the last field) of the ctypes mirror of J joints
+    (fused_solve.params_type), as the C side's fused_params_layout reports
+    them for struct FsParams."""
+    from .fused_solve import params_type
 
-    last = _Params._fields_[-1][0]
-    return ctypes.sizeof(_Params), getattr(_Params, last).offset
+    P = params_type(J)
+    last = P._fields_[-1][0]
+    return ctypes.sizeof(P), getattr(P, last).offset
 
 
-def check_layout(lib: ctypes.CDLL) -> None:
+def check_layout(lib: ctypes.CDLL, J: int = 3) -> None:
     """Refuse a library whose struct FsParams is laid out otherwise than
     the ctypes mirror: a field added on one side only, or elsewhere, would
     shift every later field without any other error."""
     out = (ctypes.c_int * 2)()
     lib.fused_params_layout(out)
-    if tuple(out) != params_layout():
+    if tuple(out) != params_layout(J):
         raise RuntimeError(
             f"struct FsParams (size, last-field offset) {tuple(out)} differs "
-            f"from its ctypes mirror _Params {params_layout()}: the kernels "
-            f"would read shifted parameters"
+            f"from its ctypes mirror at J={J} {params_layout(J)}: the "
+            f"kernels would read shifted parameters"
         )
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures
-    (``bind``) and its parameter layout checked (``check_layout``)."""
-    global _lib
+def load_library(J: int = 3) -> ctypes.CDLL:
+    """The kernel library of J joints, built at first use, with its C
+    signatures (``bind``) and its parameter layout checked
+    (``check_layout``)."""
+    J = _check_joints(J)
     with _lock:
-        if _lib is None:
-            lib = bind(ctypes.CDLL(build()))
-            check_layout(lib)
-            _lib = lib
-    return _lib
+        if J not in _libs:
+            lib = bind(ctypes.CDLL(build(J)), J=J)
+            check_layout(lib, J)
+            _libs[J] = lib
+    return _libs[J]
 
 
 def launch(name: str, params, block_b: int, args, device) -> None:
     """Call ``<name>_launch`` of the library with the parameter block, the
     lanes per CTA (K6: threads per block) and ``args`` (ctypes ints as they
     are, tensors as their data pointers) on the current stream of
-    ``device``.  Raises when the launch is refused."""
-    lib = load_library()
+    ``device``, from the library of the parameter block's J.  Raises when
+    the launch is refused."""
+    lib = load_library(len(params.link))
     ptrs = [a if isinstance(a, ctypes.c_int) else ctypes.c_void_p(a.data_ptr())
             for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream

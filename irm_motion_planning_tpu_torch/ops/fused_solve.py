@@ -42,8 +42,10 @@ kernels (csrc/fused_solve.cu: one warp per lane, the warp body in
 csrc/warp_body.cuh, in the plan :func:`launch_plan` gives: the resident
 body for T <= 64, the streamed one beyond, whose CTA runs a tile of lanes
 in lockstep and streams the basis from device memory through K7 once per
-tile and product; a persistent grid over a lane queue) for CUDA tensors;
-they never fall back.  The plain versions run all
+tile and product; a persistent grid over a lane queue) for CUDA tensors,
+from the kernel library of the arm's joint count J (ops/_build.py builds
+one per J at its first launch; :func:`params_type` mirrors its parameter
+block); they never fall back.  The plain versions run all
 lanes in lockstep with per-lane masks, so their per-lane results equal the
 kernels' per-lane early exits.  K7's plain version is the plain versions'
 own basis products (:func:`forward_planes` and the pull-back in
@@ -83,6 +85,9 @@ STREAM_MIN_T = 32
 # The launch plans: the resident body (the basis pair in shared memory) or
 # the streamed one (the basis in device memory, streamed by K7).
 PLANS = ("resident", "streamed")
+# The joint counts J the kernels are built for (one library per J,
+# ops/_build.py; csrc/lane_body.cuh).
+MAX_JOINTS = 15
 # Hopper's dynamic shared memory per block (opt-in).
 SMEM_PER_CTA_MAX = 232448
 
@@ -804,42 +809,83 @@ def warps_per_cta(cfg: PlannerConfig) -> int:
 
 # The streamed plan (csrc/warp_body.cuh): its CTA's warps (the tile's lanes,
 # one warp each, helpers, and K7's producer last), K7's ring stages, the
-# lanes and rows of a K7 thread's register block, the most floats of the
-# ring, the ring the plan keeps when it can (the lanes per CTA give way to
-# it), and the CTA's pieces besides the room (mix, 12 floats, and the
-# control block: the ring's mbarriers and the tile base).
+# lanes and rows of a K7 thread's register block (the rows by J:
+# :func:`k7_rows`), the most floats of the ring, the ring the plan keeps
+# when it can (the lanes per CTA give way to it), and the CTA's control
+# block besides mix and the room (the ring's mbarriers and the tile base).
 STREAM_WARPS = 16
 K7_STAGES = 2
 K7_LANES = 2
 K7_ROWS = 4
+K7_ROWS_WIDE = 2
 K7_SOLO_ROWS = 2
 RING_CAP = 16384
 RING_MIN_BYTES = 48 * 1024
-CTA_BYTES = 4 * (12 + 20)
+CTL_FLOATS = 20
 
 
-def k7_row_block(rows: int, lanes: int) -> int:
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def mix_floats(J: int) -> int:
+    """The kernels' copy of mix in shared memory: J x J floats padded to 16
+    bytes (WB_MIX_FLOATS; 12 at J = 3)."""
+    return _pad4(J * J)
+
+
+def end_floats(J: int) -> int:
+    """A lane's endpoint block: start, goal, t0, tN, v0, vN (6 J floats)
+    and two pad slots (a step's outcome, K7's flag), padded to 16 bytes
+    (WB_LANE_FLOATS; 20 at J = 3)."""
+    return _pad4(6 * J + 2)
+
+
+def buffer_rows(J: int) -> int:
+    """The rows of a lane's buffer (WB_ROWS; 8 at J = 3): the 2 J + 1 cost
+    rows of a reduction, and the room of a staged product input or the
+    stacked gradient, 2 T timesteps of J floats padded to whole float4."""
+    return max(2 * J + 1, 2 * _pad4(J))
+
+
+def cta_bytes(J: int) -> int:
+    """The streamed CTA's pieces besides the room: mix and the control
+    block (WB_CTA_FLOATS; 128 bytes at J = 3)."""
+    return 4 * (mix_floats(J) + CTL_FLOATS)
+
+
+def k7_rows(lanes: int, J: int = 3) -> int:
+    """Rows of a K7 thread's register block (k7_rows, WB_K7_ROWS): K7_ROWS
+    at J <= 4, K7_ROWS_WIDE beyond (its K7_ROWS x K7_LANES x J accumulators
+    stay within the streamed body's registers), K7_SOLO_ROWS for one lane
+    alone."""
+    if lanes == 1:
+        return K7_SOLO_ROWS
+    return K7_ROWS if J <= 4 else K7_ROWS_WIDE
+
+
+def k7_row_block(rows: int, lanes: int, J: int = 3) -> int:
     """K7's rows per pass (a row block of the basis in device memory) for a
     product of ``rows`` output rows on a tile of ``lanes`` lanes (mirror of
     k7_row_block): the consumer warps' threads split the lanes into blocks
-    of K7_LANES and each block's rows among them, K7_ROWS consecutive rows
-    a thread (K7_SOLO_ROWS for one lane alone); at most the rows, padded to
-    a multiple of 4."""
+    of K7_LANES and each block's rows among them, :func:`k7_rows`
+    consecutive rows a thread; at most the rows, padded to a multiple of
+    4."""
     blocks = -(-lanes // K7_LANES)
     units = 32 * (STREAM_WARPS - 1) // blocks
-    per = K7_SOLO_ROWS if lanes == 1 else K7_ROWS
-    return min(per * units, -(-rows // 4) * 4)
+    return min(k7_rows(lanes, J) * units, _pad4(rows))
 
 
-def room_floats(T: int, lanes: int, lane_floats: int) -> int:
+def room_floats(T: int, lanes: int, lane_floats: int, J: int = 3) -> int:
     """The CTA's room (mirror of ws_room_floats): the shared memory the
     lanes leave, at most RING_CAP floats, at least the tile's gx/gy planes
     (floats, a multiple of 4)."""
-    left = max(SMEM_PER_CTA_MAX // 4 - CTA_BYTES // 4 - lanes * lane_floats, 0)
-    return max(min(left, RING_CAP) & ~3, -(-2 * T * lanes // 4) * 4)
+    left = max(SMEM_PER_CTA_MAX // 4 - cta_bytes(J) // 4
+               - lanes * lane_floats, 0)
+    return max(min(left, RING_CAP) & ~3, _pad4(2 * T * lanes))
 
 
-def k7_geometry(T: int, lanes: int, room: int) -> dict:
+def k7_geometry(T: int, lanes: int, room: int, J: int = 3) -> dict:
     """K7's ring in a room of ``room`` floats for a tile of ``lanes`` lanes
     at T: the lane blocks; for each basis product, kv (2T rows, T
     timesteps) and kvt (T rows, 2T timesteps), the rows of a row block, the
@@ -847,7 +893,7 @@ def k7_geometry(T: int, lanes: int, room: int) -> dict:
     row block)); the ring's bytes (the whole room)."""
     out = {"lane_blocks": -(-lanes // K7_LANES), "ring_bytes": 4 * room}
     for name, rows in (("kv", 2 * T), ("kvt", T)):
-        rb = k7_row_block(rows, lanes)
+        rb = k7_row_block(rows, lanes, J)
         out[name] = {"row_block": rb, "passes": -(-rows // rb),
                      "stage_t": room // (K7_STAGES * rb)}
     return out
@@ -860,12 +906,16 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     ``plan`` of PLANS: by default ``"resident"`` for T <= WARP_MAX_T and
     ``"streamed"`` beyond, for the program ``prog`` of PROGRAMS.
 
-    Resident: per CTA the basis pair transposed (2 x 2T x T) and mix (padded
-    to 12 floats); per warp (one per lane) the planes alpha, grad, dir_t,
-    dir_v (J x T each), the buffer (8 reduction rows of T padded to a
+    Every piece follows the joint count J = ``cfg.n_joints`` (the numbers
+    in brackets are J = 3's).  Resident: per CTA the basis pair transposed
+    (2 x 2T x T) and mix (:func:`mix_floats`: J x J padded to 4 floats
+    [12]); per warp (one per lane) the planes alpha, grad, dir_t, dir_v (J x
+    T each), the buffer (:func:`buffer_rows` [8] rows of T padded to a
     multiple of 4, which also holds a product's staged input and the stacked
-    gradient, 2T float4), the obstacle terms (float4 each) and the endpoints
-    (20 floats); ``cfg.pallas_block_b`` lanes (0: DEFAULT_WARPS).
+    gradient, 2T timesteps of J floats padded to whole float4), the obstacle
+    terms (float4 each) and the endpoints (:func:`end_floats` [20]); the
+    most lanes, at most ``cfg.pallas_block_b`` (0: DEFAULT_WARPS), that fit
+    (every one of them up to J = 5; at J = 7 and T = 64, 14).
 
     Streamed: a CTA of STREAM_WARPS warps runs a tile of lanes in lockstep,
     one warp each; its other warps help with the basis products and its
@@ -891,11 +941,16 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     "bytes": {piece: bytes}, "total", "ring": the K7 ring (streamed),
     "bf16": the half-width layout}.  Raises ValueError for a lanes-per-CTA
     value, plan or program the kernels cannot take, NotImplementedError
-    when the plan does not fit: the resident one past WARP_MAX_T (the
-    message names the streamed plan), the streamed one when a single lane
-    does not fit (the message names the largest piece)."""
+    when the plan does not fit: a J the kernels are not built for (past
+    MAX_JOINTS), the resident one past WARP_MAX_T (the message names the
+    streamed plan) or past the shared memory of a CTA, the streamed one
+    when a single lane does not fit (the message names the largest
+    piece)."""
     want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
+    if not 1 <= J <= MAX_JOINTS:
+        raise NotImplementedError(
+            f"J={J}: the CUDA kernels take 1 <= J <= {MAX_JOINTS} joints")
     plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
     if plan not in PLANS:
         raise ValueError(f"launch plan {plan!r} is not one of {PLANS}")
@@ -905,9 +960,9 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     rows = (T + 3) // 4 * 4
     per_warp = {
         "planes": f * 4 * J * T,
-        "buffer": f * 8 * rows,
+        "buffer": f * buffer_rows(J) * rows,
         "obstacles": f * 4 * O,
-        "endpoints": f * 20,
+        "endpoints": f * end_floats(J),
     }
     if plan == "resident":
         if T > WARP_MAX_T:
@@ -916,16 +971,19 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
                 f"(T <= {WARP_MAX_T}) and the basis pair (16 T^2 bytes) in "
                 f"shared memory; the streamed plan runs this T"
             )
-        pieces = {"basis": f * 4 * T * T, "mix": f * 12,
-                  **{k: want * v for k, v in per_warp.items()}}
-        total = sum(pieces.values())
-        if total > SMEM_PER_CTA_MAX:
+        cta = {"basis": f * 4 * T * T, "mix": f * mix_floats(J)}
+        one = sum(per_warp.values())
+        lanes = min(want, (SMEM_PER_CTA_MAX - sum(cta.values())) // one)
+        if lanes < 1:
             raise NotImplementedError(
-                f"T={T}: the resident plan needs {total} bytes of shared "
-                f"memory per CTA, more than {SMEM_PER_CTA_MAX}"
+                f"T={T}, J={J}: the resident plan needs "
+                f"{sum(cta.values()) + one} bytes of shared memory per CTA "
+                f"for one lane, more than {SMEM_PER_CTA_MAX}"
             )
-        return {"plan": plan, "lanes": want, "warps": want, "bytes": pieces,
-                "total": total, "bf16": False}
+        pieces = {**cta, **{k: lanes * v for k, v in per_warp.items()}}
+        return {"plan": plan, "lanes": lanes, "warps": lanes,
+                "bytes": pieces, "total": sum(pieces.values()),
+                "bf16": False}
     if T < STREAM_MIN_T:
         raise ValueError(
             f"T={T}: the streamed plan needs T >= {STREAM_MIN_T} (every "
@@ -936,14 +994,15 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
         per_lane["planes"] = f * 2 * J * T
         per_lane["ladder"] = f * 2 * J * T
     else:
-        per_lane["state"] = f * ((6 * J * T + 3) // 4 * 4 - 4 * J * T)
+        per_lane["state"] = f * (_pad4(6 * J * T) - 4 * J * T)
     one = sum(per_lane.values())
 
     def layout(lanes):
-        room = room_floats(T, lanes, one // f)
-        pieces = {"mix": f * 12, "control": f * 20, "room": f * room,
+        room = room_floats(T, lanes, one // f, J)
+        pieces = {"mix": f * mix_floats(J), "control": f * CTL_FLOATS,
+                  "room": f * room,
                   **{k: lanes * v for k, v in per_lane.items()}}
-        ring = k7_geometry(T, lanes, room)
+        ring = k7_geometry(T, lanes, room, J)
         fits = (sum(pieces.values()) <= SMEM_PER_CTA_MAX
                 and min(ring["kv"]["stage_t"], ring["kvt"]["stage_t"]) >= 1)
         return pieces, ring, fits
@@ -953,10 +1012,10 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     if not fit:
         big = max(per_lane, key=per_lane.get)
         raise NotImplementedError(
-            f"T={T}: one lane's state does not fit in shared memory: "
-            f"{one + f * 2 * T} bytes per lane, "
-            f"{SMEM_PER_CTA_MAX - CTA_BYTES} free per CTA; the largest piece "
-            f"is {big} ({per_lane[big]} bytes)"
+            f"T={T}, J={J}: one lane's state does not fit in shared "
+            f"memory: {one + f * 2 * T} bytes per lane, "
+            f"{SMEM_PER_CTA_MAX - cta_bytes(J)} free per CTA; the largest "
+            f"piece is {big} ({per_lane[big]} bytes)"
         )
     def roomy(n):
         ring = layout(n)[1]
@@ -1007,7 +1066,7 @@ def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
     prog = program(cfg, solver, **tier)
     lp = launch_plan(cfg, O, plan, prog)
     out = (ctypes.c_int * 4)()
-    err = load_library().fused_launch_shape(
+    err = load_library(cfg.n_joints).fused_launch_shape(
         kernel_params(cfg, O, B), lp["lanes"],
         {"fused_solve": 0, "fused_round": 1}[kernel],
         PROGRAMS.index(prog), PLANS.index(lp["plan"]), out)
@@ -1125,20 +1184,30 @@ def program_call(prog: str) -> tuple:
     return "bls", "linearized", ({prog[4:]: True} if prog != "bls" else {})
 
 
-class _Params(ctypes.Structure):
-    """Mirror of ``struct FsParams`` in csrc/lane_body.cuh (passed by
-    value), field for field in the same order; ``_build.load_library``
-    refuses a library whose struct size or last-field offset differ, and
-    tests/test_torch_fused_gd.py holds the field lists equal.  Float fields
-    hold the f32 roundings of the Python-float constants, as JAX's weak
-    typing rounds them."""
+_PARAMS: dict = {}
 
-    _fields_ = [
+
+def params_type(J: int = 3):
+    """The ctypes mirror of ``struct FsParams`` in csrc/lane_body.cuh for
+    the library of J joints (passed by value), field for field in the same
+    order (``link`` holds J floats); ``_build.load_library`` refuses a
+    library whose struct size or last-field offset differ, and
+    tests/test_torch_fused_gd.py and tests/test_torch_joints.py hold the
+    field lists equal.  Float fields hold the f32 roundings of the
+    Python-float constants, as JAX's weak typing rounds them."""
+    if J not in _PARAMS:
+        _PARAMS[J] = type(f"_Params{J}", (ctypes.Structure,),
+                          {"_fields_": _params_fields(J)})
+    return _PARAMS[J]
+
+
+def _params_fields(J: int) -> list:
+    return [
         ("T", ctypes.c_int), ("O", ctypes.c_int), ("B", ctypes.c_int),
         ("rounds", ctypes.c_int), ("n_bls", ctypes.c_int),
         ("masked", ctypes.c_int),
         ("sched", ctypes.c_int * MAX_ROUNDS),
-        ("link", ctypes.c_float * 3),
+        ("link", ctypes.c_float * J),
         ("mean_jp", ctypes.c_float), ("inv_std_jp_h", ctypes.c_float),
         ("inv_vmax_h", ctypes.c_float), ("inv_T", ctypes.c_float),
         ("inv_std2_T", ctypes.c_float), ("inv_vmax2_T", ctypes.c_float),
@@ -1156,8 +1225,12 @@ class _Params(ctypes.Structure):
     ]
 
 
+# The reference arm's (J = 3) mirror.
+_Params = params_type(3)
+
+
 def kernel_params(cfg: PlannerConfig, O: int, B: int,
-                  schedule: bool = True) -> _Params:
+                  schedule: bool = True):
     """The kernels' parameter block; ``schedule=False`` leaves the round
     schedule out (the per-step kernels run no rounds).  ``gd_lr[r]`` is GD's
     learning rate of round r (:func:`round_lr`) for every r the block
@@ -1171,7 +1244,7 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
     f32 = lambda x: float(np.float32(x))  # noqa: E731
     T = cfg.n_timesteps
     jsl = cfg.joint_safety_limit
-    p = _Params(
+    p = params_type(cfg.n_joints)(
         T=T, O=O, B=B, rounds=len(sched), n_bls=cfg.max_bls_iteration,
         masked=int(cfg.constraint_violating_dependant_loss),
     )
@@ -1380,8 +1453,6 @@ def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
 
     J, T, B = alpha.shape
     O = inputs[-1].shape[0]
-    if J != 3:
-        raise NotImplementedError("the CUDA kernels are built for J=3 joints")
     if ctas < 0:
         raise ValueError(f"{name}: ctas must be >= 0, got {ctas}")
     lp = launch_plan(cfg, O, plan, prog)

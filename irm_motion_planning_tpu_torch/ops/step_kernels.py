@@ -86,7 +86,7 @@ def _step_shape(kernel: str, lp: dict, cfg: PlannerConfig, O: int,
     from ._build import load_library
 
     out = (ctypes.c_int * 3)()
-    err = load_library().step_kernel_shape(
+    err = load_library(cfg.n_joints).step_kernel_shape(
         fs.kernel_params(cfg, O, B, schedule=False),
         STEP_KERNELS.index(kernel), lp["lanes"], fs.PLANS.index(lp["plan"]),
         out)
@@ -117,39 +117,43 @@ def cost_grad_eval_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
                        O, B)
 
 
-# K6's tile (csrc/step_kernels.cu, K6_*): output rows of kv and lanes per
-# CTA, timesteps per stage, threads; two stages.
+# K6's tile (csrc/step_kernels.cu, K6_*): output rows of kv per CTA, lanes
+# per CTA (K6_LANES at J <= 4, K6_LANES_WIDE beyond: a thread's 4 rows x 4
+# or 2 lanes x J accumulators), timesteps per stage, threads; two stages.
 K6_ROWS, K6_LANES, K6_TK, K6_THREADS, K6_STAGES = 64, 64, 10, 256, 2
+K6_LANES_WIDE = 32
 
 
 def forward_plan(cfg: PlannerConfig) -> dict:
     """K6's tile: a CTA computes K6_ROWS of the 2T output rows of kv for
-    K6_LANES consecutive lanes and all J joints, staging K6_TK timesteps of
-    the transposed basis and of alpha per stage, K6_STAGES stages (static
-    shared memory, mirror of K6Tiles); the grid is ``row_tiles`` x the lane
-    tiles, row tiles fastest.  Returns {"rows", "lanes", "tk", "threads",
-    "stages", "row_tiles", "lda" (the transposed basis' padded row count),
-    "bytes": {piece: bytes}, "total"}."""
+    K6_LANES consecutive lanes (K6_LANES_WIDE past J = 4) and all J
+    joints, staging K6_TK timesteps of the transposed basis and of alpha
+    per stage, K6_STAGES stages (static shared memory, mirror of K6Tiles);
+    the grid is ``row_tiles`` x the lane tiles, row tiles fastest.  Returns
+    {"rows", "lanes", "tk", "threads", "stages", "row_tiles", "lda" (the
+    transposed basis' padded row count), "bytes": {piece: bytes},
+    "total"}."""
     T, J = cfg.n_timesteps, cfg.n_joints
+    lanes = K6_LANES if J <= 4 else K6_LANES_WIDE
     row_tiles = -(-2 * T // K6_ROWS)
     f = 4
     pieces = {"basis": f * K6_STAGES * K6_TK * K6_ROWS,
-              "alpha": f * K6_STAGES * J * K6_TK * K6_LANES}
-    return {"rows": K6_ROWS, "lanes": K6_LANES, "tk": K6_TK,
+              "alpha": f * K6_STAGES * J * K6_TK * lanes}
+    return {"rows": K6_ROWS, "lanes": lanes, "tk": K6_TK,
             "threads": K6_THREADS, "stages": K6_STAGES,
             "row_tiles": row_tiles, "lda": row_tiles * K6_ROWS,
             "bytes": pieces, "total": sum(pieces.values())}
 
 
-def forward_eval_shape() -> dict:
-    """K6's tile as the library was compiled (forward_eval_shape in
-    csrc/step_kernels.cu): rows, lanes, timesteps per stage, threads,
-    shared memory per CTA, and the CTAs that fit on one SM.  Needs the
-    card."""
+def forward_eval_shape(J: int = 3) -> dict:
+    """K6's tile as the library of J joints was compiled
+    (forward_eval_shape in csrc/step_kernels.cu): rows, lanes, timesteps
+    per stage, threads, shared memory per CTA, and the CTAs that fit on one
+    SM.  Needs the card."""
     from ._build import load_library
 
     out = (ctypes.c_int * 6)()
-    err = load_library().forward_eval_shape(out)
+    err = load_library(J).forward_eval_shape(out)
     if err:
         raise RuntimeError(f"forward_eval: shape refused (CUDA error {err})")
     return dict(zip(("rows", "lanes", "tk", "threads", "smem", "ctas_per_sm"),
@@ -307,9 +311,7 @@ def _step(name: str, cfg: PlannerConfig, args, out, gd: bool, reference,
         _check_out(name, out, state)
     if where == "cpu":
         return _into(out, reference(cfg, *args))
-    J, T, B = args[3].shape
-    if J != 3:
-        raise NotImplementedError("the CUDA kernels are built for J=3 joints")
+    B = args[3].shape[2]
     if out is None:
         out = PallasStep(*(x.contiguous().clone() for x in state))
     else:
@@ -382,8 +384,6 @@ def cost_grad_eval(cfg: PlannerConfig, kv, kvt, mix, alpha, lam_sg, lam_jl,
         _check_out("cost_grad_eval", out, (lam_sg, alpha, alpha, alpha))
     if where == "cpu":
         return _into(out, cost_grad_eval_reference(cfg, *args))
-    if J != 3:
-        raise NotImplementedError("the CUDA kernels are built for J=3 joints")
     dev = alpha.device
     if out is None:
         out = PallasEval(*(torch.empty(s, dtype=torch.float32, device=dev)
@@ -415,9 +415,7 @@ def forward_eval(cfg: PlannerConfig, kv, mix, alpha,
         _check_out("forward_eval", out, (alpha, alpha))
     if where == "cpu":
         return _into(out, forward_eval_reference(cfg, *args))
-    J, T, B = alpha.shape
-    if J != 3:
-        raise NotImplementedError("the CUDA kernels are built for J=3 joints")
+    B = alpha.shape[2]
     from ._build import launch
 
     dev = alpha.device

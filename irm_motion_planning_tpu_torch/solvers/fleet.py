@@ -22,13 +22,16 @@ Every tensor carries the scene lane as its LAST axis: alpha and trajectory
 BLS runs in either Armijo ladder tier (``cfg.ladder_eval``: linearized or
 exact) on every backend.  The kernel backends run the launch plan of
 ops/fused_solve.py (``launch_plan``: the basis resident in shared memory up
-to T = 64, streamed from device memory beyond); past the float32 plans'
-ceiling (T = 2,073 at 11 obstacles, where one warp's lane state no longer
-fits in shared memory) BLS with the linearized ladder and
+to T = 64, streamed from device memory beyond; every joint count J up to
+15, one kernel library per J); past the float32 plans' ceiling (at 11
+obstacles T = 2,073 for J = 3, 1,209 for J = 5, 966 for J = 7, where one
+warp's lane state no longer fits in shared memory) BLS with the
+linearized ladder and
 ``cfg.bls_bf16_ladder`` runs the bf16 tier's plan on ``backend="fused"``
 (``kernel_plan``, up to T = 2,636); where no plan fits, or the plan is the
 bf16 tier's and the backend the per-step one (which has no such tier),
-``fleet_solve`` warns and runs the ``xla`` engine, as the JAX package does.
+``fleet_solve`` warns and runs the ``xla`` engine, as the JAX package does;
+so it does past J = 15.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
@@ -712,18 +715,22 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     if backend in ("fused", "pallas") and (plan is None or (
             backend == "pallas" and plan["bf16"])):
         # No launch plan fits (even the streamed basis leaves too little
-        # shared memory for one warp), or the plan is the bf16 tier's, which
-        # only K1/K2 have: the plain engine runs any size.
+        # shared memory for one warp at this T and J, or J is past the
+        # kernels' builds), or the plan is the bf16 tier's, which only K1/K2
+        # have: the plain engine runs any size.
         import warnings
 
         B = scenarios.start.shape[0]
-        why = (f"shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
-               f"CTA even with the streamed basis" if plan is None else
+        J = cfg.n_joints
+        why = ((f"the kernels take 1 <= J <= {fs.MAX_JOINTS} joints"
+                if not 1 <= J <= fs.MAX_JOINTS else
+                f"shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
+                f"CTA even with the streamed basis") if plan is None else
                "the per-step kernels have no bf16 ladder tier; use "
                "backend='fused' for it")
         warnings.warn(
-            f"pallas backends infeasible for T={cfg.n_timesteps}, B={B} "
-            f"({why}); falling back to backend='xla'"
+            f"pallas backends infeasible for T={cfg.n_timesteps}, J={J}, "
+            f"B={B} ({why}); falling back to backend='xla'"
             + (" — lane_compaction is DROPPED on this path (it is a "
                "fused-kernel driver feature)" if cfg.lane_compaction
                else ""),

@@ -23,6 +23,7 @@ from irm_motion_planning_tpu.utils import io as jio
 
 import irm_motion_planning_tpu_torch as mt
 from irm_motion_planning_tpu_torch import cli
+from irm_motion_planning_tpu_torch.models import rkhs
 from irm_motion_planning_tpu_torch.solvers import bls, plain
 from irm_motion_planning_tpu_torch.utils import io as tio
 from irm_motion_planning_tpu_torch.utils import timing
@@ -109,13 +110,26 @@ def test_cli_rejects_schedule_without_fixed_iters(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags", [
     ["--rbf-variance", "0.2"], ["--jac-gaussian-mean", "0.2"],
-    ["--n-joints", "2", "--link-length", "1.5", "1.0"]])
+    ["--n-joints", "2", "--link-length", "1.5", "1.0", "--batch", "4",
+     "--engine", "fleet", "--backend", "fused", "--random-scenarios",
+     "true"]])
 def test_cli_basis_flags_need_an_export(tmp_path, monkeypatch, flags):
-    """A flag that changes a basis field fails with make_basis's own
-    message (no committed export for it) instead of running a basis made
-    for other fields."""
-    with pytest.raises(ValueError, match="export"):
-        _main(flags + ["--max-outer-iteration", "1"], tmp_path, monkeypatch)
+    """A flag that changes a basis field (refused before the port built its
+    own basis, for want of an export) runs on the basis make_basis builds
+    for those fields: the solve exits 0 and writes a trajectory of the
+    config's T and J.  The 2-link arm plans random scenes on the fleet
+    engine (the reference scene is a 3-link arm's, in JAX's CLI too)."""
+    calls = []
+    real = rkhs.build_basis
+    monkeypatch.setattr(rkhs, "build_basis",
+                        lambda cfg, device=None: calls.append(cfg)
+                        or real(cfg, device=device))
+    assert _main(flags + ["--max-outer-iteration", "1",
+                          "--max-inner-iteration", "3"],
+                 tmp_path, monkeypatch) == 0
+    assert calls, "make_basis did not build the flags' basis"
+    J = 2 if "--n-joints" in flags else 3
+    assert np.loadtxt(tmp_path / "trajectory_result.txt").shape == (50, J)
 
 
 def test_cli_vmap_engine_honors_sequential(tmp_path, monkeypatch):

@@ -8,6 +8,7 @@ import torch
 
 import irm_motion_planning_tpu as mp
 import irm_motion_planning_tpu_torch as mt
+from irm_motion_planning_tpu_torch.models import rkhs
 
 
 @pytest.mark.parametrize("kw", [
@@ -66,8 +67,32 @@ def test_basis_from_numpy_roundtrip():
     dict(mix_scale=0.1),
 ])
 def test_make_basis_refuses_other_configs(kw):
-    with pytest.raises(ValueError, match="export_torch_basis"):
-        mt.make_basis(mt.PlannerConfig(**kw), device="cpu")
+    """A config without a committed export (these were refused before the
+    port built its own basis): make_basis builds it (build_basis, not the
+    T=50 export), and it matches JAX's basis for the same config: t, c and
+    mix exact, km within 1 ulp, dkm and kv within 2, mix_inv within 8
+    float32 epsilons of its largest entry (tests/test_torch_basis_build.py
+    says why)."""
+    cfg = mt.PlannerConfig(**kw)
+    got = mt.make_basis(cfg, device="cpu")
+    assert all(torch.equal(x, y) for x, y in
+               zip(got, rkhs.build_basis(cfg, device="cpu")))
+    ref = mp.make_basis(mp.PlannerConfig(**kw))
+    for name, tol in (("t", 0), ("c", 0), ("mix", 0), ("km", 1), ("dkm", 2),
+                      ("kv", 2)):
+        assert _ulps(getattr(got, name).numpy(),
+                     np.asarray(getattr(ref, name))) <= tol, name
+    mi = np.asarray(ref.mix_inv)
+    assert (np.abs(got.mix_inv.numpy() - mi).max()
+            <= 8 * np.finfo(np.float32).eps * np.abs(mi).max())
+
+
+def _ulps(a, b) -> int:
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(ordered(a) - ordered(b)).max())
 
 
 def test_evaluate_matches_jax():

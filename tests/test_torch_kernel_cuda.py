@@ -659,3 +659,76 @@ def test_tier_programs_match_plain_versions(args, args200, tier, T):
             assert torch.equal(x, y)
         for x, y in zip(tfs.fused_round(*rargs, plan="streamed", **kw), got2):
             assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------------
+# Other joint counts: the libraries of J = 5 and 7 (and J = 3's).
+# --------------------------------------------------------------------------
+
+ARMS = {3: (1.5, 1.0, 0.5), 5: (1.0, 0.8, 0.6, 0.4, 0.2),
+        7: (1.0, 0.9, 0.8, 0.6, 0.4, 0.3, 0.2)}
+JOINTS = pytest.mark.parametrize("J", sorted(ARMS))
+
+
+def _arm_args(J, T, batch=BATCH, **kw):
+    dev = torch.device("cuda", 0)
+    cfg = mt.PlannerConfig(**{**SHORT, **kw}, n_timesteps=T, n_joints=J,
+                           link_length=ARMS[J])
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(3), batch,
+                               device=dev)
+    return fleet.fused_args(cfg, basis, scns)
+
+
+@JOINTS
+@pytest.mark.parametrize("T", [50, 200])
+def test_kernels_match_plain_versions_at_each_j(J, T):
+    """K1 (BLS, GD) and K2 at 1 round x 4 steps against their plain versions
+    (CARD_SHORT_AGREEMENT_MIN), K5 within the evaluation's bounds, K6 bit
+    for bit K5's traj/vel, and at T = 200 K7 alone bit for bit K6, in the
+    library of J joints."""
+    args = _arm_args(J, T)
+    cfg, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+    for solver in ("bls", "gd"):
+        before = tfs.fused_solve.launches
+        got = tfs.fused_solve(*args, solver=solver)
+        assert tfs.fused_solve.launches == before + 1
+        agree, rel = tfs.lane_agreement(
+            tfs.fused_solve_reference(*args, solver=solver), got)
+        assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN, (solver, agree)
+        assert rel <= tfs.ALPHA_REL_MAX
+    ful = (torch.rand((1, BATCH), generator=torch.Generator().manual_seed(0))
+           < 0.25).float().to(a0.device)
+    lr0 = torch.full_like(ful, tfs.round_lr(cfg, 0, "bls"))
+    rin = (cfg, kv, kvt, mix, a0, lsg, ljl, ful, lr0, 4, start, goal, ox, oy,
+           ow)
+    k2, p2 = tfs.fused_round(*rin), tfs.fused_round_reference(*rin)
+    same = ((k2.inner == p2.inner) & (k2.ok == p2.ok)).float().mean()
+    assert float(same) >= tfs.CARD_SHORT_AGREEMENT_MIN
+    lanes = (lsg, ljl, start, goal, ox, oy, ow)
+    ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, *lanes)
+    ref = sk.cost_grad_eval_reference(cfg, kv, kvt, mix, a0, *lanes)
+    assert float(((ev.loss - ref.loss).abs() / ref.loss.abs()).max()) <= 1e-5
+    fwd = sk.forward_eval(cfg, kv, mix, a0)
+    assert torch.equal(fwd.traj, ev.traj) and torch.equal(fwd.vel, ev.vel)
+    if T > 64:
+        traj, vel = tfs.k7_forward(cfg, kv, kvt, mix, a0)
+        assert torch.equal(traj, fwd.traj) and torch.equal(vel, fwd.vel)
+
+
+@JOINTS
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_fleet_solve_launches_each_j_kernels(J, backend):
+    """fleet_solve on the kernel backends launches the J library's kernels
+    (no J raises, nothing falls back) and gives finite results."""
+    cfg = mt.PlannerConfig(**SHORT, n_joints=J, link_length=ARMS[J])
+    dev = torch.device("cuda", 0)
+    basis = mt.make_basis(cfg, device=dev)
+    scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(4), 256,
+                               device=dev)
+    counter = (tfs.fused_solve if backend == "fused" else sk.cost_grad_eval)
+    before = counter.launches
+    res = fleet.fleet_solve(cfg, basis, scns, backend=backend)
+    assert counter.launches > before
+    assert res.alpha.shape == (256, 50, J)
+    assert torch.isfinite(res.alpha).all()

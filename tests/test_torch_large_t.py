@@ -86,8 +86,20 @@ def test_export_is_bitwise_the_jax_basis(T):
 
 @pytest.mark.parametrize("T", [72, 300])
 def test_make_basis_refuses_a_t_without_export(T):
-    with pytest.raises(ValueError, match=f"--sizes {T}"):
-        mt.make_basis(mt.PlannerConfig(n_timesteps=T), device="cpu")
+    """A T without a committed export (refused before the port built its
+    own basis): make_basis builds it, and the built Gram pair is JAX's
+    within an ulp or two (t and c exact, km 1 ulp, kv 2), so the streamed
+    plan below evaluates the same operator."""
+    got = mt.make_basis(mt.PlannerConfig(n_timesteps=T), device="cpu")
+    ref = mp.make_basis(mp.PlannerConfig(n_timesteps=T))
+    assert got.kv.shape == (2 * T, T)
+    for name in ("t", "c", "mix"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    for name, tol in (("km", 1), ("kv", 2)):
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(a, b, rtol=tol * np.finfo(np.float32).eps,
+                                   atol=0)
 
 
 # --------------------------------------------------------------------------

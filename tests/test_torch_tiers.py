@@ -44,6 +44,7 @@ from irm_motion_planning_tpu.ops import pallas_step as ps
 from irm_motion_planning_tpu.solvers import fleet as jfleet
 
 import irm_motion_planning_tpu_torch as mt
+from irm_motion_planning_tpu_torch.models import rkhs
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
 from irm_motion_planning_tpu_torch.solvers import fleet as tfleet
 
@@ -290,22 +291,9 @@ PAST_F32 = 2080
 
 
 def _basis_at(T):
-    """A basis at a T without a committed export, from the formulas of
-    irm_motion_planning_tpu/models/rkhs.py (make_basis) in torch, mix from
-    the T = 25 export (it depends on the seed and J only): test input for
-    the dispatch, not the JAX package's basis."""
-    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
-    c = 6 * t**5 - 15 * t**4 + 10 * t**3
-    diff = t[None, :] - t[:, None]
-    var = mt.PlannerConfig().rbf_variance
-    km = torch.exp(-(diff**2) / (2 * var**2))
-    dkm = diff / (var**2) * km
-    uw = torch.linalg.solve(km.float(), torch.stack(
-        [torch.ones_like(c), c], dim=1).float())
-    mix = mt.make_basis(mt.PlannerConfig(n_timesteps=25), device="cpu").mix
-    return mt.Basis(t.float(), c.float(), km.float(), dkm.float(),
-                    torch.cat([km, dkm]).float(), mix, torch.linalg.inv(mix),
-                    uw[:, 0], uw[:, 1])
+    """The basis at a T without a committed export: the port's own build
+    (models/rkhs.py build_basis, JAX's make_basis op for op)."""
+    return rkhs.build_basis(mt.PlannerConfig(n_timesteps=T), device="cpu")
 
 
 def test_fleet_solve_dispatches_the_bf16_plan():

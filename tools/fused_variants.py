@@ -2,8 +2,10 @@
 
     python tools/fused_variants.py [--T 50] [--batch N] NAME=FLAG[,FLAG...] ...
 
-Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` (with
-``fused_tiers.cu``, whose kernel tiers it launches) once per variant with the given ``-D`` flags (each its own ``nvcc``, all started
+Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` for the reference
+arm (J = 3; the library ops/_build.py builds at that J) (with
+``fused_tiers.cu``, whose kernel tiers it launches) once per variant with
+the given ``-D`` flags (each its own ``nvcc``, all started
 together, beside the port's own build), prints each build's ptxas report
 (registers, spills) and its launch shape, then runs K1-BLS of every variant
 on the bench's inputs at T, twice each, timed with CUDA events, and says
@@ -71,12 +73,15 @@ class Variant:
     @contextlib.contextmanager
     def loaded(self):
         """The wrappers launch this build's kernels within the block."""
-        saved = _build._lib
-        _build._lib = self.lib
+        saved = _build._libs.get(3)
+        _build._libs[3] = self.lib
         try:
             yield
         finally:
-            _build._lib = saved
+            if saved is None:
+                _build._libs.pop(3)
+            else:
+                _build._libs[3] = saved
 
     def config(self, cfg):
         return cfg.replace(pallas_block_b=self.warps)
@@ -92,7 +97,7 @@ class Variant:
 
 def compile_(srcs, flags, out):
     return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *flags, "-o", out,
+        [_build._nvcc(), *_build.flags(3), "-shared", *flags, "-o", out,
          *srcs], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -139,8 +144,8 @@ def main():
             if proc.poll() is None:
                 proc.kill()
     _build.load_library()
-    if _build.build_info:  # None when the library was already built
-        for line in ptxas_lines(_build.build_info["log"]):
+    if 3 in _build.builds:  # none when the library was already built
+        for line in ptxas_lines(_build.builds[3]["log"]):
             print(f"  default: {line}")
     runs = {n: Variant(os.path.join(out_dir, n + ".so"), warps[n])
             for n in procs}

@@ -225,11 +225,11 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     _build.load_library()
-    log = (_build.build_info or {}).get("log", "")
+    log = _build.builds.get(3, {}).get("log", "")
     for name, r in cs.ptxas_report(log).items():
         if "streamed" in name or "k7" in name:
             print(f"    {name}: {r}", flush=True)
-    say(f"built in {(_build.build_info or {}).get('seconds', 0):.1f}s")
+    say(f"built in {_build.builds.get(3, {}).get('seconds', 0):.1f}s")
     streamed_vs_resident(dev)
     large_vs_plain(dev)
     k7_alone(dev)
