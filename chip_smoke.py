@@ -128,7 +128,8 @@ ceiling).  Phases:
    paired gate against the exact xla engine on 32,768 lanes, then K1-exact
    on the same scenes, bitwise equal; K2-exact's time per solve and the
    bounds there; and, for information, the certify statistics
-   (irm_motion_planning_tpu_torch/certify.py) of the card's exact tier on
+   (irm_motion_planning_tpu_torch/benchmarks/certify.py) of the card's
+   exact tier on
    the 2,048 scenes of certify_oracle_cpu2048.npz;
 17. large T (the streamed body of K1/K2 and of K3-K5, whose CTA runs a
    tile of lanes in lockstep and each basis product through K7, the
@@ -218,7 +219,25 @@ ceiling).  Phases:
    paired gate required for exact and GD, printed for the linearized
    ladder) and K7 alone (bit for bit K6, beside one torch.matmul); the
    7-link arm at T=50: K1 against plain on 65,536 lanes and the paired
-   gate; the CLI with ``--n-joints 5`` on the card.
+   gate; the CLI with ``--n-joints 5`` on the card;
+22. the benchmarks (irm_motion_planning_tpu_torch/benchmarks/; T=50, J=3,
+   11 obstacle slots; the five phase-ablated builds of K1 build in the
+   background from phase 1, after the J = 5 and 7 libraries): the quality
+   gate for BLS across xla, pallas and fused on 32,768 random scenes at the
+   bench schedule (its verdict required), then GD (printed); the seed
+   sweep over seeds 0-4 (per-seed deltas and sign flips); the port's
+   sequential oracle on 2,048 random scenes on the card, then the engine
+   phase of both ladder tiers on fused against it (on-platform) and against
+   the JAX package's stored CPU and TPU oracles (informative), every row
+   and verdict printed (the oracle file must load); the schedule sweep's
+   eight candidates through K2, and the shipped schedule under the bench
+   config, whose endpoint and alpha must be phase 4's K1 lane 0 bit for
+   bit; hetero's four policies with and without ``--shrink`` at 1,048,576
+   random scenes (solves/s, per-round decomposition); the epilogue shares
+   of the five ablated builds at 1,048,576 replicated lanes (each build's
+   time, registers, spills and K1's own work); decompose and roofline at
+   32,768 and 1,048,576 lanes; the five ablation rows.  K1-K6 must each
+   launch in the phase.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -357,6 +376,8 @@ def main():
     build_s = time.perf_counter() - t0
     # Phase 21's libraries (J = 5, 7) build while phases 2-20 run.
     joint_builds = start_joint_builds(_build)
+    # Phase 22's phase-ablated K1 builds, after those.
+    variant_builds = start_variant_builds(joint_builds)
     ptxas = ptxas_report(_build.builds.get(3, {}).get("log", ""))
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
@@ -611,8 +632,9 @@ def main():
     T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
     k1_bound = roofline.fused_rounds(
         MAIN_BATCH, T, J, O,
-        kernel_counts(plain_tally(fs.fused_solve_reference, *args), k1_rounds,
-                      k1_accepted), True)
+        roofline.kernel_counts(
+            roofline.plain_tally(fs.fused_solve_reference, *args), k1_rounds,
+            k1_accepted), True)
     pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
     gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
             for key in ("avg_cost", "max_cost")]
@@ -759,10 +781,10 @@ def main():
     # steps) and the plain version's tally of stops and rungs on the first
     # TALLY_LANES scenes, scaled to the batch: K1's, and K2's over the ten
     # launches of a solve (the same work: the rounds driver equals K1).
-    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+    sub = roofline.plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
                       *(x[..., :TALLY_LANES] for x in args[4:]))
     scale = MAIN_BATCH / TALLY_LANES
-    tally = kernel_counts({k: v * scale for k, v in sub.items()},
+    tally = roofline.kernel_counts({k: v * scale for k, v in sub.items()},
                           float((k1.outer_iters + k1.fulfilled).sum()),
                           float(k1.inner_iters.sum()))
     k1_rand_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, True)
@@ -1030,6 +1052,8 @@ def main():
     shards = sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps)
     joints = joints_phase(mt, bench, fs, sk, roofline, fleet, dev,
                           joint_builds)
+    benches = benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev,
+                               variant_builds, alpha0)
     phase_clock(None)
 
     def at_j(*names):
@@ -1038,6 +1062,7 @@ def main():
         return {J: {n: joints[n][J] for n in names if J in joints.get(n, {})}
                 for J in sorted({J for n in names for J in joints.get(n, {})})}
 
+    bl = benches["launches"]
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
                      max_abs_err, main_ms, main_plain_ms, k1_bound,
@@ -1050,7 +1075,9 @@ def main():
                      sharded=shards,
                      joints=at_j("fused_solve", "fused_solve_gd",
                                  "fused_solve_exact"),
-                     built_basis=joints["basis"], builds=joints["build"]),
+                     built_basis=joints["basis"], builds=joints["build"],
+                     ablated=benches["ablated"],
+                     launches_benchmarks=bl["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -1060,7 +1087,8 @@ def main():
                      gd=gd["fused_round"], exact=exact["fused_round"],
                      streamed=large["fused_round"],
                      tiers=tiers["fused_round"],
-                     joints=at_j("fused_round", "fused_round_gd")),
+                     joints=at_j("fused_round", "fused_round_gd"),
+                     launches_benchmarks=bl["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"], exact=exact["bls_inner_step"],
@@ -1071,7 +1099,8 @@ def main():
                          "linearized": occupancy["bls_inner_step"],
                          "exact": occupancy["bls_inner_step_exact"]},
                      path_peak_gib=paths["bls"][2],
-                     joints=at_j("bls_inner_step")),
+                     joints=at_j("bls_inner_step"),
+                     launches_benchmarks=bl["bls_inner_step"]),
         kernel_entry("gd_inner_step", "step_kernels.cu", 1083,
                      paths["gd"][0]["gd_inner_step"], step_abs_err["gd"],
                      *step_time["gd"], streamed=large["gd_inner_step"],
@@ -1079,7 +1108,8 @@ def main():
                             if k.startswith("gd_step")},
                      occupancy=occupancy["gd_inner_step"],
                      path_peak_gib=paths["gd"][2],
-                     joints=at_j("gd_inner_step")),
+                     joints=at_j("gd_inner_step"),
+                     launches_benchmarks=bl["gd_inner_step"]),
         # K5 runs on both per-step paths: ``launches`` is the BLS path's
         # count, the GD path's stands beside it.
         kernel_entry("cost_grad_eval", "step_kernels.cu", 1821,
@@ -1090,7 +1120,8 @@ def main():
                      ptxas={k: v for k, v in ptxas.items()
                             if k.startswith("cost_grad_eval")},
                      occupancy=occupancy["cost_grad_eval"],
-                     joints=at_j("cost_grad_eval")),
+                     joints=at_j("cost_grad_eval"),
+                     launches_benchmarks=bl["cost_grad_eval"]),
         kernel_entry("forward_eval", "step_kernels.cu", 1767,
                      paths["bls"][0]["forward_eval"], k6_abs_err, k6_ms,
                      k6_plain_ms, k6_bound, library_ms=k6_lib_ms,
@@ -1099,7 +1130,8 @@ def main():
                             if k.startswith("forward_eval")},
                      occupancy=occupancy["forward_eval"],
                      fraction_of_bound=k6_bound.ms / k6_ms,
-                     joints=at_j("forward_eval")),
+                     joints=at_j("forward_eval"),
+                     launches_benchmarks=bl["forward_eval"]),
         {**large["k7"], "joints": at_j("k7")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1171,7 +1203,9 @@ def entry_point_phases(mt, fs, fleet, dev):
     the numbers for K1's kernels-line entry."""
     import tempfile
 
-    from irm_motion_planning_tpu_torch import bench, cli, replan_bench
+    from irm_motion_planning_tpu_torch import bench, cli
+    from irm_motion_planning_tpu_torch.benchmarks import (
+        replan as replan_bench)
     from irm_motion_planning_tpu_torch.ops import _build
 
     phase_clock(19)
@@ -1736,7 +1770,8 @@ def sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps):
     env = dict(os.environ, PYTHONPATH=root)
     out["scaling"] = []
     for extra in ([], ["--spawn", "2"]):
-        cmd = [sys.executable, "-m", "irm_motion_planning_tpu_torch.scaling",
+        cmd = [sys.executable, "-m",
+               "irm_motion_planning_tpu_torch.benchmarks.scaling",
                "--backend", "fused", "--repeats", "2"] + extra
         proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
                               text=True, timeout=SHARD_TIMEOUT)
@@ -1921,12 +1956,12 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
         same = same_result(res, res2)
         del res2
         args = fleet.fused_args(c, basis5, scns)
-        sub = plain_tally(fs.fused_solve_reference, c, *args[1:4],
+        sub = roofline.plain_tally(fs.fused_solve_reference, c, *args[1:4],
                           *(x[..., :JOINT_TALLY] for x in args[4:]),
                           solver=solver)
         scale = JOINT_MAIN / JOINT_TALLY
         ran = res.stats.outer_iters + res.stats.converged.int()
-        tally = kernel_counts({k: v * scale for k, v in sub.items()},
+        tally = roofline.kernel_counts({k: v * scale for k, v in sub.items()},
                               float(ran.sum()),
                               float(res.stats.inner_iters.sum()), solver)
         b1 = roofline.fused_rounds(JOINT_MAIN, 50, 5, O, tally, True, solver)
@@ -2123,7 +2158,7 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
         lp = fs.launch_plan(c, O, prog=prog)
         bound = roofline.fused_rounds(
             JOINT_LARGE, T, 5, O,
-            kernel_counts({k: v * scale for k, v in tally.items()},
+            roofline.kernel_counts({k: v * scale for k, v in tally.items()},
                           float(ran.sum()), float(res.stats.inner_iters.sum()),
                           solver), True, solver, ladder, streamed=True,
             lanes_per_cta=lp["lanes"])
@@ -2192,13 +2227,13 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
         res = fleet.fleet_solve(cfg7, basis7, scn, backend="fused")
     n1, ms = fs.fused_solve.launches, timer.total_ms()
     gate = bench.paired_gate(cfg7, basis7, scn, res, JOINT7_CHECK)
-    sub = plain_tally(fs.fused_solve_reference, cfg7,
+    sub = roofline.plain_tally(fs.fused_solve_reference, cfg7,
                       *(x[..., :JOINT_TALLY] if i >= 3 else x for i, x in
                         enumerate(fleet.fused_args(cfg7, basis7, scn)[1:])))
     ran = res.stats.outer_iters + res.stats.converged.int()
     b1 = roofline.fused_rounds(
         JOINT_LANES, 50, 7, O,
-        kernel_counts({kk: v * JOINT_LANES / JOINT_TALLY
+        roofline.kernel_counts({kk: v * JOINT_LANES / JOINT_TALLY
                        for kk, v in sub.items()},
                       float(ran.sum()), float(res.stats.inner_iters.sum())),
         True)
@@ -2249,6 +2284,255 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     out["basis"] = {"sha256_T72_J5": h.hexdigest(),
                     "build_seconds": {str(k): v for k, v in build_s.items()}}
     return out
+
+
+# Phase 22, the benchmarks: the quality gate's and the seed sweep's scenes,
+# the oracle's, hetero's and the epilogue's lanes, the lanes of decompose
+# and roofline, and the time phase 22 aims to stay under (builds excluded).
+BENCH_QUALITY = 32768
+BENCH_SEEDS = "0,1,2,3,4"
+BENCH_ORACLE = 2048
+BENCH_HETERO = 1048576
+BENCH_EPILOGUE = 1048576
+BENCH_WIDTHS = (32768, 1048576)
+BENCH_KERNELS = ("fused_solve", "fused_round", "bls_inner_step",
+                 "gd_inner_step", "cost_grad_eval", "forward_eval")
+
+
+def start_variant_builds(joint_builds):
+    """Build the five phase-ablated K1 libraries (benchmarks/epilogue.py:
+    fused_solve.cu with one WB_ABLATE_* flag each, one nvcc each, started
+    together) in a thread, once phase 21's J = 5 and 7 builds are done, so
+    that fewer compilers share the host at once; returns (thread, errors).
+    The thread is not a daemon: the interpreter waits for it."""
+    import threading
+
+    from irm_motion_planning_tpu_torch.benchmarks import epilogue
+
+    errors = {}
+
+    def run():
+        for t in joint_builds[0]:
+            t.join()
+        try:
+            epilogue.build_variants(3)
+        except Exception as e:  # noqa: BLE001 -- reported in phase 22
+            errors["variants"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, errors
+
+
+def quiet(fn, *a, **kw):
+    """fn's result, its stdout and stderr lines kept from the log (the
+    phase prints what it reads)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return fn(*a, **kw)
+
+
+def benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev, builds, alpha0):
+    """Phase 22: the port's benchmarks (irm_motion_planning_tpu_torch/
+    benchmarks/) on the card, T=50, J=3, 11 obstacle slots.  Returns the
+    ablated builds' entries for K1's line and each kernel's launches in the
+    phase."""
+    import argparse
+    import tempfile
+
+    from irm_motion_planning_tpu_torch.benchmarks import (
+        ablation, certify, decompose, epilogue, hetero, quality,
+        quality_sweep, roofline as broofline, schedule_sweep)
+
+    phase_clock(22)
+    t_phase = time.perf_counter()
+    counters = {n: getattr(fs if n.startswith("fused") else sk, n)
+                for n in BENCH_KERNELS}
+    for k in counters.values():
+        k.launches = 0
+    o11 = ["--max-obstacles", "11"]
+
+    # (a) The quality gate: BLS across the three backends (required), GD.
+    for solver in ("bls", "gd"):
+        t0 = time.perf_counter()
+        q = quiet(quality.run, ["--batch", str(BENCH_QUALITY), "--schedule",
+                                "--solver", solver, "--seed", "0",
+                                "--backends", "xla,pallas,fused"] + o11)
+        rows = {b: {k: r[k] for k in ("converged_frac", "phantom_frac",
+                                      "avg_cost_mean", "max_cost_mean",
+                                      "endpoint_err_p90",
+                                      "mean_inner_steps")}
+                for b, r in q["backends"].items()}
+        say(f"phase 22 quality {solver} ({BENCH_QUALITY} random scenes, the "
+            f"bench schedule, {time.perf_counter() - t0:.1f} s): {rows}; "
+            f"verdict against xla {'PASS' if q['pass'] else 'FAIL'}"
+            + ("" if solver == "bls" else " (printed only)"))
+        if solver == "bls" and not q["pass"]:
+            fail("phase 22: the BLS quality gate failed across xla, pallas "
+                 "and fused")
+
+    # (b) The seed sweep (queue 3: the paired gate's margins over seeds).
+    t0 = time.perf_counter()
+    sw = quiet(quality_sweep.run, ["--seeds", BENCH_SEEDS, "--batch",
+                                   str(BENCH_QUALITY), "--backends",
+                                   "xla,fused,pallas"] + o11)
+    conv = {r["seed"]: {b: r[b]["converged_frac"] for b in
+                        ("xla", "fused", "pallas")} for r in sw["per_seed"]}
+    say(f"phase 22 quality_sweep seeds {BENCH_SEEDS} ({BENCH_QUALITY} "
+        f"scenes each, {time.perf_counter() - t0:.1f} s): converged by seed "
+        f"{conv}; deltas {sw['deltas']}")
+
+    # (c) Certification: the port's oracle on the card, then the engine
+    # phase of both tiers on fused against it (on-platform) and against the
+    # JAX package's stored oracles (informative).
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "certify_oracle.npz")
+        orow = certify.run_oracle(BENCH_ORACLE, 0, 11, "schedule", path, dev)
+        say(f"phase 22 certify oracle (the port's sequential BLS on the "
+            f"card, {BENCH_ORACLE} random scenes, the bench schedule): "
+            f"converged {orow['converged_frac']}, mean avg/max cost "
+            f"{orow['avg_cost_mean']}/{orow['max_cost_mean']}, nonfinite "
+            f"{orow['nonfinite']}, {orow['elapsed_s']} s")
+        certified = {}
+        for label, oracle in (
+                ("the port's oracle on the card (on-platform)", path),
+                ("JAX's CPU oracle (informative)",
+                 os.path.join(root, "certify_oracle_cpu2048.npz")),
+                ("JAX's TPU oracle (informative)",
+                 os.path.join(root, "certify_oracle_tpu2048.npz"))):
+            try:
+                ver = quiet(certify.run_engine, oracle, "fused",
+                            ("exact", "linearized"), 0, dev)
+            except (OSError, KeyError, ValueError) as e:
+                if oracle == path:
+                    fail(f"phase 22: the port's oracle file did not load in "
+                         f"the engine phase: {e!r}")
+                raise
+            certified[label] = ver
+            for tier, row in ver["tiers"].items():
+                bc = row["both_converged"]
+                say(f"phase 22 certify {tier} on fused against {label}: "
+                    f"converged {row['engine_converged_frac']} vs the "
+                    f"oracle's {row['oracle_converged_frac']} (slack "
+                    f"{certify.CONV_SLACK}); both converged n="
+                    f"{bc['avg']['n']}: mean gap avg "
+                    f"{bc['avg'].get('mean_gap')} max "
+                    f"{bc['max'].get('mean_gap')} (bound "
+                    f"{certify.MEAN_BOUNDS[tier]}), median avg "
+                    f"{bc['avg'].get('p50_gap')} max "
+                    f"{bc['max'].get('p50_gap')} (bound "
+                    f"{certify.MEDIAN_BOUNDS[tier]}); all scenes mean gap "
+                    f"avg {row['all']['avg'].get('mean_gap')} max "
+                    f"{row['all']['max'].get('mean_gap')}: "
+                    f"{'PASS' if row['pass'] else 'FAIL'}")
+
+    # (d) The schedule sweep through K2, then the shipped schedule under the
+    # bench config, which must give phase 4's K1 lane 0 bit for bit.
+    t0 = time.perf_counter()
+    rows = quiet(schedule_sweep.run, [])
+    for r in rows:
+        say(f"phase 22 schedule_sweep {r['sched']}: budget "
+            f"{r['total_budget']}, live steps {r['live_steps']}, avg/max "
+            f"{r['avg_cost']}/{r['max_cost']}, endpoint {r['endpoint_err']}, "
+            f"avg gap {r['avg_gap_pct']}%")
+    bcfg = bench.bench_config()
+    basis = mt.make_basis(bcfg, device=dev)
+    scn0 = mt.reference_scenario(bcfg, device=dev)
+    fsc = fleet.to_fleet(mt.replicate_scenario(scn0, 128))
+    a0k = fleet.fleet_init_alpha(bcfg, basis, fsc).movedim(1, 0).contiguous()
+    sched = mt.REFERENCE_INNER_SCHEDULE_BLS
+    alpha, steps, _ = schedule_sweep.run_schedule(bcfg, basis, fsc, a0k,
+                                                  sched, 0)
+    lane0 = fleet.alpha_from_fleet(alpha.movedim(0, 1))[0]
+    want = float(mt.solution_quality(bcfg, basis, scn0, alpha0)[
+        "endpoint_err"])
+    got = float(mt.solution_quality(bcfg, basis, scn0, lane0)[
+        "endpoint_err"])
+    sweep_row = next(r for r in rows if tuple(r["sched"]) == tuple(sched))
+    same_alpha = torch.equal(lane0, alpha0)
+    say(f"phase 22 the shipped schedule through K2 under the bench config: "
+        f"endpoint {got!r} against phase 4's K1 {want!r}, alpha bit for bit "
+        f"{same_alpha}; the sweep's own row (max_inner_iteration "
+        f"{max(max(c) for c in schedule_sweep.DEFAULT_BLS)}) endpoint "
+        f"{sweep_row['endpoint_err']} ({time.perf_counter() - t0:.1f} s)")
+    if not (same_alpha and got == want):
+        fail("phase 22: the shipped schedule through K2 is not phase 4's K1 "
+             "lane 0 bit for bit")
+    del alpha, a0k, fsc
+
+    # (e) hetero: the compaction policies with and without --shrink.
+    t0 = time.perf_counter()
+    for shrink in (False, True):
+        args = argparse.Namespace(
+            batch=BENCH_HETERO, block_b=0, shrink=shrink, seed=0, repeats=3,
+            policies="none,steps,steps_loss,oracle", rounds_detail=True,
+            device="cuda")
+        for row, detail in hetero.run(args):
+            rounds = [(d["launched"], d["t_sort_ms"], d["t_round_ms"],
+                       d["ful_frac"], d["live_tiles"]) for d in detail]
+            say(f"phase 22 hetero {row['policy']} shrink {shrink}: "
+                f"{row['solves_per_sec']} solves/s, fulfilled "
+                f"{row['ful_frac']}; rounds (launched, sort ms, K2 ms, "
+                f"fulfilled, live tiles) {rounds}")
+        torch.cuda.empty_cache()
+    say(f"phase 22 hetero took {time.perf_counter() - t0:.1f} s")
+
+    # (f) The epilogue shares of the five ablated builds.
+    thread, errors = builds
+    thread.join()
+    if errors:
+        fail(f"phase 22: the ablated builds failed: {errors}")
+    ep = quiet(epilogue.run, ["--batch", str(BENCH_EPILOGUE), "--repeats",
+                              "4"])
+    ablated = {}
+    for name, flag in epilogue.VARIANTS.items():
+        log = epilogue.variant_build(name)
+        ablated[name] = {
+            "flag": flag, "ms": ep["times_ms"][name],
+            "share_of_step": ep["share_of_step"][name],
+            "k1_work_per_lane": ep["k1_work_per_lane"][name],
+            "build_s": log.get("seconds"),
+            "ptxas": {k: v for k, v in ptxas_report(log.get("log", "")).items()
+                      if k.startswith("fused_solve<bls,")}}
+    say(f"phase 22 epilogue ({BENCH_EPILOGUE} replicated lanes, best of 4): "
+        f"full {ep['times_ms']['full']} ms (again {ep['full_after_ms']}), "
+        f"K1 work per lane {ep['k1_work_per_lane']['full']}, the plain "
+        f"tally {ep['plain_work_per_lane']}")
+    for name, a in ablated.items():
+        say(f"phase 22 epilogue {name} ({a['flag']}): {a['ms']} ms, share "
+            f"{a['share_of_step']}, K1 work per lane {a['k1_work_per_lane']},"
+            f" built in {a['build_s']} s, ptxas {a['ptxas']}")
+    ablated["full_ms"] = ep["times_ms"]["full"]
+    ablated["full_after_ms"] = ep["full_after_ms"]
+
+    # (g) decompose and roofline at two widths; (h) the ablation rows.
+    for width in BENCH_WIDTHS:
+        d = quiet(decompose.run, ["--batch", str(width), "--backend",
+                                  "fused", "--repeats", "3"] + o11)
+        r = quiet(broofline.run, ["--batch", str(width)] + o11)
+        say(f"phase 22 decompose fused at {width}: layout {d['layout_ms']} "
+            f"ms, init {d['init_ms']} ms, solve from alpha0 "
+            f"{d['solve_minus_init_ms']} ms, full {d['full_ms']} ms")
+        say(f"phase 22 roofline at {width}: K5 {r['eval_kernel']}; the "
+            f"fused solve {r['fused_solve']}")
+        torch.cuda.empty_cache()
+    ab = quiet(ablation.run, [])
+    table = [(x["lambda_max_cost"], x["avg_cost"], x["max_cost"],
+              x["reference_avg"], x["reference_max"]) for x in ab["rows"]]
+    say(f"phase 22 ablation (BLS, the reference scene, single-scene solves "
+        f"on the card; lambda, avg, max, the reference's avg, max): "
+        f"{table}")
+
+    launches = {n: k.launches for n, k in counters.items()}
+    say(f"phase 22 launches {launches}; {time.perf_counter() - t_phase:.1f} "
+        f"s of benchmarks (builds excluded)")
+    if min(launches.values()) < 1:
+        fail(f"phase 22: a kernel was not launched: {launches}")
+    return {"ablated": ablated, "launches": launches}
 
 
 def tick_lanes(batched, scn):
@@ -2732,7 +3016,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     # The certification statistics of the card's exact tier on the CPU
     # oracle's scenes, for information: certify.py calibrates its bounds
     # for an engine and an oracle on one platform.
-    from irm_motion_planning_tpu_torch import certify
+    from irm_motion_planning_tpu_torch.benchmarks import certify
 
     data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "certify_oracle_cpu2048.npz"))
@@ -2740,7 +3024,8 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     bc = row["both_converged"]
     say(f"phase 16 certify statistics of the card's exact tier on the CPU "
         f"oracle's {row['batch']} scenes (for information; on-platform "
-        f"bounds mean {certify.MEAN_BOUND}, median {certify.MEDIAN_BOUND}): "
+        f"bounds mean {certify.MEAN_BOUNDS['exact']}, median "
+        f"{certify.MEDIAN_BOUNDS['exact']}): "
         f"converged "
         f"{row['engine_converged_frac']} vs the oracle's "
         f"{row['oracle_converged_frac']}; both converged n={bc['avg']['n']}: "
@@ -2782,7 +3067,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     lines and K7's line in the kernels line, and the inputs phase 18 reuses
     (the linearized ladder's scenes at T=200 and its paired gate's xla
     numbers)."""
-    from irm_motion_planning_tpu_torch import problemsize
+    from irm_motion_planning_tpu_torch.benchmarks import problemsize
 
     phase_clock(17)
     T, J, O = LARGE_T, 3, 11
@@ -3067,8 +3352,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             f"{'PASS' if plain_conv_ok else 'FAIL'}")
         del p1
         scale = LARGE_BATCH / LARGE_TALLY
-        tally = kernel_counts(
-            {key: v * scale for key, v in plain_tally(
+        tally = roofline.kernel_counts(
+            {key: v * scale for key, v in roofline.plain_tally(
                 fs.fused_solve_reference, *sub, solver=solver).items()},
             float((k1.outer_iters + k1.fulfilled).sum()),
             float(k1.inner_iters.sum()), solver)
@@ -3478,8 +3763,8 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
         gates_ok = gates_ok and held
         del p1
         scale = LARGE_BATCH / TIER_TALLY
-        tally = kernel_counts(
-            {key: v * scale for key, v in plain_tally(
+        tally = roofline.kernel_counts(
+            {key: v * scale for key, v in roofline.plain_tally(
                 fs.fused_solve_reference, *tsub, **kw).items()},
             float((k1.outer_iters + k1.fulfilled).sum()),
             float(k1.inner_iters.sum()))
@@ -3516,10 +3801,11 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
         k2_launches = fs.fused_round.launches
         p2, k2_plain_ms = timed(lambda: fs.fused_round_reference(
             *srargs, **kw))
-        plain_tally_k2 = plain_tally(fs.fused_round_reference, *srargs, **kw)
+        plain_tally_k2 = roofline.plain_tally(fs.fused_round_reference,
+                                              *srargs, **kw)
         agree2, rel2, abs2 = round_agreement(p2, k2, srargs[7])
         k2_bound = roofline.fused_rounds(
-            SHORT_BATCH, T, J, O, kernel_counts(
+            SHORT_BATCH, T, J, O, roofline.kernel_counts(
                 plain_tally_k2, float((srargs[7] < 0.5).sum()),
                 float(k2.inner.sum())), False, streamed=True, prog=prog,
             lanes_per_cta=plan["lanes"])
@@ -3589,11 +3875,10 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
              *bargs[1:])
     agree, rel = fs.lane_agreement(fs.fused_solve_reference(*short, bf16=True),
                                    fs.fused_solve(*short, bf16=True))
-    tally = kernel_counts(plain_tally(fs.fused_solve_reference, *bargs,
-                                      bf16=True),
-                          float((res.stats.outer_iters
-                                 + res.stats.converged.int()).sum()),
-                          float(res.stats.inner_iters.sum()))
+    tally = roofline.kernel_counts(
+        roofline.plain_tally(fs.fused_solve_reference, *bargs, bf16=True),
+        float((res.stats.outer_iters + res.stats.converged.int()).sum()),
+        float(res.stats.inner_iters.sum()))
     bound = roofline.fused_rounds(TIER_BIG_BATCH, TIER_BIG_T, J, O, tally,
                                   True, streamed=True, prog="bls_bf16")
     import warnings
@@ -3879,13 +4164,14 @@ def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
     gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
             for key in ("avg_cost", "max_cost")]
     del p
-    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+    sub = roofline.plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
                       *(x[..., :TALLY_LANES] for x in args[4:]), solver=solver)
     scale = MAIN_BATCH / TALLY_LANES
     bound = roofline.fused_rounds(
         MAIN_BATCH, T, J, O,
-        kernel_counts({key: v * scale for key, v in sub.items()}, rounds,
-                      accepted, solver), True, solver, cfg.ladder_eval)
+        roofline.kernel_counts({key: v * scale for key, v in sub.items()},
+                               rounds, accepted, solver),
+        True, solver, cfg.ladder_eval)
     say(f"phase {phase} {label} alone {ms:.1f} ms, plain version "
         f"{plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals lane 0; "
         f"plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
@@ -3947,10 +4233,11 @@ def rounds_driver_check(fs, fleet, roofline, cfg, args, want, solver, phase,
                 k2_plain_ms += ms
                 k2_bound = k2_bound + roofline.fused_rounds(
                     FULL_BATCH, T, J, O,
-                    kernel_counts(plain_tally(fs.fused_round_reference, *rin,
-                                              solver=solver),
-                                  float((rin[7] < 0.5).sum()),
-                                  float(rout.inner.sum()), solver), False,
+                    roofline.kernel_counts(
+                        roofline.plain_tally(fs.fused_round_reference, *rin,
+                                             solver=solver),
+                        float((rin[7] < 0.5).sum()),
+                        float(rout.inner.sum()), solver), False,
                     solver, cfg.ladder_eval)
                 agreements.append(round_agreement(rp, rout, rin[7])[0])
             say(f"phase {phase} {k2} {readings[1]:.1f} ms over {rounds} "
@@ -3981,10 +4268,10 @@ def random_k1(mt, fs, fleet, roofline, cfg, solver, res_on, dev, phase,
     args = fleet.fused_args(cfg, basis, scns)
     k1, ms = timed(lambda: fs.fused_solve(*args, solver=solver))
     same = same_result(res_on, fleet.kernel_result(k1))
-    sub = plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
+    sub = roofline.plain_tally(fs.fused_solve_reference, cfg, *args[1:4],
                       *(x[..., :TALLY_LANES] for x in args[4:]), solver=solver)
     scale = MAIN_BATCH / TALLY_LANES
-    tally = kernel_counts({key: v * scale for key, v in sub.items()},
+    tally = roofline.kernel_counts({key: v * scale for key, v in sub.items()},
                           float((k1.outer_iters + k1.fulfilled).sum()),
                           float(k1.inner_iters.sum()), solver)
     k1_bound = roofline.fused_rounds(MAIN_BATCH, T, J, O, tally, True, solver,
@@ -4175,28 +4462,6 @@ def eval_ok(err):
 def planes_error(k, p):
     """The largest absolute error of the planes ``k`` against ``p``."""
     return max(float((x - y).abs().max()) for x, y in zip(k, p))
-
-
-def plain_tally(ref, *args, **kw):
-    """The work tally (fused_solve.count_work) of the plain version ``ref``
-    on ``args``, from a call of its own, so that no timed call keeps it."""
-    tally = {}
-    ref(*args, tally=tally, **kw)
-    return tally
-
-
-def kernel_counts(tally, rounds, accepted, solver="bls"):
-    """A whole-solve or round kernel's work counts for its bound: the rounds
-    its lanes ran and the steps it accepted (each pays a pull-back) from the
-    kernel's own outputs; the stop steps (BLS: and the ladder rungs) from
-    the plain version's tally on the same inputs."""
-    if solver == "gd":
-        stops = float((tally["steps"] - tally["accepted"]).sum())
-        return {"rounds": rounds, "steps": accepted + stops,
-                "accepted": accepted}
-    stops = float((tally["steps"] - tally["pullbacks"]).sum())
-    return {"rounds": rounds, "steps": accepted + stops,
-            "rungs": float(tally["rungs"].sum()), "pullbacks": accepted}
 
 
 def step_fns(sk, name):

@@ -62,7 +62,6 @@ from . import (
     REFERENCE_INNER_SCHEDULE_GD, Scenario, make_basis, reference_scenario, replicate_scenario,
     solution_quality,
 )
-from .ops.costs import Penalty
 from .ops.scenario import random_scenarios as random_scenarios_fn
 from .solvers import batched, fleet
 from .solvers.common import SolveResult
@@ -139,10 +138,7 @@ def paired_gate(cfg: PlannerConfig, basis, scns, res, n_check: int,
 
 def mean_obstacle_cost(cfg: PlannerConfig, basis, scns, res) -> float:
     """The mean unpenalized obstacle cost of the solved scenes ``scns``."""
-    zero = torch.zeros((), dtype=torch.float32, device=res.alpha.device)
-    return float(fleet.fleet_cost(cfg, basis, fleet.to_fleet(scns),
-                                  Penalty(zero, zero),
-                                  fleet.alpha_to_fleet(res.alpha)).mean())
+    return float(fleet.unpenalized_cost(cfg, basis, scns, res.alpha).mean())
 
 
 def gate_against(cfg: PlannerConfig, basis, scns, res, n_check: int,

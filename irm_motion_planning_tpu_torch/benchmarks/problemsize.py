@@ -1,7 +1,7 @@
 """Problem-size scaling of the port: time per solve against the number of
 support timesteps T (the port of benchmarks/problemsize.py).
 
-    python -m irm_motion_planning_tpu_torch.problemsize \\
+    python -m irm_motion_planning_tpu_torch.benchmarks.problemsize \\
         [--sizes 25,50,100,150,200] [--batch 4096] [--repeats 5] \\
         [--solver bls|gd] [--backend xla|fused|pallas] [--inner 15] \\
         [--device cuda|cpu]
@@ -34,10 +34,11 @@ import time
 
 import torch
 
-from . import PlannerConfig, make_basis, reference_scenario, replicate_scenario
-from .ops import fused_solve as fs
-from .ops import step_kernels as sk
-from .solvers import fleet
+from .. import (PlannerConfig, make_basis, reference_scenario,
+               replicate_scenario)
+from ..ops import fused_solve as fs
+from ..ops import step_kernels as sk
+from ..solvers import fleet
 
 KERNELS = {
     "fused": (fs.fused_solve, fs.fused_round),
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
         "points": rows,
     }
     if device.type == "cuda":
-        from .bench import gpu_name_and_power_limit
+        from ..bench import gpu_name_and_power_limit
 
         summary["device"], summary["power_limit"] = gpu_name_and_power_limit()
     print(json.dumps(summary), flush=True)

@@ -19,7 +19,7 @@ is a latency.  ``--rollout true`` also times ``Replanner.plan_rollout``
 mode: Hz, ms per tick (mean, median, p99, the slowest and which tick) and
 the mean final cost of the ticks.
 
-    python -m irm_motion_planning_tpu_torch.replan_bench [--ticks 100]
+    python -m irm_motion_planning_tpu_torch.benchmarks.replan [--ticks 100]
         [--batch 256] [--engine fleet|vmap] [--backend fused|pallas|xla]
         [--device cuda|cpu]
 """
@@ -34,10 +34,10 @@ import time
 import numpy as np
 import torch
 
-from . import PlannerConfig, reference_scenario, replicate_scenario
-from .ops.scenario import Scenario
-from .solvers.replan import Replanner
-from .utils.timing import sync
+from .. import PlannerConfig, reference_scenario, replicate_scenario
+from ..ops.scenario import Scenario
+from ..solvers.replan import Replanner
+from ..utils.timing import sync
 
 REF_REPLAN_HZ = 50.0  # DevBlog blog-post.html:232,350
 BUDGET_OUTER, BUDGET_INNER = 2, 25

@@ -1,17 +1,19 @@
 """Scaling sweep of the port: solves/s at 1, 2, 4, ... N devices, in one
 process or many (the port of benchmarks/scaling.py).
 
-    python -m irm_motion_planning_tpu_torch.scaling [--per-device 512] \\
-        [--repeats 3] [--solver bls|gd] [--max-devices 0] \\
+    python -m irm_motion_planning_tpu_torch.benchmarks.scaling \\
+        [--per-device 512] [--repeats 3] [--solver bls|gd] [--max-devices 0] \\
         [--engine fleet|vmap] [--backend xla|fused|pallas] [--device cuda|cpu]
 
     # one rank per host or card, the group formed over TCP:
-    python -m irm_motion_planning_tpu_torch.scaling --coordinator host0:1234 \\
+    python -m irm_motion_planning_tpu_torch.benchmarks.scaling \\
+        --coordinator host0:1234 \\
         --num-processes 4 --process-id $I
 
     # N fresh local processes that form one group and solve ONE global
     # batch (ranks that share a card use gloo; one card each, NCCL):
-    python -m irm_motion_planning_tpu_torch.scaling --spawn 2 --per-device 16
+    python -m irm_motion_planning_tpu_torch.benchmarks.scaling --spawn 2 \\
+        --per-device 16
 
 For each device count: the config of benchmarks/scaling.py (ladder BLS or
 GD, early exit, ``--max-inner-iteration``/``--max-outer-iteration``), the
@@ -42,12 +44,14 @@ import time
 
 import torch
 
-from . import PlannerConfig, make_basis, reference_scenario, replicate_scenario
-from .parallel import distributed as dist
-from .parallel import mesh as meshlib
-from .parallel import sharded
+from .. import (PlannerConfig, make_basis, reference_scenario,
+               replicate_scenario)
+from ..parallel import distributed as dist
+from ..parallel import mesh as meshlib
+from ..parallel import sharded
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def local_devices(device: str, max_devices: int) -> list:
@@ -104,7 +108,7 @@ def spawn_local_group(n: int, argv, device: str, dist_backend) -> int:
     port = 20000 + os.getpid() % 20000
     extra = []
     if device == "cuda":
-        from .ops import _build
+        from ..ops import _build
 
         _build.build()
         if dist_backend is None and n > torch.cuda.device_count():
@@ -115,7 +119,8 @@ def spawn_local_group(n: int, argv, device: str, dist_backend) -> int:
         [_ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
     ranks = dist.run_local_ranks(
-        [[sys.executable, "-m", "irm_motion_planning_tpu_torch.scaling",
+        [[sys.executable, "-m",
+          "irm_motion_planning_tpu_torch.benchmarks.scaling",
           "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
           "--process-id", str(i)] + extra + argv for i in range(n)],
         env=env)
@@ -216,7 +221,7 @@ def main(argv=None) -> int:
     if lead:
         name, power = "cpu", None
         if args.device == "cuda":
-            from .bench import gpu_name_and_power_limit
+            from ..bench import gpu_name_and_power_limit
 
             name, power = gpu_name_and_power_limit()
         print(json.dumps({

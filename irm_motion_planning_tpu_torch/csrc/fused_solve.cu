@@ -105,6 +105,26 @@
 
 #include <stddef.h>
 
+#ifdef WB_ABLATED
+// A phase-ablated build (warp_body.cuh, WB_ABLATE_*: timing only, wrong
+// results by design) holds K1 and K2 of the linearized program in the
+// resident body alone, the instantiations benchmarks/epilogue.py times;
+// nullptr for any other program or body.
+static const void* kernel_for(const FsParams& p, int which, int solver,
+                              bool streamed) {
+  if (solver != SOLVER_BLS || streamed) return nullptr;
+#if NJ == 3
+  if (specialised(p))
+    return which == 0
+               ? (const void*)
+                     fused_solve_kernel<SOLVER_BLS, WB_SPEC_T, WB_SPEC_O, false>
+               : (const void*)
+                     fused_round_kernel<SOLVER_BLS, WB_SPEC_T, WB_SPEC_O, false>;
+#endif
+  return which == 0 ? (const void*)fused_solve_kernel<SOLVER_BLS, 0, 0, false>
+                    : (const void*)fused_round_kernel<SOLVER_BLS, 0, 0, false>;
+}
+#else
 // K1's and K2's instantiations of one program: streamed (generic), or
 // resident, specialised (J = 3 only: the bench's arm) or generic.
 template <int SOLVER>
@@ -136,6 +156,7 @@ static const void* kernel_for(const FsParams& p, int which, int solver,
     return kernel_of<SOLVER_BLS_EXACT>(p, which, streamed);
   return tier_kernel_for(which, solver, streamed);
 }
+#endif  // WB_ABLATED
 
 // The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` in
 // the body ``streamed`` (0: resident, 1: streamed; launch_plan's "plan") at
@@ -260,6 +281,7 @@ extern "C" int fused_round_launch(FsParams p, int lanes, int solver,
                                (cudaStream_t)stream);
 }
 
+#ifndef WB_ABLATED  // an ablated build holds no streamed body
 // K7 alone, for measurement and its check: (traj, vel) = kv @ alpha with the
 // mix combine, for every lane (alpha, traj, vel (J, T, B)), through the
 // streamed body's product (eval_staged, k7_product) on tiles of ``lanes``
@@ -326,6 +348,7 @@ extern "C" int k7_forward_launch(FsParams p, int lanes, const float* kvT,
                                dim3(32 * warps), args, smem,
                                (cudaStream_t)stream);
 }
+#endif  // WB_ABLATED
 
 extern "C" const char* fused_solve_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

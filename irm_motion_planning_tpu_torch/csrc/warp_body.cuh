@@ -117,6 +117,27 @@
 #define WB_RING_CAP 16384          // the most floats of the K7 ring
 #define FULL_MASK 0xffffffffu
 
+// Phase-ablated builds, for timing only (benchmarks/epilogue.py): each
+// flag removes one phase of the resident body's BLS step, so the kernel
+// gives WRONG results by design, as the JAX kernel's _ABLATE values did
+// (pallas_step.py:94).  The default build defines none of them.
+//   WB_ABLATE_LADDER1      the Armijo ladder capped at one rung (bls_step)
+//   WB_ABLATE_DIR_FORWARD  no forward of the direction: the normalized
+//                          gradient stands for its traj and vel (direction)
+//   WB_ABLATE_FK           no FK in the rungs: the candidate's first joint
+//                          stands for the end effector (rung_point)
+//   WB_ABLATE_OBSFIELD     no obstacle field in the rungs: ex + ey stands
+//                          for the obstacle cost (rung_point)
+//   WB_ABLATE_PULLBACK     no end-of-step cost and gradient pass: the rung's
+//                          loss and the stale gradient carry on (bls_step)
+// A build with any of them holds the resident linearized program alone
+// (fused_solve.cu, WB_ABLATED).
+#if defined(WB_ABLATE_LADDER1) || defined(WB_ABLATE_DIR_FORWARD) || \
+    defined(WB_ABLATE_FK) || defined(WB_ABLATE_OBSFIELD) ||           \
+    defined(WB_ABLATE_PULLBACK)
+#define WB_ABLATED 1
+#endif
+
 // The specialised instantiation of the resident body's kernels (K1, K2,
 // K4): the bench's T and obstacle slots.  Other shapes run the generic one
 // (TT = OO = 0: T and O read at run time), with the same op sequence and
@@ -982,9 +1003,17 @@ static __device__ __forceinline__ float rung_point(const FsParams& p,
                                                    const W& w, int s,
                                                    const float* tr,
                                                    const float* ve) {
+#ifdef WB_ABLATE_FK
+  const float ex = tr[0], ey = ve[0];  // timing only (pallas_step.py:794)
+#else
   float px[NJ], py[NJ], ex, ey;
   fk_point(p, tr, px, py, ex, ey);
+#endif
+#ifdef WB_ABLATE_OBSFIELD
+  const float cv = ex + ey;  // timing only (pallas_step.py:800)
+#else
   const float cv = field(w, ex, ey);
+#endif
   put_cost_rows(p, w, s, cv, tr, ve);
   return cv;
 }
@@ -1100,9 +1129,20 @@ static __device__ __forceinline__ void direction(const FsParams& p, Warp& w,
                                                  float inv_norm) {
   const int T = w.T;
   const float lam = HALF ? bf16_round(p.lambda_reg) : p.lambda_reg;
+#ifdef WB_ABLATE_DIR_FORWARD
+  // Timing only (pallas_step.py:755): the normalized gradient stands for
+  // the direction's traj and vel rows.
+  float out[2 * WB_SLOTS][NJ];
+#pragma unroll
+  for (int s = 0; s < WB_SLOTS; ++s)
+#pragma unroll
+    for (int i = 0; i < NJ; ++i)
+      out[s][i] = out[WB_SLOTS + s][i] = w.grad[i * T + w.ts(s)] * inv_norm;
+#else
   stage_input(w, w.grad, inv_norm);
   float out[2 * WB_SLOTS][NJ];
   forward_rows(w, out);
+#endif
 #pragma unroll
   for (int s = 0; s < WB_SLOTS; ++s) {
     if (!w.owns(s)) continue;
@@ -1853,7 +1893,11 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
 
   bool found = false;
   float lr_best = 0.f, loss_best = base, rung = 1.f;
+#ifdef WB_ABLATE_LADDER1
+  for (int k = 0; k < 1; ++k) {  // timing only (pallas_step.py:736)
+#else
   for (int k = 0; k < p.n_bls; ++k) {
+#endif
     const float lr_r = lr * rung;
     const float closs = rung_cost<EXACT>(p, w, lr_r, inv_norm);
     const float required = base - p.bls_alpha * lr_r * alpha_norm;
@@ -1874,6 +1918,7 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
     if (!found) eval_alpha(w);
   }
   float nloss = loss_best;
+#ifndef WB_ABLATE_PULLBACK  // timing only (pallas_step.py:908)
   if (!stop) {
     int first;
     if constexpr (CARRY)
@@ -1882,6 +1927,7 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
       nloss = cost_pass(p, w, true, first);
     grad_pass(p, w, first);
   }
+#endif
   loss = nloss;
   lr = new_lr;
   return stop;

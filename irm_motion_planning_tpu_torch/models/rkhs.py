@@ -42,6 +42,24 @@ _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 BASIS_KEYS = ("n_timesteps", "rbf_variance", "mix_scale", "mix_seed", "n_joints")
 
 
+def rbf_kernel(x1, x2, rbf_var: float) -> np.ndarray:
+    """The Gaussian RBF kernel of float32 numpy arrays (ref:
+    trajectory.py:14-15; JAX's models/rkhs.py ``rbf_kernel``):
+    ``exp(-(x1 - x2)^2 / (2 rbf_var^2))`` in float32, ``rbf_var`` a Python
+    float (weak-typed, as JAX's note asks) and the exponential correctly
+    rounded (XLA's may differ by an ulp)."""
+    d = np.asarray(x1, np.float32) - np.asarray(x2, np.float32)
+    arg = -(d * d) / np.float32(2 * rbf_var**2)
+    return np.exp(arg.astype(np.float64)).astype(np.float32)
+
+
+def d_rbf_kernel(x1, x2, rbf_var: float) -> np.ndarray:
+    """d/dx1 of :func:`rbf_kernel` (ref: trajectory.py:18-19):
+    ``(x1 - x2) / rbf_var^2 * rbf_kernel(x1, x2, rbf_var)`` in float32."""
+    d = np.asarray(x1, np.float32) - np.asarray(x2, np.float32)
+    return (d / np.float32(rbf_var**2)) * rbf_kernel(x1, x2, rbf_var)
+
+
 class Basis(NamedTuple):
     """The RKHS basis as fp32 tensors (see irm_motion_planning_tpu's Basis).
 
@@ -141,10 +159,9 @@ def build_basis(cfg: PlannerConfig, device=None) -> Basis:
     move it to ``device`` (the card by default; ``device="cpu"`` for the
     CPU).
 
-    ``t``: i (1 / (T - 1)) (JAX's linspace as XLA compiles it); ``c``, ``km``, ``dkm``, ``kv``:
-    the same float32 operations in the same order, ``rbf_variance`` a
-    Python float (weak-typed, as JAX's note asks), exp correctly rounded
-    (JAX's XLA exp may differ by an ulp); ``mix = I + mix_scale *
+    ``t``: i (1 / (T - 1)) (JAX's linspace as XLA compiles it); ``c``,
+    ``km``, ``dkm``, ``kv``: the same float32 operations in the same order
+    (:func:`rbf_kernel`, :func:`d_rbf_kernel`); ``mix = I + mix_scale *
     normal(PRNGKey(mix_seed), (J, J))`` (:mod:`threefry`); ``mix_inv`` and
     ``init_u``/``init_w`` = ``km^-1 [1, c]`` by :func:`_lu_solve`.  The
     same config gives the same bits on any machine.  One build per config
@@ -167,12 +184,9 @@ def _build(cfg: PlannerConfig) -> Basis:
     t2 = t * t
     t4 = t2 * t2
     c = (f32(6) * (t * t4) - f32(15) * t4) + f32(10) * (t * t2)
-    diff = t[None, :] - t[:, None]
-    var = cfg.rbf_variance
-    arg = -(diff * diff) / f32(2 * var**2)
-    e = np.exp(arg.astype(np.float64)).astype(f32)
-    km = e
-    dkm = (diff / f32(var**2)) * e
+    # km[i, j] = k(t_j, t_i), as JAX's meshgrid semantics.
+    km = rbf_kernel(t[None, :], t[:, None], cfg.rbf_variance)
+    dkm = d_rbf_kernel(t[None, :], t[:, None], cfg.rbf_variance)
     kv = np.concatenate((km, dkm), axis=0)
     mix = np.eye(J, dtype=f32) + f32(cfg.mix_scale) * threefry.normal(
         cfg.mix_seed, (J, J))

@@ -18,10 +18,17 @@ use.  Target: ``sm_90a`` (Hopper).  No ``--use_fast_math``, and no
 contraction of separate multiplies and adds into FMAs (``-fmad=false``):
 the elementwise arithmetic rounds as the plain PyTorch version's does; the
 basis products use explicit ``fmaf``.
+
+Variant builds (:func:`build_variant`, :func:`variant`): ``fused_solve.cu``
+alone, compiled with extra ``-D`` flags (the phase-ablated builds of
+csrc/warp_body.cuh, ``WB_ABLATE_*``, which hold K1 and K2 of the resident
+linearized program only) into ``build/variants/``, and loaded in place of
+the default library of its J for the duration of a ``with`` block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -38,6 +45,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+VARIANT_DIR = os.path.join(BUILD_DIR, "variants")
+# What a variant build compiles: K1 and K2 (and, by default, K7 alone).
+VARIANT_SOURCES = ("fused_solve.cu",)
+VARIANT_ENTRIES = ("fused_solve_launch", "fused_round_launch")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + [
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler",
@@ -47,9 +58,9 @@ NVCC_FLAGS = ARCH + [
 _lock = threading.Lock()
 # The loaded libraries, by J.
 _libs: dict = {}
-# What each build in this process did, by J: seconds, and nvcc's output
-# (ptxas register and shared-memory report); no entry for a library that
-# was built before.
+# What each build in this process did, by J (a variant build by J and its
+# -D flags): seconds, and nvcc's output (ptxas register and shared-memory
+# report); no entry for a library that was built before.
 builds: dict = {}
 
 
@@ -82,13 +93,32 @@ def flags(J: int = 3) -> list:
     return NVCC_FLAGS + [f"-DNJ={_check_joints(J)}"]
 
 
-def library_path(J: int = 3) -> str:
-    digest = hashlib.sha256(" ".join(flags(J)).encode())
-    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+def _digest(J: int, extra: tuple, srcs: list) -> str:
+    digest = hashlib.sha256(" ".join(flags(J) + list(extra)).encode())
+    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return digest.hexdigest()[:16]
+
+
+def library_path(J: int = 3) -> str:
     return os.path.join(BUILD_DIR,
-                        f"kernels_J{J}_{digest.hexdigest()[:16]}.so")
+                        f"kernels_J{J}_{_digest(J, (), sources())}.so")
+
+
+def _variant_sources() -> list:
+    return [os.path.join(CSRC, f) for f in VARIANT_SOURCES]
+
+
+def _defines(defines) -> tuple:
+    """``-D`` flags from macro definitions (``NAME`` or ``NAME=value``)."""
+    return tuple(f"-D{d}" for d in defines)
+
+
+def variant_path(J: int, defines) -> str:
+    """Where the variant build of J with the macro ``defines`` goes."""
+    digest = _digest(J, _defines(defines), _variant_sources())
+    return os.path.join(VARIANT_DIR, f"kernels_J{J}_{digest}.so")
 
 
 def _check(proc, what: str) -> str:
@@ -99,23 +129,22 @@ def _check(proc, what: str) -> str:
     return (out + err).strip()
 
 
-def build(J: int = 3) -> str:
-    """Compile the kernel library of J joints if it is not built yet;
-    return its path.  Prints the build's seconds (stderr); raises
-    RuntimeError when nvcc fails."""
-    out = library_path(J)
+def _compile(out: str, J: int, srcs: list, extra: tuple, key) -> str:
+    """Compile ``srcs`` (one nvcc each, all started together) with J's
+    flags and ``extra`` and link them into ``out``, unless it exists;
+    record the build in ``builds[key]``."""
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
         objs, procs = [], []
-        for src in sources():
+        for src in srcs:
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *flags(J), "-c", "-o", obj, src],
+                [nvcc, *flags(J), *extra, "-c", "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         logs = [_check(proc, os.path.basename(src)) for src, proc in procs]
         lib = os.path.join(tmp, "kernels.so")
@@ -126,10 +155,50 @@ def build(J: int = 3) -> str:
         os.replace(lib, out)
     info = {"seconds": time.perf_counter() - t0,
             "log": "\n".join(x for x in logs if x)}
-    builds[J] = info
-    print(f"[kernels] built the J={J} library in {info['seconds']:.1f}s",
-          file=sys.stderr, flush=True)
+    builds[key] = info
+    print(f"[kernels] built {os.path.basename(out)} {' '.join(extra)} in "
+          f"{info['seconds']:.1f}s", file=sys.stderr, flush=True)
     return out
+
+
+def build(J: int = 3) -> str:
+    """Compile the kernel library of J joints if it is not built yet;
+    return its path.  Prints the build's seconds (stderr); raises
+    RuntimeError when nvcc fails."""
+    return _compile(library_path(J), J, sources(), (), J)
+
+
+def build_variant(J: int, defines) -> str:
+    """Compile the variant of J joints with the macro ``defines`` (e.g.
+    ``("WB_ABLATE_FK",)``) if it is not built yet: VARIANT_SOURCES, the
+    flags of J's library plus one ``-D`` per define.  Returns its path;
+    its build is ``builds[(J, tuple(defines))]``."""
+    J = _check_joints(J)
+    defines = tuple(defines)
+    return _compile(variant_path(J, defines), J, _variant_sources(),
+                    _defines(defines), (J, defines))
+
+
+@contextlib.contextmanager
+def variant(J: int, defines):
+    """Within the block, every launch at J goes to the variant build of J
+    with ``defines`` (:func:`build_variant`; its entry points
+    VARIANT_ENTRIES, its layout checked), in every thread of the process;
+    the default library (or none) is restored on exit."""
+    J = _check_joints(J)
+    lib = bind(ctypes.CDLL(build_variant(J, defines)), VARIANT_ENTRIES, J)
+    check_layout(lib, J)
+    with _lock:
+        saved = _libs.get(J)
+        _libs[J] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if saved is None:
+                _libs.pop(J, None)
+            else:
+                _libs[J] = saved
 
 
 def bind(lib: ctypes.CDLL, names=None, J: int = 3) -> ctypes.CDLL:

@@ -335,3 +335,26 @@ def fused_round_launches(B: int, T: int, J: int, O: int, tally: dict,
                                           + b["scene"]) + _basis_bytes(T, J)
                for n in live)
     return Bound(byts, rounds.ops, rounds.l2_bytes)
+
+
+def plain_tally(ref, *args, **kw) -> dict:
+    """The work tally (fused_solve.count_work) of the plain version ``ref``
+    on ``args``, from a call of its own, so that no timed call keeps it."""
+    tally = {}
+    ref(*args, tally=tally, **kw)
+    return tally
+
+
+def kernel_counts(tally: dict, rounds: float, accepted: float,
+                  solver: str = "bls") -> dict:
+    """A whole-solve or round kernel's work counts for its bound: the rounds
+    its lanes ran and the steps it accepted (each pays a pull-back) from the
+    kernel's own outputs; the stop steps (BLS: and the ladder rungs) from
+    the plain version's tally on the same inputs."""
+    if solver == "gd":
+        stops = float((tally["steps"] - tally["accepted"]).sum())
+        return {"rounds": rounds, "steps": accepted + stops,
+                "accepted": accepted}
+    stops = float((tally["steps"] - tally["pullbacks"]).sum())
+    return {"rounds": rounds, "steps": accepted + stops,
+            "rungs": float(tally["rungs"].sum()), "pullbacks": accepted}

@@ -10,8 +10,8 @@ process ever holds the full batch) and runs the solvers of
 
 :func:`run_local_ranks` starts the ranks of a group on this host (with
 :func:`free_port` for its coordinator): ``python -m
-irm_motion_planning_tpu_torch.scaling --spawn N`` launches through it, and
-so do ``tests/test_torch_distributed.py`` and ``chip_smoke.py``.
+irm_motion_planning_tpu_torch.benchmarks.scaling --spawn N`` launches
+through it, and so do ``tests/test_torch_distributed.py`` and ``chip_smoke.py``.
 """
 
 from __future__ import annotations

@@ -226,6 +226,21 @@ def fleet_cost(cfg: PlannerConfig, basis: Basis, scn: Scenario,
     return fleet_cost_from_traj(cfg, scn, penalty, traj, vel)
 
 
+def unpenalized_cost(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
+                     alpha: torch.Tensor,
+                     lambda_max_cost: Optional[float] = None) -> torch.Tensor:
+    """Each scene's unpenalized obstacle cost, the reference's final report
+    (ref: main.py:141-143; the penalties at 0), of the solve alpha (B, T, J)
+    of the leading-batch ``scenarios``, under the blend ``lambda_max_cost``
+    (None: cfg's; 0 the average cost, 1 the maximum) -> (B,).  The one
+    readout of the bench's gate, the quality benchmarks and certify."""
+    if lambda_max_cost is not None:
+        cfg = cfg.replace(lambda_max_cost=lambda_max_cost)
+    zero = torch.zeros((), dtype=torch.float32, device=alpha.device)
+    return fleet_cost(cfg, basis, to_fleet(scenarios), Penalty(zero, zero),
+                      alpha_to_fleet(alpha))
+
+
 def fleet_cost_grad_eval(cfg: PlannerConfig, basis: Basis, scn: Scenario,
                          penalty: Penalty, alpha: torch.Tensor):
     """Per-lane cost, analytic alpha-gradient and the evaluated (traj, vel)
@@ -517,13 +532,67 @@ def compaction_order(ful: torch.Tensor, floss: torch.Tensor,
     return torch.argsort(key, stable=True)
 
 
+class Rounds(NamedTuple):
+    """The rounds driver's per-lane state between K2 launches: alpha
+    (J, T, B) and (1, B) fields.  ``floss``: the loss of the round in which
+    the lane was fulfilled (inf while it is not)."""
+
+    alpha: torch.Tensor
+    lam_sg: torch.Tensor
+    lam_jl: torch.Tensor
+    ful: torch.Tensor
+    outer: torch.Tensor
+    total_inner: torch.Tensor
+    floss: torch.Tensor
+
+
+def start_rounds(alpha, lam_sg, lam_jl) -> Rounds:
+    """The state before round 0: no lane fulfilled, nothing counted."""
+    B = alpha.shape[-1]
+    zeros = torch.zeros((1, B), dtype=torch.float32, device=alpha.device)
+    return Rounds(alpha, lam_sg, lam_jl, zeros, zeros, zeros,
+                  torch.full((1, B), float("inf"), device=alpha.device))
+
+
+def after_round(cfg: PlannerConfig, s: Rounds, out: fs.FusedRound) -> Rounds:
+    """The penalty bookkeeping after one K2 launch: op for op the
+    whole-solve kernel's epilogue (the x10 escalation on the lanes that
+    still fail)."""
+    inc = float(cfg.lambda_constraint_increase)
+    was = s.ful
+    now = torch.maximum(was, out.ok)
+    return Rounds(
+        alpha=out.alpha,
+        lam_sg=torch.where(now > 0.5, s.lam_sg, s.lam_sg * inc),
+        lam_jl=torch.where(now > 0.5, s.lam_jl, s.lam_jl * inc),
+        ful=now,
+        outer=torch.where(now > 0.5, s.outer, s.outer + 1.0),
+        total_inner=s.total_inner + out.inner,
+        floss=torch.where(was > 0.5, s.floss, out.loss),
+    )
+
+
+def take_lanes(p: torch.Tensor, *xs) -> tuple:
+    """Each of ``xs`` with its lanes (the last axis) in the order ``p``."""
+    return tuple(x.index_select(-1, p) for x in xs)
+
+
+def rounds_result(s: Rounds, perm: torch.Tensor) -> SolveResult:
+    """The solve's result in the original lane order: lane i of ``s`` holds
+    original lane ``perm[i]``."""
+    inv = torch.argsort(perm)             # undo the composed permutation
+    return kernel_result(fs.FusedSolve(*take_lanes(
+        inv, s.alpha, s.floss, s.ful, s.outer, s.total_inner)))
+
+
 def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
                         solver: str = "bls", plan: str = "",
                         **tier) -> SolveResult:
     """The solve of ``solver`` as one fused-round launch per penalty round
     (ops.fused_solve.fused_round), with the penalty bookkeeping between
-    launches and, with ``cfg.lane_compaction``, one re-sort of the lanes
-    before round 1.  ``kargs`` are :func:`fused_args`' (without cfg).  Each
+    launches (:func:`after_round`) and, with ``cfg.lane_compaction``, one
+    re-sort of the lanes before round 1.  ``kargs`` are :func:`fused_args`'
+    (without cfg).  Each
     round starts every lane from the round's learning rate
     (fused_solve.round_lr: ``bls_lr_start``, or GD's ``gd_lr[min(r, len -
     1)]``), as the JAX package's rounds driver does.  ``plan``: K2's
@@ -545,42 +614,24 @@ def _fused_rounds_solve(cfg: PlannerConfig, kargs: tuple,
     kv, kvt, mix, alpha, lam_sg, lam_jl, start, goal, ox, oy, ow = kargs
     B = alpha.shape[-1]
     dev = alpha.device
-    inc = float(cfg.lambda_constraint_increase)
-    zeros = torch.zeros((1, B), dtype=torch.float32, device=dev)
-    ful, outer, total_inner = zeros, zeros, zeros
-    floss = torch.full((1, B), float("inf"), device=dev)
+    s = start_rounds(alpha, lam_sg, lam_jl)
+    lanes = (start, goal, ox, oy, ow)
     perm = torch.arange(B, device=dev)   # lane i holds original lane perm[i]
-    last_steps = zeros[0]
+    last_steps = s.ful[0]
     for r, n_r in enumerate(fs.inner_schedule(cfg)):
         if cfg.lane_compaction and r == 1:
-            p = compaction_order(ful, floss, last_steps)
-            (alpha, lam_sg, lam_jl, ful, outer, total_inner, floss, start,
-             goal, ox, oy, ow, perm, last_steps) = (
-                x.index_select(-1, p) for x in (
-                    alpha, lam_sg, lam_jl, ful, outer, total_inner, floss,
-                    start, goal, ox, oy, ow, perm, last_steps,
-                )
-            )
+            p = compaction_order(s.ful, s.floss, last_steps)
+            s = Rounds(*take_lanes(p, *s))
+            lanes = take_lanes(p, *lanes)
+            perm, last_steps = take_lanes(p, perm, last_steps)
         lr0 = torch.full((1, B), fs.round_lr(cfg, r, solver),
                          dtype=torch.float32, device=dev)
-        out = fs.fused_round(cfg, kv, kvt, mix, alpha, lam_sg, lam_jl, ful,
-                             lr0, n_r, start, goal, ox, oy, ow, solver=solver,
+        out = fs.fused_round(cfg, kv, kvt, mix, s.alpha, s.lam_sg, s.lam_jl,
+                             s.ful, lr0, n_r, *lanes, solver=solver,
                              plan=plan, **tier)
-        # Penalty bookkeeping: op for op the whole-solve kernel's.
-        was = ful
-        now = torch.maximum(was, out.ok)
-        floss = torch.where(was > 0.5, floss, out.loss)
-        outer = torch.where(now > 0.5, outer, outer + 1.0)
-        lam_sg = torch.where(now > 0.5, lam_sg, lam_sg * inc)
-        lam_jl = torch.where(now > 0.5, lam_jl, lam_jl * inc)
-        total_inner = total_inner + out.inner
+        s = after_round(cfg, s, out)
         last_steps = out.inner[0]
-        ful = now
-        alpha = out.alpha
-    inv = torch.argsort(perm)             # undo the composed permutation
-    return kernel_result(fs.FusedSolve(*(
-        x.index_select(-1, inv)
-        for x in (alpha, floss, ful, outer, total_inner))))
+    return rounds_result(s, perm)
 
 
 def _pallas_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,

@@ -33,7 +33,8 @@ from irm_motion_planning_tpu.ops import pallas_step as ps
 from irm_motion_planning_tpu.solvers import fleet as jfleet
 
 import irm_motion_planning_tpu_torch as mt
-from irm_motion_planning_tpu_torch import bench, certify
+from irm_motion_planning_tpu_torch import bench
+from irm_motion_planning_tpu_torch.benchmarks import certify
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
 from irm_motion_planning_tpu_torch.ops import roofline
 from irm_motion_planning_tpu_torch.ops import step_kernels as sk
@@ -429,6 +430,6 @@ def test_exact_tier_certifies_against_the_cpu_oracle():
     assert row["engine_converged_frac"] >= (row["oracle_converged_frac"]
                                             - certify.CONV_SLACK)
     for k in ("avg", "max"):
-        assert bc[k]["mean_gap"] <= certify.MEAN_BOUND
-        assert abs(bc[k]["p50_gap"]) <= certify.MEDIAN_BOUND
+        assert bc[k]["mean_gap"] <= certify.MEAN_BOUNDS["exact"]
+        assert abs(bc[k]["p50_gap"]) <= certify.MEDIAN_BOUNDS["exact"]
     assert row["pass"]

@@ -7,7 +7,9 @@ the card, and large T: the streamed programs of K1/K2 (K7) bit for bit the
 resident ones at T = 50 and, with K3-K6 in the streamed body (K3-K5) or
 tiled (K6), against their plain versions at T = 200; and the kernel tiers
 of K1/K2
-(lean, ultra, bf16) against their plain versions at T = 50 and 200.  The
+(lean, ultra, bf16) against their plain versions at T = 50 and 200; and
+K1's phase-ablated builds (``WB_ABLATE_*``), which must launch and leave
+the default library as it was.  The
 kernels have no CPU
 mode, so every case skips without a GPU.  The file imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
@@ -732,3 +734,27 @@ def test_fleet_solve_launches_each_j_kernels(J, backend):
     assert counter.launches > before
     assert res.alpha.shape == (256, 50, J)
     assert torch.isfinite(res.alpha).all()
+
+
+ABLATED = pytest.mark.parametrize("flag", [
+    "WB_ABLATE_LADDER1", "WB_ABLATE_DIR_FORWARD", "WB_ABLATE_FK",
+    "WB_ABLATE_OBSFIELD", "WB_ABLATE_PULLBACK"])
+
+
+@ABLATED
+def test_ablated_build_launches_and_leaves_the_default(args, flag):
+    """Each phase-ablated build of K1 (ops/_build.py ``variant``) compiles
+    and launches on the card (its results are wrong by design: finite
+    shapes only); outside the block the default library launches again and
+    gives its own results bit for bit."""
+    from irm_motion_planning_tpu_torch.ops import _build
+
+    before = tfs.fused_solve(*args)
+    with _build.variant(3, (flag,)):
+        got = tfs.fused_solve(*args)
+        torch.cuda.synchronize()
+    assert got.alpha.shape == before.alpha.shape
+    assert torch.isfinite(got.final_loss).any()
+    after = tfs.fused_solve(*args)
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert _build.load_library(3) is not None

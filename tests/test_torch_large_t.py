@@ -31,7 +31,7 @@ from irm_motion_planning_tpu.ops import pallas_step as ps
 from irm_motion_planning_tpu.solvers import fleet as jfleet
 
 import irm_motion_planning_tpu_torch as mt
-from irm_motion_planning_tpu_torch import problemsize
+from irm_motion_planning_tpu_torch.benchmarks import problemsize
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
 from irm_motion_planning_tpu_torch.ops import step_kernels as sk
 from irm_motion_planning_tpu_torch.solvers import fleet as tfleet
@@ -494,9 +494,9 @@ def test_xla_engine_at_t100_matches_jax():
 
 
 def test_problemsize_rehearsal():
-    """python -m irm_motion_planning_tpu_torch.problemsize on the CPU: one
-    JSON line per size on stderr (with the launches, none on the CPU, and
-    the launch plan) and the summary on stdout."""
+    """python -m irm_motion_planning_tpu_torch.benchmarks.problemsize on the
+    CPU: one JSON line per size on stderr (with the launches, none on the
+    CPU, and the launch plan) and the summary on stdout."""
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = problemsize.main(["--device", "cpu", "--sizes", "25,50",

@@ -1,6 +1,7 @@
-"""The replanner (solvers/replan.py) and replan_bench's protocol on the CPU:
-the cases of tests/test_runtime.py's replanner tests, with two assertions
-changed.  The JAX tests count one jit compile across ticks
+"""The replanner (solvers/replan.py) and the replanning benchmark's
+protocol (benchmarks/replan.py) on the CPU: the cases of
+tests/test_runtime.py's replanner tests, with two assertions changed.  The
+JAX tests count one jit compile across ticks
 (``_cache_size() == 1``); the port compiles nothing per tick (its kernel
 library is built once, which chip_smoke.py checks on the card), so the
 count has no counterpart here.  JAX's rollout, one ``lax.scan``, is held to
@@ -17,7 +18,7 @@ import irm_motion_planning_tpu as mp
 from irm_motion_planning_tpu.solvers.replan import Replanner as JReplanner
 
 import irm_motion_planning_tpu_torch as mt
-from irm_motion_planning_tpu_torch import replan_bench
+from irm_motion_planning_tpu_torch.benchmarks import replan as replan_bench
 from irm_motion_planning_tpu_torch.solvers.replan import PAD_LANES, Replanner
 
 SHORT = dict(max_inner_iteration=30, max_outer_iteration=3)
