@@ -18,7 +18,8 @@ GD, K3-K6), GD on the fused backend (``--solver gd``, K1 and K2 with the
 GD step), the exact ladder (``--ladder-eval exact``, K1, K2 and K3 with
 the exact BLS step) and the kernel tiers of K1/K2 (``ultra``, ``bf16``;
 ``lean`` runs the linearized program; the bf16 plan past the f32 plans'
-ceiling).  Phases:
+ceiling), and the float32 programs past the streamed plan's ceiling in
+the reach plan (phase 23).  Phases:
 
 1. device: the card's name and power limit, the kernel build; for K1 and
    K2 (one warp per lane, persistent grid), for each program (bls, gd,
@@ -237,7 +238,26 @@ ceiling).  Phases:
    of the five ablated builds at 1,048,576 replicated lanes (each build's
    time, registers, spills and K1's own work); decompose and roofline at
    32,768 and 1,048,576 lanes; the five ablation rows.  K1-K6 must each
-   launch in the phase.
+   launch in the phase;
+23. the reference's reach (K1/K2 past the streamed plan's ceiling, in the
+   reach plan of csrc/fused_reach.cu: the gradient pass recomputes FK, GD
+   and the exact ladder hold no direction planes, the linearized ladder
+   holds the tile's gx/gy planes in them): each float32 program's reach
+   plan against the C side and the ceilings at J = 3, 5, 7; the reach
+   layouts forced at T = 200 and 2,072, K1 and K2 (one round) of gd, bls,
+   bls_exact and bls_ultra on 512 random scenes, bit for bit the streamed
+   layout; GD at T = 2,200, 2,400 and 2,636 (the basis make_basis builds,
+   timed): fleet_solve(backend="fused") takes the reach plan and launches
+   K1 once, K1 and K2 against their plain versions under phase 2's rule
+   (1x4 steps, 512 random scenes), timed with their bounds; the GD paired
+   gate at T = 2,400 on 2,048 random scenes at the GD schedule (K1
+   against the xla engine, bench.py's bands); bls, bls_exact and
+   bls_ultra at T = 2,104 against plain, and with ``bls_bf16_ladder`` the
+   float32 plan there (K1 launched, bit for bit the linearized program);
+   ``pallas`` at GD T = 2,200 warns and equals xla bit for bit; and a
+   measurement: the bf16 plan at T = 2,200 on 2,048 random scenes at the
+   BLS schedule against the xla engine (converged fraction, cost,
+   phantom of each).
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -256,7 +276,10 @@ spills and occupancy, and K1 the main path's peak device memory; under
 their lane agreement), under ``streamed`` those at T=200 (phase 17), and
 under ``tiers`` K1's and K2's numbers for each kernel tier's program (phase
 18; K1-bf16 also past the f32 plans' ceiling), and under ``entry_points``
-phase 19's numbers, under ``sharded`` phase 20's; every kernel under
+phase 19's numbers, under ``sharded`` phase 20's, K1 and K2 under
+``reach`` phase 23's per program (launches, ms, plain_ms, bound_ms,
+bound_by, library_ms, max_abs_err at each T; the bitwise checks; K1-GD's
+paired gate; the bf16 plan's measurement); every kernel under
 ``joints`` phase 21's by J (launches, ms, bound, ptxas registers and
 spills, lane agreement), K1 also the built basis' digest and the libraries'
 build seconds.  K7's line carries K1-BLS
@@ -396,11 +419,14 @@ def main():
                      f"shared memory per CTA, the C side {shape['smem']} B")
             built = {k: v for k, v in ptxas.items()
                      if k.startswith(f"{name}<{prog},")}
-            # The kernel tiers' programs have no specialised instantiation.
-            want = 2 if prog in fs.TIER_PROGRAMS else 3
+            # The kernel tiers' programs have no specialised instantiation,
+            # the bf16 tier's no reach layout.
+            want = ((2 if prog in fs.TIER_PROGRAMS else 3)
+                    + (prog != "bls_bf16"))
             if len(built) != want:
                 fail(f"phase 1: no ptxas report of {name}<{prog},...> "
-                     f"(specialised, generic and streamed): {sorted(ptxas)}")
+                     f"(specialised, generic, streamed and reach): "
+                     f"{sorted(ptxas)}")
             occupancy[name, prog] = {"ptxas": built, **shape,
                                      "warps_per_cta": plan["warps"],
                                      "smem_bytes": plan["bytes"]}
@@ -1054,6 +1080,7 @@ def main():
                           joint_builds)
     benches = benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev,
                                variant_builds, alpha0)
+    reach = reach_phase(mt, bench, fs, roofline, fleet, dev)
     phase_clock(None)
 
     def at_j(*names):
@@ -1077,7 +1104,8 @@ def main():
                                  "fused_solve_exact"),
                      built_basis=joints["basis"], builds=joints["build"],
                      ablated=benches["ablated"],
-                     launches_benchmarks=bl["fused_solve"]),
+                     launches_benchmarks=bl["fused_solve"],
+                     reach=reach["fused_solve"]),
         kernel_entry("fused_round", "fused_solve.cu", 1674, het_launches,
                      k2_abs_err, k2_ms, k2_plain_ms, k2_bound,
                      ms_first_reading=k2_ms_first, ms_warm_up=k2_ms_warm,
@@ -1088,7 +1116,8 @@ def main():
                      streamed=large["fused_round"],
                      tiers=tiers["fused_round"],
                      joints=at_j("fused_round", "fused_round_gd"),
-                     launches_benchmarks=bl["fused_round"]),
+                     launches_benchmarks=bl["fused_round"],
+                     reach=reach["fused_round"]),
         kernel_entry("bls_inner_step", "step_kernels.cu", 1239,
                      paths["bls"][0]["bls_inner_step"], step_abs_err["bls"],
                      *step_time["bls"], exact=exact["bls_inner_step"],
@@ -1135,9 +1164,14 @@ def main():
         {**large["k7"], "joints": at_j("k7")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    reach_entries = [d for e in kernels
+                     for prog in e.get("reach", {}).values()
+                     for d in prog.values()
+                     if isinstance(d, dict) and "bound_ms" in d]
     if not all(math.isfinite(x) for e in kernels
                for d in (e, e.get("gd", e), e.get("exact", e),
-                         e.get("streamed", e), *e.get("tiers", {}).values())
+                         e.get("streamed", e), *e.get("tiers", {}).values(),
+                         *reach_entries)
                for x in (d["ms"], d["plain_ms"], d["bound_ms"])):
         fail("kernel time not finite")
     print(json.dumps({"ok": True, "device": {
@@ -2061,18 +2095,20 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     k6_same = torch.equal(f6.traj, ev.traj) and torch.equal(f6.vel, ev.vel)
     k6_ms = best_ms(lambda: sk.forward_eval(short, kv, mix, a0))
     _, k6_plain = timed(lambda: sk.forward_eval_reference(short, kv, mix, a0))
+    k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
     b6 = roofline.forward_eval(JOINT_LANES, 50, 5)
     say(f"phase 21 J=5 K5 against plain ({JOINT_LANES} lanes): {err5}, "
         f"{k5_ms:.3f} ms (bound {b5.ms:.3f} by {b5.by}), plain "
         f"{k5_plain:.1f} ms; K6 bit for bit K5's traj/vel {k6_same}, "
         f"{k6_ms:.3f} ms (bound {b6.ms:.3f} by {b6.by}), plain "
-        f"{k6_plain:.1f} ms")
+        f"{k6_plain:.1f} ms, one torch.einsum {k6_lib:.3f} ms")
     if not eval_ok(err5) or not k6_same:
         fail("phase 21: J=5 K5/K6 differ from their plain versions")
     put("cost_grad_eval", 5, ms=k5_ms, bound_ms=b5.ms, bound_by=b5.by,
         plain_ms=k5_plain, max_abs_err=err5["abs"], lanes=JOINT_LANES)
     put("forward_eval", 5, ms=k6_ms, bound_ms=b6.ms, bound_by=b6.by,
-        plain_ms=k6_plain, max_abs_err=0.0, lanes=JOINT_LANES)
+        plain_ms=k6_plain, max_abs_err=0.0, lanes=JOINT_LANES,
+        library_ms=k6_lib)
     ful = rargs[7]
     for name, key in (("bls", "bls_inner_step"), ("gd", "gd_inner_step")):
         fn, ref = step_fns(sk, name)
@@ -3621,6 +3657,385 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     return entries, out["tier_inputs"]
 
 
+# Phase 23, the reference's reach: the T of the forced layouts' bitwise
+# check, the T of GD against its plain version (the reach plan's ceiling at
+# J = 3, 11 obstacles, last), the paired gate's T and scenes, the f32 BLS
+# programs' T, and the scenes of each check.
+REACH_BITWISE_T = (200, 2072)
+REACH_GD_T = (2200, 2400, 2636)
+REACH_GATE_T = 2400
+REACH_GATE_BATCH = 2048
+REACH_BLS_T = 2104
+REACH_BATCH = 512
+REACH_BF16_T = 2200
+REACH_BF16_BATCH = 2048
+# GD's learning rates of phase 23's short checks (round 0 takes the first;
+# K2's lanes each one of the four): at the default schedule's 2e-3 the stop
+# test rejects most first trials at these T, so the steps would not run.
+REACH_GD_LR = (1e-4, 3e-5, 1e-5, 3e-6)
+
+
+def reach_phase(mt, bench, fs, roofline, fleet, dev):
+    """Phase 23, the reference's reach: K1/K2 past the streamed plan's
+    ceiling in the reach plan (csrc/fused_reach.cu: the streamed body with
+    the gradient pass recomputing FK; GD and the exact ladder without the
+    direction planes, the linearized ladder with the tile's gx/gy planes in
+    them).  (a) Plans: each program's reach plan against the C side's
+    shared memory, and the ceilings at J = 3, 5, 7.  (b) The reach layouts
+    forced at T = 200 and 2,072 (where the streamed one fits too), K1 and
+    K2 of every float32 program on REACH_BATCH random scenes: bit for bit
+    the streamed layout.  (c) GD at T = 2,200, 2,400 and 2,636 (the
+    basis built by make_basis, timed): ``fleet_solve(backend="fused")``
+    takes the reach plan and launches K1 once; K1 (timed, with its bound)
+    and K2 one round against their plain versions under phase 2's rule.
+    (d) The GD paired gate at T = 2,400 on REACH_GATE_BATCH random scenes at
+    the GD reference schedule, K1 against the xla engine (bench.py's
+    bands).  (e) bls, bls_exact and bls_ultra at T = 2,104 against their
+    plain versions (phase 2's rule); with ``bls_bf16_ladder`` the planner
+    keeps the float32 reach plan there, and fleet_solve launches K1 on it,
+    bit for bit the linearized program.  (f) ``pallas`` at GD T = 2,200
+    warns and equals ``xla`` bit for bit.  (g) A measurement (ROADMAP queue
+    3 #2): the bf16 plan at T = 2,200 on REACH_BF16_BATCH random scenes at
+    the BLS reference schedule against the xla engine: converged
+    fraction, cost and phantom of each.  Returns K1's and K2's "reach"
+    entries."""
+    import warnings
+
+    phase_clock(23)
+    J, O = 3, 11
+    k1s, k2s = {}, {}
+    base = mt.PlannerConfig(max_outer_iteration=1, max_inner_iteration=4,
+                            fixed_iters=True, max_obstacles=O)
+    bases = {}
+
+    def basis_at(T):
+        if T not in bases:
+            t0 = time.perf_counter()
+            bases[T] = (mt.make_basis(base.replace(n_timesteps=T),
+                                      device=dev),
+                        time.perf_counter() - t0)
+        return bases[T][0]
+
+    def args_at(T, seed, ladder="linearized", **kw):
+        cfg = base.replace(n_timesteps=T, ladder_eval=ladder, **kw)
+        scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(seed),
+                                   REACH_BATCH, device=dev)
+        return fleet.fused_args(cfg, basis_at(T), scns), scns
+
+    # (a) The reach plans against the C side, and the ceilings.
+    f32_programs = [p for p in fs.PROGRAMS if p != "bls_bf16"]
+    for prog in f32_programs:
+        solver, ladder, tier = fs.program_call(prog)
+        top = 2636 if prog in fs.REACH_NODIR else 2156
+        for T in (200, 2072, 2104, top):
+            cfg = base.replace(n_timesteps=T, ladder_eval=ladder)
+            plan = fs.launch_plan(cfg, O, "reach", prog)
+            for name in ("fused_solve", "fused_round"):
+                shape = fs.launch_shape(cfg, O, REACH_BATCH, name, solver,
+                                        "reach", **tier)
+                if shape["smem"] != plan["total"]:
+                    fail(f"phase 23: {name}<{prog}> reach plan at T={T} "
+                         f"{plan['total']} B, the C side {shape['smem']} B")
+        say(f"phase 23 {prog} reach plan at T={top}: {plan['lanes']} "
+            f"lane per CTA, {plan['total']} B {plan['bytes']}, ring "
+            f"{plan['ring']}; plan and C side agree at T = 200, 2,072, "
+            f"2,104 and {top}")
+    def last_t(Jc, prog, plan_name):
+        """The largest T whose plan fits (bisection; fitting falls with
+        T)."""
+        arm = (mt.PlannerConfig().link_length if Jc == 3
+               else JOINT_ARMS[Jc])
+        lo, hi = 100, 4000
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            try:
+                fs.launch_plan(mt.PlannerConfig(
+                    n_timesteps=mid, n_joints=Jc, link_length=arm), O,
+                    plan_name, prog)
+                lo = mid
+            except NotImplementedError:
+                hi = mid
+        return lo
+
+    ceilings = {f"J={Jc},{prog},{plan_name}": last_t(Jc, prog, plan_name)
+                for Jc in (3, 5, 7) for prog in ("gd", "bls")
+                for plan_name in ("streamed", "reach")}
+    say(f"phase 23 ceilings at 11 obstacles (one lane per CTA): {ceilings}")
+    if (ceilings["J=3,gd,reach"], ceilings["J=3,bls,reach"]) != (2636, 2156):
+        fail(f"phase 23: reach ceilings {ceilings}")
+
+    # (b) The reach layouts forced where the streamed one fits: bit for bit.
+    for T in REACH_BITWISE_T:
+        for prog in f32_programs:
+            solver, ladder, tier = fs.program_call(prog)
+            args, _ = args_at(T, 11, ladder)
+            rargs = round_args(args, 4, seed=1, solver=solver)
+            same = (all(torch.equal(x, y) for x, y in zip(
+                fs.fused_solve(*args, solver=solver, plan="reach", **tier),
+                fs.fused_solve(*args, solver=solver, plan="streamed",
+                               **tier)))
+                and all(torch.equal(x, y) for x, y in zip(
+                    fs.fused_round(*rargs, solver=solver, plan="reach",
+                                   **tier),
+                    fs.fused_round(*rargs, solver=solver, plan="streamed",
+                                   **tier))))
+            lanes = (fs.launch_plan(args[0], O, "reach", prog)["lanes"],
+                     fs.launch_plan(args[0], O, "streamed", prog)["lanes"])
+            say(f"phase 23 T={T} {prog} ({REACH_BATCH} random scenes, 1x4 "
+                f"steps; reach {lanes[0]}, streamed {lanes[1]} lanes per "
+                f"CTA): K1 and K2 (one round) in the reach layout bit for "
+                f"bit the streamed layout: {same}")
+            if not same:
+                fail(f"phase 23: the reach layout of {prog} at T={T} is not "
+                     f"the streamed layout's bits")
+            k1s.setdefault(prog, {})[f"bitwise_t{T}"] = same
+            del args, rargs
+        torch.cuda.empty_cache()
+
+    # (c) GD at T = 2,200-2,636 through fleet_solve, against plain.
+    for T in REACH_GD_T:
+        args, scns = args_at(T, 12, gd_lr=REACH_GD_LR)
+        cfg = args[0]
+        plan = fs.kernel_plan(cfg, O, "gd")
+        if plan is None or plan["plan"] != "reach":
+            fail(f"phase 23: kernel_plan of GD at T={T}: {plan}")
+        fs.fused_solve.launches = fs.fused_round.launches = 0
+        res = fleet.fleet_solve(cfg, basis_at(T), scns, solver="gd",
+                                backend="fused")
+        launches = fs.fused_solve.launches
+        if launches != 1 or fs.fused_round.launches:
+            fail(f"phase 23: fleet_solve GD at T={T} launched K1 {launches} "
+                 f"times, K2 {fs.fused_round.launches}")
+        k1, ms = timed(lambda: fs.fused_solve(*args, solver="gd"))
+        p1, plain_ms = timed(lambda: fs.fused_solve_reference(
+            *args, solver="gd"))
+        agree, rel = fs.lane_agreement(p1, k1)
+        same = ((k1.inner_iters == p1.inner_iters)
+                & (k1.fulfilled == p1.fulfilled))[0]
+        max_abs = float((k1.alpha - p1.alpha).abs()[:, :, same].max())
+        fleet_same = torch.equal(fleet.kernel_result(k1).alpha, res.alpha)
+        rargs = round_args(args, 4, seed=2, solver="gd")
+        fs.fused_round.launches = 0
+        k2, k2_ms = timed(lambda: fs.fused_round(*rargs, solver="gd"))
+        k2_launches = fs.fused_round.launches
+        p2, k2_plain_ms = timed(lambda: fs.fused_round_reference(
+            *rargs, solver="gd"))
+        agree2, rel2, abs2 = round_agreement(p2, k2, rargs[7])
+        tally = roofline.kernel_counts(
+            roofline.plain_tally(fs.fused_solve_reference, *args,
+                                 solver="gd"),
+            float((k1.outer_iters + k1.fulfilled).sum()),
+            float(k1.inner_iters.sum()), "gd")
+        bound = roofline.fused_rounds(REACH_BATCH, T, J, O, tally, True,
+                                      "gd", streamed=True)
+        k2_bound = roofline.fused_rounds(
+            REACH_BATCH, T, J, O, roofline.kernel_counts(
+                roofline.plain_tally(fs.fused_round_reference, *rargs,
+                                     solver="gd"),
+                float((rargs[7] < 0.5).sum()), float(k2.inner.sum()), "gd"),
+            False, "gd", streamed=True)
+        say(f"phase 23 T={T} GD ({REACH_BATCH} random scenes, 1x4 steps of "
+            f"lr {REACH_GD_LR[0]}, {int(k1.inner_iters.sum())} accepted; "
+            f"make_basis {bases[T][1]:.2f} s): fleet_solve took the "
+            f"{plan['plan']} plan ({plan['total']} B per CTA), {launches} K1 "
+            f"launch, bit for bit K1 alone: {fleet_same}; K1 {ms:.2f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {bound.ms:.3f} ms by "
+            f"{bound.by}; lane agreement {agree:.4f}, alpha {rel:.3g} of "
+            f"the lane's scale; K2 one round "
+            f"({int((rargs[7] > 0.5).sum())} fulfilled) {agree2:.4f}, "
+            f"{rel2:.3g}, {k2_ms:.2f} ms, plain {k2_plain_ms:.1f} ms, bound "
+            f"{k2_bound.ms:.3f} ms (bounds >= {fs.CARD_SHORT_AGREEMENT_MIN}, "
+            f"<= {fs.ALPHA_REL_MAX})")
+        if (min(agree, agree2) < fs.CARD_SHORT_AGREEMENT_MIN
+                or max(rel, rel2) > fs.ALPHA_REL_MAX or not fleet_same
+                or not torch.isfinite(k1.alpha).all()):
+            fail(f"phase 23: GD at T={T} disagrees with its plain version")
+        entry = {"T": T, "lanes": REACH_BATCH, "schedule": "1x4",
+                 "launches": launches, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound.ms, "bound_by": bound.by,
+                 "library_ms": None, "max_abs_err": max(max_abs, abs2),
+                 "lane_agreement": agree, "alpha_rel": rel,
+                 "basis_s": bases[T][1], "plan_bytes": plan["bytes"]}
+        k1s.setdefault("gd", {})[f"t{T}"] = entry
+        k2s.setdefault("gd", {})[f"t{T}"] = {
+            "T": T, "lanes": REACH_BATCH, "launches": k2_launches,
+            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound.ms,
+            "bound_by": k2_bound.by, "library_ms": None,
+            "max_abs_err": abs2, "lane_agreement": agree2}
+        del args, scns, res, k1, p1, rargs, k2, p2
+        torch.cuda.empty_cache()
+
+    # (d) The GD paired gate at T = 2,400, the GD reference schedule.
+    gcfg = bench.bench_config(solver="gd", n_timesteps=REACH_GATE_T)
+    gscns = mt.random_scenarios(gcfg, torch.Generator().manual_seed(0),
+                                REACH_GATE_BATCH, device=dev)
+    gbasis = basis_at(REACH_GATE_T)
+    fleet.fleet_solve(gcfg, gbasis, mt.Scenario(*(x[:2] for x in gscns)),
+                      solver="gd", backend="fused")
+    fs.fused_solve.launches = 0
+    gres, gate_ms = timed(lambda: fleet.fleet_solve(
+        gcfg, gbasis, gscns, solver="gd", backend="fused"))
+    gate_launches = fs.fused_solve.launches
+    gate = bench.paired_gate(gcfg, gbasis, gscns, gres, REACH_GATE_BATCH,
+                             "gd")
+    gb = gate["bands"]
+    say(f"phase 23 T={REACH_GATE_T} GD paired gate ({REACH_GATE_BATCH} random "
+        f"scenes, seed 0, GD reference schedule): K1 {gate_ms:.1f} ms, "
+        f"{gate_launches} launch; converged {gb['check_converged_frac']:.4f} "
+        f"against the xla engine's {gb['xla_converged_frac']:.4f} (band "
+        f"{gb['converged']:.4f}); phantom {gate['fields']['phantom_frac']} "
+        f"(<= {gb['phantom']:.5f}); obstacle cost "
+        f"{gb['check_obstacle_cost']:.5f} vs {gb['xla_obstacle_cost']:.5f} "
+        f"(band {gb['cost']:.5f}): {'PASS' if gate['ok'] else 'FAIL'}")
+    if not gate["ok"] or gate_launches != 1:
+        fail(f"phase 23: the GD paired gate at T={REACH_GATE_T}")
+    k1s["gd"]["gate"] = {"T": REACH_GATE_T, "lanes": REACH_GATE_BATCH,
+                         "ms": gate_ms, "launches": gate_launches,
+                         "ok": gate["ok"], **gate["fields"],
+                         "converged": gb["check_converged_frac"]}
+    del gscns, gres
+    torch.cuda.empty_cache()
+
+    # (e) The f32 BLS programs at T = 2,104, and the opt-in there.
+    for prog in ("bls", "bls_exact", "bls_ultra"):
+        solver, ladder, tier = fs.program_call(prog)
+        args, _ = args_at(REACH_BLS_T, 13, ladder)
+        plan = fs.launch_plan(args[0], O, prog=prog)
+        fs.fused_solve.launches = 0
+        k1, ms = timed(lambda: fs.fused_solve(*args, **tier))
+        launches = fs.fused_solve.launches
+        p1, plain_ms = timed(lambda: fs.fused_solve_reference(*args, **tier))
+        agree, rel = fs.lane_agreement(p1, k1)
+        same = ((k1.inner_iters == p1.inner_iters)
+                & (k1.fulfilled == p1.fulfilled))[0]
+        max_abs = float((k1.alpha - p1.alpha).abs()[:, :, same].max())
+        tally = roofline.kernel_counts(
+            roofline.plain_tally(fs.fused_solve_reference, *args, **tier),
+            float((k1.outer_iters + k1.fulfilled).sum()),
+            float(k1.inner_iters.sum()))
+        bound = roofline.fused_rounds(REACH_BATCH, REACH_BLS_T, J, O, tally,
+                                      True, ladder_eval=ladder,
+                                      streamed=True, prog=prog)
+        rargs = round_args(args, 4, seed=3)
+        fs.fused_round.launches = 0
+        k2, k2_ms = timed(lambda: fs.fused_round(*rargs, **tier))
+        k2_launches = fs.fused_round.launches
+        p2, k2_plain_ms = timed(lambda: fs.fused_round_reference(*rargs,
+                                                                 **tier))
+        agree2, rel2, abs2 = round_agreement(p2, k2, rargs[7])
+        k2_bound = roofline.fused_rounds(
+            REACH_BATCH, REACH_BLS_T, J, O, roofline.kernel_counts(
+                roofline.plain_tally(fs.fused_round_reference, *rargs,
+                                     **tier),
+                float((rargs[7] < 0.5).sum()), float(k2.inner.sum())),
+            False, ladder_eval=ladder, streamed=True, prog=prog)
+        say(f"phase 23 T={REACH_BLS_T} {prog} ({REACH_BATCH} random scenes, "
+            f"1x4 steps, the {plan['plan']} plan, {plan['total']} B per "
+            f"CTA): K1 {ms:.2f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound.ms:.3f} ms by {bound.by}, lane agreement {agree:.4f}, "
+            f"alpha {rel:.3g}; K2 one round {agree2:.4f}, {rel2:.3g}, "
+            f"{k2_ms:.2f} ms, plain {k2_plain_ms:.1f} ms, bound "
+            f"{k2_bound.ms:.3f} ms")
+        if (plan["plan"] != "reach" or launches != 1
+                or min(agree, agree2) < fs.CARD_SHORT_AGREEMENT_MIN
+                or max(rel, rel2) > fs.ALPHA_REL_MAX):
+            fail(f"phase 23: {prog} at T={REACH_BLS_T} disagrees with its "
+                 f"plain version")
+        k1s.setdefault(prog, {})[f"t{REACH_BLS_T}"] = {
+            "T": REACH_BLS_T, "lanes": REACH_BATCH, "schedule": "1x4",
+            "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound.ms, "bound_by": bound.by, "library_ms": None,
+            "max_abs_err": max(max_abs, abs2), "lane_agreement": agree}
+        k2s.setdefault(prog, {})[f"t{REACH_BLS_T}"] = {
+            "T": REACH_BLS_T, "lanes": REACH_BATCH, "launches": k2_launches,
+            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound.ms,
+            "bound_by": k2_bound.by, "library_ms": None,
+            "max_abs_err": abs2, "lane_agreement": agree2}
+        if prog == "bls":
+            ocfg = args[0].replace(bls_bf16_ladder=True)
+            oplan = fs.kernel_plan(ocfg, O)
+            oscns = mt.random_scenarios(ocfg,
+                                        torch.Generator().manual_seed(13),
+                                        REACH_BATCH, device=dev)
+            fs.fused_solve.launches = 0
+            ores = fleet.fleet_solve(ocfg, basis_at(REACH_BLS_T), oscns,
+                                     backend="fused")
+            olaunches = fs.fused_solve.launches
+            f32 = torch.equal(ores.alpha, fleet.kernel_result(k1).alpha)
+            say(f"phase 23 T={REACH_BLS_T} bls_bf16_ladder=True: the planner's "
+                f"{oplan['plan']} plan, bf16 {oplan['bf16']}; fleet_solve "
+                f"launched K1 {olaunches} time(s), bit for bit the "
+                f"linearized program: {f32}")
+            if oplan["bf16"] or olaunches != 1 or not f32:
+                fail(f"phase 23: the opt-in at T={REACH_BLS_T} did not run "
+                     f"the float32 program")
+            k1s["bls"]["opt_in_f32"] = f32
+        del args, k1, p1, rargs, k2, p2
+        torch.cuda.empty_cache()
+
+    # (f) pallas at the reach plan falls back to xla, bit for bit.
+    args, scns = args_at(REACH_GD_T[0], 14, gd_lr=REACH_GD_LR)
+    cfg = args[0]
+    xla = fleet.fleet_solve(cfg, basis_at(REACH_GD_T[0]), scns, solver="gd",
+                            backend="xla")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pal = fleet.fleet_solve(cfg, basis_at(REACH_GD_T[0]), scns,
+                                solver="gd", backend="pallas")
+    warned = any("no reach layout" in str(w.message) for w in caught)
+    same = same_result(pal, xla)
+    say(f"phase 23 T={REACH_GD_T[0]} GD on pallas: warned {warned}, bit for "
+        f"bit the xla engine: {same}")
+    if not (warned and same):
+        fail(f"phase 23: pallas at T={REACH_GD_T[0]} did not fall back")
+    del args, scns, xla, pal
+
+    # (g) A measurement: the bf16 plan at T = 2,200 against the xla engine.
+    bcfg = bench.bench_config(n_timesteps=REACH_BF16_T).replace(
+        bls_bf16_ladder=True)
+    bscns = mt.random_scenarios(bcfg, torch.Generator().manual_seed(0),
+                                REACH_BF16_BATCH, device=dev)
+    bbasis = basis_at(REACH_BF16_T)
+    fs.fused_solve.launches = 0
+    bres, bf16_ms = timed(lambda: fleet.fleet_solve(bcfg, bbasis, bscns,
+                                                     backend="fused"))
+    bf16_launches = fs.fused_solve.launches
+    bplan = fs.kernel_plan(bcfg, O)
+    xres, xla_ms = timed(lambda: fleet.fleet_solve(bcfg, bbasis, bscns,
+                                                    backend="xla"))
+    x_conv = float(xres.stats.converged.float().mean())
+    x_cost = bench.mean_obstacle_cost(bcfg, bbasis, bscns, xres)
+    bgate, xgate = (bench.gate_against(bcfg, bbasis, bscns, r,
+                                       REACH_BF16_BATCH, x_conv, x_cost)
+                    for r in (bres, xres))
+    bb = bgate["bands"]
+    say(f"phase 23 T={REACH_BF16_T} bf16 plan (bf16 {bplan['bf16']}) at the "
+        f"BLS reference schedule, {REACH_BF16_BATCH} random scenes (seed 0; "
+        f"a measurement, ROADMAP queue 3 #2): K1 {bf16_ms:.1f} ms, "
+        f"{bf16_launches} launch, the xla engine {xla_ms:.1f} ms; converged "
+        f"{bb['check_converged_frac']:.4f} against xla's {x_conv:.4f}; mean "
+        f"obstacle cost {bb['check_obstacle_cost']:.5f} against "
+        f"{x_cost:.5f}; phantom {bgate['fields']['phantom_frac']} against "
+        f"{xgate['fields']['phantom_frac']}; bench.py's paired gate would "
+        f"read {'PASS' if bgate['ok'] else 'FAIL'} (band "
+        f"{bb['converged']:.4f})")
+    k1s["bls_bf16_t2200_full"] = {
+        "T": REACH_BF16_T, "lanes": REACH_BF16_BATCH, "ms": bf16_ms,
+        "xla_ms": xla_ms, "launches": bf16_launches,
+        "converged": bb["check_converged_frac"], "xla_converged": x_conv,
+        "obstacle_cost": bb["check_obstacle_cost"],
+        "xla_obstacle_cost": x_cost,
+        "phantom": bgate["fields"]["phantom_frac"],
+        "xla_phantom": xgate["fields"]["phantom_frac"],
+        "gate_ok": bgate["ok"]}
+    if bf16_launches != 1 or not bplan["bf16"]:
+        fail(f"phase 23: the bf16 plan at T={REACH_BF16_T} did not run")
+    del bscns, bres, xres
+    bases.clear()
+    torch.cuda.empty_cache()
+    return {"fused_solve": k1s, "fused_round": k2s}
+
+
 def result_agreement(fs, fleet, a, b):
     """fused_solve.lane_agreement of two SolveResults."""
     def fused(r):
@@ -4303,7 +4718,8 @@ def ptxas_report(log):
     ptxas report; K1/K2 as fused_solve<program,T,O> /
     fused_round<program,T,O> and K3 as bls_step<program,T,O> (program bls,
     gd or bls_exact; <program,0,0>: the generic instantiation;
-    <program,0,0,streamed>: the streamed body); K4 as gd_step<T,O,body> and
+    <program,0,0,streamed>: the streamed body; <program,0,0,reach>: its
+    reach layout, K1/K2 only); K4 as gd_step<T,O,body> and
     K5 as cost_grad_eval<T,O,body> (body 0 resident, 1 streamed; <0,0,...>
     the generic one), K6 as forward_eval<vec> (1: 16-byte copies)."""
     from irm_motion_planning_tpu_torch.ops import fused_solve as fs
@@ -4319,8 +4735,8 @@ def ptxas_report(log):
                 if (name.startswith("fused_") or name == "bls_step") and len(
                         targs) == 4:
                     targs[0] = fs.PROGRAMS[int(targs[0])]
-                    targs = targs[:3] + (["streamed"] if targs[3] == "1"
-                                         else [])
+                    targs = targs[:3] + {"1": ["streamed"],
+                                         "2": ["reach"]}.get(targs[3], [])
                 name += f"<{','.join(targs)}>"
             out[name] = {}
             continue

@@ -21,7 +21,9 @@ the kernel launches of the timed runs, K1 (``fused_solve``) and K2
 (``fused_round``) on the fused backend, K3-K6 on the pallas backend, none on
 xla; K1/K2's launch plan beside them) and a summary line to stdout.  On the
 fused and pallas backends a T past the kernels' plan runs the xla engine
-with a warning and no launch, as fleet_solve does.  ``--device cpu`` runs
+with a warning and no launch, as fleet_solve does; past the streamed
+plan's ceiling the plan is the reach plan (``"plan": "reach"``).
+``--device cpu`` runs
 the plain versions, a rehearsal whose times are the CPU's.
 """
 
@@ -78,7 +80,7 @@ def run_size(T: int, batch: int, repeats: int, solver: str, backend: str,
         run_to_completion()
         times.append(time.perf_counter() - t0)
     best = min(times)
-    plan = fs.kernel_plan(cfg, cfg.max_obstacles)
+    plan = fs.kernel_plan(cfg, cfg.max_obstacles, solver)
     return {
         "n_timesteps": T,
         "per_solve_us": round(1e6 * best / batch, 2),

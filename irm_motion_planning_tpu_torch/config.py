@@ -21,8 +21,9 @@ GPU is:
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is
   implemented; the solver raises ``NotImplementedError`` for any other value.
 * ``bls_bf16_ladder`` — the opt-in to the bf16 ladder tier's launch plan,
-  as in JAX: past the float32 plans' ceiling (T = 2,073 at 11 obstacles)
-  ``fleet_solve(backend="fused")`` runs BLS with the linearized ladder in
+  as in JAX: past the float32 plans' ceiling (the reach plan's: BLS from
+  T = 2,157 at 11 obstacles) ``fleet_solve(backend="fused")`` runs BLS
+  with the linearized ladder in
   the bf16 tier (its ladder planes stored as bfloat16) up to T = 2,636,
   where without it the plain engine runs; the tier itself is the
   ``bf16=True`` keyword of ``fused_solve``/``fused_round``.  Under the

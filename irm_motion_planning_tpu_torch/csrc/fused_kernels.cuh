@@ -1,29 +1,33 @@
 // The kernel templates of K1 (fused_solve_kernel) and K2
-// (fused_round_kernel), shared by the two sources that instantiate them:
+// (fused_round_kernel), shared by the three sources that instantiate them:
 // fused_solve.cu (the programs bls, gd and bls_exact, and the launch entry
-// points) and fused_tiers.cu (the linearized ladder's kernel tiers ultra
-// and bf16), which nvcc compiles in parallel.  Each program is
-// instantiated in one source only.  step_kernels.cu binds K4's warps with
-// bind_body (the GD program's body).
+// points), fused_tiers.cu (the linearized ladder's kernel tiers ultra
+// and bf16) and fused_reach.cu (the float32 programs in the reach layouts),
+// which nvcc compiles in parallel.  Each instantiation lives in one source
+// only.  step_kernels.cu binds K4's warps with bind_body (the GD program's
+// body).
 
 #pragma once
 
 #include "warp_body.cuh"
 
-// The warp's view of its lane in the body STREAM: the resident body stages
-// the basis pair kv/kvt in shared memory; the streamed body reads kv/kvt,
-// which are then the transposed, padded pair (see SWarp), from device
-// memory, in the half-width layout (HWarp) for the bf16 tier's program, for
-// a tile of ``lanes`` lanes (blockDim.x / 32 / lanes warps per lane).
-template <int SOLVER, bool STREAM>
+// The warp's view of its lane in the body BODY (WB_BODY_*): the resident
+// body stages the basis pair kv/kvt in shared memory; the streamed bodies
+// read kv/kvt, which are then the transposed, padded pair (see SWarp), from
+// device memory, for a tile of ``lanes`` lanes (blockDim.x / 32 / lanes
+// warps per lane), in the program's lane layout (stream_layout): SWarp's,
+// the half-width one (HWarp) for the bf16 tier's program, or a reach
+// layout.
+template <int SOLVER, int BODY>
 static __device__ __forceinline__ auto bind_body(float* smem, int T, int O,
                                                  int lanes, const float* kv,
                                                  const float* kvt,
                                                  const float* mix) {
-  if constexpr (STREAM && SOLVER == SOLVER_BLS_BF16) {
+  constexpr int LY = stream_layout(SOLVER, BODY);
+  if constexpr (BODY && LY == WB_LY_HALF) {
     return bind_hwarp(smem, T, O, lanes, kv, kvt, mix);
-  } else if constexpr (STREAM) {
-    return bind_swarp(smem, T, O, lanes, kv, kvt, mix);
+  } else if constexpr (BODY) {
+    return bind_swarp<LY>(smem, T, O, lanes, kv, kvt, mix);
   } else {
     stage_cta(T, kv, kvt, mix, smem);
     return bind_warp(smem, T, O);
@@ -31,10 +35,11 @@ static __device__ __forceinline__ auto bind_body(float* smem, int T, int O,
 }
 
 // K1: the whole solve for every lane; alpha is updated in place.  ``lanes``:
-// lanes per CTA (the resident body: one per warp; the streamed body: a tile
-// of ``lanes`` lanes in lockstep, each drawn with its tile from the queue).
-template <int SOLVER, int TT, int OO, bool STREAM>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+// lanes per CTA (the resident body: one per warp; the streamed bodies: a
+// tile of ``lanes`` lanes in lockstep, each drawn with its tile from the
+// queue).
+template <int SOLVER, int TT, int OO, int BODY>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, BODY ? 1 : WB_MIN_CTAS)
 fused_solve_kernel(FsParams p, int lanes, const float* __restrict__ kv,
                    const float* __restrict__ kvt,
                    const float* __restrict__ mix,
@@ -49,8 +54,8 @@ fused_solve_kernel(FsParams p, int lanes, const float* __restrict__ kv,
   extern __shared__ float4 smem4[];
   float* smem = (float*)smem4;
   const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  auto w = bind_body<SOLVER, STREAM>(smem, T, O, lanes, kv, kvt, mix);
-  if constexpr (STREAM) {
+  auto w = bind_body<SOLVER, BODY>(smem, T, O, lanes, kv, kvt, mix);
+  if constexpr (BODY) {
     for (int b0 = next_tile(w, queue); b0 < p.B; b0 = next_tile(w, queue)) {
       const int b = b0 + w.lane;
       const bool valid = w.sub == 0 && b < p.B;
@@ -116,8 +121,8 @@ fused_solve_kernel(FsParams p, int lanes, const float* __restrict__ kv,
 // in fulfilled passes through: alpha unchanged, no steps, loss 0 and ok 1
 // (the caller masks both with the round-start flag); in the streamed body
 // it is masked in its tile.
-template <int SOLVER, int TT, int OO, bool STREAM>
-__global__ void __launch_bounds__(32 * WB_MAX_WARPS, STREAM ? 1 : WB_MIN_CTAS)
+template <int SOLVER, int TT, int OO, int BODY>
+__global__ void __launch_bounds__(32 * WB_MAX_WARPS, BODY ? 1 : WB_MIN_CTAS)
 fused_round_kernel(FsParams p, int lanes, int n_r,
                    const float* __restrict__ kv,
                    const float* __restrict__ kvt,
@@ -134,8 +139,8 @@ fused_round_kernel(FsParams p, int lanes, int n_r,
   extern __shared__ float4 smem4[];
   float* smem = (float*)smem4;
   const int T = TT ? TT : p.T, O = TT ? OO : p.O;
-  auto w = bind_body<SOLVER, STREAM>(smem, T, O, lanes, kv, kvt, mix);
-  if constexpr (STREAM) {
+  auto w = bind_body<SOLVER, BODY>(smem, T, O, lanes, kv, kvt, mix);
+  if constexpr (BODY) {
     for (int b0 = next_tile(w, queue); b0 < p.B; b0 = next_tile(w, queue)) {
       const int b = b0 + w.lane;
       const bool valid = w.sub == 0 && b < p.B;
@@ -192,3 +197,7 @@ fused_round_kernel(FsParams p, int lanes, int n_r,
 // ``streamed`` (resident: the generic instantiation); nullptr for another
 // program.  Defined in fused_tiers.cu.
 const void* tier_kernel_for(int which, int solver, bool streamed);
+// K1's or K2's instantiation of a float32 program (SOLVER_BLS, SOLVER_GD,
+// SOLVER_BLS_EXACT, SOLVER_BLS_ULTRA) in the reach body; nullptr for
+// another program.  Defined in fused_reach.cu.
+const void* reach_kernel_for(int which, int solver);

@@ -16,7 +16,11 @@
 //    re-evaluation (GD's carried evaluation is exact);
 //  * the kernel tiers ultra and bf16 of the linearized ladder (the
 //    ultra/bf16 compilations), instantiated in fused_tiers.cu and launched
-//    from here (bls_step in warp_body.cuh says what each computes).  The
+//    from here (bls_step in warp_body.cuh says what each computes);
+//  * the float32 programs in the reach layouts of the streamed body, past
+//    the T where its own layout leaves no room for one lane (the TPU
+//    kernel's lean/ultra plans, which drop planes to reach larger T),
+//    instantiated in fused_reach.cu.  The
 //    lean compilation computes the linearized program's floats here, and
 //    for GD and the exact ladder every tier compiles what these programs
 //    compute (ops/fused_solve.py, program).
@@ -90,7 +94,13 @@
 //    bytes a thread, which costs less than halving the warps in flight
 //    (tools/fused_variants.py measures both; PERF.md).
 // The streamed programs (T > 64) keep the lane state on chip and stream the
-// basis from L2 (the basis at T = 2,000 is 32 MB, within the 50 MB L2).  A
+// basis from L2 (the basis at T = 2,000 is 32 MB, within the 50 MB L2).
+// Past T = 2,072 (J = 3, 11 obstacles) one lane's state no longer fits
+// beside the room; the reach layouts recompute the FK tangents in the
+// gradient pass instead of keeping them in the direction planes, and GD
+// and the exact ladder drop those planes (T <= 2,636) while the linearized
+// ladder holds the tile's gx/gy planes in them (T <= 2,156):
+// warp_body.cuh, SWarpT.  A
 // CTA of WB_STREAM_WARPS warps runs a tile of lanes, one warp each, in
 // lockstep: the most lanes (at most 15) that leave K7's ring 48 KB of
 // shared memory (launch_plan: 8 at T = 200); each basis product reads the
@@ -111,8 +121,8 @@
 // resident body alone, the instantiations benchmarks/epilogue.py times;
 // nullptr for any other program or body.
 static const void* kernel_for(const FsParams& p, int which, int solver,
-                              bool streamed) {
-  if (solver != SOLVER_BLS || streamed) return nullptr;
+                              int body) {
+  if (solver != SOLVER_BLS || body) return nullptr;
 #if NJ == 3
   if (specialised(p))
     return which == 0
@@ -145,11 +155,14 @@ static const void* kernel_of(const FsParams& p, int which, bool streamed) {
 }
 
 // The instantiation of K1 (which = 0) or K2 (which = 1) for the program
-// ``solver`` (SOLVER_BLS ... SOLVER_BLS_BF16) in the body ``streamed`` that
-// runs p; nullptr for another value.  The kernel tiers' programs have no
-// specialised instantiation (fused_tiers.cu).
+// ``solver`` (SOLVER_BLS ... SOLVER_BLS_BF16) in the body ``body``
+// (WB_BODY_*) that runs p; nullptr for another value.  The kernel tiers'
+// programs have no specialised instantiation (fused_tiers.cu); the reach
+// body holds the float32 programs' generic ones (fused_reach.cu).
 static const void* kernel_for(const FsParams& p, int which, int solver,
-                              bool streamed) {
+                              int body) {
+  if (body == WB_BODY_REACH) return reach_kernel_for(which, solver);
+  const bool streamed = body == WB_BODY_STREAMED;
   if (solver == SOLVER_BLS) return kernel_of<SOLVER_BLS>(p, which, streamed);
   if (solver == SOLVER_GD) return kernel_of<SOLVER_GD>(p, which, streamed);
   if (solver == SOLVER_BLS_EXACT)
@@ -159,24 +172,28 @@ static const void* kernel_for(const FsParams& p, int which, int solver,
 #endif  // WB_ABLATED
 
 // The launch shape of K1 (which = 0) or K2 (which = 1) for ``solver`` in
-// the body ``streamed`` (0: resident, 1: streamed; launch_plan's "plan") at
-// ``lanes`` lanes per CTA: the warps per CTA (the resident body one per
-// lane, the streamed one WB_STREAM_WARPS), the dynamic shared memory per
-// CTA, the CTAs that fit on one SM and the SM count.  Refuses what the
-// kernels cannot take: the resident body past WB_MAX_T timesteps, the
-// streamed one below 32 (a thread owns at least one timestep) or past
-// WB_STREAM_WARPS - 1 lanes.
+// the body ``streamed`` (0: resident, 1: streamed, 2: the streamed body's
+// reach layout; launch_plan's "plan") at ``lanes`` lanes per CTA: the warps
+// per CTA (the resident body one per lane, the streamed ones
+// WB_STREAM_WARPS), the dynamic shared memory per CTA, the CTAs that fit on
+// one SM and the SM count.  Refuses what the kernels cannot take: the
+// resident body past WB_MAX_T timesteps, the streamed ones below 32 (a
+// thread owns at least one timestep) or past WB_STREAM_WARPS - 1 lanes, a
+// program the body does not hold.
 static int launch_shape(const FsParams& p, int lanes, int which, int solver,
                         int streamed, const void*& kernel, int& warps,
                         size_t& smem, int& per_sm, int& sms) {
-  kernel = kernel_for(p, which, solver, streamed != 0);
+  if (streamed < WB_BODY_RESIDENT || streamed > WB_BODY_REACH)
+    return (int)cudaErrorInvalidValue;
+  kernel = kernel_for(p, which, solver, streamed);
   warps = streamed ? WB_STREAM_WARPS : lanes;
   if (!kernel || lanes < 1 || lanes > warps - (streamed ? 1 : 0) ||
       warps > WB_MAX_WARPS || p.T < 1 ||
       (streamed ? p.T < 32 : p.T > WB_MAX_T) || p.O < 0 || p.B <= 0 ||
-      p.rounds > MAX_ROUNDS || (streamed != 0 && streamed != 1))
+      p.rounds > MAX_ROUNDS)
     return (int)cudaErrorInvalidValue;
-  smem = warp_smem_bytes(p, lanes, streamed != 0, solver == SOLVER_BLS_BF16);
+  smem = warp_smem_bytes(p, lanes, streamed != 0,
+                         stream_layout(solver, streamed));
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -328,7 +345,7 @@ extern "C" int k7_forward_launch(FsParams p, int lanes, const float* kvT,
   const int warps = WB_STREAM_WARPS;
   if (lanes < 1 || lanes >= warps || p.T < 32 || p.B <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = warp_smem_bytes(p, lanes, true, false);
+  const size_t smem = warp_smem_bytes(p, lanes, true, WB_LY_STREAMED);
   const void* kernel = (const void*)k7_forward_kernel;
   int dev, sms, per_sm;
   cudaError_t err = cudaGetDevice(&dev);

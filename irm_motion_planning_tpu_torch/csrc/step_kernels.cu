@@ -493,7 +493,7 @@ static int step_shape(const FsParams& p, int which, int lanes, int streamed,
     return (int)cudaErrorInvalidValue;
   kernel = step_kernel_of(which, p, streamed != 0);
   if (!kernel) return (int)cudaErrorInvalidValue;
-  smem = warp_smem_bytes(p, lanes, streamed != 0, false);
+  smem = warp_smem_bytes(p, lanes, streamed != 0, WB_LY_STREAMED);
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

@@ -59,6 +59,21 @@
 // per timestep less than SWarp at J = 3, which lifts the ceiling of one
 // warp per CTA from T = 2,072 to T = 2,636 at 11 obstacles.
 //
+// The reach layouts (SWarpT<WB_LY_REACH_*>, the body of launch_plan's
+// "reach" plan), for the float32 programs past the T where SWarp's layout
+// leaves no room for one lane: SWarp's view with pass B recomputing the FK
+// tangents from (traj, vel), as HWarp does (the same floats: FK is
+// fk_point's op sequence on the same planes, built without contraction),
+// instead of keeping them in the direction planes.  GD and the exact
+// ladder, which use the direction planes for nothing else, drop them
+// (WB_LY_REACH_NODIR: alpha, grad, traj and vel, 24 bytes per timestep
+// less at J = 3: one lane per CTA up to T = 2,636 at 11 obstacles).  The
+// linearized ladder's programs keep them for the direction and put the
+// tile's gx/gy planes there instead, which are free from a step's accepted
+// update to its next direction (WB_LY_REACH_GXDIR: the room holds the K7
+// ring alone, 8 bytes per timestep less: up to T = 2,156).  Every op is
+// SWarp's, so a lane's floats do not depend on the layout.
+//
 // Op order.  Every basis-product row is one sequential fmaf chain over t,
 // followed by the mix combine; in the streamed body each (row, lane) output
 // is one thread's whole chain over t across the ring's tiles, taken in t
@@ -77,6 +92,31 @@
 #include <cuda_bf16.h>
 
 #include "lane_body.cuh"
+
+// The programs of the round body (template argument, never a run-time
+// switch): the index ops/fused_solve.py's PROGRAMS gives each.  BLS has one
+// per ladder tier, and the linearized ladder one per kernel tier that
+// changes its floats (ultra, bf16: pallas_step's ultra/bf16 compilations;
+// its lean compilation is SOLVER_BLS here, see bls_step).
+#define SOLVER_BLS 0
+#define SOLVER_GD 1
+#define SOLVER_BLS_EXACT 2
+#define SOLVER_BLS_ULTRA 3
+#define SOLVER_BLS_BF16 4
+
+// The bodies (a kernel's template argument; launch_plan's PLANS index):
+// the resident one, the streamed one and the streamed one in its reach
+// layout.
+#define WB_BODY_RESIDENT 0
+#define WB_BODY_STREAMED 1
+#define WB_BODY_REACH 2
+// The lane layouts of the streamed bodies: SWarp's, HWarp's (the bf16
+// tier's program), and the reach layouts: without direction planes (GD,
+// the exact ladder) and with gx/gy in them (the linearized ladder).
+#define WB_LY_STREAMED 0
+#define WB_LY_HALF 1
+#define WB_LY_REACH_NODIR 2
+#define WB_LY_REACH_GXDIR 3
 
 // The layouts follow the joint count NJ (lane_body.cuh); the numbers in
 // the comments are J = 3's.  Mirrored by launch_plan in ops/fused_solve.py.
@@ -203,19 +243,30 @@ __host__ __device__ __forceinline__ size_t wb_warp_floats(int T, int O) {
   return (size_t)4 * NJ * T + (size_t)WB_ROWS * wb_row_stride(T) +
          (size_t)4 * O + WB_LANE_FLOATS;
 }
-// Streamed: a lane's region holds the planes alpha, grad, dir_t, dir_v,
-// traj and vel (6 J T, padded to 4 floats), the buffer, the obstacle terms
-// and the endpoints; its gx/gy planes (2 T) sit in the CTA's gx/gy room
-// beside the other lanes' (the K7 ring's room).
-__host__ __device__ __forceinline__ size_t ws_lane_floats(int T, int O) {
-  return (size_t)((6 * NJ * T + 3) & ~3) + (size_t)WB_ROWS * wb_row_stride(T) +
-         (size_t)4 * O + WB_LANE_FLOATS;
+// The lane layout of a program (SOLVER_*) in a streamed body (WB_BODY_*).
+__host__ __device__ constexpr int stream_layout(int solver, int body) {
+  return body == WB_BODY_REACH
+             ? (solver == SOLVER_GD || solver == SOLVER_BLS_EXACT
+                    ? WB_LY_REACH_NODIR
+                    : WB_LY_REACH_GXDIR)
+             : (solver == SOLVER_BLS_BF16 ? WB_LY_HALF : WB_LY_STREAMED);
 }
-// Half-width streamed (HWarp): alpha, grad (J, T) and the ladder planes (4
-// J T bfloat16 = 2 J T floats), the buffer, obstacles and endpoints.
-__host__ __device__ __forceinline__ size_t hs_lane_floats(int T, int O) {
-  return (size_t)4 * NJ * T + (size_t)WB_ROWS * wb_row_stride(T) +
-         (size_t)4 * O + WB_LANE_FLOATS;
+// A streamed lane's region.  SWarp's (and WB_LY_REACH_GXDIR's): the
+// planes alpha, grad, dir_t, dir_v, traj and vel (6 J T, padded to 4
+// floats), the buffer, the obstacle terms and the endpoints; its gx/gy
+// planes (2 T) sit in the CTA's gx/gy room beside the other lanes' (the K7
+// ring's room), or, in WB_LY_REACH_GXDIR, in its direction planes.
+// HWarp's: alpha, grad (J, T) and the ladder planes (4 J T bfloat16 = 2 J T
+// floats); WB_LY_REACH_NODIR's: alpha, grad, traj and vel (4 J T); then
+// the buffer, obstacles and endpoints.
+__host__ __device__ __forceinline__ size_t lane_floats(int layout, int T,
+                                                       int O) {
+  const size_t planes =
+      layout == WB_LY_HALF || layout == WB_LY_REACH_NODIR
+          ? (size_t)4 * NJ * T
+          : (size_t)((6 * NJ * T + 3) & ~3);
+  return planes + (size_t)WB_ROWS * wb_row_stride(T) + (size_t)4 * O +
+         WB_LANE_FLOATS;
 }
 // The K7 geometry (mirror of k7_geometry in ops/fused_solve.py).  A CTA of
 // the streamed plan runs a tile of L lanes (at most WB_STREAM_WARPS - 1),
@@ -243,24 +294,25 @@ __host__ __device__ __forceinline__ int k7_row_block(int rows, int L) {
 // The CTA's room (floats, a multiple of 4): the tile's gx/gy planes, which
 // no lane holds across a product, and the K7 ring, which takes the whole
 // room during a product: the shared memory the lanes leave, at most
-// WB_RING_CAP floats, at least the planes.
+// WB_RING_CAP floats, at least the planes (the ring alone in
+// WB_LY_REACH_GXDIR, whose gx/gy sit in the direction planes).
 __host__ __device__ __forceinline__ size_t ws_room_floats(int T, int O, int L,
-                                                          bool half) {
-  const size_t lane = half ? hs_lane_floats(T, O) : ws_lane_floats(T, O);
-  const size_t used = WB_CTA_FLOATS + (size_t)L * lane;
+                                                          int layout) {
+  const size_t used = WB_CTA_FLOATS + (size_t)L * lane_floats(layout, T, O);
   const size_t left = WB_SMEM_MAX / 4 > used ? WB_SMEM_MAX / 4 - used : 0;
   const size_t room = (left < WB_RING_CAP ? left : WB_RING_CAP) & ~(size_t)3;
+  if (layout == WB_LY_REACH_GXDIR) return room;
   const size_t planes = ((size_t)2 * T * L + 3) & ~(size_t)3;
   return room > planes ? room : planes;
 }
-// The dynamic shared memory of a CTA of ``lanes`` lanes.
+// The dynamic shared memory of a CTA of ``lanes`` lanes in the body
+// ``streamed`` (any streamed body: the lane layout ``layout``).
 static size_t warp_smem_bytes(const FsParams& p, int lanes, bool streamed,
-                              bool half) {
+                              int layout) {
   if (streamed)
     return sizeof(float) *
-           (WB_CTA_FLOATS + ws_room_floats(p.T, p.O, lanes, half) +
-            (size_t)lanes *
-                (half ? hs_lane_floats(p.T, p.O) : ws_lane_floats(p.T, p.O)));
+           (WB_CTA_FLOATS + ws_room_floats(p.T, p.O, lanes, layout) +
+            (size_t)lanes * lane_floats(layout, p.T, p.O));
   return sizeof(float) *
          (wb_basis_floats(p.T) + (size_t)lanes * wb_warp_floats(p.T, p.O));
 }
@@ -309,8 +361,12 @@ struct Tile {
 
 // The streamed body's view: the transposed basis pair in device memory,
 // and every plane (traj, vel, gx, gy too) in shared memory.  Thread i owns
-// t = i + 32 g for the G = ceil(T / 32) groups g.
-struct SWarp : Tile {
+// t = i + 32 g for the G = ceil(T / 32) groups g.  LY: its lane layout
+// (WB_LY_STREAMED, or a reach layout: no direction planes in
+// WB_LY_REACH_NODIR, dir_t/dir_v null; gx/gy in the direction planes in
+// WB_LY_REACH_GXDIR).
+template <int LY>
+struct SWarpT : Tile {
   const float* kvT;   // device memory: kv transposed, in row blocks (K7)
   const float* kvtT;  // device memory: kvt transposed, in row blocks
   const float* mix;   // shared (J, J)
@@ -322,29 +378,39 @@ struct SWarp : Tile {
   float* ends;        // as Warp's
   int T, O, RS, lid, G;
   float lam_sg, lam_jl;
-  static constexpr bool kKeepsFk = true;
+  // Pass A keeps its FK tangents for pass B in the direction planes (the
+  // streamed layout); the reach layouts recompute them in pass B.
+  static constexpr bool kKeepsFk = LY == WB_LY_STREAMED;
 
   __device__ __forceinline__ int tt(int g) const { return lid + 32 * g; }
   __device__ __forceinline__ int ts(int g) const { return min(tt(g), T - 1); }
   __device__ __forceinline__ bool owns(int g) const { return tt(g) < T; }
   // Lane l's view of the tile's planes (the K7 sinks write through it).
-  __device__ __forceinline__ SWarp at(int l) const {
-    SWarp v = *this;
+  __device__ __forceinline__ SWarpT at(int l) const {
+    SWarpT v = *this;
     const ptrdiff_t d = (ptrdiff_t)(l - lane) * (ptrdiff_t)stride;
     v.alpha += d;
     v.grad += d;
-    v.dir_t += d;
-    v.dir_v += d;
+    if constexpr (LY != WB_LY_REACH_NODIR) {
+      v.dir_t += d;
+      v.dir_v += d;
+    }
     v.traj += d;
     v.vel += d;
     v.buf += d;
     v.ends += d;
-    v.gx += (ptrdiff_t)(l - lane) * 2 * T;
-    v.gy = v.gx + T;
+    if constexpr (LY == WB_LY_REACH_GXDIR) {
+      v.gx = v.dir_t;
+      v.gy = v.dir_v;
+    } else {
+      v.gx += (ptrdiff_t)(l - lane) * 2 * T;
+      v.gy = v.gx + T;
+    }
     v.lane = l;
     return v;
   }
 };
+using SWarp = SWarpT<WB_LY_STREAMED>;
 
 // The half-width streamed body's view (the bf16 tier's program): SWarp's,
 // with the ladder planes traj_h, vel_h, dir_th, dir_vh (J, T) bfloat16 in
@@ -501,7 +567,7 @@ static __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // the ring's mbarriers; one __syncthreads.
 template <class SW>
 static __device__ float* bind_tile(SW& w, float* smem, int T, int O,
-                                   int lanes, bool half, const float* kvT_dev,
+                                   int lanes, int layout, const float* kvT_dev,
                                    const float* kvtT_dev,
                                    const float* __restrict__ mix) {
   const int W = blockDim.x >> 5, wid = threadIdx.x >> 5;
@@ -513,7 +579,7 @@ static __device__ float* bind_tile(SW& w, float* smem, int T, int O,
   w.empty = w.full + WB_K7_STAGES;
   w.base = (int*)(w.empty + WB_K7_STAGES);
   w.room = smem + WB_CTA_FLOATS;
-  w.room_floats = ws_room_floats(T, O, lanes, half);
+  w.room_floats = ws_room_floats(T, O, lanes, layout);
   w.seq = 0;
   for (int i = threadIdx.x; i < NJ * NJ; i += blockDim.x) smem[i] = mix[i];
   if (threadIdx.x == 0) {
@@ -537,37 +603,50 @@ static __device__ float* bind_tile(SW& w, float* smem, int T, int O,
   return w.room + w.room_floats;
 }
 
-// Bind this warp's view of its lane in the streamed body (lane regions
-// after the room, each ws_lane_floats).
-static __device__ SWarp bind_swarp(float* smem, int T, int O, int lanes,
-                                   const float* kvT_dev, const float* kvtT_dev,
-                                   const float* __restrict__ mix) {
-  SWarp w;
+// Bind this warp's view of its lane in the streamed body of layout LY
+// (lane regions after the room, each lane_floats).
+template <int LY = WB_LY_STREAMED>
+static __device__ SWarpT<LY> bind_swarp(float* smem, int T, int O, int lanes,
+                                        const float* kvT_dev,
+                                        const float* kvtT_dev,
+                                        const float* __restrict__ mix) {
+  SWarpT<LY> w;
   float* regions =
-      bind_tile(w, smem, T, O, lanes, false, kvT_dev, kvtT_dev, mix);
-  w.stride = ws_lane_floats(T, O);
+      bind_tile(w, smem, T, O, lanes, LY, kvT_dev, kvtT_dev, mix);
+  w.stride = lane_floats(LY, T, O);
   float* mine = regions + (size_t)w.lane * w.stride;
   const int plane = NJ * T;
   w.alpha = mine;
   w.grad = mine + plane;
-  w.dir_t = mine + 2 * plane;
-  w.dir_v = mine + 3 * plane;
-  w.traj = mine + 4 * plane;
-  w.vel = mine + 5 * plane;
-  w.buf = mine + ((6 * plane + 3) & ~3);
+  if constexpr (LY == WB_LY_REACH_NODIR) {
+    w.dir_t = w.dir_v = nullptr;
+    w.traj = mine + 2 * plane;
+    w.vel = mine + 3 * plane;
+    w.buf = mine + 4 * plane;
+  } else {
+    w.dir_t = mine + 2 * plane;
+    w.dir_v = mine + 3 * plane;
+    w.traj = mine + 4 * plane;
+    w.vel = mine + 5 * plane;
+    w.buf = mine + ((6 * plane + 3) & ~3);
+  }
+  if constexpr (LY == WB_LY_REACH_GXDIR) {
+    w.gx = w.dir_t;
+    w.gy = w.dir_v;
+  }
   w.obs = (float4*)(w.buf + WB_ROWS * w.RS);
   w.ends = (float*)(w.obs + w.O);
   return w;
 }
 
-// Bind this warp's half-width view (the layout of hs_lane_floats).
+// Bind this warp's half-width view (the layout WB_LY_HALF).
 static __device__ HWarp bind_hwarp(float* smem, int T, int O, int lanes,
                                    const float* kvT_dev, const float* kvtT_dev,
                                    const float* __restrict__ mix) {
   HWarp w;
   float* regions =
-      bind_tile(w, smem, T, O, lanes, true, kvT_dev, kvtT_dev, mix);
-  w.stride = hs_lane_floats(T, O);
+      bind_tile(w, smem, T, O, lanes, WB_LY_HALF, kvT_dev, kvtT_dev, mix);
+  w.stride = lane_floats(WB_LY_HALF, T, O);
   float* mine = regions + (size_t)w.lane * w.stride;
   const int plane = NJ * T;
   w.alpha = mine;
@@ -1482,10 +1561,11 @@ static __device__ void k7_product(SW& w, const float* MT, int rows, int n_t,
 
 // (traj, vel) = the staged input through kv, into the traj/vel planes of
 // the lanes that take it.
-static __device__ __forceinline__ void eval_staged(SWarp& w, bool on) {
+template <int LY>
+static __device__ __forceinline__ void eval_staged(SWarpT<LY>& w, bool on) {
   const int T = w.T;
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const SWarp& v, int r, const float* a) {
+             [&](const SWarpT<LY>& v, int r, const float* a) {
                if (r >= 2 * T) return;
                float* out = r < T ? v.traj + r : v.vel + (r - T);
 #pragma unroll
@@ -1496,14 +1576,16 @@ static __device__ __forceinline__ void eval_staged(SWarp& w, bool on) {
 
 // The search direction (the resident direction's, through K7; the bf16
 // tier's program runs the half-width body instead).
-template <bool HALF>
-static __device__ __forceinline__ void direction(const FsParams& p, SWarp& w,
+template <bool HALF, int LY>
+static __device__ __forceinline__ void direction(const FsParams& p,
+                                                 SWarpT<LY>& w,
                                                  float inv_norm, bool on) {
   static_assert(!HALF, "the bf16 tier streams through HWarp");
+  static_assert(LY != WB_LY_REACH_NODIR, "a layout without direction planes");
   const int T = w.T;
   if (on) stage_input(w, w.grad, inv_norm);
   k7_product(w, w.kvT, 2 * T, T, on,
-             [&](const SWarp& v, int r, const float* a) {
+             [&](const SWarpT<LY>& v, int r, const float* a) {
                if (r >= 2 * T) return;
                const bool pos = r < T;
                const int t = pos ? r : r - T;
@@ -1524,16 +1606,17 @@ static __device__ __forceinline__ void eval_alpha(SW& w, bool on) {
 }
 
 // The ultra tier's step start (the resident eval_start's).
-template <bool HALF>
-static __device__ __forceinline__ void eval_start(SWarp& w, bool on) {
+template <bool HALF, int LY>
+static __device__ __forceinline__ void eval_start(SWarpT<LY>& w, bool on) {
   static_assert(!HALF, "the bf16 tier streams through HWarp");
   eval_alpha(w, on);
 }
 
 // The accepted BLS step (the resident accept_step's, on the planes).
-template <bool EXACT, bool FUSED>
+template <bool EXACT, bool FUSED, int LY>
 static __device__ __forceinline__ void accept_step(const FsParams& p,
-                                                   SWarp& w, float lr_eff,
+                                                   SWarpT<LY>& w,
+                                                   float lr_eff,
                                                    float inv_norm) {
   const int T = w.T;
   const float a_fac = 1.f - p.lambda_reg * lr_eff;
@@ -1554,7 +1637,8 @@ static __device__ __forceinline__ void accept_step(const FsParams& p,
 }
 
 // The own timesteps' (traj, vel) from the planes.
-static __device__ __forceinline__ void load_point(const SWarp& w, int t,
+template <int LY>
+static __device__ __forceinline__ void load_point(const SWarpT<LY>& w, int t,
                                                   float* tr, float* ve) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
@@ -1632,15 +1716,16 @@ static __device__ __forceinline__ void grad_pass(const FsParams& p, SW& w,
 // Loss of one ladder rung (the resident rung_cost's; the exact candidate's
 // evaluation goes into the traj/vel planes, a product: ``on``, this lane
 // takes it, and every warp of the tile calls the exact rung).
-template <bool EXACT, bool BASE = false>
-static __device__ __forceinline__ float rung_cost(const FsParams& p, SWarp& w,
-                                                  float lr, float inv_norm,
+template <bool EXACT, bool BASE = false, int LY>
+static __device__ __forceinline__ float rung_cost(const FsParams& p,
+                                                  SWarpT<LY>& w, float lr,
+                                                  float inv_norm,
                                                   bool on = true) {
   static_assert(!BASE, "the bf16 tier streams through HWarp");
   const int T = w.T;
   if constexpr (EXACT) {
-    if (on) stage_candidate<SWarp, true>(w, 1.f - p.lambda_reg * lr, lr,
-                                         inv_norm);
+    if (on) stage_candidate<SWarpT<LY>, true>(
+        w, 1.f - p.lambda_reg * lr, lr, inv_norm);
     eval_staged(w, on);
     if (!on) return 0.f;
   }
@@ -1835,17 +1920,6 @@ static __device__ __forceinline__ void eval_alpha(Warp& w) {
   stage_input(w, w.alpha, 1.f);
   eval_staged(w);
 }
-
-// The programs of the round body (template argument, never a run-time
-// switch): the index ops/fused_solve.py's PROGRAMS gives each.  BLS has one
-// per ladder tier, and the linearized ladder one per kernel tier that
-// changes its floats (ultra, bf16: pallas_step's ultra/bf16 compilations;
-// its lean compilation is SOLVER_BLS here, see bls_step).
-#define SOLVER_BLS 0
-#define SOLVER_GD 1
-#define SOLVER_BLS_EXACT 2
-#define SOLVER_BLS_ULTRA 3
-#define SOLVER_BLS_BF16 4
 
 // One BLS inner step of a live lane (pallas_step's _bls_step in each tier;
 // K1/K2's steps and K3's, step_kernels.cu): normalized direction, the

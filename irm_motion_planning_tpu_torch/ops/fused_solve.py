@@ -82,9 +82,15 @@ DEFAULT_WARPS = 16
 MAX_WARPS = 16
 WARP_MAX_T = 64
 STREAM_MIN_T = 32
-# The launch plans: the resident body (the basis pair in shared memory) or
-# the streamed one (the basis in device memory, streamed by K7).
-PLANS = ("resident", "streamed")
+# The launch plans: the resident body (the basis pair in shared memory),
+# the streamed one (the basis in device memory, streamed by K7), or the
+# streamed one in its reach layout (the float32 programs past the streamed
+# layout's ceiling: FK recomputed in the gradient pass, GD and the exact
+# ladder without the direction planes, the linearized ladder with the
+# tile's gx/gy planes in them).
+PLANS = ("resident", "streamed", "reach")
+# The programs whose reach layout holds no direction planes.
+REACH_NODIR = ("gd", "bls_exact")
 # The joint counts J the kernels are built for (one library per J,
 # ops/_build.py; csrc/lane_body.cuh).
 MAX_JOINTS = 15
@@ -201,8 +207,20 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
     per-timestep obstacle cost."""
     T, J = traj.shape[1], traj.shape[0]
     lam_max = cfg.lambda_max_cost
+    pls, vls = [], []
+    for j in range(J):
+        zp = (traj[j] - c.mean_jp) * c.inv_std_jp_h
+        pl_ = zp * zp
+        zv = vel[j] * c.inv_vmax_h
+        vl_ = zv * zv
+        if cfg.constraint_violating_dependant_loss:
+            pl_ = torch.where(_pos_mask(cfg, traj[j]), pl_, 0.0)
+            vl_ = torch.where(_vel_mask(cfg, vel[j]), vl_, 0.0)
+        pls.append(pl_)
+        vls.append(vl_)
+    sums = t_sums([cost_v, *pls, *vls])
     toc = sum_pair(lam_max, cost_v.max(dim=0).values, (1.0 - lam_max) / T,
-                   cost_v.sum(0))
+                   sums[0])
     sgpc = torch.zeros_like(toc)
     sgvc = torch.zeros_like(toc)
     jpc = torch.zeros_like(toc)
@@ -214,15 +232,8 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
         vs = vel[j, 0]
         vg = vel[j, T - 1]
         sgvc = sum_add(sgvc, 0.5, sum_pair(vs, vs, vg, vg))
-        zp = (traj[j] - c.mean_jp) * c.inv_std_jp_h
-        pl_ = zp * zp
-        zv = vel[j] * c.inv_vmax_h
-        vl_ = zv * zv
-        if cfg.constraint_violating_dependant_loss:
-            pl_ = torch.where(_pos_mask(cfg, traj[j]), pl_, 0.0)
-            vl_ = torch.where(_vel_mask(cfg, vel[j]), vl_, 0.0)
-        jpc = sum_add(jpc, pl_.sum(0), c.inv_T)
-        jvc = sum_add(jvc, vl_.sum(0), c.inv_T)
+        jpc = sum_add(jpc, sums[1 + j], c.inv_T)
+        jvc = sum_add(jvc, sums[1 + J + j], c.inv_T)
     return sum_add(sum_add(toc, lam_sg, sgpc + sgvc), lam_jl, jpc + jvc)
 
 
@@ -367,6 +378,24 @@ def chain_sum(x):
     for xi in x:
         s = s + xi
     return s
+
+
+def t_sums(planes):
+    """The sums over T of the (T, B) ``planes``, (K, B) for K planes, in an
+    order that neither B nor a lane's position changes: each lane's row
+    made contiguous, padded with zeros to a multiple of 4 (every row then
+    starts 16-byte aligned, so a vectorized reduction reads each alike) and
+    summed by ``sum(-1)``.  torch's ``sum(0)`` of a (T, B) plane blocks the
+    lanes, so its order over T depended on where a lane lies (the loss of a
+    permuted batch moved by an ulp).  The kernels' order, one sequential
+    chain (:func:`chain_sum`), costs T launches a loss: tools/t_sums.py
+    measured it 1.50x slower than ``sum(0)`` for the plain K1 on an NVIDIA
+    H100 (T = 200, 8,192 lanes), this order 1.05x."""
+    rows = torch.stack(planes).transpose(1, 2)
+    pad = -rows.shape[-1] % 4
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, pad))
+    return rows.contiguous().sum(-1)
 
 
 def two_roundings(a, b, c):
@@ -876,13 +905,17 @@ def k7_row_block(rows: int, lanes: int, J: int = 3) -> int:
     return min(k7_rows(lanes, J) * units, _pad4(rows))
 
 
-def room_floats(T: int, lanes: int, lane_floats: int, J: int = 3) -> int:
+def room_floats(T: int, lanes: int, lane_floats: int, J: int = 3,
+                planes: bool = True) -> int:
     """The CTA's room (mirror of ws_room_floats): the shared memory the
     lanes leave, at most RING_CAP floats, at least the tile's gx/gy planes
-    (floats, a multiple of 4)."""
+    (floats, a multiple of 4) where the room holds them (``planes``; the
+    linearized ladder's reach layout holds them in the direction
+    planes)."""
     left = max(SMEM_PER_CTA_MAX // 4 - cta_bytes(J) // 4
                - lanes * lane_floats, 0)
-    return max(min(left, RING_CAP) & ~3, _pad4(2 * T * lanes))
+    room = min(left, RING_CAP) & ~3
+    return max(room, _pad4(2 * T * lanes)) if planes else room
 
 
 def k7_geometry(T: int, lanes: int, room: int, J: int = 3) -> dict:
@@ -937,25 +970,46 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     per timestep less at J = 3.  Its resident plan is the float32 one (the
     rounded values held as float32).
 
+    Reach (the float32 programs only; by default where the streamed plan
+    does not fit one lane): the streamed body with the gradient pass
+    recomputing FK from (traj, vel) instead of keeping the tangents in the
+    direction planes (the same floats, so each lane's result is the
+    streamed plan's bit for bit).  ``gd`` and ``bls_exact``, which use the
+    direction planes for nothing else, then hold none: the planes alpha
+    and grad, the state planes traj and vel (24 bytes per timestep less at
+    J = 3, the bf16 plan's bytes: one lane per CTA up to T = 2,636 at 11
+    obstacles).  The linearized ladder's programs keep the streamed pieces
+    and hold the tile's gx/gy planes in the direction planes, free from a
+    step's accepted update to its next direction, so the room is the K7
+    ring's alone (8 bytes per timestep less: up to T = 2,156).
+
     Returns {"plan", "lanes": lanes per CTA, "warps": the CTA's warps,
-    "bytes": {piece: bytes}, "total", "ring": the K7 ring (streamed),
-    "bf16": the half-width layout}.  Raises ValueError for a lanes-per-CTA
-    value, plan or program the kernels cannot take, NotImplementedError
-    when the plan does not fit: a J the kernels are not built for (past
-    MAX_JOINTS), the resident one past WARP_MAX_T (the message names the
-    streamed plan) or past the shared memory of a CTA, the streamed one
-    when a single lane does not fit (the message names the largest
-    piece)."""
+    "bytes": {piece: bytes}, "total", "ring": the K7 ring (streamed and
+    reach), "bf16": the half-width layout}.  Raises ValueError for a
+    lanes-per-CTA value, plan or program the kernels cannot take (the
+    reach plan of ``bls_bf16``), NotImplementedError when the plan does not
+    fit: a J the kernels are not built for (past MAX_JOINTS), the resident
+    one past WARP_MAX_T (the message names the streamed plan) or past the
+    shared memory of a CTA, the streamed and reach ones when a single lane
+    does not fit (the message names the largest piece)."""
     want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
     if not 1 <= J <= MAX_JOINTS:
         raise NotImplementedError(
             f"J={J}: the CUDA kernels take 1 <= J <= {MAX_JOINTS} joints")
-    plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
-    if plan not in PLANS:
+    if plan not in PLANS + ("",):
         raise ValueError(f"launch plan {plan!r} is not one of {PLANS}")
     if prog not in PROGRAMS:
         raise ValueError(f"program {prog!r} is not one of {PROGRAMS}")
+    if not plan and T > WARP_MAX_T and prog != "bls_bf16":
+        try:
+            return launch_plan(cfg, O, "streamed", prog)
+        except NotImplementedError:
+            return launch_plan(cfg, O, "reach", prog)
+    plan = plan or ("resident" if T <= WARP_MAX_T else "streamed")
+    if plan == "reach" and prog == "bls_bf16":
+        raise ValueError("the reach plan holds the float32 programs; the "
+                         "bf16 tier's streamed plan is its own")
     f = 4
     rows = (T + 3) // 4 * 4
     per_warp = {
@@ -993,12 +1047,18 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     if half:
         per_lane["planes"] = f * 2 * J * T
         per_lane["ladder"] = f * 2 * J * T
+    elif plan == "reach" and prog in REACH_NODIR:
+        per_lane["planes"] = f * 2 * J * T
+        per_lane["state"] = f * 2 * J * T
     else:
         per_lane["state"] = f * (_pad4(6 * J * T) - 4 * J * T)
     one = sum(per_lane.values())
+    # The linearized ladder's reach layout holds the tile's gx/gy in the
+    # direction planes.
+    room_planes = not (plan == "reach" and prog not in REACH_NODIR)
 
     def layout(lanes):
-        room = room_floats(T, lanes, one // f, J)
+        room = room_floats(T, lanes, one // f, J, room_planes)
         pieces = {"mix": f * mix_floats(J), "control": f * CTL_FLOATS,
                   "room": f * room,
                   **{k: lanes * v for k, v in per_lane.items()}}
@@ -1013,7 +1073,8 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
         big = max(per_lane, key=per_lane.get)
         raise NotImplementedError(
             f"T={T}, J={J}: one lane's state does not fit in shared "
-            f"memory: {one + f * 2 * T} bytes per lane, "
+            f"memory in the {plan} plan of {prog}: "
+            f"{one + (f * 2 * T if room_planes else 0)} bytes per lane, "
             f"{SMEM_PER_CTA_MAX - cta_bytes(J)} free per CTA; the largest "
             f"piece is {big} ({per_lane[big]} bytes)"
         )
@@ -1031,16 +1092,19 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
 
 def kernel_plan(cfg: PlannerConfig, O: int, solver: str = "bls"):
     """The launch plan the kernels run for ``solver`` under ``cfg``
-    (:func:`launch_plan`, of the float32 programs), or None where none
-    fits; the fleet solver then runs its plain engine.  Past the float32
-    plans' ceiling (one warp's lane state past the shared memory of a CTA:
-    T = 2,073 at 11 obstacles), BLS with the linearized ladder and
+    (:func:`launch_plan` of its float32 program: the resident or streamed
+    plan, and past the streamed plan's ceiling, T = 2,072 at 11 obstacles,
+    the reach plan, as JAX's choose_kernel_plan selects its lean and ultra
+    layouts only where the full one cannot fit: GD and the exact ladder up
+    to T = 2,636, the linearized ladder up to T = 2,156), or None where
+    none fits; the fleet solver then runs its plain engine.  Past the
+    float32 plans, BLS with the linearized ladder and
     ``cfg.bls_bf16_ladder`` (the opt-in, as JAX's choose_kernel_plan asks
     for it) gets the ``bls_bf16`` program's streamed plan while it fits (up
     to T = 2,636 at 11 obstacles); its ``"bf16"`` is then true.  The ultra
     tier frees no shared memory here, so no plan selects it."""
     try:
-        return launch_plan(cfg, O)
+        return launch_plan(cfg, O, prog=program(cfg, solver))
     except NotImplementedError:
         pass
     if (not _solver_is_gd(solver) and cfg.ladder_eval == "linearized"
@@ -1456,8 +1520,8 @@ def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
     if ctas < 0:
         raise ValueError(f"{name}: ctas must be >= 0, got {ctas}")
     lp = launch_plan(cfg, O, plan, prog)
-    streamed = lp["plan"] == "streamed"
-    if streamed:
+    body = PLANS.index(lp["plan"])
+    if body:
         inputs = [*streamed_basis(inputs[0], inputs[1], lp["ring"]),
                   *inputs[2:]]
     dev = alpha.device
@@ -1465,7 +1529,7 @@ def _launch(name: str, cfg: PlannerConfig, prog: str, plan: str, alpha,
             for _ in range(n_out)]
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     launch(name, kernel_params(cfg, O, B), lp["lanes"],
-           [ctypes.c_int(PROGRAMS.index(prog)), ctypes.c_int(streamed),
+           [ctypes.c_int(PROGRAMS.index(prog)), ctypes.c_int(body),
             ctypes.c_int(ctas), *scalars,
             *inputs, alpha, *outs, queue], dev)
     return outs

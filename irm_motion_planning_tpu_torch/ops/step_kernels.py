@@ -53,7 +53,10 @@ def _warp_plan(name: str, cfg: PlannerConfig, O: int, prog: str) -> dict:
             f"{name} runs one warp per lane: pallas_block_b must be "
             f"32-{32 * fs.MAX_WARPS} threads in whole warps (0: "
             f"{fs.DEFAULT_WARPS} warps), got {bt}")
-    return fs.launch_plan(cfg.replace(pallas_block_b=bt // 32), O, prog=prog)
+    # K1's resident or streamed plan; the reach plan is K1/K2's alone.
+    plan = "resident" if cfg.n_timesteps <= fs.WARP_MAX_T else "streamed"
+    return fs.launch_plan(cfg.replace(pallas_block_b=bt // 32), O, plan,
+                          prog)
 
 
 def bls_step_plan(cfg: PlannerConfig, O: int) -> dict:

@@ -23,15 +23,16 @@ BLS runs in either Armijo ladder tier (``cfg.ladder_eval``: linearized or
 exact) on every backend.  The kernel backends run the launch plan of
 ops/fused_solve.py (``launch_plan``: the basis resident in shared memory up
 to T = 64, streamed from device memory beyond; every joint count J up to
-15, one kernel library per J); past the float32 plans' ceiling (at 11
-obstacles T = 2,073 for J = 3, 1,209 for J = 5, 966 for J = 7, where one
-warp's lane state no longer fits in shared memory) BLS with the
-linearized ladder and
+15, one kernel library per J).  Past the streamed plan's ceiling (at 11
+obstacles T = 2,072 for J = 3, 1,208 for J = 5, 965 for J = 7, where one
+warp's lane state no longer fits in shared memory) K1/K2 run the reach
+plan of the float32 programs (``kernel_plan``; J = 3: GD up to T = 2,636,
+BLS up to 2,156), and past that BLS with the linearized ladder and
 ``cfg.bls_bf16_ladder`` runs the bf16 tier's plan on ``backend="fused"``
-(``kernel_plan``, up to T = 2,636); where no plan fits, or the plan is the
-bf16 tier's and the backend the per-step one (which has no such tier),
-``fleet_solve`` warns and runs the ``xla`` engine, as the JAX package does;
-so it does past J = 15.
+(up to T = 2,636).  Where no plan fits, or the plan is one that only
+K1/K2 hold (the reach plan, the bf16 tier's) and the backend the
+per-step one, ``fleet_solve`` warns and runs the ``xla`` engine, as the
+JAX package does at its lean and ultra plans; so it does past J = 15.
 
 Layouts: alpha (T, J, B) in the fleet layout, (J, T, B) for the kernels,
 (B, T, J) at the API.
@@ -735,10 +736,11 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     plain engine, the default, as in the JAX package), ``"fused"`` (the
     whole-solve kernels: one launch per solve, or one per round with
     ``cfg.lane_compaction``) or ``"pallas"`` (the per-step kernels); each
-    runs both solvers and both ladder tiers.  Past the float32 plans'
-    ceiling ``"fused"`` runs the bf16 tier's plan where ``cfg.bls_bf16_ladder``
-    opts in (linearized BLS); it warns and runs ``"xla"`` where no plan
-    fits, and ``"pallas"`` does so for the bf16 plan too.  The device of the
+    runs both solvers and both ladder tiers.  Past the streamed plan's
+    ceiling ``"fused"`` runs the reach plan, then the bf16 tier's plan where
+    ``cfg.bls_bf16_ladder`` opts in (linearized BLS); it warns and runs
+    ``"xla"`` where no plan fits, and ``"pallas"`` does so for the reach
+    and bf16 plans too.  The device of the
     scenes decides where it runs.  Returns leading-batch results."""
     if solver not in ("bls", "gd"):
         raise ValueError(f"unknown solver {solver!r}")
@@ -764,11 +766,12 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                            scenarios.obstacles.shape[-2], solver)
             if backend in ("fused", "pallas") else None)
     if backend in ("fused", "pallas") and (plan is None or (
-            backend == "pallas" and plan["bf16"])):
+            backend == "pallas" and (plan["bf16"]
+                                     or plan["plan"] == "reach"))):
         # No launch plan fits (even the streamed basis leaves too little
         # shared memory for one warp at this T and J, or J is past the
-        # kernels' builds), or the plan is the bf16 tier's, which only K1/K2
-        # have: the plain engine runs any size.
+        # kernels' builds), or the plan is the reach plan or the bf16
+        # tier's, which only K1/K2 have: the plain engine runs any size.
         import warnings
 
         B = scenarios.start.shape[0]
@@ -778,7 +781,9 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
                 f"shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
                 f"CTA even with the streamed basis") if plan is None else
                "the per-step kernels have no bf16 ladder tier; use "
-               "backend='fused' for it")
+               "backend='fused' for it" if plan["bf16"] else
+               "the per-step kernels have no reach layout; use "
+               "backend='fused' for the large-T kernel plans")
         warnings.warn(
             f"pallas backends infeasible for T={cfg.n_timesteps}, J={J}, "
             f"B={B} ({why}); falling back to backend='xla'"

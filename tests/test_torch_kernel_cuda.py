@@ -5,7 +5,8 @@ card, the rounds driver against the whole-solve kernel, the fused GD and
 exact-ladder kernels against their per-step paths, the per-step driver on
 the card, and large T: the streamed programs of K1/K2 (K7) bit for bit the
 resident ones at T = 50 and, with K3-K6 in the streamed body (K3-K5) or
-tiled (K6), against their plain versions at T = 200; and the kernel tiers
+tiled (K6), against their plain versions at T = 200, and K1/K2's reach
+plan bit for bit the streamed one at T = 200; and the kernel tiers
 of K1/K2
 (lean, ultra, bf16) against their plain versions at T = 50 and 200; and
 K1's phase-ablated builds (``WB_ABLATE_*``), which must launch and leave
@@ -494,6 +495,26 @@ def test_streamed_kernels_match_plain_versions_at_t200(args200, solver,
     print(f"K2 T=200: lane agreement {agree:.4f}, alpha rel {rel:.3g}")
     assert agree >= tfs.CARD_SHORT_AGREEMENT_MIN
     assert rel <= tfs.ALPHA_REL_MAX
+
+
+@PROGRAMS
+def test_reach_layout_equals_streamed_at_t200(args200, solver, ladder):
+    """At T = 200 both streamed layouts run: K1 and K2 in the reach plan
+    (the gradient pass recomputing FK; GD and the exact ladder without the
+    direction planes, the linearized ladder with gx/gy in them) give the
+    streamed plan's outputs bit for bit, also at 3 lanes per CTA."""
+    cfg = args200[0].replace(ladder_eval=ladder)
+    a = (cfg, *args200[1:])
+    want = tfs.fused_solve(*a, solver=solver, plan="streamed")
+    for c in (cfg, cfg.replace(pallas_block_b=3)):
+        got = tfs.fused_solve(c, *a[1:], solver=solver, plan="reach")
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    rargs = _round_args(a, solver=solver)
+    want = tfs.fused_round(*rargs, solver=solver, plan="streamed")
+    got = tfs.fused_round(*rargs, solver=solver, plan="reach")
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def test_step_kernels_match_plain_versions_at_t200(args200):

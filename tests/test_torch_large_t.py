@@ -300,16 +300,23 @@ def test_resident_plan_below_65(T):
 
 
 def test_plans_refuse_what_they_cannot_hold():
-    """Past the streamed plan's ceiling (T = 2,073 at 11 obstacles) one
-    lane's state does not fit: NotImplementedError naming the largest
-    piece; the resident plan, asked for past T = 64, names the streamed
-    plan; the streamed one below T = 32 raises ValueError.  At the ceiling
-    one lane fills the CTA, whose other warps help with its products."""
-    top = tfs.launch_plan(mt.PlannerConfig(n_timesteps=2072), 11)
-    assert (top["lanes"], top["warps"]) == (1, tfs.STREAM_WARPS)
-    with pytest.raises(NotImplementedError, match="largest piece is planes"):
-        tfs.launch_plan(mt.PlannerConfig(n_timesteps=2073), 11)
-    assert tfs.kernel_plan(mt.PlannerConfig(n_timesteps=2073), 11) is None
+    """Past the float32 plans' ceiling (the reach plan's at 11 obstacles: T
+    = 2,157 for the linearized ladder, 2,637 for GD) one lane's state does
+    not fit: NotImplementedError naming the largest piece; the resident
+    plan, asked for past T = 64, names the streamed plan; the streamed one
+    below T = 32 raises ValueError.  At the ceiling one lane fills the CTA,
+    whose other warps help with its products."""
+    for prog, solver, last, piece in (("bls", "bls", 2156, "planes"),
+                                      ("gd", "gd", 2636, "buffer")):
+        top = tfs.launch_plan(mt.PlannerConfig(n_timesteps=last), 11,
+                              prog=prog)
+        assert (top["plan"], top["lanes"], top["warps"]) == (
+            "reach", 1, tfs.STREAM_WARPS)
+        past = mt.PlannerConfig(n_timesteps=last + 1)
+        with pytest.raises(NotImplementedError,
+                           match=f"largest piece is {piece}"):
+            tfs.launch_plan(past, 11, prog=prog)
+        assert tfs.kernel_plan(past, 11, solver) is None
     with pytest.raises(NotImplementedError, match="streamed plan"):
         tfs.launch_plan(mt.PlannerConfig(n_timesteps=72), 11, "resident")
     with pytest.raises(ValueError, match="T >= 32"):
@@ -423,11 +430,12 @@ def test_first_argmax_takes_the_earlier_timestep_of_a_tie():
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def past_ceiling():
-    """T = 2,073 (the first T no plan holds), JAX's basis through
-    basis_from_numpy, the reference scene on 2 lanes, 1 round x 2 steps."""
-    T = 2073
+@pytest.fixture(scope="module", params=[("bls", 2157), ("gd", 2637)])
+def past_ceiling(request):
+    """The first T no plan of the solver holds (the reach plan's ceiling
+    plus one: BLS 2,157, GD 2,637), JAX's basis through basis_from_numpy,
+    the reference scene on 2 lanes, 1 round x 2 steps."""
+    solver, T = request.param
     jb = mp.make_basis(mp.PlannerConfig(n_timesteps=T))
     cfg = mt.PlannerConfig(n_timesteps=T, max_inner_iteration=2,
                            max_outer_iteration=1, fixed_iters=True,
@@ -435,8 +443,8 @@ def past_ceiling():
     basis = mt.basis_from_numpy({k: np.asarray(getattr(jb, k))
                                  for k in jb._fields}, device="cpu")
     scns = mt.replicate_scenario(mt.reference_scenario(cfg, device="cpu"), 2)
-    want = tfleet.fleet_solve(cfg, basis, scns, backend="xla")
-    return cfg, basis, scns, want
+    want = tfleet.fleet_solve(cfg, basis, scns, solver=solver, backend="xla")
+    return cfg, basis, scns, want, solver
 
 
 @pytest.mark.parametrize("backend", ["fused", "pallas"])
@@ -444,13 +452,14 @@ def test_kernel_backends_fall_back_past_the_ceiling(past_ceiling, backend):
     """Past the plans' ceiling fleet_solve warns with JAX's wording and runs
     the xla engine: the result equals backend="xla" bit for bit.  With lane
     compaction (fused only) the warning says it is dropped."""
-    cfg, basis, scns, want = past_ceiling
+    cfg, basis, scns, want, solver = past_ceiling
     cfgs = [cfg] + ([cfg.replace(lane_compaction=True)]
                     if backend == "fused" else [])
     for c in cfgs:
         match = "DROPPED" if c.lane_compaction else "falling back to backend='xla'"
         with pytest.warns(UserWarning, match=match):
-            got = tfleet.fleet_solve(c, basis, scns, backend=backend)
+            got = tfleet.fleet_solve(c, basis, scns, solver=solver,
+                                     backend=backend)
         np.testing.assert_array_equal(got.alpha.numpy(), want.alpha.numpy())
         for x, y in zip(got.stats, want.stats):
             np.testing.assert_array_equal(x.numpy(), y.numpy())

@@ -253,26 +253,33 @@ def test_exact_ladder_ultra_is_the_exact_program(setup):
 
 
 def test_planner_selects_the_bf16_plan_only_past_the_f32_ceiling():
-    """kernel_plan: no tier up to T = 2,072 (11 obstacles), whatever the
-    opt-in; past it the bf16 plan only with ``bls_bf16_ladder``, only for
-    BLS with the linearized ladder, up to T = 2,636; None beyond, and for
-    GD and the exact ladder.  The ultra tier holds the f32 layout's bytes
-    (nothing to drop), the bf16 streamed plan 24 bytes per
-    timestep fewer."""
+    """kernel_plan: no tier up to T = 2,156 (11 obstacles: the float32
+    plans, the reach plan past T = 2,072), whatever the opt-in; past it the
+    bf16 plan only with ``bls_bf16_ladder``, only for BLS with the
+    linearized ladder, up to T = 2,636; None beyond, and without the
+    opt-in.  GD and the exact ladder run their float32 reach plan to T =
+    2,636, None beyond.  The ultra tier holds the f32 layout's bytes
+    (nothing to drop), the bf16 streamed plan 24 bytes per timestep
+    fewer."""
     on = mt.PlannerConfig(max_obstacles=11, bls_bf16_ladder=True)
-    for T in (50, 200, 2072):
+    for T in (50, 200, 2072, 2156):
         for cfg in (on, on.replace(bls_bf16_ladder=False)):
             plan = tfs.kernel_plan(cfg.replace(n_timesteps=T), 11)
             assert plan is not None and not plan["bf16"]
-    for T in (2073, 2200, 2636):
+    for T in (2157, 2200, 2636):
         cfg = on.replace(n_timesteps=T)
         plan = tfs.kernel_plan(cfg, 11)
         assert plan["bf16"] and plan["plan"] == "streamed"
         assert (plan["lanes"], plan["warps"]) == (1, tfs.STREAM_WARPS)
-        assert tfs.kernel_plan(cfg, 11, "gd") is None
-        assert tfs.kernel_plan(cfg.replace(ladder_eval="exact"), 11) is None
+        for other in (tfs.kernel_plan(cfg, 11, "gd"), tfs.kernel_plan(
+                cfg.replace(ladder_eval="exact", bls_bf16_ladder=False), 11)):
+            assert other["plan"] == "reach" and not other["bf16"]
         assert tfs.kernel_plan(cfg.replace(bls_bf16_ladder=False), 11) is None
-    assert tfs.kernel_plan(on.replace(n_timesteps=2637), 11) is None
+    past = on.replace(n_timesteps=2637)
+    assert tfs.kernel_plan(past, 11) is None
+    assert tfs.kernel_plan(past, 11, "gd") is None
+    assert tfs.kernel_plan(past.replace(ladder_eval="exact",
+                                        bls_bf16_ladder=False), 11) is None
     cfg = on.replace(n_timesteps=200)
     f32 = tfs.launch_plan(cfg, 11)
     assert tfs.launch_plan(cfg, 11, prog="bls_ultra") == f32
@@ -285,9 +292,9 @@ def test_planner_selects_the_bf16_plan_only_past_the_f32_ceiling():
             == tfs.launch_plan(cfg.replace(n_timesteps=50), 11))
 
 
-# Past the f32 plans' ceiling (T = 2,073 at 11 obstacles), within the bf16
-# plan's.
-PAST_F32 = 2080
+# Past the f32 plans' ceiling (the linearized ladder's reach plan's, T =
+# 2,157 at 11 obstacles), within the bf16 plan's.
+PAST_F32 = 2160
 
 
 def _basis_at(T):

@@ -4,7 +4,8 @@
 
 Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` for the reference
 arm (J = 3; the library ops/_build.py builds at that J) (with
-``fused_tiers.cu``, whose kernel tiers it launches) once per variant with
+``fused_tiers.cu`` and ``fused_reach.cu``, whose kernel tiers and reach
+layouts it launches) once per variant with
 the given ``-D`` flags (each its own ``nvcc``, all started
 together, beside the port's own build), prints each build's ptxas report
 (registers, spills) and its launch shape, then runs K1-BLS of every variant
@@ -126,7 +127,7 @@ def main():
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     srcs = [os.path.join(_build.CSRC, f)
-            for f in ("fused_solve.cu", "fused_tiers.cu")]
+            for f in ("fused_solve.cu", "fused_tiers.cu", "fused_reach.cu")]
     procs, warps = {}, {}
     for spec in a.variants:
         name, flags = spec.split("=", 1)

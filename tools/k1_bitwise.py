@@ -4,10 +4,11 @@
     python tools/k1_bitwise.py compare A.pt B.pt
 
 ``dump`` builds the kernels of the checkout it runs in (the package is
-imported from the current directory) and saves, for each program of the
-solvers and ladders (bls, gd, bls_exact), K1's whole solve at the bench
-schedule and K2's one round (a quarter of the lanes fulfilled) on 16,384
-random scenes (seed 5) at T=50 (the resident body, its specialised
+imported from the current directory) and saves, for each program of K1/K2
+(the solvers' and ladders', bls, gd, bls_exact, and the linearized
+ladder's kernel tiers, bls_ultra and bls_bf16), K1's whole solve at the
+bench schedule and K2's one round (a quarter of the lanes fulfilled) on
+16,384 random scenes (seed 5) at T=50 (the resident body, its specialised
 instantiation) and on 1,024 random scenes at T=200 (the streamed body);
 and on the same scenes the per-step kernels: K5's evaluation and K6's
 forward evaluation at the warm start, and from K5's state one step of K3
@@ -22,7 +23,7 @@ import sys
 
 import torch
 
-PROGRAMS = ("bls", "gd", "bls_exact")
+PROGRAMS = ("bls", "gd", "bls_exact", "bls_ultra", "bls_bf16")
 
 
 def dump(out):
@@ -37,24 +38,25 @@ def dump(out):
     res = {}
     for T, batch in ((50, 16384), (200, 1024)):
         for prog in PROGRAMS:
-            solver = "gd" if prog == "gd" else "bls"
-            cfg = bench.bench_config(
-                solver=solver, n_timesteps=T,
-                ladder_eval="exact" if prog == "bls_exact" else "linearized")
+            solver, ladder, tier = fs.program_call(prog)
+            cfg = bench.bench_config(solver=solver, n_timesteps=T,
+                                     ladder_eval=ladder)
             basis = mt.make_basis(cfg, device=dev)
             scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
                                        batch, device=dev)
             args = fleet.fused_args(cfg, basis, scns)
-            k1 = fs.fused_solve(*args, solver=solver)
+            k1 = fs.fused_solve(*args, solver=solver, **tier)
             g = torch.Generator().manual_seed(0)
             ful = (torch.rand((1, batch), generator=g) < 0.25).float().to(dev)
             lr0 = torch.full_like(ful, fs.round_lr(cfg, 0, solver))
             k2 = fs.fused_round(*args[:7], ful, lr0, 4, *args[7:],
-                                solver=solver)
+                                solver=solver, **tier)
             res[f"K1 {prog} T={T}"] = [x.cpu() for x in k1]
             res[f"K2 {prog} T={T}"] = [x.cpu() for x in k2]
             _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
             lanes = (lsg, ljl, start, goal, ox, oy, ow)
+            if tier:
+                continue
             if prog == "bls":
                 res[f"K5 T={T}"] = [x.cpu() for x in sk.cost_grad_eval(
                     cfg, kv, kvt, mix, a0, *lanes)]
