@@ -171,8 +171,8 @@ the reach plan (phase 23).  Phases:
    plain version under phase 2's rule; without the opt-in it warns and
    runs xla;
 19. the entry points above the fleet engine: ``init_alpha``'s fit of the
-   smoothstep line on the card (cuSOLVER) beside the CPU's (at most
-   INIT_FIT_MAX); the CLI in this process (``cli.main``): the single-scene
+   smoothstep line on the card beside the CPU's (at most INIT_FIT_MAX),
+   its bits the CPU's (required); the CLI in this process (``cli.main``): the single-scene
    default (sequential BLS, plain PyTorch on the card) and GD, each with
    its ms per solve, the bench's 2% gate and endpoint < 0.05 (the goldens'
    0.1% verdict printed), the plain loop's series file, and ``--batch
@@ -180,7 +180,9 @@ the reach plan (phase 23).  Phases:
    printed); replan_bench's protocol on K1 (``Replanner(engine="fleet",
    backend="fused")``, 100 ticks of drifting obstacles, 2 rounds x 25
    steps, early exit): one scene padded to 128 lanes and a fleet of 256,
-   ms per tick (median, p99) and Hz, one K1 launch per tick, every padded
+   ms per tick (median, p99) and Hz, the first tick's ms (the warm start's
+   init_alpha, then K1) and init_alpha's alone, one K1 launch per tick,
+   every padded
    lane bit for bit lane 0, every tick within 1% of the plain version on
    lane 0's inputs (avg/max cost), the rollout bit for bit the tick loop,
    and no rebuild of the kernel library across the ticks; and ``bench
@@ -226,11 +228,14 @@ the reach plan (phase 23).  Phases:
    background from phase 1, after the J = 5 and 7 libraries): the quality
    gate for BLS across xla, pallas and fused on 32,768 random scenes at the
    bench schedule (its verdict required), then GD (printed); the seed
-   sweep over seeds 0-4 (per-seed deltas and sign flips); the port's
-   sequential oracle on 2,048 random scenes on the card, then the engine
-   phase of both ladder tiers on fused against it (on-platform) and against
-   the JAX package's stored CPU and TPU oracles (informative), every row
-   and verdict printed (the oracle file must load); the schedule sweep's
+   sweep over seeds 0-4 (per-seed deltas and sign flips); on the 2,048
+   scenes of certify_oracle_cpu2048.npz, ``init_alpha`` and the XLA-order
+   products on the card bit for bit the CPU's (required), the port's
+   sequential oracle on the card, its converged fraction within CONV_SLACK
+   of JAX's stored one (required), then the engine phase of both ladder
+   tiers on fused against it (on-platform) and against the JAX package's
+   stored CPU and TPU oracles, every row and verdict printed (the oracle
+   file must load); the schedule sweep's
    eight candidates through K2, and the shipped schedule under the bench
    config, whose endpoint and alpha must be phase 4's K1 lane 0 bit for
    bit; hetero's four policies with and without ``--shrink`` at 1,048,576
@@ -1245,8 +1250,9 @@ def entry_point_phases(mt, fs, fleet, dev):
     phase_clock(19)
     out = {}
     # (a) init_alpha: the smoothstep line fitted through the ~1e15-
-    # conditioned Gram matrix, on the card (cuSOLVER) and on the CPU
-    # (LAPACK), held by the trajectory it evaluates to.
+    # conditioned Gram matrix with JAX's factors and JAX's order of
+    # operations (models/warm_start.py), on the card and on the CPU: the
+    # same bits, held by the trajectory it evaluates to.
     cfg = mt.PlannerConfig()
     fit, alphas = {}, {}
     for where in ("cuda", "cpu"):
@@ -1256,14 +1262,16 @@ def entry_point_phases(mt, fs, fleet, dev):
         line = scn.start + (scn.goal - scn.start) * basis.c[:, None]
         fit[where] = float((mt.evaluate(cfg, basis, a)[0] - line).abs().max())
         alphas[where] = a.cpu()
-    alpha_gap = float((alphas["cuda"] - alphas["cpu"]).abs().max())
+    same = torch.equal(alphas["cuda"], alphas["cpu"])
     say(f"phase 19 init_alpha line fit max|evaluate(init_alpha) - line|: "
-        f"card {fit['cuda']:.3e}, CPU {fit['cpu']:.3e} (JAX's LU 4.6e-3, "
-        f"rank-2 3.3e-3; bound {INIT_FIT_MAX}); alpha card vs CPU max abs "
-        f"{alpha_gap:.4g} of {float(alphas['cpu'].abs().max()):.4g}")
+        f"card {fit['cuda']:.3e}, CPU {fit['cpu']:.3e} (bound "
+        f"{INIT_FIT_MAX}); alpha on the card bit for bit the CPU's: {same} "
+        f"(max |alpha| {float(alphas['cpu'].abs().max()):.4g})")
     if not fit["cuda"] <= INIT_FIT_MAX:
         fail(f"phase 19: init_alpha's fit on the card {fit['cuda']:.3e} "
              f"over {INIT_FIT_MAX}")
+    if not same:
+        fail("phase 19: init_alpha on the card differs from the CPU's")
     out["init_alpha_fit"] = fit
 
     # (b) the CLI's single-scene default (sequential BLS, plain PyTorch on
@@ -1353,8 +1361,18 @@ def entry_point_phases(mt, fs, fleet, dev):
             rp = replan_bench.make_replanner(rcfg, batched, "fleet", "fused",
                                              dev)
             tcfg, basis = rp.tick_cfg, rp.basis
-            rp.plan(replan_bench.drift_obstacles(scn, 0))
+            tick0 = replan_bench.drift_obstacles(scn, 0)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rp.plan(tick0)
+            torch.cuda.synchronize()
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            init_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                rp._init(tick0)
+                torch.cuda.synchronize()
+                init_ms.append(1e3 * (time.perf_counter() - t0))
             fs.fused_solve.launches = 0
             tick_s, costs, loop, plain_gap = [], [], [], 0.0
             for k in range(1, REPLAN_TICKS + 1):
@@ -1408,6 +1426,8 @@ def entry_point_phases(mt, fs, fleet, dev):
                 fail(f"phase 19: replan {mode}: the rollout differs from the "
                      f"tick loop")
             entry = {**summ, "launches": launches,
+                     "first_tick_ms": first_ms,
+                     "init_alpha_ms": min(init_ms),
                      "rollout_hz": REPLAN_TICKS / roll_s,
                      "rollout_tick_ms": 1e3 * roll_s / REPLAN_TICKS,
                      "plain_max_cost_gap": plain_gap,
@@ -1420,7 +1440,9 @@ def entry_point_phases(mt, fs, fleet, dev):
                 f"{summ['value']:.1f} Hz, ms per tick median "
                 f"{summ['tick_ms_median']:.3f} p99 {summ['tick_ms_p99']:.3f} "
                 f"mean {summ['tick_ms']:.3f} slowest {summ['tick_ms_max']:.3f} "
-                f"(tick {summ['slowest_tick']}); rollout "
+                f"(tick {summ['slowest_tick']}); the first tick (the warm "
+                f"start's init_alpha, then K1) {first_ms:.3f} ms, init_alpha "
+                f"alone {min(init_ms):.3f} ms (best of 3); rollout "
                 f"{entry['rollout_hz']:.1f}"
                 f" Hz ({entry['rollout_tick_ms']:.3f} ms per tick), bit for "
                 f"bit the tick loop; K1 launches {launches} in "
@@ -2327,7 +2349,6 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
 # and roofline, and the time phase 22 aims to stay under (builds excluded).
 BENCH_QUALITY = 32768
 BENCH_SEEDS = "0,1,2,3,4"
-BENCH_ORACLE = 2048
 BENCH_HETERO = 1048576
 BENCH_EPILOGUE = 1048576
 BENCH_WIDTHS = (32768, 1048576)
@@ -2421,25 +2442,77 @@ def benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev, builds, alpha0):
         f"scenes each, {time.perf_counter() - t0:.1f} s): converged by seed "
         f"{conv}; deltas {sw['deltas']}")
 
-    # (c) Certification: the port's oracle on the card, then the engine
-    # phase of both tiers on fused against it (on-platform) and against the
-    # JAX package's stored oracles (informative).
+    # (c) Certification on JAX's 2,048 scenes (certify_oracle_cpu2048.npz):
+    # init_alpha and the single-scene solvers' products on the card bit for
+    # bit the CPU's in this process (required); the port's sequential
+    # oracle on the card on those scenes, its converged fraction within
+    # CONV_SLACK of the stored one (required: on the CPU the port's oracle
+    # is JAX's scene by scene, tests/test_torch_warm_start.py); then the
+    # engine phase of both tiers on fused against the port's oracle file
+    # (on-platform) and against the JAX package's stored CPU and TPU
+    # oracles.
+    from irm_motion_planning_tpu_torch.models import xla_order
+
     root = os.path.dirname(os.path.abspath(__file__))
+    jax_cpu = os.path.join(root, "certify_oracle_cpu2048.npz")
+    jax_tpu = os.path.join(root, "certify_oracle_tpu2048.npz")
+    jdata = dict(np.load(jax_cpu))
+    ocfg = certify.oracle_config(int(jdata["max_obstacles"]),
+                                 str(jdata["stopping"]))
+    start, goal = (torch.tensor(jdata[k]) for k in ("start", "goal"))
+    inits, products, init_ms = {}, {}, []
+    for where in ("cpu", dev):
+        ob = mt.make_basis(ocfg, device=where)
+        a0 = mt.init_alpha(ocfg, ob, start.to(where), goal.to(where))
+        products[str(where)] = [
+            x.cpu() for x in (xla_order.basis_product(ob.kv, a0),
+                              xla_order.mix_product(a0, ob.mix))]
+        inits[str(where)] = a0.cpu()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mt.init_alpha(ocfg, ob, start.to(dev), goal.to(dev))
+        torch.cuda.synchronize()
+        init_ms.append(1e3 * (time.perf_counter() - t0))
+    same_init = torch.equal(inits["cpu"], inits[str(dev)])
+    same_products = all(torch.equal(x, y) for x, y in zip(
+        products["cpu"], products[str(dev)]))
+    say(f"phase 22 init_alpha on the {start.shape[0]} scenes of "
+        f"certify_oracle_cpu2048.npz: the card's bit for bit the CPU's "
+        f"{same_init} ({min(init_ms):.1f} ms on the card for all of them, "
+        f"best of 3); the XLA-order products kv @ alpha0 and alpha0 @ mix "
+        f"bit for bit the CPU's {same_products}")
+    if not (same_init and same_products):
+        fail("phase 22: init_alpha or the XLA-order products on the card "
+             "differ from the CPU's")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "certify_oracle.npz")
-        orow = certify.run_oracle(BENCH_ORACLE, 0, 11, "schedule", path, dev)
+        orow = certify.write_oracle(
+            ocfg, mt.make_basis(ocfg, device=dev),
+            certify.oracle_scenes(jdata, dev), path, int(jdata["seed"]),
+            str(jdata["stopping"]))
+        with np.load(path) as written:
+            avg, mx, conv = (written[k] for k in ("avg", "max", "conv"))
+        jconv = float(jdata["conv"].mean())
+        tconv = float(np.load(jax_tpu)["conv"].mean())
         say(f"phase 22 certify oracle (the port's sequential BLS on the "
-            f"card, {BENCH_ORACLE} random scenes, the bench schedule): "
-            f"converged {orow['converged_frac']}, mean avg/max cost "
-            f"{orow['avg_cost_mean']}/{orow['max_cost_mean']}, nonfinite "
-            f"{orow['nonfinite']}, {orow['elapsed_s']} s")
+            f"card, on the {conv.size} scenes of certify_oracle_cpu2048.npz,"
+            f" the bench schedule): converged {conv.mean():.4f} against "
+            f"JAX's CPU oracle's {jconv:.4f} (TPU oracle {tconv:.4f}; slack "
+            f"{certify.CONV_SLACK}), the same flag on "
+            f"{(conv == jdata['conv']).mean():.4f} of the scenes; mean "
+            f"avg/max cost {avg.mean():.6f}/{mx.mean():.6f} against "
+            f"{jdata['avg'].mean():.6f}/{jdata['max'].mean():.6f}; "
+            f"nonfinite {orow['nonfinite']}; {orow['elapsed_s']} s")
+        if not abs(conv.mean() - jconv) <= certify.CONV_SLACK:
+            fail(f"phase 22: the port's oracle on the card converges "
+                 f"{conv.mean():.4f}, outside CONV_SLACK of JAX's {jconv:.4f}")
+        if not (np.isfinite(avg).all() and np.isfinite(mx).all()):
+            fail("phase 22: the port's oracle gave a non-finite cost")
         certified = {}
         for label, oracle in (
                 ("the port's oracle on the card (on-platform)", path),
-                ("JAX's CPU oracle (informative)",
-                 os.path.join(root, "certify_oracle_cpu2048.npz")),
-                ("JAX's TPU oracle (informative)",
-                 os.path.join(root, "certify_oracle_tpu2048.npz"))):
+                ("JAX's CPU oracle", jax_cpu), ("JAX's TPU oracle", jax_tpu)):
             try:
                 ver = quiet(certify.run_engine, oracle, "fused",
                             ("exact", "linearized"), 0, dev)

@@ -119,19 +119,28 @@ def oracle_solve(cfg: PlannerConfig, basis, scns: Scenario,
 def run_oracle(batch: int = 8192, seed: int = 0, max_obstacles: int = 11,
                stopping: str = "schedule", out: str = "certify_oracle.npz",
                device="cuda", progress: bool = False) -> dict:
-    """The oracle phase: :func:`oracle_solve` of ``batch`` random scenes
-    (seed ``seed``; with ``progress``, in chunks of 512); writes the oracle
-    file ``out`` (JAX's keys and dtypes) and returns the JSON line's
+    """The oracle phase: :func:`write_oracle` of ``batch`` random scenes
+    (seed ``seed``) to the oracle file ``out``; returns the JSON line's
     fields."""
     dev = torch.device(device)
     cfg = oracle_config(max_obstacles, stopping)
     basis = make_basis(cfg, device=dev)
     scns = random_scenarios(cfg, torch.Generator().manual_seed(seed), batch,
                             device=dev)
+    return write_oracle(cfg, basis, scns, out, seed, stopping, progress)
+
+
+def write_oracle(cfg: PlannerConfig, basis, scns: Scenario, out: str,
+                 seed: int, stopping: str, progress: bool = False) -> dict:
+    """:func:`oracle_solve` of the scenes ``scns`` (with ``progress``, in
+    chunks of 512) under ``cfg`` (:func:`oracle_config` of ``stopping``);
+    writes the oracle file ``out`` (JAX's keys and dtypes; ``seed`` the
+    scenes' record) and returns the JSON line's fields."""
+    batch = scns.start.shape[0]
     t0 = time.perf_counter()
     avg, mx, conv = oracle_solve(cfg, basis, scns, 512 if progress else 0)
     elapsed = time.perf_counter() - t0
-    np.savez(out, seed=seed, batch=batch, max_obstacles=max_obstacles,
+    np.savez(out, seed=seed, batch=batch, max_obstacles=cfg.max_obstacles,
              stopping=stopping, avg=avg, max=mx, conv=conv,
              **{k: getattr(scns, k).cpu().numpy() for k in SCENE_KEYS})
     return {

@@ -34,7 +34,7 @@ import torch
 
 from ..config import PlannerConfig
 from ..device import resolve
-from . import threefry
+from . import threefry, warm_start, xla_order
 from .lanes import basis_matmul, lane_matmul
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
@@ -98,16 +98,29 @@ def export_path(cfg: PlannerConfig) -> str:
     )
 
 
+def _key(cfg: PlannerConfig) -> tuple:
+    return tuple(getattr(cfg, k) for k in BASIS_KEYS)
+
+
 def _export(cfg: PlannerConfig):
     """The committed export's arrays when one matches every field of
-    BASIS_KEYS, else None."""
+    BASIS_KEYS, else None: the Basis fields, and ``lu``/``lu_perm`` (JAX's
+    LU factors of ``km``, for :func:`init_alpha`)."""
     path = export_path(cfg)
     if not os.path.exists(path):
         return None
     with np.load(path) as data:
         if any(data[k].item() != getattr(cfg, k) for k in BASIS_KEYS):
             return None
-        return {name: data[name] for name in Basis._fields}
+        return {name: data[name]
+                for name in Basis._fields + ("lu", "lu_perm")}
+
+
+# init_alpha's LU factors of km: packed on the host per config (the
+# export's, or getrf's of a built basis), and as warm_start.Factors per
+# config and device.
+_LU: dict = {}
+_FACTORS: dict = {}
 
 
 def make_basis(cfg: PlannerConfig, device=None) -> Basis:
@@ -115,11 +128,18 @@ def make_basis(cfg: PlannerConfig, device=None) -> Basis:
     (``device="cpu"`` for the CPU; without a CUDA device and without
     ``device`` it raises RuntimeError).  The committed export where one
     matches every field of BASIS_KEYS (JAX's own bits), else
-    :func:`build_basis`."""
+    :func:`build_basis`.  It registers the warm start's LU factors of that
+    ``km`` (:func:`init_alpha`): the export's (JAX's), else scipy's getrf
+    of the built one on the host, JAX's routine."""
     device = resolve(device)
+    key = _key(cfg)
     arrays = _export(cfg)
     if arrays is None:
-        return build_basis(cfg, device=device)
+        basis = build_basis(cfg, device=device)
+        if key not in _LU:
+            _LU[key] = warm_start.lu_factors(_BUILT[key].km.numpy())
+        return basis
+    _LU.setdefault(key, (arrays["lu"], arrays["lu_perm"]))
     return basis_from_numpy(arrays, device=device)
 
 
@@ -167,7 +187,7 @@ def build_basis(cfg: PlannerConfig, device=None) -> Basis:
     same config gives the same bits on any machine.  One build per config
     per process."""
     device = resolve(device)
-    key = tuple(getattr(cfg, k) for k in BASIS_KEYS)
+    key = _key(cfg)
     if key not in _BUILT:
         _BUILT[key] = _build(cfg)
     return Basis(*(x.to(device) for x in _BUILT[key]))
@@ -200,20 +220,34 @@ def _build(cfg: PlannerConfig) -> Basis:
                  uw[:, 1].contiguous())
 
 
-def evaluate(cfg: PlannerConfig, basis: Basis,
-             alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+# How the basis products are rounded (``order``): one torch product per
+# lane ("matmul"), or the JAX package's single-scene order on the CPU
+# ("xla", models/xla_order.py: its bits on any device, at the cost of a
+# few dozen elementwise operations per product).  Each maps to (the
+# product with a basis matrix, the product with the mixing matrix).
+PRODUCTS = {
+    "matmul": (basis_matmul, lane_matmul),
+    "xla": (xla_order.basis_product, xla_order.mix_product),
+}
+
+
+def evaluate(cfg: PlannerConfig, basis: Basis, alpha: torch.Tensor,
+             order: str = "matmul") -> Tuple[torch.Tensor, torch.Tensor]:
     """Trajectory and velocity at the support timesteps, ``(kv @ alpha) @
-    mix`` left-associated like the reference.  alpha (..., T, J) -> two
+    mix`` left-associated like the reference, the products rounded as
+    ``order`` says (:data:`PRODUCTS`).  alpha (..., T, J) -> two
     (..., T, J)."""
-    both = lane_matmul(basis_matmul(basis.kv, alpha), basis.mix)
+    basis_product, mix_product = PRODUCTS[order]
+    both = mix_product(basis_product(basis.kv, alpha), basis.mix)
     T = cfg.n_timesteps
     return both[..., :T, :], both[..., T:, :]
 
 
-def evaluate_position(cfg: PlannerConfig, basis: Basis,
-                      alpha: torch.Tensor) -> torch.Tensor:
+def evaluate_position(cfg: PlannerConfig, basis: Basis, alpha: torch.Tensor,
+                      order: str = "matmul") -> torch.Tensor:
     """Trajectory positions only, ``(km @ alpha) @ mix``: (..., T, J)."""
-    return lane_matmul(basis_matmul(basis.km, alpha), basis.mix)
+    basis_product, mix_product = PRODUCTS[order]
+    return mix_product(basis_product(basis.km, alpha), basis.mix)
 
 
 def evaluate_at(cfg: PlannerConfig, basis: Basis, alpha: torch.Tensor,
@@ -234,12 +268,21 @@ def init_alpha(cfg: PlannerConfig, basis: Basis, start: torch.Tensor,
                goal: torch.Tensor) -> torch.Tensor:
     """Warm-start coefficients: the least-squares fit of the quintic
     smoothstep line from start to goal (ref: trajectory.py:73-78), ``solve(
-    km, line @ mix_inv)``, as the JAX package writes it.  start, goal
+    km, line @ mix_inv)`` as the JAX package writes it.  start, goal
     (..., J) -> alpha (..., T, J).
 
     The Gram matrix is conditioned near 1e15, so alpha depends on the
-    factorization (LAPACK's LU on the CPU, cuSOLVER's on the card) by far
-    more than rounding; the trajectory it evaluates to stays on the line
-    (tests/test_torch_grads.py holds the fit against JAX's)."""
-    line = start[..., None, :] + (goal - start)[..., None, :] * basis.c[:, None]
-    return torch.linalg.solve(basis.km, lane_matmul(line, basis.mix_inv))
+    factorization and on every rounding of the solve by far more than on
+    the line: :mod:`.warm_start` computes it with JAX's factors and in the
+    order of JAX's jitted ``init_alpha`` on the CPU, in plain tensor
+    operations (no torch.linalg), so the CPU and the card give JAX's bits
+    (tests/test_torch_warm_start.py).  The factors are those of
+    ``make_basis(cfg)``'s ``km`` (moved to ``basis``'s device once), so
+    ``basis`` is that basis."""
+    device = basis.km.device
+    key = _key(cfg)
+    if (key, device) not in _FACTORS:
+        if key not in _LU:
+            make_basis(cfg, device="cpu")
+        _FACTORS[key, device] = warm_start.factors_from_lu(*_LU[key], device)
+    return warm_start.init_alpha(_FACTORS[key, device], basis, start, goal)

@@ -8,6 +8,10 @@ the Scenario's fields ``(..., J)`` and ``(..., O, 2)``, penalties scalars or
 ``(...)``) and reduces only over a lane's own axes, so the single-scene
 engines of solvers/ run a batch of scenes lane by lane.
 
+The functions that evaluate the basis take ``order``, how the basis
+products are rounded (models/rkhs.py ``PRODUCTS``): ``"matmul"`` by
+default, ``"xla"`` in the single-scene solvers (the JAX package's bits).
+
 ``total_cost`` runs through :class:`TotalCost`, a ``torch.autograd.Function``
 whose backward is the analytic gradient (the JAX package's ``custom_vjp``);
 ``total_cost_autodiff_only`` is the same forward without it, the oracle of
@@ -25,7 +29,7 @@ import torch
 from ..config import PlannerConfig
 from ..models import robot
 from ..models.lanes import basis_matmul, lane_matmul
-from ..models.rkhs import Basis, evaluate
+from ..models.rkhs import PRODUCTS, Basis, evaluate
 from .scenario import Scenario
 
 
@@ -216,17 +220,27 @@ def cost_from_traj(cfg: PlannerConfig, scn: Scenario, penalty: Penalty,
 
 
 def _raw_total_cost(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-                    penalty: Penalty, alpha: torch.Tensor) -> torch.Tensor:
-    trajectory, velocity = evaluate(cfg, basis, alpha)
+                    penalty: Penalty, alpha: torch.Tensor,
+                    order: str = "matmul") -> torch.Tensor:
+    trajectory, velocity = evaluate(cfg, basis, alpha, order)
     return cost_from_traj(cfg, scn, penalty, trajectory, velocity)
 
 
-def _chain_to_alpha(cfg: PlannerConfig, basis: Basis, grad_pos, grad_vel):
+def _chain_to_alpha(cfg: PlannerConfig, basis: Basis, grad_pos, grad_vel,
+                    order: str = "matmul"):
     """Pull position- and velocity-space gradients back to alpha, ``(km^T
-    g_pos + dkm^T g_vel) mix^T`` (ref: trajectory.py:295), as one stacked
-    (T, 2T) x (2T, J) product."""
-    stacked = torch.cat((grad_pos, grad_vel), dim=-2)          # (..., 2T, J)
-    return lane_matmul(basis_matmul(basis.kv.T, stacked), basis.mix.T)
+    g_pos + dkm^T g_vel) mix^T`` (ref: trajectory.py:295): as one stacked
+    (T, 2T) x (2T, J) product, or under ``order="xla"`` as XLA computes
+    the JAX package's stacked product (its algebraic simplifier splits it
+    at the stack into two (T, T) products and a sum)."""
+    if order == "matmul":
+        stacked = torch.cat((grad_pos, grad_vel), dim=-2)      # (..., 2T, J)
+        return lane_matmul(basis_matmul(basis.kv.T, stacked), basis.mix.T)
+    basis_product, mix_product = PRODUCTS[order]
+    T = cfg.n_timesteps
+    pulled = (basis_product(basis.kv[:T].T, grad_pos)
+              + basis_product(basis.kv[T:].T, grad_vel))
+    return mix_product(pulled, basis.mix.T)
 
 
 def _grads_from_traj(cfg: PlannerConfig, scn: Scenario, penalty: Penalty,
@@ -244,22 +258,23 @@ def _grads_from_traj(cfg: PlannerConfig, scn: Scenario, penalty: Penalty,
 
 
 def total_cost_grad(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-                    penalty: Penalty, alpha: torch.Tensor) -> torch.Tensor:
+                    penalty: Penalty, alpha: torch.Tensor,
+                    order: str = "matmul") -> torch.Tensor:
     """Analytic gradient of the total cost with respect to alpha
     (ref: trajectory.py:284-297)."""
-    trajectory, velocity = evaluate(cfg, basis, alpha)
+    trajectory, velocity = evaluate(cfg, basis, alpha, order)
     toc_g = trajectory_obstacle_cost_g(cfg, trajectory, scn)
     return _chain_to_alpha(cfg, basis, *_grads_from_traj(
-        cfg, scn, penalty, trajectory, velocity, toc_g))
+        cfg, scn, penalty, trajectory, velocity, toc_g), order)
 
 
 def cost_and_grad(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-                  penalty: Penalty, alpha: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  penalty: Penalty, alpha: torch.Tensor,
+                  order: str = "matmul") -> Tuple[torch.Tensor, torch.Tensor]:
     """The total cost and its analytic gradient from one forward pass (the
     basis product, the FK and the obstacle distances are shared): the hot
     function of every single-scene solver step."""
-    trajectory, velocity = evaluate(cfg, basis, alpha)
+    trajectory, velocity = evaluate(cfg, basis, alpha, order)
     f = robot.fk(cfg, trajectory)
     cost_v, cost_g = obstacle_cost_vg(f, scn.obstacles, scn.obstacle_weight)
     lam = cfg.lambda_max_cost
@@ -274,7 +289,7 @@ def cost_and_grad(cfg: PlannerConfig, basis: Basis, scn: Scenario,
     jvc = joint_velocity_limit_cost(cfg, velocity)
     cost = toc + penalty.lambda_sg * (sgpc + sgvc) + penalty.lambda_jl * (jpc + jvc)
     grad = _chain_to_alpha(cfg, basis, *_grads_from_traj(
-        cfg, scn, penalty, trajectory, velocity, toc_g))
+        cfg, scn, penalty, trajectory, velocity, toc_g), order)
     return cost, grad
 
 
@@ -285,24 +300,26 @@ class TotalCost(torch.autograd.Function):
     basis, scenario and penalty get none."""
 
     @staticmethod
-    def forward(ctx, cfg, basis, scn, penalty, alpha):
+    def forward(ctx, cfg, basis, scn, penalty, alpha, order):
         ctx.args = (cfg, basis, scn, penalty)
+        ctx.order = order
         ctx.save_for_backward(alpha)
-        return _raw_total_cost(cfg, basis, scn, penalty, alpha)
+        return _raw_total_cost(cfg, basis, scn, penalty, alpha, order)
 
     @staticmethod
     def backward(ctx, g):
         (alpha,) = ctx.saved_tensors
-        grad = total_cost_grad(*ctx.args, alpha.detach())
-        return None, None, None, None, _lanes(g, 2) * grad
+        grad = total_cost_grad(*ctx.args, alpha.detach(), ctx.order)
+        return None, None, None, None, _lanes(g, 2) * grad, None
 
 
 def total_cost(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-               penalty: Penalty, alpha: torch.Tensor) -> torch.Tensor:
+               penalty: Penalty, alpha: torch.Tensor,
+               order: str = "matmul") -> torch.Tensor:
     """Total penalized cost of coefficients alpha (..., T, J) (ref:
     trajectory.py:271-281).  Differentiable in alpha: its backward is
     :func:`total_cost_grad`."""
-    return TotalCost.apply(cfg, basis, scn, penalty, alpha)
+    return TotalCost.apply(cfg, basis, scn, penalty, alpha, order)
 
 
 def total_cost_autodiff_only(cfg: PlannerConfig, basis: Basis, scn: Scenario,
@@ -321,16 +338,17 @@ def total_cost_autodiff_only(cfg: PlannerConfig, basis: Basis, scn: Scenario,
 
 
 def constraints_fulfilled(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-                          alpha: torch.Tensor) -> torch.Tensor:
+                          alpha: torch.Tensor,
+                          order: str = "matmul") -> torch.Tensor:
     """True when all four hard constraints hold (ref: trajectory.py:129-137),
     per lane for a batch."""
-    return constraint_report(cfg, basis, scn, alpha)["all_ok"]
+    return constraint_report(cfg, basis, scn, alpha, order)["all_ok"]
 
 
 def constraint_report(cfg: PlannerConfig, basis: Basis, scn: Scenario,
-                      alpha: torch.Tensor) -> dict:
+                      alpha: torch.Tensor, order: str = "matmul") -> dict:
     """Per-constraint diagnostics with the measured norms."""
-    trajectory, velocity = evaluate(cfg, basis, alpha)
+    trajectory, velocity = evaluate(cfg, basis, alpha, order)
     first, last = trajectory[..., 0, :], trajectory[..., -1, :]
     vfirst, vlast = velocity[..., 0, :], velocity[..., -1, :]
     rep = {

@@ -23,7 +23,11 @@ Two executions of the search (``cfg.bls_mode``):
   converged with a cross-path baseline against the reference's 53%).
 
 Trials and rungs are formed with one rounding (fused_solve.fma), as XLA
-forms them.
+forms them.  :func:`solve` and :func:`solve_batch` round the basis products
+in XLA's CPU order (models/xla_order.py) under either search, so the CPU
+and the card give the same bits; only the sequential search is also the
+JAX package's bits (its single-scene solve), since the ladder's batch of
+rungs is the port's own.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ def _exhausted_factor(cfg: PlannerConfig) -> float:
 
 
 def _ladder_search(cfg: PlannerConfig, basis, scns, penalty, alpha, n_grad,
-                   alpha_norm, loss, bls_lr):
+                   alpha_norm, loss, bls_lr, order):
     """All rungs in one batched evaluation; returns (alpha', bls_lr',
     new_loss, base_loss, trials), each per lane."""
     n = cfg.max_bls_iteration
@@ -77,7 +81,8 @@ def _ladder_search(cfg: PlannerConfig, basis, scns, penalty, alpha, n_grad,
     cand = torch.cat([cand, alpha[:, None]], dim=1)               # (B,n+1,..)
     rung_scns = Scenario(*(x[:, None] for x in scns))
     rung_pen = Penalty(*(lanes_of(p, 1) for p in penalty))
-    cand_loss = total_cost(cfg, basis, rung_scns, rung_pen, cand)  # (B, n+1)
+    cand_loss = total_cost(cfg, basis, rung_scns, rung_pen, cand,
+                           order)                              # (B, n+1)
     base_loss = cand_loss[:, n]
     required = base_loss[:, None] - cfg.bls_alpha * ladder * alpha_norm[:, None]
     ok = cand_loss[:, :n] <= required
@@ -101,7 +106,7 @@ class _BlsState(NamedTuple):
 
 
 def _sequential_search(cfg: PlannerConfig, basis, scns, penalty, alpha,
-                       n_grad, alpha_norm, loss, bls_lr):
+                       n_grad, alpha_norm, loss, bls_lr, order):
     """The reference's backtracking loop (ref: optimizer_BLS.py:130-150),
     one trial cost per iteration for every lane still searching; accepted
     AND exhausted lanes freeze (without the exhaustion term a lane past
@@ -118,7 +123,7 @@ def _sequential_search(cfg: PlannerConfig, basis, scns, penalty, alpha,
         if bool(done.all()):
             break
         new_alpha = _trial(cfg, s.alpha, n_grad, s.bls_lr)
-        new_loss = total_cost(cfg, basis, scns, penalty, new_alpha)
+        new_loss = total_cost(cfg, basis, scns, penalty, new_alpha, order)
         required = loss - cfg.bls_alpha * s.bls_lr * alpha_norm
         reject = new_loss > required
         new = _BlsState(
@@ -142,10 +147,12 @@ class _InnerState(NamedTuple):
     grad: torch.Tensor        # (B, T, J), at alpha
 
 
-def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
+def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario,
+               order: str):
     """The BLS inner minimizer of a batch of scenes (leading batch), in
     common.run_dual_loop's factory form, with the search of
-    ``cfg.bls_mode``."""
+    ``cfg.bls_mode`` and the basis products rounded as ``order`` says
+    (models/rkhs.py ``PRODUCTS``)."""
     search = _ladder_search if cfg.bls_mode == "ladder" else _sequential_search
     dev = basis.kv.device
 
@@ -161,13 +168,13 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
                               @ n_grad).sum((-2, -1))
                 new_alpha, new_lr, new_loss, base_loss, _ = search(
                     cfg, basis, scns, penalty, s.alpha, n_grad, alpha_norm,
-                    s.loss, s.bls_lr)
+                    s.loss, s.bls_lr, order)
                 # Stop when the whole search could not lower the loss by the
                 # threshold (ref: optimizer_BLS.py:172-178), measured from
                 # the search's own evaluation of the iterate.
                 stop = base_loss - new_loss < cfg.loop_loss_reduction
                 next_loss, next_grad = cost_and_grad(cfg, basis, scns,
-                                                     penalty, new_alpha)
+                                                     penalty, new_alpha, order)
                 return _InnerState(
                     minimized=stop,
                     inner_iter=torch.where(stop, s.inner_iter,
@@ -178,7 +185,8 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
                     grad=freeze_leading(stop, s.grad, next_grad),
                 )
 
-            loss0, grad0 = cost_and_grad(cfg, basis, scns, penalty, alpha)
+            loss0, grad0 = cost_and_grad(cfg, basis, scns, penalty, alpha,
+                                         order)
             B = alpha.shape[0]
             s = _InnerState(
                 minimized=torch.zeros(B, dtype=torch.bool, device=dev),
@@ -199,7 +207,8 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
 def solve_batch(cfg: PlannerConfig, basis: Basis, scns: Scenario,
                 alpha0: Optional[torch.Tensor] = None) -> SolveResult:
     """BLS on every lane of ``scns`` (leading batch); alpha0 (B, T, J) or the
-    smoothstep fit."""
+    smoothstep fit; the basis products in XLA's order (models/xla_order.py),
+    the JAX package's single-scene solve's."""
     return solve_lanes(cfg, basis, scns, alpha0, make_inner)
 
 

@@ -37,9 +37,11 @@ class _InnerState(NamedTuple):
     grad: torch.Tensor        # (B, T, J), at alpha
 
 
-def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
+def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario,
+               order: str):
     """The GD inner minimizer of a batch of scenes (leading batch), in
-    common.run_dual_loop's factory form.  The learning rate is per lane,
+    common.run_dual_loop's factory form, the basis products rounded as
+    ``order`` says (models/rkhs.py ``PRODUCTS``).  The learning rate is per lane,
     ``gd_lr[outer_iter]`` (ref: optimizer_GD.py:209), clipped to the
     schedule for lanes already frozen; minimized and budget-exhausted lanes
     freeze (without the exhaustion term a capped lane would take steps it
@@ -57,7 +59,7 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
                 new_alpha = fs.fma(1.0 - cfg.lambda_reg * lr, s.alpha,
                                    -(lr * s.grad))
                 new_loss, new_grad = cost_and_grad(cfg, basis, scns, penalty,
-                                                   new_alpha)
+                                                   new_alpha, order)
                 stop = s.loss - new_loss < cfg.loop_loss_reduction
                 return _InnerState(
                     minimized=stop,
@@ -68,7 +70,8 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
                     grad=freeze_leading(stop, s.grad, new_grad),
                 )
 
-            loss0, grad0 = cost_and_grad(cfg, basis, scns, penalty, alpha)
+            loss0, grad0 = cost_and_grad(cfg, basis, scns, penalty, alpha,
+                                         order)
             B = alpha.shape[0]
             s = _InnerState(
                 minimized=torch.zeros(B, dtype=torch.bool, device=dev),
@@ -86,7 +89,8 @@ def make_inner(cfg: PlannerConfig, basis: Basis, scns: Scenario):
 def solve_batch(cfg: PlannerConfig, basis: Basis, scns: Scenario,
                 alpha0: Optional[torch.Tensor] = None) -> SolveResult:
     """GD on every lane of ``scns`` (leading batch); alpha0 (B, T, J) or the
-    smoothstep fit."""
+    smoothstep fit; the basis products in XLA's order (models/xla_order.py),
+    the JAX package's single-scene solve's."""
     return solve_lanes(cfg, basis, scns, alpha0, make_inner)
 
 

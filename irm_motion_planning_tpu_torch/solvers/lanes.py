@@ -33,12 +33,14 @@ def lanes_of(x: torch.Tensor, dims: int) -> torch.Tensor:
 
 
 def solve_lanes(cfg: PlannerConfig, basis: Basis, scns: Scenario,
-                alpha0: Optional[torch.Tensor],
-                make_inner: Callable) -> SolveResult:
+                alpha0: Optional[torch.Tensor], make_inner: Callable,
+                order: str = "xla") -> SolveResult:
     """The penalty-method solve of every lane of ``scns`` (leading batch)
     from ``alpha0`` (B, T, J), or from the smoothstep fit
     (rkhs.init_alpha), with the inner minimizer ``make_inner(cfg, basis,
-    scns)``."""
+    scns, order)`` and the end-of-round constraint check, both with the
+    basis products rounded as ``order`` says (models/rkhs.py
+    ``PRODUCTS``: XLA's order, the single-scene solvers', by default)."""
     if alpha0 is None:
         alpha0 = init_alpha(cfg, basis, scns.start, scns.goal)
     B = alpha0.shape[0]
@@ -50,8 +52,9 @@ def solve_lanes(cfg: PlannerConfig, basis: Basis, scns: Scenario,
                    device=dev),
     )
     return run_dual_loop(
-        cfg, alpha0, make_inner(cfg, basis, scns),
-        constraints_fn=lambda a: constraints_fulfilled(cfg, basis, scns, a),
+        cfg, alpha0, make_inner(cfg, basis, scns, order),
+        constraints_fn=lambda a: constraints_fulfilled(cfg, basis, scns, a,
+                                                       order),
         penalty0=penalty0, freeze=freeze_leading,
     )
 

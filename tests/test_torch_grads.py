@@ -251,12 +251,13 @@ def test_evaluate_at_and_position(setup):
 
 
 def test_init_alpha_fits_the_line(setup):
-    """init_alpha as JAX writes it, held by the trajectory it evaluates to:
-    the smoothstep line within 1e-2 (JAX's LU measured 1.6e-3 here, the
-    port's LAPACK 2.9e-4), the two fits within 5e-3 of each other.  The
-    coefficients themselves part by O(1e3) (the Gram matrix's condition
-    number is ~1e15): printed, not bounded.  A batch of starts and goals
-    is fitted lane by lane."""
+    """init_alpha as JAX writes it: the coefficients are JAX's jitted
+    init_alpha's bit for bit (models/warm_start.py; before, LAPACK's solve
+    parted from them by O(1e3) at the Gram matrix's ~1e15 condition
+    number), and the trajectory they evaluate to fits the smoothstep line
+    within 1e-2 (measured through the port's torch products 8.8e-4, JAX's
+    products 1.6e-3), the two fits within 5e-3 of each other.  A batch of
+    starts and goals is fitted lane by lane."""
     jb, scn, _, alpha, traj, _, tb, tscn, _, _ = setup
     ta = mt.init_alpha(TCFG, tb, tscn.start, tscn.goal)
     line = (tscn.start + (tscn.goal - tscn.start) * tb.c[:, None]).numpy()
@@ -266,6 +267,7 @@ def test_init_alpha_fits_the_line(setup):
     print(f"init_alpha line fit: port {fit_port:.3g}, JAX {fit_jax:.3g}; "
           f"alpha max |port - JAX| {np.abs(ta.numpy() - alpha).max():.4g} "
           f"of max |alpha| {np.abs(alpha).max():.4g}")
+    np.testing.assert_array_equal(ta.numpy(), alpha)
     assert fit_port < 1e-2 and fit_jax < 1e-2
     assert float(np.abs(ttraj - traj).max()) < 5e-3
     starts = torch.stack([tscn.start, tscn.goal])

@@ -1,0 +1,150 @@
+"""The basis products in XLA's CPU order (models/xla_order.py) against the
+JAX package's products jitted on the CPU, bit for bit, and the
+single-scene engines that use them against JAX's single-scene solves.
+
+XLA's CPU code rounds a product with a basis matrix (K >= 4) in a runtime
+dot of four fused multiply-add chains, and the product with the J x J
+mixing matrix in an inlined loop whose columns it fuses differently; the
+port's ``order="xla"`` reproduces both, so its single-scene BLS and GD
+give the reference's goldens bit for bit.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import irm_motion_planning_tpu as mp
+from irm_motion_planning_tpu.models import rkhs as jrkhs
+from irm_motion_planning_tpu.ops import costs as jcosts
+
+import irm_motion_planning_tpu_torch as mt
+from irm_motion_planning_tpu_torch.models import lanes, xla_order
+from irm_motion_planning_tpu_torch.models import rkhs as trkhs
+from irm_motion_planning_tpu_torch.ops import costs as tcosts
+from irm_motion_planning_tpu_torch.solvers import bls, gd
+
+HIGHEST = jax.lax.Precision.HIGHEST
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _bits(x):
+    return np.ascontiguousarray(np.asarray(x, np.float32)).view(np.int32)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+@pytest.mark.parametrize("M,K,J", [
+    (100, 50, 3), (50, 50, 3), (400, 200, 3), (50, 25, 3), (100, 49, 3),
+    (100, 51, 3), (100, 53, 5), (200, 100, 7)])
+def test_basis_product_is_xla_dot(M, K, J):
+    """basis_product against ``jnp.matmul(m, x, precision=HIGHEST)``
+    jitted on the CPU, 16 random lanes of O(1e3) coefficients, every
+    remainder of K mod 4: bit for bit, and each lane its own bits."""
+    rng = np.random.default_rng(M + K + J)
+    m = rng.standard_normal((M, K)).astype(np.float32)
+    x = (rng.standard_normal((16, K, J)) * 1e3).astype(np.float32)
+    dot = jax.jit(lambda a, b: jnp.matmul(a, b, precision=HIGHEST))
+    want = np.stack([np.asarray(dot(m, xi)) for xi in x])
+    got = xla_order.basis_product(_t(m), _t(x))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(
+        _bits(xla_order.basis_product(_t(m), _t(x[5]))), _bits(want[5]))
+
+
+@pytest.mark.parametrize("M,J", [
+    (100, 3), (50, 3), (400, 3), (100, 1), (100, 2), (50, 5), (100, 5),
+    (60, 4), (100, 7)])
+def test_mix_product_is_xla_dot(M, J):
+    """mix_product against the product with a constant J x J matrix jitted
+    on the CPU (the mixing matrix is a constant in JAX's solve): bit for
+    bit.  Measured at J = 3 for M >= 32 (and 16-19, 24-27): below, XLA's
+    loop takes other shapes and the rule does not hold (M = 8-15, 20-23,
+    28-31; no committed export has such a T)."""
+    rng = np.random.default_rng(M * J)
+    mix = (np.eye(J) + 0.15 * rng.standard_normal((J, J))).astype(np.float32)
+    const = jnp.asarray(mix)
+    dot = jax.jit(lambda a: jnp.matmul(a, const, precision=HIGHEST))
+    a = (rng.standard_normal((16, M, J)) * 30).astype(np.float32)
+    want = np.stack([np.asarray(dot(ai)) for ai in a])
+    got = xla_order.mix_product(_t(a), _t(mix))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.fixture(scope="module")
+def warm():
+    """JAX's basis and 8 random scenes' warm starts (O(1e3-1e4))."""
+    cfg = mp.PlannerConfig()
+    jb = mp.make_basis(cfg)
+    scns = mp.random_scenarios(cfg, jax.random.PRNGKey(2), 8)
+    init = jax.jit(lambda s, g: mp.init_alpha(cfg, jb, s, g))
+    a0 = np.stack([np.asarray(init(s, g))
+                   for s, g in zip(scns.start, scns.goal)])
+    return cfg, jb, scns, a0, mt.make_basis(mt.PlannerConfig(), device="cpu")
+
+
+def test_evaluate_and_pull_back_are_jax_bit_for_bit(warm):
+    """evaluate, evaluate_position and the gradient's pull-back under
+    ``order="xla"`` against JAX's jitted functions at the warm starts:
+    bit for bit (``"matmul"`` parts from them there)."""
+    cfg, jb, _, a0, tb = warm
+    tcfg = mt.PlannerConfig()
+    ev = jax.jit(lambda a: jrkhs.evaluate(cfg, jb, a))
+    pos = jax.jit(lambda a: jrkhs.evaluate_position(cfg, jb, a))
+    rng = np.random.default_rng(0)
+    g = rng.standard_normal((2,) + a0.shape).astype(np.float32)
+    pull = jax.jit(lambda p, v: jcosts._chain_to_alpha(cfg, jb, p, v))
+    for i in range(a0.shape[0]):
+        want = ev(a0[i])
+        got = mt.evaluate(tcfg, tb, _t(a0[i]), "xla")
+        for w, x in zip(want, got):
+            np.testing.assert_array_equal(_bits(x), _bits(w))
+        np.testing.assert_array_equal(
+            _bits(trkhs.evaluate_position(tcfg, tb, _t(a0[i]), "xla")),
+            _bits(pos(a0[i])))
+        np.testing.assert_array_equal(
+            _bits(tcosts._chain_to_alpha(tcfg, tb, _t(g[0, i]), _t(g[1, i]),
+                                         "xla")),
+            _bits(pull(g[0, i], g[1, i])))
+    batch = mt.evaluate(tcfg, tb, _t(a0), "xla")[0]
+    np.testing.assert_array_equal(_bits(batch[3]), _bits(ev(a0[3])[0]))
+    assert not torch.equal(mt.evaluate(tcfg, tb, _t(a0), "matmul")[0], batch)
+
+
+def test_matmul_order_is_the_torch_product(warm):
+    """``order="matmul"`` (the default of the cost functions) is one torch
+    product per lane, as before the XLA order existed."""
+    _, _, _, a0, tb = warm
+    tcfg = mt.PlannerConfig()
+    both = lanes.lane_matmul(lanes.basis_matmul(tb.kv, _t(a0)), tb.mix)
+    traj, vel = mt.evaluate(tcfg, tb, _t(a0))
+    assert torch.equal(traj, both[:, :50]) and torch.equal(vel, both[:, 50:])
+
+
+@pytest.mark.parametrize("name", ["bls", "gd"])
+def test_single_scene_solve_gives_the_golden(name):
+    """The reference's flagship runs (sequential BLS, GD; the default
+    config) on the reference scene: the trajectory is
+    tests/goldens/{name}_default.txt bit for bit (as float32), as the JAX
+    package's is (tests/test_parity.py)."""
+    cfg = mt.PlannerConfig(bls_mode="sequential")
+    basis = mt.make_basis(cfg, device="cpu")
+    scn = mt.reference_scenario(cfg, device="cpu")
+    res = {"bls": bls, "gd": gd}[name].solve(cfg, basis, scn)
+    traj = mt.evaluate(cfg, basis, res.alpha, "xla")[0].numpy()
+    golden = np.loadtxt(os.path.join(GOLDEN_DIR, f"{name}_default.txt"))
+    np.testing.assert_array_equal(_bits(traj), _bits(golden))

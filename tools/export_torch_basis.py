@@ -8,10 +8,13 @@ export instead.  Run from the repository root:
 
 For each T in ``--sizes`` (default 50) it writes
 ``irm_motion_planning_tpu_torch/data/basis_T{T}_J{J}.npz`` with the nine
-Basis arrays of the default config at that T and the config fields they
-depend on.  The committed exports are T = 25, 50, 100, 150 and 200 (the
-sizes of benchmarks/problemsize.py); an export holds 4T^2 + 4T floats plus
-two J x J matrices.
+Basis arrays of the default config at that T, the config fields they
+depend on, and the warm start's factors of ``km`` as ``jax.lax.linalg.lu``
+gives them on the CPU (``lu``, the packed float32 LU, and ``lu_perm``, the
+row permutation: ``km[lu_perm] = L U``; the port's init_alpha solves with
+them, models/warm_start.py).  The committed exports are T = 25, 50, 100,
+150 and 200 (the sizes of benchmarks/problemsize.py); an export holds
+5T^2 + 4T floats, T permutation indices and two J x J matrices.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import argparse
 import os
 import sys
 
+import jax
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +44,9 @@ def main(argv=None) -> int:
         arrays = {name: np.asarray(getattr(basis, name), dtype=np.float32)
                   for name in basis._fields}
         meta = {k: np.asarray(getattr(cfg, k)) for k in rkhs.BASIS_KEYS}
+        lu, _, perm = jax.lax.linalg.lu(basis.km)
+        arrays.update(lu=np.asarray(lu, dtype=np.float32),
+                      lu_perm=np.asarray(perm))
         path = rkhs.export_path(cfg)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays, **meta)
