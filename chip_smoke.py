@@ -1882,7 +1882,7 @@ JOINT_LARGE = 65536
 JOINT_LARGE_CHECK = 4096
 JOINT7_CHECK = 8192
 BASIS_T72_J5_SHA256 = (
-    "c98422d34367636aa58151c0971106be7493d96e935f7726aecddf4221b68a63")
+    "cf7fdf550bd39d52d120b69c3e83263b818721d7c288f0e1abf29705516f754b")
 
 
 def start_joint_builds(_build):

@@ -16,8 +16,15 @@ GPU is:
   warps): K3, K4 and K5 run a lane per warp (pallas_block_b / 32 lanes per
   CTA, in K1's plan), K6's tile does not depend on it.  Per-lane results
   do not depend on it.
-* ``recip_newton`` — no effect: the CUDA kernel divides exactly (IEEE
-  ``1.0f / s``), where the TPU kernel used an approximate reciprocal.
+* ``recip_newton`` — no effect: the port's kernels and plain versions
+  divide exactly (IEEE ``1.0f / s``).  In the JAX package's fused kernel
+  it selects the obstacle field's reciprocal: ``False`` the approximate
+  ``pl.reciprocal(s, approx=True)`` alone (on a TPU its hardware estimate;
+  in the Pallas interpreter on a CPU ``1 / bf16(s)``, relative error up to
+  3.9e-3), ``True`` that refined by one Newton step ``r (2 - s r)``
+  (relative error up to 1.5e-5 interpreted; ``models/xla_order.py``
+  ``interp_recip`` reproduces it, ``tools/carry_replica.py`` runs the
+  port's plain K1 in it).
 * ``matmul_precision`` — only ``"highest"`` (full fp32, no TF32) is
   implemented; the solver raises ``NotImplementedError`` for any other value.
 * ``bls_bf16_ladder`` — the opt-in to the bf16 ladder tier's launch plan,

@@ -11,17 +11,20 @@ the default config at T = 25, 50, 100, 150 and 200 (J = 3) is committed as
 (``tools/export_torch_basis.py``); ``make_basis`` loads it when an export
 matches every field of ``BASIS_KEYS``, so those configs run on JAX's bits.
 Every other config is built here by ``build_basis``, op for op as the JAX
-package's make_basis in float32, with ``mix`` drawn by a numpy port of
-JAX's PRNG (``threefry``) and the warm-start coefficients ``init_u`` /
-``init_w`` from a float32 LU with partial pivoting written out pivot by
-pivot (no BLAS, no LAPACK).  The Gram matrix has condition number ~1e15,
-so another LU path would move ``init_u``/``init_w`` by O(1); this one is
-plain IEEE float32 arithmetic, each product and difference rounded once,
-so one config gives the same bits on every machine (the CPU here and the
-card's host).  The float32 solve is the implicit regularisation JAX's
-make_basis relies on (a float64 fit gives huge-norm coefficients whose
-float32 evaluation is garbage); the built basis fits the warm-start line
-as well as JAX's (tests/test_torch_basis_build.py).
+package's make_basis in float32, to its bits: ``exp`` as XLA's CPU code
+computes it (``xla_order.exp``), ``mix`` drawn by a numpy port of JAX's
+PRNG (``threefry``), and ``mix_inv`` and the warm-start coefficients
+``init_u`` / ``init_w`` solved as ``jnp.linalg.solve`` solves them on the
+CPU: LAPACK's getrf for the factors (scipy's, the routine JAX calls; the
+card's host gives the same, chip_smoke.py phase 21 holds the digest) and
+OpenBLAS strsm's order for the two triangular solves, written out in plain
+float32 operations (``warm_start.forward``/``backward``).  The Gram matrix
+has condition number ~1e15, so any other exp or LU path moves
+``init_u``/``init_w`` by O(1) and, at T = 2,200, leaves warm starts from
+which the solver converges nothing (tests/test_torch_basis_build.py holds
+the build to JAX's basis bit for bit).  The float32 solve is the implicit
+regularisation JAX's make_basis relies on (a float64 fit gives huge-norm
+coefficients whose float32 evaluation is garbage).
 """
 
 from __future__ import annotations
@@ -46,11 +49,11 @@ def rbf_kernel(x1, x2, rbf_var: float) -> np.ndarray:
     """The Gaussian RBF kernel of float32 numpy arrays (ref:
     trajectory.py:14-15; JAX's models/rkhs.py ``rbf_kernel``):
     ``exp(-(x1 - x2)^2 / (2 rbf_var^2))`` in float32, ``rbf_var`` a Python
-    float (weak-typed, as JAX's note asks) and the exponential correctly
-    rounded (XLA's may differ by an ulp)."""
+    float (weak-typed, as JAX's note asks) and the exponential XLA's
+    (``xla_order.exp``: it flushes to 0 below log(2^-126))."""
     d = np.asarray(x1, np.float32) - np.asarray(x2, np.float32)
     arg = -(d * d) / np.float32(2 * rbf_var**2)
-    return np.exp(arg.astype(np.float64)).astype(np.float32)
+    return xla_order.exp(torch.from_numpy(np.asarray(arg, np.float32))).numpy()
 
 
 def d_rbf_kernel(x1, x2, rbf_var: float) -> np.ndarray:
@@ -143,31 +146,14 @@ def make_basis(cfg: PlannerConfig, device=None) -> Basis:
     return basis_from_numpy(arrays, device=device)
 
 
-def _lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a^-1 b`` for float32 ``a`` (n, n) and ``b`` (n, k) on the CPU: LU
-    with partial pivoting (the first row of the largest magnitude, as
-    LAPACK's getrf picks it), one pivot at a time: the column of
-    multipliers by division, then the trailing rows minus multiplier times
-    pivot row, the product and the difference each rounded once; then the
-    two triangular solves column by column.  Plain IEEE float32 operations
-    only, so the bits depend on nothing but the inputs."""
-    a = a.clone()
-    b = b.clone()
-    n = a.shape[0]
-    for k in range(n):
-        p = k + int(torch.argmax(a[k:, k].abs()))
-        if p != k:
-            a[[k, p]] = a[[p, k]]
-            b[[k, p]] = b[[p, k]]
-        mult = a[k + 1:, k] / a[k, k]
-        a[k + 1:, k] = mult
-        a[k + 1:, k + 1:] -= mult[:, None] * a[k, k + 1:][None, :]
-    for j in range(n - 1):                      # L y = P b (unit diagonal)
-        b[j + 1:] -= a[j + 1:, j, None] * b[j][None, :]
-    for j in range(n - 1, -1, -1):              # U x = y
-        b[j] = b[j] / a[j, j]
-        b[:j] -= a[:j, j, None] * b[j][None, :]
-    return b
+def _solve(a: np.ndarray, b: np.ndarray) -> torch.Tensor:
+    """``a^-1 b`` for float32 ``a`` (n, n) and ``b`` (n, k) as JAX's
+    ``jnp.linalg.solve`` forms it on the CPU: getrf's factors, the rows of
+    ``b`` permuted, then the unit lower and the upper triangular solves in
+    OpenBLAS strsm's order (models/warm_start.py)."""
+    f = warm_start.factors_from_lu(*warm_start.lu_factors(a), "cpu")
+    rhs = torch.from_numpy(np.ascontiguousarray(b, np.float32))[f.perm]
+    return warm_start.backward(f, warm_start.forward(f, rhs))
 
 
 _BUILT: dict = {}
@@ -182,10 +168,9 @@ def build_basis(cfg: PlannerConfig, device=None) -> Basis:
     ``t``: i (1 / (T - 1)) (JAX's linspace as XLA compiles it); ``c``,
     ``km``, ``dkm``, ``kv``: the same float32 operations in the same order
     (:func:`rbf_kernel`, :func:`d_rbf_kernel`); ``mix = I + mix_scale *
-    normal(PRNGKey(mix_seed), (J, J))`` (:mod:`threefry`); ``mix_inv`` and
-    ``init_u``/``init_w`` = ``km^-1 [1, c]`` by :func:`_lu_solve`.  The
-    same config gives the same bits on any machine.  One build per config
-    per process."""
+    normal(PRNGKey(mix_seed), (J, J))`` (:mod:`threefry`); ``mix_inv`` =
+    ``mix^-1 I`` and ``init_u``/``init_w`` = ``km^-1 [1, c]`` by
+    :func:`_solve`.  One build per config per process."""
     device = resolve(device)
     key = _key(cfg)
     if key not in _BUILT:
@@ -211,9 +196,8 @@ def _build(cfg: PlannerConfig) -> Basis:
     mix = np.eye(J, dtype=f32) + f32(cfg.mix_scale) * threefry.normal(
         cfg.mix_seed, (J, J))
     tm = torch.from_numpy(mix)
-    mix_inv = _lu_solve(tm, torch.eye(J, dtype=torch.float32))
-    uw = _lu_solve(torch.from_numpy(km),
-                   torch.from_numpy(np.stack([np.ones_like(c), c], axis=1)))
+    mix_inv = _solve(mix, np.eye(J, dtype=f32))
+    uw = _solve(km, np.stack([np.ones_like(c), c], axis=1))
     out = [torch.from_numpy(np.ascontiguousarray(x))
            for x in (t, c, km, dkm, kv)]
     return Basis(*out, tm, mix_inv, uw[:, 0].contiguous(),

@@ -21,6 +21,27 @@ multiply-adds; this module reproduces that order (measured against jax
   the remaining ``M mod 8`` rows; at J <= 2, and at J = 5 up to M = 80,
   one chain of fused multiply-adds; otherwise the runtime dot's order.
 
+The JAX package's fused kernel, run by Pallas's interpreter on the CPU
+(``interpret=True``: the kernel body becomes XLA ops in the same program),
+rounds in more ways, each reproduced here and tested against jax 0.9 on
+an x86-64 CPU with AVX2 and FMA (tests/test_torch_xla_order.py; the
+lines' shapes are those that ``fused_solve`` at T = 200 and a tile of 64
+lanes gives the ops; tools/carry_replica.py puts them into the plain K1):
+
+* :func:`interp_recip`, ``pl.reciprocal(s, approx=True)`` as the
+  interpreter runs it, and its Newton step;
+* :func:`sin`, :func:`cos`, XLA's CPU ``sin``/``cos`` of float32: glibc's
+  ``sinf``/``cosf`` (XLA calls them element by element), computed in
+  float64 with a polynomial after a reduction by pi/2;
+* :func:`rsqrt`, XLA's CPU ``rsqrt``: the CPU's ``vrsqrtps`` estimate,
+  then two Newton steps with fused multiply-adds;
+* :func:`tree_sum`, XLA's CPU sum over a leading axis: windows of 32;
+* :func:`lane_product`, XLA's CPU runtime dot of a basis matrix by a tile
+  of lanes, ``(M, K) @ (K, N)``, whose order depends on N.
+
+And the JAX package's basis build (models/rkhs.py ``build_basis``) takes
+:func:`exp`, XLA's CPU ``exp`` of float32 (Cephes' polynomial).
+
 A fused multiply-add of float32 values is emulated by :func:`fma_`, one
 ``addcmul`` with an operand in float64: the product is exact there, and the
 float64 sum is rounded to float32 on the store.  Where that float64 sum is
@@ -81,8 +102,10 @@ def basis_product(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.permute(1, 2, 0).reshape(x.shape[:-2] + (M, J))
 
 
-def _mix_chain(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
-    """``a @ mix`` as one chain of fused multiply-adds from zero."""
+def chain_product(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """``a @ mix`` as one chain of fused multiply-adds from zero (XLA's
+    CPU dot of a traced (M, J) by (J, J) operand; the J = 3 loop below
+    takes a constant ``mix``)."""
     a64 = a.to(_F64)
     m64 = mix.to(_F64)
     acc = torch.zeros(a.shape[:-1] + mix.shape[1:], dtype=torch.float32,
@@ -99,7 +122,7 @@ def mix_product(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     M, J = a.shape[-2:]
     if J >= 4 and not (J == 5 and M <= 80):
         return basis_product(mix.T, a.transpose(-1, -2)).transpose(-1, -2)
-    fused = _mix_chain(a, mix)
+    fused = chain_product(a, mix)
     if J != 3:
         return fused
     p = [a[..., k, None] * mix[k] for k in range(3)]
@@ -108,3 +131,229 @@ def mix_product(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     cols = torch.arange(3, device=a.device)[None, :]
     take = (cols == 2) | (rows >= VECTOR * (M // VECTOR))
     return torch.where(take, fused, plain)
+
+
+# ---------------------------------------------------------------------------
+# The interpreted fused kernel's arithmetic on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def interp_recip(s: torch.Tensor, newton: bool = True) -> torch.Tensor:
+    """``1 / s`` as the JAX package's kernel forms it in the Pallas
+    interpreter (pallas_step._Body.recip): ``pl.reciprocal(s,
+    approx=True)`` runs there as the float32 quotient ``1 / bf16(s)``, of
+    ``s`` rounded to bfloat16 (relative error up to 3.9e-3); with
+    ``newton`` (``recip_newton``) one Newton step ``r (2 - s r)`` follows,
+    whose ``2 - s r`` XLA contracts into one fused multiply-add.  This is
+    the interpreter's reciprocal, not a TPU's hardware one, and it is
+    less accurate than ``1 / s`` correctly rounded, which the port
+    computes: with the step it equals that on about 6% of arguments
+    (relative error up to 1.5e-5)."""
+    r = 1.0 / s.to(torch.bfloat16).to(torch.float32)
+    if not newton:
+        return r
+    two = torch.full_like(s, 2.0)
+    return r * fma_(two, -s, r.to(_F64))
+
+
+# glibc's float sine and cosine (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c
+# and sincosf.h since glibc 2.28; XLA's CPU code calls sinf/cosf for each
+# element): the argument in float64, reduced by the nearest multiple n of
+# pi/2 when |x| >= 0.75 (one fused multiply-add with pi/2 in float64), the
+# sine polynomial of the reduced argument for even n and the cosine one for
+# odd n (cos: n + 1), each a few fused multiply-adds in float64, rounded to
+# float32 once.  glibc picks its FMA build on a CPU with FMA.
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")   # 2 / pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")         # pi / 2
+_COS = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+# Past this |x| glibc reduces with its 192-bit 2/pi table; not reproduced.
+SINCOS_MAX = 120.0
+
+
+def _fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a b + c`` in float64 with one rounding, as the FMA instruction:
+    the product split exactly (Dekker), the sum's error kept (Knuth), the
+    error terms added last.  It can differ from a true fused multiply-add
+    only where that lands within one float64 ulp of a tie, which would
+    move a float32 result rounded from it on about one argument in 2^28."""
+    b = torch.as_tensor(b, dtype=_F64, device=a.device)
+    c = torch.as_tensor(c, dtype=_F64, device=a.device)
+    p = a * b
+    ca, cb = 134217729.0 * a, 134217729.0 * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    v = s - p
+    t = (p - (s - v)) + (c - v)
+    return s + (t + e)
+
+
+def _sincos(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    if bool((y.abs() >= SINCOS_MAX).any()):
+        raise ValueError(f"sin/cos reproduced for |x| < {SINCOS_MAX} only")
+    x = y.to(_F64)
+    small = y.abs() < 0.75
+    r = x * _HPI_INV
+    n = (torch.trunc(r).to(torch.int64) + 0x800000) >> 24
+    n = torch.where(small, torch.zeros_like(n), n)
+    red = torch.where(small, x, _fma64(-n.to(_F64), _HPI, x))
+    q = n & 3
+    xs = torch.where((q == 1) | (q == 2), -red, red)
+    x2 = red * red
+    # Even: the sine polynomial; odd: the cosine one, negated for q >= 2.
+    x3 = xs * x2
+    s = _fma64(x3 * x2, _fma64(x2, _SIN[2], _SIN[1]),
+               _fma64(x3, _SIN[0], xs))
+    sg = torch.where((n & 2) != 0, -1.0, 1.0).to(_F64)
+    c1 = _fma64(x2, sg * _COS[1], sg * _COS[0])
+    c2 = _fma64(x2, sg * _COS[4], sg * _COS[3])
+    c = _fma64(x2 * x2 * x2, c2, _fma64(x2 * x2, sg * _COS[2], c1))
+    out = torch.where(((n + int(cos)) & 1) == 0, s, c).to(torch.float32)
+    tiny = y.abs() < 2.0 ** -12
+    return torch.where(tiny, torch.ones_like(y) if cos else y, out)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``sin`` of a float32 tensor, |x| < SINCOS_MAX (glibc's
+    ``sinf``; see above): correctly rounded on about 98.7% of arguments,
+    torch's on about 95%, the two equal on about 95%."""
+    return _sincos(x, cos=False)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``cos`` of a float32 tensor, |x| < SINCOS_MAX (glibc's
+    ``cosf``)."""
+    return _sincos(x, cos=True)
+
+
+def rsqrt_estimate(x: torch.Tensor) -> torch.Tensor:
+    """The x86 ``vrsqrtps`` estimate of ``1 / sqrt(x)`` for positive normal
+    float32 ``x``, as the Intel Xeon CPU it was measured on gives it (every
+    mantissa at two exponents, bit for bit): the inverse square root of
+    the middle of the interval of x's top 10 mantissa bits (per exponent
+    parity), rounded to float32 and then to 12 significant bits (ties
+    up), scaled by the exponent.  Other CPUs (AMD's) estimate otherwise."""
+    bits = x.view(torch.int32).to(torch.int64)
+    e = bits >> 23
+    odd = (e & 1) == 1
+    i = ((bits & 0x7FFFFF) >> 13).to(_F64)
+    base = torch.where(odd, 1.0, 2.0).to(_F64)
+    mid = base * (1.0 + (i + 0.5) / 1024.0)
+    y = (1.0 / torch.sqrt(mid)).to(torch.float32).view(torch.int32)
+    y = ((y.to(torch.int64) + 0x400) & ~0x7FF)
+    shift = torch.div(-(e - torch.where(odd, 127, 128)), 2,
+                      rounding_mode="floor")
+    return (y + (shift << 23)).to(torch.int32).view(torch.float32)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``rsqrt`` of positive normal float32 ``x``
+    (``jax.lax.rsqrt``): :func:`rsqrt_estimate`, then two Newton steps
+    ``y + (-0.5 y)((x y) y - 1)``, XLA contracting both of their sums into
+    fused multiply-adds.  Correctly rounded on about 86% of arguments."""
+    y = rsqrt_estimate(x)
+    for _ in range(2):
+        t = fma_(torch.full_like(x, -1.0), x * y, y.to(_F64))
+        y = fma_(y.clone(), y * -0.5, t.to(_F64))
+    return y
+
+
+# XLA's CPU tree reduction: a sum over an axis longer than this is cut in
+# windows of this many rows.
+TREE_WINDOW = 32
+
+
+def _chain_rows(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(x[0])
+    for row in x:
+        acc = acc + row
+    return acc
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(0)`` as XLA's CPU code sums a float32 tensor over its leading
+    axis (``jnp.sum(x, axis=0)``; the kernel's sums over T): up to
+    TREE_WINDOW rows one chain ``((0 + x_0) + x_1) + ...``; more are padded
+    with zeros, half of the padding in front (the smaller half when it is
+    odd), to whole windows of TREE_WINDOW rows, each window summed as a
+    chain and the window sums summed again by this rule.  Measured at n =
+    32-5,000 rows (64 lanes) and n = 200 at 1 and 16 lanes."""
+    n = x.shape[0]
+    if n <= TREE_WINDOW:
+        return _chain_rows(x)
+    w = -(-n // TREE_WINDOW)
+    pad = w * TREE_WINDOW - n
+    zeros = torch.zeros((1,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    xp = torch.cat([zeros.expand((pad // 2,) + x.shape[1:]), x,
+                    zeros.expand((pad - pad // 2,) + x.shape[1:])])
+    parts = _chain_rows(xp.reshape((w, TREE_WINDOW) + x.shape[1:])
+                        .transpose(0, 1))
+    return tree_sum(parts)
+
+
+# The tile widths N (lanes, the dot's columns) at which XLA's CPU runtime dot
+# of an (M, K) basis matrix by a tile (K, N) is one chain of fused
+# multiply-adds over k; at 2 <= N <= 16 (and 17-24, 40, 48 for K >= 100) it
+# is :func:`basis_product`'s four chains.  Measured at K = 50, 100, 200, 400.
+CHAIN_TILES = (56, 63, 64, 128)
+SPLIT_TILES = tuple(range(2, 17))
+
+
+def lane_product(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``m @ x`` for a float32 basis matrix ``m`` (M, K) and a tile of lanes
+    ``x`` (..., K, N), rounded as XLA's CPU runtime dot rounds it at N
+    columns: one chain of fused multiply-adds from zero over k ascending
+    at N in CHAIN_TILES (the fused kernel's tiles of 64 and 128 lanes;
+    ``torch.matmul`` on the CPU blocks K = 400 in two), the four chains
+    of :func:`basis_product` at N in SPLIT_TILES.  Other N are refused:
+    their order is not measured."""
+    N = x.shape[-1]
+    if N in SPLIT_TILES:
+        return basis_product(m, x)
+    if N not in CHAIN_TILES:
+        raise ValueError(f"XLA's dot order is not measured at {N} columns")
+    m64 = m.to(_F64)
+    x64 = x.to(_F64)
+    acc = torch.zeros(x.shape[:-2] + (m.shape[0], N), dtype=torch.float32,
+                      device=x.device)
+    for k in range(m.shape[1]):
+        fma_(acc, m64[:, k, None], x64[..., k, None, :])
+    return acc
+
+
+# XLA's CPU exp of float32: Cephes' expf, each step a fused multiply-add.
+_EXP_LO = -87.3365478515625          # log(2^-126): below, 0 (flushed)
+_EXP_HI = 88.72283935546875
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU ``exp`` of float32 ``x`` (``jnp.exp``): ``n = floor(x
+    log2(e) + 1/2)``, ``a = x - n ln2`` with ln2 in two parts, Cephes'
+    degree-5 polynomial ``e^a = 1 + a + a^2 p(a)``, scaled by ``2^n``;
+    each sum with its product one fused multiply-add; 0 below
+    log(2^-126).  JAX's bits on 400,000 arguments over [-87, 88] (correctly
+    rounded on about 91% of them)."""
+    f32 = torch.float32
+    xc = x.clamp(_EXP_LO, _EXP_HI)
+
+    def fma(a, b, c):
+        return fma_(torch.as_tensor(c, dtype=f32).expand_as(xc).clone(),
+                    a.to(_F64), torch.as_tensor(b, dtype=f32).to(_F64))
+
+    n = torch.floor(fma(xc, 1.4426950408889634, 0.5))
+    a = fma(-n, 0.693359375, xc)
+    a = fma(-n, -2.12194440e-4, a)
+    y = torch.full_like(xc, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = fma(y, a, c)
+    y = fma(y, a * a, a) + 1.0
+    out = (y.to(_F64) * torch.exp2(n.to(_F64))).to(f32)
+    return torch.where(x < _EXP_LO, torch.zeros_like(out), out)

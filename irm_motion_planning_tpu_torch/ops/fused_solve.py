@@ -161,7 +161,7 @@ def forward_planes(kv, mix, planes):
     """planes (J, T, B) -> (traj, vel) (J, T, B): ``kv @ plane_j`` for each
     joint, then the mix combine ``out_i = sum_j raw_j mix[j, i]``."""
     J, T = planes.shape[0], planes.shape[1]
-    raw = torch.matmul(kv, planes)                      # (J, 2T, B)
+    raw = forward_product(kv, planes)                   # (J, 2T, B)
     out = []
     for i in range(J):
         out.append(mix_combine([(raw[j], mix[j, i]) for j in range(J)]))
@@ -177,8 +177,8 @@ def fk_ee(c: Consts, traj):
     ang = [traj[0]]
     for j in range(1, J):
         ang.append(ang[-1] + traj[j])
-    px = torch.stack([c.link[j] * torch.cos(ang[j]) for j in range(J)])
-    py = torch.stack([c.link[j] * torch.sin(ang[j]) for j in range(J)])
+    px = torch.stack([c.link[j] * fk_cos(ang[j]) for j in range(J)])
+    py = torch.stack([c.link[j] * fk_sin(ang[j]) for j in range(J)])
     ee_x, ee_y = px[0], py[0]
     for j in range(1, J):
         ee_x = ee_x + px[j]
@@ -223,8 +223,6 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
                    sums[0])
     sgpc = torch.zeros_like(toc)
     sgvc = torch.zeros_like(toc)
-    jpc = torch.zeros_like(toc)
-    jvc = torch.zeros_like(toc)
     for j in range(J):
         ds = traj[j, 0] - start[j]
         dg = traj[j, T - 1] - goal[j]
@@ -232,8 +230,8 @@ def scalar_cost(cfg: PlannerConfig, c: Consts, traj, vel, cost_v, start, goal,
         vs = vel[j, 0]
         vg = vel[j, T - 1]
         sgvc = sum_add(sgvc, 0.5, sum_pair(vs, vs, vg, vg))
-        jpc = sum_add(jpc, sums[1 + j], c.inv_T)
-        jvc = sum_add(jvc, sums[1 + J + j], c.inv_T)
+    jpc = limit_sum([(sums[1 + j], c.inv_T) for j in range(J)])
+    jvc = limit_sum([(sums[1 + J + j], c.inv_T) for j in range(J)])
     return sum_add(sum_add(toc, lam_sg, sgpc + sgvc), lam_jl, jpc + jvc)
 
 
@@ -319,7 +317,7 @@ def cost_grad_from_traj(cfg: PlannerConfig, c: Consts, kvt, mix, nt, nv,
             jv = torch.where(_vel_mask(cfg, nv[j]), jv, 0.0)
         stacked.append(torch.cat([toc_g + lam_sg * sgp + lam_jl * jp,
                                   lam_sg * sgv + lam_jl * jv]))
-    pulled = torch.matmul(kvt, torch.stack(stacked))   # (J, T, B)
+    pulled = pullback_product(kvt, torch.stack(stacked))   # (J, T, B)
     grad = []
     for j in range(J):
         grad.append(mix_combine([(pulled[i], mix[j, i]) for i in range(J)]))
@@ -396,6 +394,41 @@ def t_sums(planes):
     if pad:
         rows = torch.nn.functional.pad(rows, (0, pad))
     return rows.contiguous().sum(-1)
+
+
+def step_sums(planes):
+    """The sums over T of the (K, T, B) ``planes`` of a BLS step's
+    direction scalars, (K, B): each a sequential chain over T
+    (:func:`chain_sum`), the kernels' order."""
+    return chain_sum(planes.transpose(0, 1))
+
+
+def inv_sqrt(x):
+    """The direction's ``1 / sqrt(|g|^2)``, two roundings, as the kernels
+    form it."""
+    return 1.0 / torch.sqrt(x)
+
+
+def fk_cos(x):
+    """The FK's cosine of a cumulative joint angle (torch's)."""
+    return torch.cos(x)
+
+
+def fk_sin(x):
+    """The FK's sine of a cumulative joint angle (torch's)."""
+    return torch.sin(x)
+
+
+def forward_product(kv, planes):
+    """The forward basis product ``kv @ plane_j`` for each joint, (J, 2T,
+    B) (one torch product)."""
+    return torch.matmul(kv, planes)
+
+
+def pullback_product(kvt, planes):
+    """The gradient's pull-back ``kvt @ plane_j`` for each joint, (J, T,
+    B) (one torch product)."""
+    return torch.matmul(kvt, planes)
 
 
 def two_roundings(a, b, c):
@@ -494,6 +527,25 @@ def sum_add(acc, a, b):
     return acc + a * b
 
 
+def limit_sum(terms):
+    """A cost sum over the joints, ``sum_j a_j b_j`` over the (a_j, b_j) of
+    ``terms`` from 0 by :func:`sum_add` (the limit losses' means)."""
+    acc = torch.zeros_like(terms[0][0])
+    for a, b in terms:
+        acc = sum_add(acc, a, b)
+    return acc
+
+
+def armijo_bound(loss, c, alpha_norm):
+    """A rung's Armijo bound ``loss - c alpha_norm``, c = bls_alpha lr."""
+    return loss - c * alpha_norm
+
+
+def decay_factor(lam, lr):
+    """The accepted step's ``1 - lambda_reg lr`` on alpha."""
+    return 1.0 - lam * lr
+
+
 def bf16_round(x):
     """x rounded to bfloat16 (round to nearest even) and back to float32:
     the values the bf16 tier's ladder planes hold (JAX's ``astype``)."""
@@ -552,13 +604,13 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     # then over the joints): a reduction in another order moves 1/|grad| by
     # an ulp, which at T=200 moves an O(1e4) coefficient of the new alpha by
     # one, and the exact evaluation turns that into 4e-3 on traj.
-    g2 = chain_sum(chain_sum((grad * grad).transpose(0, 1)))
-    inv_norm = 1.0 / torch.sqrt(g2)
+    g2 = chain_sum(step_sums(grad * grad))
+    inv_norm = inv_sqrt(g2)
     n_grad = grad * inv_norm
     # Reference quirk (optimizer_BLS.py:86): the sum over ALL (J, J) entries
     # of grad^T n_grad, i.e. sum_t rowsum(grad)_t rowsum(n_grad)_t.
     gsum = chain_sum(grad)
-    alpha_norm = chain_sum(gsum * (gsum * inv_norm))
+    alpha_norm = step_sums((gsum * (gsum * inv_norm))[None])[0]
 
     if not exact:
         gtraj, gvel = forward_planes(kv, mix, n_grad)
@@ -597,7 +649,7 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
         cost_v = obstacle_cost_v(ee_x, ee_y, obs)
         closs = scalar_cost(cfg, c, cand_t, cand_v, cost_v, start, goal,
                             lam_sg, lam_jl)
-        required = loss - cfg.bls_alpha * lr_r * alpha_norm
+        required = armijo_bound(loss, cfg.bls_alpha * lr_r, alpha_norm)
         ok = (closs <= required) & ~found
         found = found | ok
         lr_best = torch.where(ok, lr_r, lr_best)
@@ -614,7 +666,7 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     count_work(tally, "pullbacks", ~frozen & ~stop)
 
     new_alpha = (fma if ultra or exact else two_roundings)(
-        1.0 - cfg.lambda_reg * lr_eff, alpha, -(lr_eff * n_grad))
+        decay_factor(cfg.lambda_reg, lr_eff), alpha, -(lr_eff * n_grad))
     if exact:
         nt, nv = forward_planes(kv, mix, new_alpha)
     else:

@@ -189,10 +189,8 @@ def test_epilogue_cpu_rehearsal():
 
 def test_rbf_kernels_match_jax():
     """rkhs.rbf_kernel / d_rbf_kernel against JAX's on float32 inputs
-    (numpy, seed 0).  Measured: where JAX's kernel value is a normal float,
-    at most 1 ulp apart (rbf; the correctly rounded exp against XLA's) and
-    2 ulps (d_rbf); where XLA's exp underflows into the subnormals it
-    flushes them to zero, and the port's kernel value is subnormal."""
+    (numpy, seed 0): bit for bit (XLA's exp, xla_order.exp), also where
+    XLA's exp underflows and flushes the subnormals to zero."""
     rng = np.random.default_rng(0)
     x1 = rng.uniform(-1, 2, 4096).astype(np.float32)
     x2 = rng.uniform(-1, 2, 4096).astype(np.float32)
@@ -209,6 +207,5 @@ def test_rbf_kernels_match_jax():
             return np.abs(a.view(np.int32).astype(np.int64)
                           - b.view(np.int32).astype(np.int64))
 
-        assert ulps(tk, jk)[normal].max() <= 1
-        assert ulps(td, jd)[normal].max() <= 2
-        assert (jk[~normal] == 0).all() and (tk[~normal] < tiny).all()
+        assert ulps(tk, jk).max() == 0 and ulps(td, jd).max() == 0
+        assert (jk[~normal] == 0).all() and (tk[~normal] == 0).all()

@@ -39,10 +39,12 @@ from irm_motion_planning_tpu.solvers import fleet as jfleet
 
 import irm_motion_planning_tpu_torch as mt
 from irm_motion_planning_tpu_torch import bench
+from irm_motion_planning_tpu_torch.models import xla_order
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs
 from irm_motion_planning_tpu_torch.ops import step_kernels as sk
 from irm_motion_planning_tpu_torch.ops.costs import Penalty
 from irm_motion_planning_tpu_torch.solvers import fleet as tfleet
+from replica_host import load_carry_replica
 
 T = 200
 B = 16
@@ -219,42 +221,12 @@ def test_fma_rounds_once_and_two_roundings_twice():
     assert 0.1 < float((once != twice).mean()) < 0.5
 
 
-def _f32(x):
-    return torch.as_tensor(x, dtype=torch.float32)
-
-
-def _mix_once(terms):
-    """The mix combine as XLA contracts it: fma(x0, m0, x1 m1), then each
-    later term fused into the sum."""
-    (x0, m0), (x1, m1) = terms[:2]
-    acc = tfs.fma(x0, m0, x1 * m1)
-    for x, m in terms[2:]:
-        acc = tfs.fma(x, m, acc)
-    return acc
-
-
 # The carry program's expressions that XLA may contract, each a list of the
 # fused_solve helpers that form them with their one-rounding replacements
-# (a b + c d as fma(a, b, c d), acc + a b as fma(a, b, acc); the same table
-# as tools/compare_converged.py's, which runs whole solves with them).
-CONTRACTIONS = {
-    "dir": [("carry_direction",
-             lambda lam, x, g: tfs.fma(_f32(lam), x, g))],
-    "cand": [("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
-    "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
-    "alpha": [("two_roundings", tfs.fma)],
-    "mix": [("mix_combine", _mix_once)],
-    "field": [("field_q", lambda ox, oy: 0.5 + 0.5 * tfs.fma(ox, ox, oy * oy)),
-              ("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
-              ("field_dist", lambda h, q, ox, ex, oy, ey:
-               (h + q) - tfs.fma(ox, ex, oy * ey)),
-              ("field_sum", _mix_once),
-              ("field_acc", _mix_once),
-              ("field_grad", lambda co, e, csum: tfs.fma(-e, csum, co))],
-    "sums": [("sum_pair", lambda a, b, c, d:
-              tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
-             ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
-}
+# (a b + c d as fma(a, b, c d), acc + a b as fma(a, b, acc); the table
+# tools/carry_replica.py keeps, which tools/compare_converged.py runs whole
+# solves with).
+CONTRACTIONS = load_carry_replica().CONTRACTED
 
 
 def _contract(m, keys):
@@ -354,9 +326,8 @@ def _jax_recip(s):
     """JAX's interpreted kernel reciprocal under recip_newton: 1 / s of s
     rounded to bfloat16 (pl.reciprocal(approx=True) as interpret mode runs
     it; XLA keeps the quotient in float32), refined by one Newton step whose
-    ``2 - s r`` XLA contracts into an FMA."""
-    r = 1.0 / s.to(torch.bfloat16).float()
-    return r * tfs.fma(-s, r, _f32(2.0))
+    ``2 - s r`` XLA contracts into an FMA (xla_order.interp_recip)."""
+    return xla_order.interp_recip(s, True)
 
 
 def _eval_shares(monkeypatch, scenes, keys, weight=1.0, lam=None,

@@ -27,6 +27,7 @@ from irm_motion_planning_tpu_torch.models import lanes, xla_order
 from irm_motion_planning_tpu_torch.models import rkhs as trkhs
 from irm_motion_planning_tpu_torch.ops import costs as tcosts
 from irm_motion_planning_tpu_torch.solvers import bls, gd
+from replica_host import skip_unless_host
 
 HIGHEST = jax.lax.Precision.HIGHEST
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
@@ -148,3 +149,130 @@ def test_single_scene_solve_gives_the_golden(name):
     traj = mt.evaluate(cfg, basis, res.alpha, "xla")[0].numpy()
     golden = np.loadtxt(os.path.join(GOLDEN_DIR, f"{name}_default.txt"))
     np.testing.assert_array_equal(_bits(traj), _bits(golden))
+
+
+# The interpreted fused kernel's arithmetic (models/xla_order.py, the pieces
+# of tools/carry_replica.py), each against JAX's CPU bits.
+
+
+def _interp_recip_kernel(newton):
+    """pallas_step._Body.recip in a kernel run by Pallas's interpreter."""
+    from jax.experimental import pallas as pl
+    from irm_motion_planning_tpu.ops import pallas_step as ps
+
+    jcfg = mp.PlannerConfig(recip_newton=newton)
+    body = ps._Body(jcfg, 8, 3, 1, 128)
+
+    def kernel(s_ref, out_ref):
+        out_ref[:] = body.recip(s_ref[:])
+
+    return lambda s: np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(s.shape, jnp.float32),
+        interpret=True)(s))
+
+
+@pytest.mark.parametrize("newton", [False, True])
+def test_interp_recip_is_the_interpreters(newton):
+    """xla_order.interp_recip against the JAX kernel's reciprocal in the
+    Pallas interpreter (pl.reciprocal(approx=True), with and without the
+    Newton step): bit for bit on every input, 65,536 arguments over the
+    obstacle field's range (s >= 0.5) and beyond.  Correctly rounded on few
+    of them (measured 6.4% with the step)."""
+    rng = np.random.default_rng(11)
+    s = np.exp(rng.uniform(np.log(0.3), np.log(300.0), (512, 128))
+               ).astype(np.float32)
+    want = _interp_recip_kernel(newton)(s)
+    got = xla_order.interp_recip(_t(s), newton)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    exact = _bits((1.0 / s.astype(np.float64)).astype(np.float32))
+    assert (exact == _bits(want)).mean() < 0.1
+
+
+def test_sin_cos_are_xlas():
+    """xla_order.sin/cos against jnp.sin/cos jitted on the CPU (glibc's
+    sinf/cosf): bit for bit on 300,000 arguments over |x| < 120 and at the
+    branch points (|x| near 2^-12, 0.75 and multiples of pi/2).  torch's
+    own differ on about 5% of them.  Skipped on a host whose libm is not
+    glibc's (tests/replica_host.py)."""
+    skip_unless_host("sincos")
+    rng = np.random.default_rng(12)
+    edges = np.concatenate([
+        np.float32(2.0 ** -12) * np.float32([0.999, 1.0, 1.001]),
+        np.float32([0.7499999, 0.75, 0.7500001]),
+        (np.arange(1, 70) * (np.pi / 2)).astype(np.float32)])
+    x = np.concatenate([rng.uniform(-12, 12, 200000),
+                        rng.uniform(-119.9, 119.9, 100000),
+                        edges, -edges]).astype(np.float32)
+    for jf, tf, torch_f in ((jnp.sin, xla_order.sin, torch.sin),
+                            (jnp.cos, xla_order.cos, torch.cos)):
+        want = _bits(jax.jit(jf)(x))
+        np.testing.assert_array_equal(_bits(tf(_t(x))), want)
+        assert (_bits(torch_f(_t(x))) == want).mean() < 0.97
+    with pytest.raises(ValueError):
+        xla_order.sin(torch.tensor([xla_order.SINCOS_MAX]))
+
+
+def test_rsqrt_is_xlas():
+    """xla_order.rsqrt against jax.lax.rsqrt jitted on the CPU (the
+    hardware estimate and two Newton steps): bit for bit on 400,000
+    positive normal arguments over 2^-60 to 2^60; ``1 / sqrt`` in float32
+    (the port's) agrees on fewer than 80% of them.  Skipped on a CPU whose
+    estimate is not the one written out (tests/replica_host.py)."""
+    skip_unless_host("rsqrt")
+    rng = np.random.default_rng(13)
+    x = np.exp(rng.uniform(-41, 41, 400000)).astype(np.float32)
+    want = _bits(jax.jit(jax.lax.rsqrt)(x))
+    np.testing.assert_array_equal(_bits(xla_order.rsqrt(_t(x))), want)
+    assert (_bits(1.0 / torch.sqrt(_t(x))) == want).mean() < 0.8
+
+
+@pytest.mark.parametrize("T,lanes", [
+    (200, 64), (400, 64), (200, 16), (33, 64), (32, 8), (1025, 64),
+    (2200, 64)])
+def test_tree_sum_is_xlas_reduction(T, lanes):
+    """xla_order.tree_sum against ``jnp.sum(x, axis=0)`` jitted on the CPU
+    (XLA's tree of windows of 32 rows): bit for bit on the kernel's (T,
+    lanes) and (2T, lanes) planes and across the window sizes."""
+    rng = np.random.default_rng(T + lanes)
+    x = (rng.standard_normal((T, lanes))
+         * np.exp(rng.uniform(-5, 5, (T, lanes)))).astype(np.float32)
+    want = jax.jit(lambda a: jnp.sum(a, axis=0))(x)
+    np.testing.assert_array_equal(_bits(xla_order.tree_sum(_t(x))),
+                                  _bits(want))
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (200, 400, 64), (400, 200, 64), (200, 400, 128), (400, 200, 16),
+    (200, 400, 16)])
+def test_lane_product_is_xlas_dot(M, K, N):
+    """xla_order.lane_product against ``jnp.dot(m, x, precision=HIGHEST)``
+    jitted on the CPU at the fused kernel's shapes at T = 200: the
+    pull-back (T x 2T) @ (2T x lanes) and the forward (2T x T) @ (T x
+    lanes), in tiles of 64 and 128 lanes (one FMA chain) and 16 (four
+    chains): bit for bit, three joints' planes at once; other widths are
+    refused."""
+    rng = np.random.default_rng(M + K + N)
+    m = rng.standard_normal((M, K)).astype(np.float32)
+    x = (rng.standard_normal((3, K, N)) * 1e3).astype(np.float32)
+    dot = jax.jit(lambda a, b: jnp.dot(a, b, precision=HIGHEST))
+    want = np.stack([np.asarray(dot(m, xi)) for xi in x])
+    np.testing.assert_array_equal(
+        _bits(xla_order.lane_product(_t(m), _t(x))), _bits(want))
+    with pytest.raises(ValueError):
+        xla_order.lane_product(_t(m), torch.zeros(K, 96))
+
+
+def test_exp_is_xlas():
+    """xla_order.exp against jnp.exp jitted on the CPU (Cephes' polynomial
+    with fused multiply-adds, the subnormals flushed): bit for bit on
+    400,000 arguments over [-300, 88], where a correctly rounded exp
+    agrees on about 91% of them; the basis build's Gram matrices take it
+    (tests/test_torch_basis_build.py)."""
+    rng = np.random.default_rng(14)
+    x = np.concatenate([rng.uniform(-87, 88, 200000),
+                        rng.uniform(-2, 0, 150000),
+                        rng.uniform(-300, -87, 50000)]).astype(np.float32)
+    want = _bits(jax.jit(jnp.exp)(x))
+    np.testing.assert_array_equal(_bits(xla_order.exp(_t(x))), want)
+    exact = _bits(np.exp(x.astype(np.float64)).astype(np.float32))
+    assert (exact == want).mean() < 0.95

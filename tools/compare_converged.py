@@ -5,6 +5,7 @@
         [--ladder-eval linearized] [--seed 0] \\
         [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
         [--one-rounding] [--contract dir,cand,nt,alpha,mix,field,sums] \\
+        [--replica none/all/all-recip/recip,sincos] \\
         [--endpoint] [--xla-only] [--rounds R] [--float64]
 
 On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
@@ -33,13 +34,28 @@ the obstacle field's q, h, s, its sum over the obstacles and the
 gradient's accumulators, field_q/field_h/field_dist/field_sum/
 field_acc/field_grad; ``sums``
 the cost sums of scalar_cost, sum_pair/sum_add), each set a
-comma list and the sets separated by ``/``; with ``--endpoint`` only the
+comma list and the sets separated by ``/``; ``--replica`` runs the port's
+fused engine (the plain K1, program bls) in the arithmetic of JAX's
+interpreted fused kernel, as the sets of pieces name it
+(tools/carry_replica.py: ``recip`` the interpreter's
+reciprocal, ``sincos`` glibc's sin and cos, ``rsqrt`` XLA's, ``tsums``
+XLA's sums over T, ``pullback`` and ``forward`` its dot's order,
+``contract`` the products it fuses into FMAs but the accepted alpha's,
+``alpha`` that one, ``init`` the warm start's product in its order;
+``all``, ``all-x``, ``none`` = as shipped), and
+prints beside each run the share of its converged flags equal to JAX's
+fused kernel's (``all`` gives every lane's flag, alpha and loss bit for
+bit: tests/test_torch_carry_replica.py); with ``--endpoint`` only the
 bench's reference scene is solved instead (bench.run_bench on the CPU,
 batch 2, the main path's plain version), as shipped and under each
-``--contract`` set, and its endpoint error and strict verdict printed.
+``--contract`` and ``--replica`` set, and its endpoint error and strict
+verdict printed.
 ``--xla-only`` runs the two xla engines alone (JAX's and the port's, as
 shipped: the accepted alpha rounded once); with it ``--rounds R`` cuts
-the schedule to its first R penalty rounds; ``--float64`` runs those two
+the schedule to its first R penalty rounds, ``--inner N`` replaces the
+schedule by N steps in every round (JAX's benchmarks/problemsize.py
+protocol, with ``--max-obstacles 16``, its config's default);
+``--float64`` runs those two
 engines in float64 on the same scenes and the same basis (the float32
 export widened; JAX with x64 on and its explicit float32 constants read as
 float64, the port's one-rounding helper as a float64 multiply-add), which
@@ -76,65 +92,20 @@ import irm_motion_planning_tpu_torch as mt  # noqa: E402
 from irm_motion_planning_tpu_torch import bench  # noqa: E402
 from irm_motion_planning_tpu_torch.ops import fused_solve as tfs  # noqa: E402
 from irm_motion_planning_tpu_torch.solvers import fleet as tfleet  # noqa: E402
+import carry_replica as rp  # noqa: E402
 
 
 def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-def _f32(x):
-    return torch.as_tensor(x, dtype=torch.float32)
+CONTRACTED = rp.CONTRACTED
 
 
-def _mix_once(terms):
-    """The mix combine as XLA contracts it: fma(x0, m0, x1 m1), then each
-    later term fused into the sum."""
-    (x0, m0), (x1, m1) = terms[:2]
-    acc = tfs.fma(x0, m0, x1 * m1)
-    for x, m in terms[2:]:
-        acc = tfs.fma(x, m, acc)
-    return acc
-
-
-# The carry program's expressions XLA may contract, each a list of the
-# fused_solve helpers that form them with their one-rounding replacements
-# (a b + c d as fma(a, b, c d), acc + a b as fma(a, b, acc): the forms
-# XLA gives on the CPU, PERF.md section 7).
-CONTRACTED = {
-    "dir": [("carry_direction",
-             lambda lam, x, g: tfs.fma(_f32(lam), x, g))],
-    "cand": [("rung_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
-    "nt": [("accepted_point", lambda x, lr, d: tfs.fma(-lr, d, x))],
-    "alpha": [("two_roundings", tfs.fma)],
-    "mix": [("mix_combine", _mix_once)],
-    "field": [("field_q", lambda ox, oy: 0.5 + 0.5 * tfs.fma(ox, ox, oy * oy)),
-              ("field_h", lambda ex, ey: 0.5 * tfs.fma(ex, ex, ey * ey)),
-              ("field_dist", lambda h, q, ox, ex, oy, ey:
-               (h + q) - tfs.fma(ox, ex, oy * ey)),
-              ("field_sum", _mix_once),
-              ("field_acc", _mix_once),
-              ("field_grad", lambda co, e, csum: tfs.fma(-e, csum, co))],
-    "sums": [("sum_pair", lambda a, b, c, d:
-              tfs.fma(_f32(a), _f32(b), _f32(c) * _f32(d))),
-             ("sum_add", lambda acc, a, b: tfs.fma(_f32(a), _f32(b), acc))],
-}
-
-
-class contracted:
+def contracted(keys):
     """The context in which the expressions ``keys`` of CONTRACTED are
     rounded once."""
-
-    def __init__(self, keys):
-        self.swaps = [pair for k in keys for pair in CONTRACTED[k]]
-
-    def __enter__(self):
-        self.saved = [(name, getattr(tfs, name)) for name, _ in self.swaps]
-        for name, fn in self.swaps:
-            setattr(tfs, name, fn)
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved:
-            setattr(tfs, name, fn)
+    return rp.replica((), [pair for k in keys for pair in CONTRACTED[k]])
 
 
 def xla_engines(a) -> int:
@@ -143,16 +114,18 @@ def xla_engines(a) -> int:
     import jax
 
     cfg = bench.bench_config(solver=a.solver, n_timesteps=a.T,
-                             ladder_eval=a.ladder_eval)
+                             ladder_eval=a.ladder_eval, inner=a.inner,
+                             max_obstacles=a.max_obstacles)
     if a.rounds:
         cfg = cfg.replace(max_outer_iteration=a.rounds,
-                          inner_schedule=cfg.inner_schedule[:a.rounds])
+                          inner_schedule=cfg.inner_schedule
+                          and cfg.inner_schedule[:a.rounds])
     jcfg = mp.PlannerConfig(
         n_timesteps=a.T, bls_mode="ladder", fixed_iters=True,
         inner_schedule=cfg.inner_schedule,
         max_outer_iteration=cfg.max_outer_iteration,
-        max_inner_iteration=cfg.max_inner_iteration, max_obstacles=11,
-        ladder_eval=a.ladder_eval)
+        max_inner_iteration=cfg.max_inner_iteration,
+        max_obstacles=a.max_obstacles, ladder_eval=a.ladder_eval)
     jb = mp.make_basis(jcfg)
     tb = mt.make_basis(cfg, device="cpu")
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(a.seed),
@@ -210,13 +183,18 @@ def main(argv=None) -> int:
     ap.add_argument("--two-roundings", action="store_true")
     ap.add_argument("--one-rounding", action="store_true")
     ap.add_argument("--contract", default="")
+    ap.add_argument("--replica", default="")
     ap.add_argument("--endpoint", action="store_true")
     ap.add_argument("--xla-only", action="store_true")
     ap.add_argument("--rounds", type=int, default=0)
     ap.add_argument("--float64", action="store_true")
+    ap.add_argument("--inner", type=int, default=None)
+    ap.add_argument("--max-obstacles", type=int, default=11)
     a = ap.parse_args(argv)
     if a.rounds and not (a.float64 or a.xla_only):
         ap.error("--rounds cuts the schedule of --xla-only or --float64 only")
+    if (a.inner or a.max_obstacles != 11) and not (a.float64 or a.xla_only):
+        ap.error("--inner and --max-obstacles go with --xla-only or --float64")
     if a.float64 or a.xla_only:
         return xla_engines(a)
     if a.solver == "gd" and a.tiers:
@@ -246,11 +224,20 @@ def main(argv=None) -> int:
     for keys in contracts:
         if not set(keys) <= set(CONTRACTED):
             ap.error(f"--contract takes {sorted(CONTRACTED)}, got {keys}")
+    try:
+        replicas = [rp.parse(r) for r in a.replica.split("/")] \
+            if a.replica else []
+    except ValueError as e:
+        ap.error(str(e))
+    if replicas and (a.solver != "bls" or a.ladder_eval != "linearized"):
+        ap.error("--replica replicates the linearized carry program (bls)")
     if a.endpoint:
-        for keys in [()] + contracts:
-            with contracted(keys):
+        sets = ([("contract", k, contracted(k)) for k in [()] + contracts]
+                + [("replica", k, rp.replica(k)) for k in replicas])
+        for what, keys, ctx in sets:
+            with ctx:
                 r = bench.run_bench(batch=2, repeats=1, device="cpu")
-            print(f"reference scene, contract {'+'.join(keys) or 'none'}: "
+            print(f"reference scene, {what} {'+'.join(keys) or 'none'}: "
                   f"endpoint {r['endpoint_err']}, avg/max cost "
                   f"{r['avg_cost']}/{r['max_cost']}, strict gate "
                   f"{'PASS' if r['quality_ok'] else 'FAIL'}", flush=True)
@@ -262,8 +249,11 @@ def main(argv=None) -> int:
                 for label, _, _, ts in variants for t in ts
                 for e in (("fused", "xla") if not t else ("fused",))]
              + [f"port fused contract {'+'.join(k) or 'none'}"
-                for k in contracts])
+                for k in contracts]
+             + [f"port fused replica {'+'.join(r) or 'none'}"
+                for r in replicas])
     total = np.zeros(len(names), dtype=int)
+    same = np.zeros(len(names), dtype=int)
     steps = np.zeros(len(names))
     costs = np.zeros(len(names))
     for lo in range(0, a.scenes, a.chunk):
@@ -312,8 +302,15 @@ def main(argv=None) -> int:
         for keys in contracts:
             with contracted(keys):
                 runs.append(port("")[0])
-        counts = [int(np.asarray(r.stats.converged).sum()) for r in runs]
+        for pieces in replicas:
+            with rp.replica(pieces):
+                runs.append(tfleet.fleet_solve(cfg, tb, sub, solver=a.solver,
+                                               backend="fused"))
+        flags = [np.asarray(r.stats.converged) for r in runs]
+        counts = [int(f.sum()) for f in flags]
         total += counts
+        if not a.port_only:
+            same += [int((f == flags[0]).sum()) for f in flags]
         steps += [float(np.asarray(r.stats.inner_iters).sum()) for r in runs]
         costs += [len(sub.start) * bench.mean_obstacle_cost(
             cfg, tb, sub, tfleet.SolveResult(
@@ -323,11 +320,16 @@ def main(argv=None) -> int:
               + ", ".join(f"{n} {c}" for n, c in zip(names, counts)),
               flush=True)
     what = "gd" if a.solver == "gd" else a.ladder_eval
+    agree = ["" if a.port_only else f"; JAX fused's flag {sm / a.scenes:.4f}"
+             for sm in same]
     print(f"T={a.T} {what}, {a.scenes} scenes of seed {a.seed}, "
-          f"converged (fraction; mean accepted steps; mean obstacle cost): "
+          f"converged (fraction; mean accepted steps; mean obstacle cost"
+          f"{'' if a.port_only else '; the share of flags equal to JAX fused'}"
+          f"): "
           + ", ".join(f"{n} {c} ({c / a.scenes:.4f}; {st / a.scenes:.1f}; "
-                      f"{co / a.scenes:.5f})"
-                      for n, c, st, co in zip(names, total, steps, costs)))
+                      f"{co / a.scenes:.5f}{ag})"
+                      for n, c, st, co, ag in zip(names, total, steps, costs,
+                                                  agree)))
     return 0
 
 
