@@ -101,7 +101,8 @@ the reach plan (phase 23).  Phases:
 13. the GD fused path (bench --solver gd): the replicated scene at
    1,048,576 lanes (solves/s, one K1 launch per solve and no K2 launch,
    every lane equal to lane 0, the GD gate with the strict verdict, peak
-   device memory; K1-GD alone, its plain version and bound); K1-GD against
+   device memory; K1-GD alone, its plain version on 262,144 of the lanes
+   and its bound); K1-GD against
    the per-step GD path on 16,384 random scenes (bitwise, or lane
    agreement >= 0.99) and the GD rounds driver against K1-GD there
    (compaction off and on, bit for bit, ten K2-GD launches; K2-GD's ten
@@ -125,7 +126,8 @@ the reach plan (phase 23).  Phases:
    plain versions); ``bench --ladder-eval exact`` at 1M replicated (one K1
    launch per solve, the exact gate endpoint < 0.05, the strict 0.01
    reading printed, lanes equal lane 0, peak memory; K1-exact alone, its
-   plain version and bound); 1M random scenes with compaction and the
+   plain version on 262,144 of the lanes and its bound); 1M random scenes
+   with compaction and the
    paired gate against the exact xla engine on 32,768 lanes, then K1-exact
    on the same scenes, bitwise equal; K2-exact's time per solve and the
    bounds there; and, for information, the certify statistics
@@ -186,7 +188,7 @@ the reach plan (phase 23).  Phases:
    lane bit for bit lane 0, every tick within 1% of the plain version on
    lane 0's inputs (avg/max cost), the rollout bit for bit the tick loop,
    and no rebuild of the kernel library across the ticks; and ``bench
-   --engine vmap --random-scenarios`` at 65,536 scenes (solves/s, peak
+   --engine vmap --random-scenarios`` at 16,384 scenes (solves/s, peak
    device memory, the paired gate on 8,192 lanes: phantom and cost bands
    required, the converged band printed, ROADMAP fact 8);
 20. the sharded path (irm_motion_planning_tpu_torch/parallel): a one-rank
@@ -228,7 +230,8 @@ the reach plan (phase 23).  Phases:
    background from phase 1, after the J = 5 and 7 libraries): the quality
    gate for BLS across xla, pallas and fused on 32,768 random scenes at the
    bench schedule (its verdict required), then GD (printed); the seed
-   sweep over seeds 0-4 (per-seed deltas and sign flips); on the 2,048
+   sweep over seeds 0-4 on 16,384 scenes each (per-seed deltas and sign
+   flips); on the 2,048
    scenes of certify_oracle_cpu2048.npz, ``init_alpha`` and the XLA-order
    products on the card bit for bit the CPU's (required), the port's
    sequential oracle on the card, its converged fraction within CONV_SLACK
@@ -238,7 +241,7 @@ the reach plan (phase 23).  Phases:
    file must load); the schedule sweep's
    eight candidates through K2, and the shipped schedule under the bench
    config, whose endpoint and alpha must be phase 4's K1 lane 0 bit for
-   bit; hetero's four policies with and without ``--shrink`` at 1,048,576
+   bit; hetero's four policies with and without ``--shrink`` at 262,144
    random scenes (solves/s, per-round decomposition); the epilogue shares
    of the five ablated builds at 1,048,576 replicated lanes (each build's
    time, registers, spills and K1's own work); decompose and roofline at
@@ -262,7 +265,33 @@ the reach plan (phase 23).  Phases:
    ``pallas`` at GD T = 2,200 warns and equals xla bit for bit; and a
    measurement: the bf16 plan at T = 2,200 on 2,048 random scenes at the
    BLS schedule against the xla engine (converged fraction, cost,
-   phantom of each).
+   phantom of each);
+24. arms of 16 and 32 joints (the one library of csrc/wide/, J at run
+   time, built in the background after phase 22's builds; J equal links
+   of the reference arm's reach, 3.0): the build's seconds and every
+   kernel's registers and spills; K1-K6's plans against the C side at T =
+   50 and 200; the main path at full width (T = 50, fleet_solve on
+   ``fused``, BLS and GD: 262,144 random scenes at J = 16, 65,536 at J =
+   32; one K1 launch, with compaction K2 per round bit for bit it, the
+   paired xla gate on 4,096 lanes, K1 beside its bound; on the first
+   2,048 (J = 32: 1,024) of its scenes K1 against plain at the full
+   schedule, whose work tally gives the bounds, and the per-step path bit
+   for bit K1); each kernel
+   against its plain version at T = 50 (K1 per program at 1 round x 4
+   steps on 8,192 lanes at J = 16 and 2,048 at J = 32, its ragged batch,
+   lanes alone, 2 lanes per CTA and one CTA bit for bit; K2 one round per
+   program and tier; K5 within phase 8's bounds, K6 bit for bit K5 and on
+   ragged batches, K3 in both ladders and K4 one step; each timed with its
+   bound, K6 beside one torch.einsum); T = 200 (the streamed plan, K7): K1
+   of bls and gd on 4,096 random scenes with the paired gate on 1,024 and
+   the converged fraction against plain on the first 256 (phase 21's
+   band), K1 of every program against plain at 1x4 steps on 512 lanes, K7
+   alone bit for bit K6 beside one torch.matmul (TF32 off); ``fused`` and
+   ``pallas`` at J = 16 and 32, T = 50 and 200, with no fallback warning,
+   bit for bit each other; the reach plan (GD at T = 500, J = 16) against
+   plain, and the reach layouts forced at T = 200 bit for bit the streamed
+   one; the CLI with ``--n-joints 16``.  ``python3 chip_smoke.py --wide``
+   runs the build and this phase alone.
 
 The kernels line gives for each kernel its launches on its path (K5, on
 both per-step paths: the BLS path's, and ``launches_by_path``), its
@@ -285,9 +314,9 @@ phase 19's numbers, under ``sharded`` phase 20's, K1 and K2 under
 ``reach`` phase 23's per program (launches, ms, plain_ms, bound_ms,
 bound_by, library_ms, max_abs_err at each T; the bitwise checks; K1-GD's
 paired gate; the bf16 plan's measurement); every kernel under
-``joints`` phase 21's by J (launches, ms, bound, ptxas registers and
-spills, lane agreement), K1 also the built basis' digest and the libraries'
-build seconds.  K7's line carries K1-BLS
+``joints`` phase 21's and phase 24's by J (launches, ms, bound, ptxas
+registers and spills, lane agreement), K1 also the built basis' digest and
+the libraries' build seconds.  K7's line carries K1-BLS
 at T=200 (the kernel it runs in) and K7 alone: ``ms_per_product``,
 ``matmul_ms`` (one torch.matmul of the same product), ``plain_ms_per_product``,
 ``l2_bytes_per_product`` (the design's: each row block once per tile) and
@@ -404,8 +433,10 @@ def main():
     build_s = time.perf_counter() - t0
     # Phase 21's libraries (J = 5, 7) build while phases 2-20 run.
     joint_builds = start_joint_builds(_build)
-    # Phase 22's phase-ablated K1 builds, after those.
+    # Phase 22's phase-ablated K1 builds, after those; phase 24's J >= 16
+    # library after those.
     variant_builds = start_variant_builds(joint_builds)
+    wide_build = start_wide_build(_build, after=variant_builds[0])
     ptxas = ptxas_report(_build.builds.get(3, {}).get("log", ""))
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__} cuda {torch.version.cuda}; kernels built in "
@@ -1086,7 +1117,10 @@ def main():
     benches = benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev,
                                variant_builds, alpha0)
     reach = reach_phase(mt, bench, fs, roofline, fleet, dev)
+    wide = wide_phase(mt, bench, fs, sk, roofline, fleet, dev, wide_build)
     phase_clock(None)
+    for name, by_j in wide.items():
+        joints.setdefault(name, {}).update(by_j)
 
     def at_j(*names):
         """Phase 21's entries of the kernel ``names`` (its programs), by
@@ -1191,7 +1225,7 @@ def main():
 CLI_BATCH = 65536
 REPLAN_TICKS = 100
 REPLAN_FLEET = 256
-VMAP_BATCH = 65536
+VMAP_BATCH = 16384
 VMAP_CHECK = 8192
 INIT_FIT_MAX = 1e-2
 
@@ -1238,7 +1272,7 @@ def entry_point_phases(mt, fs, fleet, dev):
     init_alpha's fit on the card, the CLI (single scene BLS and GD, the
     plain loop with its series, a 65,536-scene batch on the fused backend),
     the replanner on K1 (replan_bench's protocol, single scene and a fleet
-    of 256) and the bench's vmap engine at 65,536 random scenes.  Returns
+    of 256) and the bench's vmap engine at 16,384 random scenes.  Returns
     the numbers for K1's kernels-line entry."""
     import tempfile
 
@@ -2116,20 +2150,24 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     f6 = sk.forward_eval(short, kv, mix, a0)
     k6_same = torch.equal(f6.traj, ev.traj) and torch.equal(f6.vel, ev.vel)
     k6_ms = best_ms(lambda: sk.forward_eval(short, kv, mix, a0))
-    _, k6_plain = timed(lambda: sk.forward_eval_reference(short, kv, mix, a0))
+    f6p, k6_plain = timed(lambda: sk.forward_eval_reference(short, kv, mix,
+                                                            a0))
+    err6 = planes_error((f6.traj, f6.vel), (f6p.traj, f6p.vel))
     k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
     b6 = roofline.forward_eval(JOINT_LANES, 50, 5)
     say(f"phase 21 J=5 K5 against plain ({JOINT_LANES} lanes): {err5}, "
         f"{k5_ms:.3f} ms (bound {b5.ms:.3f} by {b5.by}), plain "
         f"{k5_plain:.1f} ms; K6 bit for bit K5's traj/vel {k6_same}, "
+        f"against plain {err6:.3g} abs (bound {EVAL_BOUNDS['planes']}), "
         f"{k6_ms:.3f} ms (bound {b6.ms:.3f} by {b6.by}), plain "
         f"{k6_plain:.1f} ms, one torch.einsum {k6_lib:.3f} ms")
-    if not eval_ok(err5) or not k6_same:
+    if (not eval_ok(err5) or not k6_same
+            or not err6 <= EVAL_BOUNDS["planes"]):
         fail("phase 21: J=5 K5/K6 differ from their plain versions")
     put("cost_grad_eval", 5, ms=k5_ms, bound_ms=b5.ms, bound_by=b5.by,
         plain_ms=k5_plain, max_abs_err=err5["abs"], lanes=JOINT_LANES)
     put("forward_eval", 5, ms=k6_ms, bound_ms=b6.ms, bound_by=b6.by,
-        plain_ms=k6_plain, max_abs_err=0.0, lanes=JOINT_LANES,
+        plain_ms=k6_plain, max_abs_err=err6, lanes=JOINT_LANES,
         library_ms=k6_lib)
     ful = rargs[7]
     for name, key in (("bls", "bls_inner_step"), ("gd", "gd_inner_step")):
@@ -2250,7 +2288,9 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     f6 = sk.forward_eval(c200, kv, mix, a0)
     k7_same = torch.equal(t7[0], f6.traj) and torch.equal(t7[1], f6.vel)
     k7_ms = best_ms(lambda: fs.k7_forward(c200, kv, kvt, mix, a0))
-    _, k7_plain = timed(lambda: fs.forward_planes(kv, mix, a0))
+    p7, k7_plain = timed(lambda: fs.forward_planes(kv, mix, a0))
+    err7 = planes_error(t7, p7)
+    del p7
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     flat = a0.permute(1, 0, 2).reshape(T, 5 * JOINT_LARGE)
@@ -2259,14 +2299,15 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     b7 = roofline.forward_eval(JOINT_LARGE, T, 5)
     say(f"phase 21 J=5 K7 alone at T={T} ({JOINT_LARGE} lanes, "
         f"{fs.launch_plan(c200, O)['lanes']} lanes per CTA): {k7_ms:.3f} ms "
-        f"per forward product, bit for bit K6 {k7_same}; one torch.matmul "
+        f"per forward product, bit for bit K6 {k7_same}, against plain "
+        f"{err7:.3g} abs (bound {EVAL_BOUNDS['planes']}); one torch.matmul "
         f"(TF32 off) {k7_mm:.3f} ms; plain {k7_plain:.1f} ms; bound "
         f"{b7.ms:.3f} ms by {b7.by}")
-    if not k7_same:
-        fail("phase 21: J=5 K7 differs from K6")
+    if not k7_same or not err7 <= EVAL_BOUNDS["planes"]:
+        fail("phase 21: J=5 K7 differs from K6 or from its plain version")
     put("k7", 5, launches=k7_launches, ms_per_product=k7_ms, ms=k7_ms,
         bound_ms=b7.ms, bound_by=b7.by, plain_ms=k7_plain, library_ms=k7_mm,
-        max_abs_err=0.0, lanes=JOINT_LARGE)
+        max_abs_err=err7, lanes=JOINT_LARGE)
     del scn, head, a0, flat, t7, f6
     torch.cuda.empty_cache()
 
@@ -2349,7 +2390,8 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
 # and roofline, and the time phase 22 aims to stay under (builds excluded).
 BENCH_QUALITY = 32768
 BENCH_SEEDS = "0,1,2,3,4"
-BENCH_HETERO = 1048576
+BENCH_SWEEP = 16384
+BENCH_HETERO = 262144
 BENCH_EPILOGUE = 1048576
 BENCH_WIDTHS = (32768, 1048576)
 BENCH_KERNELS = ("fused_solve", "fused_round", "bls_inner_step",
@@ -2434,11 +2476,11 @@ def benchmarks_phase(mt, bench, fs, sk, roofline, fleet, dev, builds, alpha0):
     # (b) The seed sweep (queue 3: the paired gate's margins over seeds).
     t0 = time.perf_counter()
     sw = quiet(quality_sweep.run, ["--seeds", BENCH_SEEDS, "--batch",
-                                   str(BENCH_QUALITY), "--backends",
+                                   str(BENCH_SWEEP), "--backends",
                                    "xla,fused,pallas"] + o11)
     conv = {r["seed"]: {b: r[b]["converged_frac"] for b in
                         ("xla", "fused", "pallas")} for r in sw["per_seed"]}
-    say(f"phase 22 quality_sweep seeds {BENCH_SEEDS} ({BENCH_QUALITY} "
+    say(f"phase 22 quality_sweep seeds {BENCH_SEEDS} ({BENCH_SWEEP} "
         f"scenes each, {time.perf_counter() - t0:.1f} s): converged by seed "
         f"{conv}; deltas {sw['deltas']}")
 
@@ -2860,6 +2902,7 @@ def gd_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     return {
         "fused_solve": entry(launches_k1, k1_abs_err, main_ms, main_plain_ms,
                              k1_bound, occupancy["fused_solve", "gd"],
+                             lanes=MAIN_BATCH, plain_lanes=REPLICATED_PLAIN,
                              ms_1M_random=k1_rand_ms,
                              bound_ms_1M_random=k1_rand_bound.ms,
                              main_path_peak_gib=peak_gib,
@@ -3153,6 +3196,7 @@ def exact_phases(mt, bench, fs, sk, roofline, fleet, dev, random_args,
     return {
         "fused_solve": entry(launches_k1, k1_agree, k1_abs_err, main_ms,
                              main_plain_ms, k1_bound,
+                             lanes=MAIN_BATCH, plain_lanes=REPLICATED_PLAIN,
                              ms_1M_random=k1_rand_ms,
                              bound_ms_1M_random=k1_rand_bound.ms,
                              main_path_peak_gib=peak_gib,
@@ -4626,12 +4670,18 @@ class plain_rounds:
         return False
 
 
+# The lanes of the plain version's timed run on the replicated scene in
+# phases 13 and 16 (K1-GD and K1-exact alone).
+REPLICATED_PLAIN = 262144
+
+
 def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
                   label):
     """K1 of ``solver`` under ``cfg`` alone on the replicated main path's
     inputs at MAIN_BATCH lanes: every lane must equal the path's lane 0
-    ``alpha0``; its plain version on the same inputs, whose lane 0 costs
-    must lie within 1% of the kernel's; its bound from K1's own counts and
+    ``alpha0``; its plain version on the first REPLICATED_PLAIN of the same
+    inputs (every lane holds the same scene), whose lane 0 costs must lie
+    within 1% of the kernel's; its bound from K1's own counts and
     the plain tally of the first TALLY_LANES lanes, scaled (every lane holds
     the same scene).  Returns (ms, plain_ms, bound)."""
     T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
@@ -4646,8 +4696,9 @@ def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
     rounds = float((k.outer_iters + k.fulfilled).sum())
     accepted = float(k.inner_iters.sum())
     del k
-    p, plain_ms = timed(lambda: fs.fused_solve_reference(*args,
-                                                         solver=solver))
+    p, plain_ms = timed(lambda: fs.fused_solve_reference(
+        *args[:4], *(x[..., :REPLICATED_PLAIN] for x in args[4:]),
+        solver=solver))
     pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
     gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
             for key in ("avg_cost", "max_cost")]
@@ -4661,7 +4712,8 @@ def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
                                rounds, accepted, solver),
         True, solver, cfg.ladder_eval)
     say(f"phase {phase} {label} alone {ms:.1f} ms, plain version "
-        f"{plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals lane 0; "
+        f"{plain_ms:.1f} ms at batch {REPLICATED_PLAIN}; every lane equals "
+        f"lane 0; "
         f"plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
         f"{float(pq['max_cost']):.5f} vs kernel {float(kq['avg_cost']):.5f}/"
         f"{float(kq['max_cost']):.5f} (gaps {gaps[0]:.2e}/{gaps[1]:.2e}, "
@@ -5092,7 +5144,682 @@ def kernel_entry(name, source, line, launches, max_abs_err, ms, plain_ms,
     }
 
 
+# Phase 24, arms of J >= 16 joints (the one library of csrc/wide/, J at run
+# time): the arms (J equal links of the reference arm's reach, 3.0), the
+# full-width main paths' scenes and their paired gates' lanes, the plain
+# tally's lanes, the kernel checks' lanes, the full schedule's lanes, the
+# T = 200 batch, the reach plan's T and batch, and the CLI's batch.
+WIDE_ARMS = (16, 32)
+WIDE_REACH = 3.0
+WIDE_MAIN = {16: 262144, 32: 65536}
+WIDE_CHECK = 4096
+WIDE_TALLY = 1024
+WIDE_LANES = 8192
+WIDE_FULL = 2048
+WIDE_LARGE = 4096
+WIDE_LARGE_CHECK = 1024
+WIDE_LARGE_SHORT = 512
+WIDE_REACH_T = 500
+WIDE_REACH_BATCH = 256
+WIDE_PATHS = 1024
+WIDE_CLI = 16384
+
+
+def start_wide_build(_build, after=None):
+    """Build the J >= 16 library (csrc/wide/, one nvcc per source, all
+    started together) in a thread from phase 1, once the thread ``after``
+    (phase 22's builds) is done; returns (thread, errors, start time).  Not
+    a daemon: the interpreter waits for it."""
+    import threading
+
+    errors = {}
+
+    def run():
+        if after is not None:
+            after.join()
+        try:
+            _build.build(WIDE_ARMS[0])
+        except Exception as e:  # noqa: BLE001 -- reported in phase 24
+            errors["wide"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, errors, time.perf_counter()
+
+
+def wide_arm(cfg, J):
+    return cfg.replace(n_joints=J, link_length=(WIDE_REACH / J,) * J)
+
+
+def wide_ptxas(log):
+    """{kernel: {registers, spill_stores, ...}} of the wide library, K1/K2
+    as wide_solve<program,body> / wide_round<program,body> (body resident,
+    streamed or reach), K3 wide_bls_step<program,body>, K4/K5
+    <body>, K6 wide_forward_eval<vec>, K7 wide_k7_forward."""
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(wide_\w+?)_kernel"
+                      r"(?:I((?:L[ib]\d+E)+)E)?", line)
+        if m:
+            name = m.group(1)
+            targs = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            if name in ("wide_solve", "wide_round", "wide_bls_step"):
+                targs[0] = fs.PROGRAMS[int(targs[0])]
+            if name != "wide_forward_eval" and targs:
+                targs[-1] = fs.PLANS[int(targs[-1])]
+            name += f"<{','.join(targs)}>" if targs else ""
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def wide_phase(mt, bench, fs, sk, roofline, fleet, dev, build):
+    """Phase 24: K1-K7 for arms of J = 16 and 32 joints (WIDE_ARMS, J equal
+    links of total length 3.0), from the library of csrc/wide/ built in
+    the background since phase 1.  (a) The build's seconds, every kernel's
+    registers and spills, the plans of K1-K6 against the C side at T = 50
+    and 200.  (b) The main path at full width, T = 50: fleet_solve on
+    ``fused`` over WIDE_MAIN random scenes, BLS and GD, one K1 launch and
+    with compaction (K2 per round) bit for bit it, the paired xla gate,
+    K1's time beside its bound; on the first WIDE_FULL scenes (J = 32:
+    half) K1 against plain at the full schedule (lane agreement >= 0.87;
+    its work tally, scaled, gives the bounds) and the per-step path
+    (``pallas``: K5, K3/K4, K6) bit for bit K1.  (c) Each kernel against
+    its plain version
+    at T = 50 (J = 16 on WIDE_LANES lanes, J = 32 on a quarter): K1 per
+    program at 1 round x 4 steps (lane agreement >= 0.99), its ragged batch,
+    lanes alone and other CTA shapes bit for bit; K2 one round per program
+    and tier; K5 within phase 8's bounds, K6 bit for bit K5, K3 (both
+    ladders) and K4 one step; each timed with its bound, K6 beside one
+    torch.einsum.  (e) T = 200, the streamed plan: K1-BLS and K1-GD on
+    WIDE_LARGE scenes with the gate and the converged fraction against
+    plain on the first scenes, against plain at a short schedule; K7 alone
+    bit for bit K6, beside one torch.matmul (TF32 off).  (f) ``fused`` and ``pallas`` at J = 16 and 32,
+    T = 50 and 200, launch the kernels with no fallback warning.  (g) The
+    reach plan (GD at T = WIDE_REACH_T) and the reach layouts forced at T =
+    200, bit for bit the streamed one.  (h) The CLI with --n-joints 16.
+    Every failure is collected and fails the run at the end.  Returns {kernel:
+    {J: entry}}."""
+    import warnings
+
+    from irm_motion_planning_tpu_torch import cli
+    from irm_motion_planning_tpu_torch.ops import _build
+
+    phase_clock(24)
+    O = 11
+    thread, errors, t_start = build
+    t0 = time.perf_counter()
+    thread.join()
+    if errors:
+        fail(f"phase 24: the J >= 16 kernel build failed: {errors}")
+    info = _build.builds.get("wide", {})
+    ptx = wide_ptxas(info.get("log", ""))
+    say(f"phase 24 the J >= 16 library: built in "
+        f"{info.get('seconds', 0.0):.1f} s in the background from phase 1 "
+        f"({t0 - t_start:.1f} s ago); waited {time.perf_counter() - t0:.1f} s")
+    for k, v in sorted(ptx.items()):
+        say(f"phase 24 ptxas {k}: {v}")
+    faults = []
+    out = {}
+
+    def check(ok, msg):
+        if not ok:
+            faults.append(msg)
+            say(f"phase 24 FAULT: {msg}")
+        return ok
+
+    def put(name, J, **kw):
+        out.setdefault(name, {}).setdefault(str(J), {}).update(kw)
+
+    # (a) The plans against the C side.
+    for J in WIDE_ARMS:
+        for T in (50, LARGE_T):
+            for prog in fs.PROGRAMS:
+                solver, ladder, tier = fs.program_call(prog)
+                c = wide_arm(bench.bench_config(ladder_eval=ladder,
+                                                n_timesteps=T), J)
+                plan = fs.launch_plan(c, O, prog=prog)
+                for name in ("fused_solve", "fused_round"):
+                    shape = fs.launch_shape(c, O, 4096, name, solver, **tier)
+                    check(shape["smem"] == plan["total"]
+                          and shape["warps_per_cta"] == plan["warps"],
+                          f"J={J} T={T} {name} {prog}: plan {plan['total']} "
+                          f"B, C side {shape['smem']} B")
+                say(f"phase 24 J={J} T={T} {prog}: {plan['plan']} plan, "
+                    f"{plan['lanes']} lanes per CTA, {plan['total']} B "
+                    f"{plan['bytes']}, {shape['ctas_per_sm']} CTAs per SM")
+            c = wide_arm(mt.PlannerConfig(n_timesteps=T), J)
+            for kernel, lp in (("bls_step", sk.bls_step_plan(c, O)),
+                               ("gd_step", sk.gd_step_plan(c, O)),
+                               ("cost_grad_eval",
+                                sk.cost_grad_eval_plan(c, O))):
+                shape = sk._step_shape(kernel, lp, c, O, 4096)
+                check(shape["smem"] == lp["total"],
+                      f"J={J} T={T} {kernel}: plan {lp['total']} B, C side "
+                      f"{shape['smem']} B")
+            k6 = sk.forward_plan(c)
+            k6c = sk.forward_eval_shape(J)
+            check(k6c["smem"] == k6["total"] and k6c["lanes"] == k6["lanes"],
+                  f"J={J} K6 tile {k6['total']} B, C side {k6c}")
+    say(f"phase 24 the plans of K1-K6 at J={WIDE_ARMS} against the C side: "
+        f"{'ok' if not faults else faults}")
+
+    # (b) The main path at full width, T = 50.
+    for J in WIDE_ARMS:
+        cfgJ = wide_arm(bench.bench_config(), J)
+        basis = mt.make_basis(cfgJ, device=dev)
+        n = WIDE_MAIN[J]
+        scns = mt.random_scenarios(cfgJ, torch.Generator().manual_seed(0), n,
+                                   device=dev)
+        for solver in ("bls", "gd"):
+            c = wide_arm(bench.bench_config(solver=solver), J)
+            rounds = len(fs.inner_schedule(c))
+            fs.fused_solve.launches = fs.fused_round.launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with KernelTimer(fs, "fused_solve") as timer:
+                    res, ms = timed(lambda: fleet.fleet_solve(
+                        c, basis, scns, solver=solver, backend="fused"))
+            k1_n, k1_ms = fs.fused_solve.launches, timer.total_ms()
+            check(k1_n == 1 and not caught, f"J={J} {solver} main path: "
+                  f"{k1_n} K1 launches, warnings {[str(w.message) for w in caught]}")
+            gate = bench.paired_gate(c, basis, scns, res, WIDE_CHECK,
+                                     solver)
+            b = gate["bands"]
+            fs.fused_round.launches = 0
+            with KernelTimer(fs, "fused_round") as t2:
+                res2, ms2 = timed(lambda: fleet.fleet_solve(
+                    c.replace(lane_compaction=True), basis, scns,
+                    solver=solver, backend="fused"))
+            k2_n, k2_ms = fs.fused_round.launches, t2.total_ms()
+            same = same_result(res, res2)
+            del res2
+            # The full schedule on the first nf of the scenes: K1 against
+            # plain (whose work tally, scaled, gives the bounds), and the
+            # per-step path bit for bit K1.
+            nf = WIDE_FULL // (1 if J == 16 else 2)
+            fargs = fleet.fused_args(c, basis, mt.Scenario(
+                *(x[:nf] for x in scns)))
+            k = fs.fused_solve(*fargs, solver=solver)
+            sub = {}
+            p = fs.fused_solve_reference(*fargs, solver=solver, tally=sub)
+            agree, _ = fs.lane_agreement(p, k)
+            counts = ("bls_inner_step", "gd_inner_step", "cost_grad_eval",
+                      "forward_eval")
+            for n_ in counts:
+                getattr(sk, n_).launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                per_step = fleet.fleet_solve(c, basis, mt.Scenario(
+                    *(x[:nf] for x in scns)), solver=solver,
+                    backend="pallas")
+            ran_k = {n_: getattr(sk, n_).launches for n_ in counts}
+            same_k = same_result(per_step, fleet.kernel_result(k))
+            say(f"phase 24 J={J} {solver} full schedule (the first {nf} "
+                f"scenes): K1 against plain lane agreement {agree:.4f} (bound"
+                f" >= {fs.CARD_FULL_AGREEMENT_MIN}); the per-step path "
+                f"(launches {ran_k}) bit for bit K1: {same_k}")
+            want = {"cost_grad_eval": 1, "forward_eval": solver == "bls",
+                    "bls_inner_step": solver == "bls",
+                    "gd_inner_step": solver == "gd"}
+            check(agree >= fs.CARD_FULL_AGREEMENT_MIN and same_k
+                  and not caught and all(bool(ran_k[n_]) == bool(w_)
+                                         for n_, w_ in want.items()),
+                  f"J={J} {solver} full schedule or per-step path")
+            for n_ in ran_k:
+                if ran_k[n_]:
+                    put(n_, J, **{f"launches_{solver}_path": ran_k[n_]})
+            del fargs, k, p, per_step
+            scale = n / nf
+            ran = res.stats.outer_iters + res.stats.converged.int()
+            tally = roofline.kernel_counts(
+                {k: v * scale for k, v in sub.items()}, float(ran.sum()),
+                float(res.stats.inner_iters.sum()), solver)
+            b1 = roofline.fused_rounds(n, 50, J, O, tally, True, solver)
+            live = [float((ran > r).sum()) for r in range(rounds)]
+            b2 = roofline.fused_round_launches(n, 50, J, O, tally, live,
+                                               solver)
+            say(f"phase 24 J={J} main path ({solver}, {n} random scenes, "
+                f"fleet_solve fused): {n / ms * 1e3:.1f} solves/s ({ms:.1f} "
+                f"ms), {k1_n} K1 launch {k1_ms:.1f} ms (bound {b1.ms:.2f} ms "
+                f"by {b1.by}, {k1_ms / b1.ms:.2f}x); converged "
+                f"{float(res.stats.converged.float().mean()):.4f}; paired xla "
+                f"gate on {WIDE_CHECK} lanes: converged "
+                f"{b['check_converged_frac']:.4f} vs "
+                f"{b['xla_converged_frac']:.4f} (band {b['converged']:.4f}), "
+                f"obstacle cost {b['check_obstacle_cost']:.5f} vs "
+                f"{b['xla_obstacle_cost']:.5f} (band {b['cost']:.5f}), "
+                f"phantom {gate['fields']['phantom_frac']} (bound "
+                f"{b['phantom']:.2e}): {'PASS' if gate['ok'] else 'FAIL'}; "
+                f"with compaction (as the bench runs it) {k2_n} K2 launches, "
+                f"{ms2:.1f} ms per solve ({k2_ms:.1f} ms in K2, bound "
+                f"{b2.ms:.2f}), bit for bit K1's: {same}")
+            check(gate["ok"], f"J={J} {solver} paired xla gate")
+            check(k2_n == rounds and same,
+                  f"J={J} {solver} rounds driver: {k2_n} K2 launches, same {same}")
+            check(bool(torch.isfinite(res.alpha).all()),
+                  f"J={J} {solver} non-finite alpha")
+            k1 = "fused_solve" if solver == "bls" else "fused_solve_gd"
+            k2 = "fused_round" if solver == "bls" else "fused_round_gd"
+            put(k1, J, launches=k1_n, ms=k1_ms, bound_ms=b1.ms,
+                bound_by=b1.by, lanes=n, solves_per_sec=n / ms * 1e3,
+                gate_ok=gate["ok"], lane_agreement_full=agree,
+                converged=float(res.stats.converged.float().mean()))
+            put(k2, J, launches=k2_n, ms_per_solve=k2_ms, bound_ms=b2.ms,
+                bound_by=b2.by, lanes=n)
+            del res
+            torch.cuda.empty_cache()
+        del scns
+
+        # (c) Each kernel against its plain version, T = 50.
+        lanes_n = WIDE_LANES // (1 if J == 16 else 4)
+        short = wide_arm(mt.PlannerConfig(
+            max_outer_iteration=1, max_inner_iteration=4, fixed_iters=True,
+            max_obstacles=O), J)
+        scn = mt.random_scenarios(short, torch.Generator().manual_seed(1),
+                                  lanes_n, device=dev)
+        args = fleet.fused_args(short, basis, scn)
+        kbls = None
+        for prog in ("bls", "gd", "bls_exact"):
+            solver, ladder, _ = fs.program_call(prog)
+            a = (short.replace(ladder_eval=ladder), *args[1:])
+            k = fs.fused_solve(*a, solver=solver)
+            p, p_ms = timed(lambda: fs.fused_solve_reference(*a,
+                                                             solver=solver))
+            agree, rel = fs.lane_agreement(p, k)
+            say(f"phase 24 J={J} K1-{prog} against plain ({lanes_n} lanes, "
+                f"1x4 steps): lane agreement {agree:.4f}, alpha {rel:.3g} of "
+                f"the lane's scale; plain {p_ms:.1f} ms")
+            check(agree >= fs.CARD_SHORT_AGREEMENT_MIN
+                  and rel <= fs.ALPHA_REL_MAX,
+                  f"J={J} K1-{prog} disagrees with its plain version")
+            put({"bls": "fused_solve", "gd": "fused_solve_gd",
+                 "bls_exact": "fused_solve_exact"}[prog], J,
+                lane_agreement_short=agree, plain_ms_short=p_ms,
+                max_abs_err=float((k.alpha - p.alpha).abs().max()))
+            if prog == "bls":
+                kbls = k
+        cut = [x[..., :ODD_BATCH] for x in args[4:]]
+        check(all(torch.equal(x, y[..., :ODD_BATCH]) for x, y in zip(
+            fs.fused_solve(short, *args[1:4], *cut), kbls)),
+            f"J={J} K1 on {ODD_BATCH} lanes differs from the batch's")
+        for i in (i for i in JOINT_ALONE if i < lanes_n):
+            one = fs.fused_solve(short, *args[1:4],
+                                 *(x[..., i:i + 1] for x in args[4:]))
+            check(all(torch.equal(x, y[..., i:i + 1])
+                      for x, y in zip(one, kbls)),
+                  f"J={J} K1 on lane {i} alone differs from the batch")
+        for w_, ctas in ((2, 0), (0, 1)):
+            got = fs.fused_solve(short.replace(pallas_block_b=w_),
+                                 *args[1:4], *cut, ctas=ctas)
+            check(all(torch.equal(x, y[..., :ODD_BATCH])
+                      for x, y in zip(got, kbls)),
+                  f"J={J} K1 at {w_} lanes per CTA, {ctas} CTAs differs")
+        say(f"phase 24 J={J} K1 on {ODD_BATCH} lanes, on lanes {JOINT_ALONE} "
+            f"alone, at 2 lanes per CTA and on one CTA: bit for bit the "
+            f"{lanes_n}-lane run's lanes")
+        for prog in ("bls", "bls_ultra", "bls_bf16", "gd", "bls_exact"):
+            solver, ladder, tier = fs.program_call(prog)
+            rargs = round_args((short.replace(ladder_eval=ladder), *args[1:]),
+                               4, 0, solver)
+            k2 = fs.fused_round(*rargs, solver=solver, **tier)
+            p2 = fs.fused_round_reference(*rargs, solver=solver, **tier)
+            agree, rel, _ = round_agreement(p2, k2, rargs[7])
+            say(f"phase 24 J={J} K2-{prog} one round against plain "
+                f"({lanes_n} lanes, n_r 4, a quarter fulfilled): lane "
+                f"agreement {agree:.4f}, alpha {rel:.3g}")
+            check(agree >= fs.CARD_SHORT_AGREEMENT_MIN
+                  and rel <= fs.ALPHA_REL_MAX,
+                  f"J={J} K2-{prog} disagrees with its plain version")
+            put("fused_round" if solver == "bls" else "fused_round_gd", J,
+                **{f"lane_agreement_{prog}": agree})
+        _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+        lanes = (lsg, ljl, start, goal, ox, oy, ow)
+        ev = sk.cost_grad_eval(short, kv, kvt, mix, a0, *lanes)
+        evp, k5_plain = timed(lambda: sk.cost_grad_eval_reference(
+            short, kv, kvt, mix, a0, *lanes))
+        err5 = eval_errors(ev, evp)
+        k5_ms = best_ms(lambda: sk.cost_grad_eval(short, kv, kvt, mix, a0,
+                                                  *lanes))
+        b5 = roofline.cost_grad_eval(lanes_n, 50, J, O)
+        f6 = sk.forward_eval(short, kv, mix, a0)
+        k6_same = torch.equal(f6.traj, ev.traj) and torch.equal(f6.vel, ev.vel)
+        k6_ragged = all(
+            all(torch.equal(x, y[..., :m]) for x, y in zip(sk.forward_eval(
+                short, kv, mix, a0[..., :m].contiguous()), f6))
+            for m in (RAGGED_BATCH, ODD_BATCH))
+        k6_ms = best_ms(lambda: sk.forward_eval(short, kv, mix, a0))
+        f6p, k6_plain = timed(lambda: sk.forward_eval_reference(
+            short, kv, mix, a0))
+        err6 = planes_error((f6.traj, f6.vel), (f6p.traj, f6p.vel))
+        del f6p
+        k6_lib = best_ms(lambda: torch.einsum("st,jtb,ji->isb", kv, a0, mix))
+        b6 = roofline.forward_eval(lanes_n, 50, J)
+        say(f"phase 24 J={J} K5 against plain ({lanes_n} lanes): {err5}, "
+            f"{k5_ms:.3f} ms (bound {b5.ms:.3f} by {b5.by}), plain "
+            f"{k5_plain:.1f} ms; K6 bit for bit K5's traj/vel {k6_same}, on "
+            f"{RAGGED_BATCH} and {ODD_BATCH} lanes the batch's {k6_ragged}, "
+            f"against plain {err6:.3g} abs (bound {EVAL_BOUNDS['planes']}), "
+            f"{k6_ms:.3f} ms (bound {b6.ms:.3f} by {b6.by}), plain "
+            f"{k6_plain:.1f} ms, one torch.einsum {k6_lib:.3f} ms")
+        check(eval_ok(err5) and k6_same and k6_ragged
+              and err6 <= EVAL_BOUNDS["planes"],
+              f"J={J} K5/K6 differ from their plain versions or each other")
+        put("cost_grad_eval", J, ms=k5_ms, bound_ms=b5.ms, bound_by=b5.by,
+            plain_ms=k5_plain, max_abs_err=err5["abs"], lanes=lanes_n)
+        put("forward_eval", J, ms=k6_ms, bound_ms=b6.ms, bound_by=b6.by,
+            plain_ms=k6_plain, max_abs_err=err6, lanes=lanes_n,
+            library_ms=k6_lib)
+        ful = round_args(args, 4, 0)[7]
+        for name, key, ladder in (("bls", "bls_inner_step", "linearized"),
+                                  ("bls", "bls_inner_step", "exact"),
+                                  ("gd", "gd_inner_step", "linearized")):
+            fn, ref = step_fns(sk, name)
+            sc = short.replace(ladder_eval=ladder)
+            lr = torch.full_like(lsg, fs.round_lr(sc, 0, name))
+            state0 = sk.PallasStep(a0, ev.grad, ev.traj, ev.vel, ev.loss, lr,
+                                   ful)
+            ms, plain_ms, tally, agree, err = full_width_step(
+                fn, ref, sc, (kv, kvt, mix), state0, lanes)
+            bound = (roofline.bls_inner_step(lanes_n, 50, J, O, tally,
+                                             ladder)
+                     if name == "bls" else
+                     roofline.gd_inner_step(lanes_n, 50, J, O, tally))
+            tag = key + ("_exact" if ladder == "exact" else "")
+            say(f"phase 24 J={J} {tag} one step ({lanes_n} lanes, a quarter "
+                f"frozen): {step_summary(agree, err)}; {ms:.3f} ms (bound "
+                f"{bound.ms:.3f} by {bound.by}), plain {plain_ms:.1f} ms")
+            check(step_ok(agree, err), f"J={J} {tag} disagrees with plain")
+            put(key, J, **({"exact": {"ms": ms, "lane_agreement": agree}}
+                           if ladder == "exact" else dict(
+                ms=ms, bound_ms=bound.ms, bound_by=bound.by,
+                plain_ms=plain_ms, max_abs_err=err["abs"] if err else None,
+                lane_agreement=agree, lanes=lanes_n)))
+        del args, ev, evp, f6, scn, kbls
+        torch.cuda.empty_cache()
+
+        del basis
+        torch.cuda.empty_cache()
+
+    # (e) T = 200, the streamed plan (K7).
+    T = LARGE_T
+    for J in WIDE_ARMS:
+        c200 = wide_arm(bench.bench_config(n_timesteps=T), J)
+        basis200 = mt.make_basis(c200, device=dev)
+        nl = WIDE_LARGE
+        scn = mt.random_scenarios(c200, torch.Generator().manual_seed(0), nl,
+                                  device=dev)
+        # Not the exact ladder's full schedule: its plain tally and xla gate
+        # at T = 200 took 48 s at J = 16 and 99 s at J = 32 (the phase has
+        # 300 s); its K1 is held to plain at 1x4 steps below.
+        for prog in ("bls", "gd"):
+            solver, ladder, _ = fs.program_call(prog)
+            c = wide_arm(bench.bench_config(solver=solver, ladder_eval=ladder,
+                                            n_timesteps=T), J)
+            fs.fused_solve.launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with KernelTimer(fs, "fused_solve") as timer:
+                    res = fleet.fleet_solve(c, basis200, scn, solver=solver,
+                                            backend="fused")
+            n1, ms = fs.fused_solve.launches, timer.total_ms()
+            gate = bench.paired_gate(c, basis200, scn, res,
+                                     WIDE_LARGE_CHECK, solver)
+            lp = fs.launch_plan(c, O, prog=prog)
+            # The plain version on the first nt scenes: its converged
+            # fraction against K1's there (phase 21's band), its work tally
+            # (scaled) for the bound.
+            nt = WIDE_TALLY // 4
+            sub = {}
+            p = fs.fused_solve_reference(*fleet.fused_args(
+                c, basis200, mt.Scenario(*(x[:nt] for x in scn))),
+                solver=solver, tally=sub)
+            k_conv = float(res.stats.converged[:nt].float().mean())
+            p_conv = float(p.fulfilled.mean())
+            band = max(0.02, min(0.15 * max(k_conv, p_conv), 0.05))
+            del p
+            scale = nl / nt
+            ran = res.stats.outer_iters + res.stats.converged.int()
+            bound = roofline.fused_rounds(
+                nl, T, J, O, roofline.kernel_counts(
+                    {k: v * scale for k, v in sub.items()}, float(ran.sum()),
+                    float(res.stats.inner_iters.sum()), solver), True, solver,
+                ladder, streamed=True, lanes_per_cta=lp["lanes"])
+            b = gate["bands"]
+            both_none = (b["check_converged_frac"] == 0.0
+                         and b["xla_converged_frac"] == 0.0)
+            say(f"phase 24 J={J} T={T} K1-{prog} ({nl} random scenes, "
+                f"{lp['plan']} plan, {lp['lanes']} lanes per CTA): {n1} "
+                f"launch, {ms:.1f} ms (bound {bound.ms:.1f} by {bound.by}); "
+                f"converged {k_conv:.4f} vs plain {p_conv:.4f} (band "
+                f"{band:.4f}) on the first {nt}; "
+                f"paired xla gate on {WIDE_LARGE_CHECK} lanes: "
+                f"converged {b['check_converged_frac']:.4f} vs "
+                f"{b['xla_converged_frac']:.4f} (band {b['converged']:.4f}"
+                f"{', both engines converge nothing: the cost and phantom bands bite' if both_none else ''}), "
+                f"cost {b['check_obstacle_cost']:.5f} vs "
+                f"{b['xla_obstacle_cost']:.5f} (band {b['cost']:.5f}), "
+                f"phantom {gate['fields']['phantom_frac']}: "
+                f"{'PASS' if gate['ok'] else 'FAIL'}")
+            check(n1 == 1 and not caught and gate["ok"]
+                  and abs(k_conv - p_conv) <= band
+                  and bool(torch.isfinite(res.alpha).all()),
+                  f"J={J} T={T} K1-{prog}: {n1} launches, gate {gate['ok']}, "
+                  f"converged {k_conv} against plain {p_conv}")
+            put({"bls": "fused_solve", "gd": "fused_solve_gd",
+                 "bls_exact": "fused_solve_exact"}[prog], J,
+                **{f"T{T}": {"launches": n1, "ms": ms, "bound_ms": bound.ms,
+                             "bound_by": bound.by, "lanes": nl,
+                             "gate_ok": gate["ok"],
+                             "both_converge_nothing": both_none}})
+            if prog == "bls":
+                k7_launches = n1
+            del res
+        # K1 against plain at T = 200, short schedule.
+        sh = wide_arm(mt.PlannerConfig(
+            n_timesteps=T, max_outer_iteration=1, max_inner_iteration=4,
+            fixed_iters=True, max_obstacles=O), J)
+        sargs = fleet.fused_args(sh, basis200, mt.Scenario(
+            *(x[:WIDE_LARGE_SHORT] for x in scn)))
+        for prog in ("bls", "gd", "bls_exact", "bls_ultra", "bls_bf16"):
+            solver, ladder, tier = fs.program_call(prog)
+            a = (sh.replace(ladder_eval=ladder), *sargs[1:])
+            k = fs.fused_solve(*a, solver=solver, **tier)
+            p = fs.fused_solve_reference(*a, solver=solver, **tier)
+            agree, rel = fs.lane_agreement(p, k)
+            say(f"phase 24 J={J} T={T} K1-{prog} against plain "
+                f"({WIDE_LARGE_SHORT} lanes, 1x4 steps, "
+                f"{fs.launch_plan(a[0], O, prog=prog)['plan']} plan): lane "
+                f"agreement {agree:.4f}, alpha {rel:.3g}")
+            check(agree >= fs.CARD_SHORT_AGREEMENT_MIN
+                  and rel <= fs.ALPHA_REL_MAX,
+                  f"J={J} T={T} K1-{prog} disagrees with its plain version")
+        # K7 alone: one forward product, bit for bit K6.
+        _, kv, kvt, mix, a0, *_ = fleet.fused_args(c200, basis200, scn)
+        fs.k7_forward.launches = 0
+        t7 = fs.k7_forward(c200, kv, kvt, mix, a0)
+        f6 = sk.forward_eval(c200, kv, mix, a0)
+        k7_same = torch.equal(t7[0], f6.traj) and torch.equal(t7[1], f6.vel)
+        k7_ms = best_ms(lambda: fs.k7_forward(c200, kv, kvt, mix, a0))
+        p7, k7_plain = timed(lambda: fs.forward_planes(kv, mix, a0))
+        err7 = planes_error(t7, p7)
+        del p7
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        flat = a0.permute(1, 0, 2).reshape(T, J * nl)
+        k7_mm = best_ms(lambda: torch.matmul(kv, flat))
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        b7 = roofline.forward_eval(nl, T, J)
+        k6_ms = best_ms(lambda: sk.forward_eval(c200, kv, mix, a0))
+        say(f"phase 24 J={J} K7 alone at T={T} ({nl} lanes, "
+            f"{fs.launch_plan(c200, O)['lanes']} lanes per CTA, "
+            f"{fs.launch_plan(c200, O)['ring'].get('joint_blocks')} joint "
+            f"blocks): {k7_ms:.3f} ms per forward product, bit for bit K6 "
+            f"{k7_same}, against plain {err7:.3g} abs (bound "
+            f"{EVAL_BOUNDS['planes']}); K6 {k6_ms:.3f} ms; one torch.matmul "
+            f"(TF32 off) {k7_mm:.3f} ms; plain {k7_plain:.1f} ms; bound "
+            f"{b7.ms:.3f} ms by {b7.by}")
+        check(k7_same and err7 <= EVAL_BOUNDS["planes"],
+              f"J={J} K7 differs from K6 or from its plain version")
+        put("k7", J, launches=k7_launches, ms=k7_ms, bound_ms=b7.ms,
+            bound_by=b7.by, plain_ms=k7_plain, library_ms=k7_mm,
+            max_abs_err=err7, lanes=nl)
+        put("forward_eval", J, T200={"ms": k6_ms, "lanes": nl})
+        del scn, sargs, a0, flat, t7, f6, basis200
+        torch.cuda.empty_cache()
+
+    # (f) fused and pallas launch the kernels at J = 16 and 32, T = 50 and
+    # 200, with no fallback, the per-step path bit for bit K1.
+    for J in WIDE_ARMS:
+        for T in (50, LARGE_T):
+            for solver in ("bls", "gd"):
+                c = wide_arm(bench.bench_config(solver=solver, n_timesteps=T),
+                             J).replace(max_outer_iteration=2,
+                                        inner_schedule=(4, 4))
+                basis = mt.make_basis(c, device=dev)
+                scn = mt.random_scenarios(c, torch.Generator().manual_seed(3),
+                                          WIDE_PATHS, device=dev)
+                counts = ("bls_inner_step", "gd_inner_step",
+                          "cost_grad_eval", "forward_eval")
+                for n_ in counts:
+                    getattr(sk, n_).launches = 0
+                fs.fused_solve.launches = 0
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    r1 = fleet.fleet_solve(c, basis, scn, solver=solver,
+                                           backend="fused")
+                    r2 = fleet.fleet_solve(c, basis, scn, solver=solver,
+                                           backend="pallas")
+                ran = {n_: getattr(sk, n_).launches for n_ in counts}
+                ok = (fs.fused_solve.launches == 1 and not caught
+                      and ran["cost_grad_eval"] > 0 and same_result(r1, r2))
+                say(f"phase 24 J={J} T={T} {solver}: fused {fs.fused_solve.launches}"
+                    f" K1 launch, pallas launches {ran}, no fallback "
+                    f"{not caught}, bit for bit {same_result(r1, r2)}")
+                check(ok, f"J={J} T={T} {solver} fused/pallas paths")
+                del basis, scn, r1, r2
+
+    # (g) The reach plan: GD at T = WIDE_REACH_T (J = 16) against plain;
+    # the reach layouts forced at T = 200, bit for bit the streamed one.
+    J = WIDE_ARMS[0]
+    cr = wide_arm(mt.PlannerConfig(
+        n_timesteps=WIDE_REACH_T, max_outer_iteration=1,
+        max_inner_iteration=4, fixed_iters=True, max_obstacles=O), J)
+    basis = mt.make_basis(cr, device=dev)
+    scn = mt.random_scenarios(cr, torch.Generator().manual_seed(4),
+                              WIDE_REACH_BATCH, device=dev)
+    rargs = fleet.fused_args(cr, basis, scn)
+    lp = fs.kernel_plan(cr, O, "gd")
+    k, k_ms = timed(lambda: fs.fused_solve(*rargs, solver="gd"))
+    p = fs.fused_solve_reference(*rargs, solver="gd")
+    agree, rel = fs.lane_agreement(p, k)
+    say(f"phase 24 J={J} T={WIDE_REACH_T} K1-gd ({lp and lp['plan']} plan, "
+        f"{WIDE_REACH_BATCH} lanes, 1x4 steps): lane agreement "
+        f"{agree:.4f}, alpha {rel:.3g}; {k_ms:.1f} ms")
+    check(lp is not None and lp["plan"] == "reach"
+          and agree >= fs.CARD_SHORT_AGREEMENT_MIN
+          and rel <= fs.ALPHA_REL_MAX, f"J={J} reach plan GD")
+    put("fused_solve_gd", J, reach={"T": WIDE_REACH_T, "ms": k_ms,
+                                     "lane_agreement": agree})
+    del basis, scn, rargs, k, p
+    c2 = wide_arm(mt.PlannerConfig(
+        n_timesteps=LARGE_T, max_outer_iteration=1, max_inner_iteration=4,
+        fixed_iters=True, max_obstacles=O), J)
+    basis = mt.make_basis(c2, device=dev)
+    scn = mt.random_scenarios(c2, torch.Generator().manual_seed(5),
+                              WIDE_REACH_BATCH, device=dev)
+    for prog in ("bls", "gd", "bls_exact", "bls_ultra"):
+        solver, ladder, tier = fs.program_call(prog)
+        a = fleet.fused_args(c2.replace(ladder_eval=ladder), basis, scn)
+        s1 = fs.fused_solve(*a, solver=solver, plan="streamed", **tier)
+        s2 = fs.fused_solve(*a, solver=solver, plan="reach", **tier)
+        same = all(torch.equal(x, y) for x, y in zip(s1, s2))
+        say(f"phase 24 J={J} T={LARGE_T} K1-{prog} in the reach layout bit "
+            f"for bit the streamed one: {same}")
+        check(same, f"J={J} K1-{prog} reach layout differs from streamed")
+    del basis, scn
+
+    # (h) The CLI with a 16-link arm.
+    fs.fused_solve.launches = 0
+    rc, text, err = run_cli(cli, [
+        "--n-joints", "16", "--link-length",
+        *[str(WIDE_REACH / 16)] * 16, "--batch", str(WIDE_CLI),
+        "--engine", "fleet", "--backend", "fused",
+        "--random-scenarios", "true"])
+    n_cli = fs.fused_solve.launches
+    summary = re.search(r"batch \d+: converged [^\n]*", text)
+    say(f"phase 24 CLI --n-joints 16 --batch {WIDE_CLI} --engine "
+        f"fleet --backend fused --random-scenarios true: exit {rc}, {n_cli} "
+        f"K1 launches; {summary.group(0) if summary else text[-300:]}")
+    check(rc == 0 and n_cli >= 1, f"the J=16 CLI (exit {rc}): {err[-1000:]}")
+
+    for name, prefixes in (
+            ("fused_solve", ("wide_solve<bls,", "wide_solve<bls_ultra,",
+                             "wide_solve<bls_bf16,")),
+            ("fused_solve_gd", ("wide_solve<gd,",)),
+            ("fused_solve_exact", ("wide_solve<bls_exact,",)),
+            ("fused_round", ("wide_round<bls", )),
+            ("fused_round_gd", ("wide_round<gd,",)),
+            ("bls_inner_step", ("wide_bls_step<",)),
+            ("gd_inner_step", ("wide_gd_step<",)),
+            ("cost_grad_eval", ("wide_cost_grad_eval<",)),
+            ("forward_eval", ("wide_forward_eval<",)),
+            ("k7", ("wide_k7_forward",))):
+        lines = {k: v for k, v in ptx.items() if k.startswith(prefixes)}
+        for J in WIDE_ARMS:
+            put(name, J, registers=max((v.get("registers", 0)
+                                        for v in lines.values()), default=None),
+                spill_stores=max((v.get("spill_stores", 0)
+                                  for v in lines.values()), default=None))
+    out["build"] = {"wide": {"seconds": info.get("seconds")}}
+    say(f"phase 24 {len(faults)} faults")
+    if faults:
+        fail(f"phase 24: {len(faults)} checks failed: {faults}")
+    return out
+
+
+def main_wide():
+    """``--wide``: phase 1's device line, the J >= 16 library and
+    phase 24 alone (a check of the wide kernels without the other
+    phases)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import irm_motion_planning_tpu_torch as mt
+    from irm_motion_planning_tpu_torch import bench
+    from irm_motion_planning_tpu_torch.ops import _build
+    from irm_motion_planning_tpu_torch.ops import fused_solve as fs
+    from irm_motion_planning_tpu_torch.ops import roofline
+    from irm_motion_planning_tpu_torch.ops import step_kernels as sk
+    from irm_motion_planning_tpu_torch.solvers import fleet
+
+    phase_clock(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    wide = wide_phase(mt, bench, fs, sk, roofline, fleet,
+                      torch.device("cuda", 0), start_wide_build(_build))
+    phase_clock(None)
+    print(json.dumps({"wide": wide}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["shard-worker"]:
         sys.exit(shard_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--wide"]:
+        sys.exit(main_wide())
     sys.exit(main())

@@ -172,6 +172,16 @@
 //                          loss and the stale gradient carry on (bls_step)
 // A build with any of them holds the resident linearized program alone
 // (fused_solve.cu, WB_ABLATED).
+// WB_CARRY_ONE_ROUNDING, a build for measurement (tools/fused_variants.py
+// --quality; ROADMAP queue 3 #1): the linearized carry program's accepted
+// alpha rounded once (new_alpha<true>), as every other program rounds it;
+// the default build rounds it twice (bls_step says why).
+#ifdef WB_CARRY_ONE_ROUNDING
+#define WB_CARRY_FUSED true
+#else
+#define WB_CARRY_FUSED false
+#endif
+
 #if defined(WB_ABLATE_LADDER1) || defined(WB_ABLATE_DIR_FORWARD) || \
     defined(WB_ABLATE_FK) || defined(WB_ABLATE_OBSFIELD) ||           \
     defined(WB_ABLATE_PULLBACK)
@@ -1987,7 +1997,7 @@ static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
   const float new_lr = found ? lr_best * p.beta_plus : lr * p.lr_fail;
   const bool stop = (base - loss_best) < p.loss_red;
 
-  accept_step<EXACT, !CARRY>(p, w, lr_eff, inv_norm);
+  accept_step<EXACT, !CARRY || WB_CARRY_FUSED>(p, w, lr_eff, inv_norm);
   if constexpr (EXACT) {
     if (!found) eval_alpha(w);
   }
@@ -2146,7 +2156,8 @@ static __device__ __forceinline__ bool ls_bls_step(const FsParams& p, SW& w,
   const float new_lr = found ? lr_best * p.beta_plus : lr * p.lr_fail;
   const bool stop = (base - loss_best) < p.loss_red;
 
-  if (live) accept_step<EXACT, !CARRY>(p, w, lr_eff, inv_norm);
+  if (live)
+    accept_step<EXACT, !CARRY || WB_CARRY_FUSED>(p, w, lr_eff, inv_norm);
   if constexpr (EXACT) eval_alpha(w, live && !found);
   float nloss = loss_best;
   const bool pull = live && !stop;

@@ -6,10 +6,13 @@ kernel tiers; ``step_kernels.cu``: the per-step kernels, K3, K4 and K5
 from ``warp_body.cuh``, K6 a tiled product), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface under ``build/`` at the repository
-root.  One library per joint count J: the kernels take J from ``-DNJ=<J>``
-(every layout and register block follows it; 1 <= J <=
-fused_solve.MAX_JOINTS), the library of a J is built at the first launch
-at that J, and the loaded libraries are kept by J.  J = 3, the reference
+root.  One library per joint count J below fused_solve.WIDE_J: the kernels
+take J from ``-DNJ=<J>`` (every layout and register block follows it), the
+library of a J is built at the first launch at that J, and the loaded
+libraries are kept by J.  Every J from WIDE_J up runs one library, built
+from ``csrc/wide/*.cu`` (J a run-time value of its parameter block,
+``fused_solve.params_type(J)``).
+J = 3, the reference
 arm, also instantiates the kernels specialised to the bench's T and
 obstacle slots; other J build only the generic instantiations.  A library
 is named by the hash of J, every source and header (``csrc/*.cuh``) and
@@ -56,7 +59,7 @@ NVCC_FLAGS = ARCH + [
 ]
 
 _lock = threading.Lock()
-# The loaded libraries, by J.
+# The loaded libraries, by J ("wide" for every J >= WIDE_J).
 _libs: dict = {}
 # What each build in this process did, by J (a variant build by J and its
 # -D flags): seconds, and nvcc's output (ptxas register and shared-memory
@@ -64,8 +67,23 @@ _libs: dict = {}
 builds: dict = {}
 
 
-def sources() -> list:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+WIDE = os.path.join(CSRC, "wide")
+
+
+def wide(J: int) -> bool:
+    """Whether J runs the one library of csrc/wide/ (J >= WIDE_J)."""
+    from .fused_solve import WIDE_J
+
+    return int(J) >= WIDE_J
+
+
+def sources(J: int = 3) -> list:
+    return sorted(glob.glob(os.path.join(WIDE if wide(J) else CSRC, "*.cu")))
+
+
+def _headers(J: int) -> list:
+    return sorted(glob.glob(os.path.join(WIDE if wide(J) else CSRC,
+                                         "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -79,31 +97,40 @@ def _nvcc() -> str:
 
 
 def _check_joints(J: int) -> int:
-    from .fused_solve import MAX_JOINTS
+    from .fused_solve import MAX_J
 
     J = int(J)
-    if not 1 <= J <= MAX_JOINTS:
+    if not 1 <= J <= MAX_J:
         raise NotImplementedError(
-            f"the CUDA kernels take 1 <= J <= {MAX_JOINTS} joints, not {J}")
+            f"the kernels' parameter block holds 1 <= J <= {MAX_J} joints, "
+            f"not {J}")
     return J
 
 
 def flags(J: int = 3) -> list:
-    """nvcc's flags for the library of J joints."""
-    return NVCC_FLAGS + [f"-DNJ={_check_joints(J)}"]
+    """nvcc's flags for the library of J joints (the wide library's take
+    no J)."""
+    J = _check_joints(J)
+    return NVCC_FLAGS + ([] if wide(J) else [f"-DNJ={J}"])
 
 
 def _digest(J: int, extra: tuple, srcs: list) -> str:
     digest = hashlib.sha256(" ".join(flags(J) + list(extra)).encode())
-    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for path in srcs + _headers(J):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return digest.hexdigest()[:16]
 
 
+def _key(J: int):
+    """The loaded library's key: J, or "wide" for every J >= WIDE_J."""
+    return "wide" if wide(J) else int(J)
+
+
 def library_path(J: int = 3) -> str:
+    name = "wide" if wide(J) else f"J{J}"
     return os.path.join(BUILD_DIR,
-                        f"kernels_J{J}_{_digest(J, (), sources())}.so")
+                        f"kernels_{name}_{_digest(J, (), sources(J))}.so")
 
 
 def _variant_sources() -> list:
@@ -163,9 +190,10 @@ def _compile(out: str, J: int, srcs: list, extra: tuple, key) -> str:
 
 def build(J: int = 3) -> str:
     """Compile the kernel library of J joints if it is not built yet;
-    return its path.  Prints the build's seconds (stderr); raises
-    RuntimeError when nvcc fails."""
-    return _compile(library_path(J), J, sources(), (), J)
+    return its path; its build is ``builds[J]``, or ``builds["wide"]`` for
+    J >= WIDE_J.  Prints the build's seconds (stderr); raises RuntimeError
+    when nvcc fails."""
+    return _compile(library_path(J), J, sources(J), (), _key(J))
 
 
 def build_variant(J: int, defines) -> str:
@@ -174,6 +202,9 @@ def build_variant(J: int, defines) -> str:
     flags of J's library plus one ``-D`` per define.  Returns its path;
     its build is ``builds[(J, tuple(defines))]``."""
     J = _check_joints(J)
+    if wide(J):
+        raise NotImplementedError("variant builds are the J <= 15 "
+                                  "libraries' (csrc/fused_solve.cu)")
     defines = tuple(defines)
     return _compile(variant_path(J, defines), J, _variant_sources(),
                     _defines(defines), (J, defines))
@@ -211,7 +242,7 @@ def bind(lib: ctypes.CDLL, names=None, J: int = 3) -> ctypes.CDLL:
     c_void_p.  ``J``: the library's joint count (its parameter block)."""
     from .fused_solve import params_type
 
-    _Params = params_type(J)
+    head = [params_type(J)]
 
     for name, n_int, n_ptr in (
         ("fused_solve_launch", 3, 16),
@@ -225,19 +256,21 @@ def bind(lib: ctypes.CDLL, names=None, J: int = 3) -> ctypes.CDLL:
         if names is None or name in names:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([_Params, ctypes.c_int] + [ctypes.c_int] * n_int
+            fn.argtypes = (head + [ctypes.c_int] + [ctypes.c_int] * n_int
                            + [ctypes.c_void_p] * n_ptr)
     lib.fused_launch_shape.restype = ctypes.c_int
-    lib.fused_launch_shape.argtypes = [_Params, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p]
+    lib.fused_launch_shape.argtypes = head + [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
     if names is None:  # the whole library: step_kernels.cu's shapes too
         lib.step_kernel_shape.restype = ctypes.c_int
-        lib.step_kernel_shape.argtypes = [_Params, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_void_p]
+        lib.step_kernel_shape.argtypes = head + [ctypes.c_int,
+                                                 ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p]
         lib.forward_eval_shape.restype = ctypes.c_int
-        lib.forward_eval_shape.argtypes = [ctypes.c_void_p]
+        # The wide library's K6 tile takes J (its scratch column).
+        lib.forward_eval_shape.argtypes = (
+            [ctypes.c_int] if wide(J) else []) + [ctypes.c_void_p]
     lib.fused_params_layout.restype = ctypes.c_int
     lib.fused_params_layout.argtypes = [ctypes.c_void_p]
     lib.fused_solve_error_string.restype = ctypes.c_char_p
@@ -275,12 +308,13 @@ def load_library(J: int = 3) -> ctypes.CDLL:
     signatures (``bind``) and its parameter layout checked
     (``check_layout``)."""
     J = _check_joints(J)
+    key = _key(J)
     with _lock:
-        if J not in _libs:
+        if key not in _libs:
             lib = bind(ctypes.CDLL(build(J)), J=J)
             check_layout(lib, J)
-            _libs[J] = lib
-    return _libs[J]
+            _libs[key] = lib
+    return _libs[key]
 
 
 def launch(name: str, params, block_b: int, args, device) -> None:
@@ -289,7 +323,9 @@ def launch(name: str, params, block_b: int, args, device) -> None:
     are, tensors as their data pointers) on the current stream of
     ``device``, from the library of the parameter block's J.  Raises when
     the launch is refused."""
-    lib = load_library(len(params.link))
+    from .fused_solve import params_joints
+
+    lib = load_library(params_joints(params))
     ptrs = [a if isinstance(a, ctypes.c_int) else ctypes.c_void_p(a.data_ptr())
             for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream

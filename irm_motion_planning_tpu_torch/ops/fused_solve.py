@@ -44,8 +44,9 @@ body for T <= 64, the streamed one beyond, whose CTA runs a tile of lanes
 in lockstep and streams the basis from device memory through K7 once per
 tile and product; a persistent grid over a lane queue) for CUDA tensors,
 from the kernel library of the arm's joint count J (ops/_build.py builds
-one per J at its first launch; :func:`params_type` mirrors its parameter
-block); they never fall back.  The plain versions run all
+one per J below WIDE_J and one for every J from WIDE_J up, csrc/wide/, at
+the first launch; :func:`params_type` mirrors the parameter block); they
+never fall back.  The plain versions run all
 lanes in lockstep with per-lane masks, so their per-lane results equal the
 kernels' per-lane early exits.  K7's plain version is the plain versions'
 own basis products (:func:`forward_planes` and the pull-back in
@@ -91,9 +92,14 @@ STREAM_MIN_T = 32
 PLANS = ("resident", "streamed", "reach")
 # The programs whose reach layout holds no direction planes.
 REACH_NODIR = ("gd", "bls_exact")
-# The joint counts J the kernels are built for (one library per J,
-# ops/_build.py; csrc/lane_body.cuh).
-MAX_JOINTS = 15
+# The joint counts J the kernels take.  Below WIDE_J each J has a library
+# of its own, J a compile-time constant (csrc/lane_body.cuh); from WIDE_J up
+# one library takes every J at run time (csrc/wide/), its parameter block
+# holding at most MAX_J links.  What bounds J is the launch plan's shared
+# memory (:func:`launch_plan`), as for T: mix alone (J^2 floats) outgrows a
+# CTA from J = 242, so MAX_J never binds a plan.
+WIDE_J = 16
+MAX_J = 256
 # Hopper's dynamic shared memory per block (opt-in).
 SMEM_PER_CTA_MAX = 232448
 
@@ -431,6 +437,25 @@ def pullback_product(kvt, planes):
     return torch.matmul(kvt, planes)
 
 
+def carry_rounds_once(J: int) -> bool:
+    """Whether the linearized ladder's carry program (:func:`bls_step`,
+    neither ultra nor exact) rounds its accepted alpha ``a_fac alpha -
+    lr_eff n_grad`` once (:func:`fma`), as JAX's kernel does, at J joints;
+    otherwise it rounds it twice (:func:`two_roundings`).  The plain
+    version rounds as the kernel of its J does.  The kernels below J =
+    WIDE_J (csrc/warp_body.cuh, ``new_alpha<false>``) keep the rounding
+    they shipped with: once, bench.py's reference scene (J = 3) moves past
+    its strict endpoint gate (PERF.md section 7).  The kernels from WIDE_J
+    up (csrc/wide/) came without one to keep and round once.  On the bench
+    schedule at T = 50, 256 random scenes of seed 0 (tools/
+    compare_converged.py --port-only --n-joints J --two-roundings
+    --one-rounding), K1-BLS's plain version converged, twice / once /
+    xla: J = 7 0.2461 / 0.3281 / 0.2852, J = 15 0.0352 / 0.1797 / 0.1875,
+    J = 16 0.0195 / 0.1914 / 0.1719.  So twice is wrong at J = 15 as at 16:
+    ROADMAP queue 3 #1 (fact 5) lists it as open."""
+    return J >= WIDE_J
+
+
 def two_roundings(a, b, c):
     """``a b + c`` in float32 with the product rounded first, then the sum:
     the linearized carry program's accepted alpha (:func:`bls_step`)."""
@@ -576,9 +601,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     the ultra tiers each step start evaluates it exactly, so a second
     rounding parts that evaluation from the linearized iterate whose loss is
     the next Armijo baseline, and stops lanes).  The linearized ladder's
-    carry program rounds it twice (:func:`two_roundings`): once, it moves
-    bench.py's reference scene past its strict endpoint gate (PERF.md
-    section 7).  Exact: each rung's candidate alpha ``(1 - lambda_reg
+    carry program rounds it once where :func:`carry_rounds_once` says so,
+    twice (:func:`two_roundings`) elsewhere.  Exact: each rung's candidate alpha ``(1 - lambda_reg
     lr_r) alpha - lr_r n_grad``, rounded once, goes through the basis; the
     accepted iterate is evaluated exactly (also when the stop test fires)
     and, unless it fires, its loss and gradient are recomputed there; no FK
@@ -665,7 +689,8 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     stop = (loss - loss_best) < cfg.loop_loss_reduction
     count_work(tally, "pullbacks", ~frozen & ~stop)
 
-    new_alpha = (fma if ultra or exact else two_roundings)(
+    once = ultra or exact or carry_rounds_once(alpha.shape[0])
+    new_alpha = (fma if once else two_roundings)(
         decay_factor(cfg.lambda_reg, lr_eff), alpha, -(lr_eff * n_grad))
     if exact:
         nt, nv = forward_planes(kv, mix, new_alpha)
@@ -903,6 +928,9 @@ K7_SOLO_ROWS = 2
 RING_CAP = 16384
 RING_MIN_BYTES = 48 * 1024
 CTL_FLOATS = 20
+# At J >= WIDE_J a product's register block (K7's, and the resident body's
+# rows) keeps the chains of K7_JOINTS joints a pass (csrc/wide/, WB_JB).
+K7_JOINTS = 8
 
 
 def _pad4(n: int) -> int:
@@ -929,10 +957,16 @@ def buffer_rows(J: int) -> int:
     return max(2 * J + 1, 2 * _pad4(J))
 
 
+def link_floats(J: int) -> int:
+    """The CTA's copy of the link lengths at J >= WIDE_J (csrc/wide/
+    reads them from shared memory), padded to 16 bytes; none below."""
+    return _pad4(J) if J >= WIDE_J else 0
+
+
 def cta_bytes(J: int) -> int:
-    """The streamed CTA's pieces besides the room: mix and the control
-    block (WB_CTA_FLOATS; 128 bytes at J = 3)."""
-    return 4 * (mix_floats(J) + CTL_FLOATS)
+    """The streamed CTA's pieces besides the room: mix, link (J >=
+    WIDE_J) and the control block (WB_CTA_FLOATS; 128 bytes at J = 3)."""
+    return 4 * (mix_floats(J) + link_floats(J) + CTL_FLOATS)
 
 
 def k7_rows(lanes: int, J: int = 3) -> int:
@@ -977,6 +1011,10 @@ def k7_geometry(T: int, lanes: int, room: int, J: int = 3) -> dict:
     passes (row blocks) and the timesteps per ring stage (room / (K7_STAGES
     row block)); the ring's bytes (the whole room)."""
     out = {"lane_blocks": -(-lanes // K7_LANES), "ring_bytes": 4 * room}
+    if J >= WIDE_J:
+        # The register block holds K7_JOINTS joints: the ring streams each
+        # row block once per block of joints.
+        out["joint_blocks"] = -(-J // K7_JOINTS)
     for name, rows in (("kv", 2 * T), ("kvt", T)):
         rb = k7_row_block(rows, lanes, J)
         out[name] = {"row_block": rb, "passes": -(-rows // rb),
@@ -992,7 +1030,13 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     ``"streamed"`` beyond, for the program ``prog`` of PROGRAMS.
 
     Every piece follows the joint count J = ``cfg.n_joints`` (the numbers
-    in brackets are J = 3's).  Resident: per CTA the basis pair transposed
+    in brackets are J = 3's); any J up to MAX_J has a plan where its pieces
+    fit.  From J = WIDE_J up (csrc/wide/, J at run time) the CTA also holds
+    ``link`` (J floats padded to 4), and the resident plan's warps hold the
+    traj/vel and gx/gy planes (``state``: 6 J T + 2 T padded to 4, less
+    the four planes) that the J <= 15 resident body keeps in registers;
+    the streamed and reach layouts are the J <= 15 ones, and ``bls_bf16``
+    holds its rounded planes as float32 there (its plans are ``bls``'s).  Resident: per CTA the basis pair transposed
     (2 x 2T x T) and mix (:func:`mix_floats`: J x J padded to 4 floats
     [12]); per warp (one per lane) the planes alpha, grad, dir_t, dir_v (J x
     T each), the buffer (:func:`buffer_rows` [8] rows of T padded to a
@@ -1040,15 +1084,17 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
     reach), "bf16": the half-width layout}.  Raises ValueError for a
     lanes-per-CTA value, plan or program the kernels cannot take (the
     reach plan of ``bls_bf16``), NotImplementedError when the plan does not
-    fit: a J the kernels are not built for (past MAX_JOINTS), the resident
-    one past WARP_MAX_T (the message names the streamed plan) or past the
-    shared memory of a CTA, the streamed and reach ones when a single lane
-    does not fit (the message names the largest piece)."""
+    fit: a J past the parameter block's MAX_J, the resident plan past
+    WARP_MAX_T (the message names the streamed plan), any plan when a
+    single lane does not fit in a CTA's shared memory (the message names
+    the largest piece)."""
     want = warps_per_cta(cfg)
     T, J = cfg.n_timesteps, cfg.n_joints
-    if not 1 <= J <= MAX_JOINTS:
+    if not 1 <= J <= MAX_J:
         raise NotImplementedError(
-            f"J={J}: the CUDA kernels take 1 <= J <= {MAX_JOINTS} joints")
+            f"J={J}: the kernels' parameter block holds 1 <= J <= {MAX_J} "
+            f"joints")
+    wide = J >= WIDE_J
     if plan not in PLANS + ("",):
         raise ValueError(f"launch plan {plan!r} is not one of {PLANS}")
     if prog not in PROGRAMS:
@@ -1078,13 +1124,18 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
                 f"shared memory; the streamed plan runs this T"
             )
         cta = {"basis": f * 4 * T * T, "mix": f * mix_floats(J)}
+        if wide:
+            cta["link"] = f * link_floats(J)
+            per_warp["state"] = f * (_pad4(6 * J * T + 2 * T) - 4 * J * T)
         one = sum(per_warp.values())
         lanes = min(want, (SMEM_PER_CTA_MAX - sum(cta.values())) // one)
         if lanes < 1:
+            big = max({**cta, **per_warp}.items(), key=lambda kv: kv[1])
             raise NotImplementedError(
                 f"T={T}, J={J}: the resident plan needs "
                 f"{sum(cta.values()) + one} bytes of shared memory per CTA "
-                f"for one lane, more than {SMEM_PER_CTA_MAX}"
+                f"for one lane, more than {SMEM_PER_CTA_MAX}; the largest "
+                f"piece is {big[0]} ({big[1]} bytes)"
             )
         pieces = {**cta, **{k: lanes * v for k, v in per_warp.items()}}
         return {"plan": plan, "lanes": lanes, "warps": lanes,
@@ -1094,7 +1145,7 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
         raise ValueError(
             f"T={T}: the streamed plan needs T >= {STREAM_MIN_T} (every "
             f"thread of a warp owns a timestep)")
-    half = prog == "bls_bf16"
+    half = prog == "bls_bf16" and not wide
     per_lane = dict(per_warp)
     if half:
         per_lane["planes"] = f * 2 * J * T
@@ -1111,8 +1162,9 @@ def launch_plan(cfg: PlannerConfig, O: int, plan: str = "",
 
     def layout(lanes):
         room = room_floats(T, lanes, one // f, J, room_planes)
-        pieces = {"mix": f * mix_floats(J), "control": f * CTL_FLOATS,
-                  "room": f * room,
+        pieces = {"mix": f * mix_floats(J),
+                  **({"link": f * link_floats(J)} if wide else {}),
+                  "control": f * CTL_FLOATS, "room": f * room,
                   **{k: lanes * v for k, v in per_lane.items()}}
         ring = k7_geometry(T, lanes, room, J)
         fits = (sum(pieces.values()) <= SMEM_PER_CTA_MAX
@@ -1166,6 +1218,17 @@ def kernel_plan(cfg: PlannerConfig, O: int, solver: str = "bls"):
         except NotImplementedError:
             pass
     return None
+
+
+def no_plan_reason(cfg: PlannerConfig, O: int, solver: str = "bls") -> str:
+    """Why :func:`kernel_plan` gives no plan: the NotImplementedError of
+    the float32 program's :func:`launch_plan`, which names the piece of
+    shared memory that does not fit; empty where a plan fits."""
+    try:
+        launch_plan(cfg, O, prog=program(cfg, solver))
+    except NotImplementedError as e:
+        return str(e)
+    return ""
 
 
 def launch_shape(cfg: PlannerConfig, O: int, B: int, kernel: str,
@@ -1304,26 +1367,37 @@ _PARAMS: dict = {}
 
 
 def params_type(J: int = 3):
-    """The ctypes mirror of ``struct FsParams`` in csrc/lane_body.cuh for
-    the library of J joints (passed by value), field for field in the same
-    order (``link`` holds J floats); ``_build.load_library`` refuses a
-    library whose struct size or last-field offset differ, and
-    tests/test_torch_fused_gd.py and tests/test_torch_joints.py hold the
+    """The ctypes mirror of the kernels' parameter block for the library of
+    J joints (passed by value), field for field in the same order: below
+    WIDE_J ``struct FsParams`` of csrc/lane_body.cuh (``link`` holds J
+    floats after ``sched``), from WIDE_J up ``struct WParams`` of
+    csrc/wide/wide_body.cuh (one type for every such J: ``J``, then ``link``
+    in MAX_J slots, last).  ``_build.load_library`` refuses a library whose
+    struct size or last-field offset differ, and tests/test_torch_fused_gd.py,
+    tests/test_torch_joints.py and tests/test_torch_many_joints.py hold the
     field lists equal.  Float fields hold the f32 roundings of the
     Python-float constants, as JAX's weak typing rounds them."""
-    if J not in _PARAMS:
-        _PARAMS[J] = type(f"_Params{J}", (ctypes.Structure,),
-                          {"_fields_": _params_fields(J)})
-    return _PARAMS[J]
+    key = "wide" if J >= WIDE_J else J
+    if key not in _PARAMS:
+        _PARAMS[key] = type(f"_Params{J if key == J else 'Wide'}",
+                            (ctypes.Structure,),
+                            {"_fields_": _params_fields(J)})
+    return _PARAMS[key]
+
+
+def params_joints(params) -> int:
+    """The J of a parameter block (:func:`kernel_params`)."""
+    return params.J if hasattr(params, "J") else len(params.link)
 
 
 def _params_fields(J: int) -> list:
-    return [
+    head = [
         ("T", ctypes.c_int), ("O", ctypes.c_int), ("B", ctypes.c_int),
         ("rounds", ctypes.c_int), ("n_bls", ctypes.c_int),
         ("masked", ctypes.c_int),
         ("sched", ctypes.c_int * MAX_ROUNDS),
-        ("link", ctypes.c_float * J),
+    ]
+    tail = [
         ("mean_jp", ctypes.c_float), ("inv_std_jp_h", ctypes.c_float),
         ("inv_vmax_h", ctypes.c_float), ("inv_T", ctypes.c_float),
         ("inv_std2_T", ctypes.c_float), ("inv_vmax2_T", ctypes.c_float),
@@ -1339,6 +1413,10 @@ def _params_fields(J: int) -> list:
         ("max_jv", ctypes.c_float),
         ("gd_lr", ctypes.c_float * MAX_ROUNDS),
     ]
+    if J >= WIDE_J:
+        return head + tail + [("J", ctypes.c_int),
+                              ("link", ctypes.c_float * MAX_J)]
+    return head + [("link", ctypes.c_float * J)] + tail
 
 
 # The reference arm's (J = 3) mirror.
@@ -1364,6 +1442,8 @@ def kernel_params(cfg: PlannerConfig, O: int, B: int,
         T=T, O=O, B=B, rounds=len(sched), n_bls=cfg.max_bls_iteration,
         masked=int(cfg.constraint_violating_dependant_loss),
     )
+    if cfg.n_joints >= WIDE_J:
+        p.J = cfg.n_joints
     for r, n_r in enumerate(sched):
         p.sched[r] = n_r
     for r in range(MAX_ROUNDS):

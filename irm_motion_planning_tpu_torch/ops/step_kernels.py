@@ -125,6 +125,10 @@ def cost_grad_eval_shape(cfg: PlannerConfig, O: int, B: int) -> dict:
 # or 2 lanes x J accumulators), timesteps per stage, threads; two stages.
 K6_ROWS, K6_LANES, K6_TK, K6_THREADS, K6_STAGES = 64, 64, 10, 256, 2
 K6_LANES_WIDE = 32
+# From J = fused_solve.WIDE_J up (csrc/wide/wide_steps.cu) a thread keeps
+# K6_JOINTS joints of chains a pass over t, and a scratch column of J floats
+# for the mix combine (dynamic shared memory).
+K6_JOINTS = 4
 
 
 def forward_plan(cfg: PlannerConfig) -> dict:
@@ -132,16 +136,22 @@ def forward_plan(cfg: PlannerConfig) -> dict:
     K6_LANES consecutive lanes (K6_LANES_WIDE past J = 4) and all J
     joints, staging K6_TK timesteps of the transposed basis and of alpha
     per stage, K6_STAGES stages (static shared memory, mirror of K6Tiles);
-    the grid is ``row_tiles`` x the lane tiles, row tiles fastest.  Returns
-    {"rows", "lanes", "tk", "threads", "stages", "row_tiles", "lda" (the
-    transposed basis' padded row count), "bytes": {piece: bytes},
+    the grid is ``row_tiles`` x the lane tiles, row tiles fastest.  From
+    J = WIDE_J up the stages hold K6_JOINTS joints of alpha (one pass over
+    t per block of them) and each thread a ``scratch`` column of J floats.
+    Returns {"rows", "lanes", "tk", "threads", "stages", "row_tiles", "lda"
+    (the transposed basis' padded row count), "bytes": {piece: bytes},
     "total"}."""
     T, J = cfg.n_timesteps, cfg.n_joints
     lanes = K6_LANES if J <= 4 else K6_LANES_WIDE
     row_tiles = -(-2 * T // K6_ROWS)
     f = 4
+    wide = J >= fs.WIDE_J
     pieces = {"basis": f * K6_STAGES * K6_TK * K6_ROWS,
-              "alpha": f * K6_STAGES * J * K6_TK * lanes}
+              "alpha": f * K6_STAGES * (K6_JOINTS if wide else J) * K6_TK
+              * lanes}
+    if wide:
+        pieces["scratch"] = f * J * K6_THREADS
     return {"rows": K6_ROWS, "lanes": lanes, "tk": K6_TK,
             "threads": K6_THREADS, "stages": K6_STAGES,
             "row_tiles": row_tiles, "lda": row_tiles * K6_ROWS,
@@ -153,10 +163,10 @@ def forward_eval_shape(J: int = 3) -> dict:
     (forward_eval_shape in csrc/step_kernels.cu): rows, lanes, timesteps
     per stage, threads, shared memory per CTA, and the CTAs that fit on one
     SM.  Needs the card."""
-    from ._build import load_library
+    from ._build import load_library, wide
 
     out = (ctypes.c_int * 6)()
-    err = load_library(J).forward_eval_shape(out)
+    err = load_library(J).forward_eval_shape(*([J] if wide(J) else []), out)
     if err:
         raise RuntimeError(f"forward_eval: shape refused (CUDA error {err})")
     return dict(zip(("rows", "lanes", "tk", "threads", "smem", "ctas_per_sm"),

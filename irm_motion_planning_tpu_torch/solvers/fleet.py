@@ -761,25 +761,22 @@ def fleet_solve(cfg: PlannerConfig, basis: Basis, scenarios: Scenario,
     # The plans' ceiling (one lane's state per CTA) does not depend on the
     # lanes per CTA; for the per-step kernels pallas_block_b is threads per
     # CTA, which K1's plan would read as warps.
-    plan = (fs.kernel_plan(cfg if backend == "fused"
-                           else cfg.replace(pallas_block_b=0),
-                           scenarios.obstacles.shape[-2], solver)
+    pcfg = cfg if backend == "fused" else cfg.replace(pallas_block_b=0)
+    O = scenarios.obstacles.shape[-2]
+    plan = (fs.kernel_plan(pcfg, O, solver)
             if backend in ("fused", "pallas") else None)
     if backend in ("fused", "pallas") and (plan is None or (
             backend == "pallas" and (plan["bf16"]
                                      or plan["plan"] == "reach"))):
-        # No launch plan fits (even the streamed basis leaves too little
-        # shared memory for one warp at this T and J, or J is past the
-        # kernels' builds), or the plan is the reach plan or the bf16
-        # tier's, which only K1/K2 have: the plain engine runs any size.
+        # No launch plan fits (one lane's state outgrows a CTA's shared
+        # memory at this T and J: the message names the largest piece), or
+        # the plan is the reach plan or the bf16 tier's, which only K1/K2
+        # have: the plain engine runs any size.
         import warnings
 
         B = scenarios.start.shape[0]
         J = cfg.n_joints
-        why = ((f"the kernels take 1 <= J <= {fs.MAX_JOINTS} joints"
-                if not 1 <= J <= fs.MAX_JOINTS else
-                f"shared memory over the {fs.SMEM_PER_CTA_MAX}-byte cap per "
-                f"CTA even with the streamed basis") if plan is None else
+        why = (fs.no_plan_reason(pcfg, O, solver) if plan is None else
                "the per-step kernels have no bf16 ladder tier; use "
                "backend='fused' for it" if plan["bf16"] else
                "the per-step kernels have no reach layout; use "

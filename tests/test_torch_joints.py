@@ -434,8 +434,9 @@ def test_params_mirror_matches_the_c_struct_at_each_j(J):
 def test_fleet_solve_falls_back_where_no_plan_fits():
     """Where no launch plan fits at (T, J) (the 7-link arm past T = 965 at
     11 obstacles, where one lane's streamed state outgrows a CTA's shared
-    memory; a J past the kernels' builds), fleet_solve(backend="fused" and
-    "pallas") warns and runs the xla engine, bit for bit its result."""
+    memory; a 128-link arm at T = 50, where one lane's resident state
+    does), fleet_solve(backend="fused" and "pallas") warns and runs the xla
+    engine, bit for bit its result."""
     cfg = mt.PlannerConfig(n_timesteps=1000, n_joints=7,
                            link_length=ARMS[7], max_inner_iteration=2,
                            max_outer_iteration=1, fixed_iters=True,
@@ -444,7 +445,8 @@ def test_fleet_solve_falls_back_where_no_plan_fits():
     assert tfs.kernel_plan(cfg, 11) is None
     with pytest.raises(NotImplementedError, match="J=7"):
         tfs.launch_plan(cfg, 11)
-    wide = cfg.replace(n_timesteps=30, n_joints=16, link_length=(0.2,) * 16)
+    wide = cfg.replace(n_timesteps=50, n_joints=128,
+                       link_length=(0.2,) * 128)
     assert tfs.kernel_plan(wide, 11) is None
     for c in (cfg, wide):
         basis = mt.make_basis(c, device="cpu")

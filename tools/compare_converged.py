@@ -6,7 +6,8 @@
         [--tiers [lean,ultra,bf16]] [--port-only] [--two-roundings] \\
         [--one-rounding] [--contract dir,cand,nt,alpha,mix,field,sums] \\
         [--replica none/all/all-recip/recip,sincos] \\
-        [--endpoint] [--xla-only] [--rounds R] [--float64]
+        [--endpoint] [--xla-only] [--rounds R] [--float64] \\
+        [--n-joints J]
 
 On the CPU, with the bench's schedule of ``--solver`` (BLS in the ladder
 tier ``--ladder-eval``, or GD; ``max_obstacles=11``) at T (a committed
@@ -50,6 +51,11 @@ bench's reference scene is solved instead (bench.run_bench on the CPU,
 batch 2, the main path's plain version), as shipped and under each
 ``--contract`` and ``--replica`` set, and its endpoint error and strict
 verdict printed.
+``--n-joints J`` (with ``--port-only``) gives the arm J equal links of
+the reference arm's reach, 3.0 (its basis built by make_basis): with
+``--two-roundings --one-rounding`` it measures the carry program's
+accepted alpha rounded twice and once at any J (at J < 16 the port
+ships two roundings, from 16 up one: fused_solve.carry_rounds_once).
 ``--xla-only`` runs the two xla engines alone (JAX's and the port's, as
 shipped: the accepted alpha rounded once); with it ``--rounds R`` cuts
 the schedule to its first R penalty rounds, ``--inner N`` replaces the
@@ -190,7 +196,10 @@ def main(argv=None) -> int:
     ap.add_argument("--float64", action="store_true")
     ap.add_argument("--inner", type=int, default=None)
     ap.add_argument("--max-obstacles", type=int, default=11)
+    ap.add_argument("--n-joints", type=int, default=3)
     a = ap.parse_args(argv)
+    if a.n_joints != 3 and not a.port_only:
+        ap.error("--n-joints goes with --port-only")
     if a.rounds and not (a.float64 or a.xla_only):
         ap.error("--rounds cuts the schedule of --xla-only or --float64 only")
     if (a.inner or a.max_obstacles != 11) and not (a.float64 or a.xla_only):
@@ -201,12 +210,15 @@ def main(argv=None) -> int:
         ap.error("the kernel tiers are programs of BLS")
     cfg = bench.bench_config(solver=a.solver, n_timesteps=a.T,
                              ladder_eval=a.ladder_eval)
+    if a.n_joints != 3:
+        cfg = cfg.replace(n_joints=a.n_joints,
+                          link_length=(3.0 / a.n_joints,) * a.n_joints)
     jcfg = mp.PlannerConfig(
         n_timesteps=a.T, bls_mode="ladder", fixed_iters=True,
         inner_schedule=cfg.inner_schedule,
         max_inner_iteration=cfg.max_inner_iteration, max_obstacles=11,
         ladder_eval=a.ladder_eval, recip_newton=True, pallas_block_b=a.chunk)
-    jb = mp.make_basis(jcfg)
+    jb = None if a.port_only else mp.make_basis(jcfg)
     tb = mt.make_basis(cfg, device="cpu")
     scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(a.seed),
                                a.scenes, device="cpu")
@@ -322,7 +334,8 @@ def main(argv=None) -> int:
     what = "gd" if a.solver == "gd" else a.ladder_eval
     agree = ["" if a.port_only else f"; JAX fused's flag {sm / a.scenes:.4f}"
              for sm in same]
-    print(f"T={a.T} {what}, {a.scenes} scenes of seed {a.seed}, "
+    print(f"T={a.T} J={a.n_joints} {what}, {a.scenes} scenes of seed "
+          f"{a.seed}, "
           f"converged (fraction; mean accepted steps; mean obstacle cost"
           f"{'' if a.port_only else '; the share of flags equal to JAX fused'}"
           f"): "

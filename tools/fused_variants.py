@@ -1,6 +1,7 @@
 """Time compile-time variants of the fused kernels K1/K2 on the card.
 
-    python tools/fused_variants.py [--T 50] [--batch N] NAME=FLAG[,FLAG...] ...
+    python tools/fused_variants.py [--T 50] [--batch N] [--quality] \
+        NAME=FLAG[,FLAG...] ...
 
 Builds ``irm_motion_planning_tpu_torch/csrc/fused_solve.cu`` for the reference
 arm (J = 3; the library ops/_build.py builds at that J) (with
@@ -16,11 +17,16 @@ whether its outputs equal the default build's bit for bit: at T=50 on
 default) random scenes, in the plan the launch plan gives that T.  Each
 variant runs in turn, the default build before and after.
 
+With ``--quality`` each run also prints what its results are worth: on the
+replicated reference scene bench.py's endpoint error (unrounded) and
+avg/max cost of lane 0, on random scenes the converged fraction.
+
 The flags the warp body reads: ``WB_MIN_CTAS=n`` (CTAs of 16 warps per SM
 that ``__launch_bounds__`` asks registers for; 2 by default),
-``WB_MAX_WARPS=n`` and ``WB_TREE_SUMS`` (a phase-ablated build: the sums
-over t by shuffle trees instead of the sequential chains; not bitwise).
-Needs a CUDA card.
+``WB_MAX_WARPS=n``, ``WB_TREE_SUMS`` (a phase-ablated build: the sums
+over t by shuffle trees instead of the sequential chains; not bitwise) and
+``WB_CARRY_ONE_ROUNDING`` (the linearized carry program's accepted alpha
+rounded once; not bitwise).  Needs a CUDA card.
 """
 
 import argparse
@@ -116,6 +122,9 @@ def main():
     ap.add_argument("--T", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0,
                     help="lanes (0: 1,048,576 at T=50, else 65,536)")
+    ap.add_argument("--quality", action="store_true",
+                    help="print each run's endpoint error (replicated) or "
+                         "converged fraction (random)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("fused_variants: no CUDA device", file=sys.stderr)
@@ -162,15 +171,26 @@ def main():
         inputs.insert(0, (f"{batch} replicated",
                           mt.replicate_scenario(scn0, batch)))
     say(f"T={a.T}: {fs.launch_plan(cfg, cfg.max_obstacles)}")
+    def worth(label, out):
+        if not a.quality:
+            return ""
+        if "replicated" in label:
+            q = bench.solution_quality(cfg, basis, scn0,
+                                       fleet.kernel_result(out).alpha[0])
+            return (f"; endpoint_err {float(q['endpoint_err']):.6f}, avg_cost "
+                    f"{float(q['avg_cost']):.6f}, max_cost "
+                    f"{float(q['max_cost']):.6f}")
+        return f"; converged {float(out.fulfilled.mean()):.4f}"
+
     for label, scns in inputs:
         args = fleet.fused_args(cfg, basis, scns)
         ref, ms = timed(lambda: fs.fused_solve(*args))
-        say(f"{label}: default build {ms:.1f} ms")
+        say(f"{label}: default build {ms:.1f} ms{worth(label, ref)}")
         for name, v in runs.items():
             for _ in range(2):
                 out, ms = timed(lambda: v.solve(args))
                 say(f"{label}: {name} {v.shape(cfg, 11, batch)} {ms:.1f} ms, "
-                    f"bitwise {same(out, ref)}")
+                    f"bitwise {same(out, ref)}{worth(label, out)}")
                 del out
         _, ms = timed(lambda: fs.fused_solve(*args))
         say(f"{label}: default build again {ms:.1f} ms")

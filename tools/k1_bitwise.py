@@ -12,7 +12,9 @@ bench schedule and K2's one round (a quarter of the lanes fulfilled) on
 instantiation) and on 1,024 random scenes at T=200 (the streamed body);
 and on the same scenes the per-step kernels: K5's evaluation and K6's
 forward evaluation at the warm start, and from K5's state one step of K3
-(both ladder tiers) and of K4 (a quarter of the lanes frozen).
+(both ladder tiers) and of K4 (a quarter of the lanes frozen).  The same
+for JAX's 5-link arm (J = 5, its own library) with the programs bls and
+gd, on 4,096 scenes at T=50 and 512 at T=200 (keys ``J=5``).
 ``compare`` says for each whether every output field is equal bit for bit,
 and exits non-zero if one is not.  Two checkouts on one card: dump in
 each, then compare.  Needs a CUDA card for ``dump``.
@@ -24,6 +26,11 @@ import sys
 import torch
 
 PROGRAMS = ("bls", "gd", "bls_exact", "bls_ultra", "bls_bf16")
+# (J, link lengths, programs, (T, lanes) pairs): the reference arm, then
+# JAX's 5-link test arm.
+CASES = ((3, None, PROGRAMS, ((50, 16384), (200, 1024))),
+         (5, (1.0, 0.8, 0.6, 0.4, 0.2), ("bls", "gd"),
+          ((50, 4096), (200, 512))))
 
 
 def dump(out):
@@ -36,38 +43,43 @@ def dump(out):
 
     dev = torch.device("cuda", 0)
     res = {}
-    for T, batch in ((50, 16384), (200, 1024)):
-        for prog in PROGRAMS:
-            solver, ladder, tier = fs.program_call(prog)
-            cfg = bench.bench_config(solver=solver, n_timesteps=T,
-                                     ladder_eval=ladder)
-            basis = mt.make_basis(cfg, device=dev)
-            scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
-                                       batch, device=dev)
-            args = fleet.fused_args(cfg, basis, scns)
-            k1 = fs.fused_solve(*args, solver=solver, **tier)
-            g = torch.Generator().manual_seed(0)
-            ful = (torch.rand((1, batch), generator=g) < 0.25).float().to(dev)
-            lr0 = torch.full_like(ful, fs.round_lr(cfg, 0, solver))
-            k2 = fs.fused_round(*args[:7], ful, lr0, 4, *args[7:],
-                                solver=solver, **tier)
-            res[f"K1 {prog} T={T}"] = [x.cpu() for x in k1]
-            res[f"K2 {prog} T={T}"] = [x.cpu() for x in k2]
-            _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
-            lanes = (lsg, ljl, start, goal, ox, oy, ow)
-            if tier:
-                continue
-            if prog == "bls":
-                res[f"K5 T={T}"] = [x.cpu() for x in sk.cost_grad_eval(
-                    cfg, kv, kvt, mix, a0, *lanes)]
-                res[f"K6 T={T}"] = [x.cpu() for x in sk.forward_eval(
-                    cfg, kv, mix, a0)]
-            ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, *lanes)
-            step = sk.gd_inner_step if prog == "gd" else sk.bls_inner_step
-            lr = torch.full_like(lsg, fs.round_lr(cfg, 0, solver))
-            res[f"{'K4' if prog == 'gd' else 'K3'} {prog} T={T}"] = [
-                x.cpu() for x in step(cfg, kv, kvt, mix, a0, *ev[1:], ev.loss,
-                                      lr, ful, *lanes)]
+    cases = [(J, links, prog, T, batch)
+             for J, links, programs, sizes in CASES
+             for T, batch in sizes for prog in programs]
+    for J, links, prog, T, batch in cases:
+        tag = f"T={T}" + ("" if J == 3 else f" J={J}")
+        solver, ladder, tier = fs.program_call(prog)
+        cfg = bench.bench_config(solver=solver, n_timesteps=T,
+                                 ladder_eval=ladder)
+        if links:
+            cfg = cfg.replace(n_joints=J, link_length=links)
+        basis = mt.make_basis(cfg, device=dev)
+        scns = mt.random_scenarios(cfg, torch.Generator().manual_seed(5),
+                                   batch, device=dev)
+        args = fleet.fused_args(cfg, basis, scns)
+        k1 = fs.fused_solve(*args, solver=solver, **tier)
+        g = torch.Generator().manual_seed(0)
+        ful = (torch.rand((1, batch), generator=g) < 0.25).float().to(dev)
+        lr0 = torch.full_like(ful, fs.round_lr(cfg, 0, solver))
+        k2 = fs.fused_round(*args[:7], ful, lr0, 4, *args[7:],
+                            solver=solver, **tier)
+        res[f"K1 {prog} {tag}"] = [x.cpu() for x in k1]
+        res[f"K2 {prog} {tag}"] = [x.cpu() for x in k2]
+        _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = args
+        lanes = (lsg, ljl, start, goal, ox, oy, ow)
+        if tier:
+            continue
+        if prog == "bls":
+            res[f"K5 {tag}"] = [x.cpu() for x in sk.cost_grad_eval(
+                cfg, kv, kvt, mix, a0, *lanes)]
+            res[f"K6 {tag}"] = [x.cpu() for x in sk.forward_eval(
+                cfg, kv, mix, a0)]
+        ev = sk.cost_grad_eval(cfg, kv, kvt, mix, a0, *lanes)
+        step = sk.gd_inner_step if prog == "gd" else sk.bls_inner_step
+        lr = torch.full_like(lsg, fs.round_lr(cfg, 0, solver))
+        res[f"{'K4' if prog == 'gd' else 'K3'} {prog} {tag}"] = [
+            x.cpu() for x in step(cfg, kv, kvt, mix, a0, *ev[1:], ev.loss,
+                                  lr, ful, *lanes)]
     torch.save(res, out)
     print(f"dumped {sorted(res)} to {out}")
 
