@@ -43,8 +43,9 @@ the reach plan (phase 23).  Phases:
    solved reference scene (avg/max cost within 2% of the reference's,
    endpoint error < 0.05; bench.py's strict endpoint < 0.01 is printed).
    Every lane of the replicated scene must equal lane 0 bit for bit, and the
-   plain version's avg/max cost on the same inputs must lie within 1% of
-   the kernel's; the main path's peak device memory;
+   plain version's avg/max cost on the first 262,144 of the same inputs
+   (every lane the same scene) must lie within 1% of the kernel's; the
+   main path's peak device memory;
 5. K2 against plain, one round (n_r = 4): 1,024 random scenes, a quarter of
    the lanes fulfilled, penalties escalated x1/x10/x100, four learning
    rates; lane agreement and alpha error on the outputs the caller reads;
@@ -62,7 +63,7 @@ the reach plan (phase 23).  Phases:
    engine's time; the gate must pass) and off (per-lane results must equal
    the compacted run's bit for bit), K2's time per solve, and K1's
    whole-solve time on the same scenes (which must equal the rounds
-   driver's result bit for bit); compaction on against off in six pairs
+   driver's result bit for bit); compaction on against off in three pairs
    whose order alternates (median and range of the per-pair ratio); K1's
    bound there and K2's per solve, from
    K1's own counts and the plain version's tally on the first 65,536 of the
@@ -164,7 +165,7 @@ the reach plan (phase 23).  Phases:
    the streamed plan bit for bit; at T=200 (streamed; bf16 in the
    half-width layout) each program's K1 on phase 17's 65,536 random
    scenes, timed, held to its plain version's converged fraction and
-   obstacle cost, to phantom 0 and to the cost band against phase 17's xla
+   obstacle cost on the first 4,096 of them, to phantom 0 and to the cost band against phase 17's xla
    run, its converged fraction against xla printed, and K2 one round
    against plain; past the f32 plans' ceiling,
    fleet_solve(backend="fused", bls_bf16_ladder=True) at T=2,200 on 512
@@ -206,8 +207,8 @@ the reach plan (phase 23).  Phases:
    process and with ``--spawn 2`` (both JSON lines printed); and the
    visualization's ``cost_grid`` on the card against the CPU, without
    matplotlib;
-21. any arm (K1-K7 built for other joint counts J; the libraries of J = 5
-   and 7 build in the background from phase 1, their seconds and ptxas
+21. any arm (K1-K7 built for other joint counts J; the libraries of J = 5,
+   7 and 15 build in the background from phase 1, their seconds and ptxas
    registers and spills printed): ``build_basis`` at (T=72, J=5) must give
    the sha256 tests/test_torch_basis_build.py pins (its CPU seconds at
    T = 50, 200 printed); on JAX's 5-link test arm at T=50, 1,048,576 random
@@ -220,17 +221,21 @@ the reach plan (phase 23).  Phases:
    and three lanes alone bit for bit, the full schedule on 16,384 scenes (>=
    0.87) and the per-step paths there bit for bit K1; at T=200 (the
    streamed plan) 65,536 random scenes per program through K1 (converged
-   within bench.py's band of the plain version's on 8,192 lanes; the
+   within bench.py's band of the plain version's on 2,048 lanes; the
    paired gate required for exact and GD, printed for the linearized
    ladder) and K7 alone (bit for bit K6, beside one torch.matmul); the
    7-link arm at T=50: K1 against plain on 65,536 lanes and the paired
-   gate; the CLI with ``--n-joints 5`` on the card;
+   gate (required); the same for an arm of 15 equal links of reach 3.0
+   on 8,192 lanes (the carry program's accepted alpha rounded once, as
+   at every J but 3: each paired gate prints both converged fractions and
+   the band); the CLI with ``--n-joints 5`` on the card.  ``python3
+   chip_smoke.py --joints`` runs these builds and this phase alone;
 22. the benchmarks (irm_motion_planning_tpu_torch/benchmarks/; T=50, J=3,
    11 obstacle slots; the five phase-ablated builds of K1 build in the
-   background from phase 1, after the J = 5 and 7 libraries): the quality
+   background from phase 1, after the J = 5, 7 and 15 libraries): the quality
    gate for BLS across xla, pallas and fused on 32,768 random scenes at the
    bench schedule (its verdict required), then GD (printed); the seed
-   sweep over seeds 0-4 on 16,384 scenes each (per-seed deltas and sign
+   sweep over seeds 0-4 on 8,192 scenes each (per-seed deltas and sign
    flips); on the 2,048
    scenes of certify_oracle_cpu2048.npz, ``init_alpha`` and the XLA-order
    products on the card bit for bit the CPU's (required), the port's
@@ -243,7 +248,7 @@ the reach plan (phase 23).  Phases:
    config, whose endpoint and alpha must be phase 4's K1 lane 0 bit for
    bit; hetero's four policies with and without ``--shrink`` at 262,144
    random scenes (solves/s, per-round decomposition); the epilogue shares
-   of the five ablated builds at 1,048,576 replicated lanes (each build's
+   of the five ablated builds at 262,144 replicated lanes (each build's
    time, registers, spills and K1's own work); decompose and roofline at
    32,768 and 1,048,576 lanes; the five ablation rows.  K1-K6 must each
    launch in the phase;
@@ -258,12 +263,12 @@ the reach plan (phase 23).  Phases:
    timed): fleet_solve(backend="fused") takes the reach plan and launches
    K1 once, K1 and K2 against their plain versions under phase 2's rule
    (1x4 steps, 512 random scenes), timed with their bounds; the GD paired
-   gate at T = 2,400 on 2,048 random scenes at the GD schedule (K1
+   gate at T = 2,400 on 1,024 random scenes at the GD schedule (K1
    against the xla engine, bench.py's bands); bls, bls_exact and
    bls_ultra at T = 2,104 against plain, and with ``bls_bf16_ladder`` the
    float32 plan there (K1 launched, bit for bit the linearized program);
    ``pallas`` at GD T = 2,200 warns and equals xla bit for bit; and a
-   measurement: the bf16 plan at T = 2,200 on 2,048 random scenes at the
+   measurement: the bf16 plan at T = 2,200 on 1,024 random scenes at the
    BLS schedule against the xla engine (converged fraction, cost,
    phantom of each);
 24. arms of 16 and 32 joints (the one library of csrc/wide/, J at run
@@ -283,7 +288,7 @@ the reach plan (phase 23).  Phases:
    program and tier; K5 within phase 8's bounds, K6 bit for bit K5 and on
    ragged batches, K3 in both ladders and K4 one step; each timed with its
    bound, K6 beside one torch.einsum); T = 200 (the streamed plan, K7): K1
-   of bls and gd on 4,096 random scenes with the paired gate on 1,024 and
+   of bls and gd on 4,096 random scenes with the paired gate on 512 and
    the converged fraction against plain on the first 256 (phase 21's
    band), K1 of every program against plain at 1x4 steps on 512 lanes, K7
    alone bit for bit K6 beside one torch.matmul (TF32 off); ``fused`` and
@@ -347,7 +352,7 @@ CHECK_LANES = 32768
 TALLY_LANES = 65536
 WARP_SHAPES = (4, 8, 16)
 TIMED_LAUNCHES = 3
-COMPACTION_PAIRS = 6
+COMPACTION_PAIRS = 3
 # Phase 17, large T: the problem size, the full-width batch with the paired
 # gate's lanes and the plain tally's, the per-step path's batch, the
 # problem-size sweep's batch, and the buffer, copies and reads that measure
@@ -358,9 +363,12 @@ LARGE_CHECK = 8192
 LARGE_TALLY = 8192
 STEP_BATCH = 16384
 SWEEP_BATCH = 4096
-# Phase 18, the kernel tiers: the tally's lanes at T=200 (scaled, as phase
-# 17's), and past the f32 plans' ceiling the T and batch of the bf16 plan.
+# Phases 17 and 18: the lanes of the plain tally at T=200 (scaled) and of
+# phase 17's plain rounds driver (timed); phase 18, the kernel tiers: its
+# plain versions' lanes (the first of the gate's), and past the f32 plans'
+# ceiling the T and batch of the bf16 plan.
 TIER_TALLY = 2048
+TIER_PLAIN = 4096
 TIER_BIG_T = 2200
 TIER_BIG_BATCH = 512
 L2_COPY_BYTES = 16 << 20
@@ -431,7 +439,7 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    # Phase 21's libraries (J = 5, 7) build while phases 2-20 run.
+    # Phase 21's libraries (J = 5, 7, 15) build while phases 2-20 run.
     joint_builds = start_joint_builds(_build)
     # Phase 22's phase-ablated K1 builds, after those; phase 24's J >= 16
     # library after those.
@@ -679,37 +687,9 @@ def main():
     # The kernel and its plain version on the main path's inputs.
     del out, res
     cfg = bench.bench_config()
-    basis = mt.make_basis(cfg, device=dev)
-    scn0 = mt.reference_scenario(cfg, device=dev)
-    args = fleet.fused_args(cfg, basis, mt.replicate_scenario(scn0, MAIN_BATCH))
-    k, main_ms = timed(lambda: fs.fused_solve(*args))
-    if not (lanes_match_lane0(k, -1)
-            and torch.equal(k.alpha[:, :, 0].T, alpha0)):
-        fail("phase 4: the kernel's lanes differ from the main path's lane 0")
-    kq = mt.solution_quality(cfg, basis, scn0, alpha0)
-    k1_rounds = float((k.outer_iters + k.fulfilled).sum())
-    k1_accepted = float(k.inner_iters.sum())
-    del k
-    p, main_plain_ms = timed(lambda: fs.fused_solve_reference(*args))
     T, J, O = cfg.n_timesteps, cfg.n_joints, cfg.max_obstacles
-    k1_bound = roofline.fused_rounds(
-        MAIN_BATCH, T, J, O,
-        roofline.kernel_counts(
-            roofline.plain_tally(fs.fused_solve_reference, *args), k1_rounds,
-            k1_accepted), True)
-    pq = mt.solution_quality(cfg, basis, scn0, p.alpha[:, :, 0].T)
-    gaps = [abs(float(pq[key]) - float(kq[key])) / float(kq[key])
-            for key in ("avg_cost", "max_cost")]
-    say(f"phase 4 kernel alone {main_ms:.1f} ms, plain version "
-        f"{main_plain_ms:.1f} ms at batch {MAIN_BATCH}; every lane equals "
-        f"lane 0; plain lane 0 avg/max {float(pq['avg_cost']):.5f}/"
-        f"{float(pq['max_cost']):.5f} vs kernel {float(kq['avg_cost']):.5f}/"
-        f"{float(kq['max_cost']):.5f} (gaps {gaps[0]:.2e}/{gaps[1]:.2e}, "
-        f"bound 1e-2), plain endpoint_err {float(pq['endpoint_err']):.4f}")
-    if not (torch.isfinite(p.alpha).all() and max(gaps) <= 0.01):
-        fail("phase 4: the plain version's costs differ from the kernel's")
-
-    del p, args
+    main_ms, main_plain_ms, k1_bound = replicated_k1(
+        mt, fs, fleet, roofline, cfg, "bls", alpha0, dev, 4, "kernel")
     torch.cuda.empty_cache()
 
     # -- phase 5: K2 against plain, one round -------------------------------
@@ -1132,6 +1112,7 @@ def main():
     kernels = [
         kernel_entry("fused_solve", "fused_solve.cu", 1606, launches_k1,
                      max_abs_err, main_ms, main_plain_ms, k1_bound,
+                     plain_lanes=REPLICATED_PLAIN,
                      ms_1M_random=k1_ms, bound_ms_1M_random=k1_rand_bound.ms,
                      main_path_peak_gib=main_peak_gib,
                      occupancy=occupancy["fused_solve", "bls"],
@@ -1896,16 +1877,23 @@ def sharded_phase(mt, fs, fleet, dev, alpha0, stats0, main_sps):
 
 
 # Phase 21, any arm: the joint counts beside the reference arm's three,
-# JAX's own 5-link test arm (tests/test_basis.py) and a 7-link arm.  The
-# batches: J=5's main path at full width and its paired check; the kernels
+# JAX's own 5-link test arm (tests/test_basis.py), a 7-link arm and 15
+# equal links of the reference's reach (tools/compare_converged.py
+# --n-joints 15's arm: the last J of the per-J libraries, where rounding
+# the carry program's accepted alpha twice collapsed the converged rate).
+# The batches: J=5's main path at full width and its paired check; the kernels
 # against their plain versions; the full schedule against plain (cut from
 # JOINT_LANES for the phase's time); the lanes solved alone; T=200's batch
 # and the lanes of its paired check and plain comparison (cut from 8,192
 # for the phase's time: the exact ladder's plain version and xla engine at
-# T=200 take tens of seconds there); the tally's lanes.  The built basis'
-# digest at (T=72, J=5), pinned by tests/test_torch_basis_build.py.
+# T=200 take tens of seconds there); the tally's lanes; the paired check of
+# J=7 and 15; J=15's lanes, its paired check's, and its tally's (cut from
+# JOINT_LANES and JOINT_TALLY for the script's time).
+# The built basis' digest at (T=72, J=5), pinned by
+# tests/test_torch_basis_build.py.
 JOINT_ARMS = {5: (1.0, 0.8, 0.6, 0.4, 0.2),
-              7: (1.0, 0.9, 0.8, 0.6, 0.4, 0.3, 0.2)}
+              7: (1.0, 0.9, 0.8, 0.6, 0.4, 0.3, 0.2),
+              15: (3.0 / 15,) * 15}
 JOINT_MAIN = 1048576
 JOINT_CHECK = 32768
 JOINT_TALLY = 8192
@@ -1913,8 +1901,10 @@ JOINT_LANES = 65536
 JOINT_FULL = 16384
 JOINT_ALONE = (0, 500, 998)
 JOINT_LARGE = 65536
-JOINT_LARGE_CHECK = 4096
+JOINT_LARGE_CHECK = 2048
 JOINT7_CHECK = 8192
+JOINT15_LANES = 8192
+JOINT15_TALLY = 2048
 BASIS_T72_J5_SHA256 = (
     "cf7fdf550bd39d52d120b69c3e83263b818721d7c288f0e1abf29705516f754b")
 
@@ -1964,9 +1954,65 @@ def joint_ptxas(report):
             "forward_eval": of("forward_eval<"), "k7": of("k7_forward")}
 
 
+def arm_gate(mt, bench, fs, roofline, fleet, dev, short, J, lanes, tally,
+             put):
+    """Phase 21 (e): K1-BLS at T = 50 on ``lanes`` random scenes of the
+    J-link arm of JOINT_ARMS against its plain version at 1 round x 4 steps
+    (``short``'s schedule), then the bench schedule through fleet_solve
+    (one K1 launch), its bound from the plain tally of the first ``tally``
+    lanes (scaled), and the paired gate against xla on its first
+    JOINT7_CHECK lanes; ``put`` the kernels line's entry."""
+    O = 11
+    short_j = arm_config(short, J)
+    cfg = arm_config(bench.bench_config(), J)
+    basis = mt.make_basis(cfg, device=dev)
+    scn = mt.random_scenarios(cfg, torch.Generator().manual_seed(0), lanes,
+                              device=dev)
+    args = fleet.fused_args(short_j, basis, scn)
+    k, k_ms = timed(lambda: fs.fused_solve(*args))
+    p, p_ms = timed(lambda: fs.fused_solve_reference(*args))
+    agree, rel = fs.lane_agreement(p, k)
+    fs.fused_solve.launches = 0
+    with KernelTimer(fs, "fused_solve") as timer:
+        res = fleet.fleet_solve(cfg, basis, scn, backend="fused")
+    n1, ms = fs.fused_solve.launches, timer.total_ms()
+    gate = bench.paired_gate(cfg, basis, scn, res, JOINT7_CHECK)
+    sub = roofline.plain_tally(fs.fused_solve_reference, cfg,
+                      *(x[..., :tally] if i >= 3 else x for i, x in
+                        enumerate(fleet.fused_args(cfg, basis, scn)[1:])))
+    ran = res.stats.outer_iters + res.stats.converged.int()
+    b1 = roofline.fused_rounds(
+        lanes, 50, J, O,
+        roofline.kernel_counts({kk: v * lanes / tally
+                       for kk, v in sub.items()},
+                      float(ran.sum()), float(res.stats.inner_iters.sum())),
+        True)
+    b = gate["bands"]
+    say(f"phase 21 J={J} K1-BLS against plain ({lanes} lanes, 1x4 "
+        f"steps): lane agreement {agree:.4f}, alpha {rel:.3g}; kernel "
+        f"{k_ms:.1f} ms, plain {p_ms:.1f} ms; the full schedule through "
+        f"fleet_solve: {n1} K1 launch, {ms:.1f} ms (bound {b1.ms:.1f} by "
+        f"{b1.by}), converged {float(res.stats.converged.float().mean()):.4f}"
+        f"; paired xla gate on {JOINT7_CHECK} lanes: converged "
+        f"{b['check_converged_frac']:.4f} vs {b['xla_converged_frac']:.4f} "
+        f"(band {b['converged']:.4f}), cost {b['check_obstacle_cost']:.5f} "
+        f"vs {b['xla_obstacle_cost']:.5f}, phantom "
+        f"{gate['fields']['phantom_frac']}: {'PASS' if gate['ok'] else 'FAIL'}")
+    if (agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX
+            or n1 != 1 or not gate["ok"]):
+        fail(f"phase 21: J={J} K1 failed its checks")
+    put("fused_solve", J, launches=n1, ms=ms, bound_ms=b1.ms, bound_by=b1.by,
+        lanes=lanes, plain_ms_short=p_ms, lane_agreement_short=agree,
+        max_abs_err=float((k.alpha - p.alpha).abs().max()),
+        gate_ok=gate["ok"], converged=b["check_converged_frac"],
+        xla_converged=b["xla_converged_frac"], band=b["converged"])
+    del scn, args, k, p, res
+    torch.cuda.empty_cache()
+
+
 def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
-    """Phase 21: K1-K7 at J = 5 and 7 (the libraries built in the
-    background since phase 1), the built basis and the CLI at J = 5.
+    """Phase 21: K1-K7 at J = 5, K1 at J = 7 and 15 (the libraries built
+    in the background since phase 1), the built basis and the CLI at J = 5.
     Returns {kernel: {J: entry}} for the kernels line."""
     import hashlib
 
@@ -2311,51 +2357,11 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
     del scn, head, a0, flat, t7, f6
     torch.cuda.empty_cache()
 
-    # (e) J=7, T=50: K1-BLS against plain, and the paired gate.
-    short7 = arm_config(short, 7)
-    cfg7 = arm_config(bench.bench_config(), 7)
-    basis7 = mt.make_basis(cfg7, device=dev)
-    scn = mt.random_scenarios(cfg7, torch.Generator().manual_seed(0),
-                              JOINT_LANES, device=dev)
-    args = fleet.fused_args(short7, basis7, scn)
-    k, k_ms = timed(lambda: fs.fused_solve(*args))
-    p, p_ms = timed(lambda: fs.fused_solve_reference(*args))
-    agree, rel = fs.lane_agreement(p, k)
-    fs.fused_solve.launches = 0
-    with KernelTimer(fs, "fused_solve") as timer:
-        res = fleet.fleet_solve(cfg7, basis7, scn, backend="fused")
-    n1, ms = fs.fused_solve.launches, timer.total_ms()
-    gate = bench.paired_gate(cfg7, basis7, scn, res, JOINT7_CHECK)
-    sub = roofline.plain_tally(fs.fused_solve_reference, cfg7,
-                      *(x[..., :JOINT_TALLY] if i >= 3 else x for i, x in
-                        enumerate(fleet.fused_args(cfg7, basis7, scn)[1:])))
-    ran = res.stats.outer_iters + res.stats.converged.int()
-    b1 = roofline.fused_rounds(
-        JOINT_LANES, 50, 7, O,
-        roofline.kernel_counts({kk: v * JOINT_LANES / JOINT_TALLY
-                       for kk, v in sub.items()},
-                      float(ran.sum()), float(res.stats.inner_iters.sum())),
-        True)
-    b = gate["bands"]
-    say(f"phase 21 J=7 K1-BLS against plain ({JOINT_LANES} lanes, 1x4 "
-        f"steps): lane agreement {agree:.4f}, alpha {rel:.3g}; kernel "
-        f"{k_ms:.1f} ms, plain {p_ms:.1f} ms; the full schedule through "
-        f"fleet_solve: {n1} K1 launch, {ms:.1f} ms (bound {b1.ms:.1f} by "
-        f"{b1.by}), converged {float(res.stats.converged.float().mean()):.4f}"
-        f"; paired xla gate on {JOINT7_CHECK} lanes: converged "
-        f"{b['check_converged_frac']:.4f} vs {b['xla_converged_frac']:.4f} "
-        f"(band {b['converged']:.4f}), cost {b['check_obstacle_cost']:.5f} "
-        f"vs {b['xla_obstacle_cost']:.5f}, phantom "
-        f"{gate['fields']['phantom_frac']}: {'PASS' if gate['ok'] else 'FAIL'}")
-    if (agree < fs.CARD_SHORT_AGREEMENT_MIN or rel > fs.ALPHA_REL_MAX
-            or n1 != 1 or not gate["ok"]):
-        fail("phase 21: J=7 K1 failed its checks")
-    put("fused_solve", 7, launches=n1, ms=ms, bound_ms=b1.ms, bound_by=b1.by,
-        lanes=JOINT_LANES, plain_ms_short=p_ms, lane_agreement_short=agree,
-        max_abs_err=float((k.alpha - p.alpha).abs().max()),
-        gate_ok=gate["ok"])
-    del scn, args, k, p, res
-    torch.cuda.empty_cache()
+    # (e) J=7 and J=15, T=50: K1-BLS against plain, and the paired gate.
+    for J, lanes, tally in ((7, JOINT_LANES, JOINT_TALLY),
+                            (15, JOINT15_LANES, JOINT15_TALLY)):
+        arm_gate(mt, bench, fs, roofline, fleet, dev, short, J, lanes, tally,
+                 put)
 
     # (f) The CLI on the card with JAX's 5-link arm.
     fs.fused_solve.launches = 0
@@ -2390,9 +2396,9 @@ def joints_phase(mt, bench, fs, sk, roofline, fleet, dev, builds):
 # and roofline, and the time phase 22 aims to stay under (builds excluded).
 BENCH_QUALITY = 32768
 BENCH_SEEDS = "0,1,2,3,4"
-BENCH_SWEEP = 16384
+BENCH_SWEEP = 8192
 BENCH_HETERO = 262144
-BENCH_EPILOGUE = 1048576
+BENCH_EPILOGUE = 262144
 BENCH_WIDTHS = (32768, 1048576)
 BENCH_KERNELS = ("fused_solve", "fused_round", "bls_inner_step",
                  "gd_inner_step", "cost_grad_eval", "forward_eval")
@@ -2401,7 +2407,7 @@ BENCH_KERNELS = ("fused_solve", "fused_round", "bls_inner_step",
 def start_variant_builds(joint_builds):
     """Build the five phase-ablated K1 libraries (benchmarks/epilogue.py:
     fused_solve.cu with one WB_ABLATE_* flag each, one nvcc each, started
-    together) in a thread, once phase 21's J = 5 and 7 builds are done, so
+    together) in a thread, once phase 21's J = 5, 7 and 15 builds are done, so
     that fewer compilers share the host at once; returns (thread, errors).
     The thread is not a daemon: the interpreter waits for it."""
     import threading
@@ -3432,7 +3438,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
     # per solve), with the paired xla gate on LARGE_CHECK lanes; K1 alone,
     # its plain version on LARGE_TALLY lanes (K1's converged fraction held
     # to the plain version's within bench.py's band), its bound (the
-    # function's) beside the design's L2 reads; the rounds driver with
+    # function's, from the plain tally of TIER_TALLY lanes, scaled) beside
+    # the design's L2 reads; the rounds driver with
     # compaction bit for bit against K1, K2's time per solve and bound.  The
     # gate holds GD and the exact ladder whole.  The linearized ladder it
     # holds to its phantom and cost bands; its converged band against xla
@@ -3504,10 +3511,12 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             f"{p_conv:.4f} (band {plain_band:.4f}): "
             f"{'PASS' if plain_conv_ok else 'FAIL'}")
         del p1
-        scale = LARGE_BATCH / LARGE_TALLY
+        scale = LARGE_BATCH / TIER_TALLY
         tally = roofline.kernel_counts(
             {key: v * scale for key, v in roofline.plain_tally(
-                fs.fused_solve_reference, *sub, solver=solver).items()},
+                fs.fused_solve_reference, cfg, *args[1:4],
+                *(x[..., :TIER_TALLY] for x in args[4:]),
+                solver=solver).items()},
             float((k1.outer_iters + k1.fulfilled).sum()),
             float(k1.inner_iters.sum()), solver)
         tile = fs.launch_plan(cfg, O, prog=prog)["lanes"]
@@ -3521,7 +3530,8 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
         same = same_result(got, want)
         with plain_rounds(fs):
             _, k2_plain_ms = timed(lambda: fleet._fused_rounds_solve(
-                cfg, sub[1:], solver))
+                cfg, (*args[1:4], *(x[..., :TIER_TALLY] for x in args[4:])),
+                solver))
         rounds_run = (k1.outer_iters + k1.fulfilled)[0]
         live = [float((rounds_run > r).sum()) for r in range(rounds)]
         k2_bound = roofline.fused_round_launches(LARGE_BATCH, T, J, O, tally,
@@ -3539,7 +3549,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
             f"bound {k2_bound.ms:.1f} ms by {k2_bound.by}, the design's L2 "
             f"reads {k2_bound.design_l2_ms:.1f} ms; plain rounds "
             f"{k2_plain_ms:.1f} ms on "
-            f"{LARGE_TALLY} lanes) bitwise equal to K1: {same}; work "
+            f"{TIER_TALLY} lanes) bitwise equal to K1: {same}; work "
             f"{({key: round(v) for key, v in tally.items()})}")
         if not same:
             fail(f"phase 17: the rounds driver differs from K1 at T={T}")
@@ -3722,7 +3732,7 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
                                   if k.endswith(",streamed>")}},
         "fused_round": streamed(
             bls["k2_ms"], bls["k2_bound"], bls["k2_plain_ms"],
-            bls["agreement"], plain_lanes=LARGE_TALLY,
+            bls["agreement"], plain_lanes=TIER_TALLY,
             per_solve_lanes=LARGE_BATCH, launches=bls["k2_launches"],
             programs={p: {"ms": prg[p]["k2_ms"],
                           "bound_ms": prg[p]["k2_bound"].ms}
@@ -3781,11 +3791,11 @@ def large_t_phases(mt, bench, fs, sk, roofline, fleet, dev, ptxas):
 REACH_BITWISE_T = (200, 2072)
 REACH_GD_T = (2200, 2400, 2636)
 REACH_GATE_T = 2400
-REACH_GATE_BATCH = 2048
+REACH_GATE_BATCH = 1024
 REACH_BLS_T = 2104
 REACH_BATCH = 512
 REACH_BF16_T = 2200
-REACH_BF16_BATCH = 2048
+REACH_BF16_BATCH = 1024
 # GD's learning rates of phase 23's short checks (round 0 takes the first;
 # K2's lanes each one of the four): at the default schedule's 2e-3 the stop
 # test rejects most first trials at these T, so the steps would not run.
@@ -3812,7 +3822,7 @@ def reach_phase(mt, bench, fs, roofline, fleet, dev):
     keeps the float32 reach plan there, and fleet_solve launches K1 on it,
     bit for bit the linearized program.  (f) ``pallas`` at GD T = 2,200
     warns and equals ``xla`` bit for bit.  (g) A measurement (ROADMAP queue
-    3 #2): the bf16 plan at T = 2,200 on REACH_BF16_BATCH random scenes at
+    3 #4): the bf16 plan at T = 2,200 on REACH_BF16_BATCH random scenes at
     the BLS reference schedule against the xla engine: converged
     fraction, cost and phantom of each.  Returns K1's and K2's "reach"
     entries."""
@@ -4128,7 +4138,7 @@ def reach_phase(mt, bench, fs, roofline, fleet, dev):
     bb = bgate["bands"]
     say(f"phase 23 T={REACH_BF16_T} bf16 plan (bf16 {bplan['bf16']}) at the "
         f"BLS reference schedule, {REACH_BF16_BATCH} random scenes (seed 0; "
-        f"a measurement, ROADMAP queue 3 #2): K1 {bf16_ms:.1f} ms, "
+        f"a measurement, ROADMAP queue 3 #4): K1 {bf16_ms:.1f} ms, "
         f"{bf16_launches} launch, the xla engine {xla_ms:.1f} ms; converged "
         f"{bb['check_converged_frac']:.4f} against xla's {x_conv:.4f}; mean "
         f"obstacle cost {bb['check_obstacle_cost']:.5f} against "
@@ -4255,8 +4265,9 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
     cfg, basis, scns, args = (large[k] for k in ("cfg", "basis", "scns",
                                                   "args"))
     T = cfg.n_timesteps
-    sub = (cfg, *args[1:4], *(x[..., :LARGE_TALLY] for x in args[4:]))
+    sub = (cfg, *args[1:4], *(x[..., :TIER_PLAIN] for x in args[4:]))
     tsub = (cfg, *args[1:4], *(x[..., :TIER_TALLY] for x in args[4:]))
+    head = mt.Scenario(*(x[:TIER_PLAIN] for x in scns))
     scfg = mt.PlannerConfig(n_timesteps=T, max_outer_iteration=2,
                             max_inner_iteration=6, fixed_iters=True,
                             max_obstacles=O)
@@ -4274,17 +4285,17 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
                                   large["xla_cost"])
         b = gate["bands"]
         p1, plain_ms = timed(lambda: fs.fused_solve_reference(*sub, **kw))
-        k_conv = float((k1.fulfilled[0, :LARGE_TALLY] > 0.5).float().mean())
+        k_conv = float((k1.fulfilled[0, :TIER_PLAIN] > 0.5).float().mean())
         p_conv = float((p1.fulfilled[0] > 0.5).float().mean())
         band = max(0.02, min(0.15 * max(k_conv, p_conv), 0.05))
-        # The gate's lanes are the plain version's (LARGE_CHECK ==
-        # LARGE_TALLY): the kernel's obstacle cost there against the plain
-        # version's, within the gate's 1% band, for every tier.
-        p_cost = bench.mean_obstacle_cost(
-            cfg, basis, mt.Scenario(*(x[:LARGE_TALLY] for x in scns)),
-            fleet.kernel_result(p1))
-        plain_cost_ok = (abs(b["check_obstacle_cost"] - p_cost)
-                         <= 0.01 * abs(p_cost))
+        # The plain version's lanes are the first of the gate's: the
+        # kernel's obstacle cost there against the plain version's, within
+        # the gate's 1% band, for every tier.
+        k_cost = bench.mean_obstacle_cost(cfg, basis, head, fleet.SolveResult(
+            fleet.kernel_result(k1).alpha[:TIER_PLAIN], None))
+        p_cost = bench.mean_obstacle_cost(cfg, basis, head,
+                                          fleet.kernel_result(p1))
+        plain_cost_ok = abs(k_cost - p_cost) <= 0.01 * abs(p_cost)
         xla_cost_ok = (abs(b["check_obstacle_cost"] - b["xla_obstacle_cost"])
                        <= b["cost"])
         held = (abs(k_conv - p_conv) <= band and plain_cost_ok
@@ -4309,17 +4320,18 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
             f"{plan['total']} B per CTA): {ms:.1f} ms "
             f"({1e3 * ms / LARGE_BATCH:.3f} us per lane; K1-BLS "
             f"{large['k1_ms']:.1f} ms), {launches} launch; plain version "
-            f"{plain_ms:.1f} ms on {LARGE_TALLY} lanes; bound {bound.ms:.1f} "
+            f"{plain_ms:.1f} ms on {TIER_PLAIN} lanes; bound {bound.ms:.1f} "
             f"ms by {bound.by} (the design's L2 reads {bound.design_l2_ms:.1f}"
             f" ms); converged on the gate's {LARGE_CHECK} lanes "
             f"{b['check_converged_frac']:.4f} against the xla engine's "
             f"{b['xla_converged_frac']:.4f} (band {b['converged']:.4f}: "
             f"{'PASS' if conv_ok else 'FAIL'}, printed; K1-BLS "
             f"{large['k1_conv']:.4f}); against its plain version on the "
-            f"first {LARGE_TALLY}: {k_conv:.4f} vs {p_conv:.4f} (band "
+            f"first {TIER_PLAIN}: {k_conv:.4f} vs {p_conv:.4f} (band "
             f"{band:.4f}); phantom {gate['fields']['phantom_frac']}; obstacle "
-            f"cost {b['check_obstacle_cost']:.5f} vs the plain version's "
-            f"{p_cost:.5f} and the xla engine's {b['xla_obstacle_cost']:.5f} "
+            f"cost {b['check_obstacle_cost']:.5f} against the xla engine's "
+            f"{b['xla_obstacle_cost']:.5f}, on the first {TIER_PLAIN} "
+            f"{k_cost:.5f} against the plain version's {p_cost:.5f} "
             f"(band {b['cost']:.5f}: {'PASS' if xla_cost_ok else 'FAIL'}): "
             f"{'PASS' if held else 'FAIL'}")
         if not (torch.isfinite(k1.alpha).all()
@@ -4354,7 +4366,7 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
             name=f"fused_solve<{prog}>", launches=launches, ms=ms,
             plain_ms=plain_ms, bound_ms=bound.ms, bound_by=bound.by,
             library_ms=None, max_abs_err=k1s[prog]["t50"]["max_abs_err"],
-            T=T, lanes=LARGE_BATCH, plain_lanes=LARGE_TALLY,
+            T=T, lanes=LARGE_BATCH, plain_lanes=TIER_PLAIN,
             design_l2_ms=bound.design_l2_ms, plan_bytes=plan["bytes"],
             warps_per_cta=plan["warps"],
             converged={"k1": b["check_converged_frac"],
@@ -4364,6 +4376,7 @@ def tier_phases(mt, bench, fs, roofline, fleet, dev, large):
                        "plain": [k_conv, p_conv, band]},
             gate_held=held, phantom=gate["fields"]["phantom_frac"],
             obstacle_cost={"k1": b["check_obstacle_cost"], "plain": p_cost,
+                           "k1_plain_lanes": k_cost,
                            "xla": b["xla_obstacle_cost"], "band": b["cost"],
                            "xla_within_band": xla_cost_ok})
         k2s[prog].update(
@@ -4671,7 +4684,7 @@ class plain_rounds:
 
 
 # The lanes of the plain version's timed run on the replicated scene in
-# phases 13 and 16 (K1-GD and K1-exact alone).
+# phases 4, 13 and 16 (K1-BLS, K1-GD and K1-exact alone).
 REPLICATED_PLAIN = 262144
 
 
@@ -4720,7 +4733,7 @@ def replicated_k1(mt, fs, fleet, roofline, cfg, solver, alpha0, dev, phase,
         f"bound 1e-2), plain endpoint_err {float(pq['endpoint_err']):.4f}; "
         f"bound {bound.ms:.1f} ms by {bound.by} (rounds {rounds:.0f}, "
         f"accepted steps {accepted:.0f})")
-    if max(gaps) > 0.01:
+    if not max(gaps) <= 0.01:
         fail(f"phase {phase}: the plain version's costs differ from "
              f"{label}'s")
     del args
@@ -5157,7 +5170,7 @@ WIDE_TALLY = 1024
 WIDE_LANES = 8192
 WIDE_FULL = 2048
 WIDE_LARGE = 4096
-WIDE_LARGE_CHECK = 1024
+WIDE_LARGE_CHECK = 512
 WIDE_LARGE_SHORT = 512
 WIDE_REACH_T = 500
 WIDE_REACH_BATCH = 256
@@ -5789,10 +5802,10 @@ def wide_phase(mt, bench, fs, sk, roofline, fleet, dev, build):
     return out
 
 
-def main_wide():
-    """``--wide``: phase 1's device line, the J >= 16 library and
-    phase 24 alone (a check of the wide kernels without the other
-    phases)."""
+def main_alone(key):
+    """``--wide`` / ``--joints``: phase 1's device line, then the J >= 16
+    library and phase 24, or the J = 5, 7 and 15 libraries and phase 21,
+    alone (a check of those kernels without the other phases)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5810,16 +5823,18 @@ def main_wide():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    wide = wide_phase(mt, bench, fs, sk, roofline, fleet,
-                      torch.device("cuda", 0), start_wide_build(_build))
+    phase, start = {"wide": (wide_phase, start_wide_build),
+                    "joints": (joints_phase, start_joint_builds)}[key]
+    out = phase(mt, bench, fs, sk, roofline, fleet, torch.device("cuda", 0),
+                start(_build))
     phase_clock(None)
-    print(json.dumps({"wide": wide}), flush=True)
+    print(json.dumps({key: out}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["shard-worker"]:
         sys.exit(shard_worker(sys.argv[2:]))
-    if sys.argv[1:2] == ["--wide"]:
-        sys.exit(main_wide())
+    if sys.argv[1:2] in (["--wide"], ["--joints"]):
+        sys.exit(main_alone(sys.argv[1][2:]))
     sys.exit(main())

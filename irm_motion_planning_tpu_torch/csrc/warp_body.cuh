@@ -172,11 +172,13 @@
 //                          loss and the stale gradient carry on (bls_step)
 // A build with any of them holds the resident linearized program alone
 // (fused_solve.cu, WB_ABLATED).
+// WB_CARRY_FUSED: the linearized carry program's accepted alpha rounded
+// once (new_alpha<true>), as every other program rounds it and JAX's
+// kernel does, at every J but 3; at J = 3 it is rounded twice (bls_step
+// says why; fused_solve.carry_rounds_once is the plain versions' rule).
 // WB_CARRY_ONE_ROUNDING, a build for measurement (tools/fused_variants.py
-// --quality; ROADMAP queue 3 #1): the linearized carry program's accepted
-// alpha rounded once (new_alpha<true>), as every other program rounds it;
-// the default build rounds it twice (bls_step says why).
-#ifdef WB_CARRY_ONE_ROUNDING
+// --quality; ROADMAP queue 3 #1), rounds it once at J = 3 too.
+#if defined(WB_CARRY_ONE_ROUNDING) || NJ != 3
 #define WB_CARRY_FUSED true
 #else
 #define WB_CARRY_FUSED false
@@ -1269,8 +1271,8 @@ static __device__ __forceinline__ void eval_start(Warp& w) {
 }
 
 // The new alpha = a_fac alpha - lr_eff (grad inv_norm), rounded once
-// (fmaf) when FUSED: every program but the linearized ladder's carry
-// program (bls_step says why).
+// (fmaf) when FUSED: every program, and the linearized ladder's carry
+// program at every J but 3 (WB_CARRY_FUSED; bls_step says why).
 template <bool FUSED>
 static __device__ __forceinline__ float new_alpha(float a_fac, float alpha,
                                                   float lr_eff, float ng) {
@@ -1959,8 +1961,9 @@ static __device__ __forceinline__ void eval_alpha(Warp& w) {
 // is the new alpha's floats: both rounded once, as XLA forms them), or,
 // when no rung passed, alpha's evaluated anew; unless the stop test fires,
 // the cost pass recomputes the loss there.  The carry program alone rounds
-// the new alpha twice: once, it moves bench.py's reference scene past the
-// strict endpoint gate (PERF.md section 7).
+// the new alpha twice, at J = 3 only (WB_CARRY_FUSED): once, it moves
+// bench.py's reference scene, a 3-link arm, past the strict endpoint gate
+// (PERF.md section 7); at every other J it rounds it once, as JAX's kernel.
 template <int SOLVER, class W>
 static __device__ __forceinline__ bool bls_step(const FsParams& p, W& w,
                                                 float& loss, float& lr) {

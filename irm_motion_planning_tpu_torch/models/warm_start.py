@@ -18,9 +18,10 @@ bits:
 * the right-hand side (:func:`rhs`): ``line = start + (goal - start) c``
   and its product with ``mix_inv`` as XLA's CPU code rounds them: one
   fused multiply-add per term (the product's terms in order of k from
-  zero), except that at J = 3 the third joint's line is a product and a
-  sum rounded apart on the timesteps of XLA's 8-wide vector loop
-  (:func:`line_fused`);
+  zero: measured at J = 1-40, 48, 64, 96 and 128, T = 24-449; at J = 256,
+  T <= 50 XLA takes another order, not reproduced), except that at J = 3
+  and 7 the last joint's line is a product and a sum rounded apart on the
+  timesteps of XLA's vector loop (:func:`line_fused`);
 * the solves: OpenBLAS's blocked order (:func:`forward`, :func:`backward`):
   panels of 448 rows, blocks of 16 rows, each block first subtracting the
   fused multiply-add chain over the rows solved before it (a GEMM micro
@@ -187,12 +188,16 @@ def line_fused(T: int, J: int, device) -> torch.Tensor:
     """(T, J) bool: where XLA's CPU code forms the warm-start line
     ``start + (goal - start) c`` with one fused multiply-add (True) and
     where with a product and a sum rounded apart (False).  Measured against
-    JAX's jitted ``init_alpha``: fused everywhere for J = 1, 2, 4-6, 8, 10
-    and 15; at J = 3 (T >= 24) the third joint is rounded apart on the
-    timesteps of the 8-wide vector loop, fused on the remainder."""
+    the line jitted alone and JAX's jitted ``init_alpha``: fused everywhere
+    but at J = 3 and 7, whose last joint is rounded apart on the timesteps
+    of the vector loop: the first ``8 (T // 8)`` from T = 32, the first
+    ``4 (T // 4)`` at T = 16-31, none below (J = 3 at T = 8-459, J = 7 at
+    T = 8-259); fused everywhere at every other J of 1-40, 48, 64, 96, 128
+    and 256 (T = 50 and 200)."""
     fused = torch.ones(T, J, dtype=torch.bool, device=device)
-    if J == 3 and T >= 24:
-        fused[:VECTOR * (T // VECTOR), 2] = False
+    if J in (3, 7) and T >= 2 * VECTOR:
+        width = VECTOR if T >= 4 * VECTOR else VECTOR // 2
+        fused[:width * (T // width), J - 1] = False
     return fused
 
 

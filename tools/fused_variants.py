@@ -26,7 +26,9 @@ that ``__launch_bounds__`` asks registers for; 2 by default),
 ``WB_MAX_WARPS=n``, ``WB_TREE_SUMS`` (a phase-ablated build: the sums
 over t by shuffle trees instead of the sequential chains; not bitwise) and
 ``WB_CARRY_ONE_ROUNDING`` (the linearized carry program's accepted alpha
-rounded once; not bitwise).  Needs a CUDA card.
+rounded once at J = 3 too, the bench's arm, where the default build rounds
+it twice: fused_solve.carry_rounds_once; every other J rounds it once in
+every build; not bitwise).  Needs a CUDA card.
 """
 
 import argparse
